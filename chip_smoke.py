@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and ingest paths on one NVIDIA
+card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -10,8 +11,9 @@ Phases, one JSON line each; any failure exits nonzero:
 
   env     card (``nvidia-smi`` name and power limit), torch and CUDA
           versions; TF32 matmuls off.
-  build   both CUDA kernels compiled from ``graphlearn_tpu_torch/csrc``
-          (one ``nvcc`` per source, started together).
+  build   the three CUDA kernels compiled from
+          ``graphlearn_tpu_torch/csrc`` (one ``nvcc`` per source, started
+          together).
   graph   the ogbn-products-scale synthetic graph (2,449,029 nodes,
           average degree 25, 0.3 hub mixture — the recipe of
           ``benchmarks/common.py``), CSR-sorted on the card from a seed,
@@ -20,7 +22,10 @@ Phases, one JSON line each; any failure exits nonzero:
           the shapes the serving path gives it (byte-equal required):
           the sampler at every hop of a 16-seed bucket with fanouts
           [15, 10, 5] plus row sets forced through each arm, the row
-          gather over a 16-seed tree in f32 and bf16.  Times are the
+          gather over a 16-seed tree in f32 and bf16, the delta-merge
+          ranks of one 4,096-event batch into the products graph plus a
+          forced set (empty rows, base rows up to 8,192 wide, new-column
+          rows up to 512 wide with ties on both sides).  Times are the
           device time of one call by CUDA events (the host's enqueue
           hidden behind a busy card), median of 30, with the L2 cache
           flushed before each call; `torch.index_select` is the
@@ -31,6 +36,20 @@ Phases, one JSON line each; any failure exits nonzero:
           show the kernels (never the plain versions) served; 16
           requests held against `offline_reference`; a small graph
           served on the card and on the CPU must agree.
+  ingest  the serve phase's engine and model over a `StreamingGraph` of
+          the same products CSR, with an `IngestPipeline` (WAL in a
+          temporary directory) applying 8 batches of 4,096 uniform
+          edges while 4 closed-loop clients keep serving the serve
+          phase's requests; events/s, per-publish milliseconds (host
+          shift, ranks = upload + kernel + download, host scatter,
+          device-twin copy), serving latency during ingest.  Checks: no
+          failed request, lag 0, one rank-kernel launch per publish,
+          the engine served the newest version, the final CSR equals a
+          stable sort of all edges on the card, and 16 quiesced
+          requests equal a static engine over that CSR.
+  chaos   on a small graph on the card: a kill at the ``ingest.apply``
+          seam, recovery in a new pipeline over the same WAL, and a
+          graph byte-identical to a fault-free run.
 
 It prints the ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -58,6 +77,8 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 REPS = 30
 N_REQUESTS = 256
 N_CLIENTS = 4
+INGEST_BATCHES = 8
+INGEST_EVENTS = 4096
 
 
 def emit(phase: str, **fields) -> None:
@@ -207,6 +228,91 @@ def check_gather(torch, ops, timer, table, ids):
   return rec
 
 
+def merge_bytes(n_rows: int, n_base: int, n_events: int) -> int:
+  """Bytes the rank kernel must move: per dirty row its id, two indptr
+  entries, its segment offset and count and its output offset; every
+  base column and new column read once; one int32 rank written per
+  column."""
+  return n_rows * (8 + 16 + 8 + 4 + 8) + 4 * (n_base + n_events) * 2
+
+
+def check_merge_ranks(torch, ops, timer, args, rows, n_events):
+  """The rank kernel against its plain version on the same inputs
+  (``args`` of `merge_ranks`): byte-equal, then both timed."""
+  before = ops.merge_ranks.launches
+  got = ops.merge_ranks(*args)
+  ref = ops.merge_ranks_plain(*args)
+  sync(torch)
+  if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+    bad = int((got[0] != ref[0]).sum() + (got[1] != ref[1]).sum())
+    raise AssertionError(f'merge_ranks kernel != plain version ({bad} '
+                         'ranks differ)')
+  err = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
+            for g, r in zip(got, ref))
+  indptr, rows_t, seg_cnt = args[1], args[0], args[4]
+  base_w = indptr[rows_t + 1] - indptr[rows_t]
+  nbytes = merge_bytes(rows, args[-1], n_events)
+  rec = {'rows': rows, 'base_cols': args[-1], 'events': n_events,
+         'max_base_width': int(base_w.max()),
+         'max_new_width': int(seg_cnt.max()),
+         'empty_base_rows': int((base_w == 0).sum()),
+         'empty_new_rows': int((seg_cnt == 0).sum()),
+         'byte_equal': True, 'max_abs_err': err,
+         'kernel_ms': timer(lambda: ops.merge_ranks(*args)),
+         'plain_ms': timer(lambda: ops.merge_ranks_plain(*args)),
+         'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  rec['launches'] = ops.merge_ranks.launches - before
+  return rec
+
+
+def path_merge_args(torch, ops, indptr, indices, indptr_h, src, dst):
+  """`merge_ranks` arguments for one segment over the device CSR, made
+  the way `merge_delta_csr_device` makes them."""
+  ri = ops.rank_inputs(indptr_h, src)
+
+  def up(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(DEVICE)
+
+  args = (up(ri.rows, np.int64), indptr, indices,
+          up(ri.seg_off, np.int64), up(ri.seg_cnt, np.int32),
+          up(dst[ri.order], np.int32), up(ri.base_out, np.int64),
+          ri.n_base)
+  return args, len(ri.rows)
+
+
+def forced_merge_args(torch, seed=3):
+  """Ragged rank inputs that stress every case: empty base rows, rows
+  with no new column, base rows up to 8,192 wide (the JAX kernel capped
+  widths at 2,048), new-column rows up to 512 wide; columns drawn from
+  [0, 64), so new columns repeat and equal base columns."""
+  rng = np.random.default_rng(seed)
+  n = 96
+  deg = rng.integers(0, 40, n)
+  deg[:4] = 0
+  deg[4:8] = (8192, 2049, 4000, 2048)
+  cnt = rng.integers(1, 6, n)
+  cnt[[0, 4, 8]] = 512
+  cnt[[5, 9]] = (300, 200)
+  cnt[10:14] = 0
+  indptr = np.zeros(n + 1, np.int64)
+  np.cumsum(deg, out=indptr[1:])
+  indices = np.concatenate([np.sort(rng.integers(0, 64, d))
+                            for d in deg]).astype(np.int32)
+  seg_off = np.zeros(n, np.int64)
+  np.cumsum(cnt[:-1], out=seg_off[1:])
+  base_out = np.zeros(n, np.int64)
+  np.cumsum(deg[:-1], out=base_out[1:])
+  cols = rng.integers(0, 64, int(cnt.sum())).astype(np.int32)
+
+  def up(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(DEVICE)
+
+  args = (up(np.arange(n), np.int64), up(indptr, np.int64),
+          up(indices, np.int32), up(seg_off, np.int64), up(cnt, np.int32),
+          up(cols, np.int32), up(base_out, np.int64), int(deg.sum()))
+  return args, n, int(cnt.sum())
+
+
 def serve(torch, ds):
   from graphlearn_tpu_torch.models import TreeSAGE
   from graphlearn_tpu_torch.ops import (gather_rows, gather_rows_plain,
@@ -280,7 +386,7 @@ def serve(torch, ds):
                    'max': float(np.max(lat))},
        launches=launches, plain_calls=plain_calls,
        offline_checked=16, offline_logits_max_abs_diff=worst)
-  return eng, launches
+  return eng, launches, reqs, lat
 
 
 def small_cross_check(torch):
@@ -317,6 +423,253 @@ def small_cross_check(torch):
   np.testing.assert_allclose(card.logits, cpu.logits, rtol=1e-5, atol=1e-5)
   emit('cross_check', nodes_byte_equal=True,
        logits_max_abs_diff=float(np.abs(card.logits - cpu.logits).max()))
+
+
+def static_csr(torch, indptr_h, indices, batches):
+  """The CSR of the base edges (in CSR order) followed by every ingested
+  event, built on the card by a STABLE sort on ``row * N + col`` — the
+  counterpart of `coo_to_csr`; edge ids are positions in that order."""
+  n = NUM_NODES
+  deg = torch.from_numpy(np.diff(indptr_h)).to(DEVICE)
+  base_rows = torch.repeat_interleave(torch.arange(n, device=DEVICE), deg)
+  src = torch.from_numpy(np.concatenate([b[0] for b in batches])).to(DEVICE)
+  dst = torch.from_numpy(np.concatenate([b[1] for b in batches])).to(DEVICE)
+  key = torch.cat([base_rows * n + indices.long(), src * n + dst])
+  rows = torch.cat([base_rows, src])
+  del base_rows
+  eids = torch.sort(key, stable=True).indices
+  out_indices = (key[eids] % n).to(torch.int32)
+  out_indptr = torch.zeros(n + 1, dtype=torch.int64, device=DEVICE)
+  out_indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+  return out_indptr, out_indices, eids
+
+
+def ingest(torch, feat, indptr, indices, indptr_h, indices_h, reqs,
+           serve_lat):
+  """Serve the serve phase's requests from 4 closed-loop clients while
+  an `IngestPipeline` applies `INGEST_BATCHES` uniform batches to a
+  `StreamingGraph` of the products CSR; then hold the final graph and
+  16 quiesced requests against a static construction."""
+  import shutil
+  import tempfile
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.ops import (gather_rows, gather_rows_plain,
+                                        merge_ranks, merge_ranks_plain,
+                                        sample_one_hop,
+                                        sample_one_hop_fused)
+  from graphlearn_tpu_torch.serving import ServingEngine, ServingFrontend
+  from graphlearn_tpu_torch.streaming import IngestPipeline, StreamingGraph
+  from graphlearn_tpu_torch.telemetry import recorder
+  from graphlearn_tpu_torch.utils import next_power_of_two
+  t0 = time.perf_counter()
+  cap = next_power_of_two(indices_h.size)
+  sg = StreamingGraph(indptr_h, indices_h, num_nodes=NUM_NODES,
+                      reserve_edges=cap, device=DEVICE)
+  stream_secs = time.perf_counter() - t0
+  eng = ServingEngine(Dataset(node_features=feat).attach_stream(sg),
+                      FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
+                      seed=0, buckets=BUCKETS, device=DEVICE)
+  eng.init_params(torch.Generator().manual_seed(0))
+  fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+  wal_dir = tempfile.mkdtemp(prefix='glt_wal_')
+  pipe = IngestPipeline(sg, wal_dir=wal_dir, compact_every=0)
+  rng = np.random.default_rng(11)
+  batches = [(rng.integers(0, NUM_NODES, INGEST_EVENTS),
+              rng.integers(0, NUM_NODES, INGEST_EVENTS))
+             for _ in range(INGEST_BATCHES)]
+  done = threading.Event()
+  lat, during, errors, ingest_walls = [], [], [], []
+  lock = threading.Lock()
+
+  def ingest_loop():
+    try:
+      for src, dst in batches:
+        t = time.perf_counter()
+        pipe.ingest(src, dst)
+        ingest_walls.append(time.perf_counter() - t)
+    except Exception as e:         # noqa: BLE001 — counted, then fatal
+      errors.append(f'ingest: {type(e).__name__}: {e}')
+    finally:
+      done.set()
+
+  def client(c):
+    i = c
+    while i < N_REQUESTS or not done.is_set():
+      live_ingest = not done.is_set()
+      t = time.perf_counter()
+      try:
+        res = fe.submit(reqs[i % len(reqs)]).result(60.0)
+        if not np.isfinite(res.logits).all():
+          raise AssertionError('non-finite logits')
+      except Exception as e:       # noqa: BLE001 — counted, then fatal
+        errors.append(f'request {i}: {type(e).__name__}: {e}')
+      with lock:
+        lat.append((time.perf_counter() - t) * 1e3)
+        during.append(live_ingest and not done.is_set())
+      i += N_CLIENTS
+
+  recorder.enable()
+  recorder.clear()
+  for fn in (sample_one_hop_fused, gather_rows, merge_ranks):
+    fn.launches = 0
+  for fn in (sample_one_hop, gather_rows_plain, merge_ranks_plain):
+    fn.calls = 0
+  threads = [threading.Thread(target=ingest_loop)] + [
+      threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+  t0 = time.perf_counter()
+  for t in threads:
+    t.start()
+  threads[0].join()
+  ingest_wall = time.perf_counter() - t0
+  for t in threads[1:]:
+    t.join()
+  launches = {'sample_one_hop': sample_one_hop_fused.launches,
+              'gather_rows': gather_rows.launches,
+              'merge_ranks': merge_ranks.launches}
+  plain_calls = (sample_one_hop.calls + gather_rows_plain.calls
+                 + merge_ranks_plain.calls)
+  fe.shutdown()
+  stats = fe.stats()
+  health = pipe.health()
+  pubs = recorder.events('stream.publish')
+  recorder.disable()
+  pipe.close()
+  shutil.rmtree(wal_dir, ignore_errors=True)
+  d = stats['dispatches']
+  if errors or stats['failed']:
+    raise AssertionError(f'ingest phase failed: {errors[:3]} '
+                         f'stats={stats}')
+  if health['lag_events'] != 0 or not health['healthy']:
+    raise AssertionError(f'ingest lag after the run: {health}')
+  if not (launches['merge_ranks'] == len(batches) == len(pubs)
+          and launches['sample_one_hop'] == len(FANOUTS) * d
+          and launches['gather_rows'] >= d > 0 and plain_calls == 0):
+    raise AssertionError(f'launch counts {launches}, plain calls '
+                         f'{plain_calls}, dispatches {d}, publishes '
+                         f'{len(pubs)}')
+  if sg.edge_capacity != cap:
+    raise AssertionError(f'edge capacity moved: {cap} -> '
+                         f'{sg.edge_capacity}')
+
+  # the final CSR against a stable sort of every edge on the card
+  view = sg.pin()
+  ref_indptr, ref_indices, ref_eids = static_csr(torch, indptr_h, indices,
+                                                 batches)
+  e = view.num_edges
+  for name, got, ref in (
+      ('indptr', torch.from_numpy(view.indptr).to(DEVICE), ref_indptr),
+      ('indices', torch.from_numpy(view.indices).to(DEVICE), ref_indices),
+      ('edge_ids', torch.from_numpy(view.edge_ids).to(DEVICE), ref_eids),
+      ('indptr_dev', view.indptr_dev, ref_indptr),
+      ('indices_dev', view.indices_dev[:e], ref_indices)):
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+      raise AssertionError(f'final {name} differs from the static CSR')
+  del ref_eids
+
+  # quiesced: the stream engine against a static engine over that CSR
+  static = ServingEngine(
+      Dataset(node_features=feat).init_graph(
+          (ref_indptr, ref_indices), layout='CSR', num_nodes=NUM_NODES,
+          device=DEVICE),
+      FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3), seed=0,
+      buckets=BUCKETS, device=DEVICE)
+  static.init_params(torch.Generator().manual_seed(0))
+  worst = 0.0
+  for i in range(16):
+    got, want = eng.infer(reqs[i]), static.infer(reqs[i])
+    if got.nodes.tobytes() != want.nodes.tobytes():
+      raise AssertionError(f'quiesced request {i}: nodes differ from the '
+                           'static engine')
+    np.testing.assert_allclose(got.logits, want.logits, rtol=1e-5,
+                               atol=1e-5)
+    worst = max(worst, float(np.abs(got.logits - want.logits).max()))
+  if eng.graph_version != sg.version or sg.version != 1 + len(batches):
+    raise AssertionError(f'engine version {eng.graph_version}, stream '
+                         f'{sg.version}')
+
+  def split(key):
+    vals = [p[key] for p in pubs]
+    return {'mean': float(np.mean(vals)), 'max': float(np.max(vals))}
+
+  lat_in = [x for x, f in zip(lat, during) if f]
+  events = len(batches) * INGEST_EVENTS
+  emit('ingest', batches=len(batches), events_per_batch=INGEST_EVENTS,
+       base_edges=int(indices_h.size), final_edges=e, edge_capacity=cap,
+       stream_build_secs=stream_secs, ingest_wall_secs=ingest_wall,
+       events_per_s=events / ingest_wall,
+       ingest_call_ms=[x * 1e3 for x in ingest_walls],
+       publish_ms={k: split(f'{k}_ms') for k in
+                   ('shift', 'ranks', 'scatter', 'copy', 'total')},
+       versions_published=len(pubs), final_version=sg.version,
+       engine_version=eng.graph_version, final_lag=health['lag_events'],
+       requests=len(lat), requests_during_ingest=len(lat_in),
+       dispatches=d, failed=stats['failed'], shed=stats['shed'],
+       latency_during_ingest_ms={
+           'p50': float(np.percentile(lat_in, 50)),
+           'p99': float(np.percentile(lat_in, 99)),
+           'max': float(np.max(lat_in))} if lat_in else None,
+       latency_serve_phase_ms={
+           'p50': float(np.percentile(serve_lat, 50)),
+           'p99': float(np.percentile(serve_lat, 99))},
+       launches=launches, plain_calls=plain_calls,
+       final_csr_byte_equal=True, quiesced_checked=16,
+       quiesced_logits_max_abs_diff=worst)
+  return launches
+
+
+def chaos_recover(torch):
+  """Kill at the ``ingest.apply`` seam on a small graph on the card,
+  recover in a new pipeline over the same WAL (compacting every 2
+  batches, so recovery restores a snapshot and replays the tail), and
+  hold the graph to a fault-free run's, device twins included."""
+  import shutil
+  import tempfile
+  from graphlearn_tpu_torch.streaming import IngestPipeline, StreamingGraph
+  from graphlearn_tpu_torch.testing import chaos
+  rng = np.random.default_rng(21)
+  n = 5000
+  rows, cols = rng.integers(0, n, 20 * n), rng.integers(0, n, 20 * n)
+  batches = [(rng.integers(0, n, 300), rng.integers(0, n, 300))
+             for _ in range(6)]
+
+  def drive(wal_dir, plan):
+    def fresh():
+      return IngestPipeline(
+          StreamingGraph.from_coo(rows, cols, num_nodes=n, device=DEVICE),
+          wal_dir=wal_dir, compact_every=2)
+    pipe, kills = fresh(), 0
+    if plan:
+      chaos.install(plan)
+    try:
+      for src, dst in batches:
+        try:
+          pipe.ingest(src, dst)
+        except chaos.ChaosKilledError:
+          kills += 1
+          pipe.close()
+          pipe = fresh()
+    finally:
+      chaos.uninstall()
+    view = pipe.stream.pin()
+    pipe.close()
+    return view, kills
+
+  root = tempfile.mkdtemp(prefix='glt_chaos_')
+  try:
+    ref, _ = drive(os.path.join(root, 'ref'), None)
+    got, kills = drive(os.path.join(root, 'kill'), 'ingest.apply:kill:3')
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  same = (kills == 1 and got.version == ref.version
+          and all(np.array_equal(getattr(got, k), getattr(ref, k))
+                  for k in ('indptr', 'indices', 'edge_ids'))
+          and torch.equal(got.indptr_dev, ref.indptr_dev)
+          and torch.equal(got.indices_dev, ref.indices_dev))
+  if not same:
+    raise AssertionError(f'recovered graph differs (kills={kills})')
+  emit('chaos', site='ingest.apply', action='kill', kills=kills,
+       version=got.version, edges=got.num_edges, byte_identical=True)
 
 
 def profile(torch, eng):
@@ -406,8 +759,8 @@ def main(argv) -> int:
 
 
 def run(torch, argv) -> list:
-  """The build, graph, kernel and serve phases; returns the
-  ``kernels`` summary."""
+  """The build, graph, kernel, serve, ingest and chaos phases; returns
+  the ``kernels`` summary."""
   from graphlearn_tpu_torch import _build, ops
   from graphlearn_tpu_torch.data import Dataset
   from graphlearn_tpu_torch.ops import default_window, hash_draws
@@ -472,12 +825,30 @@ def run(torch, argv) -> list:
   gathers.append(check_gather(torch, ops, timer, feats_bf16, tree))
   emit('kernel', kernel='gather_rows', shape='16-seed tree', **gathers[1])
   del feats_bf16
+  indptr_h, indices_h = indptr.cpu().numpy(), indices.cpu().numpy()
+  rng = np.random.default_rng(4)
+  src = rng.integers(0, NUM_NODES, INGEST_EVENTS)
+  dst = rng.integers(0, NUM_NODES, INGEST_EVENTS)
+  args, rows = path_merge_args(torch, ops, indptr, indices, indptr_h, src,
+                               dst)
+  k4 = check_merge_ranks(torch, ops, timer, args, rows, INGEST_EVENTS)
+  emit('kernel', kernel='merge_ranks', shape='4,096-event batch', **k4)
+  args, rows, n_events = forced_merge_args(torch)
+  rec = check_merge_ranks(torch, ops, timer, args, rows, n_events)
+  emit('kernel', kernel='merge_ranks', shape='forced set', **rec)
+  del args
 
   # -- serve ------------------------------------------------------------
-  eng, launches = serve(torch, ds)
+  eng, launches, reqs, serve_lat = serve(torch, ds)
   small_cross_check(torch)
   if '--profile' in argv:
     profile(torch, eng)
+  del eng
+
+  # -- ingest -----------------------------------------------------------
+  ingest_launches = ingest(torch, ds.node_features, indptr, indices,
+                           indptr_h, indices_h, reqs, serve_lat)
+  chaos_recover(torch)
 
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
@@ -502,6 +873,15 @@ def run(torch, argv) -> list:
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
        'byte_equal': True,
        'shape': f'{f32["ids"]} ids x {FEAT_DIM} f32 (16-seed tree)'},
+      {'name': 'merge_ranks', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',
+       'launches': ingest_launches['merge_ranks'],
+       'max_abs_err': k4['max_abs_err'], 'ms': k4['kernel_ms'],
+       'plain_ms': k4['plain_ms'], 'bound_ms': k4['bound_us'] / 1e3,
+       'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
+       'shape': f'{k4["events"]}-event batch, {k4["rows"]} dirty rows, '
+                f'{k4["base_cols"]} base columns'},
   ]
   return kernels
 

@@ -11,8 +11,14 @@ tensors on the CPU take the plain PyTorch version.
 Ported so far: the online serving path — `data.Dataset` (CSR graph +
 device feature table), `loader.expand_tree_levels` over the one-hop
 sampler kernel, the fused row-gather kernel, `models.TreeSAGE`, and
-`serving.ServingEngine` / `ServingFrontend`.
+`serving.ServingEngine` / `ServingFrontend` — and serving during live
+edge ingest: `streaming.IngestPipeline` (WAL, delta-CSR merge through
+the merge-rank kernel, RCU-published `GraphView`s) with the engine
+re-pinning the newest version per dispatch; `telemetry` and `testing`
+hold the parts of the JAX package's telemetry and chaos harness that
+this path calls.
 """
-from . import data, loader, models, ops, serving, utils
+from . import (data, loader, models, ops, serving, streaming, telemetry,
+               testing, utils)
 
 __version__ = '0.1.0'

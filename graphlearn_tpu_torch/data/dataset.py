@@ -22,6 +22,8 @@ class Dataset:
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
+    #: the `streaming.StreamingGraph` behind ``graph`` (`attach_stream`)
+    self.stream = None
 
   def init_graph(self, edge_index=None, edge_ids=None, layout='COO',
                  device='cuda', num_nodes=None):
@@ -74,6 +76,18 @@ class Dataset:
     self.node_labels = (node_label_data
                         if isinstance(node_label_data, torch.Tensor)
                         else convert_to_array(node_label_data))
+    return self
+
+  def attach_stream(self, stream) -> 'Dataset':
+    """Back this dataset's topology with a `streaming.StreamingGraph`:
+    ``self.graph`` becomes a `Graph` over the stream's CURRENT view and
+    ``self.stream`` carries the handle version-fencing consumers re-pin
+    from (the `ServingEngine`, once per dispatch).  Consumers that read
+    ``self.graph`` once keep the version pinned when they read it (a
+    complete graph, never a torn one); call again after a quiesce to
+    re-snapshot."""
+    self.stream = stream
+    self.graph = Graph.from_view(stream.pin())
     return self
 
   def get_graph(self) -> Optional[Graph]:

@@ -2,7 +2,9 @@
 (int32) as torch tensors on one device.
 
 Unlike the JAX package, ``indptr`` stays int64 at every size (edge
-positions never narrow); sampled ids are int32 either way.
+positions never narrow); sampled ids are int32 either way.  A graph
+over a streaming view (`from_view`) holds the view's padded
+``indices``: its edge count is the view's, not ``indices.numel()``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ class Graph:
   def __init__(self, csr_topo: Optional[CSRTopo], device='cuda'):
     dev = resolve_device(device)
     self.csr_topo = csr_topo
+    self._num_edges: Optional[int] = None
     if csr_topo is not None:
       self.indptr = torch.from_numpy(
           np.asarray(csr_topo.indptr, np.int64)).to(dev)
@@ -44,6 +47,18 @@ class Graph:
     g.indices = indices.to(dev, torch.int32).contiguous()
     return g
 
+  @classmethod
+  def from_view(cls, view) -> 'Graph':
+    """A graph over a `streaming.GraphView`'s device twins (int64
+    ``indptr``, power-of-two padded int32 ``indices``), shared with the
+    view — the counterpart of the JAX package's
+    `Graph.from_device_arrays`."""
+    g = cls(None, device=view.indptr_dev.device)
+    g.indptr = view.indptr_dev
+    g.indices = view.indices_dev
+    g._num_edges = view.num_edges
+    return g
+
   @property
   def device(self) -> torch.device:
     return self.indptr.device
@@ -54,6 +69,8 @@ class Graph:
 
   @property
   def num_edges(self) -> int:
+    if self._num_edges is not None:
+      return self._num_edges
     return self.indices.numel()
 
   def __repr__(self):

@@ -1,3 +1,5 @@
+from .delta_merge import (merge_delta_csr_device, merge_ranks,
+                          merge_ranks_plain, rank_inputs)
 from .draws import hash_draws
 from .fused_sample import sample_one_hop_fused
 from .gather_rows import gather_rows, gather_rows_plain

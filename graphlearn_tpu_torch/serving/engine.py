@@ -20,14 +20,22 @@ to serving each seed alone (`offline_reference`), and ``logits`` agree
 to float tolerance across bucket shapes (a matmul over another row
 count may reduce in another order).
 
-This slice serves a fully device-resident feature table; the tiered
-path, streaming graphs, the executable cache and hot model swaps are
-later slices (ROADMAP).
+**Streaming graphs.**  With a `streaming.StreamingGraph` attached
+(``stream=`` or `Dataset.attach_stream`), every dispatch first re-pins
+the newest published `GraphView` (`_repin_graph`) and reads topology
+only through that one view, so a dispatch answers from exactly one
+``graph_version`` while ingest publishes concurrently; `hold_graph`
+freezes the version across several dispatches.
+
+The feature table is fully device-resident; the tiered path, the
+executable cache and hot model swaps are later slices (ROADMAP).
 """
 from __future__ import annotations
 
 import functools
 import os
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -36,6 +44,7 @@ import torch
 
 from ..data.dataset import Dataset
 from ..data.feature import _device_gather
+from ..data.graph import Graph
 from ..loader.fused_tree import expand_tree_levels
 from ..ops.draws import hash_draws
 from ..utils import INVALID_ID, resolve_device
@@ -111,17 +120,26 @@ class ServingEngine:
       CUDA).  The dataset must live there.
     draws: optional draws provider (`DrawsProvider`); default
       `ops.draws.hash_draws` under ``seed``.
+    stream: optional `streaming.StreamingGraph` to serve from (default:
+      the dataset's ``stream``, if `Dataset.attach_stream` set one).
   """
 
   def __init__(self, data: Dataset, num_neighbors: Sequence[int],
                model: Optional[torch.nn.Module] = None, params=None,
                seed: int = 0, buckets=None, device='cuda',
-               draws: Optional[DrawsProvider] = None):
+               draws: Optional[DrawsProvider] = None, stream=None):
     self.device = resolve_device(device)
     feat = data.node_features
     if feat is None:
       raise ValueError('ServingEngine needs node features')
-    graph = data.get_graph()
+    self._stream = stream if stream is not None else data.stream
+    self._pin_lock = threading.Lock()
+    self._pin_holds = 0            # guarded-by: self._pin_lock
+    if self._stream is not None:
+      view = self._stream.pin()
+      graph, version = Graph.from_view(view), view.version
+    else:
+      graph, version = data.get_graph(), 0
     for what, dev in (('graph', graph.device), ('features', feat.device)):
       if dev != self.device:
         raise ValueError(f'the dataset {what} live on {dev}, the engine '
@@ -132,7 +150,9 @@ class ServingEngine:
     self.buckets = resolve_buckets(buckets)
     self.num_nodes = graph.num_nodes
     self._feat = feat
-    self._indptr, self._indices = graph.indptr, graph.indices
+    #: (graph_version, indptr, indices) of the pinned view, swapped
+    #: with one reference assignment
+    self._pinned = (version, graph.indptr, graph.indices)
     self._seed = int(seed)
     self._draws = (draws if draws is not None
                    else functools.partial(hash_draws, self._seed))
@@ -167,8 +187,47 @@ class ServingEngine:
     raise ValueError(f'{n_seeds} seeds exceed the largest bucket '
                      f'{self.buckets[-1]}')
 
+  # -- streaming fence ------------------------------------------------------
+  @property
+  def graph_version(self) -> int:
+    """The published graph version the engine serves (0 for a static
+    graph)."""
+    return self._pinned[0]
+
+  def _repin_graph(self) -> None:
+    """Swap in the newest published `GraphView` BEFORE a dispatch
+    starts.  A dispatch in flight keeps the tensors it read; the swap
+    is one reference assignment, so no reader sees half a graph."""
+    if self._stream is None:
+      return
+    view = self._stream.pin()
+    if view.version == self._pinned[0]:
+      return
+    with self._pin_lock:
+      if self._pin_holds > 0:      # hold_graph(): keep the version the
+        return                     # held comparison started on
+      view = self._stream.pin()
+      self._pinned = (view.version, view.indptr_dev, view.indices_dev)
+
+  @contextmanager
+  def hold_graph(self):
+    """Freeze the pinned ``graph_version`` across SEVERAL dispatches
+    (one dispatch is always torn-read-safe on its own): for comparing
+    dispatches against each other while ingest publishes.  Yields the
+    held version."""
+    self._repin_graph()            # the newest version, then freeze
+    with self._pin_lock:
+      self._pin_holds += 1
+      version = self._pinned[0]
+    try:
+      yield version
+    finally:
+      with self._pin_lock:
+        self._pin_holds -= 1
+
   # -- device path ----------------------------------------------------------
-  def _collect(self, seeds: torch.Tensor) -> torch.Tensor:
+  def _collect(self, seeds: torch.Tensor, indptr: torch.Tensor,
+               indices: torch.Tensor) -> torch.Tensor:
     """``[cap]`` seeds -> ``[cap, W]`` sampled trees.  Level ``t`` of
     the batched expansion is seed-major (slot ``i`` owns rows
     ``i*F_t .. (i+1)*F_t``), each seed's block parent-major — the order
@@ -178,8 +237,8 @@ class ServingEngine:
     def draws(t: int, k: int, w: int):
       return self._draws(seeds, t, self.level_widths[t], k, w)
 
-    levels, _ = expand_tree_levels(self._indptr, self._indices, seeds,
-                                   self.fanouts, draws)
+    levels, _ = expand_tree_levels(indptr, indices, seeds, self.fanouts,
+                                   draws)
     return torch.cat([lvl.view(cap, -1) for lvl in levels], dim=1)
 
   def _split_levels(self, flat: torch.Tensor) -> List[torch.Tensor]:
@@ -210,12 +269,16 @@ class ServingEngine:
   @torch.inference_mode()
   def _dispatch(self, padded: torch.Tensor) -> ServingResult:
     """One bucket dispatch (``padded`` already at a bucket capacity):
-    sample, gather every tree row in one launch, then the model."""
+    re-pin the graph, sample, gather every tree row in one launch, then
+    the model.  The graph is read once here: a concurrent publish lands
+    in the next dispatch, never mid-run."""
     if self.model is not None and not self._params_ready:
       raise ValueError(
           'ServingEngine has a model but no params — call '
           'init_params(generator) (or pass params=) before serving')
-    nodes = self._collect(padded)
+    self._repin_graph()
+    _, indptr, indices = self._pinned
+    nodes = self._collect(padded, indptr, indices)
     cap = nodes.shape[0]
     x = _device_gather(self._feat.hot_tier, nodes.reshape(-1),
                        self._feat.id2index).view(cap, self.tree_width, -1)

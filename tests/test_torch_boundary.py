@@ -11,7 +11,10 @@ import torch
 
 import graphlearn_tpu_torch
 from graphlearn_tpu_torch.data import Dataset, Feature, Graph
+from graphlearn_tpu_torch.ops import merge_delta_csr_device
 from graphlearn_tpu_torch.serving import ServingEngine
+from graphlearn_tpu_torch.streaming import (DeltaSegment, IngestPipeline,
+                                            StreamingGraph)
 
 PKG = Path(graphlearn_tpu_torch.__file__).parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'graphlearn_tpu')
@@ -27,11 +30,17 @@ def test_import_pulls_in_no_jax():
       'before = set(sys.modules)\n'
       'import graphlearn_tpu_torch\n'
       'import graphlearn_tpu_torch.serving.frontend\n'
+      'import graphlearn_tpu_torch.streaming\n'
+      'import graphlearn_tpu_torch.telemetry.postmortem\n'
+      'import graphlearn_tpu_torch.testing.chaos\n'
+      'import graphlearn_tpu_torch.utils.checkpoint\n'
       'new = sorted(set(sys.modules) - before)\n'
       'bad = [m for m in new if m.split(".")[0] in '
       f'{FORBIDDEN!r}]\n'
       'print("BAD", bad)\n'
-      'assert "graphlearn_tpu_torch.serving.engine" in sys.modules\n')
+      'assert "graphlearn_tpu_torch.serving.engine" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.streaming.ingest" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.telemetry.live" in sys.modules\n')
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, cwd=str(PKG.parent), timeout=240)
   assert out.returncode == 0, out.stderr
@@ -72,3 +81,26 @@ def test_entry_points_default_to_cuda():
   with pytest.raises(RuntimeError, match='CUDA'):
     ServingEngine(ds, [2])
   ServingEngine(ds, [2], device='cpu')     # asked for: runs on the CPU
+
+
+def test_streaming_entry_points_default_to_cuda(tmp_path):
+  if torch.cuda.is_available():
+    pytest.skip('the default device exists here')
+  rows, cols = np.array([0, 1, 2]), np.array([1, 2, 0])
+  indptr, indices = np.array([0, 1, 2, 3]), np.array([1, 2, 0])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    StreamingGraph(indptr, indices)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    StreamingGraph.from_coo(rows, cols, num_nodes=3)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    IngestPipeline(StreamingGraph.from_coo(rows, cols), wal_dir=tmp_path)
+  seg = DeltaSegment(src=np.array([0]), dst=np.array([2]),
+                     eids=np.array([3]))
+  with pytest.raises(RuntimeError, match='CUDA'):
+    merge_delta_csr_device(indptr, indices, np.arange(3), seg)
+  # asked for: the CPU runs the kernel's plain version
+  sg = StreamingGraph(indptr, indices, device='cpu')
+  pipe = IngestPipeline(sg, wal_dir=str(tmp_path))
+  pipe.ingest([0], [2])
+  assert sg.version == 2 and sg.pin().indices_dev.device.type == 'cpu'
+  pipe.close()
