@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and ingest paths on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's serving, ingest and GNS training paths
+on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
     python3 chip_smoke.py            # what the checks below need
-    python3 chip_smoke.py --profile  # adds a torch.profiler phase
+    python3 chip_smoke.py --profile  # adds torch.profiler phases
 
 Phases, one JSON line each; any failure exits nonzero:
 
   env     card (``nvidia-smi`` name and power limit), torch and CUDA
           versions; TF32 matmuls off.
-  build   the three CUDA kernels compiled from
+  build   the four CUDA kernels compiled from
           ``graphlearn_tpu_torch/csrc`` (one ``nvcc`` per source, started
           together).
   graph   the ogbn-products-scale synthetic graph (2,449,029 nodes,
@@ -50,6 +50,33 @@ Phases, one JSON line each; any failure exits nonzero:
   chaos   on a small graph on the card: a kill at the ``ingest.apply``
           seam, recovery in a new pipeline over the same WAL, and a
           graph byte-identical to a fault-free run.
+  gns_data  the products graph relabelled into a tiered `DistDataset`
+          (split 0.3: 734,709 hot rows on the card, the whole table in
+          pinned host memory), labels ``argmax(feats @ P)`` for a seeded
+          ``[100, 47]`` P.
+  kernel  the GNS sampler kernel against its plain version (byte-equal
+          nbrs, mask and weights) at the three hops of a 1,024-seed
+          training batch with the run's own bits table, and on forced
+          sets (every arm, invalid seeds, a three-row table of random /
+          empty / full masks read through per-row requesters, draws of
+          0 and on exact cumulative boundaries) at boosts 16 and 3;
+          then the row gather kernel against its plain version at the
+          two gathers of one training dispatch (the hot-tier features,
+          ~938k ids x 100 f32, and the labels, 1 int32 column).
+  gns_train  `DistNeighborLoader(gns=True)` -> `make_dp_supervised_step`
+          with ``GraphSAGE(100, 256, 47, 3)`` and Adam(1e-3), batch
+          1,024, fanouts [15, 10, 5], a cache of 734,709 rows: 2 warm
+          and 8 timed steps (dispatch / cold overlay / model, each closed
+          by a synchronise), 8 more steps in the loader's own pipelined
+          order timed as one window, then the loader alone with GNS on
+          and off over the same seeds (seeds/s, hit rates).  Checks: 3
+          GNS and 2 row-gather launches per dispatch and no plain call,
+          no exchange drops, every valid node's ``x`` row and label
+          equal to its source row and label, weights 0 on masked and > 0
+          on valid edges (some not 1), finite losses falling.
+  gns_cross_check  a small tiered graph on the card and on the CPU with
+          the same draws: 4 batches byte-equal (node, x, y, edge_index,
+          edge_weight), logits within 1e-4 after one step.
 
 It prints the ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -58,6 +85,7 @@ no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -79,6 +107,11 @@ N_REQUESTS = 256
 N_CLIENTS = 4
 INGEST_BATCHES = 8
 INGEST_EVENTS = 4096
+GNS_BATCH = 1024
+GNS_SPLIT = 0.3
+GNS_CLASSES = 47
+GNS_WARM = 2
+GNS_TIMED = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -672,6 +705,447 @@ def chaos_recover(torch):
        version=got.version, edges=got.num_edges, byte_identical=True)
 
 
+def gns_bytes(deg: np.ndarray, k: int, w: int) -> int:
+  """Bytes the GNS sampler must move for these rows: the seed, its
+  bits-table row index and two indptr entries; for ``deg > k`` the k
+  draws of its arm; the window ids and their bit bytes on the medium
+  arm (``k < deg <= w``), the ids it returns on the others; and 9 bytes
+  out per slot (int32 id, bool mask, f32 weight)."""
+  deg = deg.astype(np.int64)
+  medium = (deg > k) & (deg <= w)
+  reads = np.where(medium, 5 * deg, 4 * np.clip(deg, 0, k))
+  per_row = 8 + 16 * (deg >= 0) + 4 * k * (deg > k) + reads + 9 * k
+  return int(per_row.sum())
+
+
+def check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v, bits,
+              boost, req, w):
+  """The GNS kernel against its plain version on the same rows (seeds
+  in the order the kernel sees them): byte-equal nbrs, mask, weights."""
+  before = ops.sample_one_hop_gns_fused.launches
+  args = (indptr, indices, seeds, k, u, v, bits, boost)
+  got = ops.sample_one_hop_gns_fused(*args, req=req, window=w)
+  ref = ops.sample_one_hop_gns(*args, req=req, window=w)
+  sync(torch)
+  same = (torch.equal(got.nbrs, ref.nbrs) and torch.equal(got.mask, ref.mask)
+          and torch.equal(got.weights.view(torch.int32),
+                          ref.weights.view(torch.int32)))
+  if not same:
+    bad = int((got.nbrs != ref.nbrs).sum()
+              + (got.weights != ref.weights).sum())
+    raise AssertionError(f'GNS kernel != plain version (k={k}, boost='
+                         f'{boost}, {bad} slots differ)')
+  err = max(int((got.nbrs.long() - ref.nbrs.long()).abs().max()),
+            float((got.weights - ref.weights).abs().max()))
+  deg = ops.lookup_degree(indptr, seeds).cpu().numpy()
+  deg = np.where(seeds.cpu().numpy() >= 0, deg, -1)
+  m = got.mask
+  nbytes = gns_bytes(deg, k, w)
+  # the kernel alone: the table row of each seed resolved outside the
+  # timed call (the wrapper's small ops are timed as wrapper_ms)
+  table = ops.gns.bits_table(bits)
+  rows = ops.gns.bits_rows(bits, req, seeds.numel(), seeds.device
+                           ).contiguous()
+  rec = {
+      'rows': int(seeds.numel()), 'k': k, 'w': w, 'boost': boost,
+      'table_rows': int(table.shape[0]),
+      'arms': {'empty_or_invalid': int((deg <= 0).sum()),
+               'take_all': int(((deg > 0) & (deg <= k)).sum()),
+               'window': int(((deg > k) & (deg <= w)).sum()),
+               'hub': int((deg > w).sum())},
+      'weights_ne_1': int(((got.weights != 1.0) & m).sum()),
+      'byte_equal': True, 'max_abs_err': err,
+      'kernel_ms': timer(lambda: ops.fused_sample.gns_kernel(
+          indptr, indices, seeds, k, u, v, table, rows, boost, w)),
+      'wrapper_ms': timer(lambda: ops.sample_one_hop_gns_fused(
+          *args, req=req, window=w)),
+      'plain_ms': timer(lambda: ops.sample_one_hop_gns(
+          *args, req=req, window=w)),
+      'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  rec['launches'] = ops.sample_one_hop_gns_fused.launches - before
+  return rec
+
+
+def forced_gns_sets(torch, k, w, seed=7):
+  """Rows through every arm of the GNS kernel on `arm_graph`, plus rows
+  of degree 64 (``k < 64 <= w``); a three-row dedup table (random bits,
+  nothing cached, everything cached) read through per-row requesters;
+  draws of 0 and draws landing exactly on cumulative boundaries of the
+  degree-64 rows (``v = m / 64``: ``v * total`` is then an exact
+  multiple of the row weight)."""
+  indptr, _, seeds = arm_graph(torch, DEVICE, k, w, seed=seed)
+  n = indptr.numel() - 1
+  deg = (indptr[1:] - indptr[:-1]).cpu().numpy()
+  deg[::5] = 64                                 # every fifth row: deg 64
+  indptr_h = np.zeros(n + 1, np.int64)
+  np.cumsum(deg, out=indptr_h[1:])
+  rng = np.random.default_rng(seed)
+  indices = torch.from_numpy(rng.integers(0, n, int(indptr_h[-1])).astype(
+      np.int32)).to(DEVICE)
+  indptr = torch.from_numpy(indptr_h).to(DEVICE)
+  nbytes = (n + 7) // 8
+  table = np.stack([rng.integers(0, 256, nbytes).astype(np.uint8),
+                    np.zeros(nbytes, np.uint8),
+                    np.full(nbytes, 255, np.uint8)])
+  bits = (torch.from_numpy(table).to(DEVICE),
+          torch.from_numpy(np.array([0, 1, 2, 0], np.int32)).to(DEVICE))
+  b = seeds.numel()
+  req = torch.from_numpy(rng.integers(0, 4, b).astype(np.int32)).to(DEVICE)
+  gen = torch.Generator(device=DEVICE).manual_seed(k)
+  u = torch.rand(b, k, device=DEVICE, generator=gen)
+  v = torch.rand(b, k, device=DEVICE, generator=gen)
+  s_h = seeds.cpu().numpy()
+  d64 = np.nonzero((s_h >= 0) & (deg[np.clip(s_h, 0, n - 1)] == 64))[0]
+  m = torch.from_numpy(rng.integers(1, 64, (len(d64), k))).to(DEVICE)
+  v[torch.from_numpy(d64).to(DEVICE)] = m.float() / 64.0
+  v[:, 0] = 0.0
+  return indptr, indices, seeds, u, v, bits, req
+
+
+def gns_data(torch, indptr, indices, feats):
+  """The training path's dataset: the products graph as COO, labels
+  ``argmax(feats @ P)`` for a seeded ``[100, 47]`` P, the tiered
+  `DistDataset` (split 0.3) on the card."""
+  from graphlearn_tpu_torch.parallel import DistDataset
+  t0 = time.perf_counter()
+  deg = indptr[1:] - indptr[:-1]
+  rows = torch.repeat_interleave(
+      torch.arange(NUM_NODES, device=DEVICE), deg)
+  proj = torch.randn(FEAT_DIM, GNS_CLASSES, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(2))
+  labels = torch.argmax(feats @ proj, dim=1).to(torch.int32)
+  ds = DistDataset.from_full_graph(1, rows, indices, node_feat=feats,
+                                   node_label=labels, num_nodes=NUM_NODES,
+                                   split_ratio=GNS_SPLIT, device=DEVICE)
+  del rows
+  sync(torch)
+  nf = ds.node_features
+  hot = int(nf.hot_counts[0])
+  emit('gns_data', nodes=NUM_NODES, edges=int(indices.numel()),
+       split_ratio=GNS_SPLIT, hot_rows=hot, cold_rows=NUM_NODES - hot,
+       hot_bytes=hot * FEAT_DIM * 4,
+       cold_host_bytes=int(nf.cold_host.numel()) * 4,
+       cold_host_pinned=bool(nf.cold_host.is_pinned()),
+       classes=int(labels.max()) + 1, secs=time.perf_counter() - t0)
+  return ds, labels
+
+
+def gns_kernel(torch, ops, timer, path_hops):
+  """The GNS kernel against its plain version at the three hops of one
+  1,024-seed batch of the training path (its own bits table, the seeds
+  in the order the kernel sees them), then on the forced sets at boosts
+  16 and 3."""
+  recs = []
+  for t, a in enumerate(path_hops):
+    rec = check_gns(torch, ops, timer, *a)
+    emit('kernel', kernel='sample_one_hop_gns', shape=f'train hop {t}',
+         **rec)
+    recs.append(rec)
+  for k in FANOUTS:
+    w = ops.default_window(k)
+    indptr, indices, seeds, u, v, bits, req = forced_gns_sets(torch, k, w)
+    for boost in (16.0, 3.0):
+      rec = check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v,
+                      bits, boost, req, w)
+      if min(rec['arms'].values()) == 0:
+        raise AssertionError(f'GNS forced set missed an arm: {rec["arms"]}')
+      emit('kernel', kernel='sample_one_hop_gns', shape='forced set',
+           **rec)
+  return recs
+
+
+class PathRecorder:
+  """Wraps the mesh sampler's GNS and row-gather calls to keep the latest
+  dispatch's kernel inputs: per hop the sampler's (rows in the order the
+  kernel sees them), and those of its two gathers (the hot-tier
+  features, then the labels)."""
+
+  def __init__(self, torch, mod):
+    self.torch, self.mod = torch, mod
+    self.real = mod.sample_one_hop_gns_fused
+    self.real_gather = mod.gather_rows
+    self.hops, self.calls = {}, 0
+    self.gathers, self.gather_calls = {}, 0
+
+  def gather(self, table, ids, id2index=None):
+    self.gathers[self.gather_calls % 2] = (table, ids)
+    self.gather_calls += 1
+    return self.real_gather(table, ids, id2index)
+
+  def __call__(self, indptr, indices, seeds, k, u, v, bits, boost, req=None,
+               window=None, sort_locality=False):
+    torch = self.torch
+    order = torch.argsort(torch.where(seeds >= 0, seeds,
+                                      torch.iinfo(seeds.dtype).max),
+                          stable=True)
+    self.hops[self.calls % len(FANOUTS)] = (
+        indptr, indices, seeds[order].contiguous(), k, u, v, bits, boost,
+        req[order].contiguous(), window)
+    self.calls += 1
+    return self.real(indptr, indices, seeds, k, u, v, bits, boost, req=req,
+                     window=window, sort_locality=sort_locality)
+
+  def __enter__(self):
+    self.mod.sample_one_hop_gns_fused = self
+    self.mod.gather_rows = self.gather
+    return self
+
+  def __exit__(self, *exc):
+    self.mod.sample_one_hop_gns_fused = self.real
+    self.mod.gather_rows = self.real_gather
+
+
+def hit_rates(stats: dict) -> dict:
+  return {k: stats[f'dist.feature.{k}'] for k in (
+      'lookups', 'cold_lookups', 'cold_misses', 'cache_hits',
+      'cache_admits', 'hot_hit_rate', 'cache_hit_rate')}
+
+
+def gns_train(torch, ops, timer, ds, feats, labels, prof=False):
+  """GNS-biased GraphSAGE training on the tiered store: 2 warm steps
+  (their last dispatch's kernel inputs recorded and checked), 8 timed
+  steps (dispatch / cold overlay / model, each closed by a synchronise),
+  checks on every timed batch, 8 steps in the loader's pipelined order
+  timed as one window; then the loader alone with GNS on and off over
+  the same seeds for seeds/s and hit rates."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.parallel import (DistNeighborLoader,
+                                             make_dp_supervised_step)
+  seeds = np.arange(NUM_NODES)
+  cache_rows = int(ds.node_features.hot_counts.max())    # equal budget
+  loader = DistNeighborLoader(ds, FANOUTS, seeds, batch_size=GNS_BATCH,
+                              shuffle=True, seed=0,
+                              cold_cache_rows=cache_rows, gns=True,
+                              device=DEVICE)
+  s = loader.sampler
+  model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+  step = make_dp_supervised_step(model, opt, GNS_BATCH, s.mesh)
+  new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+  it = iter(loader)
+  losses = []
+  t0 = time.perf_counter()
+  with PathRecorder(torch, dsm) as rec:
+    for _ in range(GNS_WARM):
+      loss, _ = step(next(it))
+      losses.append(float(loss))
+  warm_secs = time.perf_counter() - t0
+  path_hops = [rec.hops[t] for t in range(len(FANOUTS))]
+  kernel_recs = gns_kernel(torch, ops, timer, path_hops)
+  gather_recs = []
+  for t, what in ((0, 'train hot-tier features'), (1, 'train labels')):
+    g = check_gather(torch, ops, timer, *rec.gathers[t])
+    emit('kernel', kernel='gather_rows', shape=what, **g)
+    gather_recs.append(g)
+  del path_hops, rec
+
+  parts = {'dispatch': [], 'overlay': [], 'model': []}
+
+  def timed(fn, key):
+    def wrapped(*a):
+      sync(torch)
+      t = time.perf_counter()
+      out = fn(*a)
+      sync(torch)
+      parts[key].append((time.perf_counter() - t) * 1e3)
+      return out
+    return wrapped
+
+  s._dispatch_nodes = timed(s._dispatch_nodes, 'dispatch')
+  s._finish_nodes = timed(s._finish_nodes, 'overlay')
+  for fn in (ops.sample_one_hop_gns_fused, ops.sample_one_hop_fused,
+             ops.gather_rows):
+    fn.launches = 0
+  for fn in (ops.sample_one_hop_gns, ops.sample_one_hop,
+             ops.gather_rows_plain):
+    fn.calls = 0
+  disp0 = s._step_cnt
+  walls, wmin, n_weights_ne_1 = [], None, 0
+  for _ in range(GNS_TIMED):
+    t = time.perf_counter()
+    batch = next(it)
+    t_model = time.perf_counter()
+    loss, correct = step(batch)
+    losses.append(float(loss))
+    parts['model'].append((time.perf_counter() - t_model) * 1e3)
+    walls.append((time.perf_counter() - t) * 1e3)
+    node, x = batch.node[0], batch.x[0]
+    ok = node >= 0
+    src = new2old[node[ok].long()]
+    if not torch.equal(x[ok], feats[src]):
+      raise AssertionError('a gathered x row differs from its source row')
+    if not torch.equal(batch.y[0][ok], labels[src]):
+      raise AssertionError('a gathered label differs from its source label')
+    ew, em = batch.metadata['edge_weight'][0], batch.edge_mask[0]
+    if not (bool((ew[~em] == 0).all()) and bool((ew[em] > 0).all())):
+      raise AssertionError('edge weights: masked != 0 or valid <= 0')
+    n_weights_ne_1 += int(((ew != 1.0) & em).sum())
+  dispatches = s._step_cnt - disp0
+  launches = {'sample_one_hop_gns': ops.sample_one_hop_gns_fused.launches,
+              'gather_rows': ops.gather_rows.launches,
+              'sample_one_hop': ops.sample_one_hop_fused.launches}
+  plain = (ops.sample_one_hop_gns.calls + ops.sample_one_hop.calls
+           + ops.gather_rows_plain.calls)
+  st = s.exchange_stats()
+  if not (launches['sample_one_hop_gns'] == len(FANOUTS) * dispatches
+          and launches['gather_rows'] == 2 * dispatches
+          and launches['sample_one_hop'] == 0 and plain == 0
+          and dispatches == GNS_TIMED):
+    raise AssertionError(f'launch counts {launches}, plain calls {plain}, '
+                         f'dispatches {dispatches}')
+  if st['dist.frontier.dropped'] or st['dist.feature.dropped']:
+    raise AssertionError(f'exchange drops: {st}')
+  if n_weights_ne_1 == 0:
+    raise AssertionError('every GNS weight is 1: the bias never engaged')
+  if not (np.isfinite(losses).all()
+          and np.mean(losses[-3:]) < losses[0]):
+    raise AssertionError(f'losses {losses}')
+  del s._dispatch_nodes, s._finish_nodes
+  # the loader's own order (batch k+1 dispatched before batch k's
+  # overlay), no synchronise inside: one window over GNS_TIMED steps
+  sync(torch)
+  t = time.perf_counter()
+  pipelined_losses = [step(next(it))[0] for _ in range(GNS_TIMED)]
+  pipelined_losses = [float(x) for x in pipelined_losses]
+  pipelined_secs = time.perf_counter() - t
+  if not np.isfinite(pipelined_losses).all():
+    raise AssertionError(f'pipelined losses {pipelined_losses}')
+  if prof:
+    profile_train(torch, step, it)
+  del it, loader, batch
+
+  def loader_only(gns):
+    lo = DistNeighborLoader(ds, FANOUTS, seeds, batch_size=GNS_BATCH,
+                            shuffle=True, seed=0, cold_cache_rows=cache_rows,
+                            gns=gns, device=DEVICE)
+    it2 = iter(lo)
+    for _ in range(GNS_WARM):
+      next(it2)
+    sync(torch)
+    t = time.perf_counter()
+    for _ in range(GNS_TIMED):
+      b = next(it2)
+    b.x.sum().item()
+    secs = time.perf_counter() - t
+    out = hit_rates(lo.sampler.exchange_stats())
+    out['seeds_per_s'] = GNS_TIMED * GNS_BATCH / secs
+    out['batches'] = GNS_WARM + GNS_TIMED
+    del it2, lo
+    return out
+
+  on, off = loader_only(True), loader_only(False)
+  counts = np.diff(ds.graph.bounds)
+  cold_universe = int(np.maximum(counts - ds.node_features.hot_counts,
+                                 0).sum())
+  med = {k: float(np.median(v)) for k, v in parts.items()}
+  emit('gns_train', batch=GNS_BATCH, fanouts=list(FANOUTS),
+       model=f'GraphSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
+       optimizer='Adam(1e-3)', warm_steps=GNS_WARM, timed_steps=GNS_TIMED,
+       warm_secs=warm_secs, losses=losses,
+       step_ms={'median': float(np.median(walls)),
+                'mean': float(np.mean(walls)), 'all': walls},
+       step_ms_by_part={'median': med,
+                        'mean': {k: float(np.mean(v))
+                                 for k, v in parts.items()}},
+       train_seeds_per_s_synced=GNS_BATCH * 1e3 / float(np.median(walls)),
+       pipelined_secs=pipelined_secs,
+       train_seeds_per_s_pipelined=GNS_TIMED * GNS_BATCH / pipelined_secs,
+       pipelined_losses=pipelined_losses,
+       loader_gns_on=on, loader_gns_off=off,
+       budget_over_universe=cache_rows / max(cold_universe, 1),
+       cache_rows=cache_rows, cold_universe=cold_universe,
+       node_capacity=s.node_capacity(GNS_BATCH),
+       exchange={k: v for k, v in st.items() if k.startswith('dist.')
+                 and not k.startswith('dist.feature.c')},
+       launches=launches, dispatches=dispatches, plain_calls=plain,
+       weights_ne_1=n_weights_ne_1, x_rows_byte_equal=True,
+       y_byte_equal=True)
+  return launches, kernel_recs, gather_recs
+
+
+def gns_cross_check(torch):
+  """A small tiered graph on the card and on the CPU with the same
+  CPU-made draws: 4 batches byte-equal (node, x, y, edge_index,
+  edge_weight) while the cache admits between them; logits within 1e-4
+  after one training step."""
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
+                                             TorchDraws,
+                                             make_dp_supervised_step)
+  rng = np.random.default_rng(8)
+  n = 4000
+  rows = np.repeat(np.arange(n), 12)
+  cols = np.where(rng.random(n * 12) < 0.3, rng.integers(0, 40, n * 12),
+                  rng.integers(0, n, n * 12))
+  feats = rng.standard_normal((n, 16)).astype(np.float32)
+  labels = rng.integers(0, 7, n).astype(np.int32)
+  cpu_draws = TorchDraws(5, 'cpu')
+  out, logits, admits = {}, {}, {}
+  for dev in (DEVICE, 'cpu'):
+    def draws(*a, dev=dev):
+      return tuple(t.to(dev) for t in cpu_draws(*a))
+    ds = DistDataset.from_full_graph(1, rows, cols, node_feat=feats,
+                                     node_label=labels, num_nodes=n,
+                                     split_ratio=0.3, device=dev)
+    lo = DistNeighborLoader(ds, FANOUTS, np.arange(n), batch_size=64,
+                            shuffle=True, seed=1, cold_cache_rows=300,
+                            gns=True, draws=draws, device=dev)
+    batches = list(itertools.islice(iter(lo), 4))
+    out[dev] = [(b.node.cpu(), b.x.cpu(), b.y.cpu(), b.edge_index.cpu(),
+                 b.metadata['edge_weight'].cpu()) for b in batches]
+    admits[dev] = lo.sampler.exchange_stats()['dist.feature.cache_admits']
+    model = GraphSAGE(16, 32, 7, num_layers=3).to(dev)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+    make_dp_supervised_step(model, opt, 64, lo.sampler.mesh)(batches[0])
+    b = batches[1]
+    with torch.no_grad():
+      logits[dev] = model(b.x[0], b.edge_index[0], b.edge_mask[0],
+                          edge_weight=b.metadata['edge_weight'][0]).cpu()
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for name, x, y in zip(('node', 'x', 'y', 'edge_index', 'edge_weight'),
+                          a, c):
+      if x.dtype != y.dtype or not torch.equal(x, y):
+        raise AssertionError(f'card and CPU differ: batch {i} {name}')
+  diff = float((logits[DEVICE] - logits['cpu']).abs().max())
+  if not diff <= 1e-4 or admits[DEVICE] == 0:
+    raise AssertionError(f'logits differ by {diff}; admits {admits}')
+  emit('gns_cross_check', batches=4, byte_equal=True,
+       cache_admits=admits[DEVICE], logits_max_abs_diff=diff)
+
+
+def profile_train(torch, step, it, n=3):
+  """Device time by kernel over ``n`` training steps (loader and model,
+  the pipelined order, no synchronise inside): the top kernels, the
+  port's kernels, and the device idle share of the window."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity
+  sync(torch)
+  with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(n):
+      loss, _ = step(next(it))
+    float(loss)
+    sync(torch)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  rows = []
+  for ev in prof.key_averages():
+    if ev.device_type != DeviceType.CUDA:
+      continue
+    rows.append((ev.self_device_time_total / 1e3, ev.key, ev.count))
+  rows.sort(reverse=True)
+  busy = sum(r[0] for r in rows)
+  mine = {g: sum(r[0] for r in rows if g in r[1])
+          for g in ('sample_gns_kernel', 'gather_rows_kernel')}
+  emit('profile_train', steps=n, wall_ms=wall_ms, device_busy_ms=busy,
+       device_idle_share=1 - busy / wall_ms, port_kernels_ms=mine,
+       top=[{'name': k[:90], 'device_ms': ms, 'count': c}
+            for ms, k, c in rows[:15]])
+
+
 def profile(torch, eng):
   """Device time by kernel over 20 warm 16-seed dispatches (kernel
   events only, so a torch op and the kernel it launched are not both
@@ -759,8 +1233,7 @@ def main(argv) -> int:
 
 
 def run(torch, argv) -> list:
-  """The build, graph, kernel, serve, ingest and chaos phases; returns
-  the ``kernels`` summary."""
+  """Every phase after env; returns the ``kernels`` summary."""
   from graphlearn_tpu_torch import _build, ops
   from graphlearn_tpu_torch.data import Dataset
   from graphlearn_tpu_torch.ops import default_window, hash_draws
@@ -850,6 +1323,13 @@ def run(torch, argv) -> list:
                            indptr_h, indices_h, reqs, serve_lat)
   chaos_recover(torch)
 
+  # -- GNS-biased training over the tiered store ------------------------
+  ds_g, labels_g = gns_data(torch, indptr, indices, feats)
+  gns_launches, gns_hops, gathers_train = gns_train(
+      torch, ops, timer, ds_g, feats, labels_g, prof='--profile' in argv)
+  del ds_g, labels_g
+  gns_cross_check(torch)
+
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
   kernels = [
@@ -868,11 +1348,17 @@ def run(torch, argv) -> list:
        'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
        'launches': launches['gather_rows'],
-       'max_abs_err': f32['max_abs_err'], 'ms': f32['kernel_ms'],
+       'max_abs_err': max(g['max_abs_err'] for g in gathers + gathers_train),
+       'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
        'byte_equal': True,
-       'shape': f'{f32["ids"]} ids x {FEAT_DIM} f32 (16-seed tree)'},
+       'shape': f'{f32["ids"]} ids x {FEAT_DIM} f32 (16-seed tree)',
+       'train_shapes': [
+           {'shape': f'{g["ids"]} ids x {g["row_bytes"]} B {g["dtype"]}',
+            'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+            'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+            'byte_equal': True} for g in gathers_train]},
       {'name': 'merge_ranks', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',
@@ -882,6 +1368,18 @@ def run(torch, argv) -> list:
        'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
        'shape': f'{k4["events"]}-event batch, {k4["rows"]} dirty rows, '
                 f'{k4["base_cols"]} base columns'},
+      {'name': 'sample_one_hop_gns', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop_gns.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247 (gns arm :178)',
+       'launches': gns_launches['sample_one_hop_gns'],
+       'max_abs_err': max(h['max_abs_err'] for h in gns_hops),
+       'ms': sum(h['kernel_ms'] for h in gns_hops),
+       'plain_ms': sum(h['plain_ms'] for h in gns_hops),
+       'bound_ms': sum(h['bound_us'] for h in gns_hops) / 1e3,
+       'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
+       'shape': '1,024-seed training batch, hops of '
+                + '/'.join(str(h['rows']) for h in gns_hops)
+                + ' rows, k 15/10/5'},
   ]
   return kernels
 

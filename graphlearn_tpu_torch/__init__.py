@@ -16,9 +16,15 @@ edge ingest: `streaming.IngestPipeline` (WAL, delta-CSR merge through
 the merge-rank kernel, RCU-published `GraphView`s) with the engine
 re-pinning the newest version per dispatch; `telemetry` and `testing`
 hold the parts of the JAX package's telemetry and chaos harness that
-this path calls.
+this path calls — and GNS-biased GraphSAGE training over the tiered
+mesh feature store: `parallel.DistDataset` (relabelled range shards, hot
+rows on the card, cold rows in pinned host memory),
+`parallel.DistNeighborLoader` (bucketed exchange, the GNS sampler
+kernel, the victim cache `data.cold_cache.MeshColdCache`, the cold
+overlay) and `parallel.make_dp_supervised_step` with
+`models.GraphSAGE`, on a one-card mesh.
 """
-from . import (data, loader, models, ops, serving, streaming, telemetry,
-               testing, utils)
+from . import (data, loader, models, ops, parallel, serving, streaming,
+               telemetry, testing, utils)
 
 __version__ = '0.1.0'

@@ -1,0 +1,237 @@
+"""Device victim cache over the cold tier's feature rows (the JAX
+package's `data/cold_cache.py:63-345,564-710`).
+
+The policy lives on the host and is the JAX package's, copied: a CLOCK
+(second-chance) ring over id tags, admissions ranked by a decayed visit
+sketch (`ops.gns.DecayedSketch`), a bounded eviction wave.  The rows
+live on the card as a ``[P, C, D]`` tensor: a hit is served by a device
+gather, an admission copies rows that are already on the card (the
+corrected miss rows of the batch) — cached bytes never return to the
+host.  The residents are the dynamic half of the GNS cached set.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.gns import DecayedSketch
+from ..utils.device import resolve_device
+
+#: 'auto' budget: this fraction of the (per-partition max) cold rows
+DEFAULT_BUDGET_FRACTION = 0.15
+#: evicting admissions per wave, as a fraction of the capacity
+ADMIT_WAVE_FRACTION = 0.25
+
+_ENV_ROWS = 'GLT_COLD_CACHE_ROWS'
+
+
+def resolve_cache_rows(spec, cold_rows: int) -> int:
+  """int = rows per card (0 disables); None/'auto' = ``GLT_COLD_CACHE_
+  ROWS`` when set, else `DEFAULT_BUDGET_FRACTION` of ``cold_rows``."""
+  if spec in (None, 'auto'):
+    env = os.environ.get(_ENV_ROWS)
+    if env is not None:
+      try:
+        return max(int(env), 0)
+      except ValueError:
+        pass
+    if cold_rows <= 0:
+      return 0
+    return int(np.ceil(cold_rows * DEFAULT_BUDGET_FRACTION))
+  return max(int(spec), 0)
+
+
+class ClockShardCache:
+  """CLOCK second-chance id -> slot policy for ONE card's cache (host
+  metadata only: tags, reference bits, the hand, the visit sketch)."""
+
+  def __init__(self, capacity: int):
+    self.capacity = int(capacity)
+    self.ids = np.full(self.capacity, -1, np.int64)
+    self.ref = np.zeros(self.capacity, np.uint8)
+    self.hand = 0
+    self.sketch = DecayedSketch()
+    #: bumped on every committed admission wave (the GNS mask refresh
+    #: rebuilds only when it moved)
+    self.version = 0
+    self._sorted_ids = np.empty(0, np.int64)
+    self._sorted_slots = np.empty(0, np.int32)
+
+  @property
+  def size(self) -> int:
+    return len(self._sorted_ids)
+
+  def _rebuild(self) -> None:
+    occ = np.nonzero(self.ids >= 0)[0]
+    order = np.argsort(self.ids[occ], kind='stable')
+    self._sorted_ids = self.ids[occ][order]
+    self._sorted_slots = occ[order].astype(np.int32)
+
+  def lookup(self, ids: np.ndarray, active: Optional[np.ndarray] = None
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(hit, slot)`` for an id array; ``active`` masks which entries
+    take part.  Hits set the second-chance bit."""
+    ids = np.asarray(ids, np.int64)
+    hit = np.zeros(ids.shape, bool)
+    slot = np.zeros(ids.shape, np.int32)
+    if self.size == 0:
+      return hit, slot
+    if active is not None:
+      sel = np.nonzero(active)
+      sub = ids[sel]
+      pos = np.clip(np.searchsorted(self._sorted_ids, sub), 0,
+                    self.size - 1)
+      h = self._sorted_ids[pos] == sub
+      s = self._sorted_slots[pos]
+      hit[sel] = h
+      slot[sel] = np.where(h, s, 0)
+      if h.any():
+        self.ref[s[h]] = 1
+      return hit, slot
+    pos = np.clip(np.searchsorted(self._sorted_ids, ids), 0, self.size - 1)
+    hit = self._sorted_ids[pos] == ids
+    slot = np.where(hit, self._sorted_slots[pos], 0).astype(np.int32)
+    if hit.any():
+      self.ref[slot[hit]] = 1
+    return hit, slot
+
+  def plan_admissions(self, cand_ids: np.ndarray,
+                      cand_counts: Optional[np.ndarray] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Assign ring slots to unique, non-resident candidates ranked by
+    sketch score (free slots first, then one batched CLOCK sweep of at
+    most an `ADMIT_WAVE_FRACTION` wave).  Returns ``(admitted_ids,
+    slots, evicted)``; call `commit` once the rows are written."""
+    cand_ids = np.asarray(cand_ids, np.int64)
+    if cand_ids.size == 0 or self.capacity == 0:
+      return (np.empty(0, np.int64), np.empty(0, np.int32), 0)
+    if cand_counts is None:
+      cand_counts = np.ones(len(cand_ids), np.int64)
+    self.sketch.update(cand_ids, cand_counts)
+    order = np.lexsort((cand_ids, -self.sketch.score(cand_ids)))
+    n_free = int(np.count_nonzero(self.ids < 0))
+    wave = max(int(self.capacity * ADMIT_WAVE_FRACTION), 1)
+    cand = cand_ids[order][:min(self.capacity, n_free + wave)]
+    free = np.nonzero(self.ids < 0)[0]
+    n_free = min(len(free), len(cand))
+    slots = [free[:n_free].astype(np.int32)]
+    need = len(cand) - n_free
+    evicted = 0
+    if need > 0:
+      sweep = (self.hand + np.arange(self.capacity)) % self.capacity
+      occ = self.ids[sweep] >= 0
+      fresh = self.ref[sweep] == 0
+      clear = occ & fresh
+      cand_pos = np.nonzero(clear)[0]
+      if len(cand_pos) >= need:
+        stop = cand_pos[need - 1]
+        victims = sweep[cand_pos[:need]]
+        self.ref[sweep[:stop + 1]] = 0
+        self.hand = (int(sweep[stop]) + 1) % self.capacity
+      else:
+        victims = np.concatenate([sweep[clear],
+                                  sweep[occ & ~fresh]])[:need]
+        self.ref[:] = 0
+        if len(victims):
+          self.hand = (int(victims[-1]) + 1) % self.capacity
+      evicted = len(victims)
+      if evicted:
+        slots.append(victims.astype(np.int32))
+    out_slots = np.concatenate(slots)
+    return cand[:len(out_slots)], out_slots, evicted
+
+  def commit(self, ids: np.ndarray, slots: np.ndarray) -> None:
+    if len(ids):
+      self.ids[slots] = ids
+      self.ref[slots] = 0
+      self.version += 1
+    self._rebuild()
+
+  def resident_ids(self) -> np.ndarray:
+    """The current residents, sorted."""
+    return self._sorted_ids
+
+
+class MeshColdCache:
+  """Per-card victim caches: ``P`` `ClockShardCache` policies over a
+  ``[P, C, D]`` row tensor on ``device``.  Each card caches the cold
+  rows it requested; the host calls take the ``[P, node_cap]`` id and
+  mask tables the cold overlay already holds."""
+
+  def __init__(self, capacity: int, dim: int, dtype, num_local: int = 1,
+               device='cuda'):
+    device = resolve_device(device)
+    self.capacity = int(capacity)
+    self.shards = [ClockShardCache(capacity) for _ in range(num_local)]
+    self.rows = torch.zeros((num_local, max(self.capacity, 1), int(dim)),
+                            dtype=dtype, device=device)
+
+  @property
+  def version(self) -> int:
+    """Sum of the shard versions: moves iff any residency changed."""
+    return sum(sh.version for sh in self.shards)
+
+  def lookup(self, ids_l: np.ndarray, active: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(hit [P, cap], slot [P, cap])`` over the stacked id table."""
+    hit = np.zeros(ids_l.shape, bool)
+    slot = np.zeros(ids_l.shape, np.int32)
+    for j, sh in enumerate(self.shards):
+      hit[j], slot[j] = sh.lookup(ids_l[j], active[j])
+    return hit, slot
+
+  def serve(self, x: torch.Tensor, hit: np.ndarray,
+            slot: np.ndarray) -> torch.Tensor:
+    """``x[p, i] = rows[p, slot[p, i]]`` where ``hit`` — in place on
+    ``x`` (a fresh per-batch tensor), by a device gather."""
+    if not hit.any():
+      return x
+    p_idx, i_idx = np.nonzero(hit)
+    dst = torch.from_numpy(p_idx * x.shape[1] + i_idx).to(x.device)
+    src = torch.from_numpy(p_idx * self.rows.shape[1]
+                           + slot[p_idx, i_idx]).to(x.device)
+    x.view(-1, x.shape[-1]).index_copy_(
+        0, dst, self.rows.view(-1, self.rows.shape[-1]).index_select(0, src))
+    return x
+
+  def plan_admissions(self, ids_l: np.ndarray, miss: np.ndarray):
+    """Per shard ``(admitted ids, slots, source positions in the node
+    table, evicted)`` for the batch's miss rows."""
+    plans = []
+    for j, sh in enumerate(self.shards):
+      m = miss[j]
+      if not m.any() or self.capacity == 0:
+        plans.append((np.empty(0, np.int64), np.empty(0, np.int32),
+                      np.empty(0, np.int32), 0))
+        continue
+      uniq, first, counts = np.unique(ids_l[j][m], return_index=True,
+                                      return_counts=True)
+      adm, slots, ev = sh.plan_admissions(uniq, counts)
+      # each admitted id's first position among the miss rows
+      src = np.nonzero(m)[0][first[np.searchsorted(uniq, adm)]]
+      plans.append((adm, slots, src.astype(np.int32), ev))
+    return plans
+
+  def commit_admissions(self, x: torch.Tensor, plans) -> Tuple[int, int]:
+    """Copy the planned rows from ``x`` (already corrected on the card)
+    into their slots and commit the tags.  Returns ``(admits,
+    evicts)``."""
+    admits = evicts = 0
+    src_all, dst_all = [], []
+    for j, (adm, slots, src, ev) in enumerate(plans):
+      src_all.append(j * x.shape[1] + src.astype(np.int64))
+      dst_all.append(j * self.rows.shape[1] + slots.astype(np.int64))
+      admits += len(adm)
+      evicts += ev
+    if admits:
+      dev = x.device
+      src_t = torch.from_numpy(np.concatenate(src_all)).to(dev)
+      dst_t = torch.from_numpy(np.concatenate(dst_all)).to(dev)
+      self.rows.view(-1, self.rows.shape[-1]).index_copy_(
+          0, dst_t, x.view(-1, x.shape[-1]).index_select(0, src_t))
+    for sh, (adm, slots, _src, _ev) in zip(self.shards, plans):
+      sh.commit(adm, slots)
+    return admits, evicts

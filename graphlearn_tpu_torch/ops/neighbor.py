@@ -19,7 +19,7 @@ function; it runs this version for tensors on the CPU.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,9 +32,12 @@ class OneHopResult(NamedTuple):
   Attributes:
     nbrs: ``[B, k]`` int32 neighbor ids (INVALID_ID where masked).
     mask: ``[B, k]`` bool slot validity (slot < min(deg, k)).
+    weights: ``[B, k]`` f32 importance weights of the GNS sampler
+      (`ops.gns`), or None for the uniform sampler.
   """
   nbrs: torch.Tensor
   mask: torch.Tensor
+  weights: Optional[torch.Tensor] = None
 
 
 def default_window(k: int) -> int:

@@ -1,0 +1,254 @@
+"""Sharded graph and tiered feature store (the JAX package's
+`parallel/dist_data.py:33-87,155-165,351-398,455-527,598-633,755-851`).
+
+Nodes are relabelled to contiguous ownership ranges (``bounds [P+1]``),
+hottest first within each range; each card holds the CSR of its own
+nodes' out-edges (columns stay global ids) and its feature shard.  A
+``split_ratio < 1`` store is tiered: each shard holds only its first
+``ceil(split_ratio * rows)`` rows on the card (the hot tier), and the
+whole relabelled table stays in host memory (the cold tier, pinned when
+the store lives on a card).
+
+The relabel is host numpy, as in JAX; the per-edge work (remap, CSR
+sort) runs in torch on the store's device.  The CSR sort is a stable
+sort on ``row * N + col``, which orders edges exactly as the JAX
+package's ``np.lexsort((cols, rows))``.  Range partitioner only: no
+replica cache, no edge features, no partition directory.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+
+class DistGraph:
+  """Stacked per-partition local CSRs and the ownership bounds.
+
+  Attributes:
+    indptr: ``[P, max_local_nodes + 1]`` int64 (on the store's device).
+    indices: ``[P, max_local_edges]`` int32 GLOBAL neighbor ids, -1 pad.
+    edge_ids: ``[P, max_local_edges]`` int64 global edge ids, -1 pad.
+    bounds: ``[P + 1]`` int64 numpy ownership ranges.
+  """
+
+  def __init__(self, indptr, indices, edge_ids, bounds):
+    self.indptr = indptr
+    self.indices = indices
+    self.edge_ids = edge_ids
+    self.bounds = np.asarray(bounds, dtype=np.int64)
+
+  @property
+  def num_partitions(self) -> int:
+    return len(self.bounds) - 1
+
+  @property
+  def num_nodes(self) -> int:
+    return int(self.bounds[-1])
+
+
+def relabel_by_partition(node_pb: np.ndarray, num_parts: int,
+                         hotness: Optional[np.ndarray] = None):
+  """Sort nodes by (partition[, -hotness], old id); returns ``(old2new,
+  counts, bounds)``."""
+  node_pb = np.asarray(node_pb)
+  num_nodes = len(node_pb)
+  if hotness is not None:
+    hot = np.asarray(hotness)
+    if hot.dtype.kind == 'u':
+      hot = hot.astype(np.int64)
+    order = np.lexsort((np.arange(num_nodes), -hot, node_pb))
+  else:
+    order = np.argsort(node_pb, kind='stable')
+  old2new = np.empty(num_nodes, dtype=np.int64)
+  old2new[order] = np.arange(num_nodes)
+  counts = np.bincount(node_pb, minlength=num_parts)
+  bounds = np.concatenate([[0], np.cumsum(counts)])
+  return old2new, counts, bounds
+
+
+def hot_count(counts, split_ratio: float) -> np.ndarray:
+  """Hot rows per partition at ``split_ratio``: ``ceil(counts *
+  split_ratio)``."""
+  return np.ceil(np.asarray(counts) * float(split_ratio)).astype(np.int64)
+
+
+def _as_tensor(a, device, dtype=None) -> torch.Tensor:
+  t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+  return t.to(device=device, dtype=dtype)
+
+
+def build_dist_graph(rows, cols, node_pb: np.ndarray, num_nodes: int,
+                     num_parts: Optional[int] = None,
+                     hotness: Optional[np.ndarray] = None,
+                     device='cpu'):
+  """Relabel and shard a COO graph by a node partition book.  Returns
+  ``(DistGraph, old2new)``; ``rows``/``cols`` may be numpy arrays or
+  torch tensors on any device."""
+  device = torch.device(device)
+  node_pb = np.asarray(node_pb)
+  if num_parts is None:
+    num_parts = int(node_pb.max()) + 1 if node_pb.size else 1
+  old2new, counts, bounds = relabel_by_partition(node_pb, num_parts,
+                                                 hotness)
+  rows_t = _as_tensor(rows, device, torch.int64)
+  cols_t = _as_tensor(cols, device, torch.int64)
+  o2n = torch.from_numpy(old2new).to(device)
+  rows_n = o2n[rows_t]
+  cols_n = o2n[cols_t]
+  owner = torch.from_numpy(node_pb.astype(np.int64)).to(device)[rows_t]
+  del rows_t, cols_t
+  edge_ids = torch.arange(rows_n.shape[0], dtype=torch.int64, device=device)
+  max_nodes = int(counts.max()) if num_parts else 0
+  max_edges = max(int(torch.bincount(owner, minlength=num_parts).max()), 1)
+  indptr_s = torch.zeros((num_parts, max_nodes + 1), dtype=torch.int64,
+                         device=device)
+  indices_s = torch.full((num_parts, max_edges), -1, dtype=torch.int32,
+                         device=device)
+  eids_s = torch.full((num_parts, max_edges), -1, dtype=torch.int64,
+                      device=device)
+  n = int(num_nodes)
+  for p in range(num_parts):
+    sel = owner == p
+    local = rows_n[sel] - int(bounds[p])
+    c = cols_n[sel]
+    # stable sort on (row, col): the order of np.lexsort((cols, rows))
+    perm = torch.sort(local * n + c, stable=True).indices
+    e = perm.shape[0]
+    deg = torch.bincount(local, minlength=int(counts[p]))
+    indptr_s[p, 1:len(deg) + 1] = torch.cumsum(deg, 0)
+    indptr_s[p, len(deg) + 1:] = e
+    indices_s[p, :e] = c[perm].to(torch.int32)
+    eids_s[p, :e] = edge_ids[sel][perm]
+  return DistGraph(indptr_s, indices_s, eids_s, bounds), old2new
+
+
+class DistFeature:
+  """Stacked per-partition feature shards with an optional host tier.
+
+  Attributes:
+    shards: ``[P, hot_max, D]`` rows on the card (row ``r`` of shard
+      ``p`` is global id ``bounds[p] + r``).
+    bounds: ``[P + 1]`` numpy.
+    hot_counts: ``[P]`` int32: id ``g`` is served from the card iff
+      ``g - bounds[owner] < hot_counts[owner]``.
+    cold_host: ``[N, D]`` host table by relabelled id (pinned when the
+      shards are on a card), or None for a store wholly on the card.
+  """
+
+  def __init__(self, shards, bounds, hot_counts=None, cold_host=None):
+    self.shards = shards
+    self.bounds = np.asarray(bounds, dtype=np.int64)
+    self.hot_counts = (np.asarray(hot_counts, np.int32)
+                       if hot_counts is not None
+                       else np.diff(self.bounds).astype(np.int32))
+    self.cold_host = cold_host
+
+  @property
+  def feature_dim(self) -> int:
+    return self.shards.shape[-1]
+
+  @property
+  def is_tiered(self) -> bool:
+    return self.cold_host is not None
+
+
+def build_dist_feature(feats, old2new: np.ndarray, bounds: np.ndarray,
+                       split_ratio: float = 1.0,
+                       device='cpu') -> DistFeature:
+  """Shard a ``[N, D]`` (or ``[N]``) table by the relabelled ranges;
+  ``split_ratio < 1`` builds the tiered store."""
+  device = torch.device(device)
+  feats = feats if isinstance(feats, torch.Tensor) else torch.from_numpy(
+      np.asarray(feats))
+  feats = feats.cpu()
+  if feats.ndim == 1:
+    feats = feats[:, None]
+  num_parts = len(bounds) - 1
+  counts = np.diff(bounds)
+  split_ratio = float(split_ratio)
+  if not 0.0 <= split_ratio <= 1.0:
+    raise ValueError(f'split_ratio must be in [0, 1], got {split_ratio}')
+  tiered = split_ratio < 1.0
+  hot_counts = (hot_count(counts, split_ratio) if tiered
+                else counts.astype(np.int64))
+  hot_max = int(hot_counts.max()) if num_parts else 0
+  if tiered:
+    hot_max = max(hot_max, 1)
+  reordered = torch.empty_like(feats)
+  reordered[torch.from_numpy(old2new)] = feats
+  shards = torch.zeros((num_parts, hot_max, feats.shape[1]),
+                       dtype=feats.dtype, device=device)
+  for p in range(num_parts):
+    lo, h = int(bounds[p]), int(hot_counts[p])
+    shards[p, :h] = reordered[lo:lo + h].to(device)
+  cold = None
+  if tiered:
+    cold = reordered.pin_memory() if device.type == 'cuda' else reordered
+  return DistFeature(shards, bounds, hot_counts=hot_counts, cold_host=cold)
+
+
+class DistDataset:
+  """The sharded dataset: `DistGraph`, the node feature store, node
+  labels ``[P, max_nodes]`` (on the device) and the relabel
+  (``old2new`` / ``new2old``, numpy)."""
+
+  def __init__(self, graph: DistGraph, node_features=None,
+               node_labels=None, old2new=None, device='cpu'):
+    self.graph = graph
+    self.node_features = node_features
+    self.node_labels = node_labels
+    self.old2new = old2new
+    self.new2old = np.argsort(old2new) if old2new is not None else None
+    self.device = torch.device(device)
+
+  @property
+  def num_partitions(self) -> int:
+    return self.graph.num_partitions
+
+  @classmethod
+  def from_full_graph(cls, num_parts: int, rows, cols, node_feat=None,
+                      node_label=None, num_nodes: Optional[int] = None,
+                      node_pb: Optional[np.ndarray] = None, seed: int = 0,
+                      split_ratio: float = 1.0,
+                      hotness: Optional[np.ndarray] = None,
+                      device='cuda') -> 'DistDataset':
+    """In-memory partition and shard onto ``device``.
+
+    Without ``node_pb`` nodes are placed by the JAX package's seeded
+    round-robin over a random permutation (its ``'range'``
+    partitioner).  ``split_ratio < 1`` tiers the feature store;
+    ``hotness`` defaults to in-degree then, so the card keeps the most
+    gathered rows.
+    """
+    device = resolve_device(device)
+    cols_t = cols if isinstance(cols, torch.Tensor) else torch.from_numpy(
+        np.asarray(cols))
+    rows_t = rows if isinstance(rows, torch.Tensor) else torch.from_numpy(
+        np.asarray(rows))
+    if num_nodes is None:
+      num_nodes = int(max(int(rows_t.max()) if rows_t.numel() else -1,
+                          int(cols_t.max()) if cols_t.numel() else -1)) + 1
+    n = int(num_nodes)
+    if node_pb is None:
+      rng = np.random.default_rng(seed)
+      node_pb = np.empty(n, dtype=np.int32)
+      perm = rng.permutation(n)
+      for p in range(num_parts):
+        node_pb[perm[p::num_parts]] = p
+    if split_ratio < 1.0 and hotness is None:
+      hotness = torch.bincount(cols_t.long(), minlength=n).cpu().numpy()
+    g, old2new = build_dist_graph(rows_t, cols_t, node_pb, n,
+                                  num_parts=num_parts, hotness=hotness,
+                                  device=device)
+    nf = (build_dist_feature(node_feat, old2new, g.bounds,
+                             split_ratio=split_ratio, device=device)
+          if node_feat is not None else None)
+    nl = None
+    if node_label is not None:
+      nl = build_dist_feature(node_label, old2new, g.bounds,
+                              device=device).shards[..., 0]
+    return cls(g, nf, nl, old2new, device=device)

@@ -11,7 +11,10 @@ import torch
 
 import graphlearn_tpu_torch
 from graphlearn_tpu_torch.data import Dataset, Feature, Graph
+from graphlearn_tpu_torch.data.cold_cache import MeshColdCache
 from graphlearn_tpu_torch.ops import merge_delta_csr_device
+from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
+                                           DistNeighborSampler, make_mesh)
 from graphlearn_tpu_torch.serving import ServingEngine
 from graphlearn_tpu_torch.streaming import (DeltaSegment, IngestPipeline,
                                             StreamingGraph)
@@ -34,13 +37,18 @@ def test_import_pulls_in_no_jax():
       'import graphlearn_tpu_torch.telemetry.postmortem\n'
       'import graphlearn_tpu_torch.testing.chaos\n'
       'import graphlearn_tpu_torch.utils.checkpoint\n'
+      'import graphlearn_tpu_torch.parallel\n'
+      'import graphlearn_tpu_torch.data.cold_cache\n'
       'new = sorted(set(sys.modules) - before)\n'
       'bad = [m for m in new if m.split(".")[0] in '
       f'{FORBIDDEN!r}]\n'
       'print("BAD", bad)\n'
       'assert "graphlearn_tpu_torch.serving.engine" in sys.modules\n'
       'assert "graphlearn_tpu_torch.streaming.ingest" in sys.modules\n'
-      'assert "graphlearn_tpu_torch.telemetry.live" in sys.modules\n')
+      'assert "graphlearn_tpu_torch.telemetry.live" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.parallel.dist_sampler" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.ops.gns" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.models.basic_gnn" in sys.modules\n')
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, cwd=str(PKG.parent), timeout=240)
   assert out.returncode == 0, out.stderr
@@ -104,3 +112,32 @@ def test_streaming_entry_points_default_to_cuda(tmp_path):
   pipe.ingest([0], [2])
   assert sg.version == 2 and sg.pin().indices_dev.device.type == 'cpu'
   pipe.close()
+
+
+def test_mesh_entry_points_default_to_cuda():
+  if torch.cuda.is_available():
+    pytest.skip('the default device exists here')
+  n = 40
+  rows, cols = np.repeat(np.arange(n), 3), np.arange(3 * n) % n
+  feats = np.zeros((n, 2), np.float32)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    make_mesh(1)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    DistDataset.from_full_graph(1, rows, cols, node_feat=feats,
+                                split_ratio=0.3)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    MeshColdCache(4, 2, torch.float32)
+  ds = DistDataset.from_full_graph(1, rows, cols, node_feat=feats,
+                                   split_ratio=0.3, device='cpu')
+  with pytest.raises(RuntimeError, match='CUDA'):
+    DistNeighborLoader(ds, [2], np.arange(n), batch_size=4)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    DistNeighborSampler(ds, [2])
+  # asked for: the CPU runs the kernels' plain versions
+  loader = DistNeighborLoader(ds, [2], np.arange(n), batch_size=4,
+                              gns=True, device='cpu')
+  b = next(iter(loader))
+  assert b.x.device.type == 'cpu' and 'edge_weight' in b.metadata
+  assert make_mesh(1, device='cpu').device.type == 'cpu'
+  assert MeshColdCache(4, 2, torch.float32, device='cpu').rows.shape == (
+      1, 4, 2)
