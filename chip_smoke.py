@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, ingest and GNS training paths
-on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, ingest, window-gather,
+per-batch training, fused tree training and GNS training paths on one
+NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -11,7 +12,7 @@ Phases, one JSON line each; any failure exits nonzero:
 
   env     card (``nvidia-smi`` name and power limit), torch and CUDA
           versions; TF32 matmuls off.
-  build   the four CUDA kernels compiled from
+  build   the five CUDA kernels compiled from
           ``graphlearn_tpu_torch/csrc`` (one ``nvcc`` per source, started
           together).
   graph   the ogbn-products-scale synthetic graph (2,449,029 nodes,
@@ -50,10 +51,52 @@ Phases, one JSON line each; any failure exits nonzero:
   chaos   on a small graph on the card: a kill at the ``ingest.apply``
           seam, recovery in a new pipeline over the same WAL, and a
           graph byte-identical to a fault-free run.
+  window  the window-gather entry point (the port of
+          ``benchmarks/bench_pallas_window.py``): `csr_window_gather` on
+          the products ``indices`` at 8,192 starts x 128, 30
+          back-to-back calls on distinct seed sets timed by CUDA
+          events, GB/s counted as B * w * 4 bytes per call; the same for
+          the plain version, one `index_select` over precomputed flat
+          positions and one full K1 hop at k = 15 as context.  Checks:
+          byte-equal to the plain version on every timed input and on a
+          forced set (w 16/64/128/200; starts 0, E-1, E-w, negative,
+          past E; int64 and int32 starts), 30 launches and no plain call
+          in the timed run.
+  kernel  K1 at the three hops and K2 at the feature gather of one
+          1,024-seed per-batch training step (inputs recorded from the
+          path), against their plain versions.
+  train   BASELINE config 1: `Dataset` with the products CSR, features
+          and labels ``argmax(x @ P)`` on the card -> `NeighborLoader`
+          ([15, 10, 5], batch 1,024, shuffled, seed 0) over the first
+          n // 12 of a seeded permutation (200 steps) ->
+          `make_supervised_step` with ``GraphSAGE(100, 256, 47, 3)``
+          and Adam(3e-3): 3 warm steps, 2 timed epochs, 5 synchronised
+          steps split into sample / collate / model, eval accuracy on
+          20 test batches; then the sampling burst (30 batches of 1,024
+          uniform seeds, one synchronise, sampled edges/s) and the
+          feature-gather roofline (2^20 ids of stride 2 through K2,
+          `index_select` and a contiguous copy).  Checks: 3 K1 and 1 K2
+          launches per step, no plain call, epochs above the HBM floor,
+          every valid node's ``x`` row and label equal to its source,
+          ``edge_index`` inside the node count, finite losses falling,
+          accuracy above 1/47.
+  kernel  K1 at the three unsorted hops and K2 at the four level
+          gathers (1,024 / 15,360 / 153,600 / 768,000 ids x 100 f32) of
+          the tree epoch's first warm step (inputs recorded from the
+          path), against their plain versions; each level's ids must be
+          the ids its hop sampled and its table the source features.
+  tree_train  `FusedTreeEpoch` with ``TreeSAGE(100, 256, 47, 3)``,
+          Adam(3e-3), chunks of 100 steps over the same split: one warm
+          and 3 timed epochs, `evaluate` on the test split.  Checks: 3
+          K1 and 4 K2 launches per step, no plain call, finite losses
+          falling across epochs, accuracy above 1/47.
+  train_cross_check  a 4,000-node graph on the card and on the CPU with
+          the same CPU-made draws: 3 `NeighborLoader` batches byte-equal
+          (node, x, y, edge_index, edge_mask), their GraphSAGE step
+          losses and 2 tree-epoch steps' losses within 1e-5.
   gns_data  the products graph relabelled into a tiered `DistDataset`
           (split 0.3: 734,709 hot rows on the card, the whole table in
-          pinned host memory), labels ``argmax(feats @ P)`` for a seeded
-          ``[100, 47]`` P.
+          pinned host memory), the train phase's labels.
   kernel  the GNS sampler kernel against its plain version (byte-equal
           nbrs, mask and weights) at the three hops of a 1,024-seed
           training batch with the run's own bits table, and on forced
@@ -78,7 +121,10 @@ Phases, one JSON line each; any failure exits nonzero:
           the same draws: 4 batches byte-equal (node, x, y, edge_index,
           edge_weight), logits within 1e-4 after one step.
 
-It prints the ``{"kernels": [...]}`` line before the last and ends with
+``--profile`` adds `profile` (serving) and `profile_train` (kernel time
+by name and the device idle share of 3 steps of the per-batch, tree and
+GNS training paths).  It prints the ``{"kernels": [...]}`` line (five
+kernels) before the last and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``graphlearn_tpu_torch`` package beside it, it exits nonzero and prints
 no result.
@@ -112,6 +158,20 @@ GNS_SPLIT = 0.3
 GNS_CLASSES = 47
 GNS_WARM = 2
 GNS_TIMED = 8
+WINDOW_BATCH = 8192
+WINDOW_W = 128
+WINDOW_ITERS = 30
+TRAIN_BATCH = 1024
+TRAIN_LR = 3e-3
+TRAIN_WARM = 3
+TRAIN_EPOCHS = 2
+TRAIN_SPLIT_STEPS = 5
+TREE_EPOCHS = 3
+EVAL_BATCHES = 20
+BURST_ITERS = 30
+ROOFLINE_IDS = 1 << 20
+ROOFLINE_ITERS = 20
+EVENTS_SLEEP_CYCLES = 20_000_000    # ~10 ms at the H100's SM clock
 
 
 def emit(phase: str, **fields) -> None:
@@ -705,6 +765,535 @@ def chaos_recover(torch):
        version=got.version, edges=got.num_edges, byte_identical=True)
 
 
+def make_labels(torch, feats):
+  """Learnable labels: ``argmax(feats @ P)`` for a seeded ``[100, 47]``
+  P, int32 on the card."""
+  proj = torch.randn(FEAT_DIM, GNS_CLASSES, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(2))
+  return torch.argmax(feats @ proj, dim=1).to(torch.int32)
+
+
+def train_splits():
+  """BASELINE config 1's split (`bench.py:227`): the first ``n // 12``
+  of a seeded permutation trains (200 batches of 1,024); the next
+  `EVAL_BATCHES` batches are the test split."""
+  perm = np.random.default_rng(0).permutation(NUM_NODES)
+  n_train = NUM_NODES // 12
+  return perm[:n_train], perm[n_train:n_train + EVAL_BATCHES * TRAIN_BATCH]
+
+
+def events_ms(torch, fns) -> float:
+  """Device ms of ``fns`` called back to back, by two CUDA events; the
+  card sleeps first (`torch.cuda._sleep`) while the host enqueues, so
+  the events time the device work, not the host's launch rate."""
+  sync(torch)
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  torch.cuda._sleep(EVENTS_SLEEP_CYCLES)
+  start.record()
+  for fn in fns:
+    fn()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end)
+
+
+def window(torch, ops, indptr, indices):
+  """Path C, the window-gather entry point (the port's
+  `benchmarks/bench_pallas_window.py`): `csr_window_gather` over the
+  products ``indices`` at 8,192 starts x 128, 30 back-to-back calls on
+  distinct seed sets; beside it the plain version, one `index_select`
+  over the flat positions (built outside the timed calls) and one full
+  K1 hop at k = 15 over the same seeds.  Byte-equal on every timed
+  input and on the forced set."""
+  from graphlearn_tpu_torch.ops import window_gather as wg
+  b, w, iters = WINDOW_BATCH, WINDOW_W, WINDOW_ITERS
+  e = indices.numel()
+  rng = np.random.default_rng(0)
+  seeds = [torch.from_numpy(rng.integers(0, NUM_NODES, b).astype(
+      np.int32)).to(DEVICE) for _ in range(iters)]
+  starts = [indptr[s.long()] for s in seeds]
+  lane = torch.arange(w, device=DEVICE)
+  flat = [(s[:, None] + lane).clamp(max=e - 1).reshape(-1) for s in starts]
+  for s, f in zip(starts, flat):
+    got = wg.csr_window_gather(indices, s, w)
+    if not (torch.equal(got, wg.csr_window_gather_plain(indices, s, w))
+            and torch.equal(got.reshape(-1), indices[f])):
+      raise AssertionError('window kernel != plain version (path input)')
+  forced = 0
+  for fw in (16, 64, 128, 200):
+    st = torch.cat([torch.tensor([0, e - 1, e - fw, -1, -fw - 3, e,
+                                  e + 12345, -(1 << 20)], device=DEVICE),
+                    torch.randint(0, e, (500,), device=DEVICE)])
+    for s in (st, st.to(torch.int32)):
+      got = wg.csr_window_gather(indices, s, fw)
+      ref = wg.csr_window_gather_plain(indices, s, fw)
+      if got.shape != (st.numel(), fw) or not torch.equal(got, ref):
+        raise AssertionError(f'window kernel != plain version (forced '
+                             f'set, w={fw}, {s.dtype})')
+      forced += 1
+  k = FANOUTS[0]
+  kw = ops.default_window(k)
+  gen = torch.Generator(device=DEVICE).manual_seed(15)
+  draws = [(torch.rand(b, k, device=DEVICE, generator=gen),
+            -torch.log(-torch.log(torch.rand(b, kw, device=DEVICE,
+                                             generator=gen).clamp_(
+                                                 min=1e-30))))
+           for _ in range(iters)]
+  calls = {
+      'kernel': [lambda s=s: wg.csr_window_gather(indices, s, w)
+                 for s in starts],
+      'plain': [lambda s=s: wg.csr_window_gather_plain(indices, s, w)
+                for s in starts],
+      'library': [lambda f=f: torch.index_select(indices, 0, f)
+                  for f in flat],
+      'k1_hop': [lambda s=s, d=d: ops.sample_one_hop_fused(
+          indptr, indices, s, k, *d) for s, d in zip(seeds, draws)]}
+  for fns in calls.values():
+    fns[0]()
+  # the path's run: counts zeroed just before, read just after
+  wg.csr_window_gather.launches = 0
+  wg.csr_window_gather_plain.calls = 0
+  total = {'kernel': events_ms(torch, calls['kernel'])}
+  launches = wg.csr_window_gather.launches
+  plain_calls = wg.csr_window_gather_plain.calls
+  if launches != iters or plain_calls != 0:
+    raise AssertionError(f'window launches {launches}, plain calls '
+                         f'{plain_calls}')
+  for name in ('plain', 'library', 'k1_hop'):
+    total[name] = events_ms(torch, calls[name])
+  ms = {n: t / iters for n, t in total.items()}
+  per_call = b * w * 4
+  gbps = {n: per_call / (ms[n] / 1e3) / 1e9 for n in
+          ('kernel', 'plain', 'library')}
+  nbytes = b * starts[0].element_size() + 2 * per_call
+  rec = {'batch': b, 'w': w, 'iters': iters, 'starts_dtype': 'int64',
+         'byte_equal': True, 'max_abs_err': 0, 'forced_sets': forced,
+         'ms_per_call': ms, 'gbps': gbps,
+         'k1_hop_k': k, 'k1_hop_window': kw,
+         'k1_hop_m_seeds_per_s': b / (ms['k1_hop'] / 1e3) / 1e6,
+         'bytes': nbytes, 'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3,
+         'hbm_share': {n: gbps[n] * 1e9 / HBM_BYTES_PER_S for n in gbps},
+         'launches': launches, 'plain_calls': plain_calls}
+  emit('window', **rec)
+  emit('kernel', kernel='csr_window_gather',
+       shape=f'{b} starts x {w}, {iters} back-to-back calls',
+       byte_equal=True, max_abs_err=0, kernel_ms=ms['kernel'],
+       plain_ms=ms['plain'], library_ms=ms['library'], bytes=nbytes,
+       bound_us=nbytes / HBM_BYTES_PER_S * 1e6, launches=launches)
+  del draws, calls, flat
+  return rec
+
+
+class TrainRecorder:
+  """Wraps a training path's sampler kernel calls (through the module
+  ``smod`` the path calls it from) and the feature store's row gather to
+  keep the kernel inputs of the path's first step: the sampler's per
+  hop (rows in the order the kernel sees them: sorted when the path asks
+  for ``sort_locality``) and the first ``gathers`` row gathers'."""
+
+  def __init__(self, torch, smod, gathers):
+    import graphlearn_tpu_torch.data.feature as fmod
+    self.torch, self.fmod, self.smod = torch, fmod, smod
+    self.n_gathers = gathers
+    self.real_sample = smod.sample_one_hop_fused
+    self.real_gather = fmod.gather_rows
+    self.hops, self.gathers = [], []
+
+  def sample(self, indptr, indices, seeds, k, u, gumbel,
+             sort_locality=False):
+    torch = self.torch
+    if len(self.hops) < len(FANOUTS):
+      rows = seeds
+      if sort_locality:
+        rows = seeds[torch.argsort(torch.where(
+            seeds >= 0, seeds, torch.iinfo(seeds.dtype).max),
+            stable=True)].contiguous()
+      self.hops.append((indptr, indices, rows, k, u, gumbel))
+    return self.real_sample(indptr, indices, seeds, k, u, gumbel,
+                            sort_locality=sort_locality)
+
+  def gather(self, table, ids, id2index=None):
+    if len(self.gathers) < self.n_gathers:
+      self.gathers.append((table, ids))
+    return self.real_gather(table, ids, id2index)
+
+  def __enter__(self):
+    self.smod.sample_one_hop_fused = self.sample
+    self.fmod.gather_rows = self.gather
+    return self
+
+  def __exit__(self, *exc):
+    self.smod.sample_one_hop_fused = self.real_sample
+    self.fmod.gather_rows = self.real_gather
+
+
+def check_batch(torch, batch, feats, labels) -> None:
+  """Every valid node's ``x`` row and label equal its source; padded
+  rows zero; valid edges inside the node count, masked ones -1."""
+  node = batch.node
+  ok = node >= 0
+  src = node[ok].long()
+  if not torch.equal(batch.x[ok], feats[src]):
+    raise AssertionError('a gathered x row differs from its source row')
+  if not torch.equal(batch.y[ok], labels[src]):
+    raise AssertionError('a gathered label differs from its source label')
+  if bool(batch.x[~ok].any()) or bool(batch.y[~ok].any()):
+    raise AssertionError('a padded node slot holds a non-zero row')
+  count = int(ok.sum())
+  ei, em = batch.edge_index, batch.edge_mask
+  if not (bool(((ei[:, em] >= 0) & (ei[:, em] < count)).all())
+          and bool((ei[:, ~em] == -1).all())):
+    raise AssertionError('edge_index outside the node count')
+
+
+def reset_counts(ops) -> None:
+  """Zero every kernel wrapper's launch count and plain version's call
+  count (just before a path runs)."""
+  for fn in (ops.sample_one_hop_fused, ops.sample_one_hop_gns_fused,
+             ops.gather_rows, ops.csr_window_gather):
+    fn.launches = 0
+  for fn in (ops.sample_one_hop, ops.sample_one_hop_gns,
+             ops.gather_rows_plain, ops.csr_window_gather_plain):
+    fn.calls = 0
+
+
+def read_counts(ops) -> tuple:
+  """``(launches by kernel, plain calls)`` since `reset_counts`."""
+  launches = {'sample_one_hop': ops.sample_one_hop_fused.launches,
+              'sample_one_hop_gns': ops.sample_one_hop_gns_fused.launches,
+              'gather_rows': ops.gather_rows.launches,
+              'csr_window_gather': ops.csr_window_gather.launches}
+  plain = (ops.sample_one_hop.calls + ops.sample_one_hop_gns.calls
+           + ops.gather_rows_plain.calls + ops.csr_window_gather_plain.calls)
+  return launches, plain
+
+
+def sage_step_flops(node_cap: int) -> int:
+  """`bench.py:164-177`: forward + backward matmul FLOPs of one
+  per-batch GraphSAGE step on the padded node table (two matmuls per
+  layer, backward twice the forward)."""
+  dims = [FEAT_DIM, 256, 256, GNS_CLASSES]
+  fwd = sum(2 * node_cap * i * o * 2 for i, o in zip(dims[:-1], dims[1:]))
+  return 3 * fwd
+
+
+def tree_step_flops() -> int:
+  """`bench.py:148-161`: forward + backward matmul FLOPs of one tree
+  step (layer ``l`` runs its matmul pair on every level that still
+  matters)."""
+  sizes = [TRAIN_BATCH]
+  for k in FANOUTS:
+    sizes.append(sizes[-1] * k)
+  dims = [FEAT_DIM, 256, 256, GNS_CLASSES]
+  layers = len(FANOUTS)
+  fwd = sum(2 * sum(sizes[:layers - l]) * dims[l] * dims[l + 1] * 2
+            for l in range(layers))
+  return 3 * fwd
+
+
+def train(torch, ops, timer, ds, feats, labels, train_idx, test_idx,
+          prof=False):
+  """Path A, BASELINE config 1 as `bench.py:220-408` runs it:
+  `NeighborLoader` -> `make_supervised_step` with ``GraphSAGE(100, 256,
+  47, 3)`` and Adam(3e-3).  3 warm steps (the first one's kernel inputs
+  recorded; K1 and K2 held against their plain versions on them), then
+  `TRAIN_EPOCHS` timed epochs, a few synchronised steps split into
+  sample / collate / model, eval accuracy, the sampling burst and the
+  feature-gather roofline."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as smod
+  from graphlearn_tpu_torch.loader import NeighborLoader
+  from graphlearn_tpu_torch.models import (GraphSAGE, make_eval_step,
+                                           make_supervised_step)
+  from graphlearn_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
+  ds.init_node_labels(labels)
+  loader = NeighborLoader(ds, FANOUTS, train_idx, batch_size=TRAIN_BATCH,
+                          shuffle=True, seed=0, device=DEVICE)
+  sampler = loader.sampler
+  node_cap = sampler.node_capacity(TRAIN_BATCH)
+  steps = len(loader)
+  model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+  step = make_supervised_step(model, opt, TRAIN_BATCH)
+  warm_losses = []
+  t0 = time.perf_counter()
+  with TrainRecorder(torch, smod, 1) as rec:
+    for batch in itertools.islice(iter(loader), TRAIN_WARM):
+      warm_losses.append(float(step(batch)[0]))
+      check_batch(torch, batch, feats, labels)
+  warm_secs = time.perf_counter() - t0
+  hop_recs = []
+  for t in range(len(FANOUTS)):
+    _, r = check_sampler(torch, ops, timer, *rec.hops[t])
+    emit('kernel', kernel='sample_one_hop', shape=f'train hop {t}', **r)
+    hop_recs.append(r)
+  gather_rec = check_gather(torch, ops, timer, *rec.gathers[0])
+  emit('kernel', kernel='gather_rows', shape='train features', **gather_rec)
+  del rec, batch
+
+  # the path's run: TRAIN_EPOCHS full epochs
+  reset_counts(ops)
+  epoch_secs, epoch_losses = [], []
+  for _ in range(TRAIN_EPOCHS):
+    sync(torch)
+    t = time.perf_counter()
+    losses = [step(b)[0] for b in loader]
+    sync(torch)
+    epoch_secs.append(time.perf_counter() - t)
+    epoch_losses.append(torch.stack(losses).cpu().numpy())
+  launches, plain = read_counts(ops)
+  runs = steps * TRAIN_EPOCHS
+  if not (launches['sample_one_hop'] == len(FANOUTS) * runs
+          and launches['gather_rows'] == runs
+          and launches['sample_one_hop_gns'] == 0 and plain == 0):
+    raise AssertionError(f'launch counts {launches}, plain calls {plain}, '
+                         f'steps {runs}')
+  floor = steps * node_cap * FEAT_DIM * 4 / HBM_BYTES_PER_S
+  if min(epoch_secs) < floor:
+    raise AssertionError(f'epoch {min(epoch_secs)} s under the floor '
+                         f'{floor} s: a broken measurement')
+  all_losses = np.concatenate([warm_losses] + epoch_losses)
+  if not (np.isfinite(all_losses).all()
+          and epoch_losses[-1][-10:].mean() < np.mean(warm_losses)):
+    raise AssertionError(f'losses do not fall: warm {warm_losses}, last '
+                         f'{epoch_losses[-1][-10:]}')
+
+  # a few synchronised steps split into sample / collate / model
+  parts = {'sample': [], 'collate': [], 'model': []}
+  seed_it = iter(loader._batcher)
+  for _ in range(TRAIN_SPLIT_STEPS):
+    seeds = next(seed_it)
+    sync(torch)
+    t0 = time.perf_counter()
+    out = sampler.sample_from_nodes(NodeSamplerInput(node=seeds))
+    sync(torch)
+    t1 = time.perf_counter()
+    batch = loader._collate_fn(out)
+    sync(torch)
+    t2 = time.perf_counter()
+    step(batch)
+    sync(torch)
+    t3 = time.perf_counter()
+    for key, a, z in (('sample', t0, t1), ('collate', t1, t2),
+                      ('model', t2, t3)):
+      parts[key].append((z - a) * 1e3)
+    check_batch(torch, batch, feats, labels)
+  del batch, out
+  if prof:
+    it = iter(loader)
+    profile_train(torch, lambda: step(next(it))[0], 'train')
+    del it
+
+  ev = make_eval_step(model, TRAIN_BATCH)
+  counts = [ev(b) for b in NeighborLoader(ds, FANOUTS, test_idx,
+                                          batch_size=TRAIN_BATCH, seed=1,
+                                          device=DEVICE)]
+  correct = int(sum(c for c, _ in counts))
+  total = int(sum(t for _, t in counts))
+  if not correct / total > 1 / GNS_CLASSES:
+    raise AssertionError(f'eval accuracy {correct}/{total}')
+  del model, opt, step, loader
+
+  # the sampling burst (`benchmarks/common.py:163-188`)
+  bs = NeighborSampler(ds.get_graph(), FANOUTS, seed=11, device=DEVICE)
+  seeds_all = torch.from_numpy(np.random.default_rng(1).integers(
+      0, NUM_NODES, (BURST_ITERS, TRAIN_BATCH)).astype(np.int32)).to(DEVICE)
+  bs.sample_from_nodes(NodeSamplerInput(node=seeds_all[0]))
+  sync(torch)
+  t = time.perf_counter()
+  total_edges = sum(bs.sample_from_nodes(NodeSamplerInput(node=s))
+                    .edge_mask.sum() for s in seeds_all)
+  edges = int(total_edges)
+  burst_secs = time.perf_counter() - t
+
+  # the feature-gather roofline (`bench.py:456-507`): 2^20 ids of
+  # stride 2, the rows' bytes counted once as JAX counts them
+  grows = ROOFLINE_IDS
+  starts = np.random.default_rng(3).integers(0, NUM_NODES - 2 * grows,
+                                             ROOFLINE_ITERS)
+  ar = torch.arange(grows, dtype=torch.int64, device=DEVICE) * 2
+  ids = [ar + int(s) for s in starts]
+  gb = ROOFLINE_ITERS * grows * FEAT_DIM * 4 / 1e9
+
+  def rate(fns):
+    fns[0]()
+    return gb / (events_ms(torch, fns) / 1e3)
+  roof = {'gather_rows': rate([lambda i=i: ops.gather_rows(feats, i)
+                               for i in ids]),
+          'index_select': rate([lambda i=i: torch.index_select(feats, 0, i)
+                                for i in ids]),
+          'contiguous_copy': rate([lambda s=s: feats[s:s + grows].clone()
+                                   for s in starts])}
+  del ids, ar
+
+  secs = float(np.median(epoch_secs))
+  flops = sage_step_flops(node_cap)
+  med = {k: float(np.median(v)) for k, v in parts.items()}
+  emit('train', batch=TRAIN_BATCH, fanouts=list(FANOUTS),
+       model=f'GraphSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
+       optimizer=f'Adam({TRAIN_LR})', train_seeds=len(train_idx),
+       steps_per_epoch=steps, node_capacity=node_cap,
+       warm_steps=TRAIN_WARM, warm_secs=warm_secs, warm_losses=warm_losses,
+       epochs=TRAIN_EPOCHS, epoch_secs_runs=epoch_secs, epoch_secs=secs,
+       epoch_floor_secs=floor, step_ms=secs / steps * 1e3,
+       train_seeds_per_s=len(train_idx) / secs,
+       epoch_mean_losses=[float(x.mean()) for x in epoch_losses],
+       last_losses=[float(x) for x in epoch_losses[-1][-5:]],
+       split_steps=TRAIN_SPLIT_STEPS, step_ms_by_part={
+           'median': med, 'all': parts},
+       train_step_flops=flops, tflops=flops * steps / secs / 1e12,
+       eval_accuracy=correct / total, eval_seeds=total,
+       burst={'batches': BURST_ITERS, 'batch': TRAIN_BATCH, 'edges': edges,
+              'secs': burst_secs, 'edges_per_s': edges / burst_secs},
+       gather_roofline={'ids': grows, 'iters': ROOFLINE_ITERS,
+                        'gbps': roof,
+                        'hbm_share': {k: v * 1e9 / HBM_BYTES_PER_S
+                                      for k, v in roof.items()}},
+       launches=launches, plain_calls=plain, x_rows_byte_equal=True,
+       y_byte_equal=True)
+  return launches, hop_recs, gather_rec
+
+
+def tree_train(torch, ops, timer, ds, feats, train_idx, test_idx,
+               prof=False):
+  """Path B, the fused tree epoch of `bench.py:252-312`:
+  `FusedTreeEpoch` with ``TreeSAGE(100, 256, 47, 3)``, Adam(3e-3),
+  chunks of 100 steps; one warm epoch (its first step's kernel inputs
+  recorded: K1 at the three unsorted hops and K2 at the four level
+  gathers held against their plain versions on them), `TREE_EPOCHS`
+  timed, then `evaluate` on the test split."""
+  import graphlearn_tpu_torch.loader.fused_tree as ftmod
+  from graphlearn_tpu_torch.loader import FusedTreeEpoch
+  from graphlearn_tpu_torch.models import TreeSAGE
+  model = TreeSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+  fused = FusedTreeEpoch(ds, FANOUTS, train_idx, model, opt,
+                         batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+                         max_steps_per_program=100, device=DEVICE)
+  steps = len(fused)
+  t0 = time.perf_counter()
+  with TrainRecorder(torch, ftmod, len(FANOUTS) + 1) as rec:
+    warm = fused.run().losses.cpu().numpy()
+  warm_secs = time.perf_counter() - t0
+  hop_recs, level_recs = [], []
+  levels = [rec.gathers[0][1]]
+  for t in range(len(FANOUTS)):
+    got, r = check_sampler(torch, ops, timer, *rec.hops[t])
+    emit('kernel', kernel='sample_one_hop', shape=f'tree hop {t}', **r)
+    hop_recs.append(r)
+    levels.append(got.nbrs.reshape(-1))
+  for t, (table, ids) in enumerate(rec.gathers):
+    # the step gathered the level its sampler produced, from the source
+    # feature table
+    if not (torch.equal(ids, levels[t]) and torch.equal(table, feats)):
+      raise AssertionError(f'tree level {t} gathered other ids or rows')
+    r = check_gather(torch, ops, timer, table, ids)
+    emit('kernel', kernel='gather_rows', shape=f'tree level {t}', **r)
+    level_recs.append(r)
+  del rec, levels
+  reset_counts(ops)
+  runs, epoch_losses = [], []
+  for _ in range(TREE_EPOCHS):
+    sync(torch)
+    t = time.perf_counter()
+    stats = fused.run()
+    sync(torch)
+    runs.append(time.perf_counter() - t)
+    epoch_losses.append(stats.losses.cpu().numpy())
+  launches, plain = read_counts(ops)
+  n = steps * TREE_EPOCHS
+  if not (launches['sample_one_hop'] == len(FANOUTS) * n
+          and launches['gather_rows'] == (len(FANOUTS) + 1) * n
+          and launches['sample_one_hop_gns'] == 0 and plain == 0):
+    raise AssertionError(f'launch counts {launches}, plain calls {plain}, '
+                         f'steps {n}')
+  means = [float(warm.mean())] + [float(x.mean()) for x in epoch_losses]
+  if not (np.isfinite(np.concatenate([warm] + epoch_losses)).all()
+          and means[-1] < means[0]):
+    raise AssertionError(f'tree losses do not fall: {means}')
+  acc = fused.evaluate(test_idx)
+  if not acc > 1 / GNS_CLASSES:
+    raise AssertionError(f'tree eval accuracy {acc}')
+  if prof:
+    seeds = np.stack(list(itertools.islice(iter(fused._batcher), 3)))
+    it = fused._steps(seeds, 1000)
+    profile_train(torch, lambda: fused._train_step(*next(it))[0], 'tree')
+  secs = float(np.median(runs))
+  flops = tree_step_flops()
+  emit('tree_train', batch=TRAIN_BATCH, fanouts=list(FANOUTS),
+       model=f'TreeSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
+       optimizer=f'Adam({TRAIN_LR})', max_steps_per_program=100,
+       steps_per_epoch=steps, warm_secs=warm_secs, epochs=TREE_EPOCHS,
+       epoch_secs_runs=runs, epoch_secs=secs, step_ms=secs / steps * 1e3,
+       train_seeds_per_s=len(train_idx) / secs, tree_step_flops=flops,
+       tflops=flops * steps / secs / 1e12, epoch_mean_losses=means,
+       eval_accuracy=acc, launches=launches, plain_calls=plain)
+  return launches, hop_recs, level_recs
+
+
+def train_cross_check(torch):
+  """A small graph (4,000 nodes, one hub row) on the card and on the
+  CPU with the same CPU-made draws: 3 `NeighborLoader` batches
+  byte-equal (node, x, y, edge_index, edge_mask) and their GraphSAGE
+  step losses within 1e-5; 2 `FusedTreeEpoch` steps' losses within
+  1e-5."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import FusedTreeEpoch, NeighborLoader
+  from graphlearn_tpu_torch.models import (GraphSAGE, TreeSAGE,
+                                           make_supervised_step)
+  from graphlearn_tpu_torch.ops import TorchDraws
+  rng = np.random.default_rng(12)
+  n = 4000
+  rows = np.concatenate([np.repeat(np.arange(n), 12), np.full(300, 7)])
+  cols = np.where(rng.random(rows.shape[0]) < 0.3,
+                  rng.integers(0, 40, rows.shape[0]),
+                  rng.integers(0, n, rows.shape[0]))
+  feats = rng.standard_normal((n, 16)).astype(np.float32)
+  labels = rng.integers(0, 7, n).astype(np.int32)
+  cpu = TorchDraws(6, 'cpu')
+  out, losses, tree_losses = {}, {}, {}
+  for dev in (DEVICE, 'cpu'):
+    def draws(step, hop, r, k, w, dev=dev):
+      return tuple(t.to(dev) for t in cpu(step, hop, r, k, w))
+
+    def tree_draws(epoch, chunk, step, hop, r, k, w, dev=dev):
+      return tuple(t.to(dev) for t in cpu.draw((epoch, chunk or 0, step,
+                                                hop), r, k, w))
+    ds = (Dataset().init_graph((rows, cols), num_nodes=n, device=dev)
+          .init_node_features(feats, device=dev).init_node_labels(labels))
+    lo = NeighborLoader(ds, FANOUTS, np.arange(n), batch_size=64,
+                        shuffle=True, seed=1, draws=draws, device=dev)
+    batches = list(itertools.islice(iter(lo), 3))
+    out[dev] = [(b.node.cpu(), b.x.cpu(), b.y.cpu(), b.edge_index.cpu(),
+                 b.edge_mask.cpu()) for b in batches]
+    model = GraphSAGE(16, 32, 7, num_layers=3).to(dev)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    step = make_supervised_step(
+        model, torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8),
+        64)
+    losses[dev] = np.array([float(step(b)[0]) for b in batches])
+    tm = TreeSAGE(16, 32, 7, num_layers=3).to(dev)
+    tm.reset_parameters(torch.Generator().manual_seed(4))
+    fused = FusedTreeEpoch(
+        ds, FANOUTS, np.arange(128), tm,
+        torch.optim.Adam(tm.parameters(), lr=TRAIN_LR, eps=1e-8),
+        batch_size=64, seed=2, draws=tree_draws, device=dev)
+    tree_losses[dev] = fused.run().losses.cpu().numpy()
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for name, x, y in zip(('node', 'x', 'y', 'edge_index', 'edge_mask'),
+                          a, c):
+      if x.dtype != y.dtype or not torch.equal(x, y):
+        raise AssertionError(f'card and CPU differ: batch {i} {name}')
+  diff = float(np.abs(losses[DEVICE] - losses['cpu']).max())
+  tdiff = float(np.abs(tree_losses[DEVICE] - tree_losses['cpu']).max())
+  if not (diff <= 1e-5 and tdiff <= 1e-5 and len(tree_losses['cpu']) == 2):
+    raise AssertionError(f'losses differ: per-batch {diff}, tree {tdiff}')
+  emit('train_cross_check', batches=3, byte_equal=True,
+       loss_max_abs_diff=diff, tree_steps=2, tree_loss_max_abs_diff=tdiff)
+
+
 def gns_bytes(deg: np.ndarray, k: int, w: int) -> int:
   """Bytes the GNS sampler must move for these rows: the seed, its
   bits-table row index and two indptr entries; for ``deg > k`` the k
@@ -802,18 +1391,15 @@ def forced_gns_sets(torch, k, w, seed=7):
   return indptr, indices, seeds, u, v, bits, req
 
 
-def gns_data(torch, indptr, indices, feats):
-  """The training path's dataset: the products graph as COO, labels
-  ``argmax(feats @ P)`` for a seeded ``[100, 47]`` P, the tiered
-  `DistDataset` (split 0.3) on the card."""
+def gns_data(torch, indptr, indices, feats, labels):
+  """The GNS training path's dataset: the products graph as COO, the
+  `make_labels` labels, the tiered `DistDataset` (split 0.3) on the
+  card."""
   from graphlearn_tpu_torch.parallel import DistDataset
   t0 = time.perf_counter()
   deg = indptr[1:] - indptr[:-1]
   rows = torch.repeat_interleave(
       torch.arange(NUM_NODES, device=DEVICE), deg)
-  proj = torch.randn(FEAT_DIM, GNS_CLASSES, device=DEVICE,
-                     generator=torch.Generator(device=DEVICE).manual_seed(2))
-  labels = torch.argmax(feats @ proj, dim=1).to(torch.int32)
   ds = DistDataset.from_full_graph(1, rows, indices, node_feat=feats,
                                    node_label=labels, num_nodes=NUM_NODES,
                                    split_ratio=GNS_SPLIT, device=DEVICE)
@@ -827,7 +1413,7 @@ def gns_data(torch, indptr, indices, feats):
        cold_host_bytes=int(nf.cold_host.numel()) * 4,
        cold_host_pinned=bool(nf.cold_host.is_pinned()),
        classes=int(labels.max()) + 1, secs=time.perf_counter() - t0)
-  return ds, labels
+  return ds
 
 
 def gns_kernel(torch, ops, timer, path_hops):
@@ -1013,7 +1599,7 @@ def gns_train(torch, ops, timer, ds, feats, labels, prof=False):
   if not np.isfinite(pipelined_losses).all():
     raise AssertionError(f'pipelined losses {pipelined_losses}')
   if prof:
-    profile_train(torch, step, it)
+    profile_train(torch, lambda: step(next(it))[0], 'gns_train')
   del it, loader, batch
 
   def loader_only(gns):
@@ -1116,10 +1702,11 @@ def gns_cross_check(torch):
        cache_admits=admits[DEVICE], logits_max_abs_diff=diff)
 
 
-def profile_train(torch, step, it, n=3):
-  """Device time by kernel over ``n`` training steps (loader and model,
-  the pipelined order, no synchronise inside): the top kernels, the
-  port's kernels, and the device idle share of the window."""
+def profile_train(torch, run_step, path, n=3):
+  """Device time by kernel over ``n`` training steps of ``path``
+  (``run_step()`` runs one and returns its loss; no synchronise inside):
+  the top kernels, the port's kernels, and the device idle share of
+  the window."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity
   sync(torch)
@@ -1127,7 +1714,7 @@ def profile_train(torch, step, it, n=3):
                                           ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for _ in range(n):
-      loss, _ = step(next(it))
+      loss = run_step()
     float(loss)
     sync(torch)
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1139,9 +1726,11 @@ def profile_train(torch, step, it, n=3):
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
   mine = {g: sum(r[0] for r in rows if g in r[1])
-          for g in ('sample_gns_kernel', 'gather_rows_kernel')}
-  emit('profile_train', steps=n, wall_ms=wall_ms, device_busy_ms=busy,
-       device_idle_share=1 - busy / wall_ms, port_kernels_ms=mine,
+          for g in ('sample_one_hop_kernel', 'sample_gns_kernel',
+                    'gather_rows_kernel')}
+  emit('profile_train', path=path, steps=n, wall_ms=wall_ms,
+       device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+       port_kernels_ms=mine,
        top=[{'name': k[:90], 'device_ms': ms, 'count': c}
             for ms, k, c in rows[:15]])
 
@@ -1323,11 +1912,26 @@ def run(torch, argv) -> list:
                            indptr_h, indices_h, reqs, serve_lat)
   chaos_recover(torch)
 
+  # -- the window-gather entry point ------------------------------------
+  win = window(torch, ops, indptr, indices)
+
+  # -- per-batch training and the fused tree epoch ----------------------
+  labels = make_labels(torch, feats)
+  train_idx, test_idx = train_splits()
+  train_launches, train_hops, train_gather = train(
+      torch, ops, timer, ds, feats, labels, train_idx, test_idx,
+      prof='--profile' in argv)
+  tree_launches, tree_hops, tree_levels = tree_train(
+      torch, ops, timer, ds, feats, train_idx, test_idx,
+      prof='--profile' in argv)
+  train_cross_check(torch)
+  torch.cuda.empty_cache()
+
   # -- GNS-biased training over the tiered store ------------------------
-  ds_g, labels_g = gns_data(torch, indptr, indices, feats)
+  ds_g = gns_data(torch, indptr, indices, feats, labels)
   gns_launches, gns_hops, gathers_train = gns_train(
-      torch, ops, timer, ds_g, feats, labels_g, prof='--profile' in argv)
-  del ds_g, labels_g
+      torch, ops, timer, ds_g, feats, labels, prof='--profile' in argv)
+  del ds_g
   gns_cross_check(torch)
 
   # -- summary ----------------------------------------------------------
@@ -1343,12 +1947,35 @@ def run(torch, argv) -> list:
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
        'bound_by': 'bytes',
        'library_ms': None, 'byte_equal': True,
-       'shape': '16-seed dispatch, hops of 16/240/2400 rows, k 15/10/5'},
+       'shape': '16-seed dispatch, hops of 16/240/2400 rows, k 15/10/5',
+       'launches_by_path': {'serve': launches['sample_one_hop'],
+                            'train': train_launches['sample_one_hop'],
+                            'tree_train': tree_launches['sample_one_hop']},
+       'train_shape': {
+           'shape': '1,024-seed per-batch step, hops of '
+                    + '/'.join(str(h['rows']) for h in train_hops)
+                    + ' rows, k 15/10/5',
+           'ms': sum(h['kernel_ms'] for h in train_hops),
+           'plain_ms': sum(h['plain_ms'] for h in train_hops),
+           'bound_ms': sum(h['bound_us'] for h in train_hops) / 1e3,
+           'max_abs_err': max(h['max_abs_err'] for h in train_hops),
+           'byte_equal': True},
+       'tree_shape': {
+           'shape': '1,024-seed tree step, unsorted hops of '
+                    + '/'.join(str(h['rows']) for h in tree_hops)
+                    + ' rows, k 15/10/5',
+           'ms': sum(h['kernel_ms'] for h in tree_hops),
+           'plain_ms': sum(h['plain_ms'] for h in tree_hops),
+           'bound_ms': sum(h['bound_us'] for h in tree_hops) / 1e3,
+           'max_abs_err': max(h['max_abs_err'] for h in tree_hops),
+           'byte_equal': True}},
       {'name': 'gather_rows', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
        'launches': launches['gather_rows'],
-       'max_abs_err': max(g['max_abs_err'] for g in gathers + gathers_train),
+       'max_abs_err': max(g['max_abs_err']
+                          for g in gathers + gathers_train + [train_gather]
+                          + tree_levels),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -1358,7 +1985,12 @@ def run(torch, argv) -> list:
            {'shape': f'{g["ids"]} ids x {g["row_bytes"]} B {g["dtype"]}',
             'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
             'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
-            'byte_equal': True} for g in gathers_train]},
+            'byte_equal': True}
+           for g in [train_gather] + tree_levels + gathers_train],
+       'launches_by_path': {'serve': launches['gather_rows'],
+                            'train': train_launches['gather_rows'],
+                            'tree_train': tree_launches['gather_rows'],
+                            'gns_train': gns_launches['gather_rows']}},
       {'name': 'merge_ranks', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',
@@ -1380,6 +2012,16 @@ def run(torch, argv) -> list:
        'shape': '1,024-seed training batch, hops of '
                 + '/'.join(str(h['rows']) for h in gns_hops)
                 + ' rows, k 15/10/5'},
+      {'name': 'csr_window_gather', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/csr_window_gather.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_window.py:82',
+       'launches': win['launches'], 'max_abs_err': win['max_abs_err'],
+       'ms': win['ms_per_call']['kernel'],
+       'plain_ms': win['ms_per_call']['plain'],
+       'bound_ms': win['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': win['ms_per_call']['library'], 'byte_equal': True,
+       'shape': f'{win["batch"]} starts x {win["w"]} (int64 starts), '
+                f'{win["iters"]} back-to-back calls'},
   ]
   return kernels
 

@@ -22,9 +22,14 @@ rows on the card, cold rows in pinned host memory),
 `parallel.DistNeighborLoader` (bucketed exchange, the GNS sampler
 kernel, the victim cache `data.cold_cache.MeshColdCache`, the cold
 overlay) and `parallel.make_dp_supervised_step` with
-`models.GraphSAGE`, on a one-card mesh.
+`models.GraphSAGE`, on a one-card mesh — and single-card training:
+`loader.NeighborLoader` (`sampler.NeighborSampler` over the uniform
+sampler kernel and the inducer, collation through the row-gather
+kernel) with `models.make_supervised_step` / `make_eval_step`, the
+tree-layout `loader.FusedTreeEpoch` with `models.TreeSAGE`, and the CSR
+window gather kernel `ops.csr_window_gather`.
 """
-from . import (data, loader, models, ops, parallel, serving, streaming,
-               telemetry, testing, utils)
+from . import (data, loader, models, ops, parallel, sampler, serving,
+               streaming, telemetry, testing, utils)
 
 __version__ = '0.1.0'

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils import convert_to_array, resolve_device
@@ -22,6 +23,7 @@ class Dataset:
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
+    self._device_labels = None
     #: the `streaming.StreamingGraph` behind ``graph`` (`attach_stream`)
     self.stream = None
 
@@ -76,7 +78,22 @@ class Dataset:
     self.node_labels = (node_label_data
                         if isinstance(node_label_data, torch.Tensor)
                         else convert_to_array(node_label_data))
+    self._device_labels = None        # uploaded again on the next collate
     return self
+
+  def get_node_label_device(self) -> Optional[torch.Tensor]:
+    """The labels on the graph's device, uploaded once and cached:
+    batch collation gathers labels on the card, with no per-batch host
+    round trip (the JAX package's `get_node_label_device`)."""
+    if self.node_labels is None:
+      return None
+    dev = self.graph.device
+    if self._device_labels is None or self._device_labels.device != dev:
+      lab = self.node_labels
+      if not isinstance(lab, torch.Tensor):
+        lab = torch.from_numpy(np.ascontiguousarray(lab))
+      self._device_labels = lab.to(dev)
+    return self._device_labels
 
   def attach_stream(self, stream) -> 'Dataset':
     """Back this dataset's topology with a `streaming.StreamingGraph`:

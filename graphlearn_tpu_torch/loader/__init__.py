@@ -1,3 +1,5 @@
-from .fused_tree import expand_tree_levels
-from .node_loader import SeedBatcher
-from .transform import Batch
+from .fused import EpochStats
+from .fused_tree import FusedTreeEpoch, expand_tree_levels
+from .neighbor_loader import NeighborLoader
+from .node_loader import NodeLoader, SeedBatcher
+from .transform import Batch, collate, to_data

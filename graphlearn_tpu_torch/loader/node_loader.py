@@ -1,14 +1,20 @@
-"""`SeedBatcher`: the host-side seed iterator of the node loaders (the
-JAX package's `loader/node_loader.py:24`): shuffle with numpy's
+"""Node-wise loading (the JAX package's `loader/node_loader.py`).
+
+`SeedBatcher` is the host-side seed iterator: shuffle with numpy's
 `default_rng(seed)`, slice, and pad the tail batch to the static batch
-size with -1, so a seeded run visits seeds in the JAX package's order."""
+size with -1, so a seeded run visits seeds in the JAX package's order.
+`NodeLoader` runs a sampler on each seed batch and collates the result
+(`loader.transform.collate`) into a `Batch`, one batch at a time:
+``prefetch`` worker threads are slice 6 of the ROADMAP."""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
 
+from ..sampler.base import BaseSampler, NodeSamplerInput
 from ..utils.padding import INVALID_ID
+from .transform import Batch, collate
 
 
 class SeedBatcher:
@@ -47,3 +53,46 @@ class SeedBatcher:
         out[:len(batch)] = batch
         batch = out
       yield batch
+
+
+class NodeLoader:
+  """Seeds -> sampler -> collate.
+
+  Args:
+    data: the `data.Dataset` (graph, features, labels).
+    sampler: a `sampler.BaseSampler` with ``sample_from_nodes``.
+    input_nodes: ``[N]`` seed ids or a boolean mask (e.g. the train
+      split).
+    batch_size / shuffle / drop_last / seed: epoch iteration.
+    prefetch: must be 0 (worker threads are not ported).
+
+  Each ``iter()`` starts a new epoch.  A batch's work is enqueued on
+  the card; nothing here synchronises.
+  """
+
+  def __init__(self, data, sampler: BaseSampler, input_nodes,
+               batch_size: int = 1, shuffle: bool = False,
+               drop_last: bool = False, seed: Optional[int] = None,
+               prefetch: int = 0):
+    if int(prefetch) != 0:
+      raise NotImplementedError('prefetch worker threads are not ported '
+                                'yet: they are slice 6 of the ROADMAP')
+    self.data = data
+    self.sampler = sampler
+    input_nodes = np.asarray(input_nodes)
+    if input_nodes.dtype == np.bool_:
+      input_nodes = np.nonzero(input_nodes)[0]
+    self._batcher = SeedBatcher(input_nodes, batch_size, shuffle, drop_last,
+                                seed)
+    self.batch_size = int(batch_size)
+
+  def __len__(self) -> int:
+    return len(self._batcher)
+
+  def __iter__(self):
+    for seeds in self._batcher:
+      yield self._collate_fn(self.sampler.sample_from_nodes(
+          NodeSamplerInput(node=seeds)))
+
+  def _collate_fn(self, out) -> Batch:
+    return collate(self.data, out)

@@ -1,5 +1,5 @@
-"""Supervised training steps on `Batch`es (the JAX package's
-`models/train.py:35-95`).
+"""Supervised training and eval steps on `Batch`es (the JAX package's
+`models/train.py:35-119`).
 
 The loss is the softmax cross entropy over the seed slots (table rows
 ``[0, batch_size)``), masked by seed validity, so a padded tail batch
@@ -33,15 +33,19 @@ def _apply_with_weights(model, batch) -> torch.Tensor:
   return model(batch.x, batch.edge_index, batch.edge_mask)
 
 
+def _correct(logits: torch.Tensor, y: torch.Tensor, seeds: torch.Tensor,
+             batch_size: int) -> torch.Tensor:
+  """Correct predictions among the valid seed slots."""
+  pred = torch.argmax(logits.detach()[:batch_size], dim=-1)
+  return ((pred == y[:batch_size].long()) & (seeds >= 0)).sum()
+
+
 def _loss_and_correct(model, batch, batch_size: int):
   """The seed-slot loss (with its graph) and the count of correct
   valid seed predictions for one single-card Batch."""
   logits = _apply_with_weights(model, batch)
   loss = supervised_loss(logits, batch.y, batch.batch, batch_size)
-  pred = torch.argmax(logits.detach()[:batch_size], dim=-1)
-  correct = ((pred == batch.y[:batch_size].long())
-             & (batch.batch >= 0)).sum()
-  return loss, correct
+  return loss, _correct(logits, batch.y, batch.batch, batch_size)
 
 
 def make_supervised_step(model, optimizer, batch_size: int):
@@ -56,5 +60,20 @@ def make_supervised_step(model, optimizer, batch_size: int):
     loss.backward()
     optimizer.step()
     return loss.detach(), correct
+
+  return step
+
+
+def make_eval_step(model, batch_size: int):
+  """``step(batch) -> (correct, total)``: the masked seed-slot accuracy
+  counts of one single-card Batch, without gradients; both stay on the
+  device."""
+
+  @torch.no_grad()
+  def step(batch):
+    model.eval()
+    logits = _apply_with_weights(model, batch)
+    return (_correct(logits, batch.y, batch.batch, batch_size),
+            (batch.batch >= 0).sum())
 
   return step

@@ -1,9 +1,11 @@
 from .delta_merge import (merge_delta_csr_device, merge_ranks,
                           merge_ranks_plain, rank_inputs)
-from .draws import hash_draws
+from .draws import TorchDraws, hash_draws
 from .fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
 from .gather_rows import gather_rows, gather_rows_plain
 from .gns import sample_one_hop_gns
 from .neighbor import (OneHopResult, default_window, lookup_degree,
                        sample_one_hop)
 from .unique import InducerState, induce_next, init_node, unique_stable
+from .window_gather import (csr_window_gather, csr_window_gather_plain,
+                            window_gather_plain)

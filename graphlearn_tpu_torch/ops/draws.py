@@ -1,4 +1,6 @@
-"""Counter-based draws for per-seed sampling trees.
+"""Draws for the samplers: counter-based draws for per-seed sampling
+trees (`hash_draws`, serving) and the training samplers' default
+provider (`TorchDraws`).
 
 The JAX serving engine keys each seed's tree with threefry
 (``fold_in(key(engine_seed), node)``, then ``fold_in(·, hop)`` and
@@ -19,7 +21,7 @@ sampling kernel, as the JAX package draws outside its Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -75,3 +77,46 @@ def hash_draws(engine_seed: int, seed_ids: torch.Tensor, hop: int,
   u = stream(_STREAM_U, k)
   gumbel = -torch.log(-torch.log(stream(_STREAM_GUMBEL, w)))
   return u, gumbel
+
+
+class TorchDraws:
+  """The training samplers' default draws provider: a `torch.Generator`
+  on ``device`` seeded from ``seed`` and the draw's coordinates.
+  Gumbels are ``-log(-log(u))`` of uniforms kept above the smallest
+  normal float.
+
+  ``draws(step, hop, rows, k, w, gns=False)`` (the samplers' form)
+  returns ``u [rows, k]`` and ``gumbel [rows, w]``, or with ``gns`` a
+  second ``[rows, k]`` uniform stream ``v``; `draw` takes any tuple of
+  coordinates (the fused epoch's ``(epoch, chunk, step, hop)``).
+  """
+
+  def __init__(self, seed: int, device):
+    self.seed = int(seed)
+    self.device = torch.device(device)
+
+  def _from(self, mixed: int, rows: int, k: int, w: int, gns: bool):
+    gen = torch.Generator(device=self.device)
+    gen.manual_seed(mixed & ((1 << 63) - 1))
+    u = torch.rand((rows, k), generator=gen, device=self.device)
+    if gns:
+      return u, torch.rand((rows, k), generator=gen, device=self.device)
+    g = torch.rand((rows, w), generator=gen, device=self.device)
+    g.clamp_(min=torch.finfo(torch.float32).tiny)
+    return u, -torch.log(-torch.log(g))
+
+  def _mixed(self, coords: Sequence[int]) -> int:
+    mixed = self.seed
+    for c in coords:
+      mixed = mixed * 1_000_003 + int(c)
+    return mixed
+
+  def draw(self, coords: Sequence[int], rows: int, k: int, w: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(u, gumbel)`` at non-negative integer ``coords``, each below
+    1,000,003 (distinct coordinates, distinct generator seeds)."""
+    return self._from(self._mixed(coords), rows, k, w, False)
+
+  def __call__(self, step, hop, rows, k, w, gns=False):
+    """The samplers' form: the draws at coordinates ``(step, hop)``."""
+    return self._from(self._mixed((step, hop)), rows, k, w, gns)

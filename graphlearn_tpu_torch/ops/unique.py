@@ -10,7 +10,7 @@ rather than a second argsort, which gives the same values.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -115,3 +115,70 @@ def induce_next(state: InducerState, src_local: torch.Tensor,
   cols = torch.where(edge_valid, src_flat, -1)
   return (InducerState(nodes=res.values, count=res.count), rows, cols,
           state.count)
+
+
+#: ``one_hop(hop, frontier [F] int32, k) -> (nbrs [F, k], mask [F, k])``
+OneHop = Callable[[int, torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _pad_table(state: InducerState, cap: int) -> InducerState:
+  extra = torch.full((cap - state.nodes.shape[0],), INVALID_ID,
+                     dtype=state.nodes.dtype, device=state.nodes.device)
+  return InducerState(nodes=torch.cat([state.nodes, extra]),
+                      count=state.count)
+
+
+def _frontier(state: InducerState, start, f_cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Frontier slots ``[start, start + f_cap)`` of the node table: their
+  global ids and local indices, -1 past the count."""
+  cap = state.nodes.shape[0]
+  slots = start + torch.arange(f_cap, dtype=torch.int32,
+                               device=state.nodes.device)
+  valid = slots < state.count
+  ids = torch.where(valid, state.nodes[slots.clamp(0, cap - 1).long()],
+                    INVALID_ID)
+  return ids, torch.where(valid, slots, -1)
+
+
+def expand_hops(seeds: torch.Tensor, fanouts: Sequence[int], node_cap: int,
+                one_hop: OneHop, grow: bool = False
+                ) -> Tuple[InducerState, torch.Tensor, List[torch.Tensor],
+                           List[torch.Tensor], torch.Tensor]:
+  """The multi-hop node-table advance shared by the single-card and the
+  mesh samplers: per hop, ``one_hop`` samples the frontier of nodes the
+  previous hop appended (the seeds at hop 0) and `induce_next` appends
+  the new neighbors.
+
+  With ``grow`` the table starts at ``min(B, node_cap)`` slots and grows
+  by the hop's ``F * k`` per hop (the JAX single-card sampler, whose
+  insertions sort only the current capacity); without, it holds
+  ``node_cap`` from the start (the JAX mesh sampler).  Either way it
+  ends at ``node_cap``.
+
+  Returns ``(state, seed_local, rows per hop, cols per hop,
+  num_sampled_nodes [hops + 1] int32)``.
+  """
+  b = seeds.shape[0]
+  state, seed_local = init_node(seeds, min(b, node_cap) if grow else node_cap)
+  f_cap = b
+  frontier, frontier_local = _frontier(state, 0, f_cap)
+  rows_acc, cols_acc, counts = [], [], [state.count]
+  for hop, k in enumerate(fanouts):
+    k = int(k)
+    nbrs, mask = one_hop(hop, frontier, k)
+    new_cap = min(state.nodes.shape[0] + f_cap * k, node_cap)
+    if grow and new_cap > state.nodes.shape[0]:
+      state = _pad_table(state, new_cap)
+    state, rows, cols, prev_cnt = induce_next(state, frontier_local, nbrs,
+                                              mask)
+    rows_acc.append(rows)
+    cols_acc.append(cols)
+    counts.append(state.count)
+    f_cap *= k
+    frontier, frontier_local = _frontier(state, prev_cnt, f_cap)
+  if state.nodes.shape[0] < node_cap:
+    state = _pad_table(state, node_cap)
+  cum = torch.stack(counts)
+  nsn = torch.cat([cum[:1], cum[1:] - cum[:-1]]).to(torch.int32)
+  return state, seed_local, rows_acc, cols_acc, nsn

@@ -84,11 +84,11 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
 def build_dist_graph(rows, cols, node_pb: np.ndarray, num_nodes: int,
                      num_parts: Optional[int] = None,
                      hotness: Optional[np.ndarray] = None,
-                     device='cpu'):
+                     device='cuda'):
   """Relabel and shard a COO graph by a node partition book.  Returns
   ``(DistGraph, old2new)``; ``rows``/``cols`` may be numpy arrays or
   torch tensors on any device."""
-  device = torch.device(device)
+  device = resolve_device(device)
   node_pb = np.asarray(node_pb)
   if num_parts is None:
     num_parts = int(node_pb.max()) + 1 if node_pb.size else 1
@@ -158,10 +158,10 @@ class DistFeature:
 
 def build_dist_feature(feats, old2new: np.ndarray, bounds: np.ndarray,
                        split_ratio: float = 1.0,
-                       device='cpu') -> DistFeature:
+                       device='cuda') -> DistFeature:
   """Shard a ``[N, D]`` (or ``[N]``) table by the relabelled ranges;
   ``split_ratio < 1`` builds the tiered store."""
-  device = torch.device(device)
+  device = resolve_device(device)
   feats = feats if isinstance(feats, torch.Tensor) else torch.from_numpy(
       np.asarray(feats))
   feats = feats.cpu()
@@ -197,13 +197,13 @@ class DistDataset:
   (``old2new`` / ``new2old``, numpy)."""
 
   def __init__(self, graph: DistGraph, node_features=None,
-               node_labels=None, old2new=None, device='cpu'):
+               node_labels=None, old2new=None, device='cuda'):
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
     self.old2new = old2new
     self.new2old = np.argsort(old2new) if old2new is not None else None
-    self.device = torch.device(device)
+    self.device = resolve_device(device)
 
   @property
   def num_partitions(self) -> int:

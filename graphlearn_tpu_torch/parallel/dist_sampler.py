@@ -43,12 +43,13 @@ import torch
 from ..data.cold_cache import MeshColdCache, resolve_cache_rows
 from ..loader.node_loader import SeedBatcher
 from ..loader.transform import Batch
+from ..ops.draws import TorchDraws
 from ..ops.fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
 from ..ops.gather_rows import gather_rows
 from ..ops.gns import (cached_set_bits, dedup_requester_bits, gns_enabled,
                        resolve_boost)
 from ..ops.neighbor import default_window
-from ..ops.unique import induce_next, init_node
+from ..ops.unique import expand_hops
 from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
@@ -67,27 +68,6 @@ EXCHANGE_STAT_NAMES = (
 
 Draws = Callable[[int, int, int, int, int, bool],
                  Tuple[torch.Tensor, torch.Tensor]]
-
-
-class TorchDraws:
-  """The default draws provider: a `torch.Generator` on ``device``
-  seeded from ``(seed, step, hop)``; Gumbels are ``-log(-log(u))`` of
-  uniforms kept above the smallest normal float."""
-
-  def __init__(self, seed: int, device):
-    self.seed = int(seed)
-    self.device = torch.device(device)
-
-  def __call__(self, step, hop, rows, k, w, gns):
-    mixed = ((self.seed * 1_000_003 + int(step)) * 1_009 + int(hop))
-    gen = torch.Generator(device=self.device)
-    gen.manual_seed(mixed & ((1 << 63) - 1))
-    u = torch.rand((rows, k), generator=gen, device=self.device)
-    if gns:
-      return u, torch.rand((rows, k), generator=gen, device=self.device)
-    g = torch.rand((rows, w), generator=gen, device=self.device)
-    g.clamp_(min=torch.finfo(torch.float32).tiny)
-    return u, -torch.log(-torch.log(g))
 
 
 def resolve_exchange_slack(exchange_slack, shuffle: bool):
@@ -301,38 +281,26 @@ class DistNeighborSampler:
     dev = self.device
     my_start = int(g.bounds[p])
     indptr, indices = g.indptr[p], g.indices[p]
-    state, seed_local = init_node(seeds, node_cap)
-    f_cap = b
-    slots = torch.arange(f_cap, dtype=torch.int32, device=dev)
-    fr_valid = slots < state.count
-    frontier = torch.where(fr_valid, state.nodes[slots.clamp(
-        0, node_cap - 1).long()], INVALID_ID)
-    frontier_local = torch.where(fr_valid, slots, -1)
-    rows_acc, cols_acc, ew_acc, hop_counts = [], [], [], [state.count]
+    hws = []
     fr_stats = torch.zeros(3, dtype=torch.int64, device=dev)
-    for h, k in enumerate(self.fanouts):
+
+    def one_hop(h, frontier, k):
       cap = capacity_spec(frontier.shape[0], self.num_parts,
                           self.exchange_slack)
       nbrs, mask, hw, hstats = _dist_one_hop(
           self.mesh, indptr, indices, self._bounds_t, my_start, frontier,
-          int(k), self.draws, self._step_cnt, h, self.num_parts, cap,
+          k, self.draws, self._step_cnt, h, self.num_parts, cap,
           gns_bits=bits, gns_boost=self.gns_boost)
-      fr_stats += hstats
-      state, rows, cols, prev_cnt = induce_next(state, frontier_local, nbrs,
-                                                mask)
-      rows_acc.append(rows)
-      cols_acc.append(cols)
-      if hw is not None:
-        # induce_next flattens [F, k] row-major: the weights line up
-        # with the edge list; masked and dropped edges carry 0
-        ew_acc.append(torch.where(rows >= 0, hw.reshape(-1), 0.0))
-      hop_counts.append(state.count)
-      f_cap *= int(k)
-      slots = prev_cnt + torch.arange(f_cap, dtype=torch.int32, device=dev)
-      fr_valid = slots < state.count
-      frontier = torch.where(fr_valid, state.nodes[slots.clamp(
-          0, node_cap - 1).long()], INVALID_ID)
-      frontier_local = torch.where(fr_valid, slots, -1)
+      fr_stats.add_(hstats)
+      hws.append(hw)
+      return nbrs, mask
+
+    state, seed_local, rows_acc, cols_acc, nsn = expand_hops(
+        seeds, self.fanouts, node_cap, one_hop)
+    # induce_next flattens [F, k] row-major: the weights line up with
+    # the edge list; masked and dropped edges carry 0
+    ew_acc = [torch.where(rows >= 0, hw.reshape(-1), 0.0)
+              for rows, hw in zip(rows_acc, hws) if hw is not None]
     x = y = None
     ft_stats = torch.zeros(3, dtype=torch.int64, device=dev)
     tables = []
@@ -354,8 +322,6 @@ class DistNeighborSampler:
         x = got.pop(0)
       if self.collect_labels:
         y = got.pop(0)
-    cum = torch.stack(hop_counts)
-    nsn = torch.cat([cum[:1], cum[1:] - cum[:-1]]).to(torch.int32)
     stats = torch.cat([fr_stats, ft_stats])
     return dict(node=state.nodes, node_count=state.count,
                 row=torch.cat(rows_acc), col=torch.cat(cols_acc),

@@ -12,9 +12,14 @@ import torch
 import graphlearn_tpu_torch
 from graphlearn_tpu_torch.data import Dataset, Feature, Graph
 from graphlearn_tpu_torch.data.cold_cache import MeshColdCache
+from graphlearn_tpu_torch.loader import FusedTreeEpoch, NeighborLoader
+from graphlearn_tpu_torch.models import TreeSAGE
 from graphlearn_tpu_torch.ops import merge_delta_csr_device
 from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
-                                           DistNeighborSampler, make_mesh)
+                                           DistNeighborSampler,
+                                           build_dist_feature,
+                                           build_dist_graph, make_mesh)
+from graphlearn_tpu_torch.sampler import NeighborSampler
 from graphlearn_tpu_torch.serving import ServingEngine
 from graphlearn_tpu_torch.streaming import (DeltaSegment, IngestPipeline,
                                             StreamingGraph)
@@ -39,6 +44,7 @@ def test_import_pulls_in_no_jax():
       'import graphlearn_tpu_torch.utils.checkpoint\n'
       'import graphlearn_tpu_torch.parallel\n'
       'import graphlearn_tpu_torch.data.cold_cache\n'
+      'import graphlearn_tpu_torch.sampler\n'
       'new = sorted(set(sys.modules) - before)\n'
       'bad = [m for m in new if m.split(".")[0] in '
       f'{FORBIDDEN!r}]\n'
@@ -48,7 +54,12 @@ def test_import_pulls_in_no_jax():
       'assert "graphlearn_tpu_torch.telemetry.live" in sys.modules\n'
       'assert "graphlearn_tpu_torch.parallel.dist_sampler" in sys.modules\n'
       'assert "graphlearn_tpu_torch.ops.gns" in sys.modules\n'
-      'assert "graphlearn_tpu_torch.models.basic_gnn" in sys.modules\n')
+      'assert "graphlearn_tpu_torch.models.basic_gnn" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.sampler.neighbor_sampler" in '
+      'sys.modules\n'
+      'assert "graphlearn_tpu_torch.loader.neighbor_loader" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.loader.fused" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.ops.window_gather" in sys.modules\n')
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, cwd=str(PKG.parent), timeout=240)
   assert out.returncode == 0, out.stderr
@@ -89,6 +100,29 @@ def test_entry_points_default_to_cuda():
   with pytest.raises(RuntimeError, match='CUDA'):
     ServingEngine(ds, [2])
   ServingEngine(ds, [2], device='cpu')     # asked for: runs on the CPU
+
+
+def test_training_entry_points_default_to_cuda():
+  if torch.cuda.is_available():
+    pytest.skip('the default device exists here')
+  coo = (np.array([0, 1, 2]), np.array([1, 2, 0]))
+  ds = (Dataset().init_graph(coo, num_nodes=4, device='cpu')
+        .init_node_features(np.zeros((4, 2), np.float32), device='cpu')
+        .init_node_labels(np.zeros(4, np.int32)))
+  model = TreeSAGE(2, 4, 3, num_layers=1)
+  opt = torch.optim.Adam(model.parameters())
+  with pytest.raises(RuntimeError, match='CUDA'):
+    NeighborSampler(ds.get_graph(), [2])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    NeighborLoader(ds, [2], np.arange(4), batch_size=2)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    FusedTreeEpoch(ds, [2], np.arange(4), model, opt, 2)
+  # asked for: the CPU runs the kernels' plain versions
+  b = next(iter(NeighborLoader(ds, [2], np.arange(4), batch_size=2,
+                               device='cpu')))
+  assert b.x.device.type == 'cpu' and b.y.device.type == 'cpu'
+  assert FusedTreeEpoch(ds, [2], np.arange(4), model, opt, 2,
+                        device='cpu').run().losses.shape == (2,)
 
 
 def test_streaming_entry_points_default_to_cuda(tmp_path):
@@ -133,6 +167,15 @@ def test_mesh_entry_points_default_to_cuda():
     DistNeighborLoader(ds, [2], np.arange(n), batch_size=4)
   with pytest.raises(RuntimeError, match='CUDA'):
     DistNeighborSampler(ds, [2])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    build_dist_graph(rows, cols, np.zeros(n, np.int32), n)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    build_dist_feature(feats, ds.old2new, ds.graph.bounds)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    DistDataset(ds.graph, ds.node_features, old2new=ds.old2new)
+  assert build_dist_graph(rows, cols, np.zeros(n, np.int32), n,
+                          device='cpu')[0].indptr.device.type == 'cpu'
+  assert DistDataset(ds.graph, device='cpu').device.type == 'cpu'
   # asked for: the CPU runs the kernels' plain versions
   loader = DistNeighborLoader(ds, [2], np.arange(n), batch_size=4,
                               gns=True, device='cpu')

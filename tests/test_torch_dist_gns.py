@@ -263,7 +263,7 @@ def test_build_dist_graph_three_partitions_matches_jax():
   hot = np.bincount(cols, minlength=n)
   jg, jo2n = jax_build(rows, cols, node_pb, n, num_parts=3, hotness=hot)
   g, o2n = build_dist_graph(rows, cols, node_pb, n, num_parts=3,
-                            hotness=hot)
+                            hotness=hot, device='cpu')
   np.testing.assert_array_equal(o2n, jo2n)
   np.testing.assert_array_equal(g.bounds, jg.bounds)
   np.testing.assert_array_equal(g.indptr.numpy(), jg.indptr)
