@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
-per-batch training, fused tree training and GNS training paths on one
-NVIDIA card.
+per-batch training, fused tree training, GNS training and partitioned
+mesh paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -12,7 +12,7 @@ Phases, one JSON line each; any failure exits nonzero:
 
   env     card (``nvidia-smi`` name and power limit), torch and CUDA
           versions; TF32 matmuls off.
-  build   the five CUDA kernels compiled from
+  build   the six CUDA kernels compiled from
           ``graphlearn_tpu_torch/csrc`` (one ``nvcc`` per source, started
           together).
   graph   the ogbn-products-scale synthetic graph (2,449,029 nodes,
@@ -120,11 +120,54 @@ Phases, one JSON line each; any failure exits nonzero:
   gns_cross_check  a small tiered graph on the card and on the CPU with
           the same draws: 4 batches byte-equal (node, x, y, edge_index,
           edge_weight), logits within 1e-4 after one step.
+  mesh_data  the products graph as two `DistDataset`s of 8 partitions on
+          the card (`bench.py`'s ``dist_worker`` layout; the partitions
+          share the one card): untiered (shards ``[8, 306,129, 100]``
+          f32) and tiered at split 0.3 (91,839 hot rows a partition, the
+          whole table in pinned host memory).
+  mesh_loader  the untiered store through `DistNeighborLoader([15, 10,
+          5], batch_size=512, shuffle=True, seed=0,
+          exchange_slack='adaptive')`: 3 epochs of 4 batches over the
+          first 512 x 8 x 4 seeds of a seeded permutation; seeds/s,
+          sampled edges/s per partition, padding waste and slack rung per
+          epoch, drop rate.  Checks: 24 K1 and 16 K2 launches per
+          dispatch (one per owner a hop; one per owner a table), no plain
+          call, every valid node's ``x`` row and label equal its source.
+  kernel  K1 and K2 at the first `mesh_loader` batch's own calls (24
+          sampler calls, 16 gathers), each against its plain version,
+          one line per hop and per table summed over the 8 owners.
+  kernel  K5 (`push_rows`, the owner push of `rdma_gather`) at one
+          `mesh_loader` batch's node table ``[8, 468,992]``, capacity
+          117,248: the `rdma_gather` entry point's run (1 launch, no
+          plain call), the whole ``[8, 8, 117,248, 100]`` buffer
+          byte-equal to `push_rows_plain`, `rdma_gather` byte-equal to
+          `dist_gather_multi` on the whole ``[8, 468,992, 100]`` result;
+          K5, its plain version and `index_select` over the precomputed
+          flat positions timed as the other kernels, and the whole
+          `rdma_gather` against the whole `dist_gather_multi`.  Forced
+          set: invalid ids, partition-0 ids at capacity 8 (drops), bf16
+          D = 100 and 3, the int32 label column, f32 D = 3.
+  mesh_train  the tiered store through `DistNeighborLoader(gns=True,
+          cold_cache_rows=91,839)` (the equal-HBM victim cache), batch
+          512 x 8, into `make_dp_supervised_step` with ``GraphSAGE(100,
+          256, 47, 3)`` and Adam(1e-3): 2 warm and 6 timed steps
+          (dispatch / cold overlay / model, each closed by a
+          synchronise), then `make_dp_eval_step` on 4 test batches.
+          Checks: 24 GNS and 16 row-gather launches per dispatch, no plain
+          call, no exchange drop at slack 2.0, ``x`` rows and labels equal
+          their source, weights 0 on masked and > 0 on valid edges,
+          finite losses falling, eval accuracy above 1/47.  Before the
+          timed steps, `kernel` lines: the last warm dispatch's 24 GNS
+          calls and 16 gathers against their plain versions.
+  mesh_cross_check  a 4,000-node graph at P = 4 on the card and on the
+          CPU with the same CPU-made draws: 4 batches byte-equal untiered
+          and 4 tiered with GNS, `rdma_gather` equal, logits within 1e-4
+          after one DP step.
 
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
-by name and the device idle share of 3 steps of the per-batch, tree and
-GNS training paths).  It prints the ``{"kernels": [...]}`` line (five
-kernels) before the last and ends with
+by name and the device idle share of 3 steps of the per-batch, tree,
+GNS and mesh training paths).  It prints the ``{"kernels": [...]}``
+line (six kernels) before the last and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``graphlearn_tpu_torch`` package beside it, it exits nonzero and prints
 no result.
@@ -172,6 +215,14 @@ BURST_ITERS = 30
 ROOFLINE_IDS = 1 << 20
 ROOFLINE_ITERS = 20
 EVENTS_SLEEP_CYCLES = 20_000_000    # ~10 ms at the H100's SM clock
+MESH_PARTS = 8                      # `bench.py`'s DIST_PARTS
+MESH_BATCH = 512                    # per partition, `bench.py`'s DIST_BATCH
+MESH_EPOCHS = 3
+MESH_BATCHES_PER_EPOCH = 4
+MESH_SPLIT = 0.3
+MESH_WARM = 2
+MESH_TIMED = 6
+MESH_EVAL_BATCHES = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -1441,44 +1492,96 @@ def gns_kernel(torch, ops, timer, path_hops):
 
 
 class PathRecorder:
-  """Wraps the mesh sampler's GNS and row-gather calls to keep the latest
-  dispatch's kernel inputs: per hop the sampler's (rows in the order the
-  kernel sees them), and those of its two gathers (the hot-tier
-  features, then the labels)."""
+  """Wraps the mesh sampler's kernel calls (the GNS sampler with
+  ``gns``, else the uniform one) and its row gathers to keep the latest
+  dispatch's kernel inputs: its ``hops x parts`` sampler calls (hop-major,
+  each with its rows in the order the kernel sees them) and its ``tables
+  x parts`` gathers (the hot-tier features, then the labels, each owner
+  in turn)."""
 
-  def __init__(self, torch, mod):
-    self.torch, self.mod = torch, mod
-    self.real = mod.sample_one_hop_gns_fused
+  def __init__(self, torch, mod, gns=True, parts=1, tables=2):
+    self.torch, self.mod, self.gns = torch, mod, gns
+    self.name = 'sample_one_hop_gns_fused' if gns else 'sample_one_hop_fused'
+    self.real = getattr(mod, self.name)
     self.real_gather = mod.gather_rows
-    self.hops, self.calls = {}, 0
+    self.n_samples, self.n_gathers = len(FANOUTS) * parts, tables * parts
+    self.samples, self.calls = {}, 0
     self.gathers, self.gather_calls = {}, 0
 
   def gather(self, table, ids, id2index=None):
-    self.gathers[self.gather_calls % 2] = (table, ids)
+    self.gathers[self.gather_calls % self.n_gathers] = (table, ids)
     self.gather_calls += 1
     return self.real_gather(table, ids, id2index)
 
-  def __call__(self, indptr, indices, seeds, k, u, v, bits, boost, req=None,
+  def __call__(self, indptr, indices, seeds, k, u, v, *rest, req=None,
                window=None, sort_locality=False):
     torch = self.torch
     order = torch.argsort(torch.where(seeds >= 0, seeds,
                                       torch.iinfo(seeds.dtype).max),
                           stable=True)
-    self.hops[self.calls % len(FANOUTS)] = (
-        indptr, indices, seeds[order].contiguous(), k, u, v, bits, boost,
-        req[order].contiguous(), window)
+    args = (indptr, indices, seeds[order].contiguous(), k, u, v)
+    if self.gns:
+      args += tuple(rest) + (req[order].contiguous(), window)
+    self.samples[self.calls % self.n_samples] = args
     self.calls += 1
-    return self.real(indptr, indices, seeds, k, u, v, bits, boost, req=req,
-                     window=window, sort_locality=sort_locality)
+    kw = dict(req=req, window=window) if self.gns else {}
+    return self.real(indptr, indices, seeds, k, u, v, *rest,
+                     sort_locality=sort_locality, **kw)
+
+  def sample_calls(self) -> list:
+    return [self.samples[i] for i in range(self.n_samples)]
+
+  def gather_calls_in_order(self) -> list:
+    return [self.gathers[i] for i in range(self.n_gathers)]
 
   def __enter__(self):
-    self.mod.sample_one_hop_gns_fused = self
+    setattr(self.mod, self.name, self)
     self.mod.gather_rows = self.gather
     return self
 
   def __exit__(self, *exc):
-    self.mod.sample_one_hop_gns_fused = self.real
+    setattr(self.mod, self.name, self.real)
     self.mod.gather_rows = self.real_gather
+
+
+def summed(recs) -> dict:
+  """Kernel records of one hop's (or one table's) per-owner calls, the
+  sizes and times summed over the owners."""
+  out = {'owners': len(recs), 'byte_equal': True,
+         'max_abs_err': max(r['max_abs_err'] for r in recs)}
+  for key in ('rows', 'ids', 'valid', 'bytes', 'bound_us', 'kernel_ms',
+              'wrapper_ms', 'plain_ms', 'library_ms'):
+    if key in recs[0]:
+      out[key] = sum(r[key] for r in recs)
+  for key in ('k', 'w', 'boost', 'dtype', 'row_bytes'):
+    if key in recs[0]:
+      out[key] = recs[0][key]
+  return out
+
+
+def check_mesh_path(torch, ops, timer, rec, path) -> dict:
+  """Every sampler and row-gather call of one recorded mesh dispatch held
+  against its plain version (byte-equal), each timed; one ``kernel`` line
+  per hop and per table, summed over the owners."""
+  per_hop, per_table = [], []
+  for t in range(len(FANOUTS)):
+    calls = rec.sample_calls()[t * MESH_PARTS:(t + 1) * MESH_PARTS]
+    if rec.gns:
+      recs = [check_gns(torch, ops, timer, *a) for a in calls]
+    else:
+      recs = [check_sampler(torch, ops, timer, *a)[1] for a in calls]
+    per_hop.append(summed(recs))
+    emit('kernel', kernel='sample_one_hop_gns' if rec.gns else
+         'sample_one_hop', shape=f'{path} hop {t}, {MESH_PARTS} owners',
+         **per_hop[-1])
+  calls = rec.gather_calls_in_order()
+  for t, what in enumerate(('hot-tier features', 'labels')):
+    recs = [check_gather(torch, ops, timer, *a)
+            for a in calls[t * MESH_PARTS:(t + 1) * MESH_PARTS]]
+    per_table.append(summed(recs))
+    emit('kernel', kernel='gather_rows',
+         shape=f'{path} {what}, {MESH_PARTS} owners', **per_table[-1])
+  return {'hops': per_hop, 'gathers': per_table}
 
 
 def hit_rates(stats: dict) -> dict:
@@ -1518,7 +1621,7 @@ def gns_train(torch, ops, timer, ds, feats, labels, prof=False):
       loss, _ = step(next(it))
       losses.append(float(loss))
   warm_secs = time.perf_counter() - t0
-  path_hops = [rec.hops[t] for t in range(len(FANOUTS))]
+  path_hops = rec.sample_calls()
   kernel_recs = gns_kernel(torch, ops, timer, path_hops)
   gather_recs = []
   for t, what in ((0, 'train hot-tier features'), (1, 'train labels')):
@@ -1670,8 +1773,8 @@ def gns_cross_check(torch):
   cpu_draws = TorchDraws(5, 'cpu')
   out, logits, admits = {}, {}, {}
   for dev in (DEVICE, 'cpu'):
-    def draws(*a, dev=dev):
-      return tuple(t.to(dev) for t in cpu_draws(*a))
+    def draws(*a, dev=dev, **kw):
+      return tuple(t.to(dev) for t in cpu_draws(*a, **kw))
     ds = DistDataset.from_full_graph(1, rows, cols, node_feat=feats,
                                      node_label=labels, num_nodes=n,
                                      split_ratio=0.3, device=dev)
@@ -1702,6 +1805,448 @@ def gns_cross_check(torch):
        cache_admits=admits[DEVICE], logits_max_abs_diff=diff)
 
 
+def mesh_data(torch, indptr, indices, feats, labels):
+  """The mesh paths' two stores of the products graph at P = 8
+  partitions on the card (`bench.py`'s ``DIST_PARTS``): untiered (every
+  shard wholly on the card) and tiered at split 0.3 (the hot rows on the
+  card, the whole table in pinned host memory), both with the `train`
+  phase's labels."""
+  from graphlearn_tpu_torch.parallel import DistDataset
+  t0 = time.perf_counter()
+  deg = indptr[1:] - indptr[:-1]
+  rows = torch.repeat_interleave(
+      torch.arange(NUM_NODES, device=DEVICE), deg)
+  stores = {}
+  for name, split in (('untiered', 1.0), ('tiered', MESH_SPLIT)):
+    stores[name] = DistDataset.from_full_graph(
+        MESH_PARTS, rows, indices, node_feat=feats, node_label=labels,
+        num_nodes=NUM_NODES, split_ratio=split, device=DEVICE)
+  del rows
+  sync(torch)
+  u, t = stores['untiered'], stores['tiered']
+  g = u.graph
+  emit('mesh_data', parts=MESH_PARTS, nodes=NUM_NODES,
+       edges=int(indices.numel()), bounds=g.bounds.tolist(),
+       shard_shape=list(u.node_features.shards.shape),
+       shard_bytes=u.node_features.shards.numel() * 4,
+       csr_bytes=(g.indptr.numel() * 8 + g.indices.numel() * 4
+                  + g.edge_ids.numel() * 8),
+       split_ratio=MESH_SPLIT,
+       hot_counts=t.node_features.hot_counts.tolist(),
+       hot_bytes=t.node_features.shards.numel() * 4,
+       cold_host_bytes=t.node_features.cold_host.numel() * 4,
+       cold_host_pinned=bool(t.node_features.cold_host.is_pinned()),
+       secs=time.perf_counter() - t0)
+  return u, t
+
+
+def check_mesh_batch(torch, batch, feats, labels, new2old) -> int:
+  """Every valid node's ``x`` row and label of a stacked mesh batch
+  equal its source; returns the valid node count."""
+  node = batch.node
+  ok = node >= 0
+  src = new2old[node[ok].long()]
+  if not torch.equal(batch.x[ok], feats[src]):
+    raise AssertionError('a mesh x row differs from its source row')
+  if not torch.equal(batch.y[ok], labels[src]):
+    raise AssertionError('a mesh label differs from its source label')
+  return int(ok.sum())
+
+
+def mesh_loader(torch, ops, timer, ds, feats, labels):
+  """`bench.py`'s ``dist_worker`` adaptive phase at products scale: the
+  untiered store, `DistNeighborLoader([15, 10, 5], batch_size=512,
+  shuffle=True, seed=0, exchange_slack='adaptive')` over the first 512 x
+  8 x 4 seeds of the seeded permutation, 3 epochs of 4 batches (each
+  batch timed to its synchronise; the checks outside the clock).  The
+  first batch's kernel inputs are recorded (inside its clock) and every
+  one of its 24 sampler and 16 gather calls is held against its plain
+  version after the run."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistNeighborLoader
+  seeds = np.random.default_rng(0).permutation(NUM_NODES)[
+      :MESH_BATCH * MESH_PARTS * MESH_BATCHES_PER_EPOCH]
+  loader = DistNeighborLoader(ds, FANOUTS, seeds, batch_size=MESH_BATCH,
+                              shuffle=True, seed=0,
+                              exchange_slack='adaptive', device=DEVICE)
+  s = loader.sampler
+  new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+  waste, slack, batch_ms, edges, valid = [], [], [], 0, 0
+  reset_counts(ops)
+  for _ in range(MESH_EPOCHS):
+    prev = s.exchange_stats()
+    it = iter(loader)                   # retunes the slack
+    slack.append(loader._adaptive.slack)
+    while True:
+      sync(torch)
+      t = time.perf_counter()
+      try:
+        if batch_ms:
+          b = next(it)
+        else:
+          with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS) as rec:
+            b = next(it)
+      except StopIteration:
+        break
+      n_edges = int(b.edge_mask.sum())          # synchronises
+      batch_ms.append((time.perf_counter() - t) * 1e3)
+      edges += n_edges
+      valid += check_mesh_batch(torch, b, feats, labels, new2old)
+    st = s.exchange_stats()
+    sent = ((st['dist.frontier.offered'] - prev['dist.frontier.offered'])
+            - (st['dist.frontier.dropped'] - prev['dist.frontier.dropped']))
+    slots = st['dist.frontier.slots'] - prev['dist.frontier.slots']
+    waste.append(100.0 * (1 - sent / max(slots, 1)))
+  launches, plain = read_counts(ops)
+  batches, secs = len(batch_ms), sum(batch_ms) / 1e3
+  per_dispatch = len(FANOUTS) * MESH_PARTS       # K1: one per owner a hop
+  if not (launches['sample_one_hop'] == per_dispatch * batches
+          and launches['gather_rows'] == 2 * MESH_PARTS * batches
+          and launches['sample_one_hop_gns'] == 0 and plain == 0
+          and batches == MESH_EPOCHS * MESH_BATCHES_PER_EPOCH):
+    raise AssertionError(f'mesh loader launches {launches}, plain {plain}, '
+                         f'batches {batches}')
+  path = check_mesh_path(torch, ops, timer, rec, 'mesh loader')
+  del rec
+  st = s.exchange_stats()
+  node_table = b.node
+  emit('mesh_loader', parts=MESH_PARTS, batch=MESH_BATCH,
+       fanouts=list(FANOUTS), epochs=MESH_EPOCHS, batches=batches,
+       exchange_slack='adaptive', slack_by_epoch=slack,
+       slack_final=loader._adaptive.slack,
+       pinned=loader._adaptive._pinned,
+       pin_reason=loader._adaptive._pin_reason,
+       padding_waste_pct_by_epoch=waste,
+       drop_rate_pct=100.0 * st['dist.frontier.dropped']
+       / max(st['dist.frontier.offered'], 1),
+       feature_drop_rate_pct=100.0 * st['dist.feature.dropped']
+       / max(st['dist.feature.offered'], 1),
+       secs=secs, batch_ms=batch_ms,
+       seeds_per_s=batches * MESH_BATCH * MESH_PARTS / secs,
+       seeds_per_s_after_first=(batches - 1) * MESH_BATCH * MESH_PARTS
+       / (secs - batch_ms[0] / 1e3),
+       sampled_edges=edges,
+       edges_per_s_per_partition=edges / secs / MESH_PARTS,
+       node_capacity=s.node_capacity(MESH_BATCH), valid_nodes=valid,
+       exchange={k: v for k, v in st.items()
+                 if k.startswith(('dist.frontier', 'dist.feature.o',
+                                  'dist.feature.d', 'dist.feature.s'))},
+       launches=launches, launches_per_dispatch={
+           'sample_one_hop': per_dispatch, 'gather_rows': 2 * MESH_PARTS},
+       plain_calls=plain, x_rows_byte_equal=True, y_byte_equal=True)
+  return launches, node_table, path
+
+
+def check_push(torch, timer, recv, starts, table, what, rec_times=False):
+  """K5 against its plain version on the same receive ids (byte-equal,
+  the whole buffer); with ``rec_times`` both timed and `index_select`
+  over the precomputed flat positions beside them."""
+  from graphlearn_tpu_torch.parallel import push_rows, push_rows_plain
+  got = push_rows(recv, starts, table)
+  ref = push_rows_plain(recv, starts, table)
+  sync(torch)
+  if got.shape != ref.shape or not torch.equal(got.view(torch.uint8),
+                                               ref.view(torch.uint8)):
+    raise AssertionError(f'push_rows kernel != plain version ({what})')
+  err = float((got.float() - ref.float()).abs().max())
+  p, _, c = recv.shape
+  row = table.shape[2] * table.element_size()
+  n_valid = int((recv >= 0).sum())
+  nbytes = recv.numel() * 4 + p * 8 + n_valid * row + recv.numel() * row
+  rec = {'what': what, 'parts': p, 'capacity': c,
+         'slots': recv.numel(), 'valid_slots': n_valid,
+         'dtype': str(table.dtype).replace('torch.', ''), 'row_bytes': row,
+         'byte_equal': True, 'max_abs_err': err, 'bytes': nbytes,
+         'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  if rec_times:
+    local = (recv.long() - starts[:, None, None]).clamp(
+        0, table.shape[1] - 1)
+    own = torch.arange(p, device=DEVICE)[:, None, None] * table.shape[1]
+    pos = (own + local).transpose(0, 1).reshape(-1)
+    flat = table.view(-1, table.shape[2])
+    if not torch.equal(flat.index_select(0, pos).view(torch.uint8),
+                       got.reshape(-1, table.shape[2]).view(torch.uint8)):
+      raise AssertionError('index_select over the push positions differs')
+    del got, ref
+    rec['kernel_ms'] = timer(lambda: push_rows(recv, starts, table))
+    rec['plain_ms'] = timer(lambda: push_rows_plain(recv, starts, table))
+    rec['library_ms'] = timer(lambda: torch.index_select(flat, 0, pos))
+  return rec
+
+
+def k5_kernel(torch, timer, ds, nodes):
+  """K5 at one `mesh_loader` batch's node table (``[8, 468,992]``, the
+  capacity ``capacity_spec(468,992, 8, 2.0)``): the path's run of the
+  `rdma_gather` entry point (counts zeroed just before, read just
+  after), the kernel against its plain version on the whole ``[8, 8,
+  117,248, 100]`` buffer, `rdma_gather` against `dist_gather_multi` on
+  the whole ``[8, 468,992, 100]`` result, timings, and the forced set."""
+  from graphlearn_tpu_torch.parallel import (dist_gather_multi, make_mesh,
+                                             push_rows, push_rows_plain,
+                                             rdma_gather)
+  from graphlearn_tpu_torch.parallel.exchange import (capacity_spec,
+                                                      plan_exchange)
+  from graphlearn_tpu_torch.parallel.partition_book import range_owner_fn
+  mesh = make_mesh(MESH_PARTS, device=DEVICE)
+  shards = ds.node_features.shards
+  bounds = torch.from_numpy(ds.graph.bounds).to(DEVICE)
+  starts = bounds[:-1].contiguous()
+  cap = capacity_spec(nodes.shape[1], MESH_PARTS, 2.0)
+
+  def plan_recv(ids, capacity):
+    plan = plan_exchange(ids, range_owner_fn(bounds), MESH_PARTS, mesh,
+                         capacity)
+    return plan.recv.reshape(MESH_PARTS, MESH_PARTS, plan.cap).to(
+        torch.int32)
+
+  # the path's run
+  push_rows.launches = 0
+  push_rows_plain.calls = 0
+  out = rdma_gather(mesh, shards, bounds, nodes, capacity=cap)
+  sync(torch)
+  launches, plain = push_rows.launches, push_rows_plain.calls
+  if launches != 1 or plain != 0:
+    raise AssertionError(f'rdma_gather launches {launches}, plain {plain}')
+  (ref,), stats = dist_gather_multi(mesh, (shards,), bounds, nodes,
+                                    capacity=cap)
+  if not torch.equal(out.view(torch.uint8), ref.view(torch.uint8)):
+    raise AssertionError('rdma_gather != dist_gather_multi')
+  dropped = int(stats[1])
+  del out, ref
+  rec = check_push(torch, timer, plan_recv(nodes, cap), starts, shards,
+                   'mesh batch node table', rec_times=True)
+  rec['rdma_gather_ms'] = timer(
+      lambda: rdma_gather(mesh, shards, bounds, nodes, capacity=cap))
+  rec['dist_gather_multi_ms'] = timer(
+      lambda: dist_gather_multi(mesh, (shards,), bounds, nodes,
+                                capacity=cap))
+  rec.update(ids=list(nodes.shape), exchange_dropped=dropped,
+             rdma_gather_byte_equal=True, launches=launches,
+             plain_calls=plain)
+  emit('kernel', kernel='push_rows', shape='mesh batch node table', **rec)
+  # the forced set
+  rng = np.random.default_rng(11)
+  rand = torch.from_numpy(rng.integers(0, NUM_NODES, (MESH_PARTS, 4096))
+                          .astype(np.int32)).to(DEVICE)
+  rand[:, ::10] = -1
+  zero_owned = torch.arange(12, dtype=torch.int32,
+                            device=DEVICE).repeat(MESH_PARTS, 1)
+  labels = ds.node_labels
+  forced = (
+      ('invalid ids, f32 D=100', shards, rand, None),
+      ('partition 0 ids at capacity 8 (drops)', shards, zero_owned, 8),
+      ('bf16 D=100', shards.to(torch.bfloat16), nodes, cap),
+      ('bf16 D=3', shards[..., :3].to(torch.bfloat16).contiguous(), nodes,
+       cap),
+      ('int32 label column', labels, nodes, cap),
+      ('f32 D=3', shards[..., :3].contiguous(), nodes, cap))
+  for what, table, ids, capacity in forced:
+    got = rdma_gather(mesh, table, bounds, ids, capacity=capacity)
+    (alt,), _ = dist_gather_multi(mesh, (table,), bounds, ids,
+                                  capacity=capacity)
+    if not torch.equal(got.view(torch.uint8), alt.view(torch.uint8)):
+      raise AssertionError(f'rdma_gather != dist_gather_multi ({what})')
+    if capacity == 8:                   # 12 ids an owner-0 bucket: 4 drop
+      kept = (got[..., 0] != 0).sum(1)
+      if bool((kept != 8).any()):
+        raise AssertionError(f'capacity 8 kept {kept.tolist()}')
+    t3 = table if table.ndim == 3 else table[..., None]
+    frec = check_push(torch, timer, plan_recv(ids, capacity), starts, t3,
+                      what)
+    emit('kernel', kernel='push_rows', shape='forced set', **frec)
+    del got, alt, table
+  return rec
+
+
+def mesh_train(torch, ops, timer, ds, feats, labels, train_idx, test_idx,
+               prof=False):
+  """`bench.py`'s ``dist_worker`` tiered GNS row with training on top:
+  the tiered store, `DistNeighborLoader(gns=True, cold_cache_rows=
+  91,839)` (the equal-HBM victim cache), batch 512 x 8 partitions ->
+  `make_dp_supervised_step` with ``GraphSAGE(100, 256, 47, 3)`` and
+  Adam(1e-3): 2 warm steps (their last dispatch's 24 GNS and 16 gather
+  calls held against the plain versions), 6 timed steps (dispatch / cold
+  overlay / model, each closed by a synchronise), then
+  `make_dp_eval_step` on 4 test batches."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.parallel import (DistNeighborLoader,
+                                             make_dp_eval_step,
+                                             make_dp_supervised_step)
+  cache_rows = int(ds.node_features.hot_counts.max())    # equal budget
+  loader = DistNeighborLoader(ds, FANOUTS, train_idx, batch_size=MESH_BATCH,
+                              shuffle=True, seed=0,
+                              cold_cache_rows=cache_rows, gns=True,
+                              device=DEVICE)
+  s = loader.sampler
+  model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+  step = make_dp_supervised_step(model, opt, MESH_BATCH, s.mesh)
+  new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+  it = iter(loader)
+  losses = []
+  t0 = time.perf_counter()
+  with PathRecorder(torch, dsm, gns=True, parts=MESH_PARTS) as rec:
+    for _ in range(MESH_WARM):
+      losses.append(float(step(next(it))[0]))
+  warm_secs = time.perf_counter() - t0
+  path = check_mesh_path(torch, ops, timer, rec, 'mesh train')
+  del rec
+  parts = {'dispatch': [], 'overlay': [], 'model': []}
+
+  def timed(fn, key):
+    def wrapped(*a):
+      sync(torch)
+      t = time.perf_counter()
+      out = fn(*a)
+      sync(torch)
+      parts[key].append((time.perf_counter() - t) * 1e3)
+      return out
+    return wrapped
+
+  s._dispatch_nodes = timed(s._dispatch_nodes, 'dispatch')
+  s._finish_nodes = timed(s._finish_nodes, 'overlay')
+  reset_counts(ops)
+  disp0 = s._step_cnt
+  walls, n_ne_1, correct, seen = [], 0, 0, 0
+  for _ in range(MESH_TIMED):
+    t = time.perf_counter()
+    batch = next(it)
+    t_model = time.perf_counter()
+    loss, c = step(batch)
+    losses.append(float(loss))
+    parts['model'].append((time.perf_counter() - t_model) * 1e3)
+    walls.append((time.perf_counter() - t) * 1e3)
+    correct += int(c)
+    seen += int((batch.batch >= 0).sum())
+    check_mesh_batch(torch, batch, feats, labels, new2old)
+    ew, em = batch.metadata['edge_weight'], batch.edge_mask
+    if not (bool((ew[~em] == 0).all()) and bool((ew[em] > 0).all())):
+      raise AssertionError('mesh edge weights: masked != 0 or valid <= 0')
+    n_ne_1 += int(((ew != 1.0) & em).sum())
+  dispatches = s._step_cnt - disp0
+  launches, plain = read_counts(ops)
+  per_dispatch = {'sample_one_hop_gns': len(FANOUTS) * MESH_PARTS,
+                  'gather_rows': 2 * MESH_PARTS}
+  st = s.exchange_stats()
+  if not (all(launches[k] == v * dispatches
+              for k, v in per_dispatch.items())
+          and launches['sample_one_hop'] == 0 and plain == 0
+          and dispatches == MESH_TIMED):
+    raise AssertionError(f'mesh train launches {launches}, plain {plain}, '
+                         f'dispatches {dispatches}')
+  if st['dist.frontier.dropped'] or st['dist.feature.dropped']:
+    raise AssertionError(f'mesh exchange drops: {st}')
+  if n_ne_1 == 0:
+    raise AssertionError('every mesh GNS weight is 1: the bias never engaged')
+  if not (np.isfinite(losses).all()
+          and np.mean(losses[-3:]) < losses[0]):
+    raise AssertionError(f'mesh losses {losses}')
+  del s._dispatch_nodes, s._finish_nodes
+  if prof:
+    profile_train(torch, lambda: step(next(it))[0], 'mesh_train')
+  del it, batch
+  ev_loader = DistNeighborLoader(ds, FANOUTS, test_idx,
+                                 batch_size=MESH_BATCH, shuffle=False,
+                                 cold_cache_rows=cache_rows, gns=False,
+                                 device=DEVICE)
+  ev_step = make_dp_eval_step(model, MESH_BATCH, ev_loader.sampler.mesh)
+  ev_correct = ev_total = 0
+  t = time.perf_counter()
+  for b in itertools.islice(iter(ev_loader), MESH_EVAL_BATCHES):
+    c, n = ev_step(b)
+    ev_correct += int(c)
+    ev_total += int(n)
+  eval_secs = time.perf_counter() - t
+  acc = ev_correct / max(ev_total, 1)
+  if not acc > 1.0 / GNS_CLASSES:
+    raise AssertionError(f'mesh eval accuracy {acc}')
+  med = {k: float(np.median(v)) for k, v in parts.items()}
+  emit('mesh_train', parts=MESH_PARTS, batch=MESH_BATCH,
+       fanouts=list(FANOUTS), split_ratio=MESH_SPLIT, cache_rows=cache_rows,
+       model=f'GraphSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
+       optimizer='Adam(1e-3)', warm_steps=MESH_WARM, timed_steps=MESH_TIMED,
+       warm_secs=warm_secs, losses=losses,
+       step_ms={'median': float(np.median(walls)),
+                'mean': float(np.mean(walls)), 'all': walls},
+       step_ms_by_part={'median': med, 'all': parts},
+       train_seeds_per_s_synced=MESH_BATCH * MESH_PARTS * 1e3
+       / float(np.median(walls)),
+       train_accuracy_timed=correct / max(seen, 1),
+       eval_batches=MESH_EVAL_BATCHES, eval_seeds=ev_total,
+       eval_accuracy=acc, eval_secs=eval_secs,
+       node_capacity=s.node_capacity(MESH_BATCH),
+       exchange={k: v for k, v in st.items() if k.startswith('dist.')},
+       launches=launches, launches_per_dispatch=per_dispatch,
+       dispatches=dispatches, plain_calls=plain, weights_ne_1=n_ne_1,
+       x_rows_byte_equal=True, y_byte_equal=True)
+  return launches, path
+
+
+def mesh_cross_check(torch):
+  """A small graph at P = 4 on the card and on the CPU with the same
+  CPU-made draws: 4 batches byte-equal untiered (node, x, y,
+  edge_index) and tiered with GNS (and edge_weight), `rdma_gather`
+  equal on both, logits within 1e-4 after one DP step."""
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
+                                             TorchDraws,
+                                             make_dp_supervised_step,
+                                             make_mesh, rdma_gather)
+  rng = np.random.default_rng(9)
+  n, parts = 4000, 4
+  rows = np.repeat(np.arange(n), 12)
+  cols = np.where(rng.random(n * 12) < 0.3, rng.integers(0, 40, n * 12),
+                  rng.integers(0, n, n * 12))
+  feats = rng.standard_normal((n, 16)).astype(np.float32)
+  labels = rng.integers(0, 7, n).astype(np.int32)
+  cpu_draws = TorchDraws(6, 'cpu')
+  out, logits, gathered = {}, {}, {}
+  for dev in (DEVICE, 'cpu'):
+    def draws(*a, dev=dev, **kw):
+      return tuple(t.to(dev) for t in cpu_draws(*a, **kw))
+    out[dev] = []
+    for split, gns in ((1.0, False), (0.3, True)):
+      ds = DistDataset.from_full_graph(parts, rows, cols, node_feat=feats,
+                                       node_label=labels, num_nodes=n,
+                                       split_ratio=split, device=dev)
+      lo = DistNeighborLoader(ds, FANOUTS, np.arange(n), batch_size=64,
+                              shuffle=True, seed=1, cold_cache_rows=300,
+                              gns=gns, draws=draws, device=dev)
+      batches = list(itertools.islice(iter(lo), 4))
+      for b in batches:
+        ew = b.metadata.get('edge_weight')
+        out[dev].append((b.node.cpu(), b.x.cpu(), b.y.cpu(),
+                         b.edge_index.cpu(),
+                         None if ew is None else ew.cpu()))
+      if split == 1.0:
+        gathered[dev] = rdma_gather(
+            make_mesh(parts, device=dev), ds.node_features.shards,
+            ds.graph.bounds, batches[0].node, capacity=256).cpu()
+    model = GraphSAGE(16, 32, 7, num_layers=3).to(dev)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+    make_dp_supervised_step(model, opt, 64, lo.sampler.mesh)(batches[0])
+    b = batches[1]
+    with torch.no_grad():
+      logits[dev] = model(b.x[2], b.edge_index[2], b.edge_mask[2],
+                          edge_weight=b.metadata['edge_weight'][2]).cpu()
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for name, x, y in zip(('node', 'x', 'y', 'edge_index', 'edge_weight'),
+                          a, c):
+      if (x is None) != (y is None) or (x is not None and (
+          x.dtype != y.dtype or not torch.equal(x, y))):
+        raise AssertionError(f'mesh card and CPU differ: batch {i} {name}')
+  if not torch.equal(gathered[DEVICE], gathered['cpu']):
+    raise AssertionError('rdma_gather differs between card and CPU')
+  diff = float((logits[DEVICE] - logits['cpu']).abs().max())
+  if not diff <= 1e-4:
+    raise AssertionError(f'mesh logits differ by {diff}')
+  emit('mesh_cross_check', parts=parts, batches=len(out['cpu']),
+       byte_equal=True, rdma_gather_equal=True, logits_max_abs_diff=diff)
+
+
 def profile_train(torch, run_step, path, n=3):
   """Device time by kernel over ``n`` training steps of ``path``
   (``run_step()`` runs one and returns its loss; no synchronise inside):
@@ -1727,7 +2272,7 @@ def profile_train(torch, run_step, path, n=3):
   busy = sum(r[0] for r in rows)
   mine = {g: sum(r[0] for r in rows if g in r[1])
           for g in ('sample_one_hop_kernel', 'sample_gns_kernel',
-                    'gather_rows_kernel')}
+                    'gather_rows_kernel', 'push_rows_kernel')}
   emit('profile_train', path=path, steps=n, wall_ms=wall_ms,
        device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
        port_kernels_ms=mine,
@@ -1934,14 +2479,43 @@ def run(torch, argv) -> list:
   del ds_g
   gns_cross_check(torch)
 
+  # -- the partitioned mesh engine at P = 8 on the card ------------------
+  del ds
+  torch.cuda.empty_cache()
+  ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels)
+  loader_launches, node_table, loader_path = mesh_loader(
+      torch, ops, timer, ds_u, feats, labels)
+  k5 = k5_kernel(torch, timer, ds_u, node_table)
+  del ds_u, node_table
+  torch.cuda.empty_cache()
+  mesh_launches, mesh_path = mesh_train(torch, ops, timer, ds_t, feats,
+                                        labels, train_idx, test_idx,
+                                        prof='--profile' in argv)
+  del ds_t
+  torch.cuda.empty_cache()
+  mesh_cross_check(torch)
+
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
+
+  def mesh_shape(what, hops):
+    return {'shape': f'{what}, {MESH_PARTS} owners a hop, hops of '
+                     + '/'.join(str(h['rows']) for h in hops)
+                     + ' rows, k 15/10/5',
+            'ms': sum(h['kernel_ms'] for h in hops),
+            'plain_ms': sum(h['plain_ms'] for h in hops),
+            'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
+            'max_abs_err': max(h['max_abs_err'] for h in hops),
+            'byte_equal': True}
+
+  mesh_gathers = loader_path['gathers'] + mesh_path['gathers']
   kernels = [
       {'name': 'sample_one_hop', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
        'launches': launches['sample_one_hop'],
-       'max_abs_err': max(h['max_abs_err'] for h in hops),
+       'max_abs_err': max(h['max_abs_err']
+                          for h in hops + loader_path['hops']),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -1950,7 +2524,9 @@ def run(torch, argv) -> list:
        'shape': '16-seed dispatch, hops of 16/240/2400 rows, k 15/10/5',
        'launches_by_path': {'serve': launches['sample_one_hop'],
                             'train': train_launches['sample_one_hop'],
-                            'tree_train': tree_launches['sample_one_hop']},
+                            'tree_train': tree_launches['sample_one_hop'],
+                            'mesh_loader':
+                                loader_launches['sample_one_hop']},
        'train_shape': {
            'shape': '1,024-seed per-batch step, hops of '
                     + '/'.join(str(h['rows']) for h in train_hops)
@@ -1968,14 +2544,16 @@ def run(torch, argv) -> list:
            'plain_ms': sum(h['plain_ms'] for h in tree_hops),
            'bound_ms': sum(h['bound_us'] for h in tree_hops) / 1e3,
            'max_abs_err': max(h['max_abs_err'] for h in tree_hops),
-           'byte_equal': True}},
+           'byte_equal': True},
+       'mesh_shape': mesh_shape('mesh loader batch of 8 x 512 seeds',
+                                loader_path['hops'])},
       {'name': 'gather_rows', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
        'launches': launches['gather_rows'],
        'max_abs_err': max(g['max_abs_err']
                           for g in gathers + gathers_train + [train_gather]
-                          + tree_levels),
+                          + tree_levels + mesh_gathers),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -1987,10 +2565,19 @@ def run(torch, argv) -> list:
             'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
             'byte_equal': True}
            for g in [train_gather] + tree_levels + gathers_train],
+       'mesh_shapes': [
+           {'shape': f'{g["ids"]} ids x {g["row_bytes"]} B {g["dtype"]} '
+                     f'over {MESH_PARTS} owners',
+            'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+            'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+            'byte_equal': True}
+           for g in mesh_gathers],
        'launches_by_path': {'serve': launches['gather_rows'],
                             'train': train_launches['gather_rows'],
                             'tree_train': tree_launches['gather_rows'],
-                            'gns_train': gns_launches['gather_rows']}},
+                            'gns_train': gns_launches['gather_rows'],
+                            'mesh_loader': loader_launches['gather_rows'],
+                            'mesh_train': mesh_launches['gather_rows']}},
       {'name': 'merge_ranks', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',
@@ -2004,14 +2591,20 @@ def run(torch, argv) -> list:
        'source': 'graphlearn_tpu_torch/csrc/sample_one_hop_gns.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247 (gns arm :178)',
        'launches': gns_launches['sample_one_hop_gns'],
-       'max_abs_err': max(h['max_abs_err'] for h in gns_hops),
+       'max_abs_err': max(h['max_abs_err']
+                          for h in gns_hops + mesh_path['hops']),
        'ms': sum(h['kernel_ms'] for h in gns_hops),
        'plain_ms': sum(h['plain_ms'] for h in gns_hops),
        'bound_ms': sum(h['bound_us'] for h in gns_hops) / 1e3,
        'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
        'shape': '1,024-seed training batch, hops of '
                 + '/'.join(str(h['rows']) for h in gns_hops)
-                + ' rows, k 15/10/5'},
+                + ' rows, k 15/10/5',
+       'launches_by_path': {
+           'gns_train': gns_launches['sample_one_hop_gns'],
+           'mesh_train': mesh_launches['sample_one_hop_gns']},
+       'mesh_shape': mesh_shape('mesh train batch of 8 x 512 seeds',
+                                mesh_path['hops'])},
       {'name': 'csr_window_gather', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/csr_window_gather.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_window.py:82',
@@ -2022,6 +2615,19 @@ def run(torch, argv) -> list:
        'library_ms': win['ms_per_call']['library'], 'byte_equal': True,
        'shape': f'{win["batch"]} starts x {win["w"]} (int64 starts), '
                 f'{win["iters"]} back-to-back calls'},
+      {'name': 'push_rows', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/push_rows.cu',
+       'replaces': 'graphlearn_tpu/parallel/rdma_gather.py:71',
+       'launches': k5['launches'], 'max_abs_err': k5['max_abs_err'],
+       'ms': k5['kernel_ms'], 'plain_ms': k5['plain_ms'],
+       'bound_ms': k5['bound_us'] / 1e3, 'bound_by': 'bytes',
+       'library_ms': k5['library_ms'], 'byte_equal': True,
+       'shape': f'ids {k5["ids"]} at capacity {k5["capacity"]}: '
+                f'{k5["slots"]} slots x {k5["row_bytes"]} B',
+       'launches_by_path': {'rdma_gather': k5['launches']},
+       'rdma_gather_ms': k5['rdma_gather_ms'],
+       'dist_gather_multi_ms': k5['dist_gather_multi_ms'],
+       'rdma_gather_byte_equal_to_dist_gather_multi': True},
   ]
   return kernels
 

@@ -29,7 +29,7 @@ _ENV_ROWS = 'GLT_COLD_CACHE_ROWS'
 
 
 def resolve_cache_rows(spec, cold_rows: int) -> int:
-  """int = rows per card (0 disables); None/'auto' = ``GLT_COLD_CACHE_
+  """int = rows per partition (0 disables); None/'auto' = ``GLT_COLD_CACHE_
   ROWS`` when set, else `DEFAULT_BUDGET_FRACTION` of ``cold_rows``."""
   if spec in (None, 'auto'):
     env = os.environ.get(_ENV_ROWS)
@@ -45,7 +45,7 @@ def resolve_cache_rows(spec, cold_rows: int) -> int:
 
 
 class ClockShardCache:
-  """CLOCK second-chance id -> slot policy for ONE card's cache (host
+  """CLOCK second-chance id -> slot policy for ONE partition's cache (host
   metadata only: tags, reference bits, the hand, the visit sketch)."""
 
   def __init__(self, capacity: int):
@@ -156,8 +156,8 @@ class ClockShardCache:
 
 
 class MeshColdCache:
-  """Per-card victim caches: ``P`` `ClockShardCache` policies over a
-  ``[P, C, D]`` row tensor on ``device``.  Each card caches the cold
+  """Per-partition victim caches: ``P`` `ClockShardCache` policies over a
+  ``[P, C, D]`` row tensor on ``device``.  Each partition caches the cold
   rows it requested; the host calls take the ``[P, node_cap]`` id and
   mask tables the cold overlay already holds."""
 

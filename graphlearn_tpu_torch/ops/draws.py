@@ -85,10 +85,14 @@ class TorchDraws:
   Gumbels are ``-log(-log(u))`` of uniforms kept above the smallest
   normal float.
 
-  ``draws(step, hop, rows, k, w, gns=False)`` (the samplers' form)
-  returns ``u [rows, k]`` and ``gumbel [rows, w]``, or with ``gns`` a
-  second ``[rows, k]`` uniform stream ``v``; `draw` takes any tuple of
-  coordinates (the fused epoch's ``(epoch, chunk, step, hop)``).
+  ``draws(step, hop, rows, k, w, gns=False, owner=0)`` (the samplers'
+  form) returns ``u [rows, k]`` and ``gumbel [rows, w]``, or with
+  ``gns`` a second ``[rows, k]`` uniform stream ``v``; ``owner`` is the
+  mesh partition that samples the rows (the coordinates are ``(step,
+  hop)`` for owner 0, so a one-partition mesh and the single-card
+  sampler draw as before, and ``(step, hop, owner)`` otherwise); `draw`
+  takes any tuple of coordinates (the fused epoch's ``(epoch, chunk,
+  step, hop)``).
   """
 
   def __init__(self, seed: int, device):
@@ -117,6 +121,8 @@ class TorchDraws:
     1,000,003 (distinct coordinates, distinct generator seeds)."""
     return self._from(self._mixed(coords), rows, k, w, False)
 
-  def __call__(self, step, hop, rows, k, w, gns=False):
-    """The samplers' form: the draws at coordinates ``(step, hop)``."""
-    return self._from(self._mixed((step, hop)), rows, k, w, gns)
+  def __call__(self, step, hop, rows, k, w, gns=False, owner=0):
+    """The samplers' form: the draws at coordinates ``(step, hop)``, or
+    ``(step, hop, owner)`` for an owner other than 0."""
+    coords = (step, hop) if int(owner) == 0 else (step, hop, owner)
+    return self._from(self._mixed(coords), rows, k, w, gns)

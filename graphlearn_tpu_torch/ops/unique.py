@@ -117,7 +117,8 @@ def induce_next(state: InducerState, src_local: torch.Tensor,
           state.count)
 
 
-#: ``one_hop(hop, frontier [F] int32, k) -> (nbrs [F, k], mask [F, k])``
+#: ``one_hop(hop, frontier [P, F] int32, k) -> (nbrs [P, F, k], mask [P,
+#: F, k])``
 OneHop = Callable[[int, torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -146,9 +147,12 @@ def expand_hops(seeds: torch.Tensor, fanouts: Sequence[int], node_cap: int,
                 ) -> Tuple[InducerState, torch.Tensor, List[torch.Tensor],
                            List[torch.Tensor], torch.Tensor]:
   """The multi-hop node-table advance shared by the single-card and the
-  mesh samplers: per hop, ``one_hop`` samples the frontier of nodes the
-  previous hop appended (the seeds at hop 0) and `induce_next` appends
-  the new neighbors.
+  mesh samplers, for ``P`` seed vectors in lockstep (``seeds`` is ``[P,
+  B]``; the single-card sampler passes ``P = 1``): per hop, ``one_hop``
+  samples the stacked ``[P, F]`` frontiers of the nodes the previous
+  hop appended (the seeds at hop 0) — every partition's frontier is
+  known before any of them is sampled, as a mesh exchange needs — and
+  `induce_next` appends each partition's new neighbors to its table.
 
   With ``grow`` the table starts at ``min(B, node_cap)`` slots and grows
   by the hop's ``F * k`` per hop (the JAX single-card sampler, whose
@@ -157,28 +161,42 @@ def expand_hops(seeds: torch.Tensor, fanouts: Sequence[int], node_cap: int,
   ends at ``node_cap``.
 
   Returns ``(state, seed_local, rows per hop, cols per hop,
-  num_sampled_nodes [hops + 1] int32)``.
+  num_sampled_nodes)``, stacked: ``state.nodes [P, node_cap]``,
+  ``state.count [P]``, ``seed_local [P, B]``, ``rows``/``cols`` ``[P,
+  F * k]`` per hop, ``num_sampled_nodes [P, hops + 1]`` int32.
   """
-  b = seeds.shape[0]
-  state, seed_local = init_node(seeds, min(b, node_cap) if grow else node_cap)
+  b = seeds.shape[1]
+  init = [init_node(s, min(b, node_cap) if grow else node_cap)
+          for s in seeds]
+  states = [st for st, _ in init]
   f_cap = b
-  frontier, frontier_local = _frontier(state, 0, f_cap)
-  rows_acc, cols_acc, counts = [], [], [state.count]
+  fronts = [_frontier(st, 0, f_cap) for st in states]
+  rows_acc, cols_acc = [], []
+  counts = [torch.stack([st.count for st in states])]
   for hop, k in enumerate(fanouts):
     k = int(k)
-    nbrs, mask = one_hop(hop, frontier, k)
-    new_cap = min(state.nodes.shape[0] + f_cap * k, node_cap)
-    if grow and new_cap > state.nodes.shape[0]:
-      state = _pad_table(state, new_cap)
-    state, rows, cols, prev_cnt = induce_next(state, frontier_local, nbrs,
-                                              mask)
-    rows_acc.append(rows)
-    cols_acc.append(cols)
-    counts.append(state.count)
+    nbrs, mask = one_hop(hop, torch.stack([fr for fr, _ in fronts]), k)
+    rows_h, cols_h, prev = [], [], []
+    for p, st in enumerate(states):
+      new_cap = min(st.nodes.shape[0] + f_cap * k, node_cap)
+      if grow and new_cap > st.nodes.shape[0]:
+        st = _pad_table(st, new_cap)
+      states[p], rows, cols, prev_cnt = induce_next(st, fronts[p][1],
+                                                    nbrs[p], mask[p])
+      rows_h.append(rows)
+      cols_h.append(cols)
+      prev.append(prev_cnt)
+    rows_acc.append(torch.stack(rows_h))
+    cols_acc.append(torch.stack(cols_h))
+    counts.append(torch.stack([st.count for st in states]))
     f_cap *= k
-    frontier, frontier_local = _frontier(state, prev_cnt, f_cap)
-  if state.nodes.shape[0] < node_cap:
-    state = _pad_table(state, node_cap)
-  cum = torch.stack(counts)
-  nsn = torch.cat([cum[:1], cum[1:] - cum[:-1]]).to(torch.int32)
-  return state, seed_local, rows_acc, cols_acc, nsn
+    fronts = [_frontier(st, c, f_cap) for st, c in zip(states, prev)]
+  states = [_pad_table(st, node_cap) if st.nodes.shape[0] < node_cap
+            else st for st in states]
+  cum = torch.stack(counts, dim=1)
+  nsn = torch.cat([cum[:, :1], cum[:, 1:] - cum[:, :-1]], dim=1).to(
+      torch.int32)
+  state = InducerState(nodes=torch.stack([st.nodes for st in states]),
+                       count=torch.stack([st.count for st in states]))
+  return (state, torch.stack([sl for _, sl in init]), rows_acc, cols_acc,
+          nsn)

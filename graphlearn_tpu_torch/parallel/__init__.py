@@ -1,10 +1,13 @@
-"""The mesh data plane on one card: sharded graph and tiered feature
-store, the dense exchange, the mesh sampler and loader (GNS-biased or
-uniform), and data-parallel training."""
+"""The mesh data plane, its partitions sharing one card: sharded graph
+and tiered feature store, the dense exchange, the mesh sampler and
+loader (GNS-biased or uniform, adaptive exchange slack), the
+remote-push row gather, and data-parallel training and evaluation."""
 from .dist_data import (DistDataset, DistFeature, DistGraph,
                         build_dist_feature, build_dist_graph, hot_count,
                         relabel_by_partition)
-from .dist_sampler import (DistNeighborLoader, DistNeighborSampler,
-                           TorchDraws)
-from .dp import Mesh, make_dp_supervised_step, make_mesh
+from .dist_sampler import (SLACK_LADDER, AdaptiveSlack, DistNeighborLoader,
+                           DistNeighborSampler, TorchDraws, dist_gather,
+                           dist_gather_multi)
+from .dp import Mesh, make_dp_eval_step, make_dp_supervised_step, make_mesh
 from .exchange import bucket_by_owner, capacity_spec, plan_exchange
+from .rdma_gather import push_rows, push_rows_plain, rdma_gather

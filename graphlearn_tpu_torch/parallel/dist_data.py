@@ -2,7 +2,7 @@
 `parallel/dist_data.py:33-87,155-165,351-398,455-527,598-633,755-851`).
 
 Nodes are relabelled to contiguous ownership ranges (``bounds [P+1]``),
-hottest first within each range; each card holds the CSR of its own
+hottest first within each range; each partition holds the CSR of its own
 nodes' out-edges (columns stay global ids) and its feature shard.  A
 ``split_ratio < 1`` store is tiered: each shard holds only its first
 ``ceil(split_ratio * rows)`` rows on the card (the hot tier), and the

@@ -1,36 +1,44 @@
 """Mesh neighbor sampling with feature collection over a tiered store,
 and its loader (the JAX package's `parallel/dist_sampler.py`: the node
-path of `_dist_one_hop`, `dist_gather_multi`, `_expand_and_collect`,
-`overlay_cold_host`, `DistNeighborSampler`, `DistNeighborLoader`).
+path of `_dist_one_hop`, `dist_gather_multi`, `dist_gather`,
+`_expand_and_collect`, `overlay_cold_host`, `AdaptiveSlack`,
+`DistNeighborSampler`, `DistNeighborLoader`).
 
-Per batch, `DistNeighborSampler._dispatch_nodes` enqueues on the card
-(its uploads from pageable host memory wait for the stream; nothing
-else does):
+The mesh's ``P`` partitions share one card (`parallel.dp.Mesh`); every
+per-partition tensor is stacked on a leading ``[P]`` axis, and the
+partitions advance in lockstep, as the JAX package's SPMD program runs
+its devices.  Per batch, `DistNeighborSampler._dispatch_nodes`
+enqueues on the card (its uploads from pageable host memory wait for
+the stream; nothing else does):
 
-  hop h:  bucket the frontier by owner -> all-to-all -> sample the
-          owned CSR rows (the GNS kernel with ``gns=True``, the uniform
-          kernel otherwise) -> reply -> `induce_next`;
+  hop h:  every partition buckets its frontier by owner -> one
+          all-to-all of the stacked buffers -> each owner samples its
+          receive buffer from its CSR (the GNS kernel with ``gns=True``,
+          the uniform kernel otherwise; one launch per owner) -> reply
+          -> `induce_next` per partition;
   rows:   one exchange gathers features (hot tier only: rows past the
-          owner's hot count come back zero) and labels by the row
-          gather kernel.
+          owner's hot count come back zero) and labels, each owner's
+          read by the row gather kernel.
 
 `_finish_nodes` then does the host half for a tiered store: the cold
-overlay (victim-cache hits served on the card, the misses gathered
-from host memory into a pinned staging buffer and copied in, the
-corrected misses admitted to the cache).  The loader dispatches batch
-``k+1`` before it finishes batch ``k`` (``GLT_COLD_PREFETCH=0`` selects
-the sequential order); batches are the same either way, except that
-the GNS mask of batch ``k+1`` is read at dispatch, before batch ``k``'s
-admissions — as in JAX.
+overlay over the stacked ``[P, node_cap]`` table (victim-cache hits
+served on the card, the misses gathered from host memory into a pinned
+staging buffer and copied in, the corrected misses admitted to each
+partition's cache).  The loader dispatches batch ``k+1`` before it
+finishes batch ``k`` (``GLT_COLD_PREFETCH=0`` selects the sequential
+order); batches are the same either way, except that the GNS mask of
+batch ``k+1`` is read at dispatch, before batch ``k``'s admissions — as
+in JAX.
 
 Random numbers come from a ``draws`` provider, ``draws(step, hop, rows,
-k, w, gns) -> (u [rows, k], v [rows, k])`` for the GNS sampler or
-``(u [rows, k], gumbel [rows, w])`` for the uniform one, where ``step``
-counts dispatches from 1 and row ``j`` belongs to the ``j``-th row of
-the owner's receive buffer in ascending seed order.  The default
+k, w, gns, owner=o) -> (u [rows, k], v [rows, k])`` for the GNS sampler
+or ``(u [rows, k], gumbel [rows, w])`` for the uniform one, where
+``step`` counts dispatches from 1, ``owner`` is the partition that
+samples the rows and row ``j`` belongs to the ``j``-th row of that
+owner's receive buffer in ascending seed order.  The default
 (`TorchDraws`) is a `torch.Generator` on the sampler's device seeded
-from ``(seed, step, hop)``; the parity tests replay the JAX package's
-keys instead.
+from ``(seed, step, hop[, owner])``; the parity tests replay the JAX
+package's keys instead.
 """
 from __future__ import annotations
 
@@ -50,6 +58,8 @@ from ..ops.gns import (cached_set_bits, dedup_requester_bits, gns_enabled,
                        resolve_boost)
 from ..ops.neighbor import default_window
 from ..ops.unique import expand_hops
+from ..telemetry.live import live
+from ..telemetry.recorder import recorder
 from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
@@ -66,80 +76,108 @@ EXCHANGE_STAT_NAMES = (
     'frontier.offered', 'frontier.dropped', 'frontier.slots',
     'feature.offered', 'feature.dropped', 'feature.slots')
 
-Draws = Callable[[int, int, int, int, int, bool],
-                 Tuple[torch.Tensor, torch.Tensor]]
+Draws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+def int64_on(a, device) -> torch.Tensor:
+  """``a`` (the ``[P + 1]`` ownership bounds, the ``[P]`` hot counts)
+  as an int64 tensor on ``device``."""
+  if isinstance(a, torch.Tensor):
+    return a.to(device=device, dtype=torch.int64)
+  return torch.from_numpy(np.asarray(a, np.int64)).to(device)
 
 
 def resolve_exchange_slack(exchange_slack, shuffle: bool):
   """``'auto'``: `DEFAULT_EXCHANGE_SLACK` for shuffled seeds, exact
-  (None) for sequential ones."""
+  (None) for sequential ones.  ``'adaptive'`` passes through (the
+  loader attaches an `AdaptiveSlack`); it needs shuffled seeds, since a
+  sequential seed range can land wholly on one owner."""
   if isinstance(exchange_slack, str):
+    if exchange_slack == 'adaptive':
+      if not shuffle:
+        raise ValueError(
+            "exchange_slack='adaptive' needs shuffle=True: sequential "
+            'seed ranges can land entirely on one owner, where any cap '
+            'silently drops most of a batch')
+      return 'adaptive'
     if exchange_slack != 'auto':
-      raise ValueError(f'unknown exchange_slack {exchange_slack!r} (the '
-                       "adaptive controller is not ported)")
+      raise ValueError(f'unknown exchange_slack {exchange_slack!r}')
     return DEFAULT_EXCHANGE_SLACK if shuffle else None
   return exchange_slack
 
 
-def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, my_start: int,
-                  frontier, k: int, draws: Draws, step: int, hop: int,
-                  num_parts: int, capacity: Optional[int],
-                  gns_bits=None, gns_boost: Optional[float] = None):
-  """One hop for this card's frontier: exchange, sample the owned rows
-  (in ascending id order), reply.  Returns ``(nbrs, mask, weights,
-  stats)``; ``weights`` is None without GNS."""
-  plan = plan_exchange(frontier, range_owner_fn(bounds_t), num_parts,
+def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
+                  draws: Draws, step: int, hop: int,
+                  capacity: Optional[int], gns_bits=None,
+                  gns_boost: Optional[float] = None):
+  """One hop for every partition's ``[P, F]`` frontier: exchange, each
+  owner samples its receive rows (in ascending id order) from its CSR,
+  reply.  Returns ``(nbrs, mask, weights, stats)`` stacked ``[P, F,
+  k]`` (``weights`` None without GNS) and the ``[3]`` exchange
+  counters summed over the partitions."""
+  plan = plan_exchange(frontier, range_owner_fn(bounds_t), mesh.size,
                        mesh, capacity)
-  flat = plan.recv
-  local = torch.where(flat >= 0, flat - my_start, INVALID_ID).to(
-      torch.int32)
-  rows = local.shape[0]
+  local = torch.where(plan.recv >= 0, plan.recv - bounds_t[:-1, None],
+                      INVALID_ID).to(torch.int32)
+  rows = local.shape[1]
   w = default_window(k)
-  if gns_bits is not None:
-    u, v = draws(step, hop, rows, k, w, True)
-    res = sample_one_hop_gns_fused(indptr, indices, local, k, u, v,
-                                   gns_bits, gns_boost,
-                                   req=plan.requester_of_recv, window=w,
-                                   sort_locality=True)
-  else:
-    u, g = draws(step, hop, rows, k, w, False)
-    res = sample_one_hop_fused(indptr, indices, local, k, u, g,
-                               sort_locality=True)
-  nbrs = plan.reply(res.nbrs, fill=INVALID_ID)
-  mask = plan.reply(res.mask, fill=False)
-  weights = (plan.reply(res.weights, fill=0.0)
-             if res.weights is not None else None)
-  return nbrs, mask, weights, plan.stats
+  res = []
+  for o in range(mesh.size):
+    if gns_bits is not None:
+      u, v = draws(step, hop, rows, k, w, True, owner=o)
+      res.append(sample_one_hop_gns_fused(
+          indptr[o], indices[o], local[o], k, u, v, gns_bits, gns_boost,
+          req=plan.requester_of_recv, window=w, sort_locality=True))
+    else:
+      u, g = draws(step, hop, rows, k, w, False, owner=o)
+      res.append(sample_one_hop_fused(indptr[o], indices[o], local[o], k,
+                                      u, g, sort_locality=True))
+  nbrs = plan.reply(torch.stack([r.nbrs for r in res]), fill=INVALID_ID)
+  mask = plan.reply(torch.stack([r.mask for r in res]), fill=False)
+  weights = (plan.reply(torch.stack([r.weights for r in res]), fill=0.0)
+             if gns_bits is not None else None)
+  return nbrs, mask, weights, plan.stats.sum(0)
 
 
-def dist_gather_multi(mesh: Mesh, shard_locs, bounds_t, my_start: int,
-                      ids, num_parts: int,
-                      capacity: Optional[int] = None,
-                      hot_count: Optional[int] = None):
-  """Row gather from several range-sharded tables sharing one exchange:
-  ``out_t[i] = table_t[ids[i]]`` (zero rows for invalid or undelivered
-  ids).  With ``hot_count`` the FIRST table is the hot tier: rows at or
-  past the owner's hot count come back zero (the cold overlay fills
-  them).  The owner's read is the row gather kernel; a 1-D table is
-  read as ``[rows, 1]``.  Returns ``(outs, stats)``."""
-  plan = plan_exchange(ids, range_owner_fn(bounds_t), num_parts, mesh,
+def dist_gather_multi(mesh: Mesh, shards, bounds, ids,
+                      capacity: Optional[int] = None, hot_counts=None):
+  """Row gather from several range-sharded tables sharing one exchange,
+  for every partition's ``[P, F]`` ids: ``out_t[p, i] =
+  table_t[ids[p, i]]`` (zero rows for invalid or undelivered ids).
+  ``shards`` are stacked ``[P, rows, ...]`` tables; with
+  ``hot_counts`` (``[P]``) the FIRST is the hot tier: rows at or past
+  the owner's hot count come back zero (the cold overlay fills them).
+  Each owner's read is the row gather kernel (a ``[P, rows]`` table is
+  read as ``[rows, 1]``).  Returns ``(outs, stats)``, ``stats`` the
+  ``[3]`` counters summed over the partitions."""
+  bounds_t = int64_on(bounds, ids.device)
+  plan = plan_exchange(ids, range_owner_fn(bounds_t), mesh.size, mesh,
                        capacity)
-  flat = plan.recv
-  valid = flat >= 0
-  local = torch.where(valid, flat - my_start, 0)
+  valid = plan.recv >= 0
+  local = torch.where(valid, plan.recv - bounds_t[:-1, None], 0)
   ok = (ids >= 0) & plan.delivered
+  hot = (None if hot_counts is None
+         else int64_on(hot_counts, ids.device)[:, None])
   outs = []
-  for t, shard in enumerate(shard_locs):
-    row_valid = valid
-    if t == 0 and hot_count is not None:
-      row_valid = valid & (local < hot_count)
-    table = shard if shard.ndim == 2 else shard[:, None]
-    rows = gather_rows(table, torch.where(row_valid, local, INVALID_ID))
+  for t, shard in enumerate(shards):
+    row_valid = valid if t or hot is None else valid & (local < hot)
+    idx = torch.where(row_valid, local, INVALID_ID)
+    rows = torch.stack([
+        gather_rows(shard[o] if shard.ndim == 3 else shard[o][:, None],
+                    idx[o]) for o in range(mesh.size)])
     out = plan.reply(rows, fill=0)
-    out = torch.where(ok[:, None], out, torch.zeros((), dtype=out.dtype,
-                                                    device=out.device))
-    outs.append(out if shard.ndim == 2 else out[:, 0])
-  return tuple(outs), plan.stats
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                      device=out.device))
+    outs.append(out if shard.ndim == 3 else out[..., 0])
+  return tuple(outs), plan.stats.sum(0)
+
+
+def dist_gather(mesh: Mesh, shard, bounds, ids,
+                capacity: Optional[int] = None) -> torch.Tensor:
+  """One table's `dist_gather_multi`: ``[P, F]`` ids -> ``[P, F, ...]``
+  rows."""
+  (out,), _ = dist_gather_multi(mesh, (shard,), bounds, ids, capacity)
+  return out
 
 
 def overlay_cold_host(x: torch.Tensor, nodes_host: np.ndarray, cold_host,
@@ -188,16 +226,122 @@ class PinnedStaging:
     self._event.record()
 
 
+#: `AdaptiveSlack` ladder, tightest first (None = exact).  The sub-1.25
+#: rungs only bite where the dense layout's `MIN_EXCHANGE_CAP` floor
+#: does not dominate the caps.
+SLACK_LADDER = (0.75, 1.0, 1.25, 1.5, 2.0, 3.0, None)
+
+#: tightest rung the ladder may reach by default (``GLT_SLACK_FLOOR``
+#: overrides): the step to 0.75 undercuts the balanced share.
+DEFAULT_SLACK_FLOOR = 1.0
+
+#: per-epoch drop rate above which the controller widens
+ADAPTIVE_DROP_TOLERANCE = 1e-3
+
+
+class AdaptiveSlack:
+  """Epoch-level exchange-capacity tuner over `SLACK_LADDER` (the JAX
+  package's, dense layout).
+
+  It starts at `DEFAULT_EXCHANGE_SLACK`; its floor is
+  ``GLT_SLACK_FLOOR`` (default `DEFAULT_SLACK_FLOOR`), rounded up to a
+  rung.  A drop-free epoch tightens one rung, an epoch that dropped more than
+  `ADAPTIVE_DROP_TOLERANCE` of its offered ids widens one rung, and the
+  first tighten -> widen reversal pins the setting.  A drop-free epoch
+  at the floor pins there (``pin_reason='floor'``); drops at the floor
+  still widen.  Each change sets the sampler's ``exchange_slack``, ticks
+  the ``dist.slack.transitions`` counter and records a
+  ``slack.transition`` event (``slack.pinned`` on a pin).
+  """
+
+  #: every loss channel the shared slack caps gate
+  OFFER_KEYS = ('dist.frontier.offered', 'dist.feature.offered')
+  DROP_KEYS = ('dist.frontier.dropped', 'dist.feature.dropped')
+
+  def __init__(self, sampler: 'DistNeighborSampler'):
+    self.sampler = sampler
+    try:
+      floor = float(os.environ.get('GLT_SLACK_FLOOR', DEFAULT_SLACK_FLOOR))
+    except ValueError:
+      floor = DEFAULT_SLACK_FLOOR
+    finite = [s for s in SLACK_LADDER if s is not None]
+    self._min_idx = min(
+        (i for i, s in enumerate(SLACK_LADDER)
+         if s is not None and s >= floor - 1e-9),
+        default=len(finite) - 1)
+    self.floor = SLACK_LADDER[self._min_idx]
+    self._idx = SLACK_LADDER.index(DEFAULT_EXCHANGE_SLACK)
+    self._pinned = False
+    self._pin_reason = ''
+    self._tightened_from = None
+    self._last = {}
+    self._transitions = live.counter('dist.slack.transitions')
+    sampler.exchange_slack = SLACK_LADDER[self._idx]
+
+  @property
+  def slack(self):
+    return SLACK_LADDER[self._idx]
+
+  def _set(self, idx: int, reason: str = '', drop_rate: float = 0.0,
+           pin_reason: str = '') -> None:
+    if idx == self._idx:
+      return
+    frm = SLACK_LADDER[self._idx]
+    self._idx = idx
+    self.sampler.exchange_slack = SLACK_LADDER[idx]
+    self._transitions.inc()
+    recorder.emit('slack.transition', from_slack=frm,
+                  to_slack=SLACK_LADDER[idx], reason=reason,
+                  drop_rate=round(float(drop_rate), 6),
+                  pin_reason=pin_reason)
+
+  def _pin(self, reason: str, rate: float) -> None:
+    self._pinned = True
+    self._pin_reason = reason
+    recorder.emit('slack.pinned', slack=SLACK_LADDER[self._idx],
+                  drop_rate=round(float(rate), 6), pin_reason=reason)
+
+  def on_epoch_end(self) -> None:
+    """Read the epoch's exchange counters and retune."""
+    st = self.sampler.exchange_stats()
+    offered = sum(st[k] - self._last.get(k, 0) for k in self.OFFER_KEYS)
+    dropped = sum(st[k] - self._last.get(k, 0) for k in self.DROP_KEYS)
+    self._last = {k: st[k] for k in self.OFFER_KEYS + self.DROP_KEYS}
+    if offered <= 0:
+      return
+    rate = dropped / offered
+    tol = ADAPTIVE_DROP_TOLERANCE
+    if self._pinned and (self._pin_reason != 'floor' or rate <= tol):
+      # a reversal pin is final; a floor pin only stops tightening
+      return
+    if rate > tol:
+      wider = min(self._idx + 1, len(SLACK_LADDER) - 1)
+      pin = (self._tightened_from is not None
+             and wider >= self._tightened_from)
+      self._set(wider, reason='drops', drop_rate=rate,
+                pin_reason='reversal' if pin else '')
+      if pin:
+        self._pin('reversal', rate)
+      else:
+        self._pinned = False
+    elif self._idx > self._min_idx:
+      self._tightened_from = self._idx
+      self._set(self._idx - 1, reason='drop_free', drop_rate=rate)
+    elif not self._pinned:
+      self._pin('floor', rate)
+
+
 class DistNeighborSampler:
   """Mesh sampler with feature and label collection.
 
   Args:
     dataset: `DistDataset` on ``device``.
     num_neighbors: per-hop fanouts.
-    mesh: a `Mesh` (default: one card on ``device``).
+    mesh: a `Mesh` of the dataset's partitions (default: all of them on
+      ``device``).
     seed: seeds the default draws provider.
     exchange_slack: per-destination capacity multiplier (None = exact).
-    cold_cache_rows: victim-cache rows per card (tiered stores).
+    cold_cache_rows: victim-cache rows per partition (tiered stores).
     gns: cache-aware sampling (``GLT_GNS`` when None); only meaningful
       on a tiered store, off otherwise.
     draws: the draws provider (module docstring).
@@ -215,7 +359,7 @@ class DistNeighborSampler:
       raise ValueError(f'the dataset lives on {dataset.device}, the mesh '
                        f'on {self.device}')
     if self.mesh.size != dataset.num_partitions:
-      raise ValueError(f'mesh of {self.mesh.size} cards for '
+      raise ValueError(f'mesh of {self.mesh.size} partitions for '
                        f'{dataset.num_partitions} partitions')
     self.ds = dataset
     self.fanouts = tuple(int(k) for k in num_neighbors)
@@ -237,7 +381,9 @@ class DistNeighborSampler:
     self.draws = draws if draws is not None else TorchDraws(seed,
                                                             self.device)
     self._step_cnt = 0
-    self._bounds_t = torch.from_numpy(dataset.graph.bounds).to(self.device)
+    self._bounds_t = int64_on(dataset.graph.bounds, self.device)
+    self._hot_t = (int64_on(dataset.node_features.hot_counts,
+                                 self.device) if self.tiered else None)
     self._staging = PinnedStaging() if self.device.type == 'cuda' else None
     self._stats_acc = torch.zeros(len(EXCHANGE_STAT_NAMES),
                                   dtype=torch.int64, device=self.device)
@@ -250,84 +396,66 @@ class DistNeighborSampler:
     return round_up(cap, 8)
 
   def sample_from_nodes(self, seeds_stacked: np.ndarray) -> dict:
-    """``[P, B]`` per-card seed batches (relabelled ids, -1 padded) ->
-    the stacked batch pieces."""
+    """``[P, B]`` per-partition seed batches (relabelled ids, -1 padded)
+    -> the stacked batch pieces."""
     return self._finish_nodes(self._dispatch_nodes(seeds_stacked))
 
   def _dispatch_nodes(self, seeds_stacked: np.ndarray) -> dict:
-    """Sample and collect one stacked batch on the card, without the
-    cold overlay."""
+    """Sample and collect one stacked batch on the card, every
+    partition hop by hop in lockstep, without the cold overlay."""
     b = seeds_stacked.shape[1]
     self._step_cnt += 1
+    step = self._step_cnt
     seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
         self.device)
     bits = self._gns_arrays() if self.gns else None
-    outs = [self._expand_and_collect(p, seeds[p], b, bits)
-            for p in range(self.mesh.size)]
-    out = {key: (torch.stack([o[key] for o in outs])
-                 if outs[0][key] is not None else None)
-           for key in outs[0] if key != 'stats'}
-    self._stats_acc += sum(o['stats'] for o in outs)
-    out['batch'] = seeds
-    if not self.gns:
-      out.pop('edge_weight')
-    return out
-
-  def _expand_and_collect(self, p: int, seeds: torch.Tensor, b: int,
-                          bits) -> dict:
-    """Card ``p``'s multi-hop expansion and row collection."""
     g = self.ds.graph
     node_cap = self.node_capacity(b)
-    dev = self.device
-    my_start = int(g.bounds[p])
-    indptr, indices = g.indptr[p], g.indices[p]
     hws = []
-    fr_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    fr_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
 
     def one_hop(h, frontier, k):
-      cap = capacity_spec(frontier.shape[0], self.num_parts,
+      cap = capacity_spec(frontier.shape[1], self.num_parts,
                           self.exchange_slack)
       nbrs, mask, hw, hstats = _dist_one_hop(
-          self.mesh, indptr, indices, self._bounds_t, my_start, frontier,
-          k, self.draws, self._step_cnt, h, self.num_parts, cap,
-          gns_bits=bits, gns_boost=self.gns_boost)
+          self.mesh, g.indptr, g.indices, self._bounds_t, frontier, k,
+          self.draws, step, h, cap, gns_bits=bits,
+          gns_boost=self.gns_boost)
       fr_stats.add_(hstats)
       hws.append(hw)
       return nbrs, mask
 
     state, seed_local, rows_acc, cols_acc, nsn = expand_hops(
         seeds, self.fanouts, node_cap, one_hop)
-    # induce_next flattens [F, k] row-major: the weights line up with
-    # the edge list; masked and dropped edges carry 0
-    ew_acc = [torch.where(rows >= 0, hw.reshape(-1), 0.0)
-              for rows, hw in zip(rows_acc, hws) if hw is not None]
-    x = y = None
-    ft_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    out = dict(node=state.nodes, node_count=state.count,
+               row=torch.cat(rows_acc, dim=1),
+               col=torch.cat(cols_acc, dim=1), seed_local=seed_local,
+               x=None, y=None, num_sampled_nodes=nsn, batch=seeds)
+    if self.gns:
+      # induce_next flattens [F, k] row-major: the weights line up with
+      # the edge list; masked and dropped edges carry 0
+      out['edge_weight'] = torch.cat(
+          [torch.where(rows >= 0, hw.reshape(rows.shape), 0.0)
+           for rows, hw in zip(rows_acc, hws)], dim=1)
+    ft_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
     tables = []
     if self.collect_features:
-      tables.append(self.ds.node_features.shards[p])
+      tables.append(self.ds.node_features.shards)
     if self.collect_labels:
-      tables.append(self.ds.node_labels[p])
+      tables.append(self.ds.node_labels)
     if tables:
-      hot = (int(self.ds.node_features.hot_counts[p])
-             if self.collect_features and self.tiered else None)
       got, ft_stats = dist_gather_multi(
-          self.mesh, tables, self._bounds_t, my_start, state.nodes,
-          self.num_parts,
+          self.mesh, tables, self._bounds_t, state.nodes,
           capacity=capacity_spec(node_cap, self.num_parts,
                                  self.exchange_slack),
-          hot_count=hot)
+          hot_counts=self._hot_t if self.collect_features else None)
       got = list(got)
       if self.collect_features:
-        x = got.pop(0)
+        out['x'] = got.pop(0)
       if self.collect_labels:
-        y = got.pop(0)
-    stats = torch.cat([fr_stats, ft_stats])
-    return dict(node=state.nodes, node_count=state.count,
-                row=torch.cat(rows_acc), col=torch.cat(cols_acc),
-                seed_local=seed_local, x=x, y=y, num_sampled_nodes=nsn,
-                edge_weight=torch.cat(ew_acc) if ew_acc else None,
-                stats=stats)
+        out['y'] = got.pop(0)
+    self._stats_acc += torch.cat([fr_stats, ft_stats])
+    return out
 
   def _finish_nodes(self, out: dict) -> dict:
     """The host half of a dispatched batch: the cold overlay (nothing
@@ -410,8 +538,9 @@ class DistNeighborSampler:
     return x
 
   def exchange_stats(self) -> dict:
-    """Cumulative exchange and cold-tier counters (one device sync):
-    ``dist.frontier.*``, ``dist.feature.*`` and the hit rates."""
+    """Cumulative exchange and cold-tier counters, summed over the
+    partitions (one device sync): ``dist.frontier.*``,
+    ``dist.feature.*`` and the hit rates."""
     totals = self._stats_acc.cpu().numpy()
     out = {f'dist.{n}': int(v) for n, v in zip(EXCHANGE_STAT_NAMES, totals)}
     lookups, cold = self._feat_lookups, self._cold_lookups
@@ -429,11 +558,13 @@ class DistNeighborSampler:
 
 
 class DistNeighborLoader:
-  """Mesh loader: splits the (relabelled) seeds across the mesh and
-  yields stacked `Batch`es (leading axis = card) for
+  """Mesh loader: splits the (relabelled) seeds across the partitions
+  and yields stacked `Batch`es (leading axis = partition) for
   `make_dp_supervised_step`.
 
   ``input_space='old'`` maps the seeds through ``dataset.old2new``.
+  ``exchange_slack='adaptive'`` starts at 2.0 and retunes the exchange
+  capacity (`AdaptiveSlack`) when a new epoch starts after the first.
   For a tiered store batch ``k+1`` is dispatched before batch ``k``'s
   cold overlay runs (``GLT_COLD_PREFETCH=0``: one batch at a time).
   Each ``iter()`` starts a new epoch.
@@ -446,12 +577,17 @@ class DistNeighborLoader:
                input_space: str = 'old', exchange_slack='auto',
                cold_cache_rows='auto', gns=None,
                draws: Optional[Draws] = None, device='cuda'):
+    slack = resolve_exchange_slack(exchange_slack, shuffle)
     self.sampler = DistNeighborSampler(
         dataset, num_neighbors, mesh=mesh,
         collect_features=collect_features, seed=seed,
-        exchange_slack=resolve_exchange_slack(exchange_slack, shuffle),
+        exchange_slack=(DEFAULT_EXCHANGE_SLACK if slack == 'adaptive'
+                        else slack),
         cold_cache_rows=cold_cache_rows, gns=gns, draws=draws,
         device=device)
+    self._adaptive = (AdaptiveSlack(self.sampler)
+                      if slack == 'adaptive' else None)
+    self._epoch_count = 0
     self._cold_pipeline = (self.sampler.tiered and os.environ.get(
         'GLT_COLD_PREFETCH', '1') != '0')
     self.ds = dataset
@@ -468,7 +604,13 @@ class DistNeighborLoader:
     return len(self._batcher)
 
   def __iter__(self):
-    seed_iter = iter(self._batcher)
+    if self._adaptive is not None:
+      if self._epoch_count > 0:
+        self._adaptive.on_epoch_end()
+      self._epoch_count += 1
+    return self._epoch(iter(self._batcher))
+
+  def _epoch(self, seed_iter):
     while True:
       try:
         yield self._produce(seed_iter)

@@ -1,12 +1,15 @@
-"""The device mesh and data-parallel training (the JAX package's
-`parallel/dp.py:26-109`).
+"""The partition mesh and data-parallel training (the JAX package's
+`parallel/dp.py:26-131`).
 
-`Mesh` is the port's stand-in for a `jax.sharding.Mesh`: the cards of
-the ``data`` axis and the collectives the data plane needs.  This slice
-runs one card (P=1), where the all-to-all and the gradient mean are the
-identity; meshes of more cards need NCCL collectives and are ROADMAP
-slice 12.  Stacked batches carry a leading axis of the mesh size, as in
-JAX.
+`Mesh` is the port's stand-in for a `jax.sharding.Mesh` over the
+``data`` axis: ``size`` partitions, all on ONE card (``device``), in one
+process.  Every per-partition array is stacked with a leading axis of
+the mesh size, as the JAX package's stacked batches are, so its
+collectives are tensor ops on that card: the tiled all-to-all is a
+transpose of the stacked ``[P_src, P_dst, ...]`` send buffers, and the
+gradient mean is a division of the gradients summed over the pieces.
+Nothing here crosses cards; a mesh of several cards (one process per
+card, NCCL) is ROADMAP slice 12.
 """
 from __future__ import annotations
 
@@ -14,39 +17,49 @@ from typing import Optional
 
 import torch
 
-from ..models.train import _loss_and_correct
+from ..models.train import _correct, _loss_and_correct
 from ..utils.device import resolve_device
 
 
 class Mesh:
-  """A 1-D mesh of ``size`` cards (the JAX package's ``data`` axis)."""
+  """A 1-D mesh of ``size`` partitions sharing the one card ``device``
+  (the JAX package's ``data`` axis)."""
 
   def __init__(self, device, size: int = 1):
-    if size != 1:
-      raise NotImplementedError(
-          f'a mesh of {size} cards needs collectives across cards, which '
-          'are ROADMAP slice 12; this port runs one card (P=1)')
+    if int(size) < 1:
+      raise ValueError(f'a mesh needs at least one partition, got {size}')
     self.device = resolve_device(device)
-    self.size = 1
+    self.size = int(size)
 
   def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-    """``[P, ...]`` row ``q`` sent to card ``q`` -> ``[P, ...]`` row ``q``
-    received from card ``q`` (the tiled ``jax.lax.all_to_all``)."""
-    return x
+    """Stacked send buffers ``[P_src, P_dst, ...]`` (row ``q`` of source
+    ``p``'s buffer goes to partition ``q``) -> the receive buffers
+    ``[P_dst, P_src, ...]`` (row ``p`` of ``q``'s buffer came from
+    ``p``): the tiled ``jax.lax.all_to_all`` of every partition at
+    once, a transpose on the card (the identity at P = 1)."""
+    if x.shape[0] != self.size or x.shape[1] != self.size:
+      raise ValueError(f'all_to_all takes [{self.size}, {self.size}, ...] '
+                       f'send buffers, got {tuple(x.shape)}')
+    return x.transpose(0, 1).contiguous()
 
   def mean_gradients(self, params) -> None:
-    """Average every parameter's gradient over the mesh (``pmean``)."""
-    return None
+    """Turn the gradients summed over the ``size`` pieces into their
+    mean (``pmean``), in place."""
+    if self.size == 1:
+      return
+    for p in params:
+      if p.grad is not None:
+        p.grad.div_(self.size)
 
 
 def make_mesh(n_devices: Optional[int] = 1, device='cuda') -> Mesh:
-  """A mesh of ``n_devices`` cards starting at ``device`` (`Mesh` raises
-  NotImplementedError for more than one)."""
+  """A mesh of ``n_devices`` partitions on the one card ``device`` (the
+  partitions share it: no collective here crosses cards)."""
   return Mesh(device, 1 if n_devices is None else int(n_devices))
 
 
 def local_piece(batch, index: int = 0):
-  """Card ``index``'s slice of a stacked ``[P, ...]`` Batch."""
+  """Partition ``index``'s slice of a stacked ``[P, ...]`` Batch."""
   from ..loader.transform import Batch
 
   def pick(v):
@@ -62,11 +75,11 @@ def local_piece(batch, index: int = 0):
 def make_dp_supervised_step(model, optimizer, batch_size: int, mesh: Mesh):
   """The data-parallel supervised step over a stacked batch.
 
-  Returns ``step(stacked_batch) -> (mean_loss, correct)``: each card's
-  piece runs forward and backward, gradients are averaged over the mesh
-  (`Mesh.mean_gradients`), the optimizer steps once, and the loss mean
-  and the summed count of correct seed predictions come back as device
-  tensors.
+  Returns ``step(stacked_batch) -> (mean_loss, correct)``: each
+  partition's piece runs forward and backward (the gradients add up
+  over the pieces), `Mesh.mean_gradients` turns the sum into the mean,
+  the optimizer steps once, and the loss mean and the summed count of
+  correct seed predictions come back as device tensors.
   """
 
   def step(stacked):
@@ -82,5 +95,25 @@ def make_dp_supervised_step(model, optimizer, batch_size: int, mesh: Mesh):
     mesh.mean_gradients(model.parameters())
     optimizer.step()
     return torch.stack(losses).mean(), torch.stack(correct).sum()
+
+  return step
+
+
+def make_dp_eval_step(model, batch_size: int, mesh: Mesh):
+  """The data-parallel evaluation step: ``step(stacked_batch) ->
+  (correct, total)``, both summed over the pieces.  As in JAX the model
+  runs without the GNS edge weights (evaluation batches come from an
+  unbiased loader)."""
+
+  @torch.no_grad()
+  def step(stacked):
+    model.eval()
+    correct, total = [], []
+    for p in range(mesh.size):
+      b = local_piece(stacked, p)
+      logits = model(b.x, b.edge_index, b.edge_mask)
+      correct.append(_correct(logits, b.y, b.batch, batch_size))
+      total.append((b.batch >= 0).sum())
+    return torch.stack(correct).sum(), torch.stack(total).sum()
 
   return step

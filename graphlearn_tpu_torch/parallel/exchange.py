@@ -1,14 +1,15 @@
 """The dense bucketed exchange of the mesh data plane: the JAX package's
 `bucket_by_owner` (`parallel/dist_sampler.py:79-122`), dense
-`capacity_spec` and `plan_exchange` (`parallel/exchange.py`).
+`capacity_spec` and `plan_exchange` (`parallel/exchange.py:200-285,
+420-490`), for every partition of the mesh at once.
 
-Ids are bucketed by owner into a ``[P, C]`` send buffer, shipped to
-their owners with the mesh's all-to-all, answered there, and the
-replies stitched back into request order.  ``C`` is the per-destination
-capacity: ids past it are dropped (their ``slot_j`` is -1) and counted.
-The collective is a method of the mesh (`parallel.dp.Mesh`); on one
-card it is the identity.  The compact, hierarchical and ragged layouts
-are not ported.
+Each partition buckets its ids by owner into a ``[P, C]`` send buffer;
+the stacked ``[P_src, P_dst, C]`` buffers cross the mesh in one
+all-to-all (`parallel.dp.Mesh.all_to_all`), each owner answers its
+receive buffer, and the replies cross back and are stitched into each
+partition's request order.  ``C`` is the per-destination capacity: ids
+past it are dropped (their ``slot_j`` is -1) and counted.  The compact,
+hierarchical and ragged layouts are not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +35,44 @@ def capacity_spec(n: int, num_parts: int, slack: Optional[float],
   return int(round_up(min(int(n), max(int(math.ceil(lam)), int(floor))), 8))
 
 
+def bucket_stacked(ids: torch.Tensor, owner: torch.Tensor, num_parts: int,
+                   capacity: Optional[int] = None):
+  """`bucket_by_owner` for ``R`` id vectors at once: ``ids`` and
+  ``owner`` are ``[R, F]``; returns ``send [R, P, C]``, ``slot_p [R,
+  F]`` and ``slot_j [R, F]``, row ``r`` exactly what `bucket_by_owner`
+  gives for ``ids[r]`` (one stable sort on ``(r, owner)`` keeps each
+  row's arrival order within an owner)."""
+  r, f = ids.shape
+  dev = ids.device
+  cap = f if capacity is None else min(int(capacity), f)
+  width = num_parts + 1            # owners, then the invalid ids' bucket
+  owner = torch.where(ids >= 0, owner.to(torch.int64), num_parts)
+  key = (owner + width * torch.arange(r, dtype=torch.int64,
+                                      device=dev)[:, None]).reshape(-1)
+  perm = torch.argsort(key, stable=True)
+  key_s = key[perm]
+  ids_s = ids.reshape(-1)[perm]
+  # a scatter, not `bincount`, whose output size needs a device sync
+  counts = torch.zeros(r * width, dtype=torch.int64, device=dev)
+  counts.scatter_add_(0, key_s, torch.ones_like(key_s))
+  offsets = torch.cumsum(counts, 0) - counts
+  rank = torch.arange(r * f, dtype=torch.int64, device=dev) - offsets[key_s]
+  row_s = key_s // width
+  owner_s = key_s % width
+  fits = (rank < cap) & (owner_s < num_parts)
+  # non-fitting entries land in the extra column `num_parts`, cut below
+  send = torch.full((r, width, max(cap, 1)), INVALID_ID, dtype=ids.dtype,
+                    device=dev)
+  send[row_s, torch.where(fits, owner_s, num_parts),
+       torch.where(fits, rank, 0)] = ids_s
+  send = send[:, :num_parts, :cap]
+  slot_p = torch.zeros(r * f, dtype=torch.int64, device=dev)
+  slot_p[perm] = torch.where(owner_s < num_parts, owner_s, 0)
+  slot_j = torch.full((r * f,), -1, dtype=torch.int64, device=dev)
+  slot_j[perm] = torch.where(fits, rank, -1)
+  return send, slot_p.reshape(r, f), slot_j.reshape(r, f)
+
+
 def bucket_by_owner(ids: torch.Tensor, owner: torch.Tensor, num_parts: int,
                     capacity: Optional[int] = None):
   """Pack ids into per-owner rows of a ``[P, C]`` send buffer.
@@ -43,50 +82,38 @@ def bucket_by_owner(ids: torch.Tensor, owner: torch.Tensor, num_parts: int,
   for ids past their owner's capacity (dropped).  Invalid ids sort
   after every owner, so they never take a slot.
   """
-  f = ids.shape[0]
-  dev = ids.device
-  cap = f if capacity is None else min(int(capacity), f)
-  valid = ids >= 0
-  owner = torch.where(valid, owner.to(torch.int64), num_parts)
-  perm = torch.argsort(owner, stable=True)
-  owner_s = owner[perm]
-  ids_s = ids[perm]
-  counts = torch.bincount(owner_s, minlength=num_parts + 1)
-  offsets = torch.cumsum(counts, 0) - counts
-  rank = torch.arange(f, dtype=torch.int64, device=dev) - offsets[owner_s]
-  fits = (rank < cap) & (owner_s < num_parts)
-  # non-fitting entries land in the extra row `num_parts`, cut below
-  send = torch.full((num_parts + 1, max(cap, 1)), INVALID_ID,
-                    dtype=ids.dtype, device=dev)
-  send[torch.where(fits, owner_s, num_parts),
-       torch.where(fits, rank, 0)] = ids_s
-  send = send[:num_parts, :cap]
-  slot_p = torch.zeros(f, dtype=torch.int64, device=dev)
-  slot_p[perm] = torch.where(owner_s < num_parts, owner_s, 0)
-  slot_j = torch.full((f,), -1, dtype=torch.int64, device=dev)
-  slot_j[perm] = torch.where(fits, rank, -1)
-  return send, slot_p, slot_j
+  send, slot_p, slot_j = bucket_stacked(ids[None], owner[None], num_parts,
+                                        capacity)
+  return send[0], slot_p[0], slot_j[0]
 
 
 class DensePlan:
-  """One ``[P, C]`` request exchange and its reply path.
+  """The ``[P, P, C]`` request exchange of every partition and its reply
+  path.
 
   Attributes:
-    recv: ``[P_src * C]`` ids this card must answer (-1 padded).
-    kept / delivered: ``[F]`` which requests found a slot.
-    requester_of_recv: ``[P_src * C]`` int32 source card of each recv
-      row (the per-requester GNS mask's row).
-    stats: int64 ``[3]`` (offered, dropped, slots) on the device.
+    recv: ``[P_owner, P_src * C]`` ids each owner must answer (-1
+      padded), each owner's row in JAX's ``[P_src, C]`` order.
+    kept / delivered: ``[P, F]`` which requests found a slot.
+    slot_p / slot_j: ``[P, F]`` where each request sits in its
+      partition's send buffer.
+    requester_of_recv: ``[P_src * C]`` int32 source partition of each
+      receive row (the per-requester GNS mask's row; the same for every
+      owner).
+    stats: int64 ``[P, 3]`` (offered, dropped, slots) per partition.
   """
 
   def __init__(self, ids: torch.Tensor, owner_fn: Callable, num_parts: int,
                mesh, capacity: Optional[int] = None):
-    send, self.slot_p, self.slot_j = bucket_by_owner(
+    if ids.ndim != 2 or ids.shape[0] != num_parts:
+      raise ValueError(f'the plan takes [{num_parts}, F] ids, got '
+                       f'{tuple(ids.shape)}')
+    send, self.slot_p, self.slot_j = bucket_stacked(
         ids, owner_fn(ids), num_parts, capacity)
     self.mesh = mesh
     self.num_parts = num_parts
-    self.cap = send.shape[1]
-    self.recv = mesh.all_to_all(send).reshape(-1)
+    self.cap = send.shape[2]
+    self.recv = mesh.all_to_all(send).reshape(num_parts, -1)
     self.kept = self.slot_j >= 0
     self.delivered = self.kept
     self.requester_of_recv = torch.arange(
@@ -94,22 +121,31 @@ class DensePlan:
         device=ids.device).repeat_interleave(self.cap)
     valid = ids >= 0
     self.stats = torch.stack([
-        valid.sum(), (valid & ~self.kept).sum(),
-        torch.tensor(num_parts * self.cap, device=ids.device)])
+        valid.sum(1), (valid & ~self.kept).sum(1),
+        torch.full((num_parts,), num_parts * self.cap, dtype=torch.int64,
+                   device=ids.device)], dim=1)
 
-  def reply(self, values: torch.Tensor, fill=0) -> torch.Tensor:
-    """``[P_src * C, ...]`` owner-side values -> ``[F, ...]`` in request
-    order; requests that found no slot get ``fill``."""
-    v = values.reshape((self.num_parts, self.cap) + tuple(values.shape[1:]))
-    back = self.mesh.all_to_all(v)
-    out = back[self.slot_p, torch.where(self.kept, self.slot_j, 0)]
-    kept = self.kept.reshape(self.kept.shape + (1,) * (out.ndim - 1))
+  def stitch(self, back: torch.Tensor, fill=0) -> torch.Tensor:
+    """Requester-side ``[P_req, P_owner, C, ...]`` replies -> ``[P, F,
+    ...]`` in request order; requests that found no slot get ``fill``."""
+    r = torch.arange(self.num_parts, device=back.device)[:, None]
+    out = back[r, self.slot_p, torch.where(self.kept, self.slot_j, 0)]
+    kept = self.kept.reshape(self.kept.shape + (1,) * (out.ndim - 2))
     return torch.where(kept, out, torch.full((), fill, dtype=out.dtype,
                                              device=out.device))
+
+  def reply(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+    """Owner-side ``[P_owner, P_src * C, ...]`` values -> ``[P, F, ...]``
+    in each partition's request order (the reply all-to-all, then the
+    stitch)."""
+    v = values.reshape((self.num_parts, self.num_parts, self.cap)
+                       + tuple(values.shape[2:]))
+    return self.stitch(self.mesh.all_to_all(v), fill)
 
 
 def plan_exchange(ids: torch.Tensor, owner_fn: Callable, num_parts: int,
                   mesh, capacity: Optional[int] = None) -> DensePlan:
-  """The exchange plan for one ``[F]`` request vector (-1 padded) at
-  per-destination ``capacity`` (None = exact)."""
+  """The exchange plan for the ``[P, F]`` request vectors of every
+  partition (-1 padded) at per-destination ``capacity`` (None =
+  exact)."""
   return DensePlan(ids, owner_fn, num_parts, mesh, capacity)

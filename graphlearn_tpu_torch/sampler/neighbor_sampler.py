@@ -31,7 +31,7 @@ from ..data.graph import Graph
 from ..ops.draws import TorchDraws
 from ..ops.fused_sample import sample_one_hop_fused
 from ..ops.neighbor import default_window
-from ..ops.unique import expand_hops
+from ..ops.unique import InducerState, expand_hops
 from ..utils.device import resolve_device
 from ..utils.padding import max_sampled_nodes, round_up
 from .base import BaseSampler, NodeSamplerInput, SamplerOutput
@@ -45,13 +45,17 @@ def _multihop_sample(indptr: torch.Tensor, indices: torch.Tensor,
                      ) -> SamplerOutput:
   """One multi-hop sample of ``[B]`` int32 seeds (-1 padded)."""
   def one_hop(hop, frontier, k):
-    u, gumbel = draws(step, hop, frontier.shape[0], k, default_window(k))
-    res = sample_one_hop_fused(indptr, indices, frontier, k, u, gumbel,
+    u, gumbel = draws(step, hop, frontier.shape[1], k, default_window(k))
+    res = sample_one_hop_fused(indptr, indices, frontier[0], k, u, gumbel,
                                sort_locality=True)
-    return res.nbrs, res.mask
+    return res.nbrs[None], res.mask[None]
 
   state, seed_local, rows_acc, cols_acc, nsn = expand_hops(
-      seeds, fanouts, node_cap, one_hop, grow=True)
+      seeds[None], fanouts, node_cap, one_hop, grow=True)
+  state = InducerState(nodes=state.nodes[0], count=state.count[0])
+  seed_local, nsn = seed_local[0], nsn[0]
+  rows_acc = [r[0] for r in rows_acc]
+  cols_acc = [c[0] for c in cols_acc]
   empty = torch.zeros(0, dtype=torch.int32, device=seeds.device)
   row = torch.cat(rows_acc) if rows_acc else empty
   col = torch.cat(cols_acc) if cols_acc else empty

@@ -40,6 +40,8 @@ METRIC_NAMES: Dict[str, str] = {
         'gauge: seconds since the last snapshot restore',
     'postmortem.dumps_total':
         'counter: post-mortem bundles written',
+    'dist.slack.transitions':
+        'counter: AdaptiveSlack rung changes of the mesh exchange capacity',
 }
 
 

@@ -13,12 +13,14 @@ import graphlearn_tpu_torch
 from graphlearn_tpu_torch.data import Dataset, Feature, Graph
 from graphlearn_tpu_torch.data.cold_cache import MeshColdCache
 from graphlearn_tpu_torch.loader import FusedTreeEpoch, NeighborLoader
-from graphlearn_tpu_torch.models import TreeSAGE
+from graphlearn_tpu_torch.models import GraphSAGE, TreeSAGE
 from graphlearn_tpu_torch.ops import merge_delta_csr_device
 from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
                                            DistNeighborSampler,
                                            build_dist_feature,
-                                           build_dist_graph, make_mesh)
+                                           build_dist_graph,
+                                           make_dp_eval_step, make_mesh,
+                                           rdma_gather)
 from graphlearn_tpu_torch.sampler import NeighborSampler
 from graphlearn_tpu_torch.serving import ServingEngine
 from graphlearn_tpu_torch.streaming import (DeltaSegment, IngestPipeline,
@@ -43,6 +45,7 @@ def test_import_pulls_in_no_jax():
       'import graphlearn_tpu_torch.testing.chaos\n'
       'import graphlearn_tpu_torch.utils.checkpoint\n'
       'import graphlearn_tpu_torch.parallel\n'
+      'import graphlearn_tpu_torch.parallel.rdma_gather\n'
       'import graphlearn_tpu_torch.data.cold_cache\n'
       'import graphlearn_tpu_torch.sampler\n'
       'new = sorted(set(sys.modules) - before)\n'
@@ -53,6 +56,7 @@ def test_import_pulls_in_no_jax():
       'assert "graphlearn_tpu_torch.streaming.ingest" in sys.modules\n'
       'assert "graphlearn_tpu_torch.telemetry.live" in sys.modules\n'
       'assert "graphlearn_tpu_torch.parallel.dist_sampler" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.parallel.rdma_gather" in sys.modules\n'
       'assert "graphlearn_tpu_torch.ops.gns" in sys.modules\n'
       'assert "graphlearn_tpu_torch.models.basic_gnn" in sys.modules\n'
       'assert "graphlearn_tpu_torch.sampler.neighbor_sampler" in '
@@ -157,6 +161,8 @@ def test_mesh_entry_points_default_to_cuda():
   with pytest.raises(RuntimeError, match='CUDA'):
     make_mesh(1)
   with pytest.raises(RuntimeError, match='CUDA'):
+    make_mesh(8)
+  with pytest.raises(RuntimeError, match='CUDA'):
     DistDataset.from_full_graph(1, rows, cols, node_feat=feats,
                                 split_ratio=0.3)
   with pytest.raises(RuntimeError, match='CUDA'):
@@ -182,5 +188,19 @@ def test_mesh_entry_points_default_to_cuda():
   b = next(iter(loader))
   assert b.x.device.type == 'cpu' and 'edge_weight' in b.metadata
   assert make_mesh(1, device='cpu').device.type == 'cpu'
+  # a mesh of 4 partitions on the CPU, asked for: the plain versions
+  ds4 = DistDataset.from_full_graph(4, rows, cols, node_feat=feats,
+                                    node_label=np.arange(n) % 3,
+                                    device='cpu')
+  mesh = make_mesh(4, device='cpu')
+  assert mesh.size == 4 and mesh.device.type == 'cpu'
+  ids = torch.tensor([[0, 5, -1], [7, 39, 2], [1, 1, 1], [-1, 3, 30]])
+  got = rdma_gather(mesh, ds4.node_labels, ds4.graph.bounds, ids)
+  assert got.device.type == 'cpu' and got.shape == (4, 3)
+  b4 = next(iter(DistNeighborLoader(ds4, [2], np.arange(n), batch_size=4,
+                                    device='cpu')))
+  correct, total = make_dp_eval_step(GraphSAGE(2, 4, 3, num_layers=1), 4,
+                                     mesh)(b4)
+  assert int(total) == 16 and 0 <= int(correct) <= 16
   assert MeshColdCache(4, 2, torch.float32, device='cpu').rows.shape == (
       1, 4, 2)

@@ -52,9 +52,9 @@ def jax_key_draws(seed):
   """A draws provider that replays the JAX mesh sampler's keys."""
   base = jax.random.key(seed)
 
-  def draws(step, hop, rows, k, w, gns):
+  def draws(step, hop, rows, k, w, gns, owner=0):
     own = jax.random.fold_in(jax.random.fold_in(
-        jax.random.fold_in(base, step), hop), 0)
+        jax.random.fold_in(base, step), hop), owner)
     k_rand, k_win = jax.random.split(own)
     u = jax.random.uniform(k_rand, (rows, k))
     v = (jax.random.uniform(k_win, (rows, k)) if gns else
@@ -227,11 +227,13 @@ def test_graphsage_and_dp_steps_match_jax(monkeypatch):
 
 
 def test_mesh_and_capacity_contract():
-  with pytest.raises(NotImplementedError, match='slice 12'):
-    make_mesh(2, device='cpu')
+  two = make_mesh(2, device='cpu')
+  x = torch.arange(12).reshape(2, 2, 3)
+  assert two.size == 2 and two.device.type == 'cpu'
+  assert torch.equal(two.all_to_all(x), x.transpose(0, 1))
   mesh = make_mesh(1, device='cpu')
-  x = torch.arange(6).reshape(1, 6)
-  assert mesh.all_to_all(x) is x and mesh.size == 1
+  x = torch.arange(6).reshape(1, 1, 6)
+  assert torch.equal(mesh.all_to_all(x), x) and mesh.size == 1
   n = 96
   rows, cols, feats, labels = _graph(n)
   ds = DistDataset.from_full_graph(1, rows, cols, node_feat=feats,
