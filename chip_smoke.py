@@ -26,7 +26,15 @@ Phases, one JSON line each; any failure exits nonzero:
           gather over a 16-seed tree in f32 and bf16, the delta-merge
           ranks of one 4,096-event batch into the products graph plus a
           forced set (empty rows, base rows up to 8,192 wide, new-column
-          rows up to 512 wide with ties on both sides).  Times are the
+          rows up to 512 wide with ties on both sides).  Then the forced
+          sets of the sampler (k 1/4/5/8/15/16/17/32 at the default
+          window and at 256, on 150,001, 20,001 and 1,001 rows: every arm,
+          invalid and out-of-range seeds, top Gumbels tied across
+          lane-group boundaries) and of the row
+          gather (rows of 2 to 402 bytes that
+          take each lane-group width and vector size, int32/int64 ids,
+          with and without id2index, invalid ids and ids past N), each
+          byte-equal to the plain version.  Times are the
           device time of one call by CUDA events (the host's enqueue
           hidden behind a busy card), median of 30, with the L2 cache
           flushed before each call; `torch.index_select` is the
@@ -166,7 +174,8 @@ Phases, one JSON line each; any failure exits nonzero:
 
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, tree,
-GNS and mesh training paths).  It prints the ``{"kernels": [...]}``
+GNS and mesh training paths).  A ``wall`` line gives the script's
+seconds.  It prints the ``{"kernels": [...]}``
 line (six kernels) before the last and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``graphlearn_tpu_torch`` package beside it, it exits nonzero and prints
@@ -370,6 +379,110 @@ def check_gather(torch, ops, timer, table, ids):
          'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
   rec['launches'] = ops.gather_rows.launches - before
   return rec
+
+
+#: K2's forced row layouts: (row bytes, element dtype, base offset in
+#: elements).  Rows of at most 16 bytes take one thread a row; 24-256
+#: bytes lane groups of 4, 2, 4, 8 and 16 lanes; 200 (bf16, 8-byte
+#: vectors), 400 (16-byte; 4-byte at a 4-byte base offset) and the
+#: 402-byte slice at an odd 2-byte offset (2-byte vectors) the wide
+#: path.
+GATHER_LAYOUTS = ((2, 'int16', 0), (4, 'int32', 0), (8, 'int32', 0),
+                  (12, 'int32', 0), (16, 'int32', 0), (24, 'int32', 0),
+                  (32, 'int32', 0), (64, 'int32', 0), (128, 'int32', 0),
+                  (256, 'int32', 0), (200, 'bfloat16', 0),
+                  (400, 'float32', 0), (400, 'float32', 1),
+                  (402, 'int16', 1))
+
+
+def forced_gather_sets(torch, ops, n=100_003, b=70_001, seed=11):
+  """K2 against its plain version (byte-equal) on every row layout of
+  `GATHER_LAYOUTS`, each with int32 and int64 ids, with and without an
+  ``id2index`` (shorter than the id range, with unmapped entries), the
+  ids holding repeats, invalid ids and ids past N; ``b`` is a multiple
+  of no block's row count, and the small counts 3,001 and 1,001 take
+  the wide path's smaller row counts a warp."""
+  gen = torch.Generator(device=DEVICE).manual_seed(seed)
+  rng = np.random.default_rng(seed)
+  ids = rng.integers(0, n, b)
+  ids[::13] = -1
+  ids[5::17] = -7
+  ids[7::19] = n + rng.integers(0, 5, len(ids[7::19]))
+  ids[:4] = (0, n - 1, n - 1, 0)
+  id2 = rng.permutation(n)[:n - 1_000].astype(np.int32)
+  id2[::23] = -1
+  # b, and two small counts (1 and 2 wide rows a warp on the H100)
+  id_sets = {(dt, m, nb): (
+      torch.from_numpy(ids[:nb].astype(dt)).to(DEVICE),
+      None if not m else torch.from_numpy(id2).to(DEVICE))
+      for dt in (np.int32, np.int64) for m in (False, True)
+      for nb in (b, 3_001, 1_001)}
+  checked = []
+  for row_bytes, dtype, offset in GATHER_LAYOUTS:
+    dt = getattr(torch, dtype)
+    item = torch.empty(0, dtype=dt).element_size()
+    d = row_bytes // item
+    if dt.is_floating_point:
+      flat = torch.randn(n * d + offset, generator=gen, device=DEVICE)
+      flat = flat.to(dt)
+    else:
+      info = torch.iinfo(dt)
+      flat = torch.randint(info.min, info.max, (n * d + offset,),
+                           generator=gen, device=DEVICE, dtype=dt)
+    table = flat[offset:].view(n, d)
+    for (dt_ids, with_map, nb), (ids_t, m) in id_sets.items():
+      got = ops.gather_rows(table, ids_t, m)
+      ref = ops.gather_rows_plain(table, ids_t, m)
+      if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+        raise AssertionError(
+            f'gather kernel != plain version ({row_bytes} B rows, {nb} '
+            f'{np.dtype(dt_ids).name} ids, id2index {with_map})')
+    checked.append({'row_bytes': row_bytes, 'dtype': dtype,
+                    'base_offset_bytes': offset * item})
+    del flat, table
+  return {'ids': [b, 3_001, 1_001], 'table_rows': n, 'layouts': checked,
+          'cases': len(checked) * len(id_sets), 'byte_equal': True}
+
+
+#: K1's forced fanouts: both sides of every lane-group width (4, 8, 16,
+#: 32 lanes a row)
+SAMPLER_FANOUTS = (1, 4, 5, 8, 15, 16, 17, 32)
+
+
+def forced_sampler_sets(torch, ops, seed=13):
+  """K1 against its plain version (byte-equal) at every k of
+  `SAMPLER_FANOUTS`, at the default window and at 256, on 150,001 and
+  20,001 rows (lane groups of clamp(next_pow2(k), 4, 32) lanes, two
+  passes and one pass a warp) and 1,001 (a warp a row): rows of every
+  arm (deg 0, deg <= k, k < deg <= w, deg > w), invalid and
+  out-of-range seeds, eight Gumbels tied at the top across lane-group
+  boundaries (columns 3, 4, 7, 8, 15, 16, 31, 32), ties every 7th
+  column, and u just below 1."""
+  from graphlearn_tpu_torch.ops import default_window
+  sets = [(k, w, rows) for k in SAMPLER_FANOUTS
+          for w in sorted({default_window(k), 256})
+          for rows in (150_001, 20_001, 1_001)]
+  out = []
+  for k, w, rows in sets:
+    indptr, indices, seeds = arm_graph(torch, DEVICE, k, w, rows=rows,
+                                       seed=seed)
+    seeds[3::101] = rows + 3
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + k + w)
+    u = torch.rand(rows, k, device=DEVICE, generator=gen)
+    u[::11, 0] = float(np.nextafter(np.float32(1), np.float32(0)))
+    g = torch.rand(rows, w, device=DEVICE, generator=gen)
+    g[:, ::7] = 0.5
+    top = [c for c in (3, 4, 7, 8, 15, 16, 31, 32) if c < w]
+    g[:, top] = 2.0
+    got = ops.sample_one_hop_fused(indptr, indices, seeds, k, u, g)
+    ref = ops.sample_one_hop(indptr, indices, seeds, k, u, g)
+    if not (torch.equal(got.nbrs, ref.nbrs)
+            and torch.equal(got.mask, ref.mask)):
+      bad = int((got.nbrs != ref.nbrs).sum())
+      raise AssertionError(f'sampler kernel != plain version (forced '
+                           f'k={k}, w={w}, {rows} rows, {bad} slots)')
+    out.append({'k': k, 'w': w, 'rows': rows})
+  return {'sets': out, 'byte_equal': True}
 
 
 def merge_bytes(n_rows: int, n_base: int, n_events: int) -> int:
@@ -2331,6 +2444,7 @@ def profile(torch, eng):
 
 
 def main(argv) -> int:
+  t_start = time.perf_counter()
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2359,6 +2473,7 @@ def main(argv) -> int:
        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
   kernels = run(torch, argv)
+  emit('wall', secs=time.perf_counter() - t_start)
   print(json.dumps({'kernels': kernels}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': name,
@@ -2425,6 +2540,10 @@ def run(torch, argv) -> list:
     if min(rec['arms'].values()) == 0:
       raise AssertionError(f'arm check missed an arm: {rec["arms"]}')
     emit('kernel', kernel='sample_one_hop', shape='every arm', **rec)
+  k1_forced = forced_sampler_sets(torch, ops)
+  emit('kernel', kernel='sample_one_hop', shape='forced sets', **k1_forced)
+  k2_forced = forced_gather_sets(torch, ops)
+  emit('kernel', kernel='gather_rows', shape='forced sets', **k2_forced)
   tree = torch.cat([lvl.view(16, -1) for lvl in levels], dim=1).reshape(-1)
   gathers = [check_gather(torch, ops, timer, feats, tree)]
   emit('kernel', kernel='gather_rows', shape='16-seed tree', **gathers[0])
@@ -2498,6 +2617,11 @@ def run(torch, argv) -> list:
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
 
+  def per_hop(hops):
+    return [{'rows': h['rows'], 'k': h['k'], 'ms': h['kernel_ms'],
+             'bound_ms': h['bound_us'] / 1e3, 'plain_ms': h['plain_ms']}
+            for h in hops]
+
   def mesh_shape(what, hops):
     return {'shape': f'{what}, {MESH_PARTS} owners a hop, hops of '
                      + '/'.join(str(h['rows']) for h in hops)
@@ -2506,7 +2630,7 @@ def run(torch, argv) -> list:
             'plain_ms': sum(h['plain_ms'] for h in hops),
             'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
             'max_abs_err': max(h['max_abs_err'] for h in hops),
-            'byte_equal': True}
+            'byte_equal': True, 'hops': per_hop(hops)}
 
   mesh_gathers = loader_path['gathers'] + mesh_path['gathers']
   kernels = [
@@ -2522,6 +2646,7 @@ def run(torch, argv) -> list:
        'bound_by': 'bytes',
        'library_ms': None, 'byte_equal': True,
        'shape': '16-seed dispatch, hops of 16/240/2400 rows, k 15/10/5',
+       'hops': per_hop(hops), 'forced_sets': len(k1_forced['sets']),
        'launches_by_path': {'serve': launches['sample_one_hop'],
                             'train': train_launches['sample_one_hop'],
                             'tree_train': tree_launches['sample_one_hop'],
@@ -2535,7 +2660,7 @@ def run(torch, argv) -> list:
            'plain_ms': sum(h['plain_ms'] for h in train_hops),
            'bound_ms': sum(h['bound_us'] for h in train_hops) / 1e3,
            'max_abs_err': max(h['max_abs_err'] for h in train_hops),
-           'byte_equal': True},
+           'byte_equal': True, 'hops': per_hop(train_hops)},
        'tree_shape': {
            'shape': '1,024-seed tree step, unsorted hops of '
                     + '/'.join(str(h['rows']) for h in tree_hops)
@@ -2544,7 +2669,7 @@ def run(torch, argv) -> list:
            'plain_ms': sum(h['plain_ms'] for h in tree_hops),
            'bound_ms': sum(h['bound_us'] for h in tree_hops) / 1e3,
            'max_abs_err': max(h['max_abs_err'] for h in tree_hops),
-           'byte_equal': True},
+           'byte_equal': True, 'hops': per_hop(tree_hops)},
        'mesh_shape': mesh_shape('mesh loader batch of 8 x 512 seeds',
                                 loader_path['hops'])},
       {'name': 'gather_rows', 'route': 'cuda',
@@ -2559,6 +2684,7 @@ def run(torch, argv) -> list:
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
        'byte_equal': True,
        'shape': f'{f32["ids"]} ids x {FEAT_DIM} f32 (16-seed tree)',
+       'forced_sets': k2_forced['cases'],
        'train_shapes': [
            {'shape': f'{g["ids"]} ids x {g["row_bytes"]} B {g["dtype"]}',
             'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],

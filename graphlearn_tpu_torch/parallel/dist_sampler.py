@@ -43,6 +43,7 @@ package's keys instead.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -58,6 +59,7 @@ from ..ops.gns import (cached_set_bits, dedup_requester_bits, gns_enabled,
                        resolve_boost)
 from ..ops.neighbor import default_window
 from ..ops.unique import expand_hops
+from ..telemetry.aggregate import exchange_summary
 from ..telemetry.live import live
 from ..telemetry.recorder import recorder
 from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
@@ -75,6 +77,10 @@ DEFAULT_EXCHANGE_SLACK = 2.0
 EXCHANGE_STAT_NAMES = (
     'frontier.offered', 'frontier.dropped', 'frontier.slots',
     'feature.offered', 'feature.dropped', 'feature.slots')
+
+#: the host's cold-tier counters (``dist.feature.<name>``)
+COLD_STAT_NAMES = ('lookups', 'cold_lookups', 'cold_misses', 'cache_hits',
+                   'cache_admits', 'cache_evicts')
 
 Draws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
@@ -243,9 +249,10 @@ class AdaptiveSlack:
   """Epoch-level exchange-capacity tuner over `SLACK_LADDER` (the JAX
   package's, dense layout).
 
-  It starts at `DEFAULT_EXCHANGE_SLACK`; its floor is
-  ``GLT_SLACK_FLOOR`` (default `DEFAULT_SLACK_FLOOR`), rounded up to a
-  rung.  A drop-free epoch tightens one rung, an epoch that dropped more than
+  It starts at ``start`` (a rung, default `DEFAULT_EXCHANGE_SLACK`); its
+  floor is ``floor`` when given, else ``GLT_SLACK_FLOOR`` (default
+  `DEFAULT_SLACK_FLOOR`), rounded up to a rung.  A drop-free epoch
+  tightens one rung, an epoch that dropped more than
   `ADAPTIVE_DROP_TOLERANCE` of its offered ids widens one rung, and the
   first tighten -> widen reversal pins the setting.  A drop-free epoch
   at the floor pins there (``pin_reason='floor'``); drops at the floor
@@ -258,19 +265,23 @@ class AdaptiveSlack:
   OFFER_KEYS = ('dist.frontier.offered', 'dist.feature.offered')
   DROP_KEYS = ('dist.frontier.dropped', 'dist.feature.dropped')
 
-  def __init__(self, sampler: 'DistNeighborSampler'):
+  def __init__(self, sampler: 'DistNeighborSampler',
+               start: float = DEFAULT_EXCHANGE_SLACK,
+               floor: Optional[float] = None):
     self.sampler = sampler
-    try:
-      floor = float(os.environ.get('GLT_SLACK_FLOOR', DEFAULT_SLACK_FLOOR))
-    except ValueError:
-      floor = DEFAULT_SLACK_FLOOR
+    if floor is None:
+      try:
+        floor = float(os.environ.get('GLT_SLACK_FLOOR',
+                                     DEFAULT_SLACK_FLOOR))
+      except ValueError:
+        floor = DEFAULT_SLACK_FLOOR
     finite = [s for s in SLACK_LADDER if s is not None]
     self._min_idx = min(
         (i for i, s in enumerate(SLACK_LADDER)
          if s is not None and s >= floor - 1e-9),
         default=len(finite) - 1)
     self.floor = SLACK_LADDER[self._min_idx]
-    self._idx = SLACK_LADDER.index(DEFAULT_EXCHANGE_SLACK)
+    self._idx = SLACK_LADDER.index(start)
     self._pinned = False
     self._pin_reason = ''
     self._tightened_from = None
@@ -385,10 +396,15 @@ class DistNeighborSampler:
     self._hot_t = (int64_on(dataset.node_features.hot_counts,
                                  self.device) if self.tiered else None)
     self._staging = PinnedStaging() if self.device.type == 'cuda' else None
+    # exchange counters: a device accumulator drained into host totals
+    # by `exchange_stats`, under the lock (a drain may race a dispatch)
+    self._stats_lock = threading.Lock()
     self._stats_acc = torch.zeros(len(EXCHANGE_STAT_NAMES),
                                   dtype=torch.int64, device=self.device)
+    self._stats_total = np.zeros(len(EXCHANGE_STAT_NAMES), np.int64)
     self._feat_lookups = self._cold_lookups = self._cold_misses = 0
     self._cache_hits = self._cache_admits = self._cache_evicts = 0
+    self._cold_reported = (0,) * len(COLD_STAT_NAMES)
 
   def node_capacity(self, batch_size: int) -> int:
     cap = max_sampled_nodes(batch_size, self.fanouts)
@@ -454,7 +470,8 @@ class DistNeighborSampler:
         out['x'] = got.pop(0)
       if self.collect_labels:
         out['y'] = got.pop(0)
-    self._stats_acc += torch.cat([fr_stats, ft_stats])
+    with self._stats_lock:
+      self._stats_acc += torch.cat([fr_stats, ft_stats])
     return out
 
   def _finish_nodes(self, out: dict) -> dict:
@@ -537,24 +554,75 @@ class DistNeighborSampler:
     self._cache_evicts += evicts
     return x
 
-  def exchange_stats(self) -> dict:
-    """Cumulative exchange and cold-tier counters, summed over the
-    partitions (one device sync): ``dist.frontier.*``,
-    ``dist.feature.*`` and the hit rates."""
-    totals = self._stats_acc.cpu().numpy()
+  def exchange_stats(self, tick_metrics: bool = True) -> dict:
+    """Cumulative exchange and cold-tier counters since construction,
+    summed over the partitions (one device sync): ``dist.frontier.*``,
+    ``dist.feature.*`` and the hit rates.
+
+    The drain runs under a lock.  With ``tick_metrics`` it ticks the
+    live counters of the same names (`telemetry.live`) by the exchange
+    counters' deltas since the previous drain and the cold-tier
+    counters' since the previous ticking drain (the JAX package's
+    rule), and records one ``dist.exchange`` event when the exchange
+    counters moved and one ``dist.cold_tier`` event when cold lookups
+    did, with the JAX package's fields.  The JAX package's ``dist.feature.cold_hit_rate``
+    alias of ``cache_hit_rate`` is not carried, nor is its
+    ``dist.negative.lost`` (the port's mesh loader samples no negative
+    pairs).
+    """
+    with self._stats_lock:
+      acc = self._stats_acc
+      self._stats_acc = torch.zeros_like(acc)
+      delta = acc.cpu().numpy().astype(np.int64)
+      self._stats_total += delta
+      totals = self._stats_total.copy()
+      cold_now = (self._feat_lookups, self._cold_lookups,
+                  self._cold_misses, self._cache_hits, self._cache_admits,
+                  self._cache_evicts)
+      cold_delta = (0,) * len(COLD_STAT_NAMES)
+      if tick_metrics:
+        cold_delta = tuple(n - p for n, p in zip(cold_now,
+                                                 self._cold_reported))
+        self._cold_reported = cold_now
     out = {f'dist.{n}': int(v) for n, v in zip(EXCHANGE_STAT_NAMES, totals)}
-    lookups, cold = self._feat_lookups, self._cold_lookups
-    out['dist.feature.lookups'] = lookups
-    out['dist.feature.cold_lookups'] = cold
-    out['dist.feature.cold_misses'] = self._cold_misses
-    out['dist.feature.cache_hits'] = self._cache_hits
-    out['dist.feature.cache_admits'] = self._cache_admits
-    out['dist.feature.cache_evicts'] = self._cache_evicts
-    out['dist.feature.hot_hit_rate'] = (1.0 - cold / lookups
-                                        if lookups else 1.0)
-    out['dist.feature.cache_hit_rate'] = (
-        1.0 - self._cold_misses / cold if cold else 0.0)
+    for n, v in zip(COLD_STAT_NAMES, cold_now):
+      out[f'dist.feature.{n}'] = v
+    lookups, cold, misses = cold_now[:3]
+    out['dist.feature.hot_hit_rate'] = (1.0 - cold / lookups if lookups
+                                        else 1.0)
+    out['dist.feature.cache_hit_rate'] = (1.0 - misses / cold if cold
+                                          else 0.0)
+    if tick_metrics:
+      self._tick(delta, cold_delta)
     return out
+
+  @staticmethod
+  def _tick(delta: np.ndarray, cold_delta: tuple) -> None:
+    for n, d in zip(EXCHANGE_STAT_NAMES, delta):
+      if d:
+        live.counter(f'dist.{n}').inc(float(d))
+    for n, d in zip(COLD_STAT_NAMES, cold_delta):
+      if d > 0:
+        live.counter(f'dist.feature.{n}').inc(float(d))
+    if delta.any():
+      recorder.emit('dist.exchange',
+                    **{n.replace('.', '_'): int(d)
+                       for n, d in zip(EXCHANGE_STAT_NAMES, delta)})
+    if cold_delta[1] > 0:
+      recorder.emit('dist.cold_tier', lookups=int(cold_delta[0]),
+                    cold_lookups=int(cold_delta[1]),
+                    misses=int(cold_delta[2]),
+                    cache_hits=int(cold_delta[3]),
+                    hit_rate=round(1.0 - cold_delta[2] / cold_delta[1], 6))
+
+  def cluster_exchange_stats(self) -> dict:
+    """`exchange_stats` plus ``num_hosts`` and the derived padding-waste
+    and drop-rate keys (`telemetry.aggregate.exchange_summary`).  The
+    port's mesh runs in one process, so the cluster is this host."""
+    st = dict(self.exchange_stats())
+    st['num_hosts'] = 1
+    st.update(exchange_summary(st))
+    return st
 
 
 class DistNeighborLoader:

@@ -42,6 +42,30 @@ METRIC_NAMES: Dict[str, str] = {
         'counter: post-mortem bundles written',
     'dist.slack.transitions':
         'counter: AdaptiveSlack rung changes of the mesh exchange capacity',
+    'dist.frontier.offered':
+        'counter: valid frontier ids entering a mesh exchange',
+    'dist.frontier.dropped':
+        'counter: frontier ids past an owner\'s exchange capacity',
+    'dist.frontier.slots':
+        'counter: frontier exchange send slots (the padded width)',
+    'dist.feature.offered':
+        'counter: valid node ids entering the feature exchange',
+    'dist.feature.dropped':
+        'counter: node ids past an owner\'s feature exchange capacity',
+    'dist.feature.slots':
+        'counter: feature exchange send slots (the padded width)',
+    'dist.feature.lookups':
+        'counter: valid node slots read from a tiered mesh store',
+    'dist.feature.cold_lookups':
+        'counter: node slots past the hot tier (cold rows)',
+    'dist.feature.cold_misses':
+        'counter: cold rows gathered from host memory',
+    'dist.feature.cache_hits':
+        'counter: cold rows served by the on-card victim cache',
+    'dist.feature.cache_admits':
+        'counter: rows admitted to the victim cache',
+    'dist.feature.cache_evicts':
+        'counter: rows evicted from the victim cache',
 }
 
 

@@ -39,20 +39,52 @@ def _id2index(seed=2, m=N - 6):
   return m_                         # shorter than the id range: clamps
 
 
+#: row layouts the kernel's branches take on the card: one thread a row
+#: (rows of at most 16 bytes), lane groups of 2-16 lanes, and the wide
+#: rows of the feature tables (D = 100 f32 and bf16); int32 is the label
+#: column
+TABLES = [('float32', 1), ('float32', 2), ('float32', 3), ('float32', 4),
+          ('float32', D), ('float32', 8), ('float32', 100), ('int32', 1),
+          ('bfloat16', 1), ('bfloat16', 100)]
+
+
+def _typed_table(dtype, d, seed=0):
+  """The same rows as a numpy table for JAX and a torch table."""
+  if dtype == 'int32':
+    t = np.random.default_rng(seed).integers(-9, 2**31 - 1, (N, d),
+                                             dtype=np.int32)
+    return jnp.asarray(t), torch.from_numpy(t)
+  t = _table(seed, d=d)
+  if dtype == 'bfloat16':
+    return (jnp.asarray(t).astype(jnp.bfloat16),
+            torch.from_numpy(t).to(torch.bfloat16))
+  return jnp.asarray(t), torch.from_numpy(t)
+
+
+def _bytes(a) -> bytes:
+  if isinstance(a, torch.Tensor):
+    a = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+    return a.numpy().tobytes()
+  return np.asarray(a).tobytes()
+
+
 @pytest.mark.parametrize('with_map', [False, True])
 @pytest.mark.parametrize('id_dtype', [np.int32, np.int64])
-def test_plain_byte_equal_to_jax_pallas(monkeypatch, with_map, id_dtype):
+@pytest.mark.parametrize('dtype,d', TABLES,
+                         ids=[f'{t}x{d}' for t, d in TABLES])
+def test_plain_byte_equal_to_jax_pallas(monkeypatch, with_map, id_dtype,
+                                        dtype, d):
   monkeypatch.setenv('GLT_PALLAS', '1')     # interpret-mode Pallas path
-  table, ids = _table(), _ids()
+  jt, tt = _typed_table(dtype, d)
+  ids = _ids()
   m = _id2index() if with_map else None
-  ref = np.asarray(jax_device_gather(
-      jnp.asarray(table), jnp.asarray(ids),
-      None if m is None else jnp.asarray(m), use_pallas=True))
-  got = gather_rows(torch.from_numpy(table),
-                    torch.from_numpy(ids.astype(id_dtype)),
+  ref = jax_device_gather(jt, jnp.asarray(ids),
+                          None if m is None else jnp.asarray(m),
+                          use_pallas=True)
+  got = gather_rows(tt, torch.from_numpy(ids.astype(id_dtype)),
                     None if m is None else torch.from_numpy(m))
-  assert got.dtype == torch.float32 and got.shape == (len(ids), D)
-  assert got.numpy().tobytes() == ref.tobytes()
+  assert got.dtype == tt.dtype and got.shape == (len(ids), d)
+  assert _bytes(got) == _bytes(ref)
 
 
 def test_plain_clamps_like_the_pallas_kernel():

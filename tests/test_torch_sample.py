@@ -4,7 +4,8 @@ Draws are made in the test from a JAX key with the discipline of
 `graphlearn_tpu/ops/neighbor.py::sample_one_hop` (``k_rand, k_win =
 split(key)``; ``u [B, k]``, ``gumbel [B, w]``) and handed to the port,
 whose plain version must then be byte-equal (nbrs and mask) to both the
-XLA sampler and the Pallas fused kernel in interpret mode, on every arm.
+XLA sampler and the Pallas fused kernel in interpret mode, on every arm
+(to the XLA sampler alone past the Pallas kernel's 128-wide window).
 """
 import jax
 import jax.numpy as jnp
@@ -13,17 +14,18 @@ import pytest
 import torch
 
 from graphlearn_tpu.ops.neighbor import sample_one_hop as jax_sample
+from graphlearn_tpu.ops.pallas_sample import MAX_W, fused_sample_supported
 from graphlearn_tpu.ops.pallas_sample import sample_one_hop_fused as jax_fused
 from graphlearn_tpu_torch import _build
 from graphlearn_tpu_torch.ops import (default_window, lookup_degree,
                                       sample_one_hop, sample_one_hop_fused)
 
 
-def _csr(k, n=120, seed=0):
+def _csr(k, n=120, seed=0, w=None):
   """Poisson-degree CSR with rows forced into every arm: empty (row 3),
   take-all (row 4, deg k), window (row 5, deg k+1; row 6, deg w) and
   beyond-window hubs (rows 7 and 8)."""
-  w = default_window(k)
+  w = default_window(k) if w is None else w
   rng = np.random.default_rng(seed)
   deg = rng.poisson(max(k, 4), n)
   deg[3], deg[4], deg[5], deg[6] = 0, k, k + 1, w
@@ -58,12 +60,21 @@ def _port(indptr, indices, seeds, k, u, g, fn=sample_one_hop):
   return res.nbrs.numpy(), res.mask.numpy()
 
 
-@pytest.mark.parametrize('k', [2, 5, 8, 15])
-def test_plain_byte_equal_to_jax_xla_and_pallas(k):
-  indptr, indices = _csr(k)
+#: fanouts on both sides of every lane-group width the kernel takes on
+#: the card (4, 8, 16 and 32 lanes a row), with the default windows (64
+#: up to 256) and a 256-wide window at a small k
+FANOUT_CASES = [(1, None), (2, None), (4, None), (5, None), (5, 256),
+                (8, None), (15, None), (16, None), (17, None), (32, None)]
+
+
+@pytest.mark.parametrize(
+    'k,window', FANOUT_CASES,
+    ids=[str(k) if w is None else f'{k}-w{w}' for k, w in FANOUT_CASES])
+def test_plain_byte_equal_to_jax_xla_and_pallas(k, window):
+  w = default_window(k) if window is None else window
+  indptr, indices = _csr(k, w=w)
   n = len(indptr) - 1
   seeds = _seeds(n)
-  w = default_window(k)
   deg = np.diff(indptr)[np.clip(seeds, 0, n - 1)]
   valid = (seeds >= 0) & (seeds < n)
   # every arm is present in the batch
@@ -76,12 +87,19 @@ def test_plain_byte_equal_to_jax_xla_and_pallas(k):
 
   args = (jnp.asarray(indptr), jnp.asarray(indices), jnp.asarray(seeds), k,
           key)
-  ref = jax_sample(*args, sort_locality=False)
+  ref = jax_sample(*args, window=window, sort_locality=False)
   np.testing.assert_array_equal(np.asarray(ref.nbrs), nbrs)
   np.testing.assert_array_equal(np.asarray(ref.mask), mask)
-  fused = jax_fused(*args, sort_locality=False, interpret=True)
-  np.testing.assert_array_equal(np.asarray(fused.nbrs), nbrs)
-  np.testing.assert_array_equal(np.asarray(fused.mask), mask)
+  # the Pallas kernel takes windows up to its MAX_W (128); JAX samples
+  # wider windows through the XLA sampler alone, as its callers do
+  if fused_sample_supported(len(seeds), k, w, jnp.int32,
+                            num_edges=len(indices)) is None:
+    fused = jax_fused(*args, window=window, sort_locality=False,
+                      interpret=True)
+    np.testing.assert_array_equal(np.asarray(fused.nbrs), nbrs)
+    np.testing.assert_array_equal(np.asarray(fused.mask), mask)
+  else:
+    assert w > MAX_W
   assert (nbrs[seeds < 0] == -1).all() and not mask[seeds < 0].any()
 
 
