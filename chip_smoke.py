@@ -65,11 +65,17 @@ Phases, one JSON line each; any failure exits nonzero:
           back-to-back calls on distinct seed sets timed by CUDA
           events, GB/s counted as B * w * 4 bytes per call; the same for
           the plain version, one `index_select` over precomputed flat
-          positions and one full K1 hop at k = 15 as context.  Checks:
-          byte-equal to the plain version on every timed input and on a
-          forced set (w 16/64/128/200; starts 0, E-1, E-w, negative,
-          past E; int64 and int32 starts), 30 launches and no plain call
-          in the timed run.
+          positions and one full K1 hop at k = 15 as context; then one
+          call of each under the kernel timer (L2 flushed), and the
+          kernel at every forced width over the same starts under both
+          timers.  Checks:
+          byte-equal to the plain version on every timed input and on
+          the forced sets (`forced_window_sets`: w 1/3/16/33/64/127/128/
+          129/200/256 at 1 / 7 / 8,192 / 100,003 rows, int64 and int32
+          starts of every residue mod 4 at both ends of the array,
+          negative and past E, over the products ``indices``, the same
+          one element in, 37 ids and one id), 30 launches and no plain
+          call in the timed run.
   kernel  K1 at the three hops and K2 at the feature gather of one
           1,024-seed per-batch training step (inputs recorded from the
           path), against their plain versions.
@@ -107,10 +113,19 @@ Phases, one JSON line each; any failure exits nonzero:
           pinned host memory), the train phase's labels.
   kernel  the GNS sampler kernel against its plain version (byte-equal
           nbrs, mask and weights) at the three hops of a 1,024-seed
-          training batch with the run's own bits table, and on forced
-          sets (every arm, invalid seeds, a three-row table of random /
+          training batch with the run's own bits table, timed on a
+          forced set a fanout at boosts 16 and 3, then on
+          `forced_gns_cases` (k 1/4/5/8/15/16/17/32 at the default
+          window and 256, on 150,001 / 20,001 / 1,001 rows, and k 40 at
+          256 on 20,001 rows, boosts 16 and 3: rows of deg 0, <= k,
+          k + 1, (k, w], w and > w, invalid and out-of-range seeds, ids
+          past the bits table's last byte, a three-row table of random /
           empty / full masks read through per-row requesters, draws of
-          0 and on exact cumulative boundaries) at boosts 16 and 3;
+          0, just below 1 and exactly on the cum boundaries at window
+          positions 7/8, 15/16 and 31/32; the same rows with half of
+          them padding; the kernel alone with table rows out of range;
+          at boost 16 the kernel alone timed on the rows and on their
+          half-padding form);
           then the row gather kernel against its plain version at the
           two gathers of one training dispatch (the hot-tier features,
           ~938k ids x 100 f32, and the labels, 1 int32 column).
@@ -962,7 +977,52 @@ def events_ms(torch, fns) -> float:
   return start.elapsed_time(end)
 
 
-def window(torch, ops, indptr, indices):
+#: K3's forced widths: odd widths, both sides of a 32-id step, of 128
+#: (a lane's four loads before its stores) and of 192, and 256
+WINDOW_WIDTHS = (1, 3, 16, 33, 64, 127, 128, 129, 200, 256)
+#: K3's forced row counts: fewer rows than a block takes, a row count
+#: that is not a multiple of a block's, the path's, and more than a wave
+WINDOW_ROWS = (1, 7, 8_192, 100_003)
+
+
+def forced_window_sets(torch, indices, seed=19):
+  """K3 against its plain version (byte-equal) at every width of
+  `WINDOW_WIDTHS` and row count of `WINDOW_ROWS`, with int64 and int32
+  starts, over four arrays: the products ``indices``; the same one
+  element in (a base that is not 16-byte aligned, so every width takes
+  a 16-byte load); 37 ids (E < w from w 64 on); and one id.  The starts
+  hold 0-3, E-4 to E-1, E-w to E-w+3 (every residue mod 4 near both
+  ends), -1, -w-3, E, E+12,345 and -2^20, then uniform starts in [-8,
+  E+8).  Returns the number of cases."""
+  from graphlearn_tpu_torch.ops import window_gather as wg
+  rng = np.random.default_rng(seed)
+  arrays = {'products': indices, 'products[1:]': indices[1:],
+            'E=37': torch.from_numpy(rng.integers(
+                0, 1 << 30, 37).astype(np.int32)).to(DEVICE),
+            'E=1': torch.tensor([123456], dtype=torch.int32, device=DEVICE)}
+  cases = 0
+  for name, ind in arrays.items():
+    e = ind.numel()
+    for w in WINDOW_WIDTHS:
+      special = np.array([0, 1, 2, 3, e - 4, e - 3, e - 2, e - 1, e - w,
+                          e - w + 1, e - w + 2, e - w + 3, -1, -w - 3, e,
+                          e + 12_345, -(1 << 20)], np.int64)
+      for rows in WINDOW_ROWS:
+        st = rng.integers(-8, e + 8, rows)
+        n_sp = min(rows, len(special))
+        st[:n_sp] = np.roll(special, -w)[:n_sp]
+        st = torch.from_numpy(st).to(DEVICE)
+        for s in (st, st.to(torch.int32)):
+          got = wg.csr_window_gather(ind, s, w)
+          ref = wg.csr_window_gather_plain(ind, s, w)
+          if got.shape != (rows, w) or not torch.equal(got, ref):
+            raise AssertionError(f'window kernel != plain version (forced '
+                                 f'{name}, w={w}, {rows} rows, {s.dtype})')
+          cases += 1
+  return cases
+
+
+def window(torch, ops, timer, indptr, indices):
   """Path C, the window-gather entry point (the port's
   `benchmarks/bench_pallas_window.py`): `csr_window_gather` over the
   products ``indices`` at 8,192 starts x 128, 30 back-to-back calls on
@@ -984,18 +1044,7 @@ def window(torch, ops, indptr, indices):
     if not (torch.equal(got, wg.csr_window_gather_plain(indices, s, w))
             and torch.equal(got.reshape(-1), indices[f])):
       raise AssertionError('window kernel != plain version (path input)')
-  forced = 0
-  for fw in (16, 64, 128, 200):
-    st = torch.cat([torch.tensor([0, e - 1, e - fw, -1, -fw - 3, e,
-                                  e + 12345, -(1 << 20)], device=DEVICE),
-                    torch.randint(0, e, (500,), device=DEVICE)])
-    for s in (st, st.to(torch.int32)):
-      got = wg.csr_window_gather(indices, s, fw)
-      ref = wg.csr_window_gather_plain(indices, s, fw)
-      if got.shape != (st.numel(), fw) or not torch.equal(got, ref):
-        raise AssertionError(f'window kernel != plain version (forced '
-                             f'set, w={fw}, {s.dtype})')
-      forced += 1
+  forced = forced_window_sets(torch, indices)
   k = FANOUTS[0]
   kw = ops.default_window(k)
   gen = torch.Generator(device=DEVICE).manual_seed(15)
@@ -1027,13 +1076,27 @@ def window(torch, ops, indptr, indices):
   for name in ('plain', 'library', 'k1_hop'):
     total[name] = events_ms(torch, calls[name])
   ms = {n: t / iters for n, t in total.items()}
+  # one call at a time under the common timer (L2 flushed), as the other
+  # kernels are timed
+  flushed = {n: timer(calls[n][0]) for n in ('kernel', 'plain', 'library')}
+  # the kernel at every forced width over the path's starts, under both
+  # timers (after the path's counts were read)
+  forced_ms = {}
+  for width in WINDOW_WIDTHS:
+    fns = [lambda s=s, x=width: wg.csr_window_gather(indices, s, x)
+           for s in starts]
+    fns[0]()
+    forced_ms[str(width)] = {
+        'back_to_back': events_ms(torch, fns) / iters,
+        'flushed': timer(fns[0])}
   per_call = b * w * 4
   gbps = {n: per_call / (ms[n] / 1e3) / 1e9 for n in
           ('kernel', 'plain', 'library')}
   nbytes = b * starts[0].element_size() + 2 * per_call
   rec = {'batch': b, 'w': w, 'iters': iters, 'starts_dtype': 'int64',
          'byte_equal': True, 'max_abs_err': 0, 'forced_sets': forced,
-         'ms_per_call': ms, 'gbps': gbps,
+         'ms_per_call': ms, 'gbps': gbps, 'ms_flushed': flushed,
+         'forced_width_ms': forced_ms,
          'k1_hop_k': k, 'k1_hop_window': kw,
          'k1_hop_m_seeds_per_s': b / (ms['k1_hop'] / 1e3) / 1e6,
          'bytes': nbytes, 'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1043,7 +1106,9 @@ def window(torch, ops, indptr, indices):
   emit('kernel', kernel='csr_window_gather',
        shape=f'{b} starts x {w}, {iters} back-to-back calls',
        byte_equal=True, max_abs_err=0, kernel_ms=ms['kernel'],
-       plain_ms=ms['plain'], library_ms=ms['library'], bytes=nbytes,
+       plain_ms=ms['plain'], library_ms=ms['library'],
+       kernel_ms_flushed=flushed['kernel'], plain_ms_flushed=flushed['plain'],
+       library_ms_flushed=flushed['library'], bytes=nbytes,
        bound_us=nbytes / HBM_BYTES_PER_S * 1e6, launches=launches)
   del draws, calls, flat
   return rec
@@ -1519,40 +1584,187 @@ def check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v, bits,
   return rec
 
 
-def forced_gns_sets(torch, k, w, seed=7):
-  """Rows through every arm of the GNS kernel on `arm_graph`, plus rows
-  of degree 64 (``k < 64 <= w``); a three-row dedup table (random bits,
-  nothing cached, everything cached) read through per-row requesters;
-  draws of 0 and draws landing exactly on cumulative boundaries of the
-  degree-64 rows (``v = m / 64``: ``v * total`` is then an exact
-  multiple of the row weight)."""
-  indptr, _, seeds = arm_graph(torch, DEVICE, k, w, seed=seed)
+#: window positions m whose cum boundary (between m - 1 and m) the
+#: forced GNS draws land on: the edges of the kernel's lane shares
+GNS_BOUNDARIES = (7, 8, 15, 16, 31, 32)
+
+
+def boundary_draws(torch, ops, indptr, indices, seeds, bits, req, boost,
+                   w, ms=GNS_BOUNDARIES):
+  """``(v [B, len(ms)], ok [B, len(ms)])``: per row the draw ``v`` with
+  ``fl(v * max(total, 1e-9)) == cum[m - 1]`` exactly (the row's cum as
+  the plain version computes it), found by stepping ``cum[m - 1] /
+  total`` one ulp at a time; ``ok`` where the row is on the medium arm
+  with ``m < deg`` and the step found one."""
+  e = indices.numel()
   n = indptr.numel() - 1
-  deg = (indptr[1:] - indptr[:-1]).cpu().numpy()
-  deg[::5] = 64                                 # every fifth row: deg 64
-  indptr_h = np.zeros(n + 1, np.int64)
-  np.cumsum(deg, out=indptr_h[1:])
-  rng = np.random.default_rng(seed)
-  indices = torch.from_numpy(rng.integers(0, n, int(indptr_h[-1])).astype(
-      np.int32)).to(DEVICE)
-  indptr = torch.from_numpy(indptr_h).to(DEVICE)
-  nbytes = (n + 7) // 8
+  s = torch.where(seeds >= 0, seeds.long(), 0).clamp(max=n)
+  start = indptr[s]
+  deg = ops.lookup_degree(indptr, seeds).long()
+  lane = torch.arange(w, device=seeds.device)
+  in_deg = lane[None, :] < deg[:, None]
+  ids = indices[(start[:, None] + lane[None, :]).clamp(0, max(e - 1, 0))]
+  cached = ops.gns.bitmask_lookup(bits, torch.where(in_deg, ids, -1),
+                                  req=req)
+  wgt = torch.where(in_deg, 1.0 + torch.tensor(boost, device=seeds.device)
+                    * cached.float(), 0.0)
+  cum = torch.cumsum(wgt, dim=1)
+  scale = cum[:, -1].clamp(min=1e-9)
+  out_v, out_ok = [], []
+  for m in ms:
+    target = cum[:, min(m, w) - 1]
+    v = target / scale
+    for _ in range(4):
+      p = v * scale
+      v = torch.where(p < target, torch.nextafter(v, torch.ones_like(v)),
+                      torch.where(p > target,
+                                  torch.nextafter(v, torch.zeros_like(v)),
+                                  v))
+    ok = (v * scale == target) & (deg > m) & (deg <= w) & (v < 1)
+    out_v.append(v)
+    out_ok.append(ok)
+  return torch.stack(out_v, 1), torch.stack(out_ok, 1)
+
+
+def gns_forced_graph(torch, k, w, rows, seed):
+  """A CSR for the GNS kernel's forced sets: rows cycle through deg 0,
+  deg <= k, deg = k + 1, k < deg <= w (three in eight), deg = w and
+  deg > w; ids run to ``rows + 39`` (the last ones past the bits
+  table's last byte) and every 53rd is -1; the seeds are a permutation
+  with every 97th -1 and every 101st past N."""
+  rng = np.random.default_rng(seed + 31 * k + w)
+  kind = np.arange(rows) % 8
+  med = rng.integers(k + 1, w + 1, rows) if w > k else np.full(rows, w)
+  deg = np.select(
+      [kind == 0, kind == 1, kind == 2, kind == 4, kind == 5],
+      [0, rng.integers(1, k + 1, rows), min(k + 1, w + 1), w,
+       rng.integers(w + 1, 4 * w + 1, rows)], med)
+  indptr = np.zeros(rows + 1, np.int64)
+  np.cumsum(deg, out=indptr[1:])
+  indices = rng.integers(0, rows + 40, int(indptr[-1])).astype(np.int32)
+  indices[::53] = -1
+  seeds = rng.permutation(rows).astype(np.int32)
+  seeds[::97] = -1
+  seeds[3::101] = rows + 3
+  return (torch.from_numpy(indptr).to(DEVICE),
+          torch.from_numpy(indices).to(DEVICE),
+          torch.from_numpy(seeds).to(DEVICE))
+
+
+def forced_gns_sets(torch, ops, k, w, rows=4096, seed=7, boost=16.0):
+  """Inputs of one forced GNS set (`gns_forced_graph`): a three-row
+  dedup table (random bits, nothing cached, everything cached; ``nbytes
+  = ceil(rows / 8)``, so the ids past ``rows`` read the last byte) read
+  through per-row requesters; draws of 0 (v on every third row's first
+  slot), just below 1 (v on the next row's last slot, u on every 11th
+  row's first), and exactly on the cum boundaries of `GNS_BOUNDARIES`
+  (every other slot of the medium rows, where ``m < deg``).  Returns
+  ``(indptr, indices, seeds, u, v, bits, req, n_boundary)``."""
+  indptr, indices, seeds = gns_forced_graph(torch, k, w, rows, seed)
+  rng = np.random.default_rng(seed + k)
+  nbytes = (rows + 7) // 8
   table = np.stack([rng.integers(0, 256, nbytes).astype(np.uint8),
                     np.zeros(nbytes, np.uint8),
                     np.full(nbytes, 255, np.uint8)])
   bits = (torch.from_numpy(table).to(DEVICE),
           torch.from_numpy(np.array([0, 1, 2, 0], np.int32)).to(DEVICE))
-  b = seeds.numel()
-  req = torch.from_numpy(rng.integers(0, 4, b).astype(np.int32)).to(DEVICE)
-  gen = torch.Generator(device=DEVICE).manual_seed(k)
-  u = torch.rand(b, k, device=DEVICE, generator=gen)
-  v = torch.rand(b, k, device=DEVICE, generator=gen)
-  s_h = seeds.cpu().numpy()
-  d64 = np.nonzero((s_h >= 0) & (deg[np.clip(s_h, 0, n - 1)] == 64))[0]
-  m = torch.from_numpy(rng.integers(1, 64, (len(d64), k))).to(DEVICE)
-  v[torch.from_numpy(d64).to(DEVICE)] = m.float() / 64.0
-  v[:, 0] = 0.0
-  return indptr, indices, seeds, u, v, bits, req
+  req = torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32)).to(
+      DEVICE)
+  gen = torch.Generator(device=DEVICE).manual_seed(seed + k + w)
+  below_1 = float(np.nextafter(np.float32(1), np.float32(0)))
+  u = torch.rand(rows, k, device=DEVICE, generator=gen)
+  u[::11, 0] = below_1
+  v = torch.rand(rows, k, device=DEVICE, generator=gen)
+  bv, ok = boundary_draws(torch, ops, indptr, indices, seeds, bits, req,
+                          boost, w)
+  r = torch.arange(rows, device=DEVICE)[:, None]
+  j = torch.arange(k, device=DEVICE)[None, :]
+  pick = (r + j) % len(GNS_BOUNDARIES)
+  on = ((r + j) % 2 == 0) & torch.gather(ok, 1, pick.expand(rows, k))
+  v = torch.where(on, torch.gather(bv, 1, pick.expand(rows, k)), v)
+  v[0::3, 0] = 0.0
+  v[1::3, k - 1] = below_1
+  return indptr, indices, seeds, u, v, bits, req, int(on.sum())
+
+
+#: K1-GNS's forced row counts: two passes, one pass and a warp a row at
+#: every lane-group width (K1's, `forced_sampler_sets`)
+FORCED_ROWS = (150_001, 20_001, 1_001)
+#: K1-GNS's forced shapes past 64 slots a tile, where a warp loads and
+#: stores its last slots in turn: k 40 at window 256 on 20,001 rows
+#: (two passes of a row a warp, 80 slots)
+GNS_WIDE = ((40, 256, 20_001),)
+
+
+def forced_gns_cases(torch, ops, timer, seed=17):
+  """K1-GNS against its plain version (byte-equal nbrs, mask and the
+  weights' bits) at every k of `SAMPLER_FANOUTS`, at the default window
+  and at 256, on `FORCED_ROWS`, and at `GNS_WIDE`: boosts 16 and 3
+  through the wrapper; the same rows with their second half padding
+  (seed -1, valid seeds ascending first, as the mesh hands each owner);
+  and the kernel alone with table rows out of ``[0, T-1]`` against the
+  plain version's clamped stack form.  At boost 16 the kernel alone is
+  timed (`Timer`) on the rows and on their half-padding form."""
+  from graphlearn_tpu_torch.ops import default_window
+  out, cases_run = [], 0
+  shapes = [(k, w, rows) for k in SAMPLER_FANOUTS
+            for w in sorted({default_window(k), 256})
+            for rows in FORCED_ROWS] + list(GNS_WIDE)
+
+  def same(got, ref):
+    return (torch.equal(got.nbrs, ref.nbrs)
+            and torch.equal(got.mask, ref.mask)
+            and torch.equal(got.weights.view(torch.int32),
+                            ref.weights.view(torch.int32)))
+
+  for k, w, rows in shapes:
+    for boost in (16.0, 3.0):
+      indptr, indices, seeds, u, v, bits, req, n_b = forced_gns_sets(
+          torch, ops, k, w, rows, seed, boost)
+      args = (indptr, indices, seeds, k, u, v, bits, boost)
+      cases = {'wrapper': (args, req)}
+      if boost == 16.0:
+        valid = torch.sort(seeds[seeds >= 0]).values[:rows // 2]
+        half = torch.full_like(seeds, -1)
+        half[:valid.numel()] = valid
+        cases['half padding'] = ((indptr, indices, half, k, u, v, bits,
+                                  boost), req)
+      rec = {'k': k, 'w': w, 'rows': rows, 'boost': boost,
+             'boundary_draws': n_b}
+      for name, (a, rq) in cases.items():
+        got = ops.sample_one_hop_gns_fused(*a, req=rq, window=w)
+        ref = ops.sample_one_hop_gns(*a, req=rq, window=w)
+        if not same(got, ref):
+          raise AssertionError(
+              f'GNS kernel != plain version (forced k={k}, w={w}, '
+              f'{rows} rows, boost {boost}, {name})')
+        cases_run += 1
+        if boost == 16.0:
+          table = ops.gns.bits_table(bits)
+          trows = ops.gns.bits_rows(bits, rq, rows, DEVICE).contiguous()
+          rec[f'{name.replace(" ", "_")}_kernel_ms'] = timer(
+              lambda a=a, table=table, trows=trows: (
+                  ops.fused_sample.gns_kernel(*a[:6], table, trows, boost,
+                                              w)))
+      if boost == 16.0:
+        # the kernel clamps its table rows; the stack form's plain
+        # version clamps req the same way
+        table = bits[0]
+        raw = torch.from_numpy(np.random.default_rng(k).integers(
+            -3, table.shape[0] + 3, rows).astype(np.int32)).to(DEVICE)
+        got = ops.fused_sample.gns_kernel(indptr, indices, seeds, k, u, v,
+                                          table, raw, boost, w)
+        ref = ops.sample_one_hop_gns(*args[:6], table, boost, req=raw,
+                                     window=w)
+        if not same(got, ref):
+          raise AssertionError(
+              f'GNS kernel != plain version (forced k={k}, w={w}, '
+              f'{rows} rows, table rows out of range)')
+        cases_run += 1
+      if n_b == 0:
+        raise AssertionError(f'no boundary draw at k={k}, w={w}')
+      out.append(rec)
+  return {'sets': out, 'cases': cases_run, 'byte_equal': True}
 
 
 def gns_data(torch, indptr, indices, feats, labels):
@@ -1583,8 +1795,9 @@ def gns_data(torch, indptr, indices, feats, labels):
 def gns_kernel(torch, ops, timer, path_hops):
   """The GNS kernel against its plain version at the three hops of one
   1,024-seed batch of the training path (its own bits table, the seeds
-  in the order the kernel sees them), then on the forced sets at boosts
-  16 and 3."""
+  in the order the kernel sees them), timed on a forced set at each
+  fanout at boosts 16 and 3, then on `forced_gns_cases`.
+  Returns ``(per-hop records, forced cases)``."""
   recs = []
   for t, a in enumerate(path_hops):
     rec = check_gns(torch, ops, timer, *a)
@@ -1593,15 +1806,18 @@ def gns_kernel(torch, ops, timer, path_hops):
     recs.append(rec)
   for k in FANOUTS:
     w = ops.default_window(k)
-    indptr, indices, seeds, u, v, bits, req = forced_gns_sets(torch, k, w)
     for boost in (16.0, 3.0):
+      indptr, indices, seeds, u, v, bits, req, _ = forced_gns_sets(
+          torch, ops, k, w, boost=boost)
       rec = check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v,
                       bits, boost, req, w)
       if min(rec['arms'].values()) == 0:
         raise AssertionError(f'GNS forced set missed an arm: {rec["arms"]}')
       emit('kernel', kernel='sample_one_hop_gns', shape='forced set',
            **rec)
-  return recs
+  forced = forced_gns_cases(torch, ops, timer)
+  emit('kernel', kernel='sample_one_hop_gns', shape='forced sets', **forced)
+  return recs, forced
 
 
 class PathRecorder:
@@ -1735,7 +1951,7 @@ def gns_train(torch, ops, timer, ds, feats, labels, prof=False):
       losses.append(float(loss))
   warm_secs = time.perf_counter() - t0
   path_hops = rec.sample_calls()
-  kernel_recs = gns_kernel(torch, ops, timer, path_hops)
+  kernel_recs, gns_forced = gns_kernel(torch, ops, timer, path_hops)
   gather_recs = []
   for t, what in ((0, 'train hot-tier features'), (1, 'train labels')):
     g = check_gather(torch, ops, timer, *rec.gathers[t])
@@ -1864,7 +2080,7 @@ def gns_train(torch, ops, timer, ds, feats, labels, prof=False):
        launches=launches, dispatches=dispatches, plain_calls=plain,
        weights_ne_1=n_weights_ne_1, x_rows_byte_equal=True,
        y_byte_equal=True)
-  return launches, kernel_recs, gather_recs
+  return launches, kernel_recs, gather_recs, gns_forced
 
 
 def gns_cross_check(torch):
@@ -2577,7 +2793,7 @@ def run(torch, argv) -> list:
   chaos_recover(torch)
 
   # -- the window-gather entry point ------------------------------------
-  win = window(torch, ops, indptr, indices)
+  win = window(torch, ops, timer, indptr, indices)
 
   # -- per-batch training and the fused tree epoch ----------------------
   labels = make_labels(torch, feats)
@@ -2593,7 +2809,7 @@ def run(torch, argv) -> list:
 
   # -- GNS-biased training over the tiered store ------------------------
   ds_g = gns_data(torch, indptr, indices, feats, labels)
-  gns_launches, gns_hops, gathers_train = gns_train(
+  gns_launches, gns_hops, gathers_train, gns_forced = gns_train(
       torch, ops, timer, ds_g, feats, labels, prof='--profile' in argv)
   del ds_g
   gns_cross_check(torch)
@@ -2726,6 +2942,7 @@ def run(torch, argv) -> list:
        'shape': '1,024-seed training batch, hops of '
                 + '/'.join(str(h['rows']) for h in gns_hops)
                 + ' rows, k 15/10/5',
+       'hops': per_hop(gns_hops), 'forced_sets': gns_forced['cases'],
        'launches_by_path': {
            'gns_train': gns_launches['sample_one_hop_gns'],
            'mesh_train': mesh_launches['sample_one_hop_gns']},
@@ -2740,7 +2957,13 @@ def run(torch, argv) -> list:
        'bound_ms': win['bound_ms'], 'bound_by': 'bytes',
        'library_ms': win['ms_per_call']['library'], 'byte_equal': True,
        'shape': f'{win["batch"]} starts x {win["w"]} (int64 starts), '
-                f'{win["iters"]} back-to-back calls'},
+                f'{win["iters"]} back-to-back calls',
+       'flushed': {'ms': win['ms_flushed']['kernel'],
+                   'plain_ms': win['ms_flushed']['plain'],
+                   'library_ms': win['ms_flushed']['library'],
+                   'timer': 'one call, L2 flushed, median of 30'},
+       'forced_sets': win['forced_sets'],
+       'forced_width_ms': win['forced_width_ms']},
       {'name': 'push_rows', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/push_rows.cu',
        'replaces': 'graphlearn_tpu/parallel/rdma_gather.py:71',

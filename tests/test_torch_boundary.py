@@ -86,6 +86,23 @@ def test_no_forbidden_import_in_sources():
       assert not bad, f'{path.relative_to(PKG)} imports {bad}'
 
 
+@pytest.mark.parametrize('script', ['chip_smoke.py'])
+def test_card_scripts_import_no_jax(script):
+  """The scripts that drive the port on the card import neither JAX nor
+  the JAX package, at any depth of their code."""
+  path = PKG.parent / script
+  tree = ast.parse(path.read_text(), filename=str(path))
+  seen = []
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      seen += [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      seen.append(node.module or '')
+  assert 'graphlearn_tpu_torch' in {n.split('.')[0] for n in seen}
+  bad = [n for n in seen if _forbidden(n)]
+  assert not bad, f'{script} imports {bad}'
+
+
 def test_entry_points_default_to_cuda():
   if torch.cuda.is_available():
     pytest.skip('the default device exists here')

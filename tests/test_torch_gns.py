@@ -165,10 +165,10 @@ def test_knob_resolution(monkeypatch):
 
 # -- the biased sampler ------------------------------------------------------
 
-def _csr(k, n=160, seed=0):
+def _csr(k, n=160, seed=0, w=None):
   """Poisson-degree CSR with rows forced into every arm: empty (row 3),
   take-all (row 4), window (rows 5, 6: k+1 and w), hubs (rows 7, 8)."""
-  w = default_window(k)
+  w = default_window(k) if w is None else w
   rng = np.random.default_rng(seed)
   deg = rng.poisson(max(k + 2, 4), n)
   deg[3], deg[4], deg[5], deg[6] = 0, k, k + 1, w
@@ -224,17 +224,58 @@ def _eq(got, ref):
   np.testing.assert_array_equal(got.weights.numpy(), np.asarray(ref.weights))
 
 
+def _jit_differs_by_the_rewrite_alone(jit, got, indptr, indices, seeds,
+                                      bits, req, boost, w):
+  """At k = 1, JAX under jit against the port: the same ids and mask,
+  and weights that differ only where total / (deg * wgt) and the
+  source's (total / deg) / wgt round apart, by 1 ulp there."""
+  np.testing.assert_array_equal(got.nbrs.numpy(), np.asarray(jit.nbrs))
+  np.testing.assert_array_equal(got.mask.numpy(), np.asarray(jit.mask))
+  n = len(indptr) - 1
+  ok = (seeds >= 0) & (seeds < n)
+  row = np.clip(seeds, 0, n - 1)
+  deg = np.where(ok, np.diff(indptr)[row], 0)
+  lane = np.arange(w)
+  inside = lane[None, :] < deg[:, None]
+  pos = np.clip(indptr[row][:, None] + lane, 0, len(indices) - 1)
+  ids = np.where(inside, indices[pos], -1)
+  one, b = np.float32(1), np.float32(boost)
+  wgt = one + b * gns.bitmask_lookup(bits, _t(ids), req=req).numpy(
+      ).astype(np.float32)
+  total = np.where(inside, wgt, np.float32(0)).sum(1, dtype=np.float32)
+  picked = one + b * gns.bitmask_lookup(bits, got.nbrs, req=req).numpy(
+      )[:, 0].astype(np.float32)
+  medium = (deg > 1) & (deg <= w)
+  d = np.maximum(deg, 1).astype(np.float32)
+  port = got.weights.numpy()[:, 0]
+  np.testing.assert_array_equal(port[medium],
+                                ((total / d) / picked)[medium])
+  want = np.where(medium, total / (d * picked), port)
+  np.testing.assert_array_equal(np.asarray(jit.weights)[:, 0], want)
+  ulps = np.abs(port.view(np.int32).astype(np.int64)
+                - want.view(np.int32).astype(np.int64))
+  assert ulps.max() <= 1
+
+
+#: fanouts on both sides of every lane-group width of the GNS kernel (4,
+#: 8, 16, 32 lanes a row), each at its default window, and k 5 at the
+#: kernel's largest window
+GNS_CASES = [(k, None) for k in (1, 2, 4, 5, 8, 15, 16, 17, 32)] + [(5, 256)]
+
+
 @pytest.mark.parametrize('form', ['shared', 'stack', 'dedup'])
 @pytest.mark.parametrize('boost', [16.0, 3.0])
-@pytest.mark.parametrize('k', [2, 5, 15])
-def test_gns_plain_byte_equal_to_jax_xla(k, boost, form):
-  indptr, indices = _csr(k, seed=k)
+@pytest.mark.parametrize(
+    'k,window', GNS_CASES,
+    ids=[str(k) if w is None else f'{k}-w{w}' for k, w in GNS_CASES])
+def test_gns_plain_byte_equal_to_jax_xla(k, window, boost, form):
+  indptr, indices = _csr(k, seed=k, w=window)
   n = len(indptr) - 1
   seeds = _seeds(n, seed=k + 1)
   bits, nreq = _bits_forms(n)[form]
   req = (None if nreq is None else np.random.default_rng(k).integers(
       0, nreq, seeds.shape[0]).astype(np.int32))
-  w = default_window(k)
+  w = default_window(k) if window is None else window
   deg = np.diff(indptr)[np.clip(seeds, 0, n - 1)]
   ok = (seeds >= 0) & (seeds < n)
   assert (ok & (deg <= k)).any() and (ok & (deg > w)).any()
@@ -247,11 +288,26 @@ def test_gns_plain_byte_equal_to_jax_xla(k, boost, form):
   targs = (_t(indptr), _t(indices), _t(seeds), k, _t(u), _t(v),
            _port_bits(bits), boost)
   treq = None if req is None else _t(req)
-  got = sample_one_hop_gns(*targs, req=treq)
-  _eq(got, jgns.sample_one_hop_gns(*jargs, req=jreq, sort_locality=False))
+  # at k = 1 no broadcast separates the weight's two divisions, and
+  # XLA's simplifier rewrites the source's (total / deg) / w into total /
+  # (deg * w) under jit, 1 ulp off on some rows; the port keeps the
+  # source's formula, so there the JAX function runs op by op
+  with jax.disable_jit(k == 1):
+    ref = jgns.sample_one_hop_gns(*jargs, req=jreq, window=window,
+                                  sort_locality=False)
+    ref_sorted = jgns.sample_one_hop_gns(*jargs, req=jreq, window=window,
+                                         sort_locality=True)
+  got = sample_one_hop_gns(*targs, req=treq, window=window)
+  _eq(got, ref)
+  if k == 1:
+    _jit_differs_by_the_rewrite_alone(
+        jgns.sample_one_hop_gns(*jargs, req=jreq, window=window,
+                                sort_locality=False),
+        got, indptr, indices, seeds, _port_bits(bits), treq, boost, w)
   # the wrapper's CPU path, in the sorted order: draws follow sorted rows
-  got = sample_one_hop_gns_fused(*targs, req=treq, sort_locality=True)
-  _eq(got, jgns.sample_one_hop_gns(*jargs, req=jreq, sort_locality=True))
+  got = sample_one_hop_gns_fused(*targs, req=treq, window=window,
+                                 sort_locality=True)
+  _eq(got, ref_sorted)
   m = got.mask.numpy()
   wts = got.weights.numpy()
   assert (wts[~m] == 0).all() and (wts[m] > 0).all()
@@ -302,6 +358,27 @@ def test_boundary_draws_and_zero_draws():
   np.testing.assert_array_equal(
       res.weights.numpy(), np.array([[np.float32(2) / np.float32(17), 2, 2,
                                       2]], np.float32))
+  # draws exactly on the boundaries between window positions 6/7, 7/8,
+  # 14/15, 15/16, 30/31 and 31/32 (the edges of the kernel's lane shares
+  # at 8 and 16 entries a lane): ids 30, 200, 400, 500 cached, so cum[e]
+  # = e + 1 + 16 * #{cached <= e} and total = 128, and every v * total
+  # is exact; each draw takes the slot after its boundary
+  deg = 64
+  indptr = np.array([0, deg], np.int64)
+  indices = np.arange(deg, dtype=np.int32) * 10
+  bits = torch.from_numpy(gns.cached_set_bits(700, [0, 700], [0],
+                                              [30, 200, 400, 500]))
+  slots = np.array([7, 8, 15, 16, 31, 32])
+  cum = slots + 16 * (slots - 1 >= 3) + 16 * (slots - 1 >= 20)
+  v = (cum / 128).astype(np.float32)[None]
+  k = len(slots)
+  res = sample_one_hop_gns_fused(
+      _t(indptr), _t(indices), _t(np.array([0], np.int32)), k,
+      torch.zeros(1, k), _t(v), bits, 16.0)
+  assert res.nbrs.tolist() == [(slots * 10).tolist()]
+  assert res.mask.all()
+  np.testing.assert_array_equal(res.weights.numpy(),
+                                np.full((1, k), 2, np.float32))
 
 
 def test_uniform_sort_locality_matches_jax():

@@ -31,11 +31,15 @@ def _starts(e, w, n=97, seed=0):
   # starts (the Pallas path clamps starts, not positions)
   starts[:7] = [max(e - 1, 0), max(e - w, 0), min(1020, max(e - 1, 0)),
                 -5, -1, e, e + 1000]
+  # every residue mod 4, near the start and near the end of the array
+  starts[7:15] = np.clip([1, 2, 3, 4, e - w - 1, e - w - 2, e - w - 3,
+                          e - 2], 0, None)
   return starts
 
 
 @pytest.mark.parametrize('e,w', [(5000, 128), (5000, 64), (130000, 128),
-                                 (1024, 16), (100, 128)])
+                                 (1024, 16), (100, 128), (5000, 1),
+                                 (5000, 3), (5000, 33), (5000, 127)])
 def test_csr_window_gather_matches_pallas(e, w):
   ind = np.random.default_rng(1).integers(0, 1 << 20, e).astype(np.int32)
   starts = _starts(e, w)
