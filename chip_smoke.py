@@ -24,9 +24,23 @@ Phases, one JSON line each; any failure exits nonzero:
           the sampler at every hop of a 16-seed bucket with fanouts
           [15, 10, 5] plus row sets forced through each arm, the row
           gather over a 16-seed tree in f32 and bf16, the delta-merge
-          ranks of one 4,096-event batch into the products graph plus a
-          forced set (empty rows, base rows up to 8,192 wide, new-column
-          rows up to 512 wide with ties on both sides).  Then the forced
+          ranks (K4) of one 4,096-event batch into the products graph
+          (with ``sort_ms``, a stable `torch.sort` of the same (row,
+          column) keys plus the inverse-permutation scatter: a two-call
+          yardstick the port never calls, and ``ranks_alone_ms``, the
+          publish's ranks phase of that batch through
+          `merge_delta_csr_device` on an idle card), of a hub burst
+          (4,096 events from 64 products rows, ~64 new columns a row:
+          the kernel's wide class), of a 1-row 1 x 1 call
+          (``floor_ms``) and of
+          `forced_merge_cases`: the first port's 96-row forced set (empty
+          rows, base rows up to 8,192 wide, new-column rows up to 512
+          wide, ties on both sides), every pair of base widths
+          0/1/31/32/33/127/128/129/8,192 and new widths
+          0/1/2/31/32/33/64/512, a row of 20,000 new columns (past one
+          block's shared memory), every column tied, signed extremes,
+          sorted and reverse-sorted segments, 1 / 4,095 / 100,003 rows of
+          the products CSR; non-contiguous row ids throughout.  Then the forced
           sets of the sampler (k 1/4/5/8/15/16/17/32 at the default
           window and at 256, on 150,001, 20,001 and 1,001 rows: every arm,
           invalid and out-of-range seeds, top Gumbels tied across
@@ -191,7 +205,9 @@ Phases, one JSON line each; any failure exits nonzero:
 by name and the device idle share of 3 steps of the per-batch, tree,
 GNS and mesh training paths).  A ``wall`` line gives the script's
 seconds.  It prints the ``{"kernels": [...]}``
-line (six kernels) before the last and ends with
+line (six kernels; `merge_ranks` also with ``floor_ms``,
+``hub_burst_ms``, ``sort_ms`` and ``forced_ms`` by case) before the last
+and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 ``graphlearn_tpu_torch`` package beside it, it exits nonzero and prints
 no result.
@@ -501,63 +517,176 @@ def forced_sampler_sets(torch, ops, seed=13):
 
 
 def merge_bytes(n_rows: int, n_base: int, n_events: int) -> int:
-  """Bytes the rank kernel must move: per dirty row its id, two indptr
-  entries, its segment offset and count and its output offset; every
+  """Bytes the rank kernel must move: per dirty row its base start and
+  width, segment offset and count and output offset (five int64); every
   base column and new column read once; one int32 rank written per
   column."""
-  return n_rows * (8 + 16 + 8 + 4 + 8) + 4 * (n_base + n_events) * 2
+  return n_rows * 40 + 4 * (n_base + n_events) * 2
 
 
-def check_merge_ranks(torch, ops, timer, args, rows, n_events):
-  """The rank kernel against its plain version on the same inputs
-  (``args`` of `merge_ranks`): byte-equal, then both timed."""
-  before = ops.merge_ranks.launches
-  got = ops.merge_ranks(*args)
-  ref = ops.merge_ranks_plain(*args)
-  sync(torch)
-  if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-    bad = int((got[0] != ref[0]).sum() + (got[1] != ref[1]).sum())
-    raise AssertionError(f'merge_ranks kernel != plain version ({bad} '
-                         'ranks differ)')
-  err = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
-            for g, r in zip(got, ref))
-  indptr, rows_t, seg_cnt = args[1], args[0], args[4]
-  base_w = indptr[rows_t + 1] - indptr[rows_t]
-  nbytes = merge_bytes(rows, args[-1], n_events)
-  rec = {'rows': rows, 'base_cols': args[-1], 'events': n_events,
-         'max_base_width': int(base_w.max()),
-         'max_new_width': int(seg_cnt.max()),
-         'empty_base_rows': int((base_w == 0).sum()),
-         'empty_new_rows': int((seg_cnt == 0).sum()),
-         'byte_equal': True, 'max_abs_err': err,
-         'kernel_ms': timer(lambda: ops.merge_ranks(*args)),
-         'plain_ms': timer(lambda: ops.merge_ranks_plain(*args)),
-         'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
-  rec['launches'] = ops.merge_ranks.launches - before
-  return rec
-
-
-def path_merge_args(torch, ops, indptr, indices, indptr_h, src, dst):
-  """`merge_ranks` arguments for one segment over the device CSR, made
-  the way `merge_delta_csr_device` makes them."""
-  ri = ops.rank_inputs(indptr_h, src)
+def merge_case(torch, ops, indptr_h, indptr, indices, rows, seg_cnt,
+               seg_cols):
+  """One `merge_ranks` call over a CSR (``indptr_h`` on the host,
+  ``indptr`` and ``indices`` on the card): the dirty ``rows`` (any ids,
+  in this order) with ``seg_cnt`` new columns each, ``seg_cols`` their
+  columns row after row in event order.  Returns ``(kernel, plain,
+  shape)``: the kernel's and the plain version's calls on the card's
+  inputs, and the shape's numbers.  A tree whose `merge_ranks` still
+  takes row ids and ``indptr`` (no ``ops.rank_rows``: the first port's
+  interface) is called that way, so this script times both trees'
+  kernels on the same shapes."""
+  rows = np.asarray(rows, np.int64)
+  seg_cnt = np.asarray(seg_cnt, np.int64)
+  start = indptr_h[rows]
+  base_cnt = indptr_h[rows + 1] - start
+  seg_off = np.zeros(len(rows), np.int64)
+  np.cumsum(seg_cnt[:-1], out=seg_off[1:])
+  base_out = np.zeros(len(rows), np.int64)
+  np.cumsum(base_cnt[:-1], out=base_out[1:])
+  n_base = int(base_cnt.sum())
 
   def up(a, dtype):
     return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(DEVICE)
 
-  args = (up(ri.rows, np.int64), indptr, indices,
-          up(ri.seg_off, np.int64), up(ri.seg_cnt, np.int32),
-          up(dst[ri.order], np.int32), up(ri.base_out, np.int64),
-          ri.n_base)
-  return args, len(ri.rows)
+  cols = up(seg_cols, np.int32)
+  if hasattr(ops, 'rank_rows'):
+    args = (ops.rank_rows(start, base_cnt, seg_off, seg_cnt, base_out,
+                          DEVICE), indices, cols)
+  else:
+    args = (up(rows, np.int64), indptr, indices, up(seg_off, np.int64),
+            up(seg_cnt, np.int32), cols, up(base_out, np.int64), n_base)
+  shape = {'rows': len(rows), 'base_cols': n_base,
+           'events': int(seg_cnt.sum()),
+           'max_base_width': int(base_cnt.max()),
+           'max_new_width': int(seg_cnt.max()),
+           'empty_base_rows': int((base_cnt == 0).sum()),
+           'empty_new_rows': int((seg_cnt == 0).sum())}
+  return (lambda: ops.merge_ranks(*args),
+          lambda: ops.merge_ranks_plain(*args), shape)
 
 
-def forced_merge_args(torch, seed=3):
-  """Ragged rank inputs that stress every case: empty base rows, rows
-  with no new column, base rows up to 8,192 wide (the JAX kernel capped
-  widths at 2,048), new-column rows up to 512 wide; columns drawn from
-  [0, 64), so new columns repeat and equal base columns."""
+def check_merge_ranks(torch, ops, timer, case, time_plain=True):
+  """The rank kernel against its plain version on one `merge_case`:
+  byte-equal, then the kernel (and unless told not to, the plain
+  version) timed."""
+  kernel, plain, shape = case
+  before = ops.merge_ranks.launches
+  got = kernel()
+  ref = plain()
+  sync(torch)
+  if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+    bad = int((got[0] != ref[0]).sum() + (got[1] != ref[1]).sum())
+    raise AssertionError(f'merge_ranks kernel != plain version ({bad} '
+                         f'ranks differ, {shape})')
+  err = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
+            for g, r in zip(got, ref))
+  del got, ref
+  nbytes = merge_bytes(shape['rows'], shape['base_cols'], shape['events'])
+  rec = dict(shape, byte_equal=True, max_abs_err=err,
+             kernel_ms=timer(kernel), bytes=nbytes,
+             bound_us=nbytes / HBM_BYTES_PER_S * 1e6)
+  if time_plain:
+    rec['plain_ms'] = timer(plain)
+  rec['launches'] = ops.merge_ranks.launches - before
+  return rec
+
+
+def path_merge_case(torch, ops, indptr, indices, indptr_h, src, dst):
+  """The `merge_case` of one segment over the products CSR, its rows
+  and columns made the way `merge_delta_csr_device` makes them."""
+  ri = ops.rank_inputs(indptr_h, src)
+  return merge_case(torch, ops, indptr_h, indptr, indices, ri.rows,
+                    ri.seg_cnt, dst[ri.order])
+
+
+def sort_yardstick(torch, timer, indptr, indices, rows, src, dst):
+  """``sort_ms``: a stable `torch.sort` of the (row, column) keys of the
+  dirty rows' base columns followed by the new edges in event order, as
+  `static_csr` builds them, then the scatter of the inverse permutation
+  (every element's position in the sorted order): two calls, timed as
+  the rank kernel is.  A yardstick only; the port never calls it."""
+  n = NUM_NODES
+  rows_t = torch.from_numpy(np.asarray(rows, np.int64)).to(DEVICE)
+  cnt = indptr[rows_t + 1] - indptr[rows_t]
+  base_rows = torch.repeat_interleave(rows_t, cnt)
+  out = torch.cumsum(cnt, 0) - cnt
+  pos = (torch.repeat_interleave(indptr[rows_t] - out, cnt)
+         + torch.arange(base_rows.numel(), device=DEVICE))
+  key = torch.cat([base_rows * n + indices[pos].long(),
+                   torch.from_numpy(np.asarray(src, np.int64) * n
+                                    + np.asarray(dst, np.int64)).to(DEVICE)])
+  iota = torch.arange(key.numel(), device=DEVICE)
+  rank = torch.empty_like(iota)
+
+  def sort_and_scatter():
+    rank[torch.sort(key, stable=True).indices] = iota
+
+  return timer(sort_and_scatter)
+
+
+def ranks_alone_ms(torch, indptr_h, indices_h, indices, src, dst, n=3):
+  """The publish's ``ranks`` phase of one segment over the products CSR
+  (`merge_delta_csr_device`'s ``timings['ranks']``: the host's rank
+  inputs and launch plan, the upload, the kernel, the download) with
+  nothing else running: the median of ``n`` merges, host clock."""
+  from graphlearn_tpu_torch.ops import merge_delta_csr_device
+  from graphlearn_tpu_torch.streaming import DeltaSegment
+  eids = np.arange(indices_h.size, dtype=np.int64)
+  seg = DeltaSegment(src=src, dst=dst,
+                     eids=np.arange(len(src), dtype=np.int64) + eids.size)
+  times = []
+  for _ in range(n):
+    t = {}
+    merge_delta_csr_device(indptr_h, indices_h, eids, seg,
+                           indices_dev=indices, device=DEVICE, timings=t)
+    times.append(t['ranks'] * 1e3)
+  return float(np.median(times))
+
+
+def own_csr(torch, rng, widths, draw):
+  """A CSR whose odd rows have ``widths`` sorted columns from
+  ``draw(size)`` and whose even rows (never dirty) 0-3: the dirty
+  rows' ids, returned, are not contiguous."""
+  n = len(widths)
+  deg = np.zeros(2 * n, np.int64)
+  deg[1::2] = widths
+  deg[0::2] = rng.integers(0, 4, n)
+  indptr = np.zeros(2 * n + 1, np.int64)
+  np.cumsum(deg, out=indptr[1:])
+  indices = np.concatenate([np.sort(draw(int(d))) for d in deg])
+  return (indptr, torch.from_numpy(indptr).to(DEVICE),
+          torch.from_numpy(indices.astype(np.int32)).to(DEVICE),
+          2 * np.arange(n) + 1)
+
+
+INT32_MAX = 2 ** 31 - 1
+#: base and new widths every pair of which `forced_merge_cases` runs:
+#: each side of the kernel's narrow limits (128 base, 32 new) and of a
+#: warp, and an 8,192-wide base row
+MERGE_BASE_WIDTHS = (0, 1, 31, 32, 33, 127, 128, 129, 8192)
+MERGE_NEW_WIDTHS = (0, 1, 2, 31, 32, 33, 64, 512)
+#: new columns of the row past one wide block's shared memory (8,192
+#: keys): three tiles
+MERGE_PAST_TILE = 20_000
+MERGE_MANY_ROWS = 100_003
+
+
+def forced_merge_cases(torch, ops, indptr_h, indptr, indices, path_rows,
+                       seed=3):
+  """``[(name, merge_case)]`` that force every branch of the rank
+  kernel: the first port's 96-row forced set (unchanged, so its time stays
+  comparable), every pair of `MERGE_BASE_WIDTHS` x `MERGE_NEW_WIDTHS`,
+  a row past one block's shared memory, every column tied, signed
+  extremes (int32 min and max, -1, 0, int32 max - 1), new columns
+  already sorted and reverse-sorted, and over the products CSR 1 row,
+  the path's 4,095 rows with 1-48 new columns and 100,003 rows (more
+  than one wave of warps) in random order.  Own CSRs make the dirty
+  rows' ids non-contiguous."""
   rng = np.random.default_rng(seed)
+  cases = []
+
+  # the first port's forced set: empty rows, base rows up to 8,192 wide,
+  # new-column rows up to 512 wide, columns from [0, 64)
   n = 96
   deg = rng.integers(0, 40, n)
   deg[:4] = 0
@@ -566,23 +695,95 @@ def forced_merge_args(torch, seed=3):
   cnt[[0, 4, 8]] = 512
   cnt[[5, 9]] = (300, 200)
   cnt[10:14] = 0
-  indptr = np.zeros(n + 1, np.int64)
-  np.cumsum(deg, out=indptr[1:])
-  indices = np.concatenate([np.sort(rng.integers(0, 64, d))
-                            for d in deg]).astype(np.int32)
-  seg_off = np.zeros(n, np.int64)
-  np.cumsum(cnt[:-1], out=seg_off[1:])
-  base_out = np.zeros(n, np.int64)
-  np.cumsum(deg[:-1], out=base_out[1:])
+  ip = np.zeros(n + 1, np.int64)
+  np.cumsum(deg, out=ip[1:])
+  idx = np.concatenate([np.sort(rng.integers(0, 64, d))
+                        for d in deg]).astype(np.int32)
   cols = rng.integers(0, 64, int(cnt.sum())).astype(np.int32)
+  cases.append(('forced set', merge_case(
+      torch, ops, ip, torch.from_numpy(ip).to(DEVICE),
+      torch.from_numpy(idx).to(DEVICE), np.arange(n), cnt, cols)))
 
-  def up(a, dtype):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(DEVICE)
+  def small(size):
+    return rng.integers(0, 64, size)
 
-  args = (up(np.arange(n), np.int64), up(indptr, np.int64),
-          up(indices, np.int32), up(seg_off, np.int64), up(cnt, np.int32),
-          up(cols, np.int32), up(base_out, np.int64), int(deg.sum()))
-  return args, n, int(cnt.sum())
+  def segments(cnt, draw, order=None):
+    segs = [draw(int(c)) for c in cnt]
+    if order == 'sorted':
+      segs = [np.sort(s) for s in segs]
+    elif order == 'reversed':
+      segs = [np.sort(s)[::-1] for s in segs]
+    return np.concatenate(segs).astype(np.int32)
+
+  def own(name, base_w, new_w, draw, order=None):
+    ip, ip_d, idx_d, rows = own_csr(torch, rng, base_w, draw)
+    cases.append((name, merge_case(torch, ops, ip, ip_d, idx_d, rows, new_w,
+                                   segments(new_w, draw, order))))
+
+  pairs = list(itertools.product(MERGE_BASE_WIDTHS, MERGE_NEW_WIDTHS))
+  base_w = np.array([b for b, _ in pairs])
+  new_w = np.array([s for _, s in pairs])
+  own('every width pair', base_w, new_w, small)
+  own('past a tile', np.array([1000, 0, 40]),
+      np.array([MERGE_PAST_TILE, 8193, 3]),
+      lambda size: rng.integers(0, 5000, size))
+  own('every column tied', np.array([40, 200, 8192, 0, 128, 3, 33]),
+      np.array([20, 64, 512, 33, 32, 1000, 0]),
+      lambda size: np.full(size, 7))
+  extremes = np.array([-2 ** 31, -1, 0, INT32_MAX - 1, INT32_MAX])
+  own('signed extremes', base_w, new_w, lambda size: rng.choice(extremes,
+                                                                size))
+  own('sorted segments', base_w, new_w, small, 'sorted')
+  own('reverse-sorted segments', base_w, new_w, small, 'reversed')
+
+  def products(name, rows, cnt):
+    cases.append((name, merge_case(
+        torch, ops, indptr_h, indptr, indices, rows, cnt,
+        rng.integers(0, NUM_NODES, int(np.sum(cnt))))))
+
+  products('R = 1', rng.integers(0, NUM_NODES, 1), np.array([5]))
+  products(f'R = {len(path_rows):,}', path_rows,
+           rng.integers(1, 49, len(path_rows)))
+  products(f'R = {MERGE_MANY_ROWS:,}',
+           rng.choice(NUM_NODES, MERGE_MANY_ROWS, replace=False),
+           rng.integers(1, 4, MERGE_MANY_ROWS))
+  return cases
+
+
+def merge_kernel(torch, ops, timer, indptr, indices, indptr_h, indices_h):
+  """K4's kernel lines: the path's 4,096-event batch (with `sort_ms` and
+  `ranks_alone_ms`), the hub burst (4,096 events from 64 products rows),
+  the 1 x 1 floor and every forced case, each byte-equal to the plain
+  version."""
+  rng = np.random.default_rng(4)
+  src = rng.integers(0, NUM_NODES, INGEST_EVENTS)
+  dst = rng.integers(0, NUM_NODES, INGEST_EVENTS)
+  path = path_merge_case(torch, ops, indptr, indices, indptr_h, src, dst)
+  k4 = check_merge_ranks(torch, ops, timer, path)
+  path_rows = ops.rank_inputs(indptr_h, src).rows
+  k4['sort_ms'] = sort_yardstick(torch, timer, indptr, indices, path_rows,
+                                 src, dst)
+  k4['ranks_alone_ms'] = ranks_alone_ms(torch, indptr_h, indices_h, indices,
+                                        src, dst)
+  emit('kernel', kernel='merge_ranks', shape='4,096-event batch', **k4)
+  hubs = rng.choice(NUM_NODES, 64, replace=False)
+  hub_src = rng.choice(hubs, INGEST_EVENTS)
+  hub = check_merge_ranks(torch, ops, timer, path_merge_case(
+      torch, ops, indptr, indices, indptr_h, hub_src, dst))
+  emit('kernel', kernel='merge_ranks', shape='hub burst', **hub)
+  ip, ip_d, idx_d, rows = own_csr(torch, rng, [1], lambda size:
+                                  rng.integers(0, 64, size))
+  floor = check_merge_ranks(torch, ops, timer, merge_case(
+      torch, ops, ip, ip_d, idx_d, rows, [1], [7]), time_plain=False)
+  emit('kernel', kernel='merge_ranks', shape='floor: 1 row, 1 x 1', **floor)
+  forced = {}
+  for name, case in forced_merge_cases(torch, ops, indptr_h, indptr,
+                                       indices, path_rows):
+    rec = check_merge_ranks(torch, ops, timer, case,
+                            time_plain=name == 'forced set')
+    emit('kernel', kernel='merge_ranks', shape=name, **rec)
+    forced[name] = rec
+  return k4, hub, floor, forced
 
 
 def serve(torch, ds):
@@ -2768,17 +2969,8 @@ def run(torch, argv) -> list:
   emit('kernel', kernel='gather_rows', shape='16-seed tree', **gathers[1])
   del feats_bf16
   indptr_h, indices_h = indptr.cpu().numpy(), indices.cpu().numpy()
-  rng = np.random.default_rng(4)
-  src = rng.integers(0, NUM_NODES, INGEST_EVENTS)
-  dst = rng.integers(0, NUM_NODES, INGEST_EVENTS)
-  args, rows = path_merge_args(torch, ops, indptr, indices, indptr_h, src,
-                               dst)
-  k4 = check_merge_ranks(torch, ops, timer, args, rows, INGEST_EVENTS)
-  emit('kernel', kernel='merge_ranks', shape='4,096-event batch', **k4)
-  args, rows, n_events = forced_merge_args(torch)
-  rec = check_merge_ranks(torch, ops, timer, args, rows, n_events)
-  emit('kernel', kernel='merge_ranks', shape='forced set', **rec)
-  del args
+  k4, k4_hub, k4_floor, k4_forced = merge_kernel(torch, ops, timer, indptr,
+                                                 indices, indptr_h, indices_h)
 
   # -- serve ------------------------------------------------------------
   eng, launches, reqs, serve_lat = serve(torch, ds)
@@ -2924,11 +3116,26 @@ def run(torch, argv) -> list:
        'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',
        'launches': ingest_launches['merge_ranks'],
-       'max_abs_err': k4['max_abs_err'], 'ms': k4['kernel_ms'],
+       'max_abs_err': max(r['max_abs_err'] for r in
+                          [k4, k4_hub, k4_floor, *k4_forced.values()]),
+       'ms': k4['kernel_ms'],
        'plain_ms': k4['plain_ms'], 'bound_ms': k4['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
        'shape': f'{k4["events"]}-event batch, {k4["rows"]} dirty rows, '
-                f'{k4["base_cols"]} base columns'},
+                f'{k4["base_cols"]} base columns',
+       'floor_ms': k4_floor['kernel_ms'],
+       'hub_burst_ms': k4_hub['kernel_ms'],
+       'hub_burst': {'rows': k4_hub['rows'],
+                     'max_new_width': k4_hub['max_new_width'],
+                     'plain_ms': k4_hub['plain_ms'],
+                     'bound_ms': k4_hub['bound_us'] / 1e3},
+       'sort_ms': k4['sort_ms'], 'ranks_alone_ms': k4['ranks_alone_ms'],
+       'sort_yardstick': 'two calls: stable torch.sort of the (row, '
+                         'column) keys + inverse-permutation scatter; '
+                         'never called by the port',
+       'forced_ms': {name: r['kernel_ms'] for name, r in k4_forced.items()},
+       'forced_bound_ms': {name: r['bound_us'] / 1e3
+                           for name, r in k4_forced.items()}},
       {'name': 'sample_one_hop_gns', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/sample_one_hop_gns.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247 (gns arm :178)',

@@ -1,5 +1,6 @@
-from .delta_merge import (merge_delta_csr_device, merge_ranks,
-                          merge_ranks_plain, rank_inputs)
+from .delta_merge import (RankRows, merge_delta_csr_device, merge_ranks,
+                          merge_ranks_plain, rank_inputs, rank_plan,
+                          rank_rows)
 from .draws import TorchDraws, hash_draws
 from .fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
 from .gather_rows import gather_rows, gather_rows_plain

@@ -248,7 +248,7 @@ class StreamingGraph:
       timings = {}
       new_indptr, new_indices, new_eids = merge_delta_csr_device(
           prev.indptr, prev.indices, prev.edge_ids, seg,
-          indptr_dev=prev.indptr_dev, indices_dev=prev.indices_dev,
+          indices_dev=prev.indices_dev,
           device=self.device, timings=timings)
       t1 = time.perf_counter()
       view = self._build_view(prev.version + 1, new_indptr, new_indices,

@@ -34,7 +34,10 @@ from graphlearn_tpu.streaming.delta import \
 from graphlearn_tpu_torch.data import Dataset, Graph
 from graphlearn_tpu_torch.ops import (default_window, merge_delta_csr_device,
                                       merge_ranks, merge_ranks_plain,
-                                      rank_inputs, sample_one_hop)
+                                      rank_inputs, rank_plan, rank_rows,
+                                      sample_one_hop)
+from graphlearn_tpu_torch.ops.delta_merge import (MAX_TILE, NARROW_BASE,
+                                                   NARROW_NEW, WIDE_QUERIES)
 from graphlearn_tpu_torch.serving import ServingEngine
 from graphlearn_tpu_torch.streaming import (DeltaSegment, IngestPipeline,
                                             StreamingGraph, WriteAheadLog,
@@ -102,24 +105,55 @@ def _delta_fixture(n=60, seed=12, events=41):
   return indptr, indices, eids, src, dst
 
 
+def _wide_fixture(n=14, seed=21):
+  """Rows of base widths up to 300 and 33-64 new columns that all tie
+  (with each other and with base columns), plus one row of unsorted new
+  columns; events of the rows interleave."""
+  rng = np.random.default_rng(seed)
+  deg = rng.integers(0, 301, n)
+  deg[:4] = (0, 129, 300, 33)
+  indptr = np.zeros(n + 1, np.int64)
+  np.cumsum(deg, out=indptr[1:])
+  indices = np.concatenate([np.sort(rng.integers(0, 4, d))
+                            for d in deg]).astype(np.int64)
+  src, dst = [], []
+  for row in range(0, n, 2):
+    cnt = int(rng.integers(33, 65))
+    src.append(np.full(cnt, row))
+    dst.append(np.full(cnt, rng.integers(0, 4)) if row != 4
+               else rng.integers(0, 4, cnt))
+  src, dst = np.concatenate(src), np.concatenate(dst)
+  perm = rng.permutation(len(src))
+  eids = rng.permutation(int(indptr[-1])).astype(np.int64)
+  return (indptr, indices, eids, src[perm].astype(np.int64),
+          dst[perm].astype(np.int64))
+
+
 def _port_ranks(indptr, indices, src, dst):
   ri = rank_inputs(indptr, src)
   t = torch.from_numpy
-  pos_b, pos_s = merge_ranks(
-      t(ri.rows), t(np.asarray(indptr, np.int64)),
-      t(np.asarray(indices, np.int32)), t(ri.seg_off), t(ri.seg_cnt),
-      t(np.asarray(dst, np.int32)[ri.order]), t(ri.base_out), ri.n_base)
+  rows = rank_rows(ri.base_start, ri.base_cnt, ri.seg_off, ri.seg_cnt,
+                   ri.base_out, device='cpu')
+  pos_b, pos_s = merge_ranks(rows, t(np.asarray(indices, np.int32)),
+                             t(np.asarray(dst, np.int32)[ri.order]))
   return ri, pos_b.numpy(), pos_s.numpy()
 
 
-@pytest.mark.parametrize('seed', [12, 13, 14])
+@pytest.mark.parametrize('seed', [12, 13, 14, 'wide'])
 def test_plain_ranks_equal_jax_rank_kernel(seed):
   """The port's ragged ranks (plain version on the CPU) equal the JAX
-  Pallas rank kernel's padded `[R, L]` ranks, cropped to its masks,
-  on unsorted segment rows with ties on both sides."""
-  indptr, indices, _, src, dst = _delta_fixture(seed=seed)
+  Pallas rank kernel's padded `[R, L]` ranks, cropped to its masks, on
+  unsorted segment rows with ties on both sides; ``wide`` holds rows of
+  the kernel's wide class: 33-64 tied new columns, base rows up to 300
+  wide."""
+  indptr, indices, _, src, dst = (_wide_fixture() if seed == 'wide'
+                                  else _delta_fixture(seed=seed))
   ri, pos_b, pos_s = _port_ranks(indptr, indices, src, dst)
   assert (ri.seg_cnt > 1).any()
+  if seed == 'wide':                      # the kernel's wide class only
+    rows = rank_plan(ri.base_cnt, ri.seg_cnt).blocks[:, 0]
+    assert set(rows.tolist()) == set(range(len(ri.rows)))
+    assert ri.seg_cnt.min() > NARROW_NEW and ri.base_cnt.max() > NARROW_BASE
   s_dst = dst[ri.order]
   sent = np.iinfo(np.int32).max
   lb, ls = int(ri.base_cnt.max()), int(ri.seg_cnt.max())
@@ -144,11 +178,59 @@ def test_ranks_wrapper_on_cpu_runs_plain_and_checks_dtypes():
   assert merge_ranks.launches == before
   assert merge_ranks_plain.calls == calls + 1
   ri = rank_inputs(indptr, src)
+  rows = rank_rows(ri.base_start, ri.base_cnt, ri.seg_off, ri.seg_cnt,
+                   ri.base_out, device='cpu')
   t = torch.from_numpy
   with pytest.raises(ValueError, match='indices'):
-    merge_ranks(t(ri.rows), t(indptr), t(indices), t(ri.seg_off),
-                t(ri.seg_cnt), t(dst.astype(np.int32)), t(ri.base_out),
-                ri.n_base)
+    merge_ranks(rows, t(indices), t(dst.astype(np.int32)))
+  with pytest.raises(ValueError, match='base_cnt'):
+    merge_ranks(rows._replace(base_cnt=rows.base_cnt.int()),
+                t(indices.astype(np.int32)), t(dst.astype(np.int32)))
+  with pytest.raises(ValueError, match='work'):
+    merge_ranks(rows._replace(work=rows.work[:, :5].contiguous()),
+                t(indices.astype(np.int32)), t(dst.astype(np.int32)))
+  with pytest.raises(ValueError, match='int32'):
+    rank_plan(np.array([2 ** 31 - 1]), np.array([1]))
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_rank_plan_covers_each_row_and_column_once(seed):
+  """`rank_plan` against brute force: exactly the rows wider than the
+  narrow class (base > NARROW_BASE or new > NARROW_NEW) have blocks;
+  every base and new column of such a row lies in exactly one block's
+  query chunk, every block holds at least one, and the tile is the
+  smallest power of two holding the widest wide row's new columns, up
+  to MAX_TILE.  `rank_rows` keeps the rows' order and gives each block
+  its row's descriptor."""
+  rng = np.random.default_rng(seed)
+  r = 300
+  base = rng.choice([0, 1, 31, 32, 33, 127, 128, 129, 1000, 8192], r)
+  new = rng.choice([0, 1, 2, 31, 32, 33, 64, 512, 9000], r)
+  if seed == 2:
+    new[new > NARROW_NEW] = NARROW_NEW    # base-wide rows only
+  plan = rank_plan(base, new)
+  wide = [i for i in range(r)
+          if base[i] > NARROW_BASE or new[i] > NARROW_NEW]
+  assert sorted(set(plan.blocks[:, 0].tolist())) == wide
+  covered = {i: np.zeros(base[i] + new[i], np.int64) for i in wide}
+  for row, q0 in plan.blocks.tolist():
+    assert q0 < base[row] + new[row]
+    covered[row][q0:q0 + WIDE_QUERIES] += 1
+  for row, hits in covered.items():
+    assert (hits == 1).all(), row
+  widest = max([int(new[i]) for i in wide], default=0)
+  assert plan.tile == (0 if not wide else
+                       min(1 << max(widest - 1, 0).bit_length(), MAX_TILE))
+  start, off, out = (rng.integers(0, 1 << 40, r) for _ in range(3))
+  rows = rank_rows(start, base, off, new, out, device='cpu')
+  want = np.stack([start, off, out, base, new], 1)[plan.blocks[:, 0]]
+  np.testing.assert_array_equal(rows.work.numpy()[:, :5], want)
+  np.testing.assert_array_equal(rows.work.numpy()[:, 5], plan.blocks[:, 1])
+  for got, a in zip(rows[:5], (start, base, off, new, out)):
+    np.testing.assert_array_equal(got.numpy(), a)
+  assert (rows.tile, rows.n_base) == (plan.tile, int(base.sum()))
+  empty = rank_plan(np.zeros(0, np.int64), np.zeros(0, np.int64))
+  assert (len(empty.blocks), empty.tile) == (0, 0)
 
 
 def _merge_case(case):
