@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
-per-batch training, fused tree training, GNS training and partitioned
-mesh paths on one NVIDIA card.
+per-batch training, fused tree training, tiered feature store, GNS
+training and partitioned mesh paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -12,7 +12,7 @@ Phases, one JSON line each; any failure exits nonzero:
 
   env     card (``nvidia-smi`` name and power limit), torch and CUDA
           versions; TF32 matmuls off.
-  build   the six CUDA kernels compiled from
+  build   the seven CUDA kernels compiled from
           ``graphlearn_tpu_torch/csrc`` (one ``nvcc`` per source, started
           together).
   graph   the ogbn-products-scale synthetic graph (2,449,029 nodes,
@@ -122,6 +122,42 @@ Phases, one JSON line each; any failure exits nonzero:
           the same CPU-made draws: 3 `NeighborLoader` batches byte-equal
           (node, x, y, edge_index, edge_mask), their GraphSAGE step
           losses and 2 tree-epoch steps' losses within 1e-5.
+  kernel  the cold-row gather (K6) against its plain version on forced
+          shapes (`forced_cold_sets`: rows of 4, 12, 200 (bf16 x 100),
+          400 and 1,024 bytes, M = 0 / 1 / 7 miss rows with ``rel`` at 0
+          and Nc - 1, over `pin_memory` blocks, a block one row into its
+          allocation and a registered `PinnedColdBuffer`; a block that is
+          not page-locked must raise), byte-equal with the rows outside
+          ``pos`` untouched; ``link`` is the best of 5 runs of a 256 MiB
+          pinned -> device copy (the rate reached); K6's bound is its
+          link bytes over the link's published peak.
+  tiered_serve  `bench_serving.py`'s tiered engine: the products table
+          pulled to the host, sorted by in-degree (`sort_by_in_degree`)
+          and tiered at split 0.5 (1,224,514 hot rows on the card, the
+          cold half registered as page-locked host memory, a 183,678-row
+          'auto' victim cache), the serve phase's model and frontend, 256
+          requests of 1-16 seeds drawn as Zipf(1.1) ranks over a fixed
+          permutation, 4 clients; p50/p99, requests/s, fill ms, hit rate,
+          miss rows a dispatch.  Checks: 3 K1, 1 K2 and (with misses) 1
+          K6 launch a dispatch, no plain call; 16 requests' x byte-equal
+          to the fully-hot engine's and logits within 1e-5.  Then a
+          `kernel` line: K6 at the last dispatch's miss set.
+  tiered_train  BASELINE config 1's step over the same sort at split 0.2
+          (489,806 hot rows, 1,959,223 cold rows pinned, a 293,884-row
+          cache): `NeighborLoader` at ``prefetch=0`` and then 2 over the
+          same seeds, 3 warm + 20 timed steps each, the device idle share
+          of 3 more, the ``prefetch=0`` step split into sample / collate /
+          model.  Checks: both runs' batches byte-equal (the warm ones
+          whole, the timed ones by digest), x rows and labels equal their
+          source, 3 K1 + 1 K2 + 1 K6 launches a batch, no plain call,
+          losses falling.  A `kernel` line: K6 at a batch's miss set.
+  feature_lookup  `bench_feature.py`'s sweep over 8 recorded node sets:
+          GB/s at split 1.0 / 0.5 / 0.2 with no cache, and at split 0.2
+          with caches of 0 / 5% / 15% of the cold rows (hit rates).
+  tiered_cross_check  a 4,000-node tiered graph on the card (the loader
+          at ``prefetch=2``) and on the CPU with the same draws: 4 batches
+          byte-equal and equal cache counters; a tiered engine's nodes and
+          x; a split-0 bf16 store.
   gns_data  the products graph relabelled into a tiered `DistDataset`
           (split 0.3: 734,709 hot rows on the card, the whole table in
           pinned host memory), the train phase's labels.
@@ -195,7 +231,15 @@ Phases, one JSON line each; any failure exits nonzero:
           their source, weights 0 on masked and > 0 on valid edges,
           finite losses falling, eval accuracy above 1/47.  Before the
           timed steps, `kernel` lines: the last warm dispatch's 24 GNS
-          calls and 16 gathers against their plain versions.
+          calls and 16 gathers against their plain versions.  ``windows``:
+          the cold overlay's parts a dispatch (node-table copy to the
+          host, `hot_split_host`, cache lookup and serve, host gather and
+          copy, admission) in the synchronised window, 6 more steps in
+          the loader's own order timed as one window, and a second
+          loader, `DistNeighborLoader(prefetch=2)` over the same seeds
+          (2 warm + 6 timed steps as one window, same checks on
+          launches, drops and the warm batches' rows), each window with
+          the device idle share of 3 more steps.
   mesh_cross_check  a 4,000-node graph at P = 4 on the card and on the
           CPU with the same CPU-made draws: 4 batches byte-equal untiered
           and 4 tiered with GNS, `rdma_gather` equal, logits within 1e-4
@@ -205,7 +249,7 @@ Phases, one JSON line each; any failure exits nonzero:
 by name and the device idle share of 3 steps of the per-batch, tree,
 GNS and mesh training paths).  A ``wall`` line gives the script's
 seconds.  It prints the ``{"kernels": [...]}``
-line (six kernels; `merge_ranks` also with ``floor_ms``,
+line (seven kernels; `merge_ranks` also with ``floor_ms``,
 ``hub_burst_ms``, ``sort_ms`` and ``forced_ms`` by case) before the last
 and ends with
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -231,6 +275,9 @@ FEAT_DIM = 100
 FANOUTS = (15, 10, 5)
 BUCKETS = (1, 2, 4, 8, 16)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
+#: the host link's peak one way: PCIe Gen5 x16, 128 GB/s both ways
+#: (NVIDIA's H100 SXM data sheet)
+LINK_BYTES_PER_S = 64e9
 REPS = 30
 N_REQUESTS = 256
 N_CLIENTS = 4
@@ -1724,6 +1771,663 @@ def train_cross_check(torch):
        loss_max_abs_diff=diff, tree_steps=2, tree_loss_max_abs_diff=tdiff)
 
 
+#: the single-card tiered store's phases: `bench_serving.py`'s tiered
+#: engine at split 0.5 and BASELINE config 1's step over
+#: `bench_feature.py`'s split-0.2 store, both sorted by in-degree with the
+#: 'auto' victim cache (15% of the cold rows)
+TIERED_SERVE_SPLIT = 0.5
+TIERED_TRAIN_SPLIT = 0.2
+TIERED_WARM = 3
+TIERED_TIMED = 20
+TIERED_SPLIT_STEPS = 3
+TIERED_PROFILE_STEPS = 3
+ZIPF_A = 1.1
+LOOKUP_SPLITS = (1.0, 0.5, 0.2)
+LOOKUP_BUDGETS = (0.0, 0.05, 0.15)
+LOOKUP_SETS = 8
+#: K6's forced row layouts (columns, dtype): rows of 4, 12, 200 (bf16 x
+#: 100), 400 and 1,024 bytes, over a block of `COLD_FORCED_ROWS` rows
+COLD_LAYOUTS = ((1, 'float32'), (3, 'float32'), (100, 'bfloat16'),
+                (100, 'float32'), (256, 'float32'))
+COLD_FORCED_ROWS = 10_007
+#: bytes of the pinned -> device copy that measures the host link's rate,
+#: and how many runs of it (each a median of `REPS`) are timed
+LINK_COPY_BYTES = 256 << 20
+LINK_COPY_RUNS = 5
+
+
+def zipf_requests(n_requests=N_REQUESTS, seed=0):
+  """`bench_serving.make_schedule`'s seeds: Zipf(1.1) ranks mapped through
+  a fixed permutation (hotness apart from id order), here 1-16 seeds a
+  request as the serve phase's sizes."""
+  rng = np.random.default_rng(seed)
+  perm = rng.permutation(NUM_NODES)
+  sizes = rng.integers(1, 17, n_requests)
+  return [perm[(rng.zipf(ZIPF_A, int(k)) - 1) % NUM_NODES].astype(np.int64)
+          for k in sizes]
+
+
+def tiered_dataset(torch, indptr, indices, feats_h, split, cache_rows='auto',
+                   labels=None):
+  """A `Dataset` over the products CSR whose features are the host table
+  sorted by in-degree (`sort_by_in_degree`, read from the card's CSR)
+  and tiered at ``split``; the device tiers built."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.data.reorder import sort_by_in_degree
+  ds = (Dataset().init_graph((indptr, indices), layout='CSR',
+                             num_nodes=NUM_NODES, device=DEVICE)
+        .init_node_features(feats_h, sort_func=sort_by_in_degree,
+                            split_ratio=split, device=DEVICE,
+                            cold_cache_rows=cache_rows))
+  if labels is not None:
+    ds.init_node_labels(labels)
+  ds.node_features.lazy_init()
+  return ds
+
+
+def link_rate(torch, timer) -> dict:
+  """The host link's rate reached: `LINK_COPY_RUNS` runs of a
+  `LINK_COPY_BYTES` pinned -> device copy, each timed as the kernels are
+  (median of 30); the fastest run is the rate, beside the link's
+  peak."""
+  src = torch.empty(LINK_COPY_BYTES, dtype=torch.uint8).pin_memory()
+  dst = torch.empty(LINK_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+  runs = [timer(lambda: dst.copy_(src, non_blocking=True))
+          for _ in range(LINK_COPY_RUNS)]
+  ms = min(runs)
+  return {'bytes': LINK_COPY_BYTES, 'ms': ms, 'runs_ms': runs,
+          'gbps': LINK_COPY_BYTES / ms / 1e6,
+          'peak_gbps': LINK_BYTES_PER_S / 1e9,
+          'share_of_peak': LINK_COPY_BYTES / ms / LINK_BYTES_PER_S * 1e3}
+
+
+def cold_bytes(m: int, row: int) -> tuple:
+  """``(link bytes, device bytes)`` K6 must move for ``m`` miss rows of
+  ``row`` bytes: each row crosses the host link once; on the card the
+  ``pos`` and ``rel`` ids are read and each row written once."""
+  return m * row, m * (16 + row)
+
+
+def check_cold(torch, ops, timer, b, cold, pos, rel, time_it=True):
+  """K6 against its plain version on the same inputs (the ``[b, D]``
+  output starting from the same random rows): byte-equal, the rows
+  outside ``pos`` untouched; timed with the plain version, a pinned ->
+  device copy of the same bytes (``library_ms``) and its bound (the link
+  bytes over the link's peak, or the device bytes over HBM's)."""
+  d = cold.shape[1]
+  init = torch.randn(b, d, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(
+                         b)).to(cold.dtype)
+  m = int(pos.numel())
+  before = ops.cold_gather.launches
+  got = ops.cold_gather(init.clone(), cold, pos, rel)
+  launched = ops.cold_gather.launches - before
+  ref = ops.cold_gather_plain(init.clone(), cold, pos, rel)
+  sync(torch)
+  if launched != (m > 0):
+    raise AssertionError(f'cold_gather launched {launched} times for '
+                         f'{m} rows')
+  if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+    bad = int((got != ref).any(dim=1).sum())
+    raise AssertionError(f'cold_gather != plain version ({cold.dtype}, '
+                         f'{d} columns, {bad} rows differ)')
+  keep = torch.ones(b, dtype=torch.bool, device=DEVICE)
+  keep[pos] = False
+  if not torch.equal(got[keep], init[keep]):
+    raise AssertionError('cold_gather wrote a row outside pos')
+  row = d * cold.element_size()
+  link_b, dev_b = cold_bytes(m, row)
+  bound = max(link_b / LINK_BYTES_PER_S, dev_b / HBM_BYTES_PER_S) * 1e3
+  rec = {'rows': m, 'out_rows': b, 'cold_rows': int(cold.shape[0]),
+         'dtype': str(cold.dtype).replace('torch.', ''), 'row_bytes': row,
+         'byte_equal': True, 'max_abs_err': float(
+             (got.float() - ref.float()).abs().max()) if b else 0.0,
+         'link_bytes': link_b, 'bound_ms': bound, 'launches': launched}
+  if time_it and m:
+    out = init.clone()
+    src = torch.empty(link_b, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(link_b, dtype=torch.uint8, device=DEVICE)
+    rec['kernel_ms'] = timer(lambda: ops.cold_gather(out, cold, pos, rel))
+    rec['plain_ms'] = timer(lambda: ops.cold_gather_plain(out, cold, pos,
+                                                          rel))
+    rec['library_ms'] = timer(lambda: dst.copy_(src, non_blocking=True))
+    rec['achieved_gbps'] = link_b / rec['kernel_ms'] / 1e6
+    rec['link_share'] = bound / rec['kernel_ms']
+    rec['copy_share'] = rec['library_ms'] / rec['kernel_ms']
+  return rec
+
+
+def forced_cold_sets(torch, ops, timer, seed=23):
+  """K6 on forced shapes: every `COLD_LAYOUTS` row width at M = 0 (no
+  launch), 1 and 7 miss rows with ``rel`` at 0 and at Nc - 1, over a
+  `pin_memory` block; the 12-byte layout also through a block that
+  starts one row into its allocation, and through a registered block
+  (`PinnedColdBuffer`); a block that is not page-locked must raise."""
+  from graphlearn_tpu_torch.data.cold_cache import PinnedColdBuffer
+  rng = np.random.default_rng(seed)
+  cases = {}
+  b, nc = 64, COLD_FORCED_ROWS
+  for cols, dt in COLD_LAYOUTS:
+    dtype = getattr(torch, dt)
+    host = torch.from_numpy(rng.standard_normal((nc + 1, cols)).astype(
+        np.float32)).to(dtype)
+    blocks = {'pinned': host[:nc].clone().pin_memory()}
+    if cols == 3:
+      blocks['offset'] = host.clone().pin_memory()[1:]
+      registered = PinnedColdBuffer(host[:nc], cols, device=DEVICE)
+      blocks['registered'] = registered.rows
+    for kind, cold in blocks.items():
+      for m in (0, 1, 7):
+        pos = rng.choice(b, m, replace=False).astype(np.int64)
+        rel = rng.integers(0, cold.shape[0], m).astype(np.int64)
+        if m:
+          rel[0], rel[-1] = 0, cold.shape[0] - 1
+        rec = check_cold(torch, ops, timer, b, cold,
+                         torch.from_numpy(pos).to(DEVICE),
+                         torch.from_numpy(rel).to(DEVICE),
+                         time_it=(m == 7))
+        cases[f'{cols}x{dt} {kind} M={m}'] = rec
+    if cols == 3:
+      registered.close()
+  try:
+    ops.cold_gather(torch.zeros(4, 3, device=DEVICE), torch.zeros(8, 3),
+                    torch.zeros(1, dtype=torch.int64, device=DEVICE),
+                    torch.zeros(1, dtype=torch.int64, device=DEVICE))
+  except ValueError:
+    pass
+  else:
+    raise AssertionError('cold_gather took a block that is not pinned')
+  return cases
+
+
+class ColdRecorder:
+  """Wraps the cold fill the tiered `Feature` reaches
+  (`data.cold_cache.cold_gather`): counts the calls with miss rows and
+  keeps the last such call's inputs ``(out rows, cold, pos, rel)``."""
+
+  def __init__(self):
+    import graphlearn_tpu_torch.data.cold_cache as cmod
+    self.mod = cmod
+    self.real = cmod.cold_gather
+    self.misses, self.last = [], None
+
+  def __call__(self, out, cold, pos, rel):
+    m = int(pos.numel())
+    self.misses.append(m)
+    if m:
+      self.last = (out.shape[0], cold, pos.clone(), rel.clone())
+    return self.real(out, cold, pos, rel)
+
+  def __enter__(self):
+    self.mod.cold_gather = self
+    return self
+
+  def __exit__(self, *exc):
+    self.mod.cold_gather = self.real
+
+
+def reset_tiered_counts(ops) -> None:
+  reset_counts(ops)
+  ops.cold_gather.launches = 0
+  ops.cold_gather_plain.calls = 0
+
+
+def read_tiered_counts(ops) -> tuple:
+  launches, plain = read_counts(ops)
+  launches['cold_gather'] = ops.cold_gather.launches
+  return launches, plain + ops.cold_gather_plain.calls
+
+
+def cache_rates(feat, before: dict) -> dict:
+  """The victim cache's counts since ``before`` and its hit rate over the
+  cold lookups."""
+  now = feat.cold_cache.stats.snapshot()
+  d = {k: now[k] - before[k] for k in now}
+  cold = d['hits'] + d['misses']
+  d['hit_rate'] = d['hits'] / cold if cold else 0.0
+  return d
+
+
+def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
+  """`bench_serving.py`'s tiered engine on the card: the products table
+  sorted by in-degree at split 0.5 (1,224,514 hot rows on the card, the
+  cold half pinned on the host, the 'auto' cache), ``TreeSAGE(100, 256,
+  47, 3)`` behind a `ServingFrontend`, 256 Zipf(1.1) requests of 1-16
+  seeds from 4 clients.  Checks: every request served, 3 K1 and 1 K2
+  launches a dispatch, K6 on every dispatch with misses, no plain call;
+  x byte-equal and logits within 1e-5 against the fully-hot engine."""
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.serving import ServingEngine, ServingFrontend
+  t0 = time.perf_counter()
+  ds = tiered_dataset(torch, indptr, indices, feats_h, TIERED_SERVE_SPLIT)
+  setup_secs = time.perf_counter() - t0
+  f = ds.node_features
+  eng = ServingEngine(ds, FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
+                      seed=0, buckets=BUCKETS, device=DEVICE)
+  eng.init_params(torch.Generator().manual_seed(0))
+  warm = eng.warmup()
+  fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+  reqs = zipf_requests()
+  results, lat, errors = [None] * len(reqs), [0.0] * len(reqs), []
+  fills = []
+  real_fill = eng._tiered_fill
+
+  def recorded_fill(nodes_h):
+    # the engine's own fill timer (host time, no sync), read per dispatch
+    out = real_fill(nodes_h)
+    fills.append(eng.last_cold_fill[1] * 1e3)
+    return out
+
+  def client(lo):
+    for i in range(lo, len(reqs), N_CLIENTS):
+      t = time.perf_counter()
+      try:
+        results[i] = fe.submit(reqs[i]).result(60.0)
+      except Exception as e:       # noqa: BLE001 — counted, then fatal
+        errors.append(f'request {i}: {type(e).__name__}: {e}')
+      lat[i] = (time.perf_counter() - t) * 1e3
+
+  eng._tiered_fill = recorded_fill
+  stats0 = f.cold_cache.stats.snapshot()
+  lookups0 = f.cold_stats['lookups']
+  f.lookup_secs = dict.fromkeys(f.lookup_secs, 0.0)
+  reset_tiered_counts(ops)
+  threads = [threading.Thread(target=client, args=(i,))
+             for i in range(N_CLIENTS)]
+  with ColdRecorder() as rec:
+    t0 = time.perf_counter()
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join()
+    wall = time.perf_counter() - t0
+  launches, plain = read_tiered_counts(ops)
+  del eng._tiered_fill
+  fe.shutdown()
+  st = fe.stats()
+  if errors or st['failed'] or any(r is None for r in results):
+    raise AssertionError(f'tiered serving failed: {errors[:3]} stats={st}')
+  d = st['dispatches']
+  with_misses = sum(1 for m in rec.misses if m)
+  if not (launches['sample_one_hop'] == len(FANOUTS) * d
+          and launches['gather_rows'] == d == len(fills)
+          and launches['cold_gather'] == with_misses > 0 and plain == 0):
+    raise AssertionError(f'tiered serve launches {launches}, plain {plain}, '
+                         f'dispatches {d}, with misses {with_misses}')
+  for i, res in enumerate(results):
+    if (res.logits.shape != (len(reqs[i]), 47)
+        or not np.isfinite(res.logits).all()):
+      raise AssertionError(f'tiered request {i}: bad result')
+  rates = cache_rates(f, stats0)
+
+  # the fully-hot engines at the same seeds: x byte-equal (model-less),
+  # logits within 1e-5 (the same params)
+  hot_x = ServingEngine(ds_hot, FANOUTS, seed=0, buckets=BUCKETS,
+                        device=DEVICE)
+  tier_x = ServingEngine(ds, FANOUTS, seed=0, buckets=BUCKETS, device=DEVICE)
+  hot_m = ServingEngine(ds_hot, FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
+                        params=eng.model.state_dict(), seed=0,
+                        buckets=BUCKETS, device=DEVICE)
+  worst = 0.0
+  for i in range(16):
+    a, b = tier_x.infer(reqs[i]), hot_x.infer(reqs[i])
+    if (a.nodes.tobytes() != b.nodes.tobytes()
+        or a.x.tobytes() != b.x.tobytes()):
+      raise AssertionError(f'tiered request {i}: x differs from the hot '
+                           'engine')
+    ref = hot_m.infer(reqs[i]).logits
+    np.testing.assert_allclose(results[i].logits, ref, rtol=1e-5, atol=1e-5)
+    worst = max(worst, float(np.abs(results[i].logits - ref).max()))
+  misses = np.array(rec.misses)
+  emit('tiered_serve', split_ratio=TIERED_SERVE_SPLIT, hot_rows=f.hot_rows,
+       cold_rows=NUM_NODES - f.hot_rows,
+       hot_bytes=f.hot_rows * FEAT_DIM * 4,
+       cold_pinned_bytes=(NUM_NODES - f.hot_rows) * FEAT_DIM * 4,
+       cache_rows=f.cold_cache.capacity,
+       cache_bytes=f.cold_cache.capacity * FEAT_DIM * 4,
+       setup_secs=setup_secs, requests=len(reqs), clients=N_CLIENTS,
+       seeds=int(sum(len(r) for r in reqs)), zipf_a=ZIPF_A, dispatches=d,
+       failed=st['failed'], shed=st['shed'], warmup_secs=warm['secs'],
+       wall_secs=wall, requests_per_s=len(reqs) / wall,
+       latency_ms={'p50': float(np.percentile(lat, 50)),
+                   'p99': float(np.percentile(lat, 99)),
+                   'max': float(np.max(lat))},
+       cold_fill_ms={'median': float(np.median(fills)),
+                     'mean': float(np.mean(fills)),
+                     'p99': float(np.percentile(fills, 99)),
+                     'source': 'ServingEngine.last_cold_fill (host time, '
+                               'no sync)'},
+       unique_rows_per_dispatch=(f.cold_stats['lookups'] - lookups0) / d,
+       miss_rows_per_dispatch={'mean': float(misses.mean()),
+                               'max': int(misses.max())},
+       dispatches_with_misses=with_misses, cache=rates,
+       lookup_ms_by_part={k: v * 1e3 / d for k, v in f.lookup_secs.items()},
+       launches=launches, plain_calls=plain, hot_engine_checked=16,
+       x_byte_equal_to_hot=True, logits_max_abs_diff_to_hot=worst)
+  k6 = check_cold(torch, ops, timer, *rec.last)
+  emit('kernel', kernel='cold_gather', shape='tiered serve dispatch misses',
+       **k6)
+  f.close()
+  return launches, k6
+
+
+def digest(torch, tensors):
+  """A position-weighted int64 sum of each tensor's 4- or 8-byte words
+  (one device reduction each): equal batches give equal digests."""
+  out = []
+  for t in tensors:
+    v = t.contiguous().view(-1)
+    if v.element_size() == 4:
+      v = v.view(torch.int32)
+    v = v.long()
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    out.append((v * w).sum())
+  return torch.stack(out)
+
+
+def device_idle(torch, run, n) -> dict:
+  """The device's idle share over ``n`` calls of ``run()`` (each returns
+  a loss; one synchronise at the end): the union of the CUDA kernel
+  intervals in a `torch.profiler` trace over the window's wall time, so
+  kernels of two streams that overlap count once."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity
+  sync(torch)
+  with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(n):
+      loss = run()
+    float(loss)
+    sync(torch)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  spans = sorted((ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+  busy, end = 0.0, -1.0
+  for a, z in spans:
+    if z <= end:
+      continue
+    busy += z - max(a, end)
+    end = z
+  busy_ms = busy / 1e3
+  return {'steps': n, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+          'device_idle_share': 1 - busy_ms / wall_ms}
+
+
+def tiered_train(torch, ops, timer, indptr, indices, feats_h, feats, labels,
+                 train_idx):
+  """BASELINE config 1's per-batch step over `bench_feature.py`'s tiered
+  store: the products table sorted by in-degree at split 0.2 (489,806
+  hot rows, 1,959,223 cold rows pinned, the 'auto' cache), batch 1,024,
+  ``GraphSAGE(100, 256, 47, 3)``, Adam(3e-3); `NeighborLoader` with
+  ``prefetch=0``, then ``prefetch=2`` over the same seeds (the model
+  re-initialised alike): 3 warm and 20 timed steps each, the device's
+  idle share over 3 more.  Checks: the runs' batches byte-equal (whole
+  warm batches, digests of the timed ones), every valid node's x row and
+  label equal to its source, per batch 3 K1, 1 K2 and 1 K6 launches and
+  no plain call, the losses falling."""
+  from graphlearn_tpu_torch.loader import NeighborLoader
+  from graphlearn_tpu_torch.models import GraphSAGE, make_supervised_step
+  from graphlearn_tpu_torch.sampler import NodeSamplerInput
+  t0 = time.perf_counter()
+  ds = tiered_dataset(torch, indptr, indices, feats_h, TIERED_TRAIN_SPLIT,
+                      labels=labels)
+  setup_secs = time.perf_counter() - t0
+  f = ds.node_features
+  runs, warm_batches, digests, k6 = {}, None, {}, None
+  for pf in (0, 2):
+    # the worker runs ahead of the consumer: launches, K6 calls and cache
+    # counts are taken over the loader's whole life, against the batches
+    # it produced
+    reset_tiered_counts(ops)
+    stats0 = f.cold_cache.stats.snapshot()
+    f.lookup_secs = dict.fromkeys(f.lookup_secs, 0.0)
+    with ColdRecorder() as rec:
+      loader = NeighborLoader(ds, FANOUTS, train_idx, batch_size=TRAIN_BATCH,
+                              shuffle=True, seed=0, device=DEVICE, prefetch=pf)
+      sampler = loader.sampler
+      model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+      model.reset_parameters(torch.Generator().manual_seed(0))
+      opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+      step = make_supervised_step(model, opt, TRAIN_BATCH)
+      it = iter(loader)
+      losses, warm = [], []
+      for _ in range(TIERED_WARM):
+        batch = next(it)
+        losses.append(float(step(batch)[0]))
+        check_batch(torch, batch, feats, labels)
+        warm.append([batch.node, batch.x, batch.y, batch.edge_index])
+      if warm_batches is None:
+        warm_batches = warm
+      else:
+        for i, (a, b) in enumerate(zip(warm_batches, warm)):
+          for name, x, y in zip(('node', 'x', 'y', 'edge_index'), a, b):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+              raise AssertionError(f'tiered prefetch=2 batch {i} {name} '
+                                   'differs from prefetch=0')
+      del warm, batch
+      digs, timed_losses = [], []
+      sync(torch)
+      t = time.perf_counter()
+      for _ in range(TIERED_TIMED):
+        batch = next(it)
+        timed_losses.append(step(batch)[0])
+        digs.append(digest(torch, (batch.node, batch.x, batch.y,
+                                   batch.edge_index)))
+      sync(torch)
+      wall = time.perf_counter() - t
+      loader.close()
+    produced = sampler._step
+    launches, plain = read_tiered_counts(ops)
+    rates = cache_rates(f, stats0)
+    with_misses = sum(1 for m in rec.misses if m)
+    if not (launches['sample_one_hop'] == len(FANOUTS) * produced
+            and launches['gather_rows'] == produced
+            and launches['cold_gather'] == with_misses == produced
+            and plain == 0 and produced >= TIERED_WARM + TIERED_TIMED):
+      raise AssertionError(f'tiered train (prefetch={pf}) launches '
+                           f'{launches}, plain {plain}, batches {produced}, '
+                           f'with misses {with_misses}')
+    digests[pf] = torch.stack(digs).cpu()
+    losses += [float(x) for x in timed_losses]
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:TIERED_WARM])):
+      raise AssertionError(f'tiered train losses do not fall: {losses}')
+    miss_mean = float(np.mean(rec.misses))
+    lookup = {k: v * 1e3 / produced for k, v in f.lookup_secs.items()}
+    if k6 is None:
+      k6 = check_cold(torch, ops, timer, *rec.last)
+      emit('kernel', kernel='cold_gather', shape='tiered train batch misses',
+           **k6)
+    del rec, batch, digs
+    parts = None
+    if pf == 0:
+      # synchronised steps split into sample / collate / model
+      parts = {'sample': [], 'collate': [], 'model': []}
+      seed_it = iter(loader._batcher)
+      for _ in range(TIERED_SPLIT_STEPS):
+        seeds = next(seed_it)
+        sync(torch)
+        a = time.perf_counter()
+        out = sampler.sample_from_nodes(NodeSamplerInput(node=seeds))
+        sync(torch)
+        b = time.perf_counter()
+        batch = loader._collate_fn(out)
+        sync(torch)
+        c = time.perf_counter()
+        step(batch)
+        sync(torch)
+        z = time.perf_counter()
+        for key, u, v in (('sample', a, b), ('collate', b, c),
+                          ('model', c, z)):
+          parts[key].append((v - u) * 1e3)
+      del batch, out
+    it = iter(loader)
+    idle = device_idle(torch, lambda: step(next(it))[0], TIERED_PROFILE_STEPS)
+    loader.close()
+    del it, model, opt, step, loader
+    runs[pf] = {'step_ms': wall / TIERED_TIMED * 1e3,
+                'seeds_per_s': TIERED_TIMED * TRAIN_BATCH / wall,
+                'wall_secs': wall, 'batches_produced': produced,
+                'losses': losses, 'cache': rates,
+                'miss_rows_per_batch': miss_mean,
+                'lookup_ms_by_part': lookup,
+                'launches': launches, 'plain_calls': plain,
+                'device_idle': idle}
+    if parts is not None:
+      runs[pf]['step_ms_by_part'] = {
+          'median': {k: float(np.median(v)) for k, v in parts.items()},
+          'all': parts}
+  if not torch.equal(digests[0], digests[2]):
+    raise AssertionError('tiered prefetch=2 timed batches differ from '
+                         'prefetch=0')
+  emit('tiered_train', split_ratio=TIERED_TRAIN_SPLIT, hot_rows=f.hot_rows,
+       cold_rows=NUM_NODES - f.hot_rows,
+       hot_bytes=f.hot_rows * FEAT_DIM * 4,
+       cold_pinned_bytes=(NUM_NODES - f.hot_rows) * FEAT_DIM * 4,
+       cache_rows=f.cold_cache.capacity,
+       cache_bytes=f.cold_cache.capacity * FEAT_DIM * 4,
+       setup_secs=setup_secs, batch=TRAIN_BATCH, fanouts=list(FANOUTS),
+       model=f'GraphSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
+       optimizer=f'Adam({TRAIN_LR})', warm_steps=TIERED_WARM,
+       timed_steps=TIERED_TIMED, runs={f'prefetch={k}': v
+                                       for k, v in runs.items()},
+       batches_byte_equal=True, x_rows_byte_equal=True, y_byte_equal=True,
+       k6_ms_per_batch=k6['kernel_ms'])
+  return runs, k6, ds
+
+
+def feature_lookup(torch, ds_hot, ds_t, train_idx):
+  """`bench_feature.py`'s lookup sweep, reduced to `LOOKUP_SETS` node
+  sets (the node tables of 1,024-seed [15, 10, 5] samples): GB/s (the
+  lookups' output bytes over their wall time, closed by a synchronise,
+  after one warm pass) at split 1.0 / 0.5 / 0.2 with no cache, then at
+  split 0.2 with caches of 0 / 5% / 15% of the cold rows and their hit
+  rates over the timed pass."""
+  from graphlearn_tpu_torch.data import Feature
+  from graphlearn_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
+  sampler = NeighborSampler(ds_hot.get_graph(), FANOUTS, seed=5,
+                            device=DEVICE)
+  rng = np.random.default_rng(6)
+  sets = [sampler.sample_from_nodes(NodeSamplerInput(
+      node=rng.choice(train_idx, TRAIN_BATCH).astype(np.int32))
+  ).node.cpu().numpy() for _ in range(LOOKUP_SETS)]
+  src = ds_t.node_features
+  table, id_map = src._host, src._id2index_host
+
+  def measure(feat):
+    for ids in sets:
+      feat.get(ids)
+    stats0 = (feat.cold_cache.stats.snapshot()
+              if feat.cold_cache is not None else None)
+    sync(torch)
+    t = time.perf_counter()
+    nbytes = 0
+    for ids in sets:
+      out = feat.get(ids)
+      nbytes += out.numel() * out.element_size()
+    sync(torch)
+    secs = time.perf_counter() - t
+    rec = {'gbps': nbytes / secs / 1e9, 'bytes': nbytes, 'secs': secs}
+    if stats0 is not None:
+      rec['cache'] = cache_rates(feat, stats0)
+    return rec
+
+  sweep = {'1.0': measure(ds_hot.node_features)}
+  for split in LOOKUP_SPLITS[1:]:
+    f = Feature(table, id2index=id_map, split_ratio=split, device=DEVICE,
+                cold_cache_rows=0)
+    sweep[str(split)] = measure(f)
+    f.close()
+  cold_rows = NUM_NODES - int(round(NUM_NODES * TIERED_TRAIN_SPLIT))
+  budgets = {}
+  for frac in LOOKUP_BUDGETS:
+    rows = int(cold_rows * frac)
+    f = Feature(table, id2index=id_map, split_ratio=TIERED_TRAIN_SPLIT,
+                device=DEVICE, cold_cache_rows=rows)
+    budgets[str(frac)] = dict(measure(f), cache_rows=rows)
+    f.close()
+  emit('feature_lookup', node_sets=LOOKUP_SETS,
+       ids_per_set=int(sets[0].size), row_bytes=FEAT_DIM * 4,
+       gbps_by_split=sweep, cache_split_ratio=TIERED_TRAIN_SPLIT,
+       gbps_by_cache_budget=budgets)
+
+
+def tiered_cross_check(torch):
+  """A small graph (4,000 nodes) tiered on the card and on the CPU with
+  the same CPU-made draws: 4 `NeighborLoader` batches (``prefetch=2`` on
+  the card, 0 on the CPU) byte-equal in node, x, y and edge_index, equal
+  cache counters; a tiered `ServingEngine` (split 0.5) byte-equal in
+  nodes and x; a bf16 store wholly on the host (split 0) byte-equal."""
+  from graphlearn_tpu_torch.data import Dataset, Feature
+  from graphlearn_tpu_torch.data.reorder import sort_by_in_degree
+  from graphlearn_tpu_torch.loader import NeighborLoader
+  from graphlearn_tpu_torch.ops import TorchDraws, hash_draws
+  from graphlearn_tpu_torch.serving import ServingEngine
+  rng = np.random.default_rng(13)
+  n = 4000
+  rows = np.concatenate([np.repeat(np.arange(n), 12), np.full(300, 7)])
+  cols = np.where(rng.random(rows.shape[0]) < 0.3,
+                  rng.integers(0, 40, rows.shape[0]),
+                  rng.integers(0, n, rows.shape[0]))
+  feats = rng.standard_normal((n, 16)).astype(np.float32)
+  labels = rng.integers(0, 7, n).astype(np.int32)
+  cpu = TorchDraws(7, 'cpu')
+  out, stats, served, host_only = {}, {}, {}, {}
+  ids = rng.integers(-1, n, 777)
+  for dev in (DEVICE, 'cpu'):
+    def draws(step, hop, r, k, w, dev=dev):
+      return tuple(t.to(dev) for t in cpu(step, hop, r, k, w))
+
+    def serve_draws(seed_ids, t, f, k, w):
+      u, g = hash_draws(3, seed_ids.cpu(), t, f, k, w)
+      return u.to(seed_ids.device), g.to(seed_ids.device)
+    ds = (Dataset().init_graph((rows, cols), num_nodes=n, device=dev)
+          .init_node_features(feats, sort_func=sort_by_in_degree,
+                              split_ratio=0.3, device=dev,
+                              cold_cache_rows=64)
+          .init_node_labels(labels))
+    # one whole epoch of 4 batches: the card's worker produces no batch
+    # past them, so the cache counters compare
+    lo = NeighborLoader(ds, FANOUTS, np.arange(256) * 15, batch_size=64,
+                        shuffle=True, seed=1, draws=draws, device=dev,
+                        prefetch=2 if dev == DEVICE else 0)
+    out[dev] = [(b.node.cpu(), b.x.cpu(), b.y.cpu(), b.edge_index.cpu())
+                for b in lo]
+    stats[dev] = ds.node_features.cold_cache.stats.snapshot()
+    ds.node_features.close()
+    ds_s = (Dataset().init_graph((rows, cols), num_nodes=n, device=dev)
+            .init_node_features(feats, split_ratio=0.5, device=dev,
+                                cold_cache_rows=32))
+    eng = ServingEngine(ds_s, FANOUTS, seed=3, buckets=(8,), device=dev,
+                        draws=serve_draws)
+    served[dev] = [eng.infer(np.array(s)) for s in
+                   ([7, 1, 2, 3, 999, 2999, 15], [7, 7, 40], [3999])]
+    ds_s.node_features.close()
+    f0 = Feature(feats, split_ratio=0.0, device=dev, dtype=torch.bfloat16)
+    host_only[dev] = f0.get(ids).cpu().view(torch.int16)
+    f0.close()
+  if not len(out[DEVICE]) == len(out['cpu']) == 4:
+    raise AssertionError(f'tiered cross check: {len(out[DEVICE])} and '
+                         f'{len(out["cpu"])} batches')
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for name, x, y in zip(('node', 'x', 'y', 'edge_index'), a, c):
+      if x.dtype != y.dtype or not torch.equal(x, y):
+        raise AssertionError(f'tiered card and CPU differ: batch {i} {name}')
+  if stats[DEVICE] != stats['cpu'] or not stats['cpu']['hits']:
+    raise AssertionError(f'cache counters differ: {stats}')
+  for a, c in zip(served[DEVICE], served['cpu']):
+    if (a.nodes.tobytes() != c.nodes.tobytes()
+        or a.x.tobytes() != c.x.tobytes()):
+      raise AssertionError('tiered serving differs between card and CPU')
+  if not torch.equal(host_only[DEVICE], host_only['cpu']):
+    raise AssertionError('the split-0 bf16 store differs between card and '
+                         'CPU')
+  emit('tiered_cross_check', batches=4, byte_equal=True, cache=stats['cpu'],
+       serving_dispatches=3, split0_bf16_byte_equal=True)
+
+
 def gns_bytes(deg: np.ndarray, k: int, w: int) -> int:
   """Bytes the GNS sampler must move for these rows: the seed, its
   bits-table row index and two indptr entries; for ``deg > k`` the k
@@ -2639,6 +3343,7 @@ def mesh_train(torch, ops, timer, ds, feats, labels, train_idx, test_idx,
   s._finish_nodes = timed(s._finish_nodes, 'overlay')
   reset_counts(ops)
   disp0 = s._step_cnt
+  s.overlay_secs = dict.fromkeys(dsm.OVERLAY_PARTS, 0.0)
   walls, n_ne_1, correct, seen = [], 0, 0, 0
   for _ in range(MESH_TIMED):
     t = time.perf_counter()
@@ -2673,10 +3378,27 @@ def mesh_train(torch, ops, timer, ds, feats, labels, train_idx, test_idx,
   if not (np.isfinite(losses).all()
           and np.mean(losses[-3:]) < losses[0]):
     raise AssertionError(f'mesh losses {losses}')
+  # prefetch=0: the synchronised window's overlay parts, then
+  # `MESH_TIMED` steps in the loader's own (unsynchronised) order timed
+  # as one window, and the idle share of 3 more
+  overlay = {k: v * 1e3 / dispatches for k, v in s.overlay_secs.items()}
   del s._dispatch_nodes, s._finish_nodes
+  sync(torch)
+  t = time.perf_counter()
+  window = [step(next(it))[0] for _ in range(MESH_TIMED)]
+  losses += [float(x) for x in window]
+  unsynced = (time.perf_counter() - t) / MESH_TIMED * 1e3
+  windows = {'prefetch=0': {
+      'steps': MESH_TIMED, 'step_ms': unsynced,
+      'train_seeds_per_s': MESH_BATCH * MESH_PARTS * 1e3 / unsynced,
+      'step_ms_median_synced': float(np.median(walls)),
+      'overlay_ms_by_part_synced': overlay,
+      'device_idle': device_idle(torch, lambda: step(next(it))[0], 3)}}
   if prof:
     profile_train(torch, lambda: step(next(it))[0], 'mesh_train')
   del it, batch
+  windows['prefetch=2'] = mesh_prefetch_window(
+      torch, ops, ds, feats, labels, train_idx, cache_rows, step, losses)
   ev_loader = DistNeighborLoader(ds, FANOUTS, test_idx,
                                  batch_size=MESH_BATCH, shuffle=False,
                                  cold_cache_rows=cache_rows, gns=False,
@@ -2710,8 +3432,63 @@ def mesh_train(torch, ops, timer, ds, feats, labels, train_idx, test_idx,
        exchange={k: v for k, v in st.items() if k.startswith('dist.')},
        launches=launches, launches_per_dispatch=per_dispatch,
        dispatches=dispatches, plain_calls=plain, weights_ne_1=n_ne_1,
-       x_rows_byte_equal=True, y_byte_equal=True)
+       x_rows_byte_equal=True, y_byte_equal=True, windows=windows)
   return launches, path
+
+
+def mesh_prefetch_window(torch, ops, ds, feats, labels, train_idx,
+                         cache_rows, step, losses) -> dict:
+  """The mesh step with ``prefetch=2`` over the same seeds: a new
+  loader (its own victim cache) whose worker thread dispatches and runs
+  the cold overlay on its own stream while the model trains; 2 warm
+  steps (their batches checked against the source), `MESH_TIMED` steps
+  timed as one window, the device's idle share over 3 more steps, the
+  overlay's parts per dispatch as the worker saw them over the loader's
+  life.  Checks: 24 GNS and 16 row-gather launches a dispatch, no plain
+  call, no drop, finite losses."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistNeighborLoader
+  loader = DistNeighborLoader(ds, FANOUTS, train_idx, batch_size=MESH_BATCH,
+                              shuffle=True, seed=0,
+                              cold_cache_rows=cache_rows, gns=True,
+                              prefetch=2, device=DEVICE)
+  s = loader.sampler
+  new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+  reset_counts(ops)
+  it = iter(loader)
+  for _ in range(MESH_WARM):
+    batch = next(it)
+    losses.append(float(step(batch)[0]))
+    check_mesh_batch(torch, batch, feats, labels, new2old)
+  del batch
+  sync(torch)
+  t = time.perf_counter()
+  window = [step(next(it))[0] for _ in range(MESH_TIMED)]
+  losses += [float(x) for x in window]
+  wall = time.perf_counter() - t
+  idle = device_idle(torch, lambda: step(next(it))[0], 3)
+  loader.close()
+  # the worker runs ahead of the consumer: launches and overlay seconds
+  # are counted over the loader's whole life, against its dispatches
+  dispatches = s._step_cnt
+  launches, plain = read_counts(ops)
+  st = s.exchange_stats()
+  if not (launches['sample_one_hop_gns']
+          == len(FANOUTS) * MESH_PARTS * dispatches
+          and launches['gather_rows'] == 2 * MESH_PARTS * dispatches
+          and plain == 0 and dispatches >= MESH_WARM + MESH_TIMED + 3):
+    raise AssertionError(f'mesh prefetch launches {launches}, plain '
+                         f'{plain}, dispatches {dispatches}')
+  if st['dist.frontier.dropped'] or st['dist.feature.dropped']:
+    raise AssertionError(f'mesh exchange drops: {st}')
+  if not np.isfinite(losses).all():
+    raise AssertionError(f'mesh losses {losses}')
+  return {'steps': MESH_TIMED, 'step_ms': wall / MESH_TIMED * 1e3,
+          'train_seeds_per_s': MESH_BATCH * MESH_PARTS * MESH_TIMED / wall,
+          'dispatches': dispatches,
+          'overlay_ms_by_part': {k: v * 1e3 / dispatches
+                                 for k, v in s.overlay_secs.items()},
+          'device_idle': idle, 'launches': launches, 'plain_calls': plain}
 
 
 def mesh_cross_check(torch):
@@ -2999,6 +3776,22 @@ def run(torch, argv) -> list:
   train_cross_check(torch)
   torch.cuda.empty_cache()
 
+  # -- the single-card tiered store and its cold gather (K6) ------------
+  link = link_rate(torch, timer)
+  k6_forced = forced_cold_sets(torch, ops, timer)
+  emit('kernel', kernel='cold_gather', shape='forced sets', link=link,
+       cases=k6_forced)
+  feats_h = feats.cpu()
+  tserve_launches, k6_serve = tiered_serve(torch, ops, timer, indptr,
+                                           indices, feats_h, ds)
+  ttrain_runs, k6_train, ds_t = tiered_train(
+      torch, ops, timer, indptr, indices, feats_h, feats, labels, train_idx)
+  feature_lookup(torch, ds, ds_t, train_idx)
+  ds_t.node_features.close()
+  del ds_t, feats_h
+  tiered_cross_check(torch)
+  torch.cuda.empty_cache()
+
   # -- GNS-biased training over the tiered store ------------------------
   ds_g = gns_data(torch, indptr, indices, feats, labels)
   gns_launches, gns_hops, gathers_train, gns_forced = gns_train(
@@ -3058,6 +3851,10 @@ def run(torch, argv) -> list:
        'launches_by_path': {'serve': launches['sample_one_hop'],
                             'train': train_launches['sample_one_hop'],
                             'tree_train': tree_launches['sample_one_hop'],
+                            'tiered_serve': tserve_launches['sample_one_hop'],
+                            'tiered_train': {
+                                k: r['launches']['sample_one_hop']
+                                for k, r in ttrain_runs.items()},
                             'mesh_loader':
                                 loader_launches['sample_one_hop']},
        'train_shape': {
@@ -3109,6 +3906,10 @@ def run(torch, argv) -> list:
        'launches_by_path': {'serve': launches['gather_rows'],
                             'train': train_launches['gather_rows'],
                             'tree_train': tree_launches['gather_rows'],
+                            'tiered_serve': tserve_launches['gather_rows'],
+                            'tiered_train': {
+                                k: r['launches']['gather_rows']
+                                for k, r in ttrain_runs.items()},
                             'gns_train': gns_launches['gather_rows'],
                             'mesh_loader': loader_launches['gather_rows'],
                             'mesh_train': mesh_launches['gather_rows']}},
@@ -3184,6 +3985,37 @@ def run(torch, argv) -> list:
        'rdma_gather_ms': k5['rdma_gather_ms'],
        'dist_gather_multi_ms': k5['dist_gather_multi_ms'],
        'rdma_gather_byte_equal_to_dist_gather_multi': True},
+      {'name': 'cold_gather', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/cold_gather.cu',
+       'replaces': 'graphlearn_tpu/data/cold_cache.py:507',
+       'launches': tserve_launches['cold_gather'],
+       'max_abs_err': max(r['max_abs_err'] for r in
+                          [k6_serve, k6_train, *k6_forced.values()]),
+       'ms': k6_serve['kernel_ms'], 'plain_ms': k6_serve['plain_ms'],
+       'bound_ms': k6_serve['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': k6_serve['library_ms'], 'byte_equal': True,
+       'shape': f'{k6_serve["rows"]} miss rows x {k6_serve["row_bytes"]} B '
+                'of a tiered serve dispatch (pinned host -> card)',
+       'bound_note': 'the miss bytes over the host link\'s peak (PCIe Gen5 '
+                     f'x16, {LINK_BYTES_PER_S / 1e9:g} GB/s one way); '
+                     'library_ms: a pinned -> device copy of the same bytes',
+       'link_gbps': link['gbps'], 'link_peak_gbps': link['peak_gbps'],
+       'train_shape': {
+           'shape': f'{k6_train["rows"]} miss rows x '
+                    f'{k6_train["row_bytes"]} B of a tiered train batch',
+           'ms': k6_train['kernel_ms'], 'plain_ms': k6_train['plain_ms'],
+           'bound_ms': k6_train['bound_ms'],
+           'library_ms': k6_train['library_ms'],
+           'achieved_gbps': k6_train['achieved_gbps'],
+           'link_share': k6_train['link_share'],
+           'copy_share': k6_train['copy_share'], 'byte_equal': True},
+       'forced_sets': len(k6_forced),
+       'forced_ms': {k: r['kernel_ms'] for k, r in k6_forced.items()
+                     if 'kernel_ms' in r},
+       'launches_by_path': {
+           'tiered_serve': tserve_launches['cold_gather'],
+           'tiered_train': {k: r['launches']['cold_gather']
+                            for k, r in ttrain_runs.items()}}},
   ]
   return kernels
 

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'glt_torch'
 SOURCES = ('sample_one_hop', 'sample_one_hop_gns', 'gather_rows',
-           'merge_ranks', 'csr_window_gather', 'push_rows')
+           'merge_ranks', 'csr_window_gather', 'push_rows', 'cold_gather')
 NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

@@ -1,23 +1,34 @@
-"""Device victim cache over the cold tier's feature rows (the JAX
-package's `data/cold_cache.py:63-345,564-710`).
+"""Device victim caches over the cold tier's feature rows and the
+pinned-host cold block (the JAX package's `data/cold_cache.py`).
 
 The policy lives on the host and is the JAX package's, copied: a CLOCK
 (second-chance) ring over id tags, admissions ranked by a decayed visit
 sketch (`ops.gns.DecayedSketch`), a bounded eviction wave.  The rows
-live on the card as a ``[P, C, D]`` tensor: a hit is served by a device
-gather, an admission copies rows that are already on the card (the
-corrected miss rows of the batch) — cached bytes never return to the
-host.  The residents are the dynamic half of the GNS cached set.
+live on the card: a hit is served by a device gather, an admission
+copies rows that are already on the card (the corrected miss rows of
+the batch) — cached bytes never return to the host.  Two flavors: the
+single-card `DeviceColdCache` (a ``[C, D]`` ring, behind `data.Feature`)
+and the mesh's `MeshColdCache` (``[P, C, D]``, whose residents are the
+dynamic half of the GNS cached set).
+
+`PinnedColdBuffer` keeps a tiered store's cold block in page-locked host
+memory, where the cold-gather kernel (`ops.cold_gather`) reads the miss
+rows straight into the card's batch.
 """
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.cold_gather import cold_gather, host_register, host_unregister
 from ..ops.gns import DecayedSketch
+from ..telemetry.live import live
+from ..telemetry.memaccount import register_tier
+from ..telemetry.recorder import recorder
 from ..utils.device import resolve_device
 
 #: 'auto' budget: this fraction of the (per-partition max) cold rows
@@ -144,15 +155,189 @@ class ClockShardCache:
     return cand[:len(out_slots)], out_slots, evicted
 
   def commit(self, ids: np.ndarray, slots: np.ndarray) -> None:
-    if len(ids):
-      self.ids[slots] = ids
-      self.ref[slots] = 0
-      self.version += 1
+    if not len(ids):
+      return                        # an empty wave changes nothing
+    self.ids[slots] = ids
+    self.ref[slots] = 0
+    self.version += 1
     self._rebuild()
 
   def resident_ids(self) -> np.ndarray:
     """The current residents, sorted."""
     return self._sorted_ids
+
+  # -- DataPlaneState: the ring, the hand and the visit sketch ------------
+  def state_dict(self) -> dict:
+    return {'ids': self.ids.copy(), 'ref': self.ref.copy(),
+            'hand': self.hand, 'sketch': self.sketch.state_dict()}
+
+  def load_state_dict(self, state: dict) -> None:
+    ids = np.asarray(state['ids'], np.int64)
+    if ids.shape != self.ids.shape:
+      raise ValueError(
+          f'cold-cache snapshot capacity {ids.shape[0]} does not match '
+          f'this cache ({self.capacity}); resume with the same '
+          f'{_ENV_ROWS} the snapshot was taken under')
+    self.ids = ids
+    self.ref = np.asarray(state['ref'], np.uint8).copy()
+    self.hand = int(np.asarray(state['hand']))
+    if 'sketch' in state:
+      self.sketch.load_state_dict(state['sketch'])
+    self.version += 1
+    self._rebuild()
+
+
+class CacheStats:
+  """Flat counters of one cache."""
+
+  __slots__ = ('hits', 'misses', 'admits', 'evicts')
+
+  def __init__(self):
+    self.hits = self.misses = self.admits = self.evicts = 0
+
+  def snapshot(self) -> dict:
+    return {'hits': self.hits, 'misses': self.misses,
+            'admits': self.admits, 'evicts': self.evicts}
+
+
+def emit_cache_events(scope: str, hits: int, misses: int, admits: int,
+                      evicts: int) -> None:
+  """One lookup's cache counts: always into the live counters
+  ``cache.{hits,misses,admits,evicts}_total{scope=}``, and as
+  ``cache.hit`` / ``cache.miss`` / ``cache.admit`` / ``cache.evict``
+  events when the recorder is on (zero counts are skipped)."""
+  counts = (('hit', 'hits', hits), ('miss', 'misses', misses),
+            ('admit', 'admits', admits), ('evict', 'evicts', evicts))
+  for _, plural, n in counts:
+    if n:
+      live.counter(f'cache.{plural}_total',
+                   labels={'scope': scope}).inc(float(n))
+  if recorder.enabled:
+    for kind, _, n in counts:
+      if n:
+        recorder.emit(f'cache.{kind}', scope=scope, count=int(n))
+
+
+def _weak_bytes(owner, attr: str):
+  """A memaccount callback that reads ``owner.<attr>``'s bytes without
+  keeping the owner alive (None once it is gone)."""
+  ref = weakref.ref(owner)
+
+  def fn():
+    o = ref()
+    if o is None:
+      return None
+    t = getattr(o, attr)
+    return t.numel() * t.element_size()
+  return fn
+
+
+class DeviceColdCache:
+  """Single-card victim cache: a `MeshColdCache` of one partition (one
+  `ClockShardCache` policy over a ``[C, D]`` row ring on ``device``),
+  with its `CacheStats`.  Keys are the caller's (the `data.Feature` uses
+  storage rows, so the cache composes with any ``id2index``).  Owns the
+  ``cold_cache`` memory tier."""
+
+  def __init__(self, capacity: int, dim: int, dtype, device='cuda'):
+    self._mesh = MeshColdCache(capacity, dim, dtype, 1, device)
+    self.stats = CacheStats()
+    register_tier('cold_cache', _weak_bytes(self, 'rows'))
+
+  @property
+  def capacity(self) -> int:
+    return self._mesh.capacity
+
+  @property
+  def policy(self) -> ClockShardCache:
+    return self._mesh.shards[0]
+
+  @property
+  def rows(self) -> torch.Tensor:
+    """The ``[max(C, 1), D]`` row ring."""
+    return self._mesh.rows[0]
+
+  def lookup(self, ids: np.ndarray,
+             active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(hit, slot)`` over ``ids`` where ``active``; ticks the hit
+    count."""
+    hit, slot = self._mesh.lookup(np.asarray(ids)[None], active[None])
+    self.stats.hits += int(hit.sum())
+    return hit[0], slot[0]
+
+  def serve_hits(self, x: torch.Tensor, hit: np.ndarray,
+                 slot: np.ndarray) -> torch.Tensor:
+    """``x[i] = rows[slot[i]]`` where ``hit``, in place on ``x`` (a
+    fresh batch tensor), by one device gather."""
+    self._mesh.serve(x[None], hit[None], slot[None])
+    return x
+
+  def admit(self, x: torch.Tensor, ids: np.ndarray,
+            miss: np.ndarray) -> Tuple[int, int]:
+    """Admit this batch's (corrected, on-card) miss rows: the miss
+    multiset deduplicated and ranked by the policy, the winners copied
+    from ``x`` into their slots.  Returns ``(admits, evicts)``."""
+    self.stats.misses += int(miss.sum())
+    plans = self._mesh.plan_admissions(np.asarray(ids)[None], miss[None])
+    admits, evicts = self._mesh.commit_admissions(x[None], plans)
+    self.stats.admits += admits
+    self.stats.evicts += evicts
+    return admits, evicts
+
+  # -- DataPlaneState: the policy and the row ring ------------------------
+  def state_dict(self) -> dict:
+    return {'policy': self.policy.state_dict(), 'rows': self.rows.cpu()}
+
+  def load_state_dict(self, state: dict) -> None:
+    self.policy.load_state_dict(state['policy'])     # checks capacity
+    self.rows.copy_(torch.as_tensor(state['rows']).to(self.rows.dtype))
+
+
+class PinnedColdBuffer:
+  """A tiered store's cold rows ``[Nc, D]`` in host memory, cast to the
+  store's dtype once, here.  For a CUDA ``device`` the block is a private
+  copy page-locked in place (`ops.cold_gather.host_register`: exactly its
+  bytes — a `pin_memory` copy would round 784 MB up to 1 GiB) and mapped
+  for the card, which reads the miss rows through the cold-gather
+  kernel; `close` unregisters it.  For the CPU it is the rows as given
+  (cast where asked).  Owns the ``pinned_host`` memory tier."""
+
+  def __init__(self, rows, dim: int, dtype: Optional[torch.dtype] = None,
+               device='cuda'):
+    dev = resolve_device(device)
+    src = rows if isinstance(rows, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(rows))
+    if src.ndim != 2 or src.shape[1] != int(dim):
+      raise ValueError(f'expected a [rows, {dim}] cold block, got '
+                       f'{tuple(src.shape)}')
+    dtype = src.dtype if dtype is None else dtype
+    self._registered = False
+    if dev.type == 'cuda':
+      self.rows = torch.empty(tuple(src.shape), dtype=dtype)
+      self.rows.copy_(src)
+      host_register(self.rows)
+      self._registered = True
+    else:
+      self.rows = src.to(dtype).contiguous()
+    self.device = dev
+    register_tier('pinned_host', _weak_bytes(self, 'rows'))
+
+  def gather(self, out: torch.Tensor, pos: torch.Tensor,
+             rel: torch.Tensor) -> torch.Tensor:
+    """``out[pos[i]] = rows[rel[i]]`` in place (`ops.cold_gather`)."""
+    return cold_gather(out, self.rows, pos, rel)
+
+  def close(self) -> None:
+    """Unregister the page-locked block (idempotent)."""
+    if self._registered:
+      self._registered = False
+      host_unregister(self.rows)
+
+  def __del__(self):
+    try:
+      self.close()
+    except Exception:              # noqa: BLE001 — interpreter teardown
+      pass
 
 
 class MeshColdCache:
@@ -190,11 +375,12 @@ class MeshColdCache:
     if not hit.any():
       return x
     p_idx, i_idx = np.nonzero(hit)
-    dst = torch.from_numpy(p_idx * x.shape[1] + i_idx).to(x.device)
-    src = torch.from_numpy(p_idx * self.rows.shape[1]
-                           + slot[p_idx, i_idx]).to(x.device)
+    ds = torch.from_numpy(np.stack([
+        p_idx * x.shape[1] + i_idx,
+        p_idx * self.rows.shape[1] + slot[p_idx, i_idx]])).to(x.device)
     x.view(-1, x.shape[-1]).index_copy_(
-        0, dst, self.rows.view(-1, self.rows.shape[-1]).index_select(0, src))
+        0, ds[0], self.rows.view(-1, self.rows.shape[-1]).index_select(
+            0, ds[1]))
     return x
 
   def plan_admissions(self, ids_l: np.ndarray, miss: np.ndarray):
@@ -227,11 +413,10 @@ class MeshColdCache:
       admits += len(adm)
       evicts += ev
     if admits:
-      dev = x.device
-      src_t = torch.from_numpy(np.concatenate(src_all)).to(dev)
-      dst_t = torch.from_numpy(np.concatenate(dst_all)).to(dev)
+      sd = torch.from_numpy(np.stack([np.concatenate(src_all),
+                                      np.concatenate(dst_all)])).to(x.device)
       self.rows.view(-1, self.rows.shape[-1]).index_copy_(
-          0, dst_t, x.view(-1, x.shape[-1]).index_select(0, src_t))
+          0, sd[1], x.view(-1, x.shape[-1]).index_select(0, sd[0]))
     for sh, (adm, slots, _src, _ev) in zip(self.shards, plans):
       sh.commit(adm, slots)
     return admits, evicts

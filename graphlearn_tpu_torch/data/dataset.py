@@ -3,7 +3,7 @@ features and labels.  Heterogeneous datasets are slice 8 of the
 ROADMAP."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -60,14 +60,36 @@ class Dataset:
     return self
 
   def init_node_features(self, node_feature_data=None, id2idx=None,
+                         sort_func: Optional[Callable] = None,
                          split_ratio: float = 1.0, device='cuda',
-                         dtype: Optional[torch.dtype] = None):
-    """Create the node feature store (see `Feature`)."""
+                         dtype: Optional[torch.dtype] = None,
+                         cold_cache_rows='auto'):
+    """Create the node feature store (see `Feature`).
+
+    ``sort_func`` (e.g. `data.reorder.sort_by_in_degree`) reorders a
+    host table hottest-first and supplies the id->row map, when the
+    table is tiered (``0 < split_ratio < 1``), no ``id2idx`` is given
+    and the graph is set: ``sort_func(feats, split_ratio, graph) ->
+    (feats, id2index)``, the graph read for its ``indices``.  A table
+    already on the card cannot be reordered (ValueError).
+    """
     if node_feature_data is None:
       return self
-    self.node_features = Feature(node_feature_data, id2index=id2idx,
+    feats = node_feature_data
+    if sort_func is not None:
+      if isinstance(feats, torch.Tensor) and feats.device.type != 'cpu':
+        raise ValueError(
+            'sort_func cannot reorder a device-resident feature table; '
+            'reorder it on the host (and pass id2idx) before moving it '
+            'to the card')
+      if (id2idx is None and self.graph is not None
+          and 0.0 < split_ratio < 1.0):
+        topo = self.graph.csr_topo
+        feats, id2idx = sort_func(feats, split_ratio,
+                                  self.graph if topo is None else topo)
+    self.node_features = Feature(feats, id2index=id2idx,
                                  split_ratio=split_ratio, device=device,
-                                 dtype=dtype)
+                                 dtype=dtype, cold_cache_rows=cold_cache_rows)
     return self
 
   def init_node_labels(self, node_label_data=None):

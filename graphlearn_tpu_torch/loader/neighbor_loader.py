@@ -28,14 +28,17 @@ class NeighborLoader(NodeLoader):
     draws: the sampler's draws provider (`sampler.neighbor_sampler`).
     device: where sampling runs (default ``'cuda'``): the dataset's
       device.
+    prefetch: batches prepared ahead on a worker thread (`NodeLoader`).
   """
 
   def __init__(self, data, num_neighbors, input_nodes, batch_size: int = 1,
                shuffle: bool = False, drop_last: bool = False,
                with_edge: bool = False, seed: Optional[int] = None,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               prefetch: int = 0):
     sampler = NeighborSampler(data.get_graph(), num_neighbors,
                               device=device, with_edge=with_edge,
                               seed=seed or 0, draws=draws)
     super().__init__(data, sampler, input_nodes, batch_size=batch_size,
-                     shuffle=shuffle, drop_last=drop_last, seed=seed)
+                     shuffle=shuffle, drop_last=drop_last, seed=seed,
+                     prefetch=prefetch)

@@ -4,8 +4,8 @@
 `default_rng(seed)`, slice, and pad the tail batch to the static batch
 size with -1, so a seeded run visits seeds in the JAX package's order.
 `NodeLoader` runs a sampler on each seed batch and collates the result
-(`loader.transform.collate`) into a `Batch`, one batch at a time:
-``prefetch`` worker threads are slice 6 of the ROADMAP."""
+(`loader.transform.collate`) into a `Batch`; with ``prefetch=N`` a
+worker thread prepares the next batches (`loader.prefetch`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,6 +14,7 @@ import numpy as np
 
 from ..sampler.base import BaseSampler, NodeSamplerInput
 from ..utils.padding import INVALID_ID
+from .prefetch import PrefetchingLoader
 from .transform import Batch, collate
 
 
@@ -55,7 +56,7 @@ class SeedBatcher:
       yield batch
 
 
-class NodeLoader:
+class NodeLoader(PrefetchingLoader):
   """Seeds -> sampler -> collate.
 
   Args:
@@ -64,7 +65,9 @@ class NodeLoader:
     input_nodes: ``[N]`` seed ids or a boolean mask (e.g. the train
       split).
     batch_size / shuffle / drop_last / seed: epoch iteration.
-    prefetch: must be 0 (worker threads are not ported).
+    prefetch: batches a worker thread prepares ahead, on its own CUDA
+      stream on the card (0 = off; 2 = double buffering, which hides a
+      tiered store's per-batch host step behind the training step).
 
   Each ``iter()`` starts a new epoch.  A batch's work is enqueued on
   the card; nothing here synchronises.
@@ -74,11 +77,10 @@ class NodeLoader:
                batch_size: int = 1, shuffle: bool = False,
                drop_last: bool = False, seed: Optional[int] = None,
                prefetch: int = 0):
-    if int(prefetch) != 0:
-      raise NotImplementedError('prefetch worker threads are not ported '
-                                'yet: they are slice 6 of the ROADMAP')
+    self.prefetch = int(prefetch)
     self.data = data
     self.sampler = sampler
+    self._prefetch_device = getattr(sampler, 'device', None)
     input_nodes = np.asarray(input_nodes)
     if input_nodes.dtype == np.bool_:
       input_nodes = np.nonzero(input_nodes)[0]
@@ -89,10 +91,10 @@ class NodeLoader:
   def __len__(self) -> int:
     return len(self._batcher)
 
-  def __iter__(self):
-    for seeds in self._batcher:
-      yield self._collate_fn(self.sampler.sample_from_nodes(
-          NodeSamplerInput(node=seeds)))
+  def _produce(self, seed_iter) -> Batch:
+    seeds = next(seed_iter)
+    return self._collate_fn(self.sampler.sample_from_nodes(
+        NodeSamplerInput(node=seeds)))
 
   def _collate_fn(self, out) -> Batch:
     return collate(self.data, out)

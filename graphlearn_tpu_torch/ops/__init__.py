@@ -1,3 +1,4 @@
+from .cold_gather import cold_gather, cold_gather_plain
 from .delta_merge import (RankRows, merge_delta_csr_device, merge_ranks,
                           merge_ranks_plain, rank_inputs, rank_plan,
                           rank_rows)

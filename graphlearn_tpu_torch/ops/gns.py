@@ -126,6 +126,19 @@ class DecayedSketch:
     out = self.scores[self._slot(np.clip(ids, 0, None))]
     return np.where(ids >= 0, out, 0.0).astype(np.float32)
 
+  def state_dict(self) -> dict:
+    return {'scores': self.scores.copy(), 'decay': np.float32(self.decay)}
+
+  def load_state_dict(self, state: dict) -> None:
+    scores = np.asarray(state['scores'], np.float32)
+    if scores.shape[0] != self.slots:
+      raise ValueError(
+          f'visit-sketch snapshot has {scores.shape[0]} slots, this '
+          f'sketch holds {self.slots}; resume with the same '
+          f'{SKETCH_ENV} the snapshot was taken under')
+    self.scores = scores.copy()
+    self.decay = float(np.asarray(state['decay']))
+
 
 def cached_set_bits(num_nodes: int, bounds, hot_counts,
                     resident_ids) -> np.ndarray:

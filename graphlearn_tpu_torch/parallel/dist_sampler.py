@@ -24,11 +24,13 @@ the stream; nothing else does):
 overlay over the stacked ``[P, node_cap]`` table (victim-cache hits
 served on the card, the misses gathered from host memory into a pinned
 staging buffer and copied in, the corrected misses admitted to each
-partition's cache).  The loader dispatches batch ``k+1`` before it
+partition's cache); `DistNeighborSampler.overlay_secs` sums its parts'
+host seconds.  The loader dispatches batch ``k+1`` before it
 finishes batch ``k`` (``GLT_COLD_PREFETCH=0`` selects the sequential
 order); batches are the same either way, except that the GNS mask of
 batch ``k+1`` is read at dispatch, before batch ``k``'s admissions — as
-in JAX.
+in JAX.  ``prefetch=N`` runs both halves on a worker thread with its own
+CUDA stream (`loader.prefetch`), ``N`` batches ahead of the trainer.
 
 Random numbers come from a ``draws`` provider, ``draws(step, hop, rows,
 k, w, gns, owner=o) -> (u [rows, k], v [rows, k])`` for the GNS sampler
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -51,6 +54,7 @@ import torch
 
 from ..data.cold_cache import MeshColdCache, resolve_cache_rows
 from ..loader.node_loader import SeedBatcher
+from ..loader.prefetch import PrefetchingLoader
 from ..loader.transform import Batch
 from ..ops.draws import TorchDraws
 from ..ops.fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
@@ -81,6 +85,13 @@ EXCHANGE_STAT_NAMES = (
 #: the host's cold-tier counters (``dist.feature.<name>``)
 COLD_STAT_NAMES = ('lookups', 'cold_lookups', 'cold_misses', 'cache_hits',
                    'cache_admits', 'cache_evicts')
+
+#: the cold overlay's parts, as `DistNeighborSampler.overlay_secs` sums
+#: them: the node table's copy to the host (it waits for the stream),
+#: `hot_split_host`, the cache lookup and serve, the host gather and its
+#: copy to the card, and the admission planning and commit
+OVERLAY_PARTS = ('d2h', 'hot_split', 'cache_serve', 'host_gather',
+                 'admission')
 
 Draws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
@@ -228,8 +239,10 @@ class PinnedStaging:
     return self._buf[:n]
 
   def record(self) -> None:
+    """Mark the copy out of the buffer, on the current stream (a
+    prefetch worker's own stream inside the worker)."""
     self._event = torch.cuda.Event()
-    self._event.record()
+    self._event.record(torch.cuda.current_stream())
 
 
 #: `AdaptiveSlack` ladder, tightest first (None = exact).  The sub-1.25
@@ -405,6 +418,9 @@ class DistNeighborSampler:
     self._feat_lookups = self._cold_lookups = self._cold_misses = 0
     self._cache_hits = self._cache_admits = self._cache_evicts = 0
     self._cold_reported = (0,) * len(COLD_STAT_NAMES)
+    #: host seconds of the cold overlay by part (`OVERLAY_PARTS`), summed
+    #: since construction; a caller resets it to read a window
+    self.overlay_secs = dict.fromkeys(OVERLAY_PARTS, 0.0)
 
   def node_capacity(self, batch_size: int) -> int:
     cap = max_sampled_nodes(batch_size, self.fanouts)
@@ -530,10 +546,14 @@ class DistNeighborSampler:
     g = self.ds.graph
     cache = self._ensure_cold_cache()
     hits = admits = evicts = 0
+    secs = self.overlay_secs
+    t0 = time.perf_counter()
     nodes_l = nodes.cpu().numpy().astype(np.int64)
+    t1 = time.perf_counter()
     valid = nodes_l >= 0
     _rng, _local, cold = hot_split_host(g.bounds, nf.hot_counts, nodes_l,
                                         valid)
+    t2 = time.perf_counter()
     lookups, cold_n = int(valid.sum()), int(cold.sum())
     miss = cold
     if cache is not None:
@@ -541,11 +561,17 @@ class DistNeighborSampler:
       hits = int(hit.sum())
       x = cache.serve(x, hit, slot)
       miss = cold & ~hit
+    t3 = time.perf_counter()
     served = overlay_cold_host(x, nodes_l, nf.cold_host, miss,
                                staging=self._staging)
+    t4 = time.perf_counter()
     if cache is not None and miss.any():
       admits, evicts = cache.commit_admissions(
           x, cache.plan_admissions(nodes_l, miss))
+    t5 = time.perf_counter()
+    for part, dt in zip(OVERLAY_PARTS, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                        t5 - t4)):
+      secs[part] += dt
     self._feat_lookups += lookups
     self._cold_lookups += cold_n
     self._cold_misses += served
@@ -625,7 +651,7 @@ class DistNeighborSampler:
     return st
 
 
-class DistNeighborLoader:
+class DistNeighborLoader(PrefetchingLoader):
   """Mesh loader: splits the (relabelled) seeds across the partitions
   and yields stacked `Batch`es (leading axis = partition) for
   `make_dp_supervised_step`.
@@ -635,7 +661,9 @@ class DistNeighborLoader:
   capacity (`AdaptiveSlack`) when a new epoch starts after the first.
   For a tiered store batch ``k+1`` is dispatched before batch ``k``'s
   cold overlay runs (``GLT_COLD_PREFETCH=0``: one batch at a time).
-  Each ``iter()`` starts a new epoch.
+  ``prefetch=N`` produces batches on a worker thread with its own CUDA
+  stream, ``N`` ahead of the consumer (`loader.prefetch`); batches are
+  the same as without it.  Each ``iter()`` starts a new epoch.
   """
 
   def __init__(self, dataset: DistDataset, num_neighbors, input_nodes,
@@ -643,8 +671,9 @@ class DistNeighborLoader:
                drop_last: bool = False, mesh: Optional[Mesh] = None,
                collect_features: bool = True, seed: int = 0,
                input_space: str = 'old', exchange_slack='auto',
-               cold_cache_rows='auto', gns=None,
+               prefetch: int = 0, cold_cache_rows='auto', gns=None,
                draws: Optional[Draws] = None, device='cuda'):
+    self.prefetch = int(prefetch)
     slack = resolve_exchange_slack(exchange_slack, shuffle)
     self.sampler = DistNeighborSampler(
         dataset, num_neighbors, mesh=mesh,
@@ -653,6 +682,7 @@ class DistNeighborLoader:
                         else slack),
         cold_cache_rows=cold_cache_rows, gns=gns, draws=draws,
         device=device)
+    self._prefetch_device = self.sampler.device
     self._adaptive = (AdaptiveSlack(self.sampler)
                       if slack == 'adaptive' else None)
     self._epoch_count = 0
@@ -666,49 +696,18 @@ class DistNeighborLoader:
     self.batch_size = int(batch_size)
     self._batcher = SeedBatcher(seeds, self.batch_size * self.num_parts,
                                 shuffle, drop_last, seed)
-    self._pending = self._pending_src = None
 
   def __len__(self) -> int:
     return len(self._batcher)
-
-  def __iter__(self):
-    if self._adaptive is not None:
-      if self._epoch_count > 0:
-        self._adaptive.on_epoch_end()
-      self._epoch_count += 1
-    return self._epoch(iter(self._batcher))
-
-  def _epoch(self, seed_iter):
-    while True:
-      try:
-        yield self._produce(seed_iter)
-      except StopIteration:
-        return
 
   def _dispatch_flat(self, flat: np.ndarray) -> dict:
     return self.sampler._dispatch_nodes(
         flat.reshape(self.num_parts, self.batch_size))
 
-  def _pipeline_acquire(self, seed_iter):
-    """Batch k's in-flight handle (dispatched during batch k-1), or at
-    epoch start its raw seeds; StopIteration at epoch end."""
-    if self._pending_src is not seed_iter:
-      self._pending, self._pending_src = None, seed_iter
-    cur, self._pending = self._pending, None
-    if cur is None:
-      return None, next(seed_iter)
-    return cur, None
-
   def _produce(self, seed_iter) -> Batch:
     if self._cold_pipeline:
-      cur, flat = self._pipeline_acquire(seed_iter)
-      if cur is None:
-        cur = self._dispatch_flat(flat)
-      try:
-        self._pending = self._dispatch_flat(next(seed_iter))
-      except StopIteration:
-        pass
-      out = self.sampler._finish_nodes(cur)
+      out = self._pipelined(self._pipeline_acquire(seed_iter), seed_iter,
+                            self._dispatch_flat, self.sampler._finish_nodes)
     else:
       out = self.sampler.sample_from_nodes(
           next(seed_iter).reshape(self.num_parts, self.batch_size))

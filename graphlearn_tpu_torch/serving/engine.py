@@ -27,14 +27,25 @@ only through that one view, so a dispatch answers from exactly one
 ``graph_version`` while ingest publishes concurrently; `hold_graph`
 freezes the version across several dispatches.
 
-The feature table is fully device-resident; the tiered path, the
-executable cache and hot model swaps are later slices (ROADMAP).
+**Tiered tables.**  With ``split_ratio < 1`` a dispatch samples the
+trees on the card, brings the ``[cap, W]`` node ids to the host once,
+deduplicates them (`np.unique`, padded to a power of two with
+INVALID_ID), fills the distinct rows through the tiered
+`data.Feature.get` under the ``'serving'`` cache scope (hot rows by the
+row-gather kernel, victim-cache hits on the card, misses by the
+cold-gather kernel from pinned host memory) and expands them back by
+the inverse map on the card.  Each rider's rows are byte-equal to the
+fully-hot engine's.  `last_collect` and `last_cold_fill` hold the
+dispatch's sampling and fill ``(monotonic t0, seconds)``.
+
+The executable cache and hot model swaps are later slices (ROADMAP).
 """
 from __future__ import annotations
 
 import functools
 import os
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -47,7 +58,7 @@ from ..data.feature import _device_gather
 from ..data.graph import Graph
 from ..loader.fused_tree import expand_tree_levels
 from ..ops.draws import hash_draws
-from ..utils import INVALID_ID, resolve_device
+from ..utils import INVALID_ID, next_power_of_two, resolve_device
 
 BUCKETS_ENV = 'GLT_SERVING_BUCKETS'
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16)
@@ -150,6 +161,10 @@ class ServingEngine:
     self.buckets = resolve_buckets(buckets)
     self.num_nodes = graph.num_nodes
     self._feat = feat
+    self._tiered = feat.is_tiered
+    #: (monotonic t0, seconds) of the last tiered dispatch's sampling and
+    #: of its feature fill
+    self.last_collect = self.last_cold_fill = None
     #: (graph_version, indptr, indices) of the pinned view, swapped
     #: with one reference assignment
     self._pinned = (version, graph.indptr, graph.indices)
@@ -278,15 +293,37 @@ class ServingEngine:
           'init_params(generator) (or pass params=) before serving')
     self._repin_graph()
     _, indptr, indices = self._pinned
+    t0 = time.monotonic()
     nodes = self._collect(padded, indptr, indices)
+    if self._tiered:
+      nodes_h = nodes.cpu().numpy()
+      self.last_collect = (t0, time.monotonic() - t0)
+      x = self._tiered_fill(nodes_h)
+    else:
+      x = _device_gather(self._feat.hot_tier, nodes.reshape(-1),
+                         self._feat.id2index)
     cap = nodes.shape[0]
-    x = _device_gather(self._feat.hot_tier, nodes.reshape(-1),
-                       self._feat.id2index).view(cap, self.tree_width, -1)
+    x = x.view(cap, self.tree_width, -1)
     if self.model is None:
       return ServingResult(nodes=_host(nodes), x=_host(x))
     masks = [lvl >= 0 for lvl in self._split_levels(nodes)]
     logits = self.model(self._split_levels(x), masks)
     return ServingResult(nodes=_host(nodes), logits=_host(logits))
+
+  def _tiered_fill(self, nodes_h: np.ndarray) -> torch.Tensor:
+    """``[cap, W]`` host node ids -> ``[cap * W, D]`` rows on the card:
+    each distinct id fetched once per dispatch (riders' trees overlap
+    under skewed traffic), then expanded by the inverse map."""
+    uniq, inverse = np.unique(nodes_h.reshape(-1), return_inverse=True)
+    uniq_p = np.full(next_power_of_two(max(len(uniq), 1)), INVALID_ID,
+                     np.int64)
+    uniq_p[:len(uniq)] = uniq
+    t0 = time.monotonic()
+    x_u = self._feat.get(uniq_p, scope='serving')
+    inv = torch.from_numpy(inverse.reshape(-1)).to(self.device)
+    x = x_u.index_select(0, inv)
+    self.last_cold_fill = (t0, time.monotonic() - t0)
+    return x
 
   def infer(self, seeds, cap: Optional[int] = None) -> ServingResult:
     """Serve one (possibly coalesced) seed batch; results sliced back

@@ -2,7 +2,7 @@
 health providers.
 
 The port's copy of the part of the JAX package's `telemetry/live.py`
-that the streaming slice calls (`live.counter`, `live.gauge`,
+that the port's slices call (`live.counter`, `live.gauge`,
 `unregister_gauge`, `register_health` / `unregister_health`,
 `healthz`, `snapshot`), with the names unchanged.  Counters write to
 one process-wide `Metrics` store; gauges are zero-argument callbacks
@@ -66,6 +66,15 @@ METRIC_NAMES: Dict[str, str] = {
         'counter: rows admitted to the victim cache',
     'dist.feature.cache_evicts':
         'counter: rows evicted from the victim cache',
+    'cache.hits_total':
+        'counter: cold rows served by a victim cache, by scope '
+        '(feature|serving)',
+    'cache.misses_total':
+        'counter: cold rows filled from the host tier, by scope',
+    'cache.admits_total':
+        'counter: rows admitted into a victim cache, by scope',
+    'cache.evicts_total':
+        'counter: residents displaced by admissions, by scope',
 }
 
 

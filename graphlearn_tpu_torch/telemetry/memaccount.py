@@ -2,8 +2,9 @@
 
 The port's copy of `register_tier` from the JAX package's
 `telemetry/memaccount.py`.  Each memory owner (the streaming graph's
-published view, the WAL) registers a zero-argument byte callback under
-a fixed ``tier=`` label; two gauges per tier: ``memory.tier_bytes``
+published view, the WAL, the tiered feature store) registers a
+zero-argument byte callback under a fixed ``tier=`` label; two gauges
+per tier: ``memory.tier_bytes``
 (scrape-time occupancy) and ``memory.tier_peak_bytes`` (high-watermark
 since registration, tracked at scrape).  Registering a tier again
 replaces its callbacks (latest instance wins).
@@ -14,8 +15,10 @@ from typing import Callable, Optional
 
 from .live import live
 
-#: the tier vocabulary of the port's owners (the ``tier=`` label values)
-TIERS = ('streaming', 'wal')
+#: the tier vocabulary of the port's owners (the ``tier=`` label values):
+#: ``cold_cache`` is a tiered store's victim ring on the card,
+#: ``pinned_host`` its cold block in page-locked host memory
+TIERS = ('streaming', 'wal', 'cold_cache', 'pinned_host')
 
 
 def register_tier(tier: str, fn: Callable[[], Optional[float]]) -> None:

@@ -1,7 +1,7 @@
 """Seeded, declarative fault injection.
 
 The port's copy of the JAX package's `testing/chaos.py`, reduced to the
-seams the streaming slice fires.  A *fault plan* is a list of
+seams the port fires.  A *fault plan* is a list of
 :class:`Fault` records naming a **site** (a seam the code calls into),
 an **action**, and the ``nth`` matching arrival at that seam on which
 it fires (counted per fault — deterministic under a fixed plan).  The
@@ -25,6 +25,11 @@ reads the same in the other.  Sites and actions:
   ``ingest.compact``
       Inside `IngestPipeline.compact`, before the snapshot publishes.
       ``kill`` raises :class:`ChaosKilledError`.
+  ``feature.cold_service``
+      Inside `data.Feature.get`, on a lookup of a mixed table that
+      needs the host cold tier (``op`` is ``'feature'``).  ``fail``
+      raises :class:`InjectedFault`: the cold tier died under the
+      batch.
 
 Plans install programmatically (:func:`install`) or from the
 ``GLT_FAULT_PLAN`` env var.  JSON::
@@ -45,7 +50,8 @@ from typing import Any, Dict, List, Optional
 
 FAULT_PLAN_ENV = 'GLT_FAULT_PLAN'
 
-_SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact')
+_SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
+          'feature.cold_service')
 _ACTIONS = ('delay', 'kill', 'fail', 'truncate')
 
 
@@ -208,3 +214,12 @@ def ingest_compact_check(seqno: int = 0) -> None:
     if f.action == 'kill':
       raise ChaosKilledError(
           f'injected ingest compaction kill (seqno {seqno})')
+
+
+def cold_service_check(scope: str = '') -> None:
+  """Host cold-tier seam, once per lookup that needs the cold tier:
+  ``fail`` raises `InjectedFault`."""
+  for f in on('feature.cold_service', op=scope or None):
+    if f.action == 'fail':
+      raise InjectedFault(
+          f'injected cold-tier service failure (scope {scope!r})')

@@ -11,7 +11,9 @@ import torch
 
 import graphlearn_tpu_torch
 from graphlearn_tpu_torch.data import Dataset, Feature, Graph
-from graphlearn_tpu_torch.data.cold_cache import MeshColdCache
+from graphlearn_tpu_torch.data.cold_cache import (DeviceColdCache,
+                                                  MeshColdCache,
+                                                  PinnedColdBuffer)
 from graphlearn_tpu_torch.loader import FusedTreeEpoch, NeighborLoader
 from graphlearn_tpu_torch.models import GraphSAGE, TreeSAGE
 from graphlearn_tpu_torch.ops import merge_delta_csr_device
@@ -47,6 +49,9 @@ def test_import_pulls_in_no_jax():
       'import graphlearn_tpu_torch.parallel\n'
       'import graphlearn_tpu_torch.parallel.rdma_gather\n'
       'import graphlearn_tpu_torch.data.cold_cache\n'
+      'import graphlearn_tpu_torch.data.reorder\n'
+      'import graphlearn_tpu_torch.ops.cold_gather\n'
+      'import graphlearn_tpu_torch.loader.prefetch\n'
       'import graphlearn_tpu_torch.sampler\n'
       'new = sorted(set(sys.modules) - before)\n'
       'bad = [m for m in new if m.split(".")[0] in '
@@ -63,7 +68,10 @@ def test_import_pulls_in_no_jax():
       'sys.modules\n'
       'assert "graphlearn_tpu_torch.loader.neighbor_loader" in sys.modules\n'
       'assert "graphlearn_tpu_torch.loader.fused" in sys.modules\n'
-      'assert "graphlearn_tpu_torch.ops.window_gather" in sys.modules\n')
+      'assert "graphlearn_tpu_torch.ops.window_gather" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.ops.cold_gather" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.loader.prefetch" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.data.reorder" in sys.modules\n')
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, cwd=str(PKG.parent), timeout=240)
   assert out.returncode == 0, out.stderr
@@ -114,6 +122,15 @@ def test_entry_points_default_to_cuda():
     Dataset().init_node_features(feats)
   with pytest.raises(RuntimeError, match='CUDA'):
     Feature(feats)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    Feature(feats, split_ratio=0.5)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    DeviceColdCache(4, 2, torch.float32)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    PinnedColdBuffer(feats, 2)
+  # asked for: the CPU tiers run the kernels' plain versions
+  tiered = Feature(feats, split_ratio=0.5, device='cpu')
+  assert tiered.get(np.array([0, 3])).device.type == 'cpu'
   ds = (Dataset().init_graph(coo, num_nodes=4, device='cpu')
         .init_node_features(feats, device='cpu'))
   with pytest.raises(RuntimeError, match='CUDA'):

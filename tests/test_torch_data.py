@@ -94,8 +94,17 @@ def test_feature_dtype_and_tiers():
   f = Feature(_feats(), device='cpu', dtype=torch.bfloat16)
   assert f.dtype == torch.bfloat16 and f.hot_tier.is_contiguous()
   assert Feature(np.arange(5.0), device='cpu').shape == (5, 1)
-  with pytest.raises(NotImplementedError, match='slice 6'):
-    Feature(_feats(), split_ratio=0.5, device='cpu')
+  # a tiered table (half the rows on the device, the rest in host
+  # memory behind a victim cache) serves the fully-hot table's bytes
+  feats = _feats()
+  tiered = Feature(feats, split_ratio=0.5, device='cpu', cold_cache_rows=3)
+  assert tiered.is_tiered and tiered.hot_rows == N // 2
+  assert tiered.hot_tier.shape == (N // 2, D)
+  ids = np.array([0, N - 1, -1, 30, 30, 7, 41], np.int64)
+  want = Feature(feats, device='cpu').get(ids).numpy()
+  for _ in range(2):
+    assert tiered.get(ids).numpy().tobytes() == want.tobytes()
+  assert tiered.cold_stats == {'lookups': 12, 'cold_lookups': 8}
   with pytest.raises(NotImplementedError, match='slice 8'):
     Dataset().init_graph({('a', 'to', 'b'): _coo()}, device='cpu')
 

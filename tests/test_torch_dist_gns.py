@@ -70,8 +70,10 @@ def _clean_env(monkeypatch):
     monkeypatch.delenv(env, raising=False)
 
 
-def _loaders(n, gns, batch_size=16, cache_rows=24, seed=0):
+def _loaders(n, gns, batch_size=16, cache_rows=24, seed=0, prefetch=0,
+             n_seeds=None):
   rows, cols, feats, labels = _graph(n, seed=seed)
+  seeds = np.arange(n if n_seeds is None else n_seeds)
   jds = JaxDistDataset.from_full_graph(1, rows, cols, node_feat=feats,
                                        node_label=labels, num_nodes=n,
                                        split_ratio=0.3)
@@ -80,9 +82,9 @@ def _loaders(n, gns, batch_size=16, cache_rows=24, seed=0):
                                    split_ratio=0.3, device='cpu')
   kw = dict(batch_size=batch_size, shuffle=True, seed=0,
             cold_cache_rows=cache_rows, gns=gns)
-  jl = JaxLoader(jds, FANOUTS, np.arange(n), mesh=jax_make_mesh(1), **kw)
-  tl = DistNeighborLoader(ds, FANOUTS, np.arange(n), draws=jax_key_draws(0),
-                          device='cpu', **kw)
+  jl = JaxLoader(jds, FANOUTS, seeds, mesh=jax_make_mesh(1), **kw)
+  tl = DistNeighborLoader(ds, FANOUTS, seeds, draws=jax_key_draws(0),
+                          device='cpu', prefetch=prefetch, **kw)
   return jds, ds, jl, tl, feats
 
 
@@ -126,17 +128,26 @@ def _port_np(b):
   return out
 
 
-@pytest.mark.parametrize('gns,prefetch', [(True, '1'), (True, '0'),
-                                          (False, '1')])
-def test_loader_batches_byte_equal_to_jax(monkeypatch, gns, prefetch):
+@pytest.mark.parametrize('gns,prefetch,depth', [
+    pytest.param(True, '1', 0, id='True-1'),
+    pytest.param(True, '0', 0, id='True-0'),
+    pytest.param(False, '1', 0, id='False-1'),
+    pytest.param(True, '1', 2, id='True-1-prefetch2')])
+def test_loader_batches_byte_equal_to_jax(monkeypatch, gns, prefetch, depth):
+  """``depth`` is the port loader's ``prefetch=``: with a worker
+  thread the epoch is exactly `BATCHES` batches and is read to its end,
+  so the worker dispatches no batch past the compared ones."""
   _clean_env(monkeypatch)
   monkeypatch.setenv('GLT_COLD_PREFETCH', prefetch)
   n = 320
-  jds, ds, jl, tl, feats = _loaders(n, gns)
+  jds, ds, jl, tl, feats = _loaders(
+      n, gns, prefetch=depth, n_seeds=BATCHES * 16 if depth else None)
   assert tl.sampler.gns == jl.sampler.gns == gns
   assert tl._cold_pipeline == jl._cold_pipeline == (prefetch == '1')
   jb = [_batch_np(b) for b in itertools.islice(iter(jl), BATCHES)]
-  tb = [_port_np(b) for b in itertools.islice(iter(tl), BATCHES)]
+  tb = [_port_np(b) for b in itertools.islice(iter(tl),
+                                               BATCHES + bool(depth))]
+  assert len(tb) == BATCHES
   for i, (r, g) in enumerate(zip(jb, tb)):
     for f in ('node', 'x', 'y', 'edge_index', 'edge_mask'):
       assert g[f].dtype == r[f].dtype, (i, f)

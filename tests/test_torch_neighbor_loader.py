@@ -209,8 +209,12 @@ def test_sampler_and_loader_contract():
                      (lambda: s.sample_prob(np.arange(3)), 'slice 11')):
     with pytest.raises(NotImplementedError, match=what):
       call()
-  with pytest.raises(NotImplementedError, match='slice 6'):
-    NodeLoader(ds, s, np.arange(10), batch_size=4, prefetch=2)
+  # prefetch=2 on a worker thread yields the synchronous loader's seeds
+  pre = NodeLoader(ds, s, np.arange(10), batch_size=4, prefetch=2)
+  assert [b.batch.tolist() for b in pre] == [
+      [0, 1, 2, 3], [4, 5, 6, 7], [8, 9, -1, -1]]
+  pre.close()
+  assert pre._active_prefetch is None
   cap = s.node_capacity(8)
   assert cap == 8 + 24 + 48
   # the default draws (a torch generator) give a well-formed batch

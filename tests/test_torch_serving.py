@@ -121,6 +121,69 @@ def test_modelless_x_byte_equal_to_jax_engine():
   assert got.x.shape == (3, peng.tree_width, D)
 
 
+def _tiered_pair(cache_rows, model=False):
+  """(JAX engine, port engine) over a tiered table (split 0.5: the hot
+  half on the device, the cold half in host memory behind a victim cache
+  of ``cache_rows``), with carried-over params when ``model``."""
+  from graphlearn_tpu.data import Feature as JaxFeature
+  from graphlearn_tpu_torch.data import Feature
+  _, _, feats = _graph_feats()
+  jds = _jax_dataset()
+  jds.node_features = JaxFeature(feats, split_ratio=0.5,
+                                 cold_cache_rows=cache_rows)
+  pds = _port_dataset()
+  pds.node_features = Feature(feats, split_ratio=0.5, device='cpu',
+                              cold_cache_rows=cache_rows)
+  kw = dict(seed=SEED, buckets=BUCKETS)
+  if not model:
+    return (JaxServingEngine(jds, FANOUTS, **kw),
+            ServingEngine(pds, FANOUTS, device='cpu',
+                          draws=jax_replay_draws(SEED), **kw))
+  flax_model = FlaxTreeSAGE(hidden_features=8, out_features=5,
+                            num_layers=len(FANOUTS))
+  jeng = JaxServingEngine(jds, FANOUTS, model=flax_model, **kw)
+  params = jeng.init_params(jax.random.key(0))
+  state = tree_sage_from_flax(jax.tree_util.tree_map(np.asarray, params))
+  peng = ServingEngine(pds, FANOUTS, model=TreeSAGE(D, 8, 5, len(FANOUTS)),
+                       params=state, device='cpu',
+                       draws=jax_replay_draws(SEED), **kw)
+  return jeng, peng
+
+
+@pytest.mark.parametrize('cache_rows', [0, 4])
+def test_tiered_engine_byte_equal_to_jax(cache_rows):
+  """Tiered dispatches (dedup, the tiered fill under the 'serving'
+  scope, the inverse expand): nodes and x byte-equal to the JAX tiered
+  engine over repeated dispatches (the cache admits between them), the
+  cache counters equal, and x equal to the fully-hot engine's."""
+  jeng, peng = _tiered_pair(cache_rows)
+  hot = ServingEngine(_port_dataset(), FANOUTS, seed=SEED, buckets=BUCKETS,
+                      device='cpu', draws=jax_replay_draws(SEED))
+  assert peng._tiered and not hot._tiered
+  for seeds in (SEEDS, np.array([40, 41, 5, 17]), SEEDS, SEEDS[:1]):
+    ref, got = jeng.infer(seeds), peng.infer(seeds)
+    assert got.nodes.tobytes() == np.asarray(ref.nodes).tobytes()
+    assert got.x.tobytes() == np.asarray(ref.x).tobytes()
+    assert got.x.tobytes() == hot.infer(seeds).x.tobytes()
+    t0, dur = peng.last_cold_fill
+    assert dur >= 0 and peng.last_collect[1] >= 0
+  jf, pf = jeng._feat, peng._feat
+  assert pf.cold_stats == jf.cold_stats
+  if cache_rows:
+    assert (pf._cold_cache.stats.snapshot()
+            == jf._cold_cache.stats.snapshot())
+    assert pf._cold_cache.stats.hits > 0
+
+
+def test_tiered_engine_logits_match_jax():
+  jeng, peng = _tiered_pair(4, model=True)
+  for cap in (4, None):
+    ref, got = jeng.infer(SEEDS, cap=cap), peng.infer(SEEDS, cap=cap)
+    assert got.nodes.tobytes() == np.asarray(ref.nodes).tobytes()
+    np.testing.assert_allclose(got.logits, np.asarray(ref.logits),
+                               rtol=1e-5, atol=1e-5)
+
+
 # -- the port's own contract, with its hash draws -------------------------
 @pytest.fixture(scope='module')
 def engine():
