@@ -124,13 +124,16 @@ Phases, one JSON line each; any failure exits nonzero:
           losses and 2 tree-epoch steps' losses within 1e-5.
   kernel  the cold-row gather (K6) against its plain version on forced
           shapes (`forced_cold_sets`: rows of 4, 12, 200 (bf16 x 100),
-          400 and 1,024 bytes, M = 0 / 1 / 7 miss rows with ``rel`` at 0
-          and Nc - 1, over `pin_memory` blocks, a block one row into its
-          allocation and a registered `PinnedColdBuffer`; a block that is
-          not page-locked must raise), byte-equal with the rows outside
-          ``pos`` untouched; ``link`` is the best of 5 runs of a 256 MiB
-          pinned -> device copy (the rate reached); K6's bound is its
-          link bytes over the link's published peak.
+          400, 512 and 1,024 bytes, M = 0 / 1 / 7 miss rows with ``rel``
+          at 0 and Nc - 1 and 3,001 rows in runs of adjacent ``rel``
+          (neighbours share 128-byte lines), int32 ids, over
+          `pin_memory` blocks, a block one row into its allocation and a
+          registered `PinnedColdBuffer`; int64 ids, mismatched id types
+          and a block that is not page-locked must raise), byte-equal
+          with the rows outside ``pos`` untouched; ``link`` is the best
+          of 5 runs of a 256 MiB pinned -> device copy (the rate
+          reached), ``thp`` the host's transparent-huge-page mode; K6's
+          bound is its link bytes over the link's published peak.
   tiered_serve  `bench_serving.py`'s tiered engine: the products table
           pulled to the host, sorted by in-degree (`sort_by_in_degree`)
           and tiered at split 0.5 (1,224,514 hot rows on the card, the
@@ -145,12 +148,17 @@ Phases, one JSON line each; any failure exits nonzero:
   tiered_train  BASELINE config 1's step over the same sort at split 0.2
           (489,806 hot rows, 1,959,223 cold rows pinned, a 293,884-row
           cache): `NeighborLoader` at ``prefetch=0`` and then 2 over the
-          same seeds, 3 warm + 20 timed steps each, the device idle share
-          of 3 more, the ``prefetch=0`` step split into sample / collate /
-          model.  Checks: both runs' batches byte-equal (the warm ones
+          same seeds, 3 warm + 20 timed steps each (with ``--profile``
+          the device idle share of 3 more), the ``prefetch=0`` step
+          split into sample / collate / model.  Checks: both runs' batches byte-equal (the warm ones
           whole, the timed ones by digest), x rows and labels equal their
           source, 3 K1 + 1 K2 + 1 K6 launches a batch, no plain call,
-          losses falling.  A `kernel` line: K6 at a batch's miss set.
+          losses falling.  A `kernel` line: K6 at a batch's miss set,
+          then its diagnosis (`k6_diagnosis`): the same misses sorted by
+          block row, read as one stream, over 512-byte rows, over a
+          `pin_memory` block and over a huge-page-advised block, timed
+          in interleaved rounds beside their bounds and same-bytes copies,
+          with how the host backs each block (``host_pages``).
   feature_lookup  `bench_feature.py`'s sweep over 8 recorded node sets:
           GB/s at split 1.0 / 0.5 / 0.2 with no cache, and at split 0.2
           with caches of 0 / 5% / 15% of the cold rows (hit rates).
@@ -247,7 +255,10 @@ Phases, one JSON line each; any failure exits nonzero:
 
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, tree,
-GNS and mesh training paths).  A ``wall`` line gives the script's
+GNS and mesh training paths) and the tiered-train idle shares.  ``--k6`` runs build, graph and the
+tiered phases up to `tiered_train` alone (K6's forced sets, diagnosis
+and path shapes) and prints no ``kernels`` or result line: a quick A/B
+of two trees' K6 in one call.  A ``wall`` line gives the script's
 seconds.  It prints the ``{"kernels": [...]}``
 line (seven kernels; `merge_ranks` also with ``floor_ms``,
 ``hub_burst_ms``, ``sort_ms`` and ``forced_ms`` by case) before the last
@@ -1786,10 +1797,14 @@ LOOKUP_SPLITS = (1.0, 0.5, 0.2)
 LOOKUP_BUDGETS = (0.0, 0.05, 0.15)
 LOOKUP_SETS = 8
 #: K6's forced row layouts (columns, dtype): rows of 4, 12, 200 (bf16 x
-#: 100), 400 and 1,024 bytes, over a block of `COLD_FORCED_ROWS` rows
+#: 100), 400, 512 and 1,024 bytes, over a block of `COLD_FORCED_ROWS` rows
 COLD_LAYOUTS = ((1, 'float32'), (3, 'float32'), (100, 'bfloat16'),
-                (100, 'float32'), (256, 'float32'))
+                (100, 'float32'), (128, 'float32'), (256, 'float32'))
 COLD_FORCED_ROWS = 10_007
+#: rows of K6's forced run sets: ``rel`` in runs of 1-9 adjacent rows
+#: (neighbours share a 128-B line), ``pos`` a random permutation
+COLD_RUN_ROWS = 3_001
+COLD_RUN_OUT = 4_096
 #: bytes of the pinned -> device copy that measures the host link's rate,
 #: and how many runs of it (each a median of `REPS`) are timed
 LINK_COPY_BYTES = 256 << 20
@@ -1848,31 +1863,75 @@ def cold_bytes(m: int, row: int) -> tuple:
   return m * row, m * (16 + row)
 
 
-def check_cold(torch, ops, timer, b, cold, pos, rel, time_it=True):
-  """K6 against its plain version on the same inputs (the ``[b, D]``
-  output starting from the same random rows): byte-equal, the rows
-  outside ``pos`` untouched; timed with the plain version, a pinned ->
-  device copy of the same bytes (``library_ms``) and its bound (the link
-  bytes over the link's peak, or the device bytes over HBM's)."""
+def cold_id_dtype(torch, ops):
+  """The id type this tree's K6 wrapper takes: int32 (the JAX gather's),
+  or int64 in a tree from before K6's redesign, so that an A/B call can
+  drive the parent's kernel with this script.  Probed with no miss row,
+  which launches nothing."""
+  out = torch.zeros(1, 1, device=DEVICE)
+  cold = torch.zeros(1, 1).pin_memory()
+  ids = torch.zeros(0, dtype=torch.int32, device=DEVICE)
+  try:
+    ops.cold_gather(out, cold, ids, ids)
+  except ValueError:
+    return torch.int64
+  return torch.int32
+
+
+def k6_module():
+  """``graphlearn_tpu_torch.ops.cold_gather`` (the package's ``ops``
+  exports the wrapper under the module's name)."""
+  import importlib
+  return importlib.import_module('graphlearn_tpu_torch.ops.cold_gather')
+
+
+def k6_kernel(ops):
+  """K6's kernel alone, without the wrapper's plan step (the wrapper in
+  a tree from before the plan step, which is then the same thing)."""
+  return getattr(k6_module(), 'cold_gather_kernel', ops.cold_gather)
+
+
+def k6_plans(ops) -> int:
+  return getattr(ops.cold_gather, 'plans', 0)
+
+
+def k6_expected_plans(m: int) -> int:
+  """Plan steps the wrapper takes for ``m`` misses (none in a tree from
+  before the plan step)."""
+  lo = getattr(k6_module(), 'PLAN_MIN_ROWS', None)
+  return int(lo is not None and m >= lo)
+
+
+def check_cold(torch, ops, timer, b, cold, pos, rel, time_it=True,
+               time_plain=True, fn=None):
+  """K6 (the wrapper, or ``fn``) against its plain version on the same
+  inputs (the ``[b, D]`` output starting from the same random rows):
+  byte-equal, the rows outside ``pos`` untouched; timed with the plain
+  version, a pinned -> device copy of the same bytes (``library_ms``) and
+  its bound (the link bytes over the link's peak, or the device bytes
+  over HBM's)."""
+  fn = fn or ops.cold_gather
   d = cold.shape[1]
   init = torch.randn(b, d, device=DEVICE,
                      generator=torch.Generator(device=DEVICE).manual_seed(
                          b)).to(cold.dtype)
   m = int(pos.numel())
-  before = ops.cold_gather.launches
-  got = ops.cold_gather(init.clone(), cold, pos, rel)
+  before, plans0 = ops.cold_gather.launches, k6_plans(ops)
+  got = fn(init.clone(), cold, pos, rel)
   launched = ops.cold_gather.launches - before
+  plans = k6_plans(ops) - plans0
   ref = ops.cold_gather_plain(init.clone(), cold, pos, rel)
   sync(torch)
-  if launched != (m > 0):
-    raise AssertionError(f'cold_gather launched {launched} times for '
-                         f'{m} rows')
+  want_plans = k6_expected_plans(m) if fn is ops.cold_gather else 0
+  if launched != (m > 0) or plans != want_plans:
+    raise AssertionError(f'cold_gather launched {launched} times with '
+                         f'{plans} plan steps for {m} rows')
   if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
     bad = int((got != ref).any(dim=1).sum())
     raise AssertionError(f'cold_gather != plain version ({cold.dtype}, '
                          f'{d} columns, {bad} rows differ)')
   keep = torch.ones(b, dtype=torch.bool, device=DEVICE)
-  keep[pos] = False
+  keep[pos.long()] = False
   if not torch.equal(got[keep], init[keep]):
     raise AssertionError('cold_gather wrote a row outside pos')
   row = d * cold.element_size()
@@ -1880,64 +1939,283 @@ def check_cold(torch, ops, timer, b, cold, pos, rel, time_it=True):
   bound = max(link_b / LINK_BYTES_PER_S, dev_b / HBM_BYTES_PER_S) * 1e3
   rec = {'rows': m, 'out_rows': b, 'cold_rows': int(cold.shape[0]),
          'dtype': str(cold.dtype).replace('torch.', ''), 'row_bytes': row,
+         'ids': str(pos.dtype).replace('torch.', ''),
          'byte_equal': True, 'max_abs_err': float(
              (got.float() - ref.float()).abs().max()) if b else 0.0,
-         'link_bytes': link_b, 'bound_ms': bound, 'launches': launched}
+         'link_bytes': link_b, 'bound_ms': bound, 'launches': launched,
+         'plans': plans}
   if time_it and m:
     out = init.clone()
     src = torch.empty(link_b, dtype=torch.uint8).pin_memory()
     dst = torch.empty(link_b, dtype=torch.uint8, device=DEVICE)
-    rec['kernel_ms'] = timer(lambda: ops.cold_gather(out, cold, pos, rel))
-    rec['plain_ms'] = timer(lambda: ops.cold_gather_plain(out, cold, pos,
-                                                          rel))
+    rec['kernel_ms'] = timer(lambda: fn(out, cold, pos, rel))
+    if time_plain:
+      rec['plain_ms'] = timer(lambda: ops.cold_gather_plain(out, cold, pos,
+                                                            rel))
     rec['library_ms'] = timer(lambda: dst.copy_(src, non_blocking=True))
     rec['achieved_gbps'] = link_b / rec['kernel_ms'] / 1e6
+    rec['rows_per_us'] = m / rec['kernel_ms'] / 1e3
     rec['link_share'] = bound / rec['kernel_ms']
     rec['copy_share'] = rec['library_ms'] / rec['kernel_ms']
   return rec
 
 
+def run_rels(rng, m: int, n: int) -> np.ndarray:
+  """``m`` distinct rows of ``[0, n)`` in runs of 1-9 adjacent rows (a
+  run's neighbours share 128-B lines of the block), at least one row
+  apart, the first run at row 0 and the last ending at ``n - 1``; the
+  runs in random order."""
+  lens = rng.integers(1, 10, m)
+  lens = lens[:int(np.searchsorted(np.cumsum(lens), m)) + 1]
+  lens[-1] -= int(lens.sum()) - m
+  k = len(lens)
+  extra = np.zeros(k, np.int64)
+  extra[1:] = rng.multinomial(n - m - (k - 1), np.full(k - 1, 1 / (k - 1)))
+  starts = np.cumsum(np.concatenate([[0], lens[:-1] + 1])) + np.cumsum(extra)
+  runs = [np.arange(s, s + ln) for s, ln in zip(starts, lens)]
+  return np.concatenate([runs[i] for i in rng.permutation(k)])
+
+
 def forced_cold_sets(torch, ops, timer, seed=23):
   """K6 on forced shapes: every `COLD_LAYOUTS` row width at M = 0 (no
-  launch), 1 and 7 miss rows with ``rel`` at 0 and at Nc - 1, over a
-  `pin_memory` block; the 12-byte layout also through a block that
-  starts one row into its allocation, and through a registered block
-  (`PinnedColdBuffer`); a block that is not page-locked must raise."""
+  launch), 1 and 7 miss rows with ``rel`` at 0 and at Nc - 1, and at
+  `COLD_RUN_ROWS` rows in runs of adjacent ``rel`` (`run_rels`), over a
+  `pin_memory` block; the 12- and 400-byte layouts also through a block
+  that starts one row into its allocation and through a registered
+  block (`PinnedColdBuffer`).  Ids are the wrapper's type
+  (`cold_id_dtype`); int64 ids, mismatched id types and a block that is
+  not page-locked must raise."""
   from graphlearn_tpu_torch.data.cold_cache import PinnedColdBuffer
   rng = np.random.default_rng(seed)
+  idt = cold_id_dtype(torch, ops)
   cases = {}
-  b, nc = 64, COLD_FORCED_ROWS
+  nc = COLD_FORCED_ROWS
   for cols, dt in COLD_LAYOUTS:
     dtype = getattr(torch, dt)
     host = torch.from_numpy(rng.standard_normal((nc + 1, cols)).astype(
         np.float32)).to(dtype)
     blocks = {'pinned': host[:nc].clone().pin_memory()}
-    if cols == 3:
+    registered = None
+    if cols in (3, 100) and dt == 'float32':
       blocks['offset'] = host.clone().pin_memory()[1:]
       registered = PinnedColdBuffer(host[:nc], cols, device=DEVICE)
       blocks['registered'] = registered.rows
     for kind, cold in blocks.items():
-      for m in (0, 1, 7):
+      for m in (0, 1, 7, COLD_RUN_ROWS):
+        b = COLD_RUN_OUT if m == COLD_RUN_ROWS else 64
         pos = rng.choice(b, m, replace=False).astype(np.int64)
-        rel = rng.integers(0, cold.shape[0], m).astype(np.int64)
-        if m:
-          rel[0], rel[-1] = 0, cold.shape[0] - 1
+        if m == COLD_RUN_ROWS:
+          rel = run_rels(rng, m, cold.shape[0])
+        else:
+          rel = rng.integers(0, cold.shape[0], m).astype(np.int64)
+          if m:
+            rel[0], rel[-1] = 0, cold.shape[0] - 1
         rec = check_cold(torch, ops, timer, b, cold,
-                         torch.from_numpy(pos).to(DEVICE),
-                         torch.from_numpy(rel).to(DEVICE),
-                         time_it=(m == 7))
-        cases[f'{cols}x{dt} {kind} M={m}'] = rec
-    if cols == 3:
+                         torch.from_numpy(pos).to(DEVICE, idt),
+                         torch.from_numpy(rel).to(DEVICE, idt),
+                         time_it=m >= 7)
+        name = 'runs' if m == COLD_RUN_ROWS else f'M={m}'
+        cases[f'{cols}x{dt} {kind} {name}'] = rec
+    if registered is not None:
       registered.close()
-  try:
-    ops.cold_gather(torch.zeros(4, 3, device=DEVICE), torch.zeros(8, 3),
-                    torch.zeros(1, dtype=torch.int64, device=DEVICE),
-                    torch.zeros(1, dtype=torch.int64, device=DEVICE))
-  except ValueError:
-    pass
-  else:
-    raise AssertionError('cold_gather took a block that is not pinned')
+  wrong = [(torch.zeros(4, 3, device=DEVICE), torch.zeros(8, 3), idt, idt,
+            'a block that is not pinned')]
+  pinned = torch.zeros(8, 3).pin_memory()
+  if idt == torch.int32:
+    wrong += [(torch.zeros(4, 3, device=DEVICE), pinned, torch.int64,
+               torch.int64, 'int64 ids'),
+              (torch.zeros(4, 3, device=DEVICE), pinned, torch.int32,
+               torch.int64, 'mismatched id types')]
+  for out, cold, pt, rt, what in wrong:
+    try:
+      ops.cold_gather(out, cold, torch.zeros(1, dtype=pt, device=DEVICE),
+                      torch.zeros(1, dtype=rt, device=DEVICE))
+    except ValueError:
+      continue
+    raise AssertionError(f'cold_gather took {what}')
   return cases
+
+
+def thp_mode() -> dict:
+  """The host's transparent-huge-page settings (the selected word)."""
+  out = {}
+  for key in ('enabled', 'defrag'):
+    try:
+      with open(f'/sys/kernel/mm/transparent_hugepage/{key}') as f:
+        text = f.read()
+      out[key] = text[text.index('[') + 1:text.index(']')]
+    except (OSError, ValueError):
+      out[key] = None
+  return out
+
+
+def huge_block(torch, shape, dtype):
+  """An uninitialised CPU tensor on a 2 MiB boundary whose pages are
+  advised huge (``madvise(MADV_HUGEPAGE)``) before anything touches
+  them; its own storage starts at the boundary (what a registration and
+  `is_pinned` read) and holds the larger allocation it lives in."""
+  import ctypes
+  huge = 2 << 20
+  nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+  span = -(-nbytes // huge) * huge
+  raw = torch.empty(span + huge, dtype=torch.uint8)
+  at = raw.data_ptr() + (-raw.data_ptr() % huge)
+  libc = ctypes.CDLL(None, use_errno=True)
+  libc.madvise.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int)
+  if libc.madvise(at, span, 14) != 0:          # MADV_HUGEPAGE
+    raise OSError(ctypes.get_errno(), 'madvise(MADV_HUGEPAGE) failed')
+  buf = (ctypes.c_uint8 * nbytes).from_address(at)
+  buf.owner = raw
+  return torch.frombuffer(buf, dtype=torch.uint8).view(dtype).view(
+      tuple(shape))
+
+
+def host_pages(t) -> dict:
+  """How the host backs a CPU tensor's bytes: its start's offset in a 2
+  MiB page and, from ``/proc/self/smaps``, the kB of the mappings it
+  spans and of those that are transparent huge pages."""
+  lo = t.data_ptr()
+  hi = lo + t.numel() * t.element_size()
+  rec = {'start_mod_2m': lo % (2 << 20), 'mapped_kb': 0, 'anon_huge_kb': 0}
+  try:
+    with open('/proc/self/smaps') as f:
+      inside = False
+      for line in f:
+        head = line.split()[0]
+        if '-' in head and not head.endswith(':'):
+          a, z = (int(x, 16) for x in head.split('-'))
+          inside = a < hi and z > lo
+        elif inside and head in ('Rss:', 'AnonHugePages:'):
+          key = 'mapped_kb' if head == 'Rss:' else 'anon_huge_kb'
+          rec[key] += int(line.split()[1])
+  except OSError:
+    pass
+  return rec
+
+
+#: timing rounds of K6's diagnosis cases, taken in turns
+K6_DIAG_ROUNDS = 3
+
+
+def k6_diagnosis(torch, ops, timer, b, cold, pos, rel):
+  """What bounds K6: the kernel on variants of a tiered-train batch's
+  miss set, each beside its bound and a pinned copy of the same bytes,
+  all byte-equal to the plain version.  (a) the pairs as the path gives
+  them; (b) sorted by ``rel`` (``pos`` permuted along: locality in the
+  host block); (c) ``rel = arange(M)`` (a streaming read through the
+  kernel at the same M); (d) (a) and (c) over a ``[Nc, 128]`` f32 block
+  (512-byte rows, each starting on a 128-byte line); (e) (a) over a
+  `pin_memory` (`cudaHostAlloc`) copy of the block instead of the
+  registered one; (f) (a) and (b) over a 2 MiB-aligned copy advised huge
+  pages (`huge_block`).  The kernel is timed in
+  `K6_DIAG_ROUNDS` rounds, every case once a round in turn (the host
+  link's rate drifts over seconds); ``kernel_ms`` is the median of the
+  rounds' medians, ``rounds_ms`` each round's."""
+  from graphlearn_tpu_torch.data.cold_cache import PinnedColdBuffer
+  from graphlearn_tpu_torch.ops.cold_gather import (host_register,
+                                                    host_unregister)
+  order = torch.argsort(rel.long(), stable=True)
+  stream = torch.arange(pos.numel(), dtype=rel.dtype, device=DEVICE)
+  wide = PinnedColdBuffer(
+      torch.nn.functional.pad(cold, (0, 128 - cold.shape[1])), 128,
+      device=DEVICE)
+  pinned = cold.clone().pin_memory()
+  huge = huge_block(torch, cold.shape, cold.dtype)
+  huge.copy_(cold)
+  host_register(huge)
+  cases = {
+      '(a) path order': (cold, pos, rel),
+      '(b) sorted by rel': (cold, pos[order], rel[order]),
+      '(c) rel = arange(M)': (cold, pos, stream),
+      '(d) 512-B rows, path order': (wide.rows, pos, rel),
+      '(d) 512-B rows, rel = arange(M)': (wide.rows, pos, stream),
+      '(e) pin_memory block, path order': (pinned, pos, rel),
+      '(f) huge-page block, path order': (huge, pos, rel),
+      '(f) huge-page block, sorted by rel': (huge, pos[order], rel[order]),
+  }
+  kern = k6_kernel(ops)
+  fns = {tag: kern for tag in cases}
+  cases['(g) wrapper (plan step + kernel), path order'] = (cold, pos, rel)
+  fns['(g) wrapper (plan step + kernel), path order'] = ops.cold_gather
+  recs = {}
+  for tag, (blk, p, r) in cases.items():
+    recs[tag] = check_cold(torch, ops, timer, b, blk, p, r, time_plain=False,
+                           fn=fns[tag])
+    recs[tag]['host_pages'] = host_pages(blk)
+  rounds = {tag: [] for tag in cases}
+  for _ in range(K6_DIAG_ROUNDS):
+    for tag, (blk, p, r) in cases.items():
+      out = torch.empty(b, blk.shape[1], dtype=blk.dtype, device=DEVICE)
+      rounds[tag].append(timer(lambda: fns[tag](out, blk, p, r)))
+  for tag, rec in recs.items():
+    ms = float(np.median(rounds[tag]))
+    rec.update(kernel_ms=ms, rounds_ms=rounds[tag],
+               achieved_gbps=rec['link_bytes'] / ms / 1e6,
+               rows_per_us=rec['rows'] / ms / 1e3,
+               link_share=rec['bound_ms'] / ms,
+               copy_share=rec['library_ms'] / ms)
+    emit('kernel', kernel='cold_gather', shape=f'diagnosis {tag}', **rec)
+  wide.close()
+  host_unregister(huge)
+  del wide, pinned, huge
+  out = {tag: {k: r[k] for k in ('rows', 'row_bytes', 'kernel_ms',
+                                 'rounds_ms', 'bound_ms', 'library_ms',
+                                 'achieved_gbps', 'rows_per_us',
+                                 'link_share', 'copy_share', 'host_pages')}
+         for tag, r in recs.items()}
+  out['plan_sweep'] = k6_plan_sweep(torch, ops, timer, b, cold, pos, rel)
+  return out
+
+
+#: miss counts of the plan-step sweep (subsets of a training batch's
+#: misses; the batch's own count is added)
+K6_PLAN_ROWS = (584, 4_096, 16_384, 65_536, 131_072)
+
+
+def k6_plan_sweep(torch, ops, timer, b, cold, pos, rel) -> dict:
+  """When the plan step pays: at each `K6_PLAN_ROWS` count (random
+  subsets of the batch's misses, in the batch's order) and at the whole
+  batch, the kernel alone on the pairs as given and in block order, the
+  plan step alone (`cold_plan`: sort + permute), and the wrapper, each
+  held byte-equal to the plain version; `K6_DIAG_ROUNDS` interleaved
+  rounds, medians.  The plan pays where the kernel on the given order
+  takes longer than the plan plus the kernel in block order."""
+  cg = k6_module()
+  kern = k6_kernel(ops)
+  plan = getattr(cg, 'cold_plan', None)
+  m = int(pos.numel())
+  rng = np.random.default_rng(29)
+  sets = {}
+  for n in [k for k in K6_PLAN_ROWS if k < m] + [m]:
+    keep = torch.from_numpy(np.sort(rng.choice(m, n, replace=False))).to(
+        DEVICE)
+    p, r = pos[keep], rel[keep]
+    order = torch.argsort(r.long(), stable=True)
+    fns = {'kernel_given_ms': (kern, p, r),
+           'kernel_block_order_ms': (kern, p[order], r[order]),
+           'wrapper_ms': (ops.cold_gather, p, r)}
+    for name, (fn, pp, rr) in fns.items():
+      check_cold(torch, ops, timer, b, cold, pp, rr, time_it=False, fn=fn)
+    if plan is not None:
+      fns['plan_ms'] = (lambda o, c, pp, rr: plan(pp, rr), p, r)
+    sets[n] = fns
+  out = torch.empty(b, cold.shape[1], dtype=cold.dtype, device=DEVICE)
+  times = {n: {k: [] for k in fns} for n, fns in sets.items()}
+  for _ in range(K6_DIAG_ROUNDS):
+    for n, fns in sets.items():
+      for name, (fn, pp, rr) in fns.items():
+        times[n][name].append(timer(lambda: fn(out, cold, pp, rr)))
+  res = {}
+  for n, t in times.items():
+    rec = {k: float(np.median(v)) for k, v in t.items()}
+    if 'plan_ms' in rec:
+      rec['plan_pays'] = bool(rec['kernel_given_ms'] > rec['plan_ms']
+                              + rec['kernel_block_order_ms'])
+    rec['plans'] = k6_expected_plans(n)
+    res[str(n)] = rec
+  emit('kernel', kernel='cold_gather', shape='diagnosis: plan-step sweep',
+       rounds=K6_DIAG_ROUNDS, sweep=res)
+  return res
 
 
 class ColdRecorder:
@@ -1969,12 +2247,16 @@ class ColdRecorder:
 def reset_tiered_counts(ops) -> None:
   reset_counts(ops)
   ops.cold_gather.launches = 0
+  ops.cold_gather.plans = 0
   ops.cold_gather_plain.calls = 0
 
 
 def read_tiered_counts(ops) -> tuple:
+  """``(launches, plain calls)`` since `reset_tiered_counts`; the
+  launches carry K6's plan steps as ``cold_gather_plans``."""
   launches, plain = read_counts(ops)
   launches['cold_gather'] = ops.cold_gather.launches
+  launches['cold_gather_plans'] = ops.cold_gather.plans
   return launches, plain + ops.cold_gather_plain.calls
 
 
@@ -2049,9 +2331,11 @@ def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
     raise AssertionError(f'tiered serving failed: {errors[:3]} stats={st}')
   d = st['dispatches']
   with_misses = sum(1 for m in rec.misses if m)
+  plans = sum(k6_expected_plans(m) for m in rec.misses)
   if not (launches['sample_one_hop'] == len(FANOUTS) * d
           and launches['gather_rows'] == d == len(fills)
-          and launches['cold_gather'] == with_misses > 0 and plain == 0):
+          and launches['cold_gather'] == with_misses > 0
+          and launches['cold_gather_plans'] == plans and plain == 0):
     raise AssertionError(f'tiered serve launches {launches}, plain {plain}, '
                          f'dispatches {d}, with misses {with_misses}')
   for i, res in enumerate(results):
@@ -2156,14 +2440,16 @@ def device_idle(torch, run, n) -> dict:
 
 
 def tiered_train(torch, ops, timer, indptr, indices, feats_h, feats, labels,
-                 train_idx):
+                 train_idx, prof=False):
   """BASELINE config 1's per-batch step over `bench_feature.py`'s tiered
   store: the products table sorted by in-degree at split 0.2 (489,806
   hot rows, 1,959,223 cold rows pinned, the 'auto' cache), batch 1,024,
   ``GraphSAGE(100, 256, 47, 3)``, Adam(3e-3); `NeighborLoader` with
   ``prefetch=0``, then ``prefetch=2`` over the same seeds (the model
-  re-initialised alike): 3 warm and 20 timed steps each, the device's
-  idle share over 3 more.  Checks: the runs' batches byte-equal (whole
+  re-initialised alike): 3 warm and 20 timed steps each, and with
+  ``prof`` the device's idle share over 3 more (a `torch.profiler`
+  window; its stop crashed some runs while the prefetch worker ran, so
+  the default run leaves it out).  Checks: the runs' batches byte-equal (whole
   warm batches, digests of the timed ones), every valid node's x row and
   label equal to its source, per batch 3 K1, 1 K2 and 1 K6 launches and
   no plain call, the losses falling."""
@@ -2222,9 +2508,11 @@ def tiered_train(torch, ops, timer, indptr, indices, feats_h, feats, labels,
     launches, plain = read_tiered_counts(ops)
     rates = cache_rates(f, stats0)
     with_misses = sum(1 for m in rec.misses if m)
+    plans = sum(k6_expected_plans(m) for m in rec.misses)
     if not (launches['sample_one_hop'] == len(FANOUTS) * produced
             and launches['gather_rows'] == produced
             and launches['cold_gather'] == with_misses == produced
+            and launches['cold_gather_plans'] == plans
             and plain == 0 and produced >= TIERED_WARM + TIERED_TIMED):
       raise AssertionError(f'tiered train (prefetch={pf}) launches '
                            f'{launches}, plain {plain}, batches {produced}, '
@@ -2240,6 +2528,7 @@ def tiered_train(torch, ops, timer, indptr, indices, feats_h, feats, labels,
       k6 = check_cold(torch, ops, timer, *rec.last)
       emit('kernel', kernel='cold_gather', shape='tiered train batch misses',
            **k6)
+      k6['diagnosis'] = k6_diagnosis(torch, ops, timer, *rec.last)
     del rec, batch, digs
     parts = None
     if pf == 0:
@@ -2263,10 +2552,14 @@ def tiered_train(torch, ops, timer, indptr, indices, feats_h, feats, labels,
                           ('model', c, z)):
           parts[key].append((v - u) * 1e3)
       del batch, out
-    it = iter(loader)
-    idle = device_idle(torch, lambda: step(next(it))[0], TIERED_PROFILE_STEPS)
+    idle = None
+    if prof:
+      it = iter(loader)
+      idle = device_idle(torch, lambda: step(next(it))[0],
+                         TIERED_PROFILE_STEPS)
+      del it
     loader.close()
-    del it, model, opt, step, loader
+    del model, opt, step, loader
     runs[pf] = {'step_ms': wall / TIERED_TIMED * 1e3,
                 'seeds_per_s': TIERED_TIMED * TRAIN_BATCH / wall,
                 'wall_secs': wall, 'batches_produced': produced,
@@ -3637,6 +3930,31 @@ def profile(torch, eng):
             for us, k, c in top[:10]])
 
 
+def tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
+                  train_idx, full=True, prof=False) -> tuple:
+  """The single-card tiered store and K6: the link's rate, K6's forced
+  sets, tiered serving, tiered training (with K6's diagnosis), then,
+  when ``full``, the lookup sweep and the card-vs-CPU cross-check."""
+  link = link_rate(torch, timer)
+  k6_forced = forced_cold_sets(torch, ops, timer)
+  emit('kernel', kernel='cold_gather', shape='forced sets', link=link,
+       thp=thp_mode(), cases=k6_forced)
+  feats_h = feats.cpu()
+  tserve_launches, k6_serve = tiered_serve(torch, ops, timer, indptr,
+                                           indices, feats_h, ds)
+  ttrain_runs, k6_train, ds_t = tiered_train(
+      torch, ops, timer, indptr, indices, feats_h, feats, labels, train_idx,
+      prof=prof)
+  if full:
+    feature_lookup(torch, ds, ds_t, train_idx)
+  ds_t.node_features.close()
+  del ds_t, feats_h
+  if full:
+    tiered_cross_check(torch)
+  torch.cuda.empty_cache()
+  return link, k6_forced, tserve_launches, k6_serve, ttrain_runs, k6_train
+
+
 def main(argv) -> int:
   t_start = time.perf_counter()
   import torch
@@ -3668,6 +3986,8 @@ def main(argv) -> int:
        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
   kernels = run(torch, argv)
   emit('wall', secs=time.perf_counter() - t_start)
+  if kernels is None:               # --k6: the tiered phases alone
+    return 0
   print(json.dumps({'kernels': kernels}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': name,
@@ -3706,8 +4026,14 @@ def run(torch, argv) -> list:
        bytes={'csr': indptr.numel() * 8 + indices.numel() * 4,
               'features': feats.numel() * 4})
 
-  # -- kernel vs plain --------------------------------------------------
   timer = Timer(torch)
+  if '--k6' in argv:
+    labels = make_labels(torch, feats)
+    tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
+                  train_splits()[0], full=False)
+    return None
+
+  # -- kernel vs plain --------------------------------------------------
   seeds16 = torch.from_numpy(np.random.default_rng(2).integers(
       0, NUM_NODES, 16).astype(np.int32)).to(DEVICE)
   frontier, levels, hops = seeds16, [seeds16], []
@@ -3777,20 +4103,9 @@ def run(torch, argv) -> list:
   torch.cuda.empty_cache()
 
   # -- the single-card tiered store and its cold gather (K6) ------------
-  link = link_rate(torch, timer)
-  k6_forced = forced_cold_sets(torch, ops, timer)
-  emit('kernel', kernel='cold_gather', shape='forced sets', link=link,
-       cases=k6_forced)
-  feats_h = feats.cpu()
-  tserve_launches, k6_serve = tiered_serve(torch, ops, timer, indptr,
-                                           indices, feats_h, ds)
-  ttrain_runs, k6_train, ds_t = tiered_train(
-      torch, ops, timer, indptr, indices, feats_h, feats, labels, train_idx)
-  feature_lookup(torch, ds, ds_t, train_idx)
-  ds_t.node_features.close()
-  del ds_t, feats_h
-  tiered_cross_check(torch)
-  torch.cuda.empty_cache()
+  link, k6_forced, tserve_launches, k6_serve, ttrain_runs, k6_train = (
+      tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
+                    train_idx, prof='--profile' in argv))
 
   # -- GNS-biased training over the tiered store ------------------------
   ds_g = gns_data(torch, indptr, indices, feats, labels)
@@ -4002,19 +4317,26 @@ def run(torch, argv) -> list:
        'link_gbps': link['gbps'], 'link_peak_gbps': link['peak_gbps'],
        'train_shape': {
            'shape': f'{k6_train["rows"]} miss rows x '
-                    f'{k6_train["row_bytes"]} B of a tiered train batch',
+                    f'{k6_train["row_bytes"]} B of a tiered train batch '
+                    '(plan step + kernel)',
            'ms': k6_train['kernel_ms'], 'plain_ms': k6_train['plain_ms'],
            'bound_ms': k6_train['bound_ms'],
            'library_ms': k6_train['library_ms'],
            'achieved_gbps': k6_train['achieved_gbps'],
            'link_share': k6_train['link_share'],
-           'copy_share': k6_train['copy_share'], 'byte_equal': True},
+           'copy_share': k6_train['copy_share'], 'plans': k6_train['plans'],
+           'byte_equal': True},
+       'diagnosis': k6_train['diagnosis'],
        'forced_sets': len(k6_forced),
        'forced_ms': {k: r['kernel_ms'] for k, r in k6_forced.items()
                      if 'kernel_ms' in r},
        'launches_by_path': {
            'tiered_serve': tserve_launches['cold_gather'],
            'tiered_train': {k: r['launches']['cold_gather']
+                            for k, r in ttrain_runs.items()}},
+       'plans_by_path': {
+           'tiered_serve': tserve_launches['cold_gather_plans'],
+           'tiered_train': {k: r['launches']['cold_gather_plans']
                             for k, r in ttrain_runs.items()}}},
   ]
   return kernels

@@ -29,6 +29,7 @@ import torch
 from ..ops.gather_rows import gather_rows
 from ..testing import chaos
 from ..utils import convert_to_array, resolve_device
+from ..utils.tensor import PinnedStaging
 from .cold_cache import (DeviceColdCache, PinnedColdBuffer,
                          emit_cache_events, resolve_cache_rows)
 
@@ -107,6 +108,7 @@ class Feature:
                         if 0 < self.hot_rows < n else 0)
     self._cold_cache: Optional[DeviceColdCache] = None
     self._pinned_cold: Optional[PinnedColdBuffer] = None
+    self._staging = PinnedStaging(pin=self._device.type == 'cuda')
     self._ready = False
     #: valid ids looked up, and those past the hot tier (the cache's
     #: denominator), over the tiered path
@@ -240,8 +242,16 @@ class Feature:
       miss_sel = cold_sel & ~hit
     tick('cache_lookup')
     pos = np.nonzero(miss_sel)[0]
-    pr = torch.from_numpy(np.stack([pos, idx[pos] - self.hot_rows])).to(dev)
-    self._pinned_cold.gather(out, pr[0], pr[1])
+    m = len(pos)
+    # (pos, rel) as int32, staged in one reusable (pinned, on a card)
+    # buffer and uploaded in one copy that does not wait for the card
+    ids = self._staging.take(2 * m, 1, torch.int32).view(-1)
+    ids_h = ids.numpy()
+    ids_h[:m] = pos
+    np.subtract(idx[pos], self.hot_rows, out=ids_h[m:], casting='unsafe')
+    ids = ids.to(dev, non_blocking=True)
+    self._staging.record()
+    self._pinned_cold.gather(out, ids[:m], ids[m:])
     tick('cold_fill')
     if cache is not None:
       out = cache.serve_hits(out, hit, slot)

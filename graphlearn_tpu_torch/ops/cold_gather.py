@@ -57,30 +57,32 @@ def _check(out, cold, pos, rel) -> None:
     raise ValueError(f'dtype mismatch: out is {out.dtype}, the cold block '
                      f'{cold.dtype} (the cast happens once, at build)')
   for name, t in (('pos', pos), ('rel', rel)):
-    if t.ndim != 1 or t.dtype != torch.int64:
-      raise ValueError(f'{name} must be [M] int64, got {t.dtype} '
-                       f'{tuple(t.shape)}')
+    if t.ndim != 1 or t.dtype != torch.int32:
+      raise ValueError(f'{name} must be [M] int32 (the JAX gather\'s id '
+                       f'type), got {t.dtype} {tuple(t.shape)}')
   if pos.shape != rel.shape:
     raise ValueError(f'pos {tuple(pos.shape)} and rel {tuple(rel.shape)} '
                      'differ in length')
 
 
-def cold_gather(out: torch.Tensor, cold: torch.Tensor, pos: torch.Tensor,
-                rel: torch.Tensor) -> torch.Tensor:
-  """Fill ``out[pos[i]] = cold[rel[i]]`` (see the module docstring);
-  returns ``out``.
+#: misses from which the wrapper serves a fill in block order (the plan
+#: step, `cold_plan`); chip_smoke.py's K6 diagnosis times the kernel on
+#: both orders and the plan alone at 584 to 455,371 rows (see PERF.md)
+PLAN_MIN_ROWS = 1 << 16
 
-  On CUDA: ``out`` contiguous on the card, ``cold`` a contiguous
-  page-locked host tensor of ``out``'s dtype and width, ``pos`` and
-  ``rel`` int64 on ``out``'s device.  Launches on the current stream
-  without synchronising; ``M = 0`` launches nothing.
-  """
-  _check(out, cold, pos, rel)
+
+def cold_plan(pos: torch.Tensor, rel: torch.Tensor):
+  """The plan step: the ``(pos, rel)`` pairs in block order (``rel``
+  ascending), by a library sort on the tensors' device.  The positions
+  are distinct, so a fill in this order equals a fill in any other."""
+  rel, order = torch.sort(rel)
+  return pos[order], rel
+
+
+def _check_card(out, cold, pos, rel) -> None:
   dev = out.device
-  if dev.type == 'cpu':
-    return cold_gather_plain(out, cold, pos, rel)
   if dev.type != 'cuda':
-    raise ValueError(f'cold_gather runs on cpu or cuda, not {dev}')
+    raise ValueError(f'the cold-gather kernel runs on cuda, not {dev}')
   if cold.device.type != 'cpu' or not cold.is_pinned():
     raise ValueError('the cold block must be a page-locked host tensor '
                      '(pinned or registered); got one on '
@@ -91,22 +93,60 @@ def cold_gather(out: torch.Tensor, cold: torch.Tensor, pos: torch.Tensor,
     if t.device != dev or not t.is_contiguous():
       raise ValueError(f'{name} must be contiguous on {dev}; got '
                        f'{t.device}')
-  m = pos.numel()
-  if m == 0:
-    return out
+
+
+def _launch(out, cold, pos, rel) -> torch.Tensor:
   fn = _build.kernel('cold_gather', 'glt_cold_gather', _ARGTYPES)
   base = cold.untyped_storage().data_ptr()
   err = fn(base, cold.data_ptr() - base, cold.shape[0],
            cold.shape[1] * cold.element_size(), pos.data_ptr(),
-           rel.data_ptr(), m, out.data_ptr(), out.shape[0],
-           torch.cuda.current_stream(dev).cuda_stream)
+           rel.data_ptr(), pos.numel(), out.data_ptr(), out.shape[0],
+           torch.cuda.current_stream(out.device).cuda_stream)
   _build.check(err, 'cold_gather')
   cold_gather.launches += 1
   return out
 
 
+def cold_gather(out: torch.Tensor, cold: torch.Tensor, pos: torch.Tensor,
+                rel: torch.Tensor) -> torch.Tensor:
+  """Fill ``out[pos[i]] = cold[rel[i]]`` (see the module docstring);
+  returns ``out``.  The positions ``pos`` must be distinct.
+
+  On CUDA: ``out`` contiguous on the card, ``cold`` a contiguous
+  page-locked host tensor of ``out``'s dtype and width, ``pos`` and
+  ``rel`` int32 on ``out``'s device.  From `PLAN_MIN_ROWS` misses the
+  pairs are first put in block order (`cold_plan`, counted in
+  ``cold_gather.plans``).  Launches on the current stream without
+  synchronising; ``M = 0`` launches nothing.
+  """
+  _check(out, cold, pos, rel)
+  if out.device.type == 'cpu':
+    return cold_gather_plain(out, cold, pos, rel)
+  _check_card(out, cold, pos, rel)
+  if pos.numel() == 0:
+    return out
+  if pos.numel() >= PLAN_MIN_ROWS:
+    pos, rel = cold_plan(pos, rel)
+    cold_gather.plans += 1
+  return _launch(out, cold, pos, rel)
+
+
 #: kernel launches (counted where the kernel is launched, nowhere else)
 cold_gather.launches = 0
+#: plan steps (`cold_plan` on the card before a launch)
+cold_gather.plans = 0
+
+
+def cold_gather_kernel(out: torch.Tensor, cold: torch.Tensor,
+                       pos: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
+  """The kernel alone, in the pairs' own order (no plan step), on the
+  card only: what K6's diagnosis times.  Its launches count in
+  ``cold_gather.launches``."""
+  _check(out, cold, pos, rel)
+  _check_card(out, cold, pos, rel)
+  if pos.numel() == 0:
+    return out
+  return _launch(out, cold, pos, rel)
 
 
 def host_register(t: torch.Tensor) -> None:
@@ -124,3 +164,4 @@ def host_register(t: torch.Tensor) -> None:
 def host_unregister(t: torch.Tensor) -> None:
   fn = _build.kernel('cold_gather', 'glt_host_unregister', (_P,))
   _build.check(fn(t.data_ptr()), 'cudaHostUnregister')
+

@@ -67,6 +67,7 @@ from ..telemetry.aggregate import exchange_summary
 from ..telemetry.live import live
 from ..telemetry.recorder import recorder
 from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
+from ..utils.tensor import PinnedStaging
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
 from .exchange import capacity_spec, plan_exchange
@@ -219,30 +220,6 @@ def overlay_cold_host(x: torch.Tensor, nodes_host: np.ndarray, cold_host,
   pos = torch.from_numpy(flat).to(x.device)
   x.view(-1, x.shape[-1]).index_copy_(0, pos, rows)
   return n_cold
-
-
-class PinnedStaging:
-  """A reusable pinned host buffer for the cold rows of one batch, grown
-  by powers of two; a reuse waits for the previous copy out of it."""
-
-  def __init__(self):
-    self._buf = None
-    self._event = None
-
-  def take(self, n: int, dim: int, dtype) -> torch.Tensor:
-    if self._event is not None:
-      self._event.synchronize()
-    rows = 1 << max(int(n) - 1, 0).bit_length()
-    if (self._buf is None or self._buf.shape[0] < rows
-        or self._buf.shape[1] != dim or self._buf.dtype != dtype):
-      self._buf = torch.empty((rows, dim), dtype=dtype, pin_memory=True)
-    return self._buf[:n]
-
-  def record(self) -> None:
-    """Mark the copy out of the buffer, on the current stream (a
-    prefetch worker's own stream inside the worker)."""
-    self._event = torch.cuda.Event()
-    self._event.record(torch.cuda.current_stream())
 
 
 #: `AdaptiveSlack` ladder, tightest first (None = exact).  The sub-1.25

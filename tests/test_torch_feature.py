@@ -209,9 +209,9 @@ def test_cold_gather_plain_contract():
   rows = np.random.default_rng(0).standard_normal((32, 8))
   buf = PinnedColdBuffer(rows, 8, torch.float32, device='cpu')
   assert buf.rows.dtype == torch.float32
-  idx = np.array([3, 0, 31], np.int64)
+  idx = np.array([3, 0, 31], np.int32)
   out = torch.full((5, 8), 7.0)
-  pos = torch.tensor([4, 0, 2])
+  pos = torch.tensor([4, 0, 2], dtype=torch.int32)
   before = cold_gather_plain.calls
   buf.gather(out, pos, torch.from_numpy(idx))
   assert cold_gather_plain.calls == before + 1
@@ -219,14 +219,14 @@ def test_cold_gather_plain_contract():
                                 rows[idx].astype(np.float32))
   assert (out.numpy()[[1, 3]] == 7.0).all()
   assert 'memory.tier_bytes{tier=pinned_host}' in live.snapshot()
-  empty = torch.empty(0, dtype=torch.int64)
+  empty = torch.empty(0, dtype=torch.int32)
   assert cold_gather(out, buf.rows, empty, empty) is out
   with pytest.raises(ValueError, match='dtype'):
     cold_gather(out.double(), buf.rows, pos, pos)
   with pytest.raises(ValueError, match='width'):
     cold_gather(torch.zeros(5, 4), buf.rows, pos, pos)
-  with pytest.raises(ValueError, match='int64'):
-    cold_gather(out, buf.rows, pos.int(), pos)
+  with pytest.raises(ValueError, match='int32'):
+    cold_gather(out, buf.rows, pos.long(), pos)
   with pytest.raises(ValueError, match=r'\[rows, 8\]'):
     PinnedColdBuffer(rows[:, :4], 8, device='cpu')
 
