@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
-per-batch training, fused tree training, tiered feature store, GNS
-training and partitioned mesh paths on one NVIDIA card.
+per-batch training, fused epochs (tree, bf16 tree and subgraph, each
+step a CUDA graph; the mesh's), tiered feature store, GNS training and
+partitioned mesh paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -114,14 +115,33 @@ Phases, one JSON line each; any failure exits nonzero:
           path), against their plain versions; each level's ids must be
           the ids its hop sampled and its table the source features.
   tree_train  `FusedTreeEpoch` with ``TreeSAGE(100, 256, 47, 3)``,
-          Adam(3e-3), chunks of 100 steps over the same split: one warm
-          and 3 timed epochs, `evaluate` on the test split.  Checks: 3
-          K1 and 4 K2 launches per step, no plain call, finite losses
-          falling across epochs, accuracy above 1/47.
-  train_cross_check  a 4,000-node graph on the card and on the CPU with
-          the same CPU-made draws: 3 `NeighborLoader` batches byte-equal
-          (node, x, y, edge_index, edge_mask), their GraphSAGE step
-          losses and 2 tree-epoch steps' losses within 1e-5.
+          Adam(3e-3, ``capturable=True``), chunks of 100 steps over the
+          same split: one warm and 3 timed epochs, `evaluate` on the
+          test split.  The first step runs eagerly (the warm-up), the
+          rest replay the step captured as a CUDA graph.  Checks: 3 K1
+          and 4 K2 launches per step (a replay counts its graph's), no
+          plain call, finite losses falling across epochs, accuracy
+          above 1/47, 2 captures (train, eval).
+  kernel  K1 at the three sorted hops and K2 at the x gather (937,984
+          ids x 100 f32) of the fused subgraph epoch's first step.
+  fused_session  `bench.py:252-362` (the f32 tree epoch is
+          `tree_train`'s): one tree step run eagerly and replayed from
+          the same state, seeds and coordinates (bitwise equal), both
+          timed by CUDA events over 20 steps; the bf16 tree epoch
+          (``TreeSAGE(dtype=bfloat16)``, 1 warm + 2 timed); `FusedEpoch`
+          with ``GraphSAGE(100, 256, 47, 3)`` and ``remat=True`` over
+          1,024 x 96 seeds in one chunk (a capture run and a timed run:
+          ms a step, the 200-step epoch estimated; the eager and the
+          replayed step within 1e-4: its ``index_add_`` is atomic).
+          Checks: launches per step as above (3 + 1 for the subgraph),
+          no plain call, losses falling, accuracy above 1/47, 2
+          captures per epoch object.
+  train_cross_check  a 4,000-node graph on the card and on the CPU: 3
+          `NeighborLoader` batches with the same CPU-made draws
+          byte-equal (node, x, y, edge_index, edge_mask) and their
+          GraphSAGE step losses within 1e-5; 2 tree-epoch and 3
+          subgraph-epoch (remat) steps with the default counter draws,
+          captured on the card and eager on the CPU, within 1e-5.
   kernel  the cold-row gather (K6) against its plain version on forced
           shapes (`forced_cold_sets`: rows of 4, 12, 200 (bf16 x 100),
           400, 512 and 1,024 bytes, M = 0 / 1 / 7 miss rows with ``rel``
@@ -253,9 +273,27 @@ Phases, one JSON line each; any failure exits nonzero:
           and 4 tiered with GNS, `rdma_gather` equal, logits within 1e-4
           after one DP step.
 
+  fused_mesh  `bench.py:845-942` on the untiered store (after the K5
+          line): the per-batch DP loop (`DistNeighborLoader([10, 5],
+          batch_size=512)` -> `make_dp_supervised_step`, ``GraphSAGE(100,
+          64, 47, 2)``, Adam(3e-3), 512 x 8 x 4 seeds, 3 epochs), then
+          `FusedDistEpoch` (5 runs: warm, recording its ``hop.padding``
+          events, 3 timed, then `evaluate`) and `FusedDistTreeEpoch`
+          with ``TreeSAGE(100, 64, 47, 2)`` (the same), all eager, and
+          `FusedDistEpoch` again with
+          the loader's `TorchDraws` (the draws' price): seeds/s each,
+          ``fused_vs_per_batch``, exchange counters.  Checks: 16 K1 and
+          16 K2 launches a step on every path, no plain call, finite
+          losses, every seed counted.
+
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
-by name and the device idle share of 3 steps of the per-batch, tree,
-GNS and mesh training paths) and the tiered-train idle shares.  ``--k6`` runs build, graph and the
+by name and the device idle share of 3 steps of the per-batch, GNS
+and mesh training paths), the tiered-train idle shares and the idle
+shares of the eager and the replayed tree step and `profile_train` of
+the replayed tree and subgraph steps.  ``--fused`` runs
+build, graph and the fused epochs' phases alone (`tree_train`,
+`fused_session`, `train_cross_check`, `mesh_data`, `fused_mesh`) and
+prints no ``kernels`` or result line.  ``--k6`` runs build, graph and the
 tiered phases up to `tiered_train` alone (K6's forced sets, diagnosis
 and path shapes) and prints no ``kernels`` or result line: a quick A/B
 of two trees' K6 in one call.  A ``wall`` line gives the script's
@@ -1397,13 +1435,16 @@ class TrainRecorder:
         rows = seeds[torch.argsort(torch.where(
             seeds >= 0, seeds, torch.iinfo(seeds.dtype).max),
             stable=True)].contiguous()
-      self.hops.append((indptr, indices, rows, k, u, gumbel))
+      # copies: a captured step's seeds are a static buffer that every
+      # later replay overwrites
+      self.hops.append((indptr, indices, rows.clone(), k, u.clone(),
+                        gumbel.clone()))
     return self.real_sample(indptr, indices, seeds, k, u, gumbel,
                             sort_locality=sort_locality)
 
   def gather(self, table, ids, id2index=None):
     if len(self.gathers) < self.n_gathers:
-      self.gathers.append((table, ids))
+      self.gathers.append((table, ids.clone()))
     return self.real_gather(table, ids, id2index)
 
   def __enter__(self):
@@ -1643,28 +1684,35 @@ def train(torch, ops, timer, ds, feats, labels, train_idx, test_idx,
   return launches, hop_recs, gather_rec
 
 
-def tree_train(torch, ops, timer, ds, feats, train_idx, test_idx,
-               prof=False):
+def tree_train(torch, ops, timer, ds, feats, train_idx, test_idx):
   """Path B, the fused tree epoch of `bench.py:252-312`:
-  `FusedTreeEpoch` with ``TreeSAGE(100, 256, 47, 3)``, Adam(3e-3),
-  chunks of 100 steps; one warm epoch (its first step's kernel inputs
-  recorded: K1 at the three unsorted hops and K2 at the four level
-  gathers held against their plain versions on them), `TREE_EPOCHS`
-  timed, then `evaluate` on the test split."""
+  `FusedTreeEpoch` with ``TreeSAGE(100, 256, 47, 3)``, Adam(3e-3,
+  capturable), chunks of 100 steps; one warm epoch (its first step runs
+  eagerly before the capture, and its kernel inputs are recorded: K1 at
+  the three unsorted hops and K2 at the four level gathers held against
+  their plain versions on them), `TREE_EPOCHS` timed, then `evaluate`
+  on the test split.  Every later step is a replay of the captured
+  graph, whose launches the driver counts a replay.  Returns the
+  launches, the kernel records and the epoch object (`fused_session`
+  goes on with it)."""
   import graphlearn_tpu_torch.loader.fused_tree as ftmod
   from graphlearn_tpu_torch.loader import FusedTreeEpoch
   from graphlearn_tpu_torch.models import TreeSAGE
   model = TreeSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
   model.reset_parameters(torch.Generator().manual_seed(0))
-  opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+  opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8,
+                         capturable=True)
   fused = FusedTreeEpoch(ds, FANOUTS, train_idx, model, opt,
                          batch_size=TRAIN_BATCH, shuffle=True, seed=0,
                          max_steps_per_program=100, device=DEVICE)
   steps = len(fused)
+  reset_counts(ops)
   t0 = time.perf_counter()
   with TrainRecorder(torch, ftmod, len(FANOUTS) + 1) as rec:
     warm = fused.run().losses.cpu().numpy()
   warm_secs = time.perf_counter() - t0
+  check_replay_counts(ops, 'tree warm epoch', steps,
+                      len(FANOUTS), len(FANOUTS) + 1)
   hop_recs, level_recs = [], []
   levels = [rec.gathers[0][1]]
   for t in range(len(FANOUTS)):
@@ -1690,13 +1738,8 @@ def tree_train(torch, ops, timer, ds, feats, train_idx, test_idx,
     sync(torch)
     runs.append(time.perf_counter() - t)
     epoch_losses.append(stats.losses.cpu().numpy())
-  launches, plain = read_counts(ops)
-  n = steps * TREE_EPOCHS
-  if not (launches['sample_one_hop'] == len(FANOUTS) * n
-          and launches['gather_rows'] == (len(FANOUTS) + 1) * n
-          and launches['sample_one_hop_gns'] == 0 and plain == 0):
-    raise AssertionError(f'launch counts {launches}, plain calls {plain}, '
-                         f'steps {n}')
+  launches = check_replay_counts(ops, 'tree epochs', steps * TREE_EPOCHS,
+                                 len(FANOUTS), len(FANOUTS) + 1)
   means = [float(warm.mean())] + [float(x.mean()) for x in epoch_losses]
   if not (np.isfinite(np.concatenate([warm] + epoch_losses)).all()
           and means[-1] < means[0]):
@@ -1704,31 +1747,412 @@ def tree_train(torch, ops, timer, ds, feats, train_idx, test_idx,
   acc = fused.evaluate(test_idx)
   if not acc > 1 / GNS_CLASSES:
     raise AssertionError(f'tree eval accuracy {acc}')
-  if prof:
-    seeds = np.stack(list(itertools.islice(iter(fused._batcher), 3)))
-    it = fused._steps(seeds, 1000)
-    profile_train(torch, lambda: fused._train_step(*next(it))[0], 'tree')
+  if fused.compile_count() != 2:
+    raise AssertionError(f'{fused.compile_count()} captures, not 2')
   secs = float(np.median(runs))
   flops = tree_step_flops()
   emit('tree_train', batch=TRAIN_BATCH, fanouts=list(FANOUTS),
        model=f'TreeSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
-       optimizer=f'Adam({TRAIN_LR})', max_steps_per_program=100,
+       optimizer=f'Adam({TRAIN_LR}, capturable)', max_steps_per_program=100,
        steps_per_epoch=steps, warm_secs=warm_secs, epochs=TREE_EPOCHS,
        epoch_secs_runs=runs, epoch_secs=secs, step_ms=secs / steps * 1e3,
        train_seeds_per_s=len(train_idx) / secs, tree_step_flops=flops,
        tflops=flops * steps / secs / 1e12, epoch_mean_losses=means,
-       eval_accuracy=acc, launches=launches, plain_calls=plain)
-  return launches, hop_recs, level_recs
+       eval_accuracy=acc, captures=fused.compile_count(),
+       launches=launches, plain_calls=0)
+  return launches, hop_recs, level_recs, fused, {
+      'epoch_secs': secs, 'runs': runs, 'warm_secs': warm_secs,
+      'eval_accuracy': acc, 'means': means}
+
+
+def check_replay_counts(ops, what, steps, k1, k2, k1_name='sample_one_hop'):
+  """The launches since `reset_counts` are ``k1`` sampler and ``k2``
+  row-gather launches a step over ``steps`` steps (eager steps count at
+  the call, replays through the driver's per-graph count), with no
+  plain call; returns the launches."""
+  launches, plain = read_counts(ops)
+  want = {k1_name: k1 * steps, 'gather_rows': k2 * steps}
+  got = {k: launches[k] for k in want}
+  others = sum(v for k, v in launches.items() if k not in want)
+  if got != want or others or plain:
+    raise AssertionError(f'{what}: launches {launches}, plain calls '
+                         f'{plain}, want {want} over {steps} steps')
+  return launches
+
+
+def train_tensors(fused):
+  """Every tensor a train step writes in place: the parameters and the
+  optimizer's state."""
+  out = [p.data for p in fused.model.parameters()]
+  for st in fused.optimizer.state.values():
+    out += [v for v in st.values() if hasattr(v, 'data_ptr')]
+  return out
+
+
+def eager_vs_replay(torch, fused):
+  """One train step from the same state, seeds and coordinates, eagerly
+  and as a replay of the captured graph: ``(bitwise, max abs diff over
+  the loss, counts, parameters and optimizer state)``.  The state is
+  put back between the two; the replayed step's state stays."""
+  graph = fused._replays['train']
+  seeds, coords = graph.seeds.clone(), graph.coords.clone()
+  tensors = train_tensors(fused)
+  start = [t.clone() for t in tensors]
+  eager = [t.clone() for t in fused._train_step(seeds,
+                                                tuple(coords.unbind(0)))]
+  eager += [t.clone() for t in tensors]
+  for t, s in zip(tensors, start):
+    t.copy_(s)
+  replay = [t.clone() for t in graph.replay(seeds, coords)] + tensors
+  sync(torch)
+  same = all(torch.equal(a, b) for a, b in zip(eager, replay))
+  diff = max(float((a.double() - b.double()).abs().max())
+             for a, b in zip(eager, replay) if a.numel())
+  return same, diff
+
+
+def step_ms(torch, run, n) -> float:
+  """Milliseconds a step over ``n`` steps of ``run()`` back to back, by
+  two CUDA events around them: the host's enqueue shows in the time."""
+  sync(torch)
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(n):
+    run()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end) / n
+
+
+#: `fused_session`'s subgraph epoch: `bench.py`'s 96-step subset
+SUB_STEPS = 96
+#: steps timed eagerly and replayed in `fused_session`
+STEP_COMPARE = 20
+#: tolerance of a replayed subgraph step against the eager one (its
+#: aggregation's `index_add_` adds in the order its atomics land)
+SUBGRAPH_REPLAY_TOL = 1e-4
+
+
+def fused_session(torch, ops, timer, ds, feats, train_idx, test_idx, tree,
+                  prof=False):
+  """`bench.py:252-362`, the fused session, on the card.  The f32 tree
+  epoch is `tree_train`'s (its epoch object ``tree``, captured): here
+  one of its steps runs eagerly and as a replay from the same state
+  (bitwise equal required) and both are timed.  Then the bf16 tree
+  epoch (``TreeSAGE(dtype=bfloat16)``: one warm and 2 timed epochs) and
+  `FusedEpoch` with ``GraphSAGE(100, 256, 47, 3)`` and ``remat=True``
+  over ``train_idx[:1024 * 96]`` in one 96-step chunk (a capture run
+  and a timed run; its first step's kernel inputs recorded and K1 at
+  the three sorted hops and K2 at the x gather held against their plain
+  versions), each with `evaluate`, the replay launch accounting and one
+  capture each for training and evaluation."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as nsmod
+  from graphlearn_tpu_torch.loader import FusedEpoch, FusedTreeEpoch
+  from graphlearn_tpu_torch.models import GraphSAGE, TreeSAGE
+  out = {'platform': 'gpu', 'fused_layout': 'tree',
+         'tree_step_flops': tree_step_flops()}
+  fused, f32 = tree
+  steps = len(fused)
+  out.update(epoch_secs_fused=f32['epoch_secs'],
+             fused_epoch_runs=f32['runs'],
+             fused_warm_secs=f32['warm_secs'],
+             tree_eval_accuracy=f32['eval_accuracy'],
+             train_step_tflops=tree_step_flops() / (f32['epoch_secs']
+                                                    / steps) / 1e12)
+
+  # -- the captured tree step against the eager step ------------------------
+  same, diff = eager_vs_replay(torch, fused)
+  if not same:
+    raise AssertionError(f'a replayed tree step differs from the eager '
+                         f'step (max abs diff {diff})')
+  graph = fused._replays['train']
+  seeds, coords = graph.seeds.clone(), graph.coords.clone()
+  ctuple = tuple(coords.unbind(0))
+  out['tree_step'] = {
+      'replay_bitwise_equal_to_eager': True,
+      'eager_ms': step_ms(torch, lambda: fused._train_step(seeds, ctuple),
+                          STEP_COMPARE),
+      'replayed_ms': step_ms(torch, lambda: graph.replay(seeds, coords),
+                             STEP_COMPARE),
+      'steps_timed': STEP_COMPARE}
+  if prof:
+    out['tree_step']['idle'] = {
+        'eager': device_idle(torch, lambda: fused._train_step(
+            seeds, ctuple)[0], 5),
+        'replayed': device_idle(torch, lambda: graph.replay(
+            seeds, coords)[0], 5)}
+    profile_train(torch, lambda: graph.replay(seeds, coords)[0],
+                  'tree replayed')
+
+  # -- the bf16 tree epoch ---------------------------------------------------
+  model16 = TreeSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3,
+                     dtype=torch.bfloat16).to(DEVICE)
+  model16.reset_parameters(torch.Generator().manual_seed(0))
+  fused16 = FusedTreeEpoch(
+      ds, FANOUTS, train_idx, model16,
+      torch.optim.Adam(model16.parameters(), lr=TRAIN_LR, eps=1e-8,
+                       capturable=True),
+      batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+      max_steps_per_program=100, device=DEVICE)
+  t0 = time.perf_counter()
+  warm16 = fused16.run().losses.cpu().numpy()
+  out['fused_bf16_warm_secs'] = time.perf_counter() - t0
+  reset_counts(ops)
+  runs16, losses16 = [], [warm16]
+  for _ in range(2):
+    sync(torch)
+    t = time.perf_counter()
+    stats = fused16.run()
+    sync(torch)
+    runs16.append(time.perf_counter() - t)
+    losses16.append(stats.losses.cpu().numpy())
+  launches16 = check_replay_counts(ops, 'bf16 tree epochs', 2 * steps,
+                                   len(FANOUTS), len(FANOUTS) + 1)
+  means16 = [float(x.mean()) for x in losses16]
+  if not (np.isfinite(np.concatenate(losses16)).all()
+          and means16[-1] < means16[0]):
+    raise AssertionError(f'bf16 tree losses do not fall: {means16}')
+  acc16 = fused16.evaluate(test_idx)
+  if not (acc16 > 1 / GNS_CLASSES and fused16.compile_count() == 2):
+    raise AssertionError(f'bf16 tree: accuracy {acc16}, '
+                         f'{fused16.compile_count()} captures')
+  out.update(fused_epoch_runs_bf16=runs16,
+             fused_epoch_secs_bf16=float(np.median(runs16)),
+             bf16_epoch_mean_losses=means16, bf16_eval_accuracy=acc16,
+             bf16_launches=launches16)
+  del fused16, model16
+
+  # -- the subgraph epoch with remat ------------------------------------------
+  sub_idx = train_idx[:TRAIN_BATCH * SUB_STEPS]
+  model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+  model.reset_parameters(torch.Generator().manual_seed(1))
+  sub = FusedEpoch(ds, FANOUTS, sub_idx, model,
+                   torch.optim.Adam(model.parameters(), lr=TRAIN_LR,
+                                    eps=1e-8, capturable=True),
+                   batch_size=TRAIN_BATCH, shuffle=True, seed=0, remat=True,
+                   max_steps_per_program=SUB_STEPS, device=DEVICE)
+  reset_counts(ops)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  with TrainRecorder(torch, nsmod, 1) as rec:
+    first = sub.run().losses.cpu().numpy()
+  out['fused_subgraph_compile_secs'] = time.perf_counter() - t0
+  out['fused_subgraph_peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+  check_replay_counts(ops, 'subgraph capture run', SUB_STEPS,
+                      len(FANOUTS), 1)
+  sub_hops = []
+  for t in range(len(FANOUTS)):
+    _, r = check_sampler(torch, ops, timer, *rec.hops[t])
+    emit('kernel', kernel='sample_one_hop', shape=f'fused subgraph hop {t}',
+         **r)
+    sub_hops.append(r)
+  table, ids = rec.gathers[0]
+  if not torch.equal(table, feats):
+    raise AssertionError('the subgraph step gathered from another table')
+  sub_gather = check_gather(torch, ops, timer, table, ids)
+  emit('kernel', kernel='gather_rows', shape='fused subgraph x', **sub_gather)
+  del rec
+  reset_counts(ops)
+  sync(torch)
+  t0 = time.perf_counter()
+  second = sub.run().losses.cpu().numpy()
+  sub_dt = time.perf_counter() - t0
+  sub_launches = check_replay_counts(ops, 'subgraph run', SUB_STEPS,
+                                     len(FANOUTS), 1)
+  if not (np.isfinite(np.concatenate([first, second])).all()
+          and second.mean() < first.mean()):
+    raise AssertionError(f'subgraph losses do not fall: {first.mean()} '
+                         f'-> {second.mean()}')
+  sub_acc = sub.evaluate(test_idx)
+  if not (sub_acc > 1 / GNS_CLASSES and sub.compile_count() == 2):
+    raise AssertionError(f'subgraph: accuracy {sub_acc}, '
+                         f'{sub.compile_count()} captures')
+  same, diff = eager_vs_replay(torch, sub)
+  if not diff <= SUBGRAPH_REPLAY_TOL:
+    raise AssertionError(f'a replayed subgraph step differs from the '
+                         f'eager step by {diff}')
+  sgraph = sub._replays['train']
+  sseeds, scoords = sgraph.seeds.clone(), sgraph.coords.clone()
+  sct = tuple(scoords.unbind(0))
+  out['subgraph_step'] = {
+      'replay_max_abs_diff_to_eager': diff, 'bitwise_equal': same,
+      'tolerance': SUBGRAPH_REPLAY_TOL,
+      'eager_ms': step_ms(torch, lambda: sub._train_step(sseeds, sct), 5),
+      'replayed_ms': step_ms(torch, lambda: sgraph.replay(sseeds, scoords),
+                             5),
+      'steps_timed': 5}
+  if prof:
+    profile_train(torch, lambda: sgraph.replay(sseeds, scoords)[0],
+                  'subgraph replayed')
+  out.update(fused_subgraph_steps=SUB_STEPS,
+             fused_subgraph_ms_per_step=1e3 * sub_dt / SUB_STEPS,
+             fused_subgraph_epoch_secs_est=sub_dt / SUB_STEPS * steps,
+             subgraph_mean_losses=[float(first.mean()),
+                                   float(second.mean())],
+             subgraph_eval_accuracy=sub_acc, subgraph_launches=sub_launches,
+             captures={'tree_f32': fused.compile_count(),
+                       'tree_bf16': 2, 'subgraph': sub.compile_count()},
+             plain_calls=0)
+  emit('fused_session', batch=TRAIN_BATCH, fanouts=list(FANOUTS),
+       steps_per_epoch=steps,
+       model_tree=f'TreeSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers)',
+       model_subgraph=f'GraphSAGE({FEAT_DIM}, 256, {GNS_CLASSES}, 3), '
+                      'remat', optimizer=f'Adam({TRAIN_LR}, capturable)',
+       **out)
+  return {'tree_bf16': launches16, 'subgraph': sub_launches}, sub_hops, \
+      sub_gather
+
+
+#: `fused_mesh`'s shape: `bench.py:845-942`
+FUSED_MESH_FANOUTS = (10, 5)
+FUSED_MESH_HIDDEN = 64
+FUSED_MESH_BATCHES = 4
+#: epochs a fused mesh path runs: a warm one, one with the flight
+#: recorder on, then the timed ones (their median counts)
+FUSED_MESH_RUNS = 5
+#: epochs of the per-batch DP loop (its first batch warm)
+FUSED_MESH_LOOP_EPOCHS = 3
+
+
+def fused_mesh(torch, ops, ds):
+  """`bench.py:845-942` on the untiered P = 8 store: the per-batch DP
+  loop (`DistNeighborLoader` -> `make_dp_supervised_step` with
+  ``GraphSAGE(100, 64, 47, 2)`` and Adam(3e-3), batch 512 a partition,
+  fanouts [10, 5], 512 x 8 x 4 seeds, 3 epochs; the first batch
+  warm), then `FusedDistEpoch` (5 runs: a warm one, one with the flight
+  recorder on for its ``hop.padding`` events, 3 timed (their median
+  counts), then `evaluate`) and `FusedDistTreeEpoch` with
+  ``TreeSAGE(100, 64, 47, 2)`` (the same); `FusedDistEpoch` runs a
+  second time drawing from `TorchDraws` (the loader's default) in
+  place of its counter draws, which prices the draws.  Checks: 16 K1
+  (one an owner a hop) and 16 K2 (one an owner a table) launches a step
+  on every path, no plain call, finite losses, every epoch's valid
+  seeds."""
+  from graphlearn_tpu_torch.models import GraphSAGE, TreeSAGE
+  from graphlearn_tpu_torch.ops import TorchDraws
+  from graphlearn_tpu_torch.parallel import (DistNeighborLoader,
+                                             FusedDistEpoch,
+                                             FusedDistTreeEpoch,
+                                             make_dp_supervised_step)
+  from graphlearn_tpu_torch.telemetry import recorder
+  b, fan = MESH_BATCH, FUSED_MESH_FANOUTS
+  per_step = len(fan) * MESH_PARTS
+  n_seeds = b * MESH_PARTS * FUSED_MESH_BATCHES
+  seeds = np.random.default_rng(0).permutation(NUM_NODES)[:n_seeds]
+
+  def sage(seed, cls=GraphSAGE):
+    m = cls(FEAT_DIM, FUSED_MESH_HIDDEN, GNS_CLASSES, num_layers=2).to(
+        DEVICE)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    return m, torch.optim.Adam(m.parameters(), lr=TRAIN_LR, eps=1e-8)
+
+  out = {}
+  # -- the per-batch DP loop ---------------------------------------------
+  model, opt = sage(0)
+  loader = DistNeighborLoader(ds, fan, seeds, batch_size=b, shuffle=True,
+                              seed=0, device=DEVICE)
+  step = make_dp_supervised_step(model, opt, b, loader.sampler.mesh)
+  it = iter(loader)
+  t0 = time.perf_counter()
+  float(step(next(it))[0])
+  out['per_batch_warm_secs'] = time.perf_counter() - t0
+  reset_counts(ops)
+  t0 = time.perf_counter()
+  losses = [step(x)[0] for x in it]
+  for _ in range(FUSED_MESH_LOOP_EPOCHS - 1):
+    losses += [step(x)[0] for x in loader]
+  pb_losses = torch.stack(losses).cpu().numpy()
+  pb_dt = time.perf_counter() - t0
+  check_replay_counts(ops, 'mesh per-batch loop', len(losses), per_step,
+                      per_step)
+  pb_rate = len(losses) * b * MESH_PARTS / pb_dt
+  del loader, it, step
+
+  def epochs(fused, name):
+    runs, res = [], {}
+    for r in range(FUSED_MESH_RUNS):
+      if r == 1:
+        recorder.clear()
+        recorder.enable()
+      reset_counts(ops)
+      sync(torch)
+      t = time.perf_counter()
+      stats = fused.run()
+      lv = stats.losses.cpu().numpy()
+      runs.append(time.perf_counter() - t)
+      if r == 1:
+        recorder.disable()
+        res['hop_padding'] = [
+            {k: e[k] for k in ('hop', 'nodes', 'capacity', 'fill')}
+            for e in recorder.events('hop.padding')
+            if e.get('scope') == type(fused).__name__]
+      res['launches'] = check_replay_counts(ops, name, len(fused), per_step,
+                                            per_step)
+      if not (np.isfinite(lv).all() and stats.seeds == n_seeds):
+        raise AssertionError(f'{name}: losses {lv}, seeds {stats.seeds}')
+      res.setdefault('mean_losses', []).append(float(lv.mean()))
+    acc = fused.evaluate(seeds[:b * MESH_PARTS])
+    st = fused.sampler.exchange_stats()
+    res.update(runs_secs=runs,
+               seeds_per_s=len(fused) * b * MESH_PARTS
+               / float(np.median(runs[2:])),
+               eval_accuracy=acc,
+               exchange={k: v for k, v in st.items()
+                         if k.startswith(('dist.frontier',
+                                          'dist.feature.o',
+                                          'dist.feature.d',
+                                          'dist.feature.s'))})
+    return res
+
+  model, opt = sage(1)
+  fused = FusedDistEpoch(ds, fan, seeds, model, opt, batch_size=b,
+                         shuffle=True, seed=0, device=DEVICE)
+  sub = epochs(fused, 'FusedDistEpoch')
+  # the same epoch drawing from the per-batch loader's generator-seeded
+  # uniforms instead of the counter hash: what the draws cost
+  gen = TorchDraws(0, DEVICE)
+  model, opt = sage(1)
+  fused = FusedDistEpoch(
+      ds, fan, seeds, model, opt, batch_size=b, shuffle=True, seed=0,
+      draws=lambda e, s, h, r, k, w, gns=False, owner=0: gen.draw(
+          (e, s, h, owner), r, k, w), device=DEVICE)
+  sub_gen = epochs(fused, 'FusedDistEpoch (generator draws)')
+  del fused
+  model, opt = sage(2, TreeSAGE)
+  tfused = FusedDistTreeEpoch(ds, fan, seeds, model, opt, batch_size=b,
+                              shuffle=True, seed=0, device=DEVICE)
+  tree = epochs(tfused, 'FusedDistTreeEpoch')
+  del tfused
+  emit('fused_mesh', parts=MESH_PARTS, batch=b, fanouts=list(fan),
+       seeds=n_seeds, steps_per_epoch=FUSED_MESH_BATCHES,
+       model=f'GraphSAGE({FEAT_DIM}, {FUSED_MESH_HIDDEN}, {GNS_CLASSES}, '
+             '2) / TreeSAGE (same widths)', optimizer=f'Adam({TRAIN_LR})',
+       per_batch_seeds_per_s=pb_rate, per_batch_secs=pb_dt,
+       per_batch_steps=len(losses),
+       per_batch_mean_loss=float(pb_losses.mean()),
+       fused_seeds_per_s=sub['seeds_per_s'],
+       fused_vs_per_batch=sub['seeds_per_s'] / pb_rate,
+       fused_generator_draws_seeds_per_s=sub_gen['seeds_per_s'],
+       tree_seeds_per_s=tree['seeds_per_s'],
+       tree_vs_per_batch=tree['seeds_per_s'] / pb_rate,
+       fused=sub, fused_generator_draws=sub_gen, tree=tree,
+       launches_per_step={'sample_one_hop': per_step,
+                          'gather_rows': per_step}, plain_calls=0, **out)
+  return {'fused': sub['launches'], 'tree': tree['launches']}
 
 
 def train_cross_check(torch):
   """A small graph (4,000 nodes, one hub row) on the card and on the
-  CPU with the same CPU-made draws: 3 `NeighborLoader` batches
+  CPU: 3 `NeighborLoader` batches with the same CPU-made draws
   byte-equal (node, x, y, edge_index, edge_mask) and their GraphSAGE
-  step losses within 1e-5; 2 `FusedTreeEpoch` steps' losses within
-  1e-5."""
+  step losses within 1e-5; then the fused epochs with their default
+  counter draws (the same values on both devices), captured on the card
+  and eager on the CPU: 2 `FusedTreeEpoch` steps' and 3 `FusedEpoch`
+  (remat) steps' losses within 1e-5."""
   from graphlearn_tpu_torch.data import Dataset
-  from graphlearn_tpu_torch.loader import FusedTreeEpoch, NeighborLoader
+  from graphlearn_tpu_torch.loader import (FusedEpoch, FusedTreeEpoch,
+                                           NeighborLoader)
   from graphlearn_tpu_torch.models import (GraphSAGE, TreeSAGE,
                                            make_supervised_step)
   from graphlearn_tpu_torch.ops import TorchDraws
@@ -1741,14 +2165,14 @@ def train_cross_check(torch):
   feats = rng.standard_normal((n, 16)).astype(np.float32)
   labels = rng.integers(0, 7, n).astype(np.int32)
   cpu = TorchDraws(6, 'cpu')
-  out, losses, tree_losses = {}, {}, {}
+  out, losses, tree_losses, sub_losses = {}, {}, {}, {}
   for dev in (DEVICE, 'cpu'):
     def draws(step, hop, r, k, w, dev=dev):
       return tuple(t.to(dev) for t in cpu(step, hop, r, k, w))
 
-    def tree_draws(epoch, chunk, step, hop, r, k, w, dev=dev):
-      return tuple(t.to(dev) for t in cpu.draw((epoch, chunk or 0, step,
-                                                hop), r, k, w))
+    def adam(model, dev=dev):
+      return torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8,
+                              capturable=dev != 'cpu')
     ds = (Dataset().init_graph((rows, cols), num_nodes=n, device=dev)
           .init_node_features(feats, device=dev).init_node_labels(labels))
     lo = NeighborLoader(ds, FANOUTS, np.arange(n), batch_size=64,
@@ -1764,11 +2188,17 @@ def train_cross_check(torch):
     losses[dev] = np.array([float(step(b)[0]) for b in batches])
     tm = TreeSAGE(16, 32, 7, num_layers=3).to(dev)
     tm.reset_parameters(torch.Generator().manual_seed(4))
-    fused = FusedTreeEpoch(
-        ds, FANOUTS, np.arange(128), tm,
-        torch.optim.Adam(tm.parameters(), lr=TRAIN_LR, eps=1e-8),
-        batch_size=64, seed=2, draws=tree_draws, device=dev)
+    fused = FusedTreeEpoch(ds, FANOUTS, np.arange(128), tm, adam(tm),
+                           batch_size=64, seed=2, device=dev)
     tree_losses[dev] = fused.run().losses.cpu().numpy()
+    sm = GraphSAGE(16, 32, 7, num_layers=3).to(dev)
+    sm.reset_parameters(torch.Generator().manual_seed(5))
+    sub = FusedEpoch(ds, FANOUTS, np.arange(192), sm, adam(sm),
+                     batch_size=64, seed=3, remat=True, device=dev)
+    sub_losses[dev] = sub.run().losses.cpu().numpy()
+    if dev != 'cpu' and (fused.compile_count(), sub.compile_count()) != (1,
+                                                                       1):
+      raise AssertionError('the card did not capture the fused steps')
   for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
     for name, x, y in zip(('node', 'x', 'y', 'edge_index', 'edge_mask'),
                           a, c):
@@ -1776,10 +2206,15 @@ def train_cross_check(torch):
         raise AssertionError(f'card and CPU differ: batch {i} {name}')
   diff = float(np.abs(losses[DEVICE] - losses['cpu']).max())
   tdiff = float(np.abs(tree_losses[DEVICE] - tree_losses['cpu']).max())
-  if not (diff <= 1e-5 and tdiff <= 1e-5 and len(tree_losses['cpu']) == 2):
-    raise AssertionError(f'losses differ: per-batch {diff}, tree {tdiff}')
+  sdiff = float(np.abs(sub_losses[DEVICE] - sub_losses['cpu']).max())
+  if not (diff <= 1e-5 and tdiff <= 1e-5 and sdiff <= 1e-5
+          and len(tree_losses['cpu']) == 2 and len(sub_losses['cpu']) == 3):
+    raise AssertionError(f'losses differ: per-batch {diff}, tree {tdiff}, '
+                         f'subgraph {sdiff}')
   emit('train_cross_check', batches=3, byte_equal=True,
-       loss_max_abs_diff=diff, tree_steps=2, tree_loss_max_abs_diff=tdiff)
+       loss_max_abs_diff=diff, tree_steps=2, tree_loss_max_abs_diff=tdiff,
+       subgraph_steps=3, subgraph_loss_max_abs_diff=sdiff,
+       card_captured=True)
 
 
 #: the single-card tiered store's phases: `bench_serving.py`'s tiered
@@ -3955,6 +4390,26 @@ def tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
   return link, k6_forced, tserve_launches, k6_serve, ttrain_runs, k6_train
 
 
+def fused_phases(torch, ops, timer, indptr, indices, feats, ds,
+                 prof=False) -> None:
+  """``--fused``: the fused epochs' phases alone (`tree_train`,
+  `fused_session`, `train_cross_check`, then `mesh_data` and
+  `fused_mesh`)."""
+  labels = make_labels(torch, feats)
+  ds.init_node_labels(labels)
+  train_idx, test_idx = train_splits()
+  launches, _, _, tree_fused, tree_f32 = tree_train(
+      torch, ops, timer, ds, feats, train_idx, test_idx)
+  fused_session(torch, ops, timer, ds, feats, train_idx, test_idx,
+                (tree_fused, tree_f32), prof=prof)
+  del tree_fused
+  train_cross_check(torch)
+  torch.cuda.empty_cache()
+  ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels)
+  del ds_t
+  fused_mesh(torch, ops, ds_u)
+
+
 def main(argv) -> int:
   t_start = time.perf_counter()
   import torch
@@ -3986,7 +4441,7 @@ def main(argv) -> int:
        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
   kernels = run(torch, argv)
   emit('wall', secs=time.perf_counter() - t_start)
-  if kernels is None:               # --k6: the tiered phases alone
+  if kernels is None:               # --k6 / --fused: some phases alone
     return 0
   print(json.dumps({'kernels': kernels}), flush=True)
   print(json.dumps({'ok': True, 'device': {
@@ -4027,6 +4482,10 @@ def run(torch, argv) -> list:
               'features': feats.numel() * 4})
 
   timer = Timer(torch)
+  if '--fused' in argv:
+    fused_phases(torch, ops, timer, indptr, indices, feats, ds,
+                 prof='--profile' in argv)
+    return None
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -4096,9 +4555,12 @@ def run(torch, argv) -> list:
   train_launches, train_hops, train_gather = train(
       torch, ops, timer, ds, feats, labels, train_idx, test_idx,
       prof='--profile' in argv)
-  tree_launches, tree_hops, tree_levels = tree_train(
+  tree_launches, tree_hops, tree_levels, tree_fused, tree_f32 = tree_train(
+      torch, ops, timer, ds, feats, train_idx, test_idx)
+  session_launches, sub_hops, sub_gather = fused_session(
       torch, ops, timer, ds, feats, train_idx, test_idx,
-      prof='--profile' in argv)
+      (tree_fused, tree_f32), prof='--profile' in argv)
+  del tree_fused
   train_cross_check(torch)
   torch.cuda.empty_cache()
 
@@ -4121,7 +4583,9 @@ def run(torch, argv) -> list:
   loader_launches, node_table, loader_path = mesh_loader(
       torch, ops, timer, ds_u, feats, labels)
   k5 = k5_kernel(torch, timer, ds_u, node_table)
-  del ds_u, node_table
+  del node_table
+  fmesh_launches = fused_mesh(torch, ops, ds_u)
+  del ds_u
   torch.cuda.empty_cache()
   mesh_launches, mesh_path = mesh_train(torch, ops, timer, ds_t, feats,
                                         labels, train_idx, test_idx,
@@ -4155,7 +4619,7 @@ def run(torch, argv) -> list:
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
        'launches': launches['sample_one_hop'],
        'max_abs_err': max(h['max_abs_err']
-                          for h in hops + loader_path['hops']),
+                          for h in hops + loader_path['hops'] + sub_hops),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -4166,12 +4630,18 @@ def run(torch, argv) -> list:
        'launches_by_path': {'serve': launches['sample_one_hop'],
                             'train': train_launches['sample_one_hop'],
                             'tree_train': tree_launches['sample_one_hop'],
+                            'fused_session': {
+                                k: v['sample_one_hop']
+                                for k, v in session_launches.items()},
                             'tiered_serve': tserve_launches['sample_one_hop'],
                             'tiered_train': {
                                 k: r['launches']['sample_one_hop']
                                 for k, r in ttrain_runs.items()},
                             'mesh_loader':
-                                loader_launches['sample_one_hop']},
+                                loader_launches['sample_one_hop'],
+                            'fused_mesh': {
+                                k: v['sample_one_hop']
+                                for k, v in fmesh_launches.items()}},
        'train_shape': {
            'shape': '1,024-seed per-batch step, hops of '
                     + '/'.join(str(h['rows']) for h in train_hops)
@@ -4190,6 +4660,15 @@ def run(torch, argv) -> list:
            'bound_ms': sum(h['bound_us'] for h in tree_hops) / 1e3,
            'max_abs_err': max(h['max_abs_err'] for h in tree_hops),
            'byte_equal': True, 'hops': per_hop(tree_hops)},
+       'subgraph_shape': {
+           'shape': '1,024-seed fused subgraph step, sorted hops of '
+                    + '/'.join(str(h['rows']) for h in sub_hops)
+                    + ' rows, k 15/10/5',
+           'ms': sum(h['kernel_ms'] for h in sub_hops),
+           'plain_ms': sum(h['plain_ms'] for h in sub_hops),
+           'bound_ms': sum(h['bound_us'] for h in sub_hops) / 1e3,
+           'max_abs_err': max(h['max_abs_err'] for h in sub_hops),
+           'byte_equal': True, 'hops': per_hop(sub_hops)},
        'mesh_shape': mesh_shape('mesh loader batch of 8 x 512 seeds',
                                 loader_path['hops'])},
       {'name': 'gather_rows', 'route': 'cuda',
@@ -4198,7 +4677,7 @@ def run(torch, argv) -> list:
        'launches': launches['gather_rows'],
        'max_abs_err': max(g['max_abs_err']
                           for g in gathers + gathers_train + [train_gather]
-                          + tree_levels + mesh_gathers),
+                          + tree_levels + mesh_gathers + [sub_gather]),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -4210,7 +4689,8 @@ def run(torch, argv) -> list:
             'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
             'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
             'byte_equal': True}
-           for g in [train_gather] + tree_levels + gathers_train],
+           for g in [train_gather] + tree_levels + gathers_train
+           + [sub_gather]],
        'mesh_shapes': [
            {'shape': f'{g["ids"]} ids x {g["row_bytes"]} B {g["dtype"]} '
                      f'over {MESH_PARTS} owners',
@@ -4221,13 +4701,19 @@ def run(torch, argv) -> list:
        'launches_by_path': {'serve': launches['gather_rows'],
                             'train': train_launches['gather_rows'],
                             'tree_train': tree_launches['gather_rows'],
+                            'fused_session': {
+                                k: v['gather_rows']
+                                for k, v in session_launches.items()},
                             'tiered_serve': tserve_launches['gather_rows'],
                             'tiered_train': {
                                 k: r['launches']['gather_rows']
                                 for k, r in ttrain_runs.items()},
                             'gns_train': gns_launches['gather_rows'],
                             'mesh_loader': loader_launches['gather_rows'],
-                            'mesh_train': mesh_launches['gather_rows']}},
+                            'mesh_train': mesh_launches['gather_rows'],
+                            'fused_mesh': {
+                                k: v['gather_rows']
+                                for k, v in fmesh_launches.items()}}},
       {'name': 'merge_ranks', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',

@@ -1,4 +1,4 @@
-from .fused import EpochStats
+from .fused import EpochStats, FusedEpoch
 from .fused_tree import FusedTreeEpoch, expand_tree_levels
 from .neighbor_loader import NeighborLoader
 from .node_loader import NodeLoader, SeedBatcher

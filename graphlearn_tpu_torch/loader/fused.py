@@ -1,10 +1,69 @@
-"""`EpochStats`, the lazy statistics a fused epoch returns (the JAX
-package's `loader/fused.py:428-463`).  The epoch driver itself lives
-with its only ported epoch, `loader.fused_tree.FusedTreeEpoch`.
+"""Fused supervised epochs on one card: the host driver the fused epochs
+share (the JAX package's `loader/fused.py:428-683`, `EpochStats` and
+`_SupervisedScanEpoch`) and the subgraph epoch `FusedEpoch`
+(`:686-852`); the tree epoch `loader.fused_tree.FusedTreeEpoch` runs on
+the same driver.
+
+JAX runs each chunk of an epoch as one compiled `lax.scan` program, so
+the host enqueues once.  The port's counterpart on a card is a CUDA
+graph: the first `run` (or `evaluate`) runs its first step eagerly on a
+side stream — the warm-up `torch.cuda.graph` needs, and a real step —
+then captures the step once; every later step of every epoch copies its
+seeds and draw coordinates into the graph's static device buffers and
+replays it.  The train and the eval graph share one memory pool.  On
+the CPU every step runs eagerly (what the parity tests drive).  There is
+no eager route on a card: a capture that fails raises.
+
+What carries over from JAX exactly is the schedule: the host shuffle,
+the split into chunks of ``max_steps_per_program`` steps whose tail is
+padded with -1 seeds, and the draw coordinates of each step, ``draws(
+epoch, chunk, step, hop, rows, k, w)``:
+
+  * ``epoch`` counts `run` calls from 1; `evaluate` draws at epoch 0
+    (JAX keys evaluation in its own fold domain, ``fold_in(fold_in(
+    key(seed), 0), 1)``, and training at ``fold_in(key(seed), epoch)``);
+  * ``chunk`` is the chunk's first step, or None when the epoch is one
+    chunk (JAX then keys the steps from the epoch key itself);
+  * ``step`` is the step's index within its chunk and ``hop`` the hop.
+
+On a card ``epoch``, ``chunk`` and ``step`` arrive as 0-d int64 device
+tensors (``chunk`` 0 for a one-chunk epoch), read from the graph's
+static buffer, so a provider must compute from them on the card; the
+default, `ops.draws.CounterDraws`, does.  A fully padded step is skipped:
+no forward, no optimizer step (and no replay), so Adam's moments and
+step count do not move (JAX guards its scan body the same way).  Nothing
+in `run` waits for the card; the returned `EpochStats` does when read.
+
+A tiered feature store (``split_ratio < 1``) runs eagerly, chunk by
+chunk, in JAX's three dispatches: every step of the chunk is sampled,
+then `Feature.get` serves each step's rows in step order (the host
+cache policy runs between the halves, so nothing is captured), then
+every step trains.
 """
 from __future__ import annotations
 
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..models.train import _correct, supervised_loss
+from ..ops.cold_gather import cold_gather
+from ..ops.delta_merge import merge_ranks
+from ..ops.draws import CounterDraws
+from ..ops.fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
+from ..ops.gather_rows import gather_rows
+from ..ops.window_gather import csr_window_gather
+from ..sampler.neighbor_sampler import NeighborSampler, _multihop_sample
+from ..utils.device import resolve_device
+from .node_loader import SeedBatcher
+from .transform import _gather_labels
+
+#: ``draws(epoch, chunk, step, hop, rows, k, w) -> (u [rows, k],
+#: gumbel [rows, w])``
+EpochDraws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 class EpochStats:
@@ -38,3 +97,363 @@ class EpochStats:
 
   def __repr__(self):
     return f'EpochStats(steps={self.losses.shape[0]}, <lazy>)'
+
+
+class Rematerialized(nn.Module):
+  """``module`` under activation checkpointing (JAX's `jax.checkpoint`):
+  the backward recomputes the forward instead of keeping its
+  activations.  No RNG state is saved, so it captures in a CUDA
+  graph."""
+
+  def __init__(self, module: nn.Module):
+    super().__init__()
+    self.module = module
+
+  def forward(self, *args):
+    return checkpoint(self.module, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def check_capturable(optimizer: torch.optim.Optimizer, owner: str) -> None:
+  """A captured step replays the optimizer's update, which then has to
+  keep its step count on the card: raise unless every parameter group
+  was built with ``capturable=True``."""
+  if not all(g.get('capturable', False) for g in optimizer.param_groups):
+    raise ValueError(
+        f'{owner} replays its step as a CUDA graph on the card: build the '
+        f'optimizer with capturable=True (e.g. torch.optim.Adam(params, '
+        f'lr, capturable=True))')
+
+
+#: every kernel wrapper's launch count: a replay adds the launches its
+#: graph captured
+KERNEL_WRAPPERS = (sample_one_hop_fused, sample_one_hop_gns_fused,
+                   gather_rows, csr_window_gather, merge_ranks, cold_gather)
+
+
+class CapturedStep:
+  """One step captured as a CUDA graph: its static inputs (``seeds
+  [B]`` int32, ``coords [3]`` int64), its static outputs, and the kernel
+  launches one replay makes (the wrappers count at the Python call,
+  which a replay does not make, so `replay` adds them)."""
+
+  def __init__(self, graph, seeds, coords, outputs, launches):
+    self.graph = graph
+    self.seeds = seeds
+    self.coords = coords
+    self.outputs = outputs
+    self.launches = launches
+
+  def replay(self, seeds: torch.Tensor, coords: torch.Tensor):
+    self.seeds.copy_(seeds)
+    self.coords.copy_(coords)
+    self.graph.replay()
+    for fn, n in self.launches:
+      fn.launches += n
+    return self.outputs
+
+
+class _SupervisedEpoch:
+  """The host driver of the single-card fused epochs.  A subclass sets
+  ``_owner`` and supplies ``_sample(seeds, draws) -> sample`` (the
+  sampler half) and ``_gather(sample, seeds) -> (inputs, y)`` (the
+  feature and label gathers; ``model(*inputs)`` gives the logits)."""
+
+  _owner = 'the fused epoch'
+
+  def _init_driver(self, data, input_nodes, model,
+                   optimizer: torch.optim.Optimizer, batch_size: int,
+                   shuffle: bool, drop_last: bool, seed: Optional[int],
+                   max_steps_per_program: Optional[int],
+                   draws: Optional[EpochDraws], remat: bool, device):
+    self.device = resolve_device(device)
+    graph = data.get_graph()
+    if graph.device != self.device:
+      raise ValueError(f'the graph lives on {graph.device}, the epoch on '
+                       f'{self.device}')
+    feat = data.node_features
+    if feat is None:
+      raise ValueError(f'{self._owner} needs node features')
+    labels = data.get_node_label_device()
+    if labels is None:
+      raise ValueError(f'{self._owner} needs node labels')
+    self._tiered = feat.is_tiered
+    self._capture = self.device.type == 'cuda' and not self._tiered
+    if self._capture:
+      check_capturable(optimizer, self._owner)
+    self.data = data
+    self.model = model
+    self.optimizer = optimizer
+    self.batch_size = int(batch_size)
+    self._train_model = Rematerialized(model) if remat else model
+    self._graph = graph
+    self._feat = feat
+    self._labels = labels
+    input_nodes = np.asarray(input_nodes)
+    if input_nodes.dtype == np.bool_:
+      input_nodes = np.nonzero(input_nodes)[0]
+    self._batcher = SeedBatcher(input_nodes, self.batch_size, shuffle,
+                                drop_last, seed)
+    self._chunk = (int(max_steps_per_program)
+                   if max_steps_per_program else None)
+    self.draws = (draws if draws is not None
+                  else CounterDraws(seed or 0, self.device))
+    self._epoch_idx = 0
+    self._replays = {}
+    self._pool = None
+    self._captures = 0
+
+  def __len__(self) -> int:
+    return len(self._batcher)
+
+  def compile_count(self) -> int:
+    """CUDA graphs captured so far (one for training and one for
+    evaluation per epoch object; 0 on the CPU)."""
+    return self._captures
+
+  # -- the schedule ---------------------------------------------------------
+
+  def _chunks(self, seeds: np.ndarray
+              ) -> Iterator[Tuple[int, np.ndarray]]:
+    """``(chunk offset, [chunk, B] piece)``, the tail piece padded with
+    -1 rows."""
+    s = seeds.shape[0]
+    chunk = self._chunk or s
+    for c0 in range(0, s, chunk):
+      part = seeds[c0:c0 + chunk]
+      real = part.shape[0]
+      if real < chunk:
+        pad = np.full((chunk - real,) + seeds.shape[1:], -1, seeds.dtype)
+        part = np.concatenate([part, pad])
+      yield c0, part
+
+  def _schedule(self, seeds: np.ndarray, epoch: int):
+    """The steps that hold a valid seed, chunk by chunk: ``[(seeds_i,
+    (epoch, chunk, step)), ...]`` on the host."""
+    parts = list(self._chunks(seeds))
+    out = []
+    for c0, part in parts:
+      chunk = None if len(parts) == 1 else c0
+      piece = []
+      for i in range(part.shape[0]):
+        if (part[i] >= 0).any():
+          piece.append((part[i], (epoch, chunk, i)))
+      out.append(piece)
+    return out
+
+  def _upload(self, a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if self.device.type == 'cuda':
+      return t.pin_memory().to(self.device, non_blocking=True)
+    return t.to(self.device)
+
+  def _step_draws(self, coords):
+    epoch, chunk, step = coords
+
+    def draws(hop, rows, k, w):
+      return self.draws(epoch, chunk, step, hop, rows, k, w)
+    return draws
+
+  # -- one step ---------------------------------------------------------------
+
+  def _train_on(self, seeds: torch.Tensor, inputs, y) -> Tuple:
+    self.model.train()
+    self.optimizer.zero_grad(set_to_none=True)
+    logits = self._train_model(*inputs)
+    loss = supervised_loss(logits, y, seeds, self.batch_size)
+    loss.backward()
+    self.optimizer.step()
+    return loss.detach(), torch.stack(
+        [_correct(logits, y, seeds, self.batch_size), (seeds >= 0).sum()])
+
+  @torch.no_grad()
+  def _eval_on(self, seeds: torch.Tensor, inputs, y) -> Tuple:
+    self.model.eval()
+    logits = self.model(*inputs)
+    return (torch.stack([_correct(logits, y, seeds, self.batch_size),
+                         (seeds >= 0).sum()]),)
+
+  def _train_step(self, seeds: torch.Tensor, coords) -> Tuple:
+    """One eager train step: ``(loss, [correct, valid])``.  ``coords``
+    is ``(epoch, chunk, step)``, ints or 0-d device tensors."""
+    inputs, y = self._gather(self._sample(seeds, self._step_draws(coords)),
+                             seeds)
+    return self._train_on(seeds, inputs, y)
+
+  def _eval_step(self, seeds: torch.Tensor, coords) -> Tuple:
+    """One eager eval step: ``([correct, valid],)``."""
+    inputs, y = self._gather(self._sample(seeds, self._step_draws(coords)),
+                             seeds)
+    return self._eval_on(seeds, inputs, y)
+
+  # -- capture ----------------------------------------------------------------
+
+  def _captured(self, kind: str, seeds: torch.Tensor, coords: torch.Tensor,
+                outs: List[torch.Tensor], n: int) -> CapturedStep:
+    """Warm up with the step itself (step ``n`` of the epoch, its
+    outputs written to ``outs``) on a side stream, then capture it."""
+    fn = self._train_step if kind == 'train' else self._eval_step
+    static_seeds, static_coords = seeds.clone(), coords.clone()
+    args = (static_seeds, tuple(static_coords.unbind(0)))
+    main = torch.cuda.current_stream(self.device)
+    side = torch.cuda.Stream(self.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+      for buf, val in zip(outs, fn(*args)):
+        buf[n].copy_(val)
+    main.wait_stream(side)
+    if self._pool is None:
+      self._pool = torch.cuda.graph_pool_handle()
+    before = [fn_.launches for fn_ in KERNEL_WRAPPERS]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=self._pool, stream=side):
+      static_out = fn(*args)
+    # the capture recorded these launches; none of them ran
+    launches = []
+    for fn_, b in zip(KERNEL_WRAPPERS, before):
+      if fn_.launches != b:
+        launches.append((fn_, fn_.launches - b))
+        fn_.launches = b
+    self._captures += 1
+    step = CapturedStep(graph, static_seeds, static_coords, static_out,
+                        launches)
+    self._replays[kind] = step
+    return step
+
+  def _run_steps(self, kind: str, seeds: np.ndarray, epoch: int
+                 ) -> List[torch.Tensor]:
+    """Every step of an epoch over ``[S, B]`` seeds; returns the
+    per-step outputs stacked: ``[losses [n], counts [n, 2]]`` for
+    training, ``[counts [n, 2]]`` for evaluation."""
+    plan = self._schedule(seeds, epoch)
+    steps = [s for piece in plan for s in piece]
+    n = len(steps)
+    outs = [torch.empty((n, 2), dtype=torch.int64, device=self.device)]
+    if kind == 'train':
+      outs.insert(0, torch.empty(n, dtype=torch.float32,
+                                 device=self.device))
+    if n == 0:
+      return outs
+    if self._tiered:
+      self._run_tiered(kind, plan, outs)
+    elif not self._capture:
+      fn = self._train_step if kind == 'train' else self._eval_step
+      for j, (row, coords) in enumerate(steps):
+        for buf, val in zip(outs, fn(self._upload(row), coords)):
+          buf[j].copy_(val)
+    else:
+      seeds_d = self._upload(np.stack([row for row, _ in steps]))
+      coords_d = self._upload(np.array(
+          [(e, c or 0, i) for _, (e, c, i) in steps], np.int64))
+      graph = self._replays.get(kind)
+      first = 0
+      if graph is None:
+        graph = self._captured(kind, seeds_d[0], coords_d[0], outs, 0)
+        first = 1
+      for j in range(first, n):
+        for buf, val in zip(outs, graph.replay(seeds_d[j], coords_d[j])):
+          buf[j].copy_(val)
+    return outs
+
+  def _run_tiered(self, kind: str, plan, outs) -> None:
+    """A tiered epoch, chunk by chunk: sample every step, serve every
+    step's rows in step order, then train (or evaluate) every step."""
+    j = 0
+    on = self._train_on if kind == 'train' else self._eval_on
+    for piece in plan:
+      rows = [self._upload(row) for row, _ in piece]
+      samples = [self._sample(s, self._step_draws(coords))
+                 for s, (_, coords) in zip(rows, piece)]
+      gathered = [self._gather(smp, s) for smp, s in zip(samples, rows)]
+      for s, (inputs, y) in zip(rows, gathered):
+        for buf, val in zip(outs, on(s, inputs, y)):
+          buf[j].copy_(val)
+        j += 1
+
+  # -- the driver -------------------------------------------------------------
+
+  def run(self) -> EpochStats:
+    """One training epoch; returns its lazy `EpochStats`."""
+    seeds = np.stack(list(self._batcher))
+    self._epoch_idx += 1
+    losses, counts = self._run_steps('train', seeds, self._epoch_idx)
+    return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
+
+  def evaluate(self, input_nodes) -> float:
+    """Accuracy over ``input_nodes`` (e.g. the test split)."""
+    ids = np.asarray(input_nodes)
+    if ids.dtype == np.bool_:
+      ids = np.nonzero(ids)[0]
+    if ids.size == 0:
+      raise ValueError('evaluate() got an empty split')
+    seeds = np.stack(list(SeedBatcher(ids, self.batch_size, shuffle=False)))
+    (counts,) = self._run_steps('eval', seeds, 0)
+    correct, total = (int(v) for v in counts.sum(0).cpu())
+    return correct / max(total, 1)
+
+
+class FusedEpoch(_SupervisedEpoch):
+  """Supervised subgraph epochs over uniform neighbor sampling (the JAX
+  package's `FusedEpoch`).  Each step samples with the per-batch
+  sampler's `_multihop_sample` (seeds in ascending order per hop,
+  ``sort_locality``), gathers the node table's rows through
+  `Feature.get` (the row gather kernel) and its labels, runs the model's
+  ``(x, edge_index, edge_mask)`` forward and the masked seed loss.
+
+  Example::
+
+      model = GraphSAGE(100, 256, 47, num_layers=3).to('cuda')
+      opt = torch.optim.Adam(model.parameters(), lr=3e-3,
+                             capturable=True)
+      fused = FusedEpoch(ds, [15, 10, 5], train_idx, model, opt,
+                         batch_size=1024, seed=0, remat=True)
+      for _ in range(epochs):
+        stats = fused.run()
+      acc = fused.evaluate(test_idx)
+
+  Args:
+    data: a `data.Dataset` on ``device`` with node features and labels.
+    num_neighbors: per-hop fanouts.
+    input_nodes: seed ids (or a boolean mask).
+    model: a `models.GraphSAGE` (or a module with its ``(x, edge_index,
+      edge_mask) -> [node_cap, C]`` signature) on ``device``; trained
+      in place.
+    optimizer: a `torch.optim.Optimizer` over the model's parameters;
+      on a card built with ``capturable=True`` (else ValueError).
+    batch_size / shuffle / drop_last / seed: epoch controls.
+    remat: recompute the model's forward in the backward
+      (`Rematerialized`); `evaluate` runs without it.
+    max_steps_per_program: the chunk length of the draw schedule
+      (module docstring); None keeps the epoch one chunk.
+    draws: the ``draws(epoch, chunk, step, hop, rows, k, w)`` provider;
+      default `ops.draws.CounterDraws` on ``device``.
+    device: where training runs (default ``'cuda'``).
+  """
+
+  _owner = 'FusedEpoch'
+
+  def __init__(self, data, num_neighbors: Sequence[int], input_nodes,
+               model, optimizer: torch.optim.Optimizer, batch_size: int,
+               shuffle: bool = True, drop_last: bool = False,
+               seed: Optional[int] = None, remat: bool = False,
+               max_steps_per_program: Optional[int] = None,
+               draws: Optional[EpochDraws] = None, device='cuda'):
+    self._init_driver(data, input_nodes, model, optimizer, batch_size,
+                      shuffle, drop_last, seed, max_steps_per_program,
+                      draws, remat, device)
+    self.fanouts = tuple(int(k) for k in num_neighbors)
+    self._node_cap = NeighborSampler(self._graph, self.fanouts,
+                                     device=self.device).node_capacity(
+                                         self.batch_size)
+
+  def _sample(self, seeds: torch.Tensor, draws):
+    return _multihop_sample(self._graph.indptr, self._graph.indices, seeds,
+                            self.fanouts, self._node_cap,
+                            lambda _step, hop, rows, k, w: draws(
+                                hop, rows, k, w), 0)
+
+  def _gather(self, out, seeds: torch.Tensor):
+    x = self._feat.get(out.node)
+    edge_index = torch.stack([out.row, out.col])
+    return (x, edge_index, out.edge_mask), _gather_labels(self._labels,
+                                                          out.node)

@@ -8,10 +8,11 @@ reshape and a masked mean — no scatter.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -25,22 +26,29 @@ def tree_level_sizes(batch_size: int, fanouts: Sequence[int]
 
 
 class TreeSAGE(nn.Module):
-  """GraphSAGE (mean aggregator) over tree-layout level tensors, in f32.
+  """GraphSAGE (mean aggregator) over tree-layout level tensors.
 
   ``forward(xs, masks)``: ``xs[t]`` is the ``[F_t, in_features]``
   feature tensor of level ``t`` and ``masks[t]`` its ``[F_t]`` validity;
-  returns the seed level's ``[B, out_features]`` logits.  Layer ``l``
-  has ``layer{l}_self`` (with bias) and ``layer{l}_neigh`` (without),
-  shared across levels — the Flax module's parameter names.
+  returns the seed level's ``[B, out_features]`` logits in f32.  Layer
+  ``l`` has ``layer{l}_self`` (with bias) and ``layer{l}_neigh``
+  (without), shared across levels — the Flax module's parameter names.
+
+  ``dtype`` is the compute dtype (the Flax module's ``dtype``; None
+  computes in f32): the parameters stay f32, the inputs, weights and
+  biases are cast to it (bf16 runs the matmuls on tensor cores), and
+  each window's child count is taken in f32 and then cast, as in JAX.
 
   Parameters start uninitialised: call `reset_parameters` with a
   generator, or load a state dict (e.g. from `tree_sage_from_flax`).
   """
 
   def __init__(self, in_features: int, hidden_features: int,
-               out_features: int, num_layers: int = 2):
+               out_features: int, num_layers: int = 2,
+               dtype: Optional[torch.dtype] = None):
     super().__init__()
     self.num_layers = int(num_layers)
+    self.dtype = dtype
     dims = [in_features] + [hidden_features] * (num_layers - 1)
     for layer in range(num_layers):
       out = hidden_features if layer < num_layers - 1 else out_features
@@ -67,29 +75,32 @@ class TreeSAGE(nn.Module):
       raise ValueError(
           f'TreeSAGE(num_layers={self.num_layers}) needs '
           f'{self.num_layers + 1} levels, got {len(xs)}')
+    dt = self.dtype or torch.float32
     # zero invalid slots once: they then add nothing as masked-out self
     # terms or as masked children
-    hs = [x.float() * m[:, None].float() for x, m in zip(xs, masks)]
+    hs = [x.to(dt) * m[:, None].to(dt) for x, m in zip(xs, masks)]
     for layer in range(self.num_layers):
       lin_self = self.get_submodule(f'layer{layer}_self')
       lin_neigh = self.get_submodule(f'layer{layer}_neigh')
+      w_self, b_self = lin_self.weight.to(dt), lin_self.bias.to(dt)
+      w_neigh = lin_neigh.weight.to(dt)
       new_hs = []
       for t in range(self.num_layers - layer):
         parent, child = hs[t], hs[t + 1]
         p = parent.shape[0]
         k = child.shape[0] // p
-        cm = masks[t + 1].reshape(p, k).float()
+        cm = masks[t + 1].reshape(p, k)
         cd = child.reshape(p, k, child.shape[1])
         # the mask gates the sum too: past layer 0 an invalid slot holds
         # relu(bias), not zero
-        cnt = torch.clamp(cm.sum(dim=1), min=1.0)
-        mean = (cd * cm[..., None]).sum(dim=1) / cnt[:, None]
-        h = lin_self(parent) + lin_neigh(mean)
+        cnt = torch.clamp(cm.sum(dim=1, dtype=torch.float32), min=1.0)
+        mean = (cd * cm[..., None].to(dt)).sum(dim=1) / cnt[:, None].to(dt)
+        h = F.linear(parent, w_self, b_self) + F.linear(mean, w_neigh)
         if layer < self.num_layers - 1:
           h = torch.relu(h)
         new_hs.append(h)
       hs = new_hs
-    return hs[0]
+    return hs[0].float()
 
 
 def tree_sage_from_flax(params) -> Dict[str, torch.Tensor]:

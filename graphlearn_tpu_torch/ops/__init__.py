@@ -2,7 +2,7 @@ from .cold_gather import cold_gather, cold_gather_plain
 from .delta_merge import (RankRows, merge_delta_csr_device, merge_ranks,
                           merge_ranks_plain, rank_inputs, rank_plan,
                           rank_rows)
-from .draws import TorchDraws, hash_draws
+from .draws import CounterDraws, TorchDraws, hash_draws
 from .fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
 from .gather_rows import gather_rows, gather_rows_plain
 from .gns import sample_one_hop_gns

@@ -1,6 +1,8 @@
 """Draws for the samplers: counter-based draws for per-seed sampling
-trees (`hash_draws`, serving) and the training samplers' default
-provider (`TorchDraws`).
+trees (`hash_draws`, serving), for the fused epochs (`CounterDraws`,
+whose coordinates may live on the card, so a captured CUDA graph draws
+anew on every replay) and the per-batch samplers' default provider
+(`TorchDraws`).
 
 The JAX serving engine keys each seed's tree with threefry
 (``fold_in(key(engine_seed), node)``, then ``fold_in(·, hop)`` and
@@ -31,6 +33,7 @@ _C1 = 0x7FEB352D
 _C2 = 0x68E31DA5
 _STREAM_U = 0x5555
 _STREAM_GUMBEL = 0xAAAA
+_STREAM_V = 0x3333
 
 
 def _mix(x: torch.Tensor) -> torch.Tensor:
@@ -69,14 +72,62 @@ def hash_draws(engine_seed: int, seed_ids: torch.Tensor, hop: int,
   key = _mix(key ^ int(hop))
   p = torch.arange(rows_per_seed, dtype=torch.int64, device=dev)
   row = _mix(key[:, None] ^ p[None, :]).reshape(-1)
-
-  def stream(tag: int, width: int) -> torch.Tensor:
-    lane = torch.arange(width, dtype=torch.int64, device=dev)
-    return _uniform(_mix(_mix(row ^ tag)[:, None] ^ lane[None, :]))
-
-  u = stream(_STREAM_U, k)
-  gumbel = -torch.log(-torch.log(stream(_STREAM_GUMBEL, w)))
+  u = _stream(row, _STREAM_U, k)
+  gumbel = -torch.log(-torch.log(_stream(row, _STREAM_GUMBEL, w)))
   return u, gumbel
+
+
+def _stream(row: torch.Tensor, tag: int, width: int) -> torch.Tensor:
+  """``[R]`` row hashes -> ``[R, width]`` uniforms of stream ``tag``."""
+  lane = torch.arange(width, dtype=torch.int64, device=row.device)
+  return _uniform(_mix(_mix(row ^ tag)[:, None] ^ lane[None, :]))
+
+
+class CounterDraws:
+  """The fused epochs' default draws: a hash of ``(seed, coordinates,
+  row, lane, stream)``, like `hash_draws`, in pure tensor arithmetic.
+
+  A coordinate is a Python int or a 0-d int64 tensor on ``device``;
+  either form gives the same values, so a step captured in a CUDA
+  graph with its coordinates in a device buffer draws on every replay
+  what the eager step draws from the same numbers.  Each coordinate enters the key through its low 32
+  bits.  The Gumbels are ``-log(-log(u))`` taken in float64 and rounded
+  to float32, so the CPU and the card give the same float32 values
+  (their float32 ``log`` may differ in the last bit).
+
+  ``draws(epoch, chunk, step, hop, rows, k, w)`` (the fused epochs'
+  form, ``chunk`` None read as 0) returns ``u [rows, k]`` and ``gumbel
+  [rows, w]``; `draw` takes any coordinates and, with ``gns``, returns
+  a second ``[rows, k]`` uniform stream ``v`` in place of the Gumbels.
+  """
+
+  def __init__(self, seed: int, device):
+    self.seed = int(seed) & _M32
+    self.device = torch.device(device)
+
+  def key(self, coords) -> torch.Tensor:
+    """The 0-d int64 key of ``coords`` on ``device``."""
+    key = _mix(torch.full((), self.seed, dtype=torch.int64,
+                          device=self.device))
+    for c in coords:
+      c = (c.to(torch.int64) if isinstance(c, torch.Tensor)
+           else int(c)) & _M32
+      key = _mix(key ^ c)
+    return key
+
+  def draw(self, coords, rows: int, k: int, w: int, gns: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    p = torch.arange(rows, dtype=torch.int64, device=self.device)
+    row = _mix(self.key(coords) ^ p)
+    u = _stream(row, _STREAM_U, k)
+    if gns:
+      return u, _stream(row, _STREAM_V, k)
+    g = _stream(row, _STREAM_GUMBEL, w).double()
+    return u, (-torch.log(-torch.log(g))).float()
+
+  def __call__(self, epoch, chunk, step, hop, rows, k, w):
+    return self.draw((epoch, 0 if chunk is None else chunk, step, hop),
+                     rows, k, w)
 
 
 class TorchDraws:
@@ -91,8 +142,7 @@ class TorchDraws:
   mesh partition that samples the rows (the coordinates are ``(step,
   hop)`` for owner 0, so a one-partition mesh and the single-card
   sampler draw as before, and ``(step, hop, owner)`` otherwise); `draw`
-  takes any tuple of coordinates (the fused epoch's ``(epoch, chunk,
-  step, hop)``).
+  takes any tuple of coordinates.
   """
 
   def __init__(self, seed: int, device):

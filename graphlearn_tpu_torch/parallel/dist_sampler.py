@@ -127,12 +127,14 @@ def resolve_exchange_slack(exchange_slack, shuffle: bool):
 def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
                   draws: Draws, step: int, hop: int,
                   capacity: Optional[int], gns_bits=None,
-                  gns_boost: Optional[float] = None):
+                  gns_boost: Optional[float] = None,
+                  sort_locality: bool = True):
   """One hop for every partition's ``[P, F]`` frontier: exchange, each
-  owner samples its receive rows (in ascending id order) from its CSR,
-  reply.  Returns ``(nbrs, mask, weights, stats)`` stacked ``[P, F,
-  k]`` (``weights`` None without GNS) and the ``[3]`` exchange
-  counters summed over the partitions."""
+  owner samples its receive rows (in ascending id order with
+  ``sort_locality``, else in arrival order) from its CSR, reply.
+  Returns ``(nbrs, mask, weights, stats)`` stacked ``[P, F, k]``
+  (``weights`` None without GNS) and the ``[3]`` exchange counters
+  summed over the partitions."""
   plan = plan_exchange(frontier, range_owner_fn(bounds_t), mesh.size,
                        mesh, capacity)
   local = torch.where(plan.recv >= 0, plan.recv - bounds_t[:-1, None],
@@ -145,11 +147,12 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
       u, v = draws(step, hop, rows, k, w, True, owner=o)
       res.append(sample_one_hop_gns_fused(
           indptr[o], indices[o], local[o], k, u, v, gns_bits, gns_boost,
-          req=plan.requester_of_recv, window=w, sort_locality=True))
+          req=plan.requester_of_recv, window=w,
+          sort_locality=sort_locality))
     else:
       u, g = draws(step, hop, rows, k, w, False, owner=o)
       res.append(sample_one_hop_fused(indptr[o], indices[o], local[o], k,
-                                      u, g, sort_locality=True))
+                                      u, g, sort_locality=sort_locality))
   nbrs = plan.reply(torch.stack([r.nbrs for r in res]), fill=INVALID_ID)
   mask = plan.reply(torch.stack([r.mask for r in res]), fill=False)
   weights = (plan.reply(torch.stack([r.weights for r in res]), fill=0.0)
@@ -331,6 +334,28 @@ class AdaptiveSlack:
     elif not self._pinned:
       self._pin('floor', rate)
 
+  # -- the ladder's position (JAX's `DataPlaneState` fields) ---------------
+  def state_dict(self) -> dict:
+    """The rung index, the pin and its reason, and the rung the last
+    tighten came from (-1 for none).  The counter baselines are not
+    kept: they refer to this process's cumulative counters, so
+    `load_state_dict` takes them afresh from the sampler."""
+    return {'idx': self._idx, 'pinned': int(self._pinned),
+            'pin_reason': self._pin_reason,
+            'tightened_from': (-1 if self._tightened_from is None
+                               else int(self._tightened_from))}
+
+  def load_state_dict(self, state: dict) -> None:
+    idx = int(np.asarray(state['idx']))
+    if idx != self._idx:
+      self._set(idx, reason='restore')
+    self._pinned = bool(int(np.asarray(state['pinned'])))
+    self._pin_reason = str(np.asarray(state['pin_reason']))
+    tf = int(np.asarray(state['tightened_from']))
+    self._tightened_from = None if tf < 0 else tf
+    st = self.sampler.exchange_stats()
+    self._last = {k: st[k] for k in self.OFFER_KEYS + self.DROP_KEYS}
+
 
 class DistNeighborSampler:
   """Mesh sampler with feature and label collection.
@@ -412,11 +437,16 @@ class DistNeighborSampler:
   def _dispatch_nodes(self, seeds_stacked: np.ndarray) -> dict:
     """Sample and collect one stacked batch on the card, every
     partition hop by hop in lockstep, without the cold overlay."""
-    b = seeds_stacked.shape[1]
     self._step_cnt += 1
-    step = self._step_cnt
     seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
         self.device)
+    return self._sample_collect(seeds, self.draws, self._step_cnt)
+
+  def _sample_collect(self, seeds: torch.Tensor, draws: Draws,
+                      step: int) -> dict:
+    """`_dispatch_nodes` for ``[P, B]`` int32 seeds on the card, drawing
+    from ``draws`` at ``step`` (the fused mesh epochs pass their own)."""
+    b = seeds.shape[1]
     bits = self._gns_arrays() if self.gns else None
     g = self.ds.graph
     node_cap = self.node_capacity(b)
@@ -428,7 +458,7 @@ class DistNeighborSampler:
                           self.exchange_slack)
       nbrs, mask, hw, hstats = _dist_one_hop(
           self.mesh, g.indptr, g.indices, self._bounds_t, frontier, k,
-          self.draws, step, h, cap, gns_bits=bits,
+          draws, step, h, cap, gns_bits=bits,
           gns_boost=self.gns_boost)
       fr_stats.add_(hstats)
       hws.append(hw)
@@ -463,9 +493,14 @@ class DistNeighborSampler:
         out['x'] = got.pop(0)
       if self.collect_labels:
         out['y'] = got.pop(0)
-    with self._stats_lock:
-      self._stats_acc += torch.cat([fr_stats, ft_stats])
+    self._accumulate_stats(torch.cat([fr_stats, ft_stats]))
     return out
+
+  def _accumulate_stats(self, stats: torch.Tensor) -> None:
+    """Fold ``[6]`` exchange counters (`EXCHANGE_STAT_NAMES`) into the
+    device accumulator `exchange_stats` drains."""
+    with self._stats_lock:
+      self._stats_acc += stats
 
   def _finish_nodes(self, out: dict) -> dict:
     """The host half of a dispatched batch: the cold overlay (nothing

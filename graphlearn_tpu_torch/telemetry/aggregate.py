@@ -1,10 +1,13 @@
-"""Derived exchange health from the mesh loader's counters: the port's
-copy of the JAX package's `telemetry/aggregate.py::exchange_summary`
-(the rest of that module gathers host snapshots across processes, which
-the port's one-process mesh does not need)."""
+"""Derived exchange health from the mesh loader's counters and the
+per-hop padding fill of the fused mesh epochs: the port's copies of the
+JAX package's `telemetry/aggregate.py::exchange_summary` and
+`per_hop_padding` (the rest of that module gathers host snapshots
+across processes, which the port's one-process mesh does not need)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
+
+import numpy as np
 
 
 def exchange_summary(stats: Dict[str, float]) -> Dict[str, float]:
@@ -35,4 +38,28 @@ def exchange_summary(stats: Dict[str, float]) -> Dict[str, float]:
   if lookups:
     out['cold_hit_rate'] = round(
         1.0 - g('dist.feature.cold_misses') / lookups, 4)
+  return out
+
+
+def per_hop_padding(nsn, batch_size: int,
+                    fanouts: Sequence[int]) -> List[Dict]:
+  """Per-hop node counts and padding fill from ``[..., H+1]`` new-node
+  counts per hop (hop 0 the seeds): leading axes are summed and the
+  capacities scaled by their multiplicity.  Hop ``h`` has capacity
+  ``batch * prod(fanouts[:h])``; ``fill`` is the share of it that holds
+  nodes."""
+  arr = np.asarray(nsn, np.int64)
+  mult = int(np.prod(arr.shape[:-1])) if arr.ndim > 1 else 1
+  flat = arr.reshape(-1, arr.shape[-1]).sum(axis=0)
+  caps = [batch_size]
+  for k in fanouts:
+    caps.append(caps[-1] * int(k))
+  out = []
+  for h in range(len(flat)):
+    cap = caps[h] * mult if h < len(caps) else None
+    row = {'hop': h, 'nodes': int(flat[h])}
+    if cap:
+      row['capacity'] = int(cap)
+      row['fill'] = round(float(flat[h]) / cap, 6)
+    out.append(row)
   return out

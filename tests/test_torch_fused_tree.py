@@ -10,7 +10,12 @@ the epoch has more than one chunk, ``fold_in(., step)``, ``fold_in(.,
 hop)`` and ``split`` into the uniform and the Gumbel stream, frontier
 rows unsorted.  Tolerances: per-step losses and final parameters within
 1e-5 (f32 matmuls reduce in another order in XLA:CPU than in torch);
-correct counts, step counts and eval accuracy equal.
+correct counts, step counts and eval accuracy equal.  The bf16 epoch
+(``TreeSAGE(dtype=bfloat16)`` on both sides, f32 params) holds losses
+and parameters to 2e-2 (each library rounds to bf16 at its own places,
+~4e-3 relative a rounding) and the correct counts to within 2 of 72
+seeds (an argmax between two logits closer than a bf16 rounding may
+go either way).
 """
 import jax
 import jax.numpy as jnp
@@ -74,7 +79,7 @@ def _numpy_tree(params):
   return jax.tree_util.tree_map(np.asarray, params)
 
 
-def test_fused_tree_epoch_matches_jax():
+def _epochs(dtype=None):
   rows, cols, feats, labels = _graph()
   idx = np.random.default_rng(1).permutation(N)
   train, test = idx[:72], idx[72:112]           # 5 steps; 3 eval batches
@@ -85,16 +90,22 @@ def test_fused_tree_epoch_matches_jax():
   tx = optax.adam(3e-3)
   jf = JaxFusedTreeEpoch(
       jds, FANOUTS, train,
-      FlaxTreeSAGE(hidden_features=8, out_features=CLASSES, num_layers=2),
+      FlaxTreeSAGE(hidden_features=8, out_features=CLASSES, num_layers=2,
+                   dtype=None if dtype is None else jnp.bfloat16),
       tx, batch_size=BATCH, shuffle=True, seed=0, max_steps_per_program=2)
   state = jf.init_state(jax.random.key(0))
-  model = TreeSAGE(D, 8, CLASSES, num_layers=2)
+  model = TreeSAGE(D, 8, CLASSES, num_layers=2, dtype=dtype)
   model.load_state_dict(tree_sage_from_flax(_numpy_tree(state.params)))
   opt = torch.optim.Adam(model.parameters(), lr=3e-3, eps=1e-8)
   tf = FusedTreeEpoch(ds, FANOUTS, train, model, opt, batch_size=BATCH,
                       shuffle=True, seed=0, max_steps_per_program=2,
                       draws=jax_epoch_draws(0), device='cpu')
   assert len(tf) == len(jf) == 5
+  return jf, tf, state, model, opt, test
+
+
+def test_fused_tree_epoch_matches_jax():
+  jf, tf, state, model, opt, test = _epochs()
 
   sample_one_hop.calls = gather_rows_plain.calls = 0
   state, jstats = jf.run(state)
@@ -114,6 +125,24 @@ def test_fused_tree_epoch_matches_jax():
     np.testing.assert_allclose(p.numpy(), ref[name].numpy(), rtol=1e-5,
                                atol=1e-5, err_msg=name)
   assert tf.evaluate(test) == jf.evaluate(state.params, test)
+
+
+def test_bf16_fused_tree_epoch_matches_jax():
+  jf, tf, state, model, opt, test = _epochs(torch.bfloat16)
+  state, jstats = jf.run(state)
+  stats = tf.run()
+  np.testing.assert_allclose(stats.losses.numpy(),
+                             np.asarray(jstats.losses), rtol=2e-2,
+                             atol=2e-2)
+  assert stats.seeds == jstats.seeds == 72
+  assert abs(stats.correct - jstats.correct) <= 2
+  assert {int(s['step']) for s in opt.state.values()} == {5}
+  ref = tree_sage_from_flax(_numpy_tree(state.params))
+  for name, p in model.state_dict().items():
+    assert p.dtype == torch.float32
+    np.testing.assert_allclose(p.numpy(), ref[name].numpy(), rtol=2e-2,
+                               atol=2e-2, err_msg=name)
+  assert abs(tf.evaluate(test) - jf.evaluate(state.params, test)) <= 2 / 40
 
 
 def test_fused_tree_epoch_contract():

@@ -2,7 +2,10 @@
 carried across by `tree_sage_from_flax`.
 
 Tolerance ``rtol=1e-5, atol=1e-5``: f32 matmuls reduce in another order
-on XLA:CPU than in torch.
+on XLA:CPU than in torch.  With ``dtype=bfloat16`` (params f32, compute
+bf16, f32 logits) ``rtol=atol=2e-2``: every bf16 rounding (8 mantissa
+bits, ~4e-3 relative) happens at its own place in each library's
+matmul and mean, and a few roundings add up over the layers.
 """
 import jax
 import jax.numpy as jnp
@@ -80,3 +83,35 @@ def test_flax_layout_and_init():
     assert pa.abs().max() <= 1.0 / np.sqrt(fan_in)
   with pytest.raises(ValueError, match='levels'):
     a([torch.zeros(1, D)], [torch.ones(1, dtype=torch.bool)])
+
+
+@pytest.mark.parametrize('fanouts', [(3, 2), (4, 3, 2)])
+def test_bf16_logits_match_flax(fanouts):
+  layers = len(fanouts)
+  xs, masks = _levels(4, fanouts, seed=10 + layers)
+  flax_model = FlaxTreeSAGE(hidden_features=HIDDEN, out_features=OUT,
+                            num_layers=layers, dtype=jnp.bfloat16)
+  jxs = [jnp.asarray(x) for x in xs]
+  jms = [jnp.asarray(m) for m in masks]
+  params = flax_model.init(jax.random.key(layers), jxs, jms)
+  assert all(p.dtype == jnp.float32
+             for p in jax.tree_util.tree_leaves(params))
+  ref = np.asarray(flax_model.apply(params, jxs, jms))
+  assert ref.dtype == np.float32
+
+  model = TreeSAGE(D, HIDDEN, OUT, num_layers=layers, dtype=torch.bfloat16)
+  model.load_state_dict(tree_sage_from_flax(_numpy_tree(params)))
+  assert all(p.dtype == torch.float32 for p in model.parameters())
+  with torch.no_grad():
+    got = model([torch.from_numpy(x) for x in xs],
+                [torch.from_numpy(m) for m in masks])
+  assert got.dtype == torch.float32 and got.shape == (4, OUT)
+  np.testing.assert_allclose(got.numpy(), ref, rtol=2e-2, atol=2e-2)
+  # the logits really are bf16 values, not an f32 forward
+  assert torch.equal(got, got.bfloat16().float())
+  f32 = TreeSAGE(D, HIDDEN, OUT, num_layers=layers)
+  f32.load_state_dict(model.state_dict())
+  with torch.no_grad():
+    full = f32([torch.from_numpy(x) for x in xs],
+               [torch.from_numpy(m) for m in masks])
+  assert not torch.equal(got, full)
