@@ -273,26 +273,37 @@ Phases, one JSON line each; any failure exits nonzero:
           and 4 tiered with GNS, `rdma_gather` equal, logits within 1e-4
           after one DP step.
 
+  kernel  K1 at both hops (8 owners each) and K2 at the feature and
+          the label exchange (8 owners each) of the fused mesh paths'
+          recorded steps: the per-batch DP loop's first batch and each
+          fused epoch's last warm step (the tree's hops in arrival
+          order, unsorted), against their plain versions.
   fused_mesh  `bench.py:845-942` on the untiered store (after the K5
           line): the per-batch DP loop (`DistNeighborLoader([10, 5],
           batch_size=512)` -> `make_dp_supervised_step`, ``GraphSAGE(100,
           64, 47, 2)``, Adam(3e-3), 512 x 8 x 4 seeds, 3 epochs), then
           `FusedDistEpoch` (5 runs: warm, recording its ``hop.padding``
           events, 3 timed, then `evaluate`) and `FusedDistTreeEpoch`
-          with ``TreeSAGE(100, 64, 47, 2)`` (the same), all eager, and
-          `FusedDistEpoch` again with
-          the loader's `TorchDraws` (the draws' price): seeds/s each,
+          with ``TreeSAGE(100, 64, 47, 2)`` (the same), all eager, the
+          epochs drawing from their default `TorchDraws`: seeds/s each,
           ``fused_vs_per_batch``, exchange counters.  Checks: 16 K1 and
           16 K2 launches a step on every path, no plain call, finite
           losses, every seed counted.
+  fused_mesh_cross_check  a 4,000-node graph at P = 4 on the card and
+          on the CPU with the same CPU-made draws: 3 steps of
+          `FusedDistEpoch` and of `FusedDistTreeEpoch` at [10, 5], per-step
+          losses within 1e-5 and exchange counters equal.
 
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, GNS
 and mesh training paths), the tiered-train idle shares and the idle
 shares of the eager and the replayed tree step and `profile_train` of
-the replayed tree and subgraph steps.  ``--fused`` runs
-build, graph and the fused epochs' phases alone (`tree_train`,
-`fused_session`, `train_cross_check`, `mesh_data`, `fused_mesh`) and
+3 replayed tree and subgraph steps, whose trace must show 3 K1 and 4 K2
+kernels a tree step and 3 K1 and 1 K2 a subgraph step (without
+``--profile`` a replay's launches are inferred from its capture).
+``--fused`` runs build, graph and the fused epochs' phases alone
+(`tree_train`, `fused_session`, `train_cross_check`, `mesh_data`,
+`fused_mesh`, `fused_mesh_cross_check`) and
 prints no ``kernels`` or result line.  ``--k6`` runs build, graph and the
 tiered phases up to `tiered_train` alone (K6's forced sets, diagnosis
 and path shapes) and prints no ``kernels`` or result line: a quick A/B
@@ -1832,6 +1843,8 @@ STEP_COMPARE = 20
 #: tolerance of a replayed subgraph step against the eager one (its
 #: aggregation's `index_add_` adds in the order its atomics land)
 SUBGRAPH_REPLAY_TOL = 1e-4
+#: replayed steps traced under ``--profile``
+PROFILE_STEPS = 3
 
 
 def fused_session(torch, ops, timer, ds, feats, train_idx, test_idx, tree,
@@ -1882,8 +1895,11 @@ def fused_session(torch, ops, timer, ds, feats, train_idx, test_idx, tree,
             seeds, ctuple)[0], 5),
         'replayed': device_idle(torch, lambda: graph.replay(
             seeds, coords)[0], 5)}
-    profile_train(torch, lambda: graph.replay(seeds, coords)[0],
-                  'tree replayed')
+    check_traced(profile_train(torch, lambda: graph.replay(seeds, coords)[0],
+                               'tree replayed', n=PROFILE_STEPS),
+                 'tree replayed', PROFILE_STEPS, len(FANOUTS),
+                 len(FANOUTS) + 1)
+    out['tree_step']['traced_launches_checked'] = True
 
   # -- the bf16 tree epoch ---------------------------------------------------
   model16 = TreeSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3,
@@ -1983,8 +1999,11 @@ def fused_session(torch, ops, timer, ds, feats, train_idx, test_idx, tree,
                              5),
       'steps_timed': 5}
   if prof:
-    profile_train(torch, lambda: sgraph.replay(sseeds, scoords)[0],
-                  'subgraph replayed')
+    check_traced(profile_train(torch,
+                               lambda: sgraph.replay(sseeds, scoords)[0],
+                               'subgraph replayed', n=PROFILE_STEPS),
+                 'subgraph replayed', PROFILE_STEPS, len(FANOUTS), 1)
+    out['subgraph_step']['traced_launches_checked'] = True
   out.update(fused_subgraph_steps=SUB_STEPS,
              fused_subgraph_ms_per_step=1e3 * sub_dt / SUB_STEPS,
              fused_subgraph_epoch_secs_est=sub_dt / SUB_STEPS * steps,
@@ -2008,14 +2027,15 @@ def fused_session(torch, ops, timer, ds, feats, train_idx, test_idx, tree,
 FUSED_MESH_FANOUTS = (10, 5)
 FUSED_MESH_HIDDEN = 64
 FUSED_MESH_BATCHES = 4
-#: epochs a fused mesh path runs: a warm one, one with the flight
-#: recorder on, then the timed ones (their median counts)
+#: epochs a fused mesh path runs: a warm one (its last step's kernel
+#: inputs recorded), one with the flight recorder on, then the timed ones
+#: (their median counts)
 FUSED_MESH_RUNS = 5
-#: epochs of the per-batch DP loop (its first batch warm)
+#: epochs of the per-batch DP loop (its first batch warm and recorded)
 FUSED_MESH_LOOP_EPOCHS = 3
 
 
-def fused_mesh(torch, ops, ds):
+def fused_mesh(torch, ops, timer, ds):
   """`bench.py:845-942` on the untiered P = 8 store: the per-batch DP
   loop (`DistNeighborLoader` -> `make_dp_supervised_step` with
   ``GraphSAGE(100, 64, 47, 2)`` and Adam(3e-3), batch 512 a partition,
@@ -2023,14 +2043,17 @@ def fused_mesh(torch, ops, ds):
   warm), then `FusedDistEpoch` (5 runs: a warm one, one with the flight
   recorder on for its ``hop.padding`` events, 3 timed (their median
   counts), then `evaluate`) and `FusedDistTreeEpoch` with
-  ``TreeSAGE(100, 64, 47, 2)`` (the same); `FusedDistEpoch` runs a
-  second time drawing from `TorchDraws` (the loader's default) in
-  place of its counter draws, which prices the draws.  Checks: 16 K1
-  (one an owner a hop) and 16 K2 (one an owner a table) launches a step
-  on every path, no plain call, finite losses, every epoch's valid
-  seeds."""
+  ``TreeSAGE(100, 64, 47, 2)`` (the same), all drawing from their
+  default generator draws.  The loop's first batch and each fused
+  epoch's last warm step are recorded, and every one of their 16 K1
+  calls (one an owner a hop: sorted hops on the subgraph paths, the
+  tree's arrival-order frontiers) and 16 K2 calls (the features, then
+  the labels, one an owner) is held against its plain version after
+  the path's run.  Checks: 16 K1 and 16 K2 launches a step on every
+  path, no plain call, finite losses, every epoch's valid seeds.
+  Returns the launches and the checked kernel records by path."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
   from graphlearn_tpu_torch.models import GraphSAGE, TreeSAGE
-  from graphlearn_tpu_torch.ops import TorchDraws
   from graphlearn_tpu_torch.parallel import (DistNeighborLoader,
                                              FusedDistEpoch,
                                              FusedDistTreeEpoch,
@@ -2047,7 +2070,15 @@ def fused_mesh(torch, ops, ds):
     m.reset_parameters(torch.Generator().manual_seed(seed))
     return m, torch.optim.Adam(m.parameters(), lr=TRAIN_LR, eps=1e-8)
 
-  out = {}
+  def recording():
+    return PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS,
+                        hops=len(fan))
+
+  def check_path(rec, what):
+    return check_mesh_path(torch, ops, timer, rec, f'fused_mesh {what}',
+                           tables=('features', 'labels'))
+
+  out, paths = {}, {}
   # -- the per-batch DP loop ---------------------------------------------
   model, opt = sage(0)
   loader = DistNeighborLoader(ds, fan, seeds, batch_size=b, shuffle=True,
@@ -2055,8 +2086,11 @@ def fused_mesh(torch, ops, ds):
   step = make_dp_supervised_step(model, opt, b, loader.sampler.mesh)
   it = iter(loader)
   t0 = time.perf_counter()
-  float(step(next(it))[0])
+  with recording() as rec:
+    batch = next(it)
+  float(step(batch)[0])
   out['per_batch_warm_secs'] = time.perf_counter() - t0
+  del batch
   reset_counts(ops)
   t0 = time.perf_counter()
   losses = [step(x)[0] for x in it]
@@ -2064,10 +2098,12 @@ def fused_mesh(torch, ops, ds):
     losses += [step(x)[0] for x in loader]
   pb_losses = torch.stack(losses).cpu().numpy()
   pb_dt = time.perf_counter() - t0
-  check_replay_counts(ops, 'mesh per-batch loop', len(losses), per_step,
-                      per_step)
+  pb_launches = check_replay_counts(ops, 'mesh per-batch loop', len(losses),
+                                    per_step, per_step)
   pb_rate = len(losses) * b * MESH_PARTS / pb_dt
   del loader, it, step
+  paths['per_batch'] = check_path(rec, 'per-batch loop')
+  del rec
 
   def epochs(fused, name):
     runs, res = [], {}
@@ -2078,7 +2114,11 @@ def fused_mesh(torch, ops, ds):
       reset_counts(ops)
       sync(torch)
       t = time.perf_counter()
-      stats = fused.run()
+      if r == 0:
+        with recording() as rec:
+          stats = fused.run()
+      else:
+        stats = fused.run()
       lv = stats.losses.cpu().numpy()
       runs.append(time.perf_counter() - t)
       if r == 1:
@@ -2103,43 +2143,97 @@ def fused_mesh(torch, ops, ds):
                                           'dist.feature.o',
                                           'dist.feature.d',
                                           'dist.feature.s'))})
-    return res
+    return res, rec
 
   model, opt = sage(1)
   fused = FusedDistEpoch(ds, fan, seeds, model, opt, batch_size=b,
                          shuffle=True, seed=0, device=DEVICE)
-  sub = epochs(fused, 'FusedDistEpoch')
-  # the same epoch drawing from the per-batch loader's generator-seeded
-  # uniforms instead of the counter hash: what the draws cost
-  gen = TorchDraws(0, DEVICE)
-  model, opt = sage(1)
-  fused = FusedDistEpoch(
-      ds, fan, seeds, model, opt, batch_size=b, shuffle=True, seed=0,
-      draws=lambda e, s, h, r, k, w, gns=False, owner=0: gen.draw(
-          (e, s, h, owner), r, k, w), device=DEVICE)
-  sub_gen = epochs(fused, 'FusedDistEpoch (generator draws)')
+  sub, rec = epochs(fused, 'FusedDistEpoch')
   del fused
+  paths['fused'] = check_path(rec, 'FusedDistEpoch')
   model, opt = sage(2, TreeSAGE)
   tfused = FusedDistTreeEpoch(ds, fan, seeds, model, opt, batch_size=b,
                               shuffle=True, seed=0, device=DEVICE)
-  tree = epochs(tfused, 'FusedDistTreeEpoch')
+  tree, rec = epochs(tfused, 'FusedDistTreeEpoch')
   del tfused
+  paths['tree'] = check_path(rec, 'FusedDistTreeEpoch')
+  del rec
   emit('fused_mesh', parts=MESH_PARTS, batch=b, fanouts=list(fan),
        seeds=n_seeds, steps_per_epoch=FUSED_MESH_BATCHES,
        model=f'GraphSAGE({FEAT_DIM}, {FUSED_MESH_HIDDEN}, {GNS_CLASSES}, '
              '2) / TreeSAGE (same widths)', optimizer=f'Adam({TRAIN_LR})',
+       draws='TorchDraws at (epoch, step, hop, owner)',
        per_batch_seeds_per_s=pb_rate, per_batch_secs=pb_dt,
        per_batch_steps=len(losses),
        per_batch_mean_loss=float(pb_losses.mean()),
        fused_seeds_per_s=sub['seeds_per_s'],
        fused_vs_per_batch=sub['seeds_per_s'] / pb_rate,
-       fused_generator_draws_seeds_per_s=sub_gen['seeds_per_s'],
        tree_seeds_per_s=tree['seeds_per_s'],
        tree_vs_per_batch=tree['seeds_per_s'] / pb_rate,
-       fused=sub, fused_generator_draws=sub_gen, tree=tree,
+       fused=sub, tree=tree,
        launches_per_step={'sample_one_hop': per_step,
-                          'gather_rows': per_step}, plain_calls=0, **out)
-  return {'fused': sub['launches'], 'tree': tree['launches']}
+                          'gather_rows': per_step}, plain_calls=0,
+       kernels_checked={k: {'hops': len(v['hops']),
+                            'tables': len(v['gathers']),
+                            'owners': MESH_PARTS}
+                        for k, v in paths.items()}, **out)
+  return {'per_batch': pb_launches, 'fused': sub['launches'],
+          'tree': tree['launches']}, paths
+
+
+def fused_mesh_cross_check(torch):
+  """A 4,000-node graph at P = 4 on the card and on the CPU with the same
+  CPU-made draws: 3 steps of `FusedDistEpoch` (``GraphSAGE``) and of
+  `FusedDistTreeEpoch` (``TreeSAGE``) at fanouts [10, 5], their
+  per-step losses within 1e-5 (the card's `index_add_` and matmuls sum
+  in another order) and their exchange counters equal."""
+  from graphlearn_tpu_torch.models import GraphSAGE, TreeSAGE
+  from graphlearn_tpu_torch.parallel import (DistDataset, FusedDistEpoch,
+                                             FusedDistTreeEpoch, TorchDraws)
+  rng = np.random.default_rng(10)
+  n, parts, b = 4000, 4, 64
+  rows = np.repeat(np.arange(n), 12)
+  cols = np.where(rng.random(n * 12) < 0.3, rng.integers(0, 40, n * 12),
+                  rng.integers(0, n, n * 12))
+  feats = rng.standard_normal((n, 16)).astype(np.float32)
+  labels = rng.integers(0, 7, n).astype(np.int32)
+  seeds = rng.permutation(n)[:3 * b * parts]
+  cpu = TorchDraws(6, 'cpu')
+  losses, stats = {}, {}
+  for dev in (DEVICE, 'cpu'):
+    def draws(e, s, h, r, k, w, gns=False, owner=0, dev=dev):
+      return tuple(t.to(dev) for t in cpu.draw((e, s, h, owner), r, k, w,
+                                               gns))
+    ds = DistDataset.from_full_graph(parts, rows, cols, node_feat=feats,
+                                     node_label=labels, num_nodes=n,
+                                     split_ratio=1.0, device=dev)
+    for cls, mcls in ((FusedDistEpoch, GraphSAGE),
+                      (FusedDistTreeEpoch, TreeSAGE)):
+      model = mcls(16, 32, 7, num_layers=2).to(dev)
+      model.reset_parameters(torch.Generator().manual_seed(3))
+      opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+      fused = cls(ds, FUSED_MESH_FANOUTS, seeds, model, opt, batch_size=b,
+                  shuffle=True, seed=1, draws=draws, device=dev)
+      key = (dev, cls.__name__)
+      losses[key] = fused.run().losses.cpu().numpy()
+      stats[key] = {k: v for k, v in fused.sampler.exchange_stats().items()
+                    if k.startswith(('dist.frontier', 'dist.feature.o',
+                                     'dist.feature.d', 'dist.feature.s'))}
+  diffs = {}
+  for name in ('FusedDistEpoch', 'FusedDistTreeEpoch'):
+    card, host = losses[DEVICE, name], losses['cpu', name]
+    diffs[name] = float(np.abs(card - host).max())
+    if not (card.shape == host.shape == (3,) and np.isfinite(card).all()
+            and diffs[name] <= 1e-5):
+      raise AssertionError(f'{name}: card losses {card}, CPU {host}')
+    if stats[DEVICE, name] != stats['cpu', name] or not stats[
+        'cpu', name]['dist.frontier.offered']:
+      raise AssertionError(f'{name}: exchange counters differ: card '
+                           f'{stats[DEVICE, name]}, CPU {stats["cpu", name]}')
+  emit('fused_mesh_cross_check', parts=parts, steps=3,
+       fanouts=list(FUSED_MESH_FANOUTS), loss_max_abs_diff=diffs,
+       exchange_equal=True,
+       exchange={k: v for k, v in stats['cpu', 'FusedDistEpoch'].items()})
 
 
 def train_cross_check(torch):
@@ -3457,16 +3551,19 @@ class PathRecorder:
   """Wraps the mesh sampler's kernel calls (the GNS sampler with
   ``gns``, else the uniform one) and its row gathers to keep the latest
   dispatch's kernel inputs: its ``hops x parts`` sampler calls (hop-major,
-  each with its rows in the order the kernel sees them) and its ``tables
-  x parts`` gathers (the hot-tier features, then the labels, each owner
-  in turn)."""
+  each with its rows in the order the kernel sees them: ascending with
+  ``sort_locality``, else in arrival order) and its ``tables x parts``
+  gathers (the features, then the labels, each owner in turn)."""
 
-  def __init__(self, torch, mod, gns=True, parts=1, tables=2):
+  def __init__(self, torch, mod, gns=True, parts=1, tables=2,
+               hops=len(FANOUTS)):
     self.torch, self.mod, self.gns = torch, mod, gns
     self.name = 'sample_one_hop_gns_fused' if gns else 'sample_one_hop_fused'
     self.real = getattr(mod, self.name)
     self.real_gather = mod.gather_rows
-    self.n_samples, self.n_gathers = len(FANOUTS) * parts, tables * parts
+    self.hops, self.parts = hops, parts
+    self.n_samples, self.n_gathers = hops * parts, tables * parts
+    self.sorted_hops = {}
     self.samples, self.calls = {}, 0
     self.gathers, self.gather_calls = {}, 0
 
@@ -3478,13 +3575,18 @@ class PathRecorder:
   def __call__(self, indptr, indices, seeds, k, u, v, *rest, req=None,
                window=None, sort_locality=False):
     torch = self.torch
-    order = torch.argsort(torch.where(seeds >= 0, seeds,
-                                      torch.iinfo(seeds.dtype).max),
-                          stable=True)
+    if sort_locality and seeds.shape[0] > 1:
+      order = torch.argsort(torch.where(seeds >= 0, seeds,
+                                        torch.iinfo(seeds.dtype).max),
+                            stable=True)
+    else:
+      order = torch.arange(seeds.shape[0], device=seeds.device)
     args = (indptr, indices, seeds[order].contiguous(), k, u, v)
     if self.gns:
       args += tuple(rest) + (req[order].contiguous(), window)
     self.samples[self.calls % self.n_samples] = args
+    self.sorted_hops[self.calls % self.n_samples // self.parts] = bool(
+        sort_locality)
     self.calls += 1
     kw = dict(req=req, window=window) if self.gns else {}
     return self.real(indptr, indices, seeds, k, u, v, *rest,
@@ -3521,23 +3623,25 @@ def summed(recs) -> dict:
   return out
 
 
-def check_mesh_path(torch, ops, timer, rec, path) -> dict:
+def check_mesh_path(torch, ops, timer, rec, path,
+                    tables=('hot-tier features', 'labels')) -> dict:
   """Every sampler and row-gather call of one recorded mesh dispatch held
   against its plain version (byte-equal), each timed; one ``kernel`` line
   per hop and per table, summed over the owners."""
   per_hop, per_table = [], []
-  for t in range(len(FANOUTS)):
+  for t in range(rec.hops):
     calls = rec.sample_calls()[t * MESH_PARTS:(t + 1) * MESH_PARTS]
     if rec.gns:
       recs = [check_gns(torch, ops, timer, *a) for a in calls]
     else:
       recs = [check_sampler(torch, ops, timer, *a)[1] for a in calls]
     per_hop.append(summed(recs))
+    per_hop[-1]['sorted'] = rec.sorted_hops[t]
     emit('kernel', kernel='sample_one_hop_gns' if rec.gns else
          'sample_one_hop', shape=f'{path} hop {t}, {MESH_PARTS} owners',
          **per_hop[-1])
   calls = rec.gather_calls_in_order()
-  for t, what in enumerate(('hot-tier features', 'labels')):
+  for t, what in enumerate(tables):
     recs = [check_gather(torch, ops, timer, *a)
             for a in calls[t * MESH_PARTS:(t + 1) * MESH_PARTS]]
     per_table.append(summed(recs))
@@ -4282,11 +4386,19 @@ def mesh_cross_check(torch):
        byte_equal=True, rdma_gather_equal=True, logits_max_abs_diff=diff)
 
 
-def profile_train(torch, run_step, path, n=3):
+#: the device functions each counted wrapper launches, by wrapper
+PORT_KERNELS = {'sample_one_hop': ('sample_one_hop_kernel',),
+                'sample_one_hop_gns': ('sample_gns_kernel',),
+                'gather_rows': ('gather_narrow', 'gather_wide'),
+                'push_rows': ('push_rows_kernel',)}
+
+
+def profile_train(torch, run_step, path, n=3) -> dict:
   """Device time by kernel over ``n`` training steps of ``path``
   (``run_step()`` runs one and returns its loss; no synchronise inside):
   the top kernels, the port's kernels, and the device idle share of
-  the window."""
+  the window.  Returns the port's kernels' launches the trace saw, by
+  wrapper."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity
   sync(torch)
@@ -4305,14 +4417,27 @@ def profile_train(torch, run_step, path, n=3):
     rows.append((ev.self_device_time_total / 1e3, ev.key, ev.count))
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
-  mine = {g: sum(r[0] for r in rows if g in r[1])
-          for g in ('sample_one_hop_kernel', 'sample_gns_kernel',
-                    'gather_rows_kernel', 'push_rows_kernel')}
+  mine = {w: sum(r[0] for r in rows if any(f in r[1] for f in fns))
+          for w, fns in PORT_KERNELS.items()}
+  seen = {w: sum(r[2] for r in rows if any(f in r[1] for f in fns))
+          for w, fns in PORT_KERNELS.items()}
   emit('profile_train', path=path, steps=n, wall_ms=wall_ms,
        device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
-       port_kernels_ms=mine,
+       port_kernels_ms=mine, port_kernel_launches=seen,
        top=[{'name': k[:90], 'device_ms': ms, 'count': c}
             for ms, k, c in rows[:15]])
+  return seen
+
+
+def check_traced(seen, what, steps, k1, k2) -> None:
+  """The trace of ``steps`` replayed steps saw ``k1`` sampler and ``k2``
+  row-gather kernels a step and no other port kernel: the card's own
+  witness that every replay ran them (the default run's replay counts
+  are inferred from the capture)."""
+  want = {w: 0 for w in PORT_KERNELS}
+  want.update(sample_one_hop=k1 * steps, gather_rows=k2 * steps)
+  if seen != want:
+    raise AssertionError(f'{what}: the trace saw {seen}, want {want}')
 
 
 def profile(torch, eng):
@@ -4393,8 +4518,8 @@ def tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
 def fused_phases(torch, ops, timer, indptr, indices, feats, ds,
                  prof=False) -> None:
   """``--fused``: the fused epochs' phases alone (`tree_train`,
-  `fused_session`, `train_cross_check`, then `mesh_data` and
-  `fused_mesh`)."""
+  `fused_session`, `train_cross_check`, then `mesh_data`, `fused_mesh`
+  and `fused_mesh_cross_check`)."""
   labels = make_labels(torch, feats)
   ds.init_node_labels(labels)
   train_idx, test_idx = train_splits()
@@ -4407,7 +4532,8 @@ def fused_phases(torch, ops, timer, indptr, indices, feats, ds,
   torch.cuda.empty_cache()
   ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels)
   del ds_t
-  fused_mesh(torch, ops, ds_u)
+  fused_mesh(torch, ops, timer, ds_u)
+  fused_mesh_cross_check(torch)
 
 
 def main(argv) -> int:
@@ -4584,7 +4710,8 @@ def run(torch, argv) -> list:
       torch, ops, timer, ds_u, feats, labels)
   k5 = k5_kernel(torch, timer, ds_u, node_table)
   del node_table
-  fmesh_launches = fused_mesh(torch, ops, ds_u)
+  fmesh_launches, fmesh_paths = fused_mesh(torch, ops, timer, ds_u)
+  fused_mesh_cross_check(torch)
   del ds_u
   torch.cuda.empty_cache()
   mesh_launches, mesh_path = mesh_train(torch, ops, timer, ds_t, feats,
@@ -4605,7 +4732,7 @@ def run(torch, argv) -> list:
   def mesh_shape(what, hops):
     return {'shape': f'{what}, {MESH_PARTS} owners a hop, hops of '
                      + '/'.join(str(h['rows']) for h in hops)
-                     + ' rows, k 15/10/5',
+                     + ' rows, k ' + '/'.join(str(h['k']) for h in hops),
             'ms': sum(h['kernel_ms'] for h in hops),
             'plain_ms': sum(h['plain_ms'] for h in hops),
             'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -4613,13 +4740,19 @@ def run(torch, argv) -> list:
             'byte_equal': True, 'hops': per_hop(hops)}
 
   mesh_gathers = loader_path['gathers'] + mesh_path['gathers']
+  fmesh_what = {'per_batch': 'fused_mesh per-batch DP loop batch',
+                'fused': 'FusedDistEpoch step',
+                'tree': 'FusedDistTreeEpoch step (arrival-order frontiers)'}
+  fmesh_hops = [h for v in fmesh_paths.values() for h in v['hops']]
+  fmesh_gathers = [g for v in fmesh_paths.values() for g in v['gathers']]
   kernels = [
       {'name': 'sample_one_hop', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
        'launches': launches['sample_one_hop'],
        'max_abs_err': max(h['max_abs_err']
-                          for h in hops + loader_path['hops'] + sub_hops),
+                          for h in hops + loader_path['hops'] + sub_hops
+                          + fmesh_hops),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -4670,14 +4803,18 @@ def run(torch, argv) -> list:
            'max_abs_err': max(h['max_abs_err'] for h in sub_hops),
            'byte_equal': True, 'hops': per_hop(sub_hops)},
        'mesh_shape': mesh_shape('mesh loader batch of 8 x 512 seeds',
-                                loader_path['hops'])},
+                                loader_path['hops']),
+       'fused_mesh_shapes': {
+           k: mesh_shape(f'{fmesh_what[k]} of 8 x 512 seeds', v['hops'])
+           for k, v in fmesh_paths.items()}},
       {'name': 'gather_rows', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
        'launches': launches['gather_rows'],
        'max_abs_err': max(g['max_abs_err']
                           for g in gathers + gathers_train + [train_gather]
-                          + tree_levels + mesh_gathers + [sub_gather]),
+                          + tree_levels + mesh_gathers + [sub_gather]
+                          + fmesh_gathers),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -4698,6 +4835,13 @@ def run(torch, argv) -> list:
             'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
             'byte_equal': True}
            for g in mesh_gathers],
+       'fused_mesh_shapes': [
+           {'shape': f'{fmesh_what[k]}: {g["ids"]} ids x {g["row_bytes"]} '
+                     f'B {g["dtype"]} over {MESH_PARTS} owners',
+            'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+            'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+            'byte_equal': True}
+           for k, v in fmesh_paths.items() for g in v['gathers']],
        'launches_by_path': {'serve': launches['gather_rows'],
                             'train': train_launches['gather_rows'],
                             'tree_train': tree_launches['gather_rows'],

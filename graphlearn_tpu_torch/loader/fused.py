@@ -50,12 +50,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models.train import _correct, supervised_loss
-from ..ops.cold_gather import cold_gather
-from ..ops.delta_merge import merge_ranks
 from ..ops.draws import CounterDraws
-from ..ops.fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
-from ..ops.gather_rows import gather_rows
-from ..ops.window_gather import csr_window_gather
+from ..ops.launches import LAUNCH_COUNTED
 from ..sampler.neighbor_sampler import NeighborSampler, _multihop_sample
 from ..utils.device import resolve_device
 from .node_loader import SeedBatcher
@@ -125,17 +121,12 @@ def check_capturable(optimizer: torch.optim.Optimizer, owner: str) -> None:
         f'lr, capturable=True))')
 
 
-#: every kernel wrapper's launch count: a replay adds the launches its
-#: graph captured
-KERNEL_WRAPPERS = (sample_one_hop_fused, sample_one_hop_gns_fused,
-                   gather_rows, csr_window_gather, merge_ranks, cold_gather)
-
-
 class CapturedStep:
   """One step captured as a CUDA graph: its static inputs (``seeds
   [B]`` int32, ``coords [3]`` int64), its static outputs, and the kernel
   launches one replay makes (the wrappers count at the Python call,
-  which a replay does not make, so `replay` adds them)."""
+  which a replay does not make, so `replay` adds what the capture
+  counted: an inferred count, not one observed on the card)."""
 
   def __init__(self, graph, seeds, coords, outputs, launches):
     self.graph = graph
@@ -304,13 +295,14 @@ class _SupervisedEpoch:
     main.wait_stream(side)
     if self._pool is None:
       self._pool = torch.cuda.graph_pool_handle()
-    before = [fn_.launches for fn_ in KERNEL_WRAPPERS]
+    wrappers = list(LAUNCH_COUNTED)
+    before = [fn_.launches for fn_ in wrappers]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=self._pool, stream=side):
       static_out = fn(*args)
     # the capture recorded these launches; none of them ran
     launches = []
-    for fn_, b in zip(KERNEL_WRAPPERS, before):
+    for fn_, b in zip(wrappers, before):
       if fn_.launches != b:
         launches.append((fn_, fn_.launches - b))
         fn_.launches = b

@@ -6,6 +6,7 @@ from .draws import CounterDraws, TorchDraws, hash_draws
 from .fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
 from .gather_rows import gather_rows, gather_rows_plain
 from .gns import sample_one_hop_gns
+from .launches import LAUNCH_COUNTED
 from .neighbor import (OneHopResult, default_window, lookup_degree,
                        sample_one_hop)
 from .unique import InducerState, induce_next, init_node, unique_stable

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .launches import counted
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -132,7 +133,7 @@ def cold_gather(out: torch.Tensor, cold: torch.Tensor, pos: torch.Tensor,
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-cold_gather.launches = 0
+counted(cold_gather)
 #: plan steps (`cold_plan` on the card before a launch)
 cold_gather.plans = 0
 

@@ -41,6 +41,7 @@ import torch
 
 from .. import _build
 from ..utils import next_power_of_two, ptr2ind, resolve_device
+from .launches import counted
 
 _P = ctypes.c_void_p
 _ARGTYPES = (_P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong,
@@ -279,7 +280,7 @@ def merge_ranks(rows: RankRows, indices: torch.Tensor,
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-merge_ranks.launches = 0
+counted(merge_ranks)
 
 
 def merge_delta_csr_device(indptr: np.ndarray, indices: np.ndarray,

@@ -1,8 +1,8 @@
 """Draws for the samplers: counter-based draws for per-seed sampling
-trees (`hash_draws`, serving), for the fused epochs (`CounterDraws`,
-whose coordinates may live on the card, so a captured CUDA graph draws
-anew on every replay) and the per-batch samplers' default provider
-(`TorchDraws`).
+trees (`hash_draws`, serving), for the single-card fused epochs
+(`CounterDraws`, whose coordinates may live on the card, so a captured
+CUDA graph draws anew on every replay) and the default provider of the
+per-batch samplers and the eager fused mesh epochs (`TorchDraws`).
 
 The JAX serving engine keys each seed's tree with threefry
 (``fold_in(key(engine_seed), node)``, then ``fold_in(·, hop)`` and
@@ -84,7 +84,7 @@ def _stream(row: torch.Tensor, tag: int, width: int) -> torch.Tensor:
 
 
 class CounterDraws:
-  """The fused epochs' default draws: a hash of ``(seed, coordinates,
+  """The single-card fused epochs' default draws: a hash of ``(seed, coordinates,
   row, lane, stream)``, like `hash_draws`, in pure tensor arithmetic.
 
   A coordinate is a Python int or a 0-d int64 tensor on ``device``;
@@ -165,11 +165,12 @@ class TorchDraws:
       mixed = mixed * 1_000_003 + int(c)
     return mixed
 
-  def draw(self, coords: Sequence[int], rows: int, k: int, w: int
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(u, gumbel)`` at non-negative integer ``coords``, each below
-    1,000,003 (distinct coordinates, distinct generator seeds)."""
-    return self._from(self._mixed(coords), rows, k, w, False)
+  def draw(self, coords: Sequence[int], rows: int, k: int, w: int,
+           gns: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(u, gumbel)`` (with ``gns``, ``(u, v)``) at non-negative
+    integer ``coords``, each below 1,000,003 (distinct coordinates,
+    distinct generator seeds)."""
+    return self._from(self._mixed(coords), rows, k, w, gns)
 
   def __call__(self, step, hop, rows, k, w, gns=False, owner=0):
     """The samplers' form: the draws at coordinates ``(step, hop)``, or

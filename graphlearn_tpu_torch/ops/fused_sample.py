@@ -25,6 +25,7 @@ import torch
 
 from .. import _build
 from .gns import bits_rows, bits_table, sample_one_hop_gns
+from .launches import counted
 from .neighbor import OneHopResult, default_window, sample_one_hop
 
 #: the kernels keep a row's window in shared memory
@@ -122,7 +123,7 @@ def _launch_uniform(indptr, indices, seeds, k, u, gumbel, w):
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-sample_one_hop_fused.launches = 0
+counted(sample_one_hop_fused)
 
 
 def sample_one_hop_gns_fused(indptr: torch.Tensor, indices: torch.Tensor,
@@ -201,4 +202,4 @@ def gns_kernel(indptr, indices, seeds, k, u, v, table, rows, boost, w
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-sample_one_hop_gns_fused.launches = 0
+counted(sample_one_hop_gns_fused)

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .launches import counted
 
 _P = ctypes.c_void_p
 _ARGTYPES = (_P, ctypes.c_longlong, ctypes.c_longlong, _P, ctypes.c_int,
@@ -94,4 +95,4 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-gather_rows.launches = 0
+counted(gather_rows)

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .launches import counted
 
 _P = ctypes.c_void_p
 _ARGTYPES = (_P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_longlong,
@@ -109,4 +110,4 @@ def csr_window_gather(indices: torch.Tensor, starts: torch.Tensor,
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-csr_window_gather.launches = 0
+counted(csr_window_gather)

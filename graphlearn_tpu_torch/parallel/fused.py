@@ -16,7 +16,11 @@ at epoch 0, JAX's eval fold domain ``fold_in(fold_in(key(seed), 0),
 1)``), ``step`` is the step's index in the epoch and ``owner`` the
 partition that samples the rows (JAX's key ``fold_in(fold_in(fold_in(
 fold_in(key(seed), epoch), step), hop), owner)``).  The default
-provider is `ops.draws.CounterDraws` at ``(epoch, step, hop, owner)``.
+provider is the per-batch loader's, `ops.draws.TorchDraws`, at
+coordinates ``(epoch, step, hop, owner)``: these epochs run eagerly, so
+nothing replays a seed baked into a graph, and a generator's uniforms
+cost the card less than `ops.draws.CounterDraws`' hash (which the
+single-card epochs need for their captured steps).
 
 The exchange counters of every step are folded into the sampler's
 accumulator, so ``sampler.exchange_stats()`` reads what the per-batch
@@ -36,7 +40,7 @@ from ..loader.fused import EpochStats, Rematerialized
 from ..loader.node_loader import SeedBatcher
 from ..loader.transform import Batch
 from ..models.train import _correct, supervised_loss
-from ..ops.draws import CounterDraws
+from ..ops.draws import TorchDraws
 from ..telemetry.aggregate import per_hop_padding
 from ..telemetry.recorder import recorder
 from .dist_data import DistDataset
@@ -50,11 +54,11 @@ from .exchange import capacity_spec
 MeshEpochDraws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _counter_draws(seed: int, device) -> MeshEpochDraws:
-  cd = CounterDraws(seed, device)
+def _generator_draws(seed: int, device) -> MeshEpochDraws:
+  gen = TorchDraws(seed, device)
 
   def draws(epoch, step, hop, rows, k, w, gns=False, owner=0):
-    return cd.draw((epoch, step, hop, owner), rows, k, w, gns)
+    return gen.draw((epoch, step, hop, owner), rows, k, w, gns)
   return draws
 
 
@@ -103,7 +107,7 @@ class _MeshEpochDriver:
     self._batcher = SeedBatcher(seeds, self.batch_size * self.num_parts,
                                 shuffle, drop_last, seed)
     self.draws = (draws if draws is not None
-                  else _counter_draws(seed, self.device))
+                  else _generator_draws(seed, self.device))
     self._epoch_idx = 0
 
   def __len__(self) -> int:

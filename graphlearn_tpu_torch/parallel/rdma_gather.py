@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..ops.launches import counted
 from .dist_sampler import int64_on
 from .dp import Mesh
 from .exchange import plan_exchange
@@ -105,7 +106,7 @@ def push_rows(recv_ids: torch.Tensor, starts: torch.Tensor,
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)
-push_rows.launches = 0
+counted(push_rows)
 
 
 def rdma_gather(mesh: Mesh, shards: torch.Tensor, bounds, ids: torch.Tensor,

@@ -195,3 +195,21 @@ def test_counter_draws_int_and_tensor_coordinates():
   assert torch.equal(d(3, None, 2, 1, 80, 5, 64)[0][:40], u)
   # uniform enough: the mean of 40 x 64 values sits near 1/2
   assert abs(float(d.draw((1,), 40, 64, 64)[0].mean()) - 0.5) < 0.02
+
+
+def test_launch_registry_holds_every_kernel_wrapper():
+  """`ops.LAUNCH_COUNTED` holds each kernel's wrapper once, one for each
+  CUDA source, so the captured step accounts for every kernel a replay
+  launches without naming them."""
+  import pathlib
+
+  import graphlearn_tpu_torch
+  import graphlearn_tpu_torch.parallel  # noqa: F401  (push_rows)
+  from graphlearn_tpu_torch.ops import LAUNCH_COUNTED
+  names = sorted(fn.__name__ for fn in LAUNCH_COUNTED)
+  assert names == sorted({'sample_one_hop_fused', 'sample_one_hop_gns_fused',
+                          'gather_rows', 'csr_window_gather', 'merge_ranks',
+                          'cold_gather', 'push_rows'})
+  csrc = pathlib.Path(graphlearn_tpu_torch.__file__).parent / 'csrc'
+  assert len(names) == len(list(csrc.glob('*.cu')))
+  assert all(isinstance(fn.launches, int) for fn in LAUNCH_COUNTED)

@@ -35,6 +35,7 @@ from graphlearn_tpu.parallel.fused import (
 from graphlearn_tpu_torch.models import (GraphSAGE, TreeSAGE,
                                          graphsage_from_flax,
                                          tree_sage_from_flax)
+from graphlearn_tpu_torch.ops import CounterDraws, TorchDraws
 from graphlearn_tpu_torch.parallel import (AdaptiveSlack, DistNeighborLoader,
                                            FusedDistEpoch, FusedDistTreeEpoch)
 from graphlearn_tpu_torch.telemetry import recorder
@@ -207,6 +208,38 @@ def test_fused_mesh_epochs_contract(monkeypatch):
   assert not torch.equal(before, model.layer0_self.weight)
   assert 0.0 <= tf.evaluate(np.arange(60)) <= 1.0
   assert tf.cluster_exchange_stats()['dist.frontier.offered'] > 0
+
+
+@pytest.mark.parametrize('cls,model_cls', [
+    (FusedDistEpoch, GraphSAGE), (FusedDistTreeEpoch, TreeSAGE)])
+def test_fused_mesh_default_draws_are_generator_draws(monkeypatch, cls,
+                                                      model_cls):
+  """The mesh epochs run eagerly, so by default they draw as the
+  per-batch loader does, from `TorchDraws` at coordinates ``(epoch,
+  step, hop, owner)``: the same losses and parameters, bitwise, as that
+  provider passed in, and other losses than the counter hash gives."""
+  _clean_env(monkeypatch)
+  _, ds, feats, _ = _datasets(120, 1.0)
+  gen = TorchDraws(1, 'cpu')
+  cd = CounterDraws(1, 'cpu')
+  providers = (None,
+               lambda e, s, h, r, k, w, gns=False, owner=0: gen.draw(
+                   (e, s, h, owner), r, k, w, gns),
+               lambda e, s, h, r, k, w, gns=False, owner=0: cd.draw(
+                   (e, s, h, owner), r, k, w, gns))
+  runs = []
+  for draws in providers:
+    model = model_cls(feats.shape[1], 8, CLASSES, num_layers=2)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    fused = cls(ds, FANOUTS, np.arange(120), model, opt, 4, seed=1,
+                draws=draws, device='cpu')
+    runs.append((fused.run().losses,
+                 [p.detach().clone() for p in model.parameters()]))
+  (l0, p0), (l1, p1), (l2, _) = runs
+  assert torch.equal(l0, l1)
+  assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+  assert not torch.equal(l0, l2)
 
 
 @pytest.mark.parametrize('cls,model_cls', [

@@ -12,10 +12,13 @@ rows unsorted.  Tolerances: per-step losses and final parameters within
 1e-5 (f32 matmuls reduce in another order in XLA:CPU than in torch);
 correct counts, step counts and eval accuracy equal.  The bf16 epoch
 (``TreeSAGE(dtype=bfloat16)`` on both sides, f32 params) holds losses
-and parameters to 2e-2 (each library rounds to bf16 at its own places,
-~4e-3 relative a rounding) and the correct counts to within 2 of 72
-seeds (an argmax between two logits closer than a bf16 rounding may
-go either way).
+to 2e-2 (each library rounds to bf16 at its own places, ~4e-3 relative
+a rounding), each parameter's change over the epoch to within 2e-2 of
+the norm of JAX's change (Adam moves a parameter by about the learning
+rate a step, so the change, not the parameter, is what the backward and
+the update decide; 5 steps at lr 3e-3 agree to 4e-3 of that norm), and
+the correct counts to within 2 of 72 seeds (an argmax between two
+logits closer than a bf16 rounding may go either way).
 """
 import jax
 import jax.numpy as jnp
@@ -129,6 +132,7 @@ def test_fused_tree_epoch_matches_jax():
 
 def test_bf16_fused_tree_epoch_matches_jax():
   jf, tf, state, model, opt, test = _epochs(torch.bfloat16)
+  start = {k: v.clone() for k, v in model.state_dict().items()}
   state, jstats = jf.run(state)
   stats = tf.run()
   np.testing.assert_allclose(stats.losses.numpy(),
@@ -140,8 +144,12 @@ def test_bf16_fused_tree_epoch_matches_jax():
   ref = tree_sage_from_flax(_numpy_tree(state.params))
   for name, p in model.state_dict().items():
     assert p.dtype == torch.float32
-    np.testing.assert_allclose(p.numpy(), ref[name].numpy(), rtol=2e-2,
-                               atol=2e-2, err_msg=name)
+    moved, jax_moved = p - start[name], ref[name] - start[name]
+    # Adam moved every parameter by a few learning rates: a port that
+    # left it in place, or moved it another way, is off by ~1x the norm
+    assert float(jax_moved.norm()) > 10 * 2e-2 * 3e-3, name
+    rel = float((moved - jax_moved).norm() / jax_moved.norm())
+    assert rel <= 2e-2, (name, rel)
   assert abs(tf.evaluate(test) - jf.evaluate(state.params, test)) <= 2 / 40
 
 
