@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
 per-batch training, fused epochs (tree, bf16 tree and subgraph, each
-step a CUDA graph; the mesh's), tiered feature store, GNS training and
-partitioned mesh paths on one NVIDIA card.
+step a CUDA graph; the mesh's), tiered feature store, GNS training,
+partitioned mesh and heterogeneous-graph paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
     python3 chip_smoke.py            # what the checks below need
     python3 chip_smoke.py --profile  # adds torch.profiler phases
+    python3 chip_smoke.py --hetero   # build and the hetero phases alone
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -293,14 +294,52 @@ Phases, one JSON line each; any failure exits nonzero:
           on the CPU with the same CPU-made draws: 3 steps of
           `FusedDistEpoch` and of `FusedDistTreeEpoch` at [10, 5], per-step
           losses within 1e-5 and exchange counters equal.
+  mag_graph  `bench.py:538-560`'s ogbn-mag-scale graph built on the card
+          (`benchmarks/common.py:123-148`'s recipe per edge type): 736,389
+          papers and 1,134,649 authors, ``cites`` P->P at average degree
+          7, ``writes`` A->P at 7, ``rev_writes`` P->A at 4, 30% hub
+          targets, uniform ``[N, 128]`` f32 features per type, learnable
+          paper labels ``argmax((x - 0.5) @ P)`` over 349 classes.
+  kernel  K1 at the five (hop, edge type) calls of the hetero step
+          (hop 0: ``cites`` and ``rev_writes`` over 512 paper rows; hop
+          1: all three edge types over 5,120 rows; k = 10) and K2 at its
+          two type gathers (author 56,320 and paper 108,032 ids x 128
+          f32: 512-byte rows), recorded from the first step of
+          `hetero_train`, against their plain versions (byte-equal).
+  hetero_train  `bench.py:517-597`, the hetero session:
+          `FusedHeteroEpoch` with ``RGCN(128 -> 128 -> 349, 2 layers,
+          target paper)`` and Adam(1e-3, ``capturable=True``), batch 512,
+          fanouts [10, 10], 64 steps over ``permutation(736,389)[:512 *
+          64]`` (seed 0) in one chunk: a warm epoch (the capture) and 2
+          timed epochs, `evaluate` on the next 20 batches; one step run
+          eagerly and replayed from the same state and both timed over
+          20 steps; the same under `torch.use_deterministic_algorithms`
+          bitwise equal.  Checks: 5 K1 and 2 K2 launches a step, no plain
+          call, finite losses falling, accuracy above 1/349, 2 captures.
+  kernel  the same five K1 and two K2 calls of the first per-batch
+          `hetero_loader` step (fanouts [4, 4]: 256 / 1,024 rows).
+  hetero_loader  `examples/hetero/train_hgt_mag.py`'s per-batch path:
+          `NeighborLoader(ds, [4, 4], ('paper', train_idx),
+          batch_size=256)` -> `make_hetero_supervised_step` with
+          ``HGT(128 -> 64 -> 349, 2 layers, 2 heads, target paper)`` and
+          Adam(1e-3), 20 steps each split into sample / collate / model.
+          Checks: 5 K1 and 2 K2 launches a step, no plain call, finite
+          losses, ``x`` rows and labels equal their source.
+  hetero_cross_check  a three-type graph of 5,100 nodes under five edge
+          types on the card and on the CPU: 3 `FusedHeteroEpoch` RGCN
+          steps with the counter draws, losses within 1e-5, each step's
+          sample (tables, counts, COO, masks) equal.
 
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, GNS
 and mesh training paths), the tiered-train idle shares and the idle
 shares of the eager and the replayed tree step and `profile_train` of
 3 replayed tree and subgraph steps, whose trace must show 3 K1 and 4 K2
-kernels a tree step and 3 K1 and 1 K2 a subgraph step (without
-``--profile`` a replay's launches are inferred from its capture).
+kernels a tree step and 3 K1 and 1 K2 a subgraph step, and the same
+for the hetero step (5 K1 and 2 K2; without ``--profile`` a replay's
+launches are inferred from its capture).  ``--hetero`` runs build and
+the hetero phases alone (`mag_graph` to `hetero_cross_check`) and
+prints no ``kernels`` or result line.
 ``--fused`` runs build, graph and the fused epochs' phases alone
 (`tree_train`, `fused_session`, `train_cross_check`, `mesh_data`,
 `fused_mesh`, `fused_mesh_cross_check`) and
@@ -1427,12 +1466,13 @@ class TrainRecorder:
   ``smod`` the path calls it from) and the feature store's row gather to
   keep the kernel inputs of the path's first step: the sampler's per
   hop (rows in the order the kernel sees them: sorted when the path asks
-  for ``sort_locality``) and the first ``gathers`` row gathers'."""
+  for ``sort_locality``; the first ``hops`` calls, one a hop by default)
+  and the first ``gathers`` row gathers'."""
 
-  def __init__(self, torch, smod, gathers):
+  def __init__(self, torch, smod, gathers, hops=len(FANOUTS)):
     import graphlearn_tpu_torch.data.feature as fmod
     self.torch, self.fmod, self.smod = torch, fmod, smod
-    self.n_gathers = gathers
+    self.n_gathers, self.n_hops = gathers, hops
     self.real_sample = smod.sample_one_hop_fused
     self.real_gather = fmod.gather_rows
     self.hops, self.gathers = [], []
@@ -1440,7 +1480,7 @@ class TrainRecorder:
   def sample(self, indptr, indices, seeds, k, u, gumbel,
              sort_locality=False):
     torch = self.torch
-    if len(self.hops) < len(FANOUTS):
+    if len(self.hops) < self.n_hops:
       rows = seeds
       if sort_locality:
         rows = seeds[torch.argsort(torch.where(
@@ -4387,6 +4427,447 @@ def mesh_cross_check(torch):
 
 
 #: the device functions each counted wrapper launches, by wrapper
+#: the hetero session, `bench.py:514-597`: the ogbn-mag-scale schema
+MAG_PAPER, MAG_AUTHOR, MAG_CLASSES, MAG_DIM = 736_389, 1_134_649, 349, 128
+#: each edge type with its average out-degree and the seed of its CSR
+#: (`bench.py:538-540`)
+MAG_EDGES = ((('paper', 'cites', 'paper'), 7, 1),
+             (('author', 'writes', 'paper'), 7, 2),
+             (('paper', 'rev_writes', 'author'), 4, 3))
+MAG_HUB_FRAC = 0.3
+#: `bench.py:562`'s fused session: batch, fanouts, steps of its epoch
+HETERO_BATCH = 512
+HETERO_FANOUTS = (10, 10)
+HETERO_STEPS = 64
+HETERO_HIDDEN = 128
+HETERO_LR = 1e-3
+HETERO_EPOCHS = 2
+#: `examples/hetero/train_hgt_mag.py`'s per-batch loader and HGT
+HGT_BATCH = 256
+HGT_FANOUTS = (4, 4)
+HGT_HIDDEN = 64
+HGT_HEADS = 2
+HGT_STEPS = 20
+
+
+def bipartite_csr(torch, n_src, n_dst, avg_deg, seed):
+  """`benchmarks/common.py:123-148`'s recipe on the card for one edge
+  type: uniform sources, targets uniform or (30%) squared-uniform hubs;
+  CSR sorted by (row, col)."""
+  e = n_src * avg_deg
+  g = torch.Generator(device=DEVICE).manual_seed(seed)
+  rows = torch.randint(0, n_src, (e,), generator=g, device=DEVICE)
+  hub = torch.rand(e, generator=g, device=DEVICE) < MAG_HUB_FRAC
+  u = torch.rand(e, generator=g, device=DEVICE)
+  cols = torch.where(hub, (u * u * n_dst).long(), (u * n_dst).long())
+  del hub, u
+  key = torch.sort(rows * n_dst + cols).values
+  del cols
+  indptr = torch.zeros(n_src + 1, dtype=torch.int64, device=DEVICE)
+  indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n_src), 0)
+  return indptr, (key % n_dst).to(torch.int32)
+
+
+def mag_graph(torch):
+  """`bench.py:538-560`'s graph on the card: papers and authors under
+  ``cites``, ``writes`` and ``rev_writes``, uniform ``[N, 128]`` f32
+  features per type, and learnable paper labels, ``argmax((x - 0.5) @
+  P)`` for a random ``P [128, 349]`` (`bench.py`'s are random, which no
+  accuracy check can read)."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.typing import as_str
+  t0 = time.perf_counter()
+  counts = {'paper': MAG_PAPER, 'author': MAG_AUTHOR}
+  edges = {et: bipartite_csr(torch, counts[et[0]], counts[et[2]], deg, s)
+           for et, deg, s in MAG_EDGES}
+  gen = torch.Generator(device=DEVICE).manual_seed(9)
+  feats = {nt: torch.rand(counts[nt], MAG_DIM, generator=gen, device=DEVICE)
+           for nt in ('paper', 'author')}
+  proj = torch.randn(MAG_DIM, MAG_CLASSES, generator=gen, device=DEVICE)
+  labels = torch.argmax((feats['paper'] - 0.5) @ proj, dim=1).to(
+      torch.int32)
+  ds = (Dataset().init_graph(edges, layout='CSR', num_nodes=counts,
+                             device=DEVICE)
+        .init_node_features(feats, device=DEVICE)
+        .init_node_labels({'paper': labels}))
+  sync(torch)
+  sizes = torch.bincount(labels.long(), minlength=MAG_CLASSES)
+  emit('mag_graph', nodes=counts,
+       edges={as_str(et): int(ind.numel()) for et, (_, ind) in edges.items()},
+       max_degree={as_str(et): int((ptr[1:] - ptr[:-1]).max())
+                   for et, (ptr, _) in edges.items()},
+       feature_shapes={nt: list(f.shape) for nt, f in feats.items()},
+       classes=MAG_CLASSES, classes_present=int((sizes > 0).sum()),
+       largest_class_share=float(sizes.max()) / MAG_PAPER,
+       secs=time.perf_counter() - t0,
+       bytes={'csr': sum(p.numel() * 8 + i.numel() * 4
+                         for p, i in edges.values()),
+              'features': sum(f.numel() * 4 for f in feats.values())})
+  return ds, feats, labels
+
+
+def hetero_hops(plan) -> list:
+  """The sampler calls of one heterogeneous sample, in order: ``(hop,
+  edge type, frontier rows, k)`` for each edge type with a planned
+  frontier."""
+  out = []
+  for h in range(plan.num_hops):
+    for et in plan.etypes:
+      fan = plan.fanouts[et]
+      k = fan[h] if h < len(fan) else 0
+      rows = plan.frontier_caps[h].get(et[0], 0)
+      if k > 0 and rows > 0:
+        out.append((h, et, rows, k))
+  return out
+
+
+def check_hetero_path(torch, ops, timer, rec, hops, feats, what) -> tuple:
+  """K1 at every recorded (hop, edge type) call and K2 at every recorded
+  type gather of one heterogeneous step against their plain versions;
+  each gather must read its type's source table.  Returns the
+  records."""
+  from graphlearn_tpu_torch.typing import as_str
+  hop_recs, gather_recs = [], []
+  for (h, et, rows, k), args in zip(hops, rec.hops):
+    if args[2].numel() != rows or args[3] != k:
+      raise AssertionError(f'{what}: hop {h} {et} sampled {args[2].numel()}'
+                           f' rows at k {args[3]}, planned {rows} at {k}')
+    _, r = check_sampler(torch, ops, timer, *args)
+    r.update(hop=h, etype=as_str(et))
+    emit('kernel', kernel='sample_one_hop',
+         shape=f'{what} hop {h} {as_str(et)}', **r)
+    hop_recs.append(r)
+  for (table, ids), nt in zip(rec.gathers, sorted(feats)):
+    if table.data_ptr() != feats[nt].data_ptr():
+      raise AssertionError(f'{what}: the {nt} gather read another table')
+    r = check_gather(torch, ops, timer, table, ids)
+    r['ntype'] = nt
+    emit('kernel', kernel='gather_rows', shape=f'{what} {nt} x', **r)
+    gather_recs.append(r)
+  if len(hop_recs) != len(hops) or len(gather_recs) != len(feats):
+    raise AssertionError(f'{what}: recorded {len(hop_recs)} K1 and '
+                         f'{len(gather_recs)} K2 calls')
+  return hop_recs, gather_recs
+
+
+def check_hetero_batch(torch, batch, feats, labels) -> None:
+  """Every valid node's ``x`` row equals its type's source row and every
+  paper's label its source label; padded rows zero; valid edges inside
+  their types' node counts, masked ones -1."""
+  count = {}
+  for nt, node in batch.node_dict.items():
+    ok = node >= 0
+    count[nt] = int(ok.sum())
+    if not torch.equal(batch.x_dict[nt][ok], feats[nt][node[ok].long()]):
+      raise AssertionError(f'a gathered {nt} x row differs from its source')
+    if bool(batch.x_dict[nt][~ok].any()):
+      raise AssertionError(f'a padded {nt} slot holds a non-zero row')
+  node = batch.node_dict['paper']
+  ok = node >= 0
+  if not torch.equal(batch.y_dict['paper'][ok], labels[node[ok].long()]):
+    raise AssertionError('a gathered label differs from its source label')
+  for (a, _, b), ei in batch.edge_index_dict.items():
+    em = batch.edge_mask_dict[(a, _, b)]
+    if not (bool(((ei[0, em] >= 0) & (ei[0, em] < count[a])).all())
+            and bool(((ei[1, em] >= 0) & (ei[1, em] < count[b])).all())
+            and bool((ei[:, ~em] == -1).all())):
+      raise AssertionError(f'edge_index of {(a, _, b)} outside the tables')
+
+
+def rgcn_step_flops(plan) -> int:
+  """Forward + backward matmul FLOPs of one RGCN step on the padded
+  tables: a layer's message matmul on every edge slot of each edge type
+  and its self matmul on every table row (backward twice the
+  forward)."""
+  edges = {}
+  for h, et, rows, k in hetero_hops(plan):
+    edges[et] = edges.get(et, 0) + rows * k
+  rows = sum(plan.table_caps.values())
+  dims = [MAG_DIM, HETERO_HIDDEN, MAG_CLASSES]
+  fwd = sum(2 * (sum(edges.values()) + rows) * i * o
+            for i, o in zip(dims[:-1], dims[1:]))
+  return 3 * fwd
+
+
+def hetero_train(torch, ops, timer, ds, feats, labels, prof=False):
+  """`bench.py:517-597`, the hetero session, on the card:
+  `FusedHeteroEpoch` with ``RGCN(etypes, 128 -> 128 -> 349, 2 layers,
+  target 'paper')`` and Adam(1e-3, capturable), batch 512, fanouts [10,
+  10], 64 steps over ``permutation(736,389)[:512 * 64]`` (seed 0) in one
+  chunk: a warm epoch (its first step eager, its kernel inputs recorded
+  and every K1 and K2 call held against its plain version; then the
+  capture) and `HETERO_EPOCHS` timed epochs, `evaluate` on the next 20
+  batches of the permutation; one step eagerly and replayed from the
+  same state (20 steps each timed); the same under
+  `torch.use_deterministic_algorithms`, bitwise."""
+  import graphlearn_tpu_torch.sampler.hetero_neighbor_sampler as hmod
+  from graphlearn_tpu_torch.loader import FusedHeteroEpoch
+  from graphlearn_tpu_torch.models import RGCN
+  etypes = tuple(et for et, _, _ in MAG_EDGES)
+  idx = np.random.default_rng(0).permutation(MAG_PAPER)
+  n_train = HETERO_BATCH * HETERO_STEPS
+  train_idx = idx[:n_train]
+  test_idx = idx[n_train:n_train + HETERO_BATCH * EVAL_BATCHES]
+
+  def new_model():
+    model = RGCN(etypes, MAG_DIM, HETERO_HIDDEN, MAG_CLASSES, num_layers=2,
+                 target_ntype='paper').to(DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model, torch.optim.Adam(model.parameters(), lr=HETERO_LR,
+                                   eps=1e-8, capturable=True)
+  model, opt = new_model()
+  fused = FusedHeteroEpoch(ds, HETERO_FANOUTS, ('paper', train_idx), model,
+                           opt, batch_size=HETERO_BATCH, shuffle=True,
+                           seed=0, max_steps_per_program=HETERO_STEPS,
+                           device=DEVICE)
+  plan = fused._plan
+  hops = hetero_hops(plan)
+  k1, k2 = len(hops), len(feats)
+  steps = len(fused)
+  reset_counts(ops)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  with TrainRecorder(torch, hmod, k2, hops=k1) as rec:
+    warm = fused.run().losses.cpu().numpy()
+  warm_secs = time.perf_counter() - t0
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  check_replay_counts(ops, 'hetero warm epoch', steps, k1, k2)
+  hop_recs, gather_recs = check_hetero_path(torch, ops, timer, rec, hops,
+                                            feats, 'hetero fused')
+  del rec
+  reset_counts(ops)
+  runs, epoch_losses = [], []
+  for _ in range(HETERO_EPOCHS):
+    sync(torch)
+    t = time.perf_counter()
+    stats = fused.run()
+    sync(torch)
+    runs.append(time.perf_counter() - t)
+    epoch_losses.append(stats.losses.cpu().numpy())
+  launches = check_replay_counts(ops, 'hetero epochs',
+                                 steps * HETERO_EPOCHS, k1, k2)
+  means = [float(warm.mean())] + [float(x.mean()) for x in epoch_losses]
+  if not (np.isfinite(np.concatenate([warm] + epoch_losses)).all()
+          and means[-1] < means[0]):
+    raise AssertionError(f'hetero losses do not fall: {means}')
+  acc = fused.evaluate(test_idx)
+  if not acc > 1 / MAG_CLASSES:
+    raise AssertionError(f'hetero eval accuracy {acc}')
+  if fused.compile_count() != 2:
+    raise AssertionError(f'{fused.compile_count()} captures, not 2')
+
+  # one step eagerly and replayed from the same state, then both timed
+  same, diff = eager_vs_replay(torch, fused)
+  graph = fused._replays['train']
+  seeds, coords = graph.seeds.clone(), graph.coords.clone()
+  ctuple = tuple(coords.unbind(0))
+  step = {'replay_max_abs_diff_to_eager': diff, 'bitwise_equal': same,
+          'eager_ms': step_ms(torch, lambda: fused._train_step(seeds, ctuple),
+                              STEP_COMPARE),
+          'replayed_ms': step_ms(torch, lambda: graph.replay(seeds, coords),
+                                 STEP_COMPARE),
+          'steps_timed': STEP_COMPARE}
+  if prof:
+    step['idle'] = {
+        'eager': device_idle(torch, lambda: fused._train_step(
+            seeds, ctuple)[0], 5),
+        'replayed': device_idle(torch, lambda: graph.replay(
+            seeds, coords)[0], 5)}
+    check_traced(profile_train(torch, lambda: graph.replay(seeds, coords)[0],
+                               'hetero replayed', n=PROFILE_STEPS),
+                 'hetero replayed', PROFILE_STEPS, k1, k2)
+    step['traced_launches_checked'] = True
+
+  # the same comparison with deterministic scatter-adds: a one-step epoch
+  # captured under `torch.use_deterministic_algorithms`, bitwise
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    det_model, det_opt = new_model()
+    det = FusedHeteroEpoch(ds, HETERO_FANOUTS,
+                           ('paper', train_idx[:HETERO_BATCH]), det_model,
+                           det_opt, batch_size=HETERO_BATCH, seed=1,
+                           device=DEVICE)
+    det.run()
+    det_same, det_diff = eager_vs_replay(torch, det)
+  finally:
+    torch.use_deterministic_algorithms(False)
+  if not det_same:
+    raise AssertionError(f'a replayed hetero step differs from the eager '
+                         f'step under deterministic algorithms (max abs '
+                         f'diff {det_diff})')
+  step['deterministic'] = {'replay_bitwise_equal_to_eager': True,
+                           'max_abs_diff': det_diff}
+  del det, det_model, det_opt
+  secs = float(np.median(runs))
+  flops = rgcn_step_flops(plan)
+  emit('hetero_train', batch=HETERO_BATCH, fanouts=list(HETERO_FANOUTS),
+       model=f'RGCN({MAG_DIM}->{HETERO_HIDDEN}->{MAG_CLASSES}, 2 layers, '
+             f'target paper)',
+       optimizer=f'Adam({HETERO_LR}, capturable)',
+       max_steps_per_program=HETERO_STEPS, steps_per_epoch=steps,
+       table_caps=plan.table_caps,
+       sampler_calls=[{'hop': h, 'etype': '__'.join(et), 'rows': r, 'k': k}
+                      for h, et, r, k in hops],
+       warm_secs=warm_secs, epochs=HETERO_EPOCHS, epoch_secs_runs=runs,
+       epoch_secs=secs, step_ms=secs / steps * 1e3,
+       train_seeds_per_s=n_train / secs, step=step,
+       rgcn_step_flops=flops, tflops=flops * steps / secs / 1e12,
+       peak_gb=peak_gb, epoch_mean_losses=means, eval_accuracy=acc,
+       eval_seeds=len(test_idx), captures=fused.compile_count(),
+       launches=launches, plain_calls=0)
+  return launches, hop_recs, gather_recs
+
+
+def hetero_loader(torch, ops, timer, ds, feats, labels):
+  """`examples/hetero/train_hgt_mag.py`'s per-batch path at its widths:
+  `NeighborLoader(ds, [4, 4], ('paper', train_idx), batch_size=256)`
+  with ``HGT(hidden 64, heads 2, 2 layers, out 349, target 'paper')``
+  and Adam(1e-3), `HGT_STEPS` steps, each split into sample / collate /
+  model by synchronising; the first step's kernel inputs recorded and
+  every K1 and K2 call held against its plain version."""
+  import graphlearn_tpu_torch.sampler.hetero_neighbor_sampler as hmod
+  from graphlearn_tpu_torch.loader import NeighborLoader
+  from graphlearn_tpu_torch.models import HGT, make_hetero_supervised_step
+  from graphlearn_tpu_torch.sampler import NodeSamplerInput
+  idx = np.random.default_rng(1).permutation(MAG_PAPER)
+  train_idx = idx[:int(MAG_PAPER * 0.8)]
+  loader = NeighborLoader(ds, HGT_FANOUTS, ('paper', train_idx),
+                          batch_size=HGT_BATCH, shuffle=True, seed=0,
+                          device=DEVICE)
+  sampler = loader.sampler
+  hops = hetero_hops(sampler.plan({'paper': HGT_BATCH}))
+  etypes = tuple(sorted(et for et, _, _ in MAG_EDGES))
+  model = HGT(('author', 'paper'), etypes, MAG_DIM, HGT_HIDDEN, MAG_CLASSES,
+              num_layers=2, heads=HGT_HEADS, target_ntype='paper').to(DEVICE)
+  model.reset_parameters(torch.Generator().manual_seed(2))
+  step = make_hetero_supervised_step(
+      model, torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8),
+      HGT_BATCH, 'paper')
+  parts = {'sample': [], 'collate': [], 'model': []}
+  losses = []
+  seed_it = iter(loader._batcher)
+  reset_counts(ops)
+  with TrainRecorder(torch, hmod, len(feats), hops=len(hops)) as rec:
+    for _ in range(HGT_STEPS):
+      seeds = next(seed_it)
+      sync(torch)
+      t0 = time.perf_counter()
+      out = sampler.sample_from_nodes(NodeSamplerInput(node=seeds,
+                                                       input_type='paper'))
+      sync(torch)
+      t1 = time.perf_counter()
+      batch = loader._collate_fn(out)
+      sync(torch)
+      t2 = time.perf_counter()
+      losses.append(step(batch)[0])
+      sync(torch)
+      t3 = time.perf_counter()
+      for key, a, z in (('sample', t0, t1), ('collate', t1, t2),
+                        ('model', t2, t3)):
+        parts[key].append((z - a) * 1e3)
+  launches, plain = read_counts(ops)
+  if not (launches['sample_one_hop'] == len(hops) * HGT_STEPS
+          and launches['gather_rows'] == len(feats) * HGT_STEPS
+          and launches['sample_one_hop_gns'] == 0 and plain == 0):
+    raise AssertionError(f'hetero loader: launch counts {launches}, plain '
+                         f'calls {plain}, want {len(hops)} K1 and '
+                         f'{len(feats)} K2 a step')
+  check_hetero_batch(torch, batch, feats, labels)
+  losses = torch.stack(losses).cpu().numpy()
+  if not np.isfinite(losses).all():
+    raise AssertionError(f'hetero loader losses {losses}')
+  hop_recs, gather_recs = check_hetero_path(torch, ops, timer, rec, hops,
+                                            feats, 'hetero loader')
+  del rec, batch, out
+  med = {k: float(np.median(v)) for k, v in parts.items()}
+  emit('hetero_loader', batch=HGT_BATCH, fanouts=list(HGT_FANOUTS),
+       model=f'HGT({MAG_DIM}->{HGT_HIDDEN}->{MAG_CLASSES}, 2 layers, '
+             f'{HGT_HEADS} heads, target paper)', optimizer='Adam(0.001)',
+       steps=HGT_STEPS, step_ms=sum(med.values()),
+       step_ms_by_part={'median': med, 'all': parts},
+       losses=[float(x) for x in losses], launches=launches,
+       plain_calls=plain, x_rows_byte_equal=True, y_byte_equal=True)
+  return launches, hop_recs, gather_recs
+
+
+def hetero_cross_check(torch):
+  """A small three-type graph (papers, authors, institutions under five
+  edge types) on the card and on the CPU: 3 `FusedHeteroEpoch` RGCN
+  steps with the default counter draws (the same values on both
+  devices), captured on the card and eager on the CPU, losses within
+  1e-5; then each step's sample, taken again from the same seeds and
+  coordinates, equal on both (tables, counts, COO, masks)."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import FusedHeteroEpoch
+  from graphlearn_tpu_torch.models import RGCN
+  rng = np.random.default_rng(14)
+  n = {'paper': 3000, 'author': 2000, 'institution': 100}
+  crow = np.concatenate([np.repeat(np.arange(n['paper']), 6),
+                         np.full(200, 11)])        # a hub past the window
+  ccol = np.where(rng.random(crow.shape[0]) < 0.3,
+                  rng.integers(0, 50, crow.shape[0]),
+                  rng.integers(0, n['paper'], crow.shape[0]))
+  wrow = np.repeat(np.arange(n['author']), 3)
+  wcol = rng.integers(0, n['paper'] - 100, wrow.shape[0])
+  arow = np.arange(n['author'])
+  acol = rng.integers(0, n['institution'], n['author'])
+  edges = {('paper', 'cites', 'paper'): (crow, ccol),
+           ('author', 'writes', 'paper'): (wrow, wcol),
+           ('paper', 'rev_writes', 'author'): (wcol, wrow),
+           ('author', 'affiliated_with', 'institution'): (arow, acol),
+           ('institution', 'rev_affiliated_with', 'author'): (acol, arow)}
+  feats = {nt: rng.standard_normal((c, 16)).astype(np.float32)
+           for nt, c in n.items()}
+  labels = rng.integers(0, 7, n['paper']).astype(np.int32)
+  batch, fan = 64, [4, 3]
+  seeds = np.arange(3 * batch).reshape(3, batch).astype(np.int32)
+  losses, samples = {}, {}
+  for dev in (DEVICE, 'cpu'):
+    ds = (Dataset().init_graph(edges, num_nodes=n, device=dev)
+          .init_node_features(feats, device=dev)
+          .init_node_labels({'paper': labels}))
+    model = RGCN(sorted(edges), 16, 32, 7, num_layers=2,
+                 target_ntype='paper').to(dev)
+    model.reset_parameters(torch.Generator().manual_seed(6))
+    opt = torch.optim.Adam(model.parameters(), lr=HETERO_LR, eps=1e-8,
+                           capturable=dev != 'cpu')
+    fused = FusedHeteroEpoch(ds, fan, ('paper', seeds.reshape(-1)), model,
+                             opt, batch_size=batch, shuffle=False, seed=2,
+                             device=dev)
+    losses[dev] = fused.run().losses.cpu().numpy()
+    if dev != 'cpu' and fused.compile_count() != 1:
+      raise AssertionError('the card did not capture the hetero step')
+    samples[dev] = []
+    for i in range(3):
+      out = fused._sample(torch.from_numpy(seeds[i]).to(dev),
+                          fused._step_draws((1, None, i)))
+      node, count, row, col, emask = out[:5]
+      samples[dev].append(
+          [t.cpu() for d in (node, count, row, col, emask)
+           for _, t in sorted(d.items())])
+  for i, (a, c) in enumerate(zip(samples[DEVICE], samples['cpu'])):
+    if len(a) != len(c) or not all(x.dtype == y.dtype and torch.equal(x, y)
+                                   for x, y in zip(a, c)):
+      raise AssertionError(f'card and CPU sampled differently: step {i}')
+  diff = float(np.abs(losses[DEVICE] - losses['cpu']).max())
+  if not (diff <= 1e-5 and len(losses['cpu']) == 3):
+    raise AssertionError(f'hetero losses differ by {diff}')
+  emit('hetero_cross_check', nodes=n, steps=3, loss_max_abs_diff=diff,
+       samples_equal=True, card_captured=True)
+
+
+def hetero_phases(torch, ops, timer, prof=False) -> tuple:
+  """The heterogeneous phases (`mag_graph`, `hetero_train`,
+  `hetero_loader`, `hetero_cross_check`); the graph is freed after."""
+  ds, feats, labels = mag_graph(torch)
+  train = hetero_train(torch, ops, timer, ds, feats, labels, prof=prof)
+  loader = hetero_loader(torch, ops, timer, ds, feats, labels)
+  del ds, feats, labels
+  torch.cuda.empty_cache()
+  hetero_cross_check(torch)
+  return train, loader
+
+
 PORT_KERNELS = {'sample_one_hop': ('sample_one_hop_kernel',),
                 'sample_one_hop_gns': ('sample_gns_kernel',),
                 'gather_rows': ('gather_narrow', 'gather_wide'),
@@ -4591,6 +5072,11 @@ def run(torch, argv) -> list:
                               if 'registers' in ln or 'spill' in ln]}
                 for k, v in info.items()})
 
+  timer = Timer(torch)
+  if '--hetero' in argv:
+    hetero_phases(torch, ops, timer, prof='--profile' in argv)
+    return None
+
   # -- graph ------------------------------------------------------------
   t0 = time.perf_counter()
   indptr, indices = products_graph(torch, DEVICE)
@@ -4607,7 +5093,6 @@ def run(torch, argv) -> list:
        bytes={'csr': indptr.numel() * 8 + indices.numel() * 4,
               'features': feats.numel() * 4})
 
-  timer = Timer(torch)
   if '--fused' in argv:
     fused_phases(torch, ops, timer, indptr, indices, feats, ds,
                  prof='--profile' in argv)
@@ -4721,6 +5206,11 @@ def run(torch, argv) -> list:
   torch.cuda.empty_cache()
   mesh_cross_check(torch)
 
+  # -- heterogeneous graphs: the hetero session and the per-batch HGT ----
+  ((het_launches, het_hops, het_gathers),
+   (hl_launches, hl_hops, hl_gathers)) = hetero_phases(
+       torch, ops, timer, prof='--profile' in argv)
+
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
 
@@ -4739,6 +5229,25 @@ def run(torch, argv) -> list:
             'max_abs_err': max(h['max_abs_err'] for h in hops),
             'byte_equal': True, 'hops': per_hop(hops)}
 
+  def hetero_shape(what, hops):
+    return {'shape': f'{what}, ' + ', '.join(
+                f'hop {h["hop"]} {h["etype"]} {h["rows"]} rows k {h["k"]}'
+                for h in hops),
+            'ms': sum(h['kernel_ms'] for h in hops),
+            'plain_ms': sum(h['plain_ms'] for h in hops),
+            'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
+            'max_abs_err': max(h['max_abs_err'] for h in hops),
+            'byte_equal': True,
+            'hops': [dict(etype=h['etype'], hop=h['hop'], **p)
+                     for h, p in zip(hops, per_hop(hops))]}
+
+  def gather_shape(what, g):
+    return {'shape': f'{what}: {g["ids"]} ids x {g["row_bytes"]} B '
+                     f'{g["dtype"]}',
+            'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+            'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+            'byte_equal': True}
+
   mesh_gathers = loader_path['gathers'] + mesh_path['gathers']
   fmesh_what = {'per_batch': 'fused_mesh per-batch DP loop batch',
                 'fused': 'FusedDistEpoch step',
@@ -4752,7 +5261,7 @@ def run(torch, argv) -> list:
        'launches': launches['sample_one_hop'],
        'max_abs_err': max(h['max_abs_err']
                           for h in hops + loader_path['hops'] + sub_hops
-                          + fmesh_hops),
+                          + fmesh_hops + het_hops + hl_hops),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -4774,7 +5283,15 @@ def run(torch, argv) -> list:
                                 loader_launches['sample_one_hop'],
                             'fused_mesh': {
                                 k: v['sample_one_hop']
-                                for k, v in fmesh_launches.items()}},
+                                for k, v in fmesh_launches.items()},
+                            'hetero_train': het_launches['sample_one_hop'],
+                            'hetero_loader': hl_launches['sample_one_hop']},
+       'hetero_shapes': {
+           'fused': hetero_shape(
+               f'{HETERO_BATCH}-seed FusedHeteroEpoch RGCN step',
+               het_hops),
+           'loader': hetero_shape(
+               f'{HGT_BATCH}-seed per-batch HGT step', hl_hops)},
        'train_shape': {
            'shape': '1,024-seed per-batch step, hops of '
                     + '/'.join(str(h['rows']) for h in train_hops)
@@ -4814,7 +5331,7 @@ def run(torch, argv) -> list:
        'max_abs_err': max(g['max_abs_err']
                           for g in gathers + gathers_train + [train_gather]
                           + tree_levels + mesh_gathers + [sub_gather]
-                          + fmesh_gathers),
+                          + fmesh_gathers + het_gathers + hl_gathers),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -4857,7 +5374,14 @@ def run(torch, argv) -> list:
                             'mesh_train': mesh_launches['gather_rows'],
                             'fused_mesh': {
                                 k: v['gather_rows']
-                                for k, v in fmesh_launches.items()}}},
+                                for k, v in fmesh_launches.items()},
+                            'hetero_train': het_launches['gather_rows'],
+                            'hetero_loader': hl_launches['gather_rows']},
+       'hetero_shapes': [
+           gather_shape(f'FusedHeteroEpoch RGCN step, {g["ntype"]} x', g)
+           for g in het_gathers] + [
+           gather_shape(f'per-batch HGT step, {g["ntype"]} x', g)
+           for g in hl_gathers]},
       {'name': 'merge_ranks', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/merge_ranks.cu',
        'replaces': 'graphlearn_tpu/ops/pallas_delta.py:99',

@@ -27,7 +27,11 @@ overlay) and `parallel.make_dp_supervised_step` with
 sampler kernel and the inducer, collation through the row-gather
 kernel) with `models.make_supervised_step` / `make_eval_step`, the
 tree-layout `loader.FusedTreeEpoch` with `models.TreeSAGE`, and the CSR
-window gather kernel `ops.csr_window_gather`.
+window gather kernel `ops.csr_window_gather` — and heterogeneous graphs
+on one card: `data.Dataset` over edge-type dicts,
+`sampler.HeteroNeighborSampler`, `loader.NeighborLoader` yielding
+`loader.HeteroBatch`es, `models.RGCN` / `models.HGT` and
+`loader.FusedHeteroEpoch`.
 """
 from . import (data, loader, models, ops, parallel, sampler, serving,
                streaming, telemetry, testing, utils)

@@ -73,6 +73,15 @@ class Graph:
       return self._num_edges
     return self.indices.numel()
 
+  def max_index(self) -> int:
+    """The largest column id (-1 for no edge): from the host topology
+    when there is one, else one reduction on the device."""
+    if self.csr_topo is not None:
+      return int(np.asarray(self.csr_topo.indices).max(initial=-1))
+    if self.num_edges == 0:
+      return -1
+    return int(self.indices[:self.num_edges].max())
+
   def __repr__(self):
     return (f'Graph(num_nodes={self.num_nodes}, num_edges={self.num_edges}, '
             f'device={str(self.device)!r})')

@@ -1,8 +1,8 @@
 """Fused supervised epochs on one card: the host driver the fused epochs
 share (the JAX package's `loader/fused.py:428-683`, `EpochStats` and
-`_SupervisedScanEpoch`) and the subgraph epoch `FusedEpoch`
-(`:686-852`); the tree epoch `loader.fused_tree.FusedTreeEpoch` runs on
-the same driver.
+`_SupervisedScanEpoch`), the subgraph epoch `FusedEpoch` (`:686-852`)
+and its heterogeneous twin `FusedHeteroEpoch` (`:853-994`); the tree
+epoch `loader.fused_tree.FusedTreeEpoch` runs on the same driver.
 
 JAX runs each chunk of an epoch as one compiled `lax.scan` program, so
 the host enqueues once.  The port's counterpart on a card is a CUDA
@@ -24,7 +24,9 @@ epoch, chunk, step, hop, rows, k, w)``:
     key(seed), 0), 1)``, and training at ``fold_in(key(seed), epoch)``);
   * ``chunk`` is the chunk's first step, or None when the epoch is one
     chunk (JAX then keys the steps from the epoch key itself);
-  * ``step`` is the step's index within its chunk and ``hop`` the hop.
+  * ``step`` is the step's index within its chunk and ``hop`` the hop;
+  * a heterogeneous hop passes ``etype=ei`` too, the index of its edge
+    type among the sorted edge types (JAX folds it in after the hop).
 
 On a card ``epoch``, ``chunk`` and ``step`` arrive as 0-d int64 device
 tensors (``chunk`` 0 for a one-chunk epoch), read from the graph's
@@ -52,13 +54,15 @@ from torch.utils.checkpoint import checkpoint
 from ..models.train import _correct, supervised_loss
 from ..ops.draws import CounterDraws
 from ..ops.launches import LAUNCH_COUNTED
+from ..sampler.hetero_neighbor_sampler import (HeteroNeighborSampler,
+                                               _hetero_multihop)
 from ..sampler.neighbor_sampler import NeighborSampler, _multihop_sample
 from ..utils.device import resolve_device
 from .node_loader import SeedBatcher
 from .transform import _gather_labels
 
 #: ``draws(epoch, chunk, step, hop, rows, k, w) -> (u [rows, k],
-#: gumbel [rows, w])``
+#: gumbel [rows, w])``; a heterogeneous hop adds ``etype=ei``
 EpochDraws = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -148,7 +152,9 @@ class _SupervisedEpoch:
   """The host driver of the single-card fused epochs.  A subclass sets
   ``_owner`` and supplies ``_sample(seeds, draws) -> sample`` (the
   sampler half) and ``_gather(sample, seeds) -> (inputs, y)`` (the
-  feature and label gathers; ``model(*inputs)`` gives the logits)."""
+  feature and label gathers; ``model(*inputs)`` gives the logits).
+  On a heterogeneous dataset ``_graph`` and ``_feat`` are the dataset's
+  dicts and ``_labels`` those of ``label_type``."""
 
   _owner = 'the fused epoch'
 
@@ -156,19 +162,23 @@ class _SupervisedEpoch:
                    optimizer: torch.optim.Optimizer, batch_size: int,
                    shuffle: bool, drop_last: bool, seed: Optional[int],
                    max_steps_per_program: Optional[int],
-                   draws: Optional[EpochDraws], remat: bool, device):
+                   draws: Optional[EpochDraws], remat: bool, device,
+                   label_type: Optional[str] = None):
     self.device = resolve_device(device)
     graph = data.get_graph()
-    if graph.device != self.device:
-      raise ValueError(f'the graph lives on {graph.device}, the epoch on '
-                       f'{self.device}')
+    for g in graph.values() if isinstance(graph, dict) else (graph,):
+      if g.device != self.device:
+        raise ValueError(f'the graph lives on {g.device}, the epoch on '
+                         f'{self.device}')
     feat = data.node_features
-    if feat is None:
+    if feat is None or (isinstance(feat, dict) and not feat):
       raise ValueError(f'{self._owner} needs node features')
-    labels = data.get_node_label_device()
+    labels = data.get_node_label_device(label_type)
     if labels is None:
-      raise ValueError(f'{self._owner} needs node labels')
-    self._tiered = feat.is_tiered
+      of = '' if label_type is None else f' of {label_type!r}'
+      raise ValueError(f'{self._owner} needs node labels{of}')
+    self._tiered = any(f.is_tiered for f in (
+        feat.values() if isinstance(feat, dict) else (feat,)))
     self._capture = self.device.type == 'cuda' and not self._tiered
     if self._capture:
       check_capturable(optimizer, self._owner)
@@ -241,8 +251,8 @@ class _SupervisedEpoch:
   def _step_draws(self, coords):
     epoch, chunk, step = coords
 
-    def draws(hop, rows, k, w):
-      return self.draws(epoch, chunk, step, hop, rows, k, w)
+    def draws(hop, rows, k, w, **etype):
+      return self.draws(epoch, chunk, step, hop, rows, k, w, **etype)
     return draws
 
   # -- one step ---------------------------------------------------------------
@@ -449,3 +459,87 @@ class FusedEpoch(_SupervisedEpoch):
     edge_index = torch.stack([out.row, out.col])
     return (x, edge_index, out.edge_mask), _gather_labels(self._labels,
                                                           out.node)
+
+
+class FusedHeteroEpoch(_SupervisedEpoch):
+  """Supervised epochs on a heterogeneous graph (the JAX package's
+  `FusedHeteroEpoch`).  Each step samples with the per-batch sampler's
+  `_hetero_multihop` (K1 per hop and edge type, the per-type inducer),
+  gathers every type's rows through its `Feature.get` (the row gather
+  kernel) and the seed type's labels, runs the model's ``(x_dict,
+  edge_index_dict, edge_mask_dict) -> seed-type logits`` forward and
+  the masked seed loss.  On a card each step is a replay of one
+  captured CUDA graph, as in `FusedEpoch`.
+
+  Example::
+
+      # the batches carry the reversed edge types
+      etypes = [reverse_edge_type(et) for et in ds.get_edge_types()]
+      model = RGCN(etypes, 128, 128, 349, num_layers=2,
+                   target_ntype='paper').to('cuda')
+      opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                             capturable=True)
+      fused = FusedHeteroEpoch(ds, [10, 10], ('paper', train_idx), model,
+                               opt, batch_size=512, seed=0)
+      stats = fused.run()
+      acc = fused.evaluate(test_idx)
+
+  Args:
+    data: a heterogeneous `data.Dataset` on ``device``: every node
+      type's features wholly on the device (``split_ratio`` 1), labels
+      of the seed type.
+    num_neighbors: per-hop fanouts, one list or ``{EdgeType: list}``.
+    input_nodes: ``(node_type, ids)`` (ids or a boolean mask).
+    model: e.g. `models.RGCN` / `models.HGT` with ``target_ntype`` the
+      seed type, on ``device``; trained in place.
+    optimizer: over the model's parameters; on a card built with
+      ``capturable=True``.
+    batch_size / shuffle / drop_last / seed / remat /
+      max_steps_per_program / device: as `FusedEpoch`.
+    draws: the ``draws(epoch, chunk, step, hop, rows, k, w, etype=ei)``
+      provider; default `ops.draws.CounterDraws` on ``device``.
+  """
+
+  _owner = 'FusedHeteroEpoch'
+
+  def __init__(self, data, num_neighbors, input_nodes, model,
+               optimizer: torch.optim.Optimizer, batch_size: int,
+               shuffle: bool = True, drop_last: bool = False,
+               seed: Optional[int] = None, remat: bool = False,
+               max_steps_per_program: Optional[int] = None,
+               draws: Optional[EpochDraws] = None, device='cuda'):
+    if not data.is_hetero:
+      raise ValueError('FusedHeteroEpoch needs a hetero Dataset; use '
+                       'FusedEpoch for homogeneous graphs')
+    if not (isinstance(input_nodes, tuple)
+            and isinstance(input_nodes[0], str)):
+      raise ValueError('input_nodes must be (node_type, ids)')
+    self.input_type, ids = input_nodes
+    feats = data.node_features
+    if not isinstance(feats, dict) or not feats:
+      raise ValueError('FusedHeteroEpoch needs per-type node features')
+    for nt, f in feats.items():
+      if f.is_tiered:
+        raise ValueError(
+            f'feature table for {nt!r} keeps rows on host; '
+            f'FusedHeteroEpoch needs split_ratio == 1.0 everywhere (use '
+            f'NeighborLoader(prefetch=2) for tiered tables)')
+    self._init_driver(data, ids, model, optimizer, batch_size, shuffle,
+                      drop_last, seed, max_steps_per_program, draws, remat,
+                      device, label_type=self.input_type)
+    sampler = HeteroNeighborSampler(self._graph, num_neighbors,
+                                    device=self.device,
+                                    num_nodes=data.num_nodes_dict())
+    self._plan = sampler.plan({self.input_type: self.batch_size})
+
+  def _sample(self, seeds: torch.Tensor, draws):
+    return _hetero_multihop(self._graph, {self.input_type: seeds},
+                            self._plan, draws)
+
+  def _gather(self, out, seeds: torch.Tensor):
+    node, _, row, col, emask = out[:5]
+    x_dict = {nt: self._feat[nt].get(ids) for nt, ids in node.items()
+              if nt in self._feat}
+    edge_index = {et: torch.stack([row[et], col[et]]) for et in row}
+    return (x_dict, edge_index, dict(emask)), _gather_labels(
+        self._labels, node[self.input_type])

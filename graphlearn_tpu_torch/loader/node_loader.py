@@ -4,7 +4,8 @@
 `default_rng(seed)`, slice, and pad the tail batch to the static batch
 size with -1, so a seeded run visits seeds in the JAX package's order.
 `NodeLoader` runs a sampler on each seed batch and collates the result
-(`loader.transform.collate`) into a `Batch`; with ``prefetch=N`` a
+(`loader.transform.collate`) into a `Batch` (a `HeteroBatch` on a
+heterogeneous graph); with ``prefetch=N`` a
 worker thread prepares the next batches (`loader.prefetch`)."""
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 from ..sampler.base import BaseSampler, NodeSamplerInput
 from ..utils.padding import INVALID_ID
 from .prefetch import PrefetchingLoader
-from .transform import Batch, collate
+from .transform import collate
 
 
 class SeedBatcher:
@@ -63,7 +64,7 @@ class NodeLoader(PrefetchingLoader):
     data: the `data.Dataset` (graph, features, labels).
     sampler: a `sampler.BaseSampler` with ``sample_from_nodes``.
     input_nodes: ``[N]`` seed ids or a boolean mask (e.g. the train
-      split).
+      split); on a heterogeneous graph ``(node_type, ids)``.
     batch_size / shuffle / drop_last / seed: epoch iteration.
     prefetch: batches a worker thread prepares ahead, on its own CUDA
       stream on the card (0 = off; 2 = double buffering, which hides a
@@ -81,6 +82,9 @@ class NodeLoader(PrefetchingLoader):
     self.data = data
     self.sampler = sampler
     self._prefetch_device = getattr(sampler, 'device', None)
+    self.input_type = None
+    if isinstance(input_nodes, tuple) and isinstance(input_nodes[0], str):
+      self.input_type, input_nodes = input_nodes
     input_nodes = np.asarray(input_nodes)
     if input_nodes.dtype == np.bool_:
       input_nodes = np.nonzero(input_nodes)[0]
@@ -94,7 +98,7 @@ class NodeLoader(PrefetchingLoader):
   def _produce(self, seed_iter) -> Batch:
     seeds = next(seed_iter)
     return self._collate_fn(self.sampler.sample_from_nodes(
-        NodeSamplerInput(node=seeds)))
+        NodeSamplerInput(node=seeds, input_type=self.input_type)))
 
-  def _collate_fn(self, out) -> Batch:
+  def _collate_fn(self, out):
     return collate(self.data, out)

@@ -1,11 +1,14 @@
-"""`Batch`: the PyG-``Data``-shaped mini-batch the loaders yield (the
-JAX package's `loader/transform.py:45`), and the collation of a
-`SamplerOutput` into one (`to_data`, `collate`, `_gather_labels`:
-`loader/transform.py:150-220`, homogeneous).  Padded slots hold -1 ids
-and zero rows; the masks say which slots are real."""
+"""`Batch` and `HeteroBatch`: the PyG-``Data``/``HeteroData``-shaped
+mini-batches the loaders yield (the JAX package's `loader/transform.py:
+45,109`), and the collation of a sampler output into one (`to_data`,
+`to_hetero_data`, `collate`, `_gather_labels`: `loader/transform.py:
+150-263`).  Padded slots hold -1 ids and zero rows; the masks say which
+slots are real."""
 from __future__ import annotations
 
 import torch
+
+from ..sampler.base import HeteroSamplerOutput
 
 
 class Batch:
@@ -55,6 +58,47 @@ class Batch:
     return f'Batch(batch_size={self.batch_size}, {shapes})'
 
 
+class HeteroBatch:
+  """Heterogeneous mini-batch: per-type dicts.
+
+  Attributes:
+    x_dict / y_dict: ``{NodeType: [cap, D]}`` features and ``{NodeType:
+      [cap]}`` labels (zero where padded), for the types that have them.
+    edge_index_dict / edge_mask_dict: ``{EdgeType: [2, edge_cap]}``
+      local COO under the reversed edge type (row 0 indexes the message
+      source's type) and its validity.
+    edge_attr_dict: edge features (not ported; empty).
+    node_dict / node_mask_dict: ``{NodeType: [cap]}`` global ids (-1
+      padded) and their validity.
+    batch_dict: ``{NodeType: [B]}`` seed ids; batch_size the static
+      seed count.
+    metadata: ``seed_local`` and ``input_type``.
+  """
+
+  FIELDS = ('x_dict', 'y_dict', 'edge_index_dict', 'edge_attr_dict',
+            'node_dict', 'node_mask_dict', 'edge_mask_dict', 'batch_dict',
+            'metadata')
+
+  def __init__(self, x_dict=None, y_dict=None, edge_index_dict=None,
+               edge_attr_dict=None, node_dict=None, node_mask_dict=None,
+               edge_mask_dict=None, batch_dict=None, batch_size: int = 0,
+               metadata=None):
+    self.x_dict = x_dict or {}
+    self.y_dict = y_dict or {}
+    self.edge_index_dict = edge_index_dict or {}
+    self.edge_attr_dict = edge_attr_dict or {}
+    self.node_dict = node_dict or {}
+    self.node_mask_dict = node_mask_dict or {}
+    self.edge_mask_dict = edge_mask_dict or {}
+    self.batch_dict = batch_dict or {}
+    self.batch_size = batch_size
+    self.metadata = metadata if metadata is not None else {}
+
+  def __repr__(self):
+    return (f'HeteroBatch(node_types={list(self.node_dict)}, '
+            f'edge_types={list(self.edge_index_dict)})')
+
+
 def _gather_labels(labels: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
   """``labels[ids]`` on the labels' device, 0 where ``ids < 0``: a
   plain gather (`index_select`), as the JAX package's is plain XLA."""
@@ -83,8 +127,43 @@ def to_data(out, node_feature=None, node_label=None) -> Batch:
                metadata=dict(out.metadata))
 
 
-def collate(data, out) -> Batch:
-  """Collate a homogeneous sampler output against a `data.Dataset`
-  (the one implementation behind every single-card loader)."""
+def to_hetero_data(out: HeteroSamplerOutput, node_feature_dict=None,
+                   node_label_dict=None) -> HeteroBatch:
+  """A `HeteroBatch` from a `sampler.HeteroSamplerOutput`: each type's
+  ``x`` from its feature store (`data.Feature.get`, the row gather
+  kernel on the card), ``y`` by `_gather_labels`; the sampler's
+  metadata is forwarded."""
+  x_dict, y_dict = {}, {}
+  for ntype, ids in out.node.items():
+    if node_feature_dict and ntype in node_feature_dict:
+      x_dict[ntype] = node_feature_dict[ntype].get(ids)
+    if node_label_dict and node_label_dict.get(ntype) is not None:
+      y_dict[ntype] = _gather_labels(node_label_dict[ntype], ids)
+  batch_size = max((int(v.shape[0]) for v in (out.batch or {}).values()),
+                   default=0)
+  return HeteroBatch(
+      x_dict=x_dict, y_dict=y_dict,
+      edge_index_dict={et: torch.stack([out.row[et], out.col[et]])
+                       for et in out.row},
+      node_dict=dict(out.node),
+      node_mask_dict={nt: ids >= 0 for nt, ids in out.node.items()},
+      edge_mask_dict=dict(out.edge_mask or {}),
+      batch_dict=dict(out.batch or {}), batch_size=batch_size,
+      metadata=dict(out.metadata))
+
+
+def collate(data, out):
+  """Collate a sampler output against a `data.Dataset` (the one
+  implementation behind every single-card loader): a `HeteroBatch` for
+  a `HeteroSamplerOutput`, else a `Batch`."""
+  if isinstance(out, HeteroSamplerOutput):
+    labels = None
+    if isinstance(data.node_labels, dict):
+      labels = {nt: data.get_node_label_device(nt)
+                for nt in data.node_labels}
+    feats = (data.node_features if isinstance(data.node_features, dict)
+             else None)
+    return to_hetero_data(out, node_feature_dict=feats,
+                          node_label_dict=labels)
   return to_data(out, node_feature=data.node_features,
                  node_label=data.get_node_label_device())

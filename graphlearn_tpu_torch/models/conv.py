@@ -1,5 +1,6 @@
-"""Message passing on padded COO batches: `segment_mean` and `SAGEConv`
-(the JAX package's `models/conv.py:26-55,97-145`, as `nn.Module`s).
+"""Message passing on padded COO batches: `segment_mean`, the masked
+segment sum and max that `models.hetero.HGTConv` needs, and `SAGEConv`
+(the JAX package's `models/conv.py:26-66,97-145`, as `nn.Module`s).
 
 Edges are ``[2, E]`` local COO with -1 in masked slots;
 ``edge_index[0]`` is the message source (the sampled neighbor) and
@@ -41,6 +42,35 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                          device=data.device))[:num_segments]
   mean = tot.float() / torch.clamp(cnt, min=1.0)[:, None]
   return mean.to(data.dtype)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+  """Sum of the rows of ``data`` per segment (`jax.ops.segment_sum`):
+  ids outside ``[0, num_segments)`` (the invalid rows routed away) add
+  nothing, and an empty segment is 0."""
+  ok = (segment_ids >= 0) & (segment_ids < num_segments)
+  seg = torch.where(ok, segment_ids, num_segments).long()
+  out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+  return out.index_add_(0, seg, data)[:num_segments]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+  """Max of the rows of ``data`` per segment: rows with an id outside
+  ``[0, num_segments)`` (the invalid rows routed away) take no part; an
+  empty segment is ``-inf`` (`jax.ops.segment_max`'s identity) and is
+  then returned as 0, as the JAX package's `segment_max` returns it.
+  Its gradient goes to the rows equal to their segment's max, shared
+  evenly among ties."""
+  ok = (segment_ids >= 0) & (segment_ids < num_segments)
+  seg = torch.where(ok, segment_ids, num_segments).long()
+  idx = seg.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
+  out = torch.full((num_segments + 1,) + tuple(data.shape[1:]),
+                   float('-inf'), dtype=data.dtype, device=data.device)
+  out = out.scatter_reduce(0, idx, data, 'amax',
+                           include_self=True)[:num_segments]
+  return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
 class SAGEConv(nn.Module):

@@ -1,9 +1,11 @@
-"""Supervised training and eval steps on `Batch`es (the JAX package's
-`models/train.py:35-119`).
+"""Supervised training and eval steps on `Batch`es and `HeteroBatch`es
+(the JAX package's `models/train.py:35-119`, and the heterogeneous step
+of `examples/hetero/train_hgt_mag.py:183-192`).
 
 The loss is the softmax cross entropy over the seed slots (table rows
 ``[0, batch_size)``), masked by seed validity, so a padded tail batch
-trains correctly.  Where the sampler attached GNS importance weights
+trains correctly; on a `HeteroBatch` over the seed type's logits,
+labels and seeds.  Where the sampler attached GNS importance weights
 (``Batch.metadata['edge_weight']``) they flow into the aggregation.
 The model and the optimizer hold the state that JAX's `TrainState`
 carries.
@@ -40,40 +42,83 @@ def _correct(logits: torch.Tensor, y: torch.Tensor, seeds: torch.Tensor,
   return ((pred == y[:batch_size].long()) & (seeds >= 0)).sum()
 
 
+def _extract(model, batch):
+  """``(logits, y, seeds)`` of one single-card Batch."""
+  return _apply_with_weights(model, batch), batch.y, batch.batch
+
+
 def _loss_and_correct(model, batch, batch_size: int):
   """The seed-slot loss (with its graph) and the count of correct
   valid seed predictions for one single-card Batch."""
-  logits = _apply_with_weights(model, batch)
-  loss = supervised_loss(logits, batch.y, batch.batch, batch_size)
-  return loss, _correct(logits, batch.y, batch.batch, batch_size)
+  logits, y, seeds = _extract(model, batch)
+  loss = supervised_loss(logits, y, seeds, batch_size)
+  return loss, _correct(logits, y, seeds, batch_size)
+
+
+def _hetero_extract(input_type):
+  """``(logits, y, seeds)`` of one HeteroBatch: the model's logits for
+  the seed type ``input_type``, its labels and seeds."""
+
+  def extract(model, batch):
+    logits = model(batch.x_dict, batch.edge_index_dict,
+                   batch.edge_mask_dict)
+    return logits, batch.y_dict[input_type], batch.batch_dict[input_type]
+  return extract
+
+
+def _extracted_supervised_step(extract, model, optimizer, batch_size: int):
+  """The one update body (masked seed-slot loss, backward, optimizer
+  step, masked correct count) behind both supervised steps."""
+
+  def step(batch):
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    logits, y, seeds = extract(model, batch)
+    loss = supervised_loss(logits, y, seeds, batch_size)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), _correct(logits, y, seeds, batch_size)
+
+  return step
+
+
+def _extracted_eval_step(extract, model, batch_size: int):
+
+  @torch.no_grad()
+  def step(batch):
+    model.eval()
+    logits, y, seeds = extract(model, batch)
+    return _correct(logits, y, seeds, batch_size), (seeds >= 0).sum()
+
+  return step
 
 
 def make_supervised_step(model, optimizer, batch_size: int):
   """``step(batch) -> (loss, correct)`` for a single-card Batch: one
   forward, backward and optimizer update; both results stay on the
   device (read them when needed)."""
-
-  def step(batch):
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    loss, correct = _loss_and_correct(model, batch, batch_size)
-    loss.backward()
-    optimizer.step()
-    return loss.detach(), correct
-
-  return step
+  return _extracted_supervised_step(_extract, model, optimizer, batch_size)
 
 
 def make_eval_step(model, batch_size: int):
   """``step(batch) -> (correct, total)``: the masked seed-slot accuracy
   counts of one single-card Batch, without gradients; both stay on the
   device."""
+  return _extracted_eval_step(_extract, model, batch_size)
 
-  @torch.no_grad()
-  def step(batch):
-    model.eval()
-    logits = _apply_with_weights(model, batch)
-    return (_correct(logits, batch.y, batch.batch, batch_size),
-            (batch.batch >= 0).sum())
 
-  return step
+def make_hetero_supervised_step(model, optimizer, batch_size: int,
+                                input_type: str):
+  """``step(batch) -> (loss, correct)`` for a `HeteroBatch` seeded with
+  ``input_type`` nodes; ``model(x_dict, edge_index_dict,
+  edge_mask_dict)`` returns that type's logits (`RGCN` / `HGT` with
+  ``target_ntype=input_type``)."""
+  return _extracted_supervised_step(_hetero_extract(input_type), model,
+                                    optimizer, batch_size)
+
+
+def make_hetero_eval_step(model, batch_size: int, input_type: str):
+  """``step(batch) -> (correct, total)`` for a `HeteroBatch`, as
+  `make_eval_step`."""
+  return _extracted_eval_step(_hetero_extract(input_type), model,
+                              batch_size)

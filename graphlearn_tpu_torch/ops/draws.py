@@ -95,10 +95,13 @@ class CounterDraws:
   to float32, so the CPU and the card give the same float32 values
   (their float32 ``log`` may differ in the last bit).
 
-  ``draws(epoch, chunk, step, hop, rows, k, w)`` (the fused epochs'
-  form, ``chunk`` None read as 0) returns ``u [rows, k]`` and ``gumbel
-  [rows, w]``; `draw` takes any coordinates and, with ``gns``, returns
-  a second ``[rows, k]`` uniform stream ``v`` in place of the Gumbels.
+  ``draws(epoch, chunk, step, hop, rows, k, w, etype=None)`` (the
+  fused epochs' form, ``chunk`` None read as 0) returns ``u [rows, k]``
+  and ``gumbel [rows, w]``; ``etype``, the index of a heterogeneous
+  hop's edge type among the sorted edge types, is a fifth coordinate
+  (without it the key is the four-coordinate one).  `draw` takes any
+  coordinates and, with ``gns``, returns a second ``[rows, k]`` uniform
+  stream ``v`` in place of the Gumbels.
   """
 
   def __init__(self, seed: int, device):
@@ -125,9 +128,11 @@ class CounterDraws:
     g = _stream(row, _STREAM_GUMBEL, w).double()
     return u, (-torch.log(-torch.log(g))).float()
 
-  def __call__(self, epoch, chunk, step, hop, rows, k, w):
-    return self.draw((epoch, 0 if chunk is None else chunk, step, hop),
-                     rows, k, w)
+  def __call__(self, epoch, chunk, step, hop, rows, k, w, etype=None):
+    coords = (epoch, 0 if chunk is None else chunk, step, hop)
+    if etype is not None:
+      coords += (etype,)
+    return self.draw(coords, rows, k, w)
 
 
 class TorchDraws:
@@ -136,13 +141,15 @@ class TorchDraws:
   Gumbels are ``-log(-log(u))`` of uniforms kept above the smallest
   normal float.
 
-  ``draws(step, hop, rows, k, w, gns=False, owner=0)`` (the samplers'
-  form) returns ``u [rows, k]`` and ``gumbel [rows, w]``, or with
-  ``gns`` a second ``[rows, k]`` uniform stream ``v``; ``owner`` is the
-  mesh partition that samples the rows (the coordinates are ``(step,
-  hop)`` for owner 0, so a one-partition mesh and the single-card
-  sampler draw as before, and ``(step, hop, owner)`` otherwise); `draw`
-  takes any tuple of coordinates.
+  ``draws(step, hop, rows, k, w, gns=False, owner=0, etype=None)`` (the
+  samplers' form) returns ``u [rows, k]`` and ``gumbel [rows, w]``, or
+  with ``gns`` a second ``[rows, k]`` uniform stream ``v``; ``owner`` is
+  the mesh partition that samples the rows and ``etype`` the index of a
+  heterogeneous hop's edge type (the coordinates are ``(step, hop)`` for
+  owner 0 without an edge type, so a one-partition mesh and the
+  single-card sampler draw as before, ``(step, hop, owner)`` for
+  another owner, and ``(step, hop, owner, etype)`` with an edge type);
+  `draw` takes any tuple of coordinates.
   """
 
   def __init__(self, seed: int, device):
@@ -172,8 +179,14 @@ class TorchDraws:
     distinct generator seeds)."""
     return self._from(self._mixed(coords), rows, k, w, gns)
 
-  def __call__(self, step, hop, rows, k, w, gns=False, owner=0):
-    """The samplers' form: the draws at coordinates ``(step, hop)``, or
-    ``(step, hop, owner)`` for an owner other than 0."""
-    coords = (step, hop) if int(owner) == 0 else (step, hop, owner)
+  def __call__(self, step, hop, rows, k, w, gns=False, owner=0,
+               etype=None):
+    """The samplers' form: the draws at coordinates ``(step, hop)``,
+    ``(step, hop, owner)`` for an owner other than 0, or ``(step, hop,
+    owner, etype)`` for a heterogeneous hop."""
+    coords = (step, hop)
+    if int(owner) != 0 or etype is not None:
+      coords += (owner,)
+    if etype is not None:
+      coords += (etype,)
     return self._from(self._mixed(coords), rows, k, w, gns)

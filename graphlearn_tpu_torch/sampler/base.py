@@ -1,11 +1,11 @@
 """The sampler contract (the JAX package's `sampler/base.py:25-45,
-99-160,251-261`): the node-seed input, the static-shape homogeneous
-output and the abstract sampler.  Edge inputs, negative sampling and
-the heterogeneous output wait for slices 7 and 8 of the ROADMAP."""
+99-221,251-261`): the node-seed input, the static-shape homogeneous and
+heterogeneous outputs and the abstract sampler.  Edge inputs and
+negative sampling wait for slice 7 of the ROADMAP."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -14,8 +14,10 @@ import torch
 @dataclasses.dataclass
 class NodeSamplerInput:
   """Seed nodes for node-wise sampling: ``node`` is ``[B]`` global ids,
-  -1-padded to the loader's static batch size."""
+  -1-padded to the loader's static batch size; ``input_type`` their
+  node type on a heterogeneous graph."""
   node: Union[np.ndarray, torch.Tensor]
+  input_type: Optional[str] = None
 
   def __len__(self) -> int:
     return len(self.node)
@@ -59,6 +61,45 @@ class SamplerOutput:
   def __repr__(self):
     return (f'SamplerOutput(node={tuple(self.node.shape)}, '
             f'edges={tuple(self.row.shape)})')
+
+
+class HeteroSamplerOutput:
+  """Heterogeneous sampling result keyed by node and edge type, static
+  shapes.
+
+  Attributes:
+    node / node_count: ``{NodeType: [cap]}`` global ids in insertion
+      order (the seed type's seeds first), -1-padded, and their int32
+      valid counts.
+    row / col / edge_mask: ``{EdgeType: [edge_cap]}`` local COO under
+      the REVERSED edge type: ``row`` indexes the neighbor's type (the
+      message source), ``col`` the seed side's; -1 where masked.
+    edge: global edge ids or None (``with_edge`` is not ported).
+    batch: ``{NodeType: [B]}`` seed ids of the seeded types.
+    num_sampled_nodes: ``{NodeType: [hops + 1]}`` int32 new nodes a hop.
+    edge_types: the declared (reversed) edge types, empty ones included.
+    metadata: ``seed_local`` (the seeds' local indices) and
+      ``input_type``.
+  """
+
+  def __init__(self, node, node_count, row, col, edge=None, edge_mask=None,
+               batch=None, num_sampled_nodes=None, num_sampled_edges=None,
+               edge_types=None, metadata=None):
+    self.node = node
+    self.node_count = node_count
+    self.row = row
+    self.col = col
+    self.edge = edge
+    self.edge_mask = edge_mask
+    self.batch = batch
+    self.num_sampled_nodes = num_sampled_nodes
+    self.num_sampled_edges = num_sampled_edges
+    self.edge_types = edge_types
+    self.metadata = metadata if metadata is not None else {}
+
+  def __repr__(self):
+    return (f'HeteroSamplerOutput(node_types={list(self.node)}, '
+            f'edge_types={list(self.row)})')
 
 
 class BaseSampler:

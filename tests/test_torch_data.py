@@ -105,8 +105,9 @@ def test_feature_dtype_and_tiers():
   for _ in range(2):
     assert tiered.get(ids).numpy().tobytes() == want.tobytes()
   assert tiered.cold_stats == {'lookups': 12, 'cold_lookups': 8}
-  with pytest.raises(NotImplementedError, match='slice 8'):
-    Dataset().init_graph({('a', 'to', 'b'): _coo()}, device='cpu')
+  # a dict keyed by edge type builds a heterogeneous dataset
+  hetero = Dataset().init_graph({('a', 'to', 'b'): _coo()}, device='cpu')
+  assert hetero.is_hetero and hetero.get_edge_types() == [('a', 'to', 'b')]
 
 
 def test_labels_and_utils_match_jax():
