@@ -2,13 +2,15 @@
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
 per-batch training, fused epochs (tree, bf16 tree and subgraph, each
 step a CUDA graph; the mesh's), tiered feature store, GNS training,
-partitioned mesh and heterogeneous-graph paths on one NVIDIA card.
+partitioned mesh, heterogeneous-graph, link-prediction and
+enclosing-subgraph paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
     python3 chip_smoke.py            # what the checks below need
     python3 chip_smoke.py --profile  # adds torch.profiler phases
     python3 chip_smoke.py --hetero   # build and the hetero phases alone
+    python3 chip_smoke.py --link     # build, graph and the link phases
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -330,6 +332,52 @@ Phases, one JSON line each; any failure exits nonzero:
           steps with the counter draws, losses within 1e-5, each step's
           sample (tables, counts, COO, masks) equal.
 
+  link_train  BASELINE config 2, `examples/unsup_sage_ppi.py` at PPI's
+          published size: `clustered_graph` (56,944 nodes, degree 14:
+          797,216 edges, 121 clusters, 50 features) on the card,
+          `LinkNeighborLoader([10, 10], batch 512, binary negatives 1.0,
+          shuffled)` -> `make_unsupervised_step` with ``GraphSAGE(50 ->
+          64 -> 64, 2 layers)`` and Adam(3e-3), 200 steps split into
+          sample / collate / model (`kernel` lines: K1 at both hops and
+          K2 at the x gather of the first step), the example's
+          cluster-pair AUC of the embeddings; then `FusedLinkEpoch` over
+          200 x 512 edges with Adam(capturable): a warm epoch (its first
+          step's K1 and K2 calls against their plain versions) and a
+          timed one, one step eagerly and replayed (ms and idle shares),
+          the same under deterministic algorithms bitwise, `evaluate`'s
+          AUC on 20 held-out batches.  Checks: 2 K1 and 1 K2 launches a
+          step, no plain call, ``x`` rows equal their source, the label
+          indices map to the seeds, losses falling, both AUCs above 0.5,
+          2 captures.
+  link_loader  `LinkNeighborLoader` on the products graph at [15, 10,
+          5]: 20 binary batches of 1,024 random edges, then 10 triplet
+          batches at amount 2; batches/s, endpoints a batch.  Checks: 3
+          K1 and 1 K2 launches a batch, no plain call; every batch's label
+          indices map to its seeds through ``node``; every negative is
+          the first of its 5 candidates (replayed from the sampler's
+          draws) that a host lookup finds no edge, JAX's strict rule.
+          `kernel` lines: K1 at the three hops and K2 at the x gather of
+          the first binary batch.
+  seal    BASELINE config 3, `examples/seal_link_pred.py`: its
+          `synthetic()` graph at Cora's size (2,708 nodes, 7 clusters,
+          degree 6) less its 256 target links, 256 positive and 256
+          negative links through `SubGraphLoader([8], batch 2)`, DRNL
+          labels on the host, ``Embedding(16, 32) -> DGCNN(32, 2 classes,
+          3 layers, k 30)`` with Adam(1e-3), 3 epochs over 80% of the
+          links, tested on the rest (a `kernel` line: K1 at the closure,
+          2 rows at k 8); then 256 products edges and 256
+          `RandomNegativeSampler` pairs through the same loader on the
+          products graph: links/s, the subgraph op alone, its ``[node_cap
+          x max_degree]`` window.  Checks: 1 K1 launch a link, no K2 or
+          plain call, losses falling, test accuracy above 0.5, no random
+          negative an edge, every induced edge an edge and every
+          subgraph's edge count the host's.
+  link_cross_check  a 4,000-node clustered graph on the card and on the
+          CPU: 2 `LinkNeighborLoader` batches in each negative mode and 3
+          `SubGraphLoader` batches with the same CPU-made draws
+          byte-equal, 2 `FusedLinkEpoch` steps with the counter draws
+          within 1e-5, one DGCNN forward within 1e-5.
+
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, GNS
 and mesh training paths), the tiered-train idle shares and the idle
@@ -339,6 +387,11 @@ kernels a tree step and 3 K1 and 1 K2 a subgraph step, and the same
 for the hetero step (5 K1 and 2 K2; without ``--profile`` a replay's
 launches are inferred from its capture).  ``--hetero`` runs build and
 the hetero phases alone (`mag_graph` to `hetero_cross_check`) and
+prints no ``kernels`` or result line.
+``--link`` runs build, graph and the link phases alone (`link_train`
+to `link_cross_check`; with ``--profile`` also `profile_train` of 3
+per-batch and 3 replayed link steps, whose traces must show 2 K1 and 1
+K2 kernels a step, and of 3 SEAL training steps) and
 prints no ``kernels`` or result line.
 ``--fused`` runs build, graph and the fused epochs' phases alone
 (`tree_train`, `fused_session`, `train_cross_check`, `mesh_data`,
@@ -4868,6 +4921,790 @@ def hetero_phases(torch, ops, timer, prof=False) -> tuple:
   return train, loader
 
 
+#: `examples/unsup_sage_ppi.py` at PPI's published size: 56,944 nodes,
+#: 50 features, 121 label sets as clusters; degree 14 gives 797,216
+#: edges (PPI: 818,716)
+PPI_NODES, PPI_DEG, PPI_CLASSES, PPI_DIM = 56_944, 14, 121, 50
+LINK_BATCH = 512
+LINK_FANOUTS = (10, 10)
+LINK_HIDDEN = 64
+LINK_LR = 3e-3
+#: per-batch steps and fused-epoch steps (cut: depth; an epoch is 1,558)
+LINK_STEPS = 200
+LINK_EVAL_BATCHES = 20
+#: `link_loader`'s seed edges of the products graph
+PRODUCTS_LINK_BATCH = 1024
+PRODUCTS_BINARY_BATCHES = 20
+PRODUCTS_TRIPLET_BATCHES = 10
+#: `examples/seal_link_pred.py` at Cora's published size (2,708 nodes, 7
+#: classes as clusters) at the example's degree 6
+SEAL_NODES, SEAL_CLUSTERS, SEAL_DEG = 2708, 7, 6
+SEAL_LINKS = 256
+SEAL_FANOUTS = (8,)
+SEAL_EPOCHS = 3
+SEAL_HIDDEN, SEAL_MAX_LABEL, SEAL_K = 32, 16, 30
+SEAL_LR = 1e-3
+#: products edges (and as many random non-edges) extracted at scale
+SEAL_SCALE_LINKS = 256
+NEG_TRIALS = 5
+
+
+def clustered_graph(n=8192, deg=8, classes=8, d=32, intra_p=0.7,
+                    feat_signal=1.0, noise_std=0.5, seed=0):
+  """`examples/_synthetic.py::clustered_graph`, copied: ``(rows, cols,
+  feats, labels)`` of a label-clustered COO graph (an edge stays inside
+  its source's class with probability ``intra_p``) whose features carry
+  a faint class direction in noise."""
+  rng = np.random.default_rng(seed)
+  labels = rng.integers(0, classes, n).astype(np.int32)
+  rows = np.repeat(np.arange(n), deg)
+  order = np.argsort(labels, kind='stable')
+  ptr = np.searchsorted(labels[order], np.arange(classes + 1))
+  intra = np.empty(n * deg, dtype=np.int64)
+  for c in range(classes):
+    m = labels[rows] == c
+    intra[m] = order[rng.integers(ptr[c], ptr[c + 1], m.sum())]
+  cols = np.where(rng.random(n * deg) < intra_p, intra,
+                  rng.integers(0, n, n * deg))
+  proto = rng.normal(0, 1, (classes, d)).astype(np.float32)
+  feats = (feat_signal * proto[labels]
+           + rng.normal(0, noise_std, (n, d)).astype(np.float32))
+  return rows, cols, feats, labels
+
+
+def seal_graph(n=600, clusters=6, deg=6, seed=0):
+  """`examples/seal_link_pred.py::synthetic`, copied: ``(rows, cols,
+  clusters)`` of a graph whose edges stay inside their source's
+  cluster."""
+  rng = np.random.default_rng(seed)
+  cl = rng.integers(0, clusters, n)
+  rows = np.repeat(np.arange(n), deg)
+  order = np.argsort(cl, kind='stable')
+  ptr = np.searchsorted(cl[order], np.arange(clusters + 1))
+  cols = np.empty(n * deg, dtype=np.int64)
+  for c in range(clusters):
+    m = cl[rows] == c
+    cols[m] = order[rng.integers(ptr[c], ptr[c + 1], m.sum())]
+  return rows, cols, cl
+
+
+def drnl(nodes_valid, edge_index, edge_mask, s0, s1):
+  """`examples/seal_link_pred.py::drnl`, copied: Double-Radius Node
+  Labeling of one induced subgraph on the host (BFS from both
+  endpoints; unreachable nodes 0, the endpoints 1)."""
+  nloc = len(nodes_valid)
+  adj = [[] for _ in range(nloc)]
+  for r, c in zip(edge_index[0][edge_mask], edge_index[1][edge_mask]):
+    adj[int(r)].append(int(c))
+    adj[int(c)].append(int(r))
+
+  def bfs(src):
+    dist = np.full(nloc, -1, np.int32)
+    dist[src] = 0
+    q = [src]
+    while q:
+      nxt = []
+      for u in q:
+        for w in adj[u]:
+          if dist[w] < 0:
+            dist[w] = dist[u] + 1
+            nxt.append(w)
+      q = nxt
+    return dist
+
+  d0, d1 = bfs(s0), bfs(s1)
+  lab = np.zeros(nloc, np.int32)
+  ok = (d0 >= 0) & (d1 >= 0) & nodes_valid
+  d = d0 + d1
+  dmin = np.minimum(d0, d1)
+  lab[ok] = 1 + dmin[ok] + (d[ok] // 2) * ((d[ok] // 2) + (d[ok] % 2) - 1)
+  lab[s0] = lab[s1] = 1
+  return lab
+
+
+def seal_model(torch):
+  """SEAL's classifier (`examples/seal_link_pred.py`'s ``SealDGCNN``) on
+  the port's modules: ``Embedding(16, 32)`` over the clipped DRNL labels,
+  then ``DGCNN(32, 2 classes, 3 layers, k)``; parameters from a seeded
+  CPU generator."""
+  from torch import nn
+  from graphlearn_tpu_torch.models import DGCNN
+
+  class Seal(nn.Module):
+    def __init__(self):
+      super().__init__()
+      self.embed = nn.Embedding(SEAL_MAX_LABEL, SEAL_HIDDEN)
+      self.dgcnn = DGCNN(SEAL_HIDDEN, SEAL_HIDDEN, 2, num_layers=3,
+                         k=SEAL_K)
+
+    def forward(self, lab, edge_index, edge_mask, node_mask):
+      x = self.embed(lab.long().clamp(0, SEAL_MAX_LABEL - 1))
+      return self.dgcnn(x, edge_index, edge_mask, node_mask)
+
+  with torch.random.fork_rng(devices=[]):
+    torch.manual_seed(0)
+    return Seal()
+
+
+def edge_lookup(indptr_h: np.ndarray, indices_h: np.ndarray):
+  """A host membership test of (row, col) pairs in a CSR sorted by
+  (row, col): a binary search of ``row * N + col`` in the edges' keys,
+  independent of the port's `edge_in_csr`."""
+  n = indptr_h.shape[0] - 1
+  keys = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr_h)) * n \
+      + indices_h.astype(np.int64)
+
+  def is_edge(r, c):
+    r, c = np.asarray(r, np.int64), np.asarray(c, np.int64)
+    q = r * n + c
+    at = np.minimum(np.searchsorted(keys, q), keys.shape[0] - 1)
+    return (r >= 0) & (c >= 0) & (keys[at] == q)
+  return is_edge
+
+
+def strict_picks(is_edge, rows, cands):
+  """JAX's strict rule on the host: the trial each slot of ``[trials,
+  R]`` candidates keeps (its first that is not an edge from its row,
+  else the last), and whether every trial was an edge."""
+  trials = cands.shape[0]
+  edge = np.stack([is_edge(rows[t], cands[t]) for t in range(trials)])
+  pick = np.where((~edge).any(axis=0), np.argmax(~edge, axis=0), trials - 1)
+  return pick, edge.all(axis=0)
+
+
+def check_link_x(torch, batch, feats) -> None:
+  """Every valid node's ``x`` row equals its source row, padded rows are
+  zero, valid edges stay inside the node count."""
+  node = batch.node
+  ok = node >= 0
+  if not torch.equal(batch.x[ok], feats[node[ok].long()]):
+    raise AssertionError('a gathered x row differs from its source row')
+  if bool(batch.x[~ok].any()):
+    raise AssertionError('a padded node slot holds a non-zero row')
+  count = int(ok.sum())
+  ei, em = batch.edge_index, batch.edge_mask
+  if not (bool(((ei[:, em] >= 0) & (ei[:, em] < count)).all())
+          and bool((ei[:, ~em] == -1).all())):
+    raise AssertionError('edge_index outside the node count')
+
+
+def check_link_metadata(torch, node, seeds, md, src, dst, b) -> dict:
+  """A link batch's label indices map back, through ``node``, to its
+  seeds: the positive pairs to ``(src, dst)`` and the negative slots to
+  the negative seeds; returns the negatives ``{'rows', 'cols'}`` (binary)
+  or ``{'dst'}`` (triplet) on the host."""
+  src = torch.from_numpy(np.asarray(src)).to(node.device)
+  dst = torch.from_numpy(np.asarray(dst)).to(node.device)
+  if not (torch.equal(seeds[:b], src) and torch.equal(seeds[b:2 * b], dst)):
+    raise AssertionError('the seeds do not start with the seed edges')
+
+  def through(local):
+    return torch.where(local >= 0, node[local.long().clamp(min=0)], -1)
+  if 'edge_label_index' in md:
+    eli, em = md['edge_label_index'], md['edge_label_mask']
+    nn_ = (seeds.shape[0] - 2 * b) // 2
+    want = torch.stack([torch.cat([seeds[:b], seeds[2 * b:2 * b + nn_]]),
+                        torch.cat([seeds[b:2 * b], seeds[2 * b + nn_:]])])
+    got = through(eli)
+    if not (bool((got[:, em] == want[:, em]).all())
+            and bool(em[b:].all()) and bool((eli[:, em] >= 0).all())):
+      raise AssertionError('edge_label_index does not map to the seeds')
+    return {'rows': seeds[2 * b:2 * b + nn_].cpu().numpy(),
+            'cols': seeds[2 * b + nn_:].cpu().numpy()}
+  si, dp, dn = md['src_index'], md['dst_pos_index'], md['dst_neg_index']
+  ok = md['pair_mask']
+  negs = seeds[2 * b:].reshape(b, -1)
+  if not (bool((through(si)[ok] == src[ok]).all())
+          and bool((through(dp)[ok] == dst[ok]).all())
+          and bool((through(dn) == negs).all())):
+    raise AssertionError('the triplet indices do not map to the seeds')
+  return {'dst': negs.cpu().numpy()}
+
+
+def link_train(torch, ops, timer, prof=False):
+  """BASELINE config 2, `examples/unsup_sage_ppi.py` at PPI's published
+  size: the `clustered_graph` stand-in on the card, `LinkNeighborLoader
+  ([10, 10], batch 512, NegativeSampling('binary', 1.0), shuffled)` ->
+  `make_unsupervised_step` with ``GraphSAGE(50 -> 64 -> 64, 2 layers)``
+  and Adam(3e-3): `LINK_STEPS` steps split into sample / collate / model
+  (the first one's kernel inputs recorded); then `FusedLinkEpoch` over
+  `LINK_STEPS` x 512 edges (Adam capturable): a warm epoch (its first
+  step eager and recorded, then the capture) and a timed one, one step
+  eagerly and replayed from the same state, the same under
+  deterministic algorithms bitwise, `evaluate` on held-out edges; the
+  example's cluster-pair AUC of the per-batch model's embeddings."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as smod
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import (FusedLinkEpoch, LinkNeighborLoader,
+                                           NeighborLoader)
+  from graphlearn_tpu_torch.models import GraphSAGE, make_unsupervised_step
+  from graphlearn_tpu_torch.sampler import EdgeSamplerInput, NegativeSampling
+  t0 = time.perf_counter()
+  rows, cols, feats_h, cl = clustered_graph(
+      n=PPI_NODES, deg=PPI_DEG, classes=PPI_CLASSES, d=PPI_DIM, intra_p=0.8,
+      feat_signal=0.5, noise_std=1.0)
+  n = PPI_NODES
+  ds = (Dataset().init_graph((rows, cols), num_nodes=n, device=DEVICE)
+        .init_node_features(feats_h, device=DEVICE))
+  feats = torch.from_numpy(feats_h).to(DEVICE)
+  sync(torch)
+  graph_secs = time.perf_counter() - t0
+  neg = NegativeSampling('binary', 1.0)
+
+  def new_model(seed, capturable=False):
+    model = GraphSAGE(PPI_DIM, LINK_HIDDEN, LINK_HIDDEN,
+                      num_layers=2).to(DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model, torch.optim.Adam(model.parameters(), lr=LINK_LR, eps=1e-8,
+                                   capturable=capturable)
+
+  # -- the per-batch path ----------------------------------------------------
+  loader = LinkNeighborLoader(ds, LINK_FANOUTS, (rows, cols),
+                              neg_sampling=neg, batch_size=LINK_BATCH,
+                              shuffle=True, seed=0, device=DEVICE)
+  sampler = loader.sampler
+  model, opt = new_model(0)
+  step = make_unsupervised_step(model, opt)
+  parts = {'sample': [], 'collate': [], 'model': []}
+  losses = []
+  seed_it = iter(loader._batcher)
+  reset_counts(ops)
+  with TrainRecorder(torch, smod, 1, hops=len(LINK_FANOUTS)) as rec:
+    for i in range(LINK_STEPS):
+      r, c, _ = next(seed_it)
+      sync(torch)
+      t0 = time.perf_counter()
+      out = sampler.sample_from_edges(EdgeSamplerInput(r, c,
+                                                       neg_sampling=neg))
+      sync(torch)
+      t1 = time.perf_counter()
+      batch = loader._collate_fn(out)
+      sync(torch)
+      t2 = time.perf_counter()
+      losses.append(step(batch))
+      sync(torch)
+      t3 = time.perf_counter()
+      for key, a, z in (('sample', t0, t1), ('collate', t1, t2),
+                        ('model', t2, t3)):
+        parts[key].append((z - a) * 1e3)
+      if i == 0:
+        check_link_x(torch, batch, feats)
+        check_link_metadata(torch, batch.node, batch.batch, batch.metadata,
+                            r, c, LINK_BATCH)
+        endpoints = int(batch.batch.numel())
+  launches, plain = read_counts(ops)
+  k1 = len(LINK_FANOUTS)
+  if not (launches['sample_one_hop'] == k1 * LINK_STEPS
+          and launches['gather_rows'] == LINK_STEPS
+          and launches['sample_one_hop_gns'] == 0 and plain == 0):
+    raise AssertionError(f'link loader: launches {launches}, plain calls '
+                         f'{plain}, want {k1} K1 and 1 K2 a step')
+  losses = torch.stack(losses).cpu().numpy()
+  early, late = float(losses[:20].mean()), float(losses[-20:].mean())
+  if not (np.isfinite(losses).all() and late < early):
+    raise AssertionError(f'link losses do not fall: {early} -> {late}')
+  if prof:
+    seed_it = iter(loader._batcher)
+    check_traced(profile_train(torch, lambda: step(loader._collate_fn(
+        sampler.sample_from_edges(EdgeSamplerInput(
+            *next(seed_it)[:2], neg_sampling=neg)))), 'link per-batch',
+        n=PROFILE_STEPS), 'link per-batch', PROFILE_STEPS, k1, 1)
+  per_batch_hops = [check_sampler(torch, ops, timer, *a)[1]
+                    for a in rec.hops]
+  per_batch_gather = check_gather(torch, ops, timer, *rec.gathers[0])
+  for h, r in enumerate(per_batch_hops):
+    emit('kernel', kernel='sample_one_hop',
+         shape=f'PPI link batch (per-batch) hop {h}', **r)
+  emit('kernel', kernel='gather_rows', shape='PPI link batch (per-batch) x',
+       **per_batch_gather)
+  del rec, batch, out
+
+  # -- the example's evaluation: cluster-pair AUC of the embeddings ----------
+  emb = torch.zeros(n, LINK_HIDDEN, device=DEVICE)
+  model.eval()
+  with torch.no_grad():
+    for b in NeighborLoader(ds, LINK_FANOUTS, np.arange(n),
+                            batch_size=LINK_BATCH, device=DEVICE):
+      e = model(b.x, b.edge_index, b.edge_mask)
+      ok = b.batch >= 0
+      emb[b.batch[ok].long()] = e[b.metadata['seed_local'][ok].long()]
+  emb = emb.cpu().numpy()
+  rng = np.random.default_rng(1)
+  a = rng.integers(0, n, 4000)
+  pos = np.array([rng.choice(np.nonzero(cl == cl[i])[0]) for i in a[:500]])
+  negs = rng.integers(0, n, 500)
+  pos_s = (emb[a[:500]] * emb[pos]).sum(1)
+  neg_s = (emb[a[:500]] * emb[negs]).sum(1)
+  auc = float((pos_s[:, None] > neg_s[None, :]).mean())
+  if not auc > 0.5:
+    raise AssertionError(f'cluster-pair AUC {auc}')
+
+  # -- FusedLinkEpoch ---------------------------------------------------------
+  perm = np.random.default_rng(0).permutation(rows.shape[0])
+  n_train = LINK_BATCH * LINK_STEPS
+  train_edges = (rows[perm[:n_train]], cols[perm[:n_train]])
+  held = perm[n_train:n_train + LINK_BATCH * LINK_EVAL_BATCHES]
+  fmodel, fopt = new_model(1, capturable=True)
+  fused = FusedLinkEpoch(ds, LINK_FANOUTS, train_edges, fmodel, fopt,
+                         LINK_BATCH, neg_sampling=neg, shuffle=True, seed=0,
+                         max_steps_per_program=LINK_STEPS, device=DEVICE)
+  steps = len(fused)
+  reset_counts(ops)
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  with TrainRecorder(torch, smod, 1, hops=k1) as frec:
+    warm = fused.run().losses.cpu().numpy()
+  warm_secs = time.perf_counter() - t0
+  check_replay_counts(ops, 'link warm epoch', steps, k1, 1)
+  reset_counts(ops)
+  sync(torch)
+  t0 = time.perf_counter()
+  stats = fused.run()
+  sync(torch)
+  epoch_secs = time.perf_counter() - t0
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  fused_launches = check_replay_counts(ops, 'link epoch', steps, k1, 1)
+  timed = stats.losses.cpu().numpy()
+  means = [float(warm.mean()), float(timed.mean())]
+  if not (np.isfinite(np.concatenate([warm, timed])).all()
+          and means[1] < means[0] and stats.seeds == n_train):
+    raise AssertionError(f'fused link losses do not fall: {means}')
+  fused_auc = fused.evaluate((rows[held], cols[held]))
+  if not fused_auc > 0.5:
+    raise AssertionError(f'FusedLinkEpoch held-out AUC {fused_auc}')
+  if fused.compile_count() != 2:
+    raise AssertionError(f'{fused.compile_count()} captures, not 2')
+  fused_hops = [check_sampler(torch, ops, timer, *a)[1] for a in frec.hops]
+  fused_gather = check_gather(torch, ops, timer, *frec.gathers[0])
+  for h, r in enumerate(fused_hops):
+    emit('kernel', kernel='sample_one_hop',
+         shape=f'PPI FusedLinkEpoch step hop {h}', **r)
+  emit('kernel', kernel='gather_rows', shape='PPI FusedLinkEpoch step x',
+       **fused_gather)
+  del frec
+
+  same, diff = eager_vs_replay(torch, fused)
+  graph = fused._replays['train']
+  seeds, coords = graph.seeds.clone(), graph.coords.clone()
+  ctuple = tuple(coords.unbind(0))
+  step_rec = {
+      'replay_max_abs_diff_to_eager': diff, 'bitwise_equal': same,
+      'eager_ms': step_ms(torch, lambda: fused._train_step(seeds, ctuple),
+                          STEP_COMPARE),
+      'replayed_ms': step_ms(torch, lambda: graph.replay(seeds, coords),
+                             STEP_COMPARE),
+      'steps_timed': STEP_COMPARE,
+      'idle': {'eager': device_idle(torch, lambda: fused._train_step(
+                   seeds, ctuple)[0], 5),
+               'replayed': device_idle(torch, lambda: graph.replay(
+                   seeds, coords)[0], 5)}}
+  if prof:
+    check_traced(profile_train(torch, lambda: graph.replay(seeds, coords)[0],
+                               'link replayed', n=PROFILE_STEPS),
+                 'link replayed', PROFILE_STEPS, k1, 1)
+    step_rec['traced_launches_checked'] = True
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    dmodel, dopt = new_model(2, capturable=True)
+    det = FusedLinkEpoch(ds, LINK_FANOUTS,
+                         (train_edges[0][:LINK_BATCH],
+                          train_edges[1][:LINK_BATCH]), dmodel, dopt,
+                         LINK_BATCH, neg_sampling=neg, seed=1, device=DEVICE)
+    det.run()
+    det_same, det_diff = eager_vs_replay(torch, det)
+  finally:
+    torch.use_deterministic_algorithms(False)
+  if not det_same:
+    raise AssertionError(f'a replayed link step differs from the eager step '
+                         f'under deterministic algorithms ({det_diff})')
+  step_rec['deterministic'] = {'replay_bitwise_equal_to_eager': True,
+                               'max_abs_diff': det_diff}
+  del det, dmodel, dopt
+  med = {k: float(np.median(v)) for k, v in parts.items()}
+  emit('link_train', graph={'nodes': n, 'edges': int(rows.shape[0]),
+                            'features': PPI_DIM, 'clusters': PPI_CLASSES,
+                            'secs': graph_secs},
+       batch=LINK_BATCH, fanouts=list(LINK_FANOUTS),
+       negative_sampling='binary 1.0', endpoints_per_batch=endpoints,
+       model=f'GraphSAGE({PPI_DIM}->{LINK_HIDDEN}->{LINK_HIDDEN}, 2 layers)',
+       optimizer=f'Adam({LINK_LR})',
+       per_batch={'steps': LINK_STEPS, 'step_ms': sum(med.values()),
+                  'step_ms_by_part': {'median': med},
+                  'loss_first_20': early, 'loss_last_20': late,
+                  'launches': launches, 'plain_calls': plain,
+                  'cluster_pair_auc': auc},
+       fused={'steps_per_epoch': steps, 'warm_secs': warm_secs,
+              'epoch_secs': epoch_secs,
+              'edges_per_s': n_train / epoch_secs, 'peak_gb': peak_gb,
+              'epoch_mean_losses': means, 'held_out_auc': fused_auc,
+              'held_out_edges': int(held.shape[0]),
+              'captures': fused.compile_count(), 'step': step_rec,
+              'launches': fused_launches, 'plain_calls': 0})
+  return {'launches': {'per_batch': launches, 'fused': fused_launches},
+          'hops': per_batch_hops + fused_hops,
+          'gathers': [per_batch_gather, fused_gather],
+          'shape_hops': {'per_batch': per_batch_hops, 'fused': fused_hops}}
+
+
+def link_loader(torch, ops, timer, indptr, indices, feats, is_edge):
+  """`LinkNeighborLoader` on the products graph at [15, 10, 5]:
+  `PRODUCTS_BINARY_BATCHES` binary batches of 1,024 random products
+  edges, then `PRODUCTS_TRIPLET_BATCHES` triplet batches at amount 2;
+  batches/s; every batch's metadata mapped back to its seeds through
+  ``node``, and every negative held to JAX's strict rule on the host
+  (its candidates replayed from the sampler's draws: the first that is
+  not an edge, else the last); the first binary batch's K1 and K2 calls
+  against their plain versions."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as smod
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import LinkNeighborLoader
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  ds = (Dataset().init_graph((indptr, indices), layout='CSR',
+                             num_nodes=NUM_NODES, device=DEVICE)
+        .init_node_features(feats, device=DEVICE))
+  b = PRODUCTS_LINK_BATCH
+  out, recs = {}, None
+  for mode, amount, nb, seed in (('binary', 1.0, PRODUCTS_BINARY_BATCHES, 21),
+                                 ('triplet', 2, PRODUCTS_TRIPLET_BATCHES,
+                                  22)):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    pos = torch.randint(0, indices.numel(), (nb * b,), generator=g,
+                        device=DEVICE)
+    src = (torch.searchsorted(indptr, pos, right=True) - 1).cpu().numpy()
+    dst = indices[pos].cpu().numpy()
+    loader = LinkNeighborLoader(ds, FANOUTS, (src, dst),
+                                neg_sampling=NegativeSampling(mode, amount),
+                                batch_size=b, seed=seed, device=DEVICE)
+    kept = []
+    reset_counts(ops)
+    sync(torch)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    if recs is None:
+      with TrainRecorder(torch, smod, 1) as recs:
+        first = next(it)
+    else:
+      first = next(it)
+    for bt in itertools.chain([first], it):
+      kept.append((bt.node, bt.batch, bt.metadata))
+      del bt
+    sync(torch)
+    secs = time.perf_counter() - t0
+    launches, plain = read_counts(ops)
+    if not (launches['sample_one_hop'] == len(FANOUTS) * nb
+            and launches['gather_rows'] == nb and plain == 0):
+      raise AssertionError(f'link loader ({mode}): launches {launches}, '
+                           f'plain calls {plain}')
+    check_link_x(torch, first, feats)
+    endpoints, node_cap = int(first.batch.numel()), int(first.node.numel())
+    del first
+    rejected = fallbacks = 0
+    for i, (node, seeds, md) in enumerate(kept):
+      r, c = src[i * b:(i + 1) * b], dst[i * b:(i + 1) * b]
+      negs = check_link_metadata(torch, node, seeds, md, r, c, b)
+      step = 2 * i + 1                  # a link batch's negatives' step
+      if mode == 'binary':
+        got_r, got_c = negs['rows'], negs['cols']
+        cand_r, cand_c = (loader.sampler.neg_draws(
+            step, stream, NEG_TRIALS, got_r.shape[0],
+            NUM_NODES).cpu().numpy() for stream in (0, 1))
+      else:
+        got_c = negs['dst'].reshape(-1)
+        got_r = np.repeat(r, negs['dst'].shape[1])
+        cand_c = loader.sampler.neg_draws(step, 0, NEG_TRIALS,
+                                          got_c.shape[0],
+                                          NUM_NODES).cpu().numpy()
+        cand_r = np.broadcast_to(got_r, cand_c.shape)
+      pick, all_edges = strict_picks(is_edge, cand_r, cand_c)
+      slot = np.arange(pick.shape[0])
+      if not (np.array_equal(got_r, cand_r[pick, slot])
+              and np.array_equal(got_c, cand_c[pick, slot])):
+        raise AssertionError(f'{mode} batch {i}: a negative is not its '
+                             f'first non-edge candidate')
+      rejected += int((is_edge(got_r, got_c) & ~all_edges).sum())
+      fallbacks += int(all_edges.sum())
+    if rejected:
+      raise AssertionError(f'{mode}: {rejected} negatives are edges that '
+                           f'the strict rule rejects')
+    out[mode] = {'batches': nb, 'batches_per_s': nb / secs,
+                 'edges_per_s': nb * b / secs,
+                 'endpoints_per_batch': endpoints, 'node_cap': node_cap,
+                 'negatives_that_are_edges': rejected,
+                 'all_trials_edges': fallbacks, 'launches': launches,
+                 'plain_calls': plain}
+    del kept, loader
+  hops = [check_sampler(torch, ops, timer, *a)[1] for a in recs.hops]
+  gather = check_gather(torch, ops, timer, *recs.gathers[0])
+  for h, r in enumerate(hops):
+    emit('kernel', kernel='sample_one_hop',
+         shape=f'products binary link batch hop {h}', **r)
+  emit('kernel', kernel='gather_rows', shape='products binary link batch x',
+       **gather)
+  out['hop_rows'] = [h['rows'] for h in hops]
+  emit('link_loader', batch=b, fanouts=list(FANOUTS),
+       trials=NEG_TRIALS, strict_rule_checked_on_host=True, **out)
+  del ds, recs
+  torch.cuda.empty_cache()
+  return {'launches': {m: out[m]['launches'] for m in ('binary', 'triplet')},
+          'hops': hops, 'gathers': [gather]}
+
+
+def seal(torch, ops, timer, indptr, indices, is_edge, prof=False):
+  """BASELINE config 3, `examples/seal_link_pred.py`: the example's
+  `synthetic()` graph at Cora's size with its 256 target links removed,
+  256 positive and 256 negative links through `SubGraphLoader([8],
+  batch 2)` (one link's enclosing subgraph a batch), DRNL labels on the
+  host, SEAL's classifier (`seal_model`) trained with Adam(1e-3) for 3
+  epochs over 80% of the links and tested on the rest; then extraction
+  at scale: 256 products edges and 256 `RandomNegativeSampler` pairs
+  through the same loader on the products graph (links/s, the subgraph
+  op alone, its ``[node_cap x max_degree]`` window), every induced edge
+  held against a host lookup and every subgraph's edge count against a
+  host count."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as smod
+  import torch.nn.functional as F
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import SubGraphLoader
+  from graphlearn_tpu_torch.sampler import RandomNegativeSampler
+  rows, cols, cl = seal_graph(n=SEAL_NODES, clusters=SEAL_CLUSTERS,
+                              deg=SEAL_DEG)
+  n = SEAL_NODES
+  edge_set = set(zip(rows.tolist(), cols.tolist()))
+  rng = np.random.default_rng(1)
+  m = SEAL_LINKS
+  pos_idx = rng.choice(len(rows), m, replace=False)
+  pos = np.stack([rows[pos_idx], cols[pos_idx]], 1)
+  pos_pairs = set(map(tuple, pos.tolist()))
+  drop = np.fromiter(((r, c) in pos_pairs or (c, r) in pos_pairs
+                      for r, c in zip(rows.tolist(), cols.tolist())), bool,
+                     len(rows))
+  ds = Dataset().init_graph((rows[~drop], cols[~drop]), num_nodes=n,
+                            device=DEVICE)
+  neg = []
+  while len(neg) < m:
+    u, v = rng.integers(0, n, 2)
+    if (u, v) not in edge_set and (v, u) not in edge_set and u != v:
+      neg.append((u, v))
+  pairs = np.concatenate([pos, np.asarray(neg)])
+  labels = np.concatenate([np.ones(m), np.zeros(m)]).astype(np.int64)
+  order = rng.permutation(2 * m)
+  pairs, labels = pairs[order], labels[order]
+  loader = SubGraphLoader(ds, SEAL_FANOUTS, pairs.reshape(-1), batch_size=2,
+                          seed=0, device=DEVICE)
+  reset_counts(ops)
+  sync(torch)
+  t0 = time.perf_counter()
+  sub = []
+  with TrainRecorder(torch, smod, 0, hops=1) as rec:
+    for i, batch in enumerate(loader):
+      nmask = batch.node_mask.cpu().numpy()
+      ei = batch.edge_index.cpu().numpy()
+      em = batch.edge_mask.cpu().numpy()
+      mapping = batch.metadata['mapping'].cpu().numpy()
+      lab = drnl(nmask, ei, em, int(mapping[0]), int(mapping[1]))
+      sub.append(tuple(torch.from_numpy(a).to(DEVICE)
+                       for a in (lab, ei, em, nmask))
+                 + (torch.tensor(labels[i], device=DEVICE),))
+  extract_secs = time.perf_counter() - t0
+  launches, plain = read_counts(ops)
+  if not (launches['sample_one_hop'] == 2 * m and launches['gather_rows'] == 0
+          and plain == 0):
+    raise AssertionError(f'seal extraction: launches {launches}, plain '
+                         f'calls {plain}, want 1 K1 a link')
+  closure = [check_sampler(torch, ops, timer, *rec.hops[0])[1]]
+  emit('kernel', kernel='sample_one_hop', shape='SEAL closure (2 seeds)',
+       **closure[0])
+  del rec
+  model = seal_model(torch).to(DEVICE)
+  opt = torch.optim.Adam(model.parameters(), lr=SEAL_LR)
+  ntr = int(0.8 * len(sub))
+  means = []
+  t0 = time.perf_counter()
+  for _ in range(SEAL_EPOCHS):
+    tot = torch.zeros((), device=DEVICE)
+    for lab, ei, em, nm, y in sub[:ntr]:
+      opt.zero_grad(set_to_none=True)
+      loss = F.cross_entropy(model(lab, ei, em, nm)[None], y[None])
+      loss.backward()
+      opt.step()
+      tot += loss.detach()
+    means.append(float(tot) / ntr)
+  train_secs = time.perf_counter() - t0
+  if prof:
+    lab, ei, em, nm, y = sub[0]
+
+    def seal_step():
+      opt.zero_grad(set_to_none=True)
+      loss = F.cross_entropy(model(lab, ei, em, nm)[None], y[None])
+      loss.backward()
+      opt.step()
+      return loss.detach()
+    profile_train(torch, seal_step, 'seal train', n=PROFILE_STEPS)
+  model.eval()
+  with torch.no_grad():
+    correct = sum(int(torch.argmax(model(lab, ei, em, nm)) == y)
+                  for lab, ei, em, nm, y in sub[ntr:])
+  acc = correct / max(len(sub) - ntr, 1)
+  if not (np.isfinite(means).all() and means[-1] < means[0] and acc > 0.5):
+    raise AssertionError(f'SEAL: losses {means}, test accuracy {acc}')
+
+  # -- extraction at scale on the products graph --------------------------
+  dsp = Dataset().init_graph((indptr, indices), layout='CSR',
+                             num_nodes=NUM_NODES, device=DEVICE)
+  g = torch.Generator(device=DEVICE).manual_seed(23)
+  at = torch.randint(0, indices.numel(), (SEAL_SCALE_LINKS,), generator=g,
+                     device=DEVICE)
+  psrc = torch.searchsorted(indptr, at, right=True) - 1
+  negs = RandomNegativeSampler(dsp.get_graph(), seed=5,
+                               device=DEVICE).sample(SEAL_SCALE_LINKS)
+  links = torch.cat([torch.stack([psrc.to(torch.int32), indices[at]], 1),
+                     negs.t()]).cpu().numpy()
+  if is_edge(links[SEAL_SCALE_LINKS:, 0], links[SEAL_SCALE_LINKS:, 1]).any():
+    raise AssertionError('a RandomNegativeSampler pair is an edge')
+  sloader = SubGraphLoader(dsp, SEAL_FANOUTS, links.reshape(-1),
+                           batch_size=2, seed=0, device=DEVICE)
+  max_deg = dsp.get_graph().max_degree
+  reset_counts(ops)
+  sync(torch)
+  t0 = time.perf_counter()
+  kept = [(bt.node, bt.edge_index, bt.edge_mask) for bt in sloader]
+  sync(torch)
+  scale_secs = time.perf_counter() - t0
+  slaunches, splain = read_counts(ops)
+  nl = 2 * SEAL_SCALE_LINKS
+  if not (slaunches['sample_one_hop'] == nl and slaunches['gather_rows'] == 0
+          and splain == 0):
+    raise AssertionError(f'seal at scale: launches {slaunches}, plain '
+                         f'calls {splain}')
+  indptr_h = indptr.cpu().numpy()
+  indices_h = indices.cpu().numpy()
+  induced = 0
+  for node, ei, em in kept:
+    node, ei, em = node.cpu().numpy(), ei.cpu().numpy(), em.cpu().numpy()
+    u, v = node[ei[0][em]], node[ei[1][em]]
+    if not is_edge(u, v).all():
+      raise AssertionError('an induced edge is not an edge')
+    valid = node[node >= 0]
+    nbrs = [indices_h[indptr_h[x]:indptr_h[x + 1]] for x in valid]
+    want = sum(int(np.isin(nb, valid).sum()) for nb in nbrs)
+    if int(em.sum()) != want:
+      raise AssertionError(f'an enclosing subgraph has {int(em.sum())} '
+                           f'edges, the host counts {want}')
+    induced += want
+  node_cap = int(kept[-1][0].numel())
+  last = kept[-1][0]
+  op_ms = timer(lambda: ops.induced_subgraph(indptr, indices, last,
+                                             max_degree=max_deg))
+  window = node_cap * max_deg
+  emit('seal', graph={'nodes': n, 'edges': int(rows.shape[0]),
+                      'target_edges_removed': int(drop.sum()),
+                      'clusters': SEAL_CLUSTERS, 'degree': SEAL_DEG},
+       links=2 * m, fanouts=list(SEAL_FANOUTS), batch=2,
+       model=f'Embedding({SEAL_MAX_LABEL}, {SEAL_HIDDEN}) -> '
+             f'DGCNN({SEAL_HIDDEN}, 2 classes, 3 layers, k {SEAL_K})',
+       optimizer=f'Adam({SEAL_LR})', epochs=SEAL_EPOCHS,
+       extract_secs=extract_secs, train_secs=train_secs,
+       train_steps_per_s=SEAL_EPOCHS * ntr / train_secs,
+       epoch_mean_losses=means, test_links=len(sub) - ntr,
+       test_accuracy=acc, launches=launches, plain_calls=plain,
+       at_scale={'graph': 'products', 'links': nl,
+                 'positive': SEAL_SCALE_LINKS,
+                 'random_negatives': SEAL_SCALE_LINKS,
+                 'links_per_s': nl / scale_secs, 'secs': scale_secs,
+                 'node_cap': node_cap, 'max_degree': max_deg,
+                 'window_slots': window, 'window_bytes_int32': window * 4,
+                 'subgraph_op_ms': op_ms, 'induced_edges': induced,
+                 'induced_edges_checked_on_host': True,
+                 'launches': slaunches, 'plain_calls': splain})
+  del dsp, kept
+  return {'launches': {'train': launches, 'at_scale': slaunches},
+          'hops': closure, 'node_cap': node_cap, 'max_degree': max_deg}
+
+
+def link_cross_check(torch):
+  """A 4,000-node clustered graph on the card and on the CPU: 2
+  `LinkNeighborLoader` batches in each negative mode (none, binary,
+  triplet) and 3 `SubGraphLoader` batches with the same CPU-made draws
+  byte-equal; 2 `FusedLinkEpoch` steps with the default counter draws
+  (captured on the card, eager on the CPU), losses within 1e-5; one
+  SEAL `DGCNN` forward from the same parameters, logits within 1e-5."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import (FusedLinkEpoch, LinkNeighborLoader,
+                                           SubGraphLoader)
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.ops import TorchDraws
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  rows, cols, feats, _ = clustered_graph(n=4000, deg=8, classes=8, d=16)
+  rows = np.concatenate([rows, np.full(300, 7)])   # a hub past the window
+  cols = np.concatenate([cols, np.arange(300)])
+  cpu = TorchDraws(6, 'cpu')
+  modes = (None, ('binary', 1.5), ('triplet', 2))
+  out, fused_losses, logits = {}, {}, {}
+  seal_net = seal_model(torch)
+  for dev in (DEVICE, 'cpu'):
+    def draws(step, hop, r, k, w, dev=dev):
+      return tuple(t.to(dev) for t in cpu(step, hop, r, k, w))
+
+    def neg_draws(step, stream, trials, r, high, dev=dev):
+      return cpu.negatives(step, stream, trials, r, high).to(dev)
+    ds = (Dataset().init_graph((rows, cols), num_nodes=4000, device=dev)
+          .init_node_features(feats, device=dev))
+    got = []
+    for mode in modes:
+      lo = LinkNeighborLoader(
+          ds, [10, 5], (rows, cols),
+          neg_sampling=None if mode is None else NegativeSampling(*mode),
+          batch_size=64, shuffle=True, seed=1, draws=draws,
+          neg_draws=neg_draws, device=dev)
+      for bt in itertools.islice(iter(lo), 2):
+        got.append([bt.node, bt.x, bt.edge_index, bt.edge_mask, bt.batch]
+                   + [v for _, v in sorted(bt.metadata.items())])
+    sl = SubGraphLoader(ds, [4, 3], np.arange(60), batch_size=4,
+                        draws=draws, device=dev)
+    for bt in itertools.islice(iter(sl), 3):
+      got.append([bt.node, bt.edge_index, bt.edge_mask,
+                  bt.metadata['mapping']])
+    out[dev] = [[t.cpu() for t in ts] for ts in got]
+    model = GraphSAGE(16, 32, 32, num_layers=2).to(dev)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    opt = torch.optim.Adam(model.parameters(), lr=LINK_LR, eps=1e-8,
+                           capturable=dev != 'cpu')
+    fused = FusedLinkEpoch(ds, [10, 5], (rows[:128], cols[:128]), model, opt,
+                           64, seed=2, device=dev)
+    fused_losses[dev] = fused.run().losses.cpu().numpy()
+    if dev != 'cpu' and fused.compile_count() != 1:
+      raise AssertionError('the card did not capture the link step')
+    bt = got[-1]
+    lab = torch.arange(bt[0].numel(), device=dev) % SEAL_MAX_LABEL
+    with torch.no_grad():
+      logits[dev] = seal_net.to(dev)(lab, bt[1], bt[2], bt[0] >= 0).cpu()
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    if len(a) != len(c) or not all(x.dtype == y.dtype and torch.equal(x, y)
+                                   for x, y in zip(a, c)):
+      raise AssertionError(f'card and CPU link/subgraph batch {i} differ')
+  diff = float(np.abs(fused_losses[DEVICE] - fused_losses['cpu']).max())
+  ldiff = float((logits[DEVICE] - logits['cpu']).abs().max())
+  if not (diff <= 1e-5 and ldiff <= 1e-5 and len(fused_losses['cpu']) == 2):
+    raise AssertionError(f'link losses differ by {diff}, DGCNN logits by '
+                         f'{ldiff}')
+  emit('link_cross_check', link_batches=2 * len(modes), subgraph_batches=3,
+       byte_equal=True, fused_steps=2, fused_loss_max_abs_diff=diff,
+       dgcnn_logits_max_abs_diff=ldiff, card_captured=True)
+
+
+def link_phases(torch, ops, timer, indptr, indices, feats, prof=False):
+  """The link-prediction and enclosing-subgraph phases (`link_train`,
+  `link_loader`, `seal`, `link_cross_check`)."""
+  train = link_train(torch, ops, timer, prof=prof)
+  torch.cuda.empty_cache()
+  is_edge = edge_lookup(indptr.cpu().numpy(), indices.cpu().numpy())
+  loader = link_loader(torch, ops, timer, indptr, indices, feats, is_edge)
+  seal_out = seal(torch, ops, timer, indptr, indices, is_edge, prof=prof)
+  del is_edge
+  link_cross_check(torch)
+  return train, loader, seal_out
+
+
 PORT_KERNELS = {'sample_one_hop': ('sample_one_hop_kernel',),
                 'sample_one_hop_gns': ('sample_gns_kernel',),
                 'gather_rows': ('gather_narrow', 'gather_wide'),
@@ -5097,6 +5934,11 @@ def run(torch, argv) -> list:
     fused_phases(torch, ops, timer, indptr, indices, feats, ds,
                  prof='--profile' in argv)
     return None
+  if '--link' in argv:
+    del ds
+    link_phases(torch, ops, timer, indptr, indices, feats,
+                prof='--profile' in argv)
+    return None
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -5211,6 +6053,10 @@ def run(torch, argv) -> list:
    (hl_launches, hl_hops, hl_gathers)) = hetero_phases(
        torch, ops, timer, prof='--profile' in argv)
 
+  # -- link prediction and enclosing subgraphs (BASELINE configs 2, 3) --
+  link_tr, link_lo, seal_out = link_phases(torch, ops, timer, indptr, indices,
+                                           feats, prof='--profile' in argv)
+
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
 
@@ -5241,6 +6087,16 @@ def run(torch, argv) -> list:
             'hops': [dict(etype=h['etype'], hop=h['hop'], **p)
                      for h, p in zip(hops, per_hop(hops))]}
 
+  def link_shape(what, hops):
+    return {'shape': f'{what}, hops of '
+                     + '/'.join(str(h['rows']) for h in hops) + ' rows, k '
+                     + '/'.join(str(h['k']) for h in hops),
+            'ms': sum(h['kernel_ms'] for h in hops),
+            'plain_ms': sum(h['plain_ms'] for h in hops),
+            'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
+            'max_abs_err': max(h['max_abs_err'] for h in hops),
+            'byte_equal': True, 'hops': per_hop(hops)}
+
   def gather_shape(what, g):
     return {'shape': f'{what}: {g["ids"]} ids x {g["row_bytes"]} B '
                      f'{g["dtype"]}',
@@ -5261,7 +6117,9 @@ def run(torch, argv) -> list:
        'launches': launches['sample_one_hop'],
        'max_abs_err': max(h['max_abs_err']
                           for h in hops + loader_path['hops'] + sub_hops
-                          + fmesh_hops + het_hops + hl_hops),
+                          + fmesh_hops + het_hops + hl_hops
+                          + link_tr['hops'] + link_lo['hops']
+                          + seal_out['hops']),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -5285,7 +6143,28 @@ def run(torch, argv) -> list:
                                 k: v['sample_one_hop']
                                 for k, v in fmesh_launches.items()},
                             'hetero_train': het_launches['sample_one_hop'],
-                            'hetero_loader': hl_launches['sample_one_hop']},
+                            'hetero_loader': hl_launches['sample_one_hop'],
+                            'link_train': {
+                                k: v['sample_one_hop']
+                                for k, v in link_tr['launches'].items()},
+                            'link_loader': {
+                                k: v['sample_one_hop']
+                                for k, v in link_lo['launches'].items()},
+                            'seal': {
+                                k: v['sample_one_hop']
+                                for k, v in seal_out['launches'].items()}},
+       'link_shapes': {
+           'ppi_per_batch': link_shape(
+               f'{LINK_BATCH}-edge PPI link batch (binary), per-batch',
+               link_tr['shape_hops']['per_batch']),
+           'ppi_fused': link_shape(
+               f'{LINK_BATCH}-edge PPI FusedLinkEpoch step (binary)',
+               link_tr['shape_hops']['fused']),
+           'products': link_shape(
+               f'{PRODUCTS_LINK_BATCH}-edge products link batch (binary)',
+               link_lo['hops']),
+           'seal_closure': link_shape('SEAL enclosing-subgraph closure '
+                                      '(2 seeds)', seal_out['hops'])},
        'hetero_shapes': {
            'fused': hetero_shape(
                f'{HETERO_BATCH}-seed FusedHeteroEpoch RGCN step',
@@ -5331,7 +6210,8 @@ def run(torch, argv) -> list:
        'max_abs_err': max(g['max_abs_err']
                           for g in gathers + gathers_train + [train_gather]
                           + tree_levels + mesh_gathers + [sub_gather]
-                          + fmesh_gathers + het_gathers + hl_gathers),
+                          + fmesh_gathers + het_gathers + hl_gathers
+                          + link_tr['gathers'] + link_lo['gathers']),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -5376,7 +6256,20 @@ def run(torch, argv) -> list:
                                 k: v['gather_rows']
                                 for k, v in fmesh_launches.items()},
                             'hetero_train': het_launches['gather_rows'],
-                            'hetero_loader': hl_launches['gather_rows']},
+                            'hetero_loader': hl_launches['gather_rows'],
+                            'link_train': {
+                                k: v['gather_rows']
+                                for k, v in link_tr['launches'].items()},
+                            'link_loader': {
+                                k: v['gather_rows']
+                                for k, v in link_lo['launches'].items()},
+                            'seal': {
+                                k: v['gather_rows']
+                                for k, v in seal_out['launches'].items()}},
+       'link_shapes': [
+           gather_shape('PPI link batch x, per-batch', link_tr['gathers'][0]),
+           gather_shape('PPI FusedLinkEpoch step x', link_tr['gathers'][1]),
+           gather_shape('products link batch x', link_lo['gathers'][0])],
        'hetero_shapes': [
            gather_shape(f'FusedHeteroEpoch RGCN step, {g["ntype"]} x', g)
            for g in het_gathers] + [

@@ -29,6 +29,7 @@ class Graph:
     dev = resolve_device(device)
     self.csr_topo = csr_topo
     self._num_edges: Optional[int] = None
+    self._max_degree: Optional[int] = None
     if csr_topo is not None:
       self.indptr = torch.from_numpy(
           np.asarray(csr_topo.indptr, np.int64)).to(dev)
@@ -72,6 +73,20 @@ class Graph:
     if self._num_edges is not None:
       return self._num_edges
     return self.indices.numel()
+
+  @property
+  def max_degree(self) -> int:
+    """The largest row length: from the host topology when there is
+    one, else one reduction and one scalar pull on the device, cached
+    (never call it inside a CUDA graph capture)."""
+    if self._max_degree is None:
+      if self.csr_topo is not None:
+        self._max_degree = int(self.csr_topo.degrees.max(initial=0))
+      elif self.num_nodes == 0:
+        self._max_degree = 0
+      else:
+        self._max_degree = int((self.indptr[1:] - self.indptr[:-1]).max())
+    return self._max_degree
 
   def max_index(self) -> int:
     """The largest column id (-1 for no edge): from the host topology

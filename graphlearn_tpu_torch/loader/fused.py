@@ -1,8 +1,9 @@
-"""Fused supervised epochs on one card: the host driver the fused epochs
-share (the JAX package's `loader/fused.py:428-683`, `EpochStats` and
-`_SupervisedScanEpoch`), the subgraph epoch `FusedEpoch` (`:686-852`)
-and its heterogeneous twin `FusedHeteroEpoch` (`:853-994`); the tree
-epoch `loader.fused_tree.FusedTreeEpoch` runs on the same driver.
+"""Fused epochs on one card: the host driver the fused epochs share (the
+JAX package's `loader/fused.py:428-683`, `EpochStats` and
+`_SupervisedScanEpoch`), the subgraph epoch `FusedEpoch` (`:686-852`),
+its heterogeneous twin `FusedHeteroEpoch` (`:853-994`) and the
+link-prediction epoch `FusedLinkEpoch` (`:997-1400`); the tree epoch
+`loader.fused_tree.FusedTreeEpoch` runs on the same driver.
 
 JAX runs each chunk of an epoch as one compiled `lax.scan` program, so
 the host enqueues once.  The port's counterpart on a card is a CUDA
@@ -26,7 +27,11 @@ epoch, chunk, step, hop, rows, k, w)``:
     chunk (JAX then keys the steps from the epoch key itself);
   * ``step`` is the step's index within its chunk and ``hop`` the hop;
   * a heterogeneous hop passes ``etype=ei`` too, the index of its edge
-    type among the sorted edge types (JAX folds it in after the hop).
+    type among the sorted edge types (JAX folds it in after the hop);
+  * a link step draws its negative candidates from ``neg_draws(epoch,
+    chunk, step, stream, trials, r, high)`` (JAX: ``fold_in(step key,
+    0)``, its hops under ``fold_in(step key, 1)``), and its evaluation
+    is one chunk whatever ``max_steps_per_program`` (as JAX's).
 
 On a card ``epoch``, ``chunk`` and ``step`` arrive as 0-d int64 device
 tensors (``chunk`` 0 for a one-chunk epoch), read from the graph's
@@ -51,13 +56,17 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..models.train import _correct, supervised_loss
+from ..models.train import (_correct, link_loss_from_metadata,
+                            supervised_loss)
 from ..ops.draws import CounterDraws
 from ..ops.launches import LAUNCH_COUNTED
+from ..sampler.base import NegativeSampling
 from ..sampler.hetero_neighbor_sampler import (HeteroNeighborSampler,
                                                _hetero_multihop)
-from ..sampler.neighbor_sampler import NeighborSampler, _multihop_sample
+from ..sampler.neighbor_sampler import (NeighborSampler, _multihop_sample,
+                                        link_metadata, link_seeds)
 from ..utils.device import resolve_device
+from .link_loader import EdgeSeedBatcher, as_edge_pairs, shift_binary_labels
 from .node_loader import SeedBatcher
 from .transform import _gather_labels
 
@@ -154,16 +163,20 @@ class _SupervisedEpoch:
   sampler half) and ``_gather(sample, seeds) -> (inputs, y)`` (the
   feature and label gathers; ``model(*inputs)`` gives the logits).
   On a heterogeneous dataset ``_graph`` and ``_feat`` are the dataset's
-  dicts and ``_labels`` those of ``label_type``."""
+  dicts and ``_labels`` those of ``label_type``.  A step's seeds are one
+  row of `_epoch_seeds` (``[B]`` node ids; the link epoch's ``[3, B]``
+  edges and labels), and `_valid_step` says whether a row holds a
+  seed."""
 
   _owner = 'the fused epoch'
+  _needs_labels = True
 
   def _init_driver(self, data, input_nodes, model,
                    optimizer: torch.optim.Optimizer, batch_size: int,
                    shuffle: bool, drop_last: bool, seed: Optional[int],
                    max_steps_per_program: Optional[int],
                    draws: Optional[EpochDraws], remat: bool, device,
-                   label_type: Optional[str] = None):
+                   label_type: Optional[str] = None, batcher=None):
     self.device = resolve_device(device)
     graph = data.get_graph()
     for g in graph.values() if isinstance(graph, dict) else (graph,):
@@ -174,7 +187,7 @@ class _SupervisedEpoch:
     if feat is None or (isinstance(feat, dict) and not feat):
       raise ValueError(f'{self._owner} needs node features')
     labels = data.get_node_label_device(label_type)
-    if labels is None:
+    if labels is None and self._needs_labels:
       of = '' if label_type is None else f' of {label_type!r}'
       raise ValueError(f'{self._owner} needs node labels{of}')
     self._tiered = any(f.is_tiered for f in (
@@ -190,11 +203,13 @@ class _SupervisedEpoch:
     self._graph = graph
     self._feat = feat
     self._labels = labels
-    input_nodes = np.asarray(input_nodes)
-    if input_nodes.dtype == np.bool_:
-      input_nodes = np.nonzero(input_nodes)[0]
-    self._batcher = SeedBatcher(input_nodes, self.batch_size, shuffle,
-                                drop_last, seed)
+    if batcher is None:
+      input_nodes = np.asarray(input_nodes)
+      if input_nodes.dtype == np.bool_:
+        input_nodes = np.nonzero(input_nodes)[0]
+      batcher = SeedBatcher(input_nodes, self.batch_size, shuffle,
+                            drop_last, seed)
+    self._batcher = batcher
     self._chunk = (int(max_steps_per_program)
                    if max_steps_per_program else None)
     self.draws = (draws if draws is not None
@@ -214,12 +229,12 @@ class _SupervisedEpoch:
 
   # -- the schedule ---------------------------------------------------------
 
-  def _chunks(self, seeds: np.ndarray
+  def _chunks(self, seeds: np.ndarray, one_chunk: bool = False
               ) -> Iterator[Tuple[int, np.ndarray]]:
     """``(chunk offset, [chunk, B] piece)``, the tail piece padded with
-    -1 rows."""
+    -1 rows (the whole epoch one chunk with ``one_chunk``)."""
     s = seeds.shape[0]
-    chunk = self._chunk or s
+    chunk = s if one_chunk else (self._chunk or s)
     for c0 in range(0, s, chunk):
       part = seeds[c0:c0 + chunk]
       real = part.shape[0]
@@ -228,16 +243,24 @@ class _SupervisedEpoch:
         part = np.concatenate([part, pad])
       yield c0, part
 
-  def _schedule(self, seeds: np.ndarray, epoch: int):
+  def _epoch_seeds(self) -> np.ndarray:
+    """One epoch's ``[S, B]`` seed rows, in the batcher's order."""
+    return np.stack(list(self._batcher))
+
+  def _valid_step(self, row: np.ndarray) -> bool:
+    return bool((row >= 0).any())
+
+  def _schedule(self, seeds: np.ndarray, epoch: int,
+                one_chunk: bool = False):
     """The steps that hold a valid seed, chunk by chunk: ``[(seeds_i,
     (epoch, chunk, step)), ...]`` on the host."""
-    parts = list(self._chunks(seeds))
+    parts = list(self._chunks(seeds, one_chunk))
     out = []
     for c0, part in parts:
       chunk = None if len(parts) == 1 else c0
       piece = []
       for i in range(part.shape[0]):
-        if (part[i] >= 0).any():
+        if self._valid_step(part[i]):
           piece.append((part[i], (epoch, chunk, i)))
       out.append(piece)
     return out
@@ -322,12 +345,12 @@ class _SupervisedEpoch:
     self._replays[kind] = step
     return step
 
-  def _run_steps(self, kind: str, seeds: np.ndarray, epoch: int
-                 ) -> List[torch.Tensor]:
+  def _run_steps(self, kind: str, seeds: np.ndarray, epoch: int,
+                 one_chunk: bool = False) -> List[torch.Tensor]:
     """Every step of an epoch over ``[S, B]`` seeds; returns the
     per-step outputs stacked: ``[losses [n], counts [n, 2]]`` for
     training, ``[counts [n, 2]]`` for evaluation."""
-    plan = self._schedule(seeds, epoch)
+    plan = self._schedule(seeds, epoch, one_chunk)
     steps = [s for piece in plan for s in piece]
     n = len(steps)
     outs = [torch.empty((n, 2), dtype=torch.int64, device=self.device)]
@@ -376,7 +399,7 @@ class _SupervisedEpoch:
 
   def run(self) -> EpochStats:
     """One training epoch; returns its lazy `EpochStats`."""
-    seeds = np.stack(list(self._batcher))
+    seeds = self._epoch_seeds()
     self._epoch_idx += 1
     losses, counts = self._run_steps('train', seeds, self._epoch_idx)
     return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
@@ -543,3 +566,166 @@ class FusedHeteroEpoch(_SupervisedEpoch):
     edge_index = {et: torch.stack([row[et], col[et]]) for et in row}
     return (x_dict, edge_index, dict(emask)), _gather_labels(
         self._labels, node[self.input_type])
+
+
+class FusedLinkEpoch(_SupervisedEpoch):
+  """Link-prediction (unsupervised) epochs (the JAX package's
+  `FusedLinkEpoch`): each step draws the batch's negatives, samples the
+  multi-hop neighborhoods of the positive and negative endpoints
+  (`sampler.neighbor_sampler.link_seeds` and `_multihop_sample`),
+  gathers the node table's rows through `Feature.get` (the row gather
+  kernel), runs the model's ``(x, edge_index, edge_mask) -> [node_cap,
+  D]`` embeddings and the binary (sigmoid) or triplet (max-margin) link
+  loss of `link_metadata`.  On a card each step is a replay of one
+  captured CUDA graph, the negatives drawn inside it.
+
+  Example::
+
+      model = GraphSAGE(50, 64, 64, num_layers=2).to('cuda')
+      opt = torch.optim.Adam(model.parameters(), lr=3e-3,
+                             capturable=True)
+      fused = FusedLinkEpoch(ds, [10, 10], (rows, cols), model, opt,
+                             batch_size=512, neg_sampling='binary', seed=0)
+      stats = fused.run()   # seeds: valid seed edges; correct: 0
+      auc = fused.evaluate((test_rows, test_cols))
+
+  Args:
+    data: a homogeneous `data.Dataset` on ``device`` with node features
+      wholly on the device (a tiered store raises NotImplementedError);
+      labels are not needed.
+    num_neighbors: per-hop fanouts.
+    edge_label_index: ``[2, E]`` or ``(rows, cols)`` seed edges.
+    model / optimizer: as `FusedEpoch` (on a card ``capturable=True``).
+    batch_size: seed edges a step.
+    neg_sampling: a `sampler.NegativeSampling` or a mode string
+      (default binary, amount 1).
+    edge_label: optional ``[E]`` int labels (binary mode shifts them up
+      by one: 0 is the sampled negative).
+    shuffle / drop_last / seed / remat / max_steps_per_program / device:
+      as `FusedEpoch`.
+    draws: the hop draws, ``draws(epoch, chunk, step, hop, rows, k,
+      w)``; neg_draws: the candidates, ``neg_draws(epoch, chunk, step,
+      stream, trials, r, high)``; both default to
+      `ops.draws.CounterDraws` on ``device``.
+  """
+
+  _owner = 'FusedLinkEpoch'
+  _needs_labels = False
+
+  def __init__(self, data, num_neighbors: Sequence[int], edge_label_index,
+               model, optimizer: torch.optim.Optimizer, batch_size: int,
+               neg_sampling='binary', edge_label=None, shuffle: bool = True,
+               drop_last: bool = False, seed: Optional[int] = None,
+               remat: bool = False,
+               max_steps_per_program: Optional[int] = None,
+               draws: Optional[EpochDraws] = None,
+               neg_draws: Optional[Callable] = None, device='cuda'):
+    if data.is_hetero:
+      raise ValueError('FusedLinkEpoch is homogeneous-only')
+    if data.node_features is not None and data.node_features.is_tiered:
+      raise NotImplementedError(
+          'FusedLinkEpoch over a tiered feature store is not ported yet (see '
+          "the ROADMAP's slice catalogue, item 5): use split_ratio=1.0, or "
+          'LinkNeighborLoader(prefetch=2)')
+    rows, cols = as_edge_pairs(edge_label_index)
+    batcher = EdgeSeedBatcher(rows, cols, edge_label, batch_size, shuffle,
+                              drop_last, seed)
+    self._init_driver(data, None, model, optimizer, batch_size, shuffle,
+                      drop_last, seed, max_steps_per_program, draws, remat,
+                      device, batcher=batcher)
+    self.neg = NegativeSampling.cast(neg_sampling)
+    self.neg_draws = (neg_draws if neg_draws is not None
+                      else CounterDraws(seed or 0, self.device).negatives)
+    self.fanouts = tuple(int(k) for k in num_neighbors)
+    b = self.batch_size
+    if self.neg.is_binary():
+      width = 2 * b + 2 * self.neg.sample_size(b)
+    else:
+      width = 2 * b + b * int(np.ceil(float(self.neg.amount)))
+    self._node_cap = NeighborSampler(self._graph, self.fanouts,
+                                     device=self.device).node_capacity(width)
+
+  # -- the schedule: a step's row is [src, dst, label], [3, B] int32 ----------
+
+  def _epoch_seeds(self) -> np.ndarray:
+    out = []
+    for r, c, lab in self._batcher:
+      if lab is None:
+        lab = np.ones_like(r)
+      elif self.neg.is_binary():
+        lab = shift_binary_labels(r, c, lab)
+      out.append(np.stack([r, c, lab.astype(np.int32)]))
+    return np.stack(out)
+
+  def _valid_step(self, row: np.ndarray) -> bool:
+    return bool(((row[0] >= 0) & (row[1] >= 0)).any())
+
+  def _step_draws(self, coords):
+    epoch, chunk, step = coords
+
+    def candidates(stream, trials, r, high):
+      return self.neg_draws(epoch, chunk, step, stream, trials, r, high)
+    return super()._step_draws(coords), candidates
+
+  # -- one step -----------------------------------------------------------------
+
+  def _sample(self, seeds: torch.Tensor, draws):
+    hops, candidates = draws
+    src, dst, label = seeds[0], seeds[1], seeds[2]
+    g = self._graph
+    out = _multihop_sample(
+        g.indptr, g.indices,
+        link_seeds(g.indptr, g.indices, src, dst, self.neg, candidates),
+        self.fanouts, self._node_cap,
+        lambda _step, hop, rows, k, w: hops(hop, rows, k, w), 0)
+    out.metadata = link_metadata(out.metadata['seed_local'], src, dst,
+                                 label, self.neg)
+    return out
+
+  def _gather(self, out, seeds: torch.Tensor):
+    x = self._feat.get(out.node)
+    edge_index = torch.stack([out.row, out.col])
+    return (x, edge_index, out.edge_mask), out.metadata
+
+  def _train_on(self, seeds: torch.Tensor, inputs, metadata) -> Tuple:
+    self.model.train()
+    self.optimizer.zero_grad(set_to_none=True)
+    loss = link_loss_from_metadata(self._train_model(*inputs), metadata)
+    loss.backward()
+    self.optimizer.step()
+    valid = ((seeds[0] >= 0) & (seeds[1] >= 0)).sum()
+    return loss.detach(), torch.stack([torch.zeros_like(valid), valid])
+
+  @torch.no_grad()
+  def _eval_on(self, seeds: torch.Tensor, inputs, metadata) -> Tuple:
+    """The batch's pairwise AUC counts: ``[2 * wins + ties, pairs]``
+    over every (valid positive, negative) pair of scores (the binary
+    layout: the first B pairs positive, the rest negative)."""
+    self.model.eval()
+    emb = self.model(*inputs)
+    eli = metadata['edge_label_index'].long()
+    mask = metadata['edge_label_mask']
+    score = (emb[eli[0]] * emb[eli[1]]).sum(-1)
+    b = self.batch_size
+    ps, ns = score[:b, None], score[None, b:]
+    pair_ok = mask[:b, None] & mask[None, b:]
+    wins2 = 2 * ((ps > ns) & pair_ok).sum() + ((ps == ns) & pair_ok).sum()
+    return (torch.stack([wins2, pair_ok.sum()]),)
+
+  # -- the driver -----------------------------------------------------------------
+
+  def evaluate(self, edge_label_index) -> float:
+    """Held-out link AUC over ``edge_label_index``: per batch, fresh
+    strict negatives, the endpoints' embedding dot products as scores,
+    and every (positive, negative) comparison counted (ties a half).
+    Binary negative sampling only."""
+    if not self.neg.is_binary():
+      raise ValueError('evaluate() needs binary negative sampling')
+    rows, cols = as_edge_pairs(edge_label_index)
+    if len(np.asarray(rows)) == 0:
+      raise ValueError('evaluate() got an empty split')
+    seeds = np.stack([np.stack([r, c, np.ones_like(r)]) for r, c, _ in
+                      EdgeSeedBatcher(rows, cols, None, self.batch_size)])
+    (counts,) = self._run_steps('eval', seeds, 0, one_chunk=True)
+    wins2, total = (int(v) for v in counts.sum(0).cpu())
+    return wins2 / 2 / max(total, 1)

@@ -1,6 +1,7 @@
 """Message passing on padded COO batches: `segment_mean`, the masked
-segment sum and max that `models.hetero.HGTConv` needs, and `SAGEConv`
-(the JAX package's `models/conv.py:26-66,97-145`, as `nn.Module`s).
+segment sum and max that `models.hetero.HGTConv` needs, `SAGEConv` and
+`GCNConv` (the JAX package's `models/conv.py:26-66,97-176`, as
+`nn.Module`s).
 
 Edges are ``[2, E]`` local COO with -1 in masked slots;
 ``edge_index[0]`` is the message source (the sampled neighbor) and
@@ -101,3 +102,37 @@ class SAGEConv(nn.Module):
     msg = torch.index_select(x, 0, src.long().clamp(0, n - 1))
     agg = segment_mean(msg, dst, n, edge_mask, weights=edge_weight)
     return self.lin_self(x) + self.lin_neigh(agg)
+
+
+class GCNConv(nn.Module):
+  """Graph convolution with symmetric degree normalisation and a self
+  loop: ``h = lin(x)``, ``out[v] = sum_{u->v} h[u] / sqrt(d_out(u)
+  d_in(v)) + h[v] / sqrt(d_in(v) d_out(v))``, the degrees counted over
+  the valid edges in f32, plus one (the self loop)."""
+
+  def __init__(self, in_features: int, out_features: int):
+    super().__init__()
+    self.lin = nn.Linear(in_features, out_features)
+
+  def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+              edge_mask: Optional[torch.Tensor] = None,
+              edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if edge_weight is not None:
+      raise ValueError('GCNConv takes no edge_weight (the GNS importance '
+                       'weights have an unbiased meaning for SAGEConv only)')
+    n = x.shape[0]
+    src, dst = edge_index[0], edge_index[1]
+    valid = edge_mask if edge_mask is not None else dst >= 0
+    ssafe = torch.where(valid, src, n)
+    dsafe = torch.where(valid, dst, n)
+    ones = valid.to(torch.float32)
+    deg_in = segment_sum(ones, dsafe, n) + 1.0
+    deg_out = segment_sum(ones, ssafe, n) + 1.0
+    s = src.long().clamp(0, n - 1)
+    d = dst.long().clamp(0, n - 1)
+    w = torch.rsqrt(deg_out)[s] * torch.rsqrt(deg_in)[d]
+    h = self.lin(x)
+    msg = torch.index_select(h, 0, s) * w.to(h.dtype)[:, None]
+    agg = segment_sum(msg, dsafe, n)
+    self_w = torch.rsqrt(deg_in) * torch.rsqrt(deg_out)
+    return agg + h * self_w.to(h.dtype)[:, None]

@@ -1,6 +1,7 @@
 """Supervised training and eval steps on `Batch`es and `HeteroBatch`es
 (the JAX package's `models/train.py:35-119`, and the heterogeneous step
-of `examples/hetero/train_hgt_mag.py:183-192`).
+of `examples/hetero/train_hgt_mag.py:183-192`), and the link losses and
+step of unsupervised training (`models/train.py:122-191`).
 
 The loss is the softmax cross entropy over the seed slots (table rows
 ``[0, batch_size)``), masked by seed validity, so a padded tail batch
@@ -122,3 +123,85 @@ def make_hetero_eval_step(model, batch_size: int, input_type: str):
   `make_eval_step`."""
   return _extracted_eval_step(_hetero_extract(input_type), model,
                               batch_size)
+
+
+def _rows(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """``emb[clip(idx)]`` for any shape of ``idx`` (one `index_select`,
+  whose backward is one `index_add_`)."""
+  n = emb.shape[0]
+  flat = idx.reshape(-1).long().clamp(0, n - 1)
+  return torch.index_select(emb, 0, flat).reshape(idx.shape + (-1,))
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+  """``-y log σ(x) - (1 - y) log σ(-x)`` elementwise, in log-sigmoid
+  form (`optax.sigmoid_binary_cross_entropy`)."""
+  return (-labels * F.logsigmoid(logits)
+          - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def _masked_mean(ls: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+  v = valid.to(ls.dtype)
+  return (ls * v).sum() / torch.clamp(v.sum(), min=1.0)
+
+
+def unsupervised_link_loss(emb: torch.Tensor, metadata: dict
+                           ) -> torch.Tensor:
+  """The binary link loss of a link batch's metadata (``edge_label_index``,
+  ``edge_label``, ``edge_label_mask``): the sigmoid cross entropy of the
+  endpoints' embedding dot products against ``min(label, 1)``, averaged
+  over the valid pairs."""
+  eli = metadata['edge_label_index']
+  label = metadata['edge_label'].to(emb.dtype)
+  mask = metadata.get('edge_label_mask')
+  logit = (_rows(emb, eli[0]) * _rows(emb, eli[1])).sum(-1)
+  ls = sigmoid_binary_cross_entropy(logit, torch.clamp(label, max=1.0))
+  valid = (eli[0] >= 0) & (eli[1] >= 0)
+  if mask is not None:
+    valid = mask & valid
+  return _masked_mean(ls, valid)
+
+
+def triplet_link_loss(emb: torch.Tensor, metadata: dict,
+                      margin: float = 1.0) -> torch.Tensor:
+  """The max-margin triplet loss of a triplet link batch's metadata
+  (``src_index``, ``dst_pos_index``, ``dst_neg_index [B, A]``, -1 in
+  invalid slots), averaged over the valid (source, negative) slots."""
+  si = metadata['src_index']
+  dp = metadata['dst_pos_index']
+  dn = metadata['dst_neg_index']
+  es = _rows(emb, si)
+  pos = (es * _rows(emb, dp)).sum(-1)                 # [B]
+  neg = (es[:, None, :] * _rows(emb, dn)).sum(-1)     # [B, A]
+  ls = torch.relu(margin - pos[:, None] + neg)
+  return _masked_mean(ls, ((si >= 0) & (dp >= 0))[:, None] & (dn >= 0))
+
+
+def link_loss_from_metadata(emb: torch.Tensor, metadata: dict
+                            ) -> torch.Tensor:
+  """The binary or the triplet link loss, by the metadata's keys."""
+  if 'edge_label_index' in metadata:
+    return unsupervised_link_loss(emb, metadata)
+  if 'src_index' in metadata:
+    return triplet_link_loss(emb, metadata)
+  raise KeyError('batch metadata carries neither edge_label_index '
+                 '(binary) nor src_index (triplet) link labels')
+
+
+def make_unsupervised_step(model, optimizer):
+  """``step(batch) -> loss`` for a link `Batch` (`loader.
+  LinkNeighborLoader`): the model's embeddings, the link loss of the
+  batch's metadata (`link_loss_from_metadata`), backward and the
+  optimizer update; the loss stays on the device."""
+
+  def step(batch):
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    emb = model(batch.x, batch.edge_index, batch.edge_mask)
+    loss = link_loss_from_metadata(emb, batch.metadata)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+  return step

@@ -3,6 +3,9 @@ trees (`hash_draws`, serving), for the single-card fused epochs
 (`CounterDraws`, whose coordinates may live on the card, so a captured
 CUDA graph draws anew on every replay) and the default provider of the
 per-batch samplers and the eager fused mesh epochs (`TorchDraws`).
+Beside the uniform and Gumbel streams of the one-hop sampler, the two
+providers draw the negative samplers' candidates: ``[trials, R]`` int32
+ids uniform in ``[0, high)`` (`ops.negative.sample_negative`).
 
 The JAX serving engine keys each seed's tree with threefry
 (``fold_in(key(engine_seed), node)``, then ``fold_in(·, hop)`` and
@@ -34,6 +37,7 @@ _C2 = 0x68E31DA5
 _STREAM_U = 0x5555
 _STREAM_GUMBEL = 0xAAAA
 _STREAM_V = 0x3333
+_STREAM_INT = 0x6666
 
 
 def _mix(x: torch.Tensor) -> torch.Tensor:
@@ -77,10 +81,16 @@ def hash_draws(engine_seed: int, seed_ids: torch.Tensor, hop: int,
   return u, gumbel
 
 
+def _hashes(row: torch.Tensor, tag: int, width: int) -> torch.Tensor:
+  """``[R]`` row hashes -> ``[R, width]`` uint32 hashes of stream
+  ``tag`` (int64)."""
+  lane = torch.arange(width, dtype=torch.int64, device=row.device)
+  return _mix(_mix(row ^ tag)[:, None] ^ lane[None, :])
+
+
 def _stream(row: torch.Tensor, tag: int, width: int) -> torch.Tensor:
   """``[R]`` row hashes -> ``[R, width]`` uniforms of stream ``tag``."""
-  lane = torch.arange(width, dtype=torch.int64, device=row.device)
-  return _uniform(_mix(_mix(row ^ tag)[:, None] ^ lane[None, :]))
+  return _uniform(_hashes(row, tag, width))
 
 
 class CounterDraws:
@@ -101,7 +111,9 @@ class CounterDraws:
   hop's edge type among the sorted edge types, is a fifth coordinate
   (without it the key is the four-coordinate one).  `draw` takes any
   coordinates and, with ``gns``, returns a second ``[rows, k]`` uniform
-  stream ``v`` in place of the Gumbels.
+  stream ``v`` in place of the Gumbels.  `ints` draws negative
+  candidates at any coordinates, `negatives` at the fused link epoch's
+  ``(epoch, chunk, step, stream)``.
   """
 
   def __init__(self, seed: int, device):
@@ -134,6 +146,20 @@ class CounterDraws:
       coords += (etype,)
     return self.draw(coords, rows, k, w)
 
+  def ints(self, coords, trials: int, r: int, high: int) -> torch.Tensor:
+    """``[trials, r]`` int32 ids in ``[0, high)``: each a 32-bit hash
+    ``h`` of (key, trial, slot) mapped by ``(h * high) >> 32``; a wider
+    ``r`` extends a narrower one."""
+    t = torch.arange(trials, dtype=torch.int64, device=self.device)
+    h = _hashes(_mix(self.key(coords) ^ t), _STREAM_INT, r)
+    return ((h * int(high)) >> 32).to(torch.int32)
+
+  def negatives(self, epoch, chunk, step, stream, trials, r, high):
+    """The fused link epoch's form: `ints` at ``(epoch, chunk, step,
+    stream)``, ``chunk`` None read as 0."""
+    return self.ints((epoch, 0 if chunk is None else chunk, step, stream),
+                     trials, r, high)
+
 
 class TorchDraws:
   """The training samplers' default draws provider: a `torch.Generator`
@@ -149,7 +175,10 @@ class TorchDraws:
   owner 0 without an edge type, so a one-partition mesh and the
   single-card sampler draw as before, ``(step, hop, owner)`` for
   another owner, and ``(step, hop, owner, etype)`` with an edge type);
-  `draw` takes any tuple of coordinates.
+  `draw` takes any tuple of coordinates.  ``negatives(step, stream,
+  trials, r, high)`` (the negative samplers' form) returns ``[trials,
+  r]`` int32 candidates in ``[0, high)`` at ``(step, -1 - stream)``,
+  coordinates no hop draws at.
   """
 
   def __init__(self, seed: int, device):
@@ -190,3 +219,9 @@ class TorchDraws:
     if etype is not None:
       coords += (etype,)
     return self._from(self._mixed(coords), rows, k, w, gns)
+
+  def negatives(self, step, stream, trials, r, high) -> torch.Tensor:
+    gen = torch.Generator(device=self.device)
+    gen.manual_seed(self._mixed((step, -1 - int(stream))) & ((1 << 63) - 1))
+    return torch.randint(0, int(high), (trials, r), generator=gen,
+                         device=self.device, dtype=torch.int32)

@@ -1,7 +1,7 @@
-"""The sampler contract (the JAX package's `sampler/base.py:25-45,
-99-221,251-261`): the node-seed input, the static-shape homogeneous and
-heterogeneous outputs and the abstract sampler.  Edge inputs and
-negative sampling wait for slice 7 of the ROADMAP."""
+"""The sampler contract (the JAX package's `sampler/base.py:25-221,
+251-261`): the node-seed and edge-seed inputs, the negative-sampling
+spec, the static-shape homogeneous and heterogeneous outputs and the
+abstract sampler."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +23,57 @@ class NodeSamplerInput:
     return len(self.node)
 
 
+@dataclasses.dataclass(frozen=True)
+class NegativeSampling:
+  """Negative edge sampling: ``mode`` ``'binary'`` (``ceil(amount *
+  B)`` random non-edges beside ``B`` positives) or ``'triplet'``
+  (``ceil(amount)`` negative destinations per positive source)."""
+  mode: str = 'binary'
+  amount: Union[int, float] = 1
+
+  def __post_init__(self):
+    if self.mode not in ('binary', 'triplet'):
+      raise ValueError(f'Unsupported negative sampling mode {self.mode!r}')
+    if self.amount <= 0:
+      raise ValueError('amount must be positive')
+
+  @classmethod
+  def cast(cls, value) -> Optional['NegativeSampling']:
+    """None, a spec, a ``(mode, amount)`` tuple, a dict of fields or a
+    mode string -> a spec (or None)."""
+    if value is None or isinstance(value, cls):
+      return value
+    if isinstance(value, tuple):
+      return cls(*value)
+    if isinstance(value, dict):
+      return cls(**value)
+    return cls(value)
+
+  def is_binary(self) -> bool:
+    return self.mode == 'binary'
+
+  def is_triplet(self) -> bool:
+    return self.mode == 'triplet'
+
+  def sample_size(self, num_pos: int) -> int:
+    return int(np.ceil(float(self.amount) * num_pos))
+
+
+@dataclasses.dataclass
+class EdgeSamplerInput:
+  """Seed edges for link-wise sampling: ``row``/``col`` are ``[B]``
+  endpoint ids, (-1, -1) in padded slots; ``label`` optional ``[B]``
+  edge labels; ``neg_sampling`` the negative spec."""
+  row: Union[np.ndarray, torch.Tensor]
+  col: Union[np.ndarray, torch.Tensor]
+  label: Optional[Union[np.ndarray, torch.Tensor]] = None
+  input_type: Optional[tuple] = None
+  neg_sampling: Optional[NegativeSampling] = None
+
+  def __len__(self) -> int:
+    return len(self.row)
+
+
 class SamplerOutput:
   """Homogeneous sampling result, static shapes.
 
@@ -37,7 +88,9 @@ class SamplerOutput:
     edge_mask: ``[edge_capacity]`` validity.
     batch: ``[B]`` seed ids, -1-padded.
     num_sampled_nodes / num_sampled_edges: int32 per-hop counts.
-    metadata: ``seed_local``, the seeds' local indices.
+    metadata: ``seed_local``, the seeds' local indices; a link sample
+      adds its label indices (`NeighborSampler.sample_from_edges`), an
+      induced subgraph ``mapping``.
   """
 
   def __init__(self, node, node_count, row, col, edge=None, edge_mask=None,
@@ -108,7 +161,7 @@ class BaseSampler:
   def sample_from_nodes(self, inputs: NodeSamplerInput, **kwargs):
     raise NotImplementedError
 
-  def sample_from_edges(self, inputs, **kwargs):
+  def sample_from_edges(self, inputs: EdgeSamplerInput, **kwargs):
     raise NotImplementedError
 
   def subgraph(self, inputs: NodeSamplerInput, **kwargs):

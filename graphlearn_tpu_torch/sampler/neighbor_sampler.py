@@ -1,5 +1,7 @@
 """Uniform multi-hop neighbor sampling on one card (the JAX package's
-`sampler/neighbor_sampler.py:44-142,164-247`, homogeneous node path).
+`sampler/neighbor_sampler.py:44-161,164-370`, homogeneous): node seeds,
+seed edges with binary or triplet negatives (link prediction), and the
+induced subgraph of a closure (SEAL).
 
 Per hop, `_multihop_sample` samples the frontier of newly discovered
 nodes with the one-hop sampler kernel (`ops.fused_sample.
@@ -11,14 +13,18 @@ slots, not the final bound, and the table is padded to ``node_cap`` at
 the end.
 
 Random numbers come from a ``draws(step, hop, rows, k, w) -> (u [rows,
-k], gumbel [rows, w])`` provider, where ``step`` counts
-`sample_from_nodes` calls from 1, ``rows`` is the hop's frontier width
-(``B``, ``B*k_1``, ...) and draw row ``j`` belongs to the ``j``-th
-frontier row in ascending seed order (invalid rows last).  The default
-is `ops.draws.TorchDraws` on the sampler's device; the parity tests
-replay the JAX sampler's keys: ``key = fold_in(key(seed), step)``, hop
-``i`` ``fold_in(key, i)``, split into the uniform and the Gumbel
-stream.
+k], gumbel [rows, w])`` provider, where ``step`` counts the sampler's
+steps from 1, ``rows`` is the hop's frontier width (``B``, ``B*k_1``,
+...) and draw row ``j`` belongs to the ``j``-th frontier row in
+ascending seed order (invalid rows last).  A link sample takes two
+steps, as JAX takes two keys: its negatives draw at the first (from a
+``neg_draws(step, stream, trials, r, high) -> [trials, r]`` int32
+provider, `ops.negative`'s streams), its hops at the second.  The
+defaults are `ops.draws.TorchDraws` on the sampler's device; the parity
+tests replay the JAX sampler's keys: ``key = fold_in(key(seed),
+step)``, hop ``i`` ``fold_in(key, i)``, split into the uniform and the
+Gumbel stream; a binary link step's key ``split`` into the row and the
+column candidates, a triplet step's key whole for the destinations.
 """
 from __future__ import annotations
 
@@ -30,13 +36,18 @@ import torch
 from ..data.graph import Graph
 from ..ops.draws import TorchDraws
 from ..ops.fused_sample import sample_one_hop_fused
+from ..ops.negative import Candidates, sample_negative, triplet_negatives
 from ..ops.neighbor import default_window
+from ..ops.subgraph import induced_subgraph
 from ..ops.unique import InducerState, expand_hops
 from ..utils.device import resolve_device
 from ..utils.padding import max_sampled_nodes, round_up
-from .base import BaseSampler, NodeSamplerInput, SamplerOutput
+from .base import (BaseSampler, EdgeSamplerInput, NegativeSampling,
+                   NodeSamplerInput, SamplerOutput)
 
 Draws = Callable[[int, int, int, int, int], Tuple[torch.Tensor, torch.Tensor]]
+#: ``neg_draws(step, stream, trials, r, high) -> [trials, r]`` int32
+NegDraws = Callable[[int, int, int, int, int], torch.Tensor]
 
 
 def _multihop_sample(indptr: torch.Tensor, indices: torch.Tensor,
@@ -67,6 +78,69 @@ def _multihop_sample(indptr: torch.Tensor, indices: torch.Tensor,
                        metadata={'seed_local': seed_local})
 
 
+def link_seeds(indptr: torch.Tensor, indices: torch.Tensor,
+               src: torch.Tensor, dst: torch.Tensor,
+               neg: Optional[NegativeSampling],
+               candidates: Candidates) -> torch.Tensor:
+  """The seeds of a link batch: ``[src, dst]``, then with binary
+  negatives ``ceil(amount * B)`` strict non-edge rows and their columns,
+  with triplet negatives ``ceil(amount)`` destinations per source."""
+  parts = [src, dst]
+  if neg is not None and neg.is_binary():
+    res = sample_negative(indptr, indices, neg.sample_size(src.shape[0]),
+                          candidates, strict=True, padding=True)
+    parts += [res.rows, res.cols]
+  elif neg is not None:
+    parts.append(triplet_negatives(
+        indptr, indices, src, candidates,
+        int(np.ceil(float(neg.amount)))).reshape(-1))
+  return torch.cat(parts)
+
+
+def link_metadata(seed_local: torch.Tensor, src: torch.Tensor,
+                  dst: torch.Tensor, label: Optional[torch.Tensor],
+                  neg: Optional[NegativeSampling]) -> dict:
+  """A link batch's label indices from its seeds' local ids (the order
+  of `link_seeds`): without negatives or with binary ones
+  ``edge_label_index [2, B + negatives]``, ``edge_label`` (the given
+  labels, or ones, then zeros for the negatives) and
+  ``edge_label_mask`` (the positive pairs' validity, then true); with
+  triplet ones ``src_index``, ``dst_pos_index``, ``dst_neg_index [B,
+  amount]`` and ``pair_mask``; always ``seed_local``."""
+  b = src.shape[0]
+  sl = seed_local
+  pair_valid = (src >= 0) & (dst >= 0)
+  if neg is not None and neg.is_triplet():
+    return {'src_index': sl[:b], 'dst_pos_index': sl[b:2 * b],
+            'dst_neg_index': sl[2 * b:].reshape(b, -1),
+            'pair_mask': pair_valid, 'seed_local': sl}
+  if label is None:
+    label = torch.ones(b, dtype=torch.int32, device=src.device)
+  nn = (sl.shape[0] - 2 * b) // 2
+  return {
+      'edge_label_index': torch.stack([
+          torch.cat([sl[:b], sl[2 * b:2 * b + nn]]),
+          torch.cat([sl[b:2 * b], sl[2 * b + nn:]])]),
+      'edge_label': torch.cat([label, label.new_zeros(nn)]),
+      'edge_label_mask': torch.cat([pair_valid, torch.ones(
+          nn, dtype=torch.bool, device=src.device)]),
+      'seed_local': sl}
+
+
+def _as_labels(label, device) -> Optional[torch.Tensor]:
+  """Edge labels on ``device`` in the JAX package's dtypes (64-bit
+  integers and floats narrowed to 32 bits)."""
+  if label is None:
+    return None
+  t = label if isinstance(label, torch.Tensor) else torch.from_numpy(
+      np.asarray(label))
+  if t.dtype == torch.int64:
+    t = t.to(torch.int32)
+  elif t.dtype == torch.float64:
+    t = t.to(torch.float32)
+  return t.to(device)
+
+
 class NeighborSampler(BaseSampler):
   """Uniform multi-hop neighbor sampler over a `data.Graph`.
 
@@ -75,25 +149,30 @@ class NeighborSampler(BaseSampler):
     num_neighbors: per-hop fanouts, e.g. ``[15, 10, 5]``.
     device: where the sampler runs (default ``'cuda'``); must be the
       graph's device.
-    with_edge: global edge ids on sampled edges — not ported (slice 7).
-    seed: seeds the default draws provider.
-    draws: the draws provider (module docstring).
+    with_edge: global edge ids on sampled edges — not ported (ROADMAP
+      slice catalogue item 3).
+    seed: seeds the default draws providers.
+    draws / neg_draws: the hop and the negative-candidate draws
+      providers (module docstring).
   """
 
   def __init__(self, graph: Graph, num_neighbors: Sequence[int],
                device='cuda', with_edge: bool = False, seed: int = 0,
-               draws: Optional[Draws] = None):
+               draws: Optional[Draws] = None,
+               neg_draws: Optional[NegDraws] = None):
     self.device = resolve_device(device)
     if graph.device != self.device:
       raise ValueError(f'the graph lives on {graph.device}, the sampler '
                        f'on {self.device}')
     if with_edge:
       raise NotImplementedError('with_edge (sampled edge ids) is not '
-                                'ported yet: it is slice 7 of the ROADMAP')
+                                'ported yet: it is item 3 of the ROADMAP\'s '
+                                'slice catalogue')
     self.graph = graph
     self.num_neighbors = tuple(int(k) for k in num_neighbors)
-    self.draws = draws if draws is not None else TorchDraws(seed,
-                                                            self.device)
+    default = TorchDraws(seed, self.device)
+    self.draws = draws if draws is not None else default
+    self.neg_draws = neg_draws if neg_draws is not None else default.negatives
     self._step = 0
 
   def node_capacity(self, batch_size: int) -> int:
@@ -101,30 +180,68 @@ class NeighborSampler(BaseSampler):
     cap = min(cap, batch_size + self.graph.num_nodes)
     return round_up(cap, 8)
 
-  def sample_from_nodes(self, inputs: NodeSamplerInput,
-                        **kwargs) -> SamplerOutput:
-    """Sample the multi-hop neighborhood of ``inputs.node`` (``[B]``
-    ids, -1 padded).  Enqueues on the card and returns without
-    synchronising."""
-    node = inputs.node
-    if isinstance(node, torch.Tensor):
-      seeds = node.to(self.device, torch.int32)
-    else:
-      seeds = torch.from_numpy(np.asarray(node, dtype=np.int32)).to(
-          self.device)
+  def _ids(self, ids) -> torch.Tensor:
+    if isinstance(ids, torch.Tensor):
+      return ids.to(self.device, torch.int32)
+    return torch.from_numpy(np.asarray(ids, dtype=np.int32)).to(self.device)
+
+  def _closure(self, seeds: torch.Tensor) -> SamplerOutput:
     self._step += 1
     return _multihop_sample(self.graph.indptr, self.graph.indices, seeds,
                             self.num_neighbors,
                             self.node_capacity(seeds.shape[0]), self.draws,
                             self._step)
 
-  def sample_from_edges(self, inputs, **kwargs):
-    raise NotImplementedError('link sampling is not ported yet: it is '
-                              'slice 7 of the ROADMAP')
+  def sample_from_nodes(self, inputs: NodeSamplerInput,
+                        **kwargs) -> SamplerOutput:
+    """Sample the multi-hop neighborhood of ``inputs.node`` (``[B]``
+    ids, -1 padded).  Enqueues on the card and returns without
+    synchronising."""
+    return self._closure(self._ids(inputs.node))
 
-  def subgraph(self, inputs, **kwargs):
-    raise NotImplementedError('induced-subgraph sampling is not ported '
-                              'yet: it is slice 7 of the ROADMAP')
+  def sample_from_edges(self, inputs: EdgeSamplerInput,
+                        neg_sampling: Optional[NegativeSampling] = None,
+                        **kwargs) -> SamplerOutput:
+    """Sample around seed edges (``[B]`` endpoints, (-1, -1) padded) and
+    their negatives (``neg_sampling``, else ``inputs.neg_sampling``):
+    the seeds of `link_seeds` through `sample_from_nodes`, the metadata
+    of `link_metadata`.  Takes two steps (module docstring)."""
+    if inputs.input_type is not None:
+      raise NotImplementedError(
+          'heterogeneous link sampling is not ported yet: it is item 8 of '
+          'the ROADMAP\'s slice catalogue')
+    neg = NegativeSampling.cast(neg_sampling) or inputs.neg_sampling
+    src, dst = self._ids(inputs.row), self._ids(inputs.col)
+    self._step += 1
+    step = self._step
+
+    def candidates(stream, trials, r, high):
+      return self.neg_draws(step, stream, trials, r, high)
+    seeds = link_seeds(self.graph.indptr, self.graph.indices, src, dst, neg,
+                       candidates)
+    out = self._closure(seeds)
+    out.metadata = link_metadata(out.metadata['seed_local'], src, dst,
+                                 _as_labels(inputs.label, self.device), neg)
+    return out
+
+  def subgraph(self, inputs: NodeSamplerInput,
+               max_degree: Optional[int] = None, **kwargs) -> SamplerOutput:
+    """The multi-hop closure of ``inputs.node``, then every edge among
+    the closure's nodes (`ops.subgraph.induced_subgraph`), for SEAL's
+    enclosing subgraphs.  ``max_degree`` caps each node's neighbor
+    window (default the graph's maximum degree: exact); the metadata's
+    ``mapping`` is the seeds' local ids."""
+    seeds = self._ids(inputs.node)
+    out = self._closure(seeds)
+    max_deg = max(int(max_degree) if max_degree else self.graph.max_degree,
+                  1)
+    sub = induced_subgraph(self.graph.indptr, self.graph.indices, out.node,
+                           max_degree=max_deg)
+    sl = out.metadata['seed_local']
+    return SamplerOutput(node=out.node, node_count=out.node_count,
+                         row=sub.rows, col=sub.cols, edge_mask=sub.edge_mask,
+                         batch=seeds, num_sampled_nodes=out.num_sampled_nodes,
+                         metadata={'seed_local': sl, 'mapping': sl})
 
   def sample_prob(self, seed_ids, num_nodes=None):
     raise NotImplementedError('sample_prob (the frequency partitioner\'s '

@@ -31,7 +31,8 @@ from graphlearn_tpu_torch.data import Dataset
 from graphlearn_tpu_torch.loader import NeighborLoader, NodeLoader
 from graphlearn_tpu_torch.models import (GraphSAGE, graphsage_from_flax,
                                          make_eval_step, make_supervised_step)
-from graphlearn_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
+from graphlearn_tpu_torch.sampler import (EdgeSamplerInput, NeighborSampler,
+                                          NodeSamplerInput)
 
 FANOUTS = [3, 2]
 N, D, CLASSES = 400, 6, 5
@@ -201,14 +202,17 @@ def test_graphsage_train_and_eval_steps_match_jax():
 def test_sampler_and_loader_contract():
   _, ds, _, _ = _datasets()
   g = ds.get_graph()
-  with pytest.raises(NotImplementedError, match='slice 7'):
+  with pytest.raises(NotImplementedError, match='item 3'):
     NeighborSampler(g, FANOUTS, device='cpu', with_edge=True)
   s = NeighborSampler(g, FANOUTS, device='cpu')
-  for call, what in ((lambda: s.sample_from_edges(None), 'slice 7'),
-                     (lambda: s.subgraph(None), 'slice 7'),
-                     (lambda: s.sample_prob(np.arange(3)), 'slice 11')):
-    with pytest.raises(NotImplementedError, match=what):
-      call()
+  with pytest.raises(NotImplementedError, match='slice 11'):
+    s.sample_prob(np.arange(3))
+  # link and subgraph sampling run (their parity tests:
+  # test_torch_link.py, test_torch_subgraph.py)
+  link = s.sample_from_edges(EdgeSamplerInput(np.arange(4), np.arange(4, 8)))
+  assert link.metadata['edge_label_index'].shape == (2, 4)
+  sub = s.subgraph(NodeSamplerInput(node=np.arange(2)))
+  assert sub.metadata['mapping'].tolist() == [0, 1]
   # prefetch=2 on a worker thread yields the synchronous loader's seeds
   pre = NodeLoader(ds, s, np.arange(10), batch_size=4, prefetch=2)
   assert [b.batch.tolist() for b in pre] == [
