@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
 per-batch training, fused epochs (tree, bf16 tree and subgraph, each
 step a CUDA graph; the mesh's), tiered feature store, GNS training,
-partitioned mesh, heterogeneous-graph, link-prediction and
-enclosing-subgraph paths on one NVIDIA card.
+partitioned mesh, heterogeneous-graph, link-prediction,
+enclosing-subgraph, sampled-edge-id (edge features), heterogeneous
+link and random-walk paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -11,6 +12,7 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --profile  # adds torch.profiler phases
     python3 chip_smoke.py --hetero   # build and the hetero phases alone
     python3 chip_smoke.py --link     # build, graph and the link phases
+    python3 chip_smoke.py --edges    # build, graph, the edge and walk phases
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -378,6 +380,54 @@ Phases, one JSON line each; any failure exits nonzero:
           byte-equal, 2 `FusedLinkEpoch` steps with the counter draws
           within 1e-5, one DGCNN forward within 1e-5.
 
+  edge_data  the products graph's edge ids, a seeded permutation of
+          ``[0, E)`` (int32, 245 MB, so K1 reads ``edge_ids[pos]``), and
+          an ``[E, 8]`` f32 edge table (1.96 GB; 8 is ogbn-proteins'
+          edge-feature width) in a `Dataset` with the features and
+          labels.
+  kernel  K1 with the edge-id arm (CSR positions and the permutation's
+          ids) on every arm's rows at k 15/10/5 and on the forced sets
+          (`forced_sampler_sets(with_eids=True)`), byte-equal.
+  edges   BASELINE config 1 with edges: `NeighborLoader([15, 10, 5],
+          batch 1,024, with_edge=True)` -> ``GraphSAGE(100, 256, 47,
+          3)``, Adam(3e-3): 2 warm + 20 timed steps, the loader alone
+          over 20 more batches; the same without edges over the same
+          seeds and draws (step ms, batches/s).  `kernel` lines: K1 at
+          the three hops with the arm (ids), with positions and without
+          it, each timed; K2 at the x and the 936,960-slot edge-row
+          gathers.  Checks: 3 K1 and 2 K2 launches a with-edge batch (1
+          K2 without), no plain call, the losses falling, 5 batches'
+          edge ids looked up on the host (the inverse-permuted CSR
+          position lies in the seed's row and holds the neighbor) and
+          ``edge_attr`` equal to the table's rows.
+  edge_loaders  `SubGraphLoader([8], 2, with_edge=True)` over 8 products
+          edges' endpoints and 3 binary `LinkNeighborLoader` batches of
+          1,024 with edges: ids and rows checked on the host, launches
+          counted; K1 at the link batch's hops as in `edges`.
+  edges_cross_check  a 4,000-node graph with an edge table on the card
+          and on the CPU: 2 with-edge batches byte-equal (node, x,
+          edge_index, edge_mask, edge, edge_attr).
+  hetero_link  `examples/hetero/bipartite_sage_unsup.py` at its size
+          (2,000 users, 400 items, degree 10, d 32): `LinkNeighborLoader
+          ([8, 8], (user, clicks, item), binary 1.0, batch 512)` ->
+          ``BiSAGE`` (a Linear a type, two `HeteroConv(make_conv=
+          SAGEConv)` of 64) with Adam(3e-3), 10 epochs (360 steps; 4 K1
+          and 2 K2 a step), the held-out AUC from per-type
+          `NeighborLoader` embeddings (above 0.5); then a hetero link
+          loader on `mag_graph`'s ``(author, writes, paper)``: 20 binary
+          batches of 1,024 at [10, 10] (batches/s; 6 K1 and 2 K2 a
+          batch) and 3 with ``with_edge`` and a ``[E_writes, 4]`` table
+          under the emitted ``(paper, rev_writes, author)``: K1 and K2 at
+          every call against their plain versions, every edge row
+          checked against its endpoints and CSR position.
+  walk    `random_walk` from all 2,449,029 products nodes (length 8),
+          without and with restarts (0.15), `walk_edges` (window 2,
+          ~36.7 M pairs), `node2vec_walk` from 262,144 starts (p 0.25,
+          q 4, window 64): walk steps/s; 4,096 walks' steps each an edge
+          by a host lookup (or a restart); card = CPU on a 4,096-start
+          slice (counter draws); DeepWalk at `examples/deepwalk.py`'s
+          size on the card and the CPU (1-NN accuracy above 1/6).
+
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, GNS
 and mesh training paths), the tiered-train idle shares and the idle
@@ -388,6 +438,8 @@ for the hetero step (5 K1 and 2 K2; without ``--profile`` a replay's
 launches are inferred from its capture).  ``--hetero`` runs build and
 the hetero phases alone (`mag_graph` to `hetero_cross_check`) and
 prints no ``kernels`` or result line.
+``--edges`` runs build, graph and the edge and walk phases alone
+(`edge_data` to `walk`) and prints no ``kernels`` or result line.
 ``--link`` runs build, graph and the link phases alone (`link_train`
 to `link_cross_check`; with ``--profile`` also `profile_train` of 3
 per-batch and 3 replayed link steps, whose traces must show 2 K1 and 1
@@ -556,38 +608,62 @@ def sync(torch) -> None:
     torch.cuda.synchronize()
 
 
-def check_sampler(torch, ops, timer, indptr, indices, seeds, k, u, g):
+def edge_bytes(mask_valid: int, rows: int, k: int, mode: str) -> int:
+  """Bytes K1's edge-id arm adds: ``[rows, k]`` int32 ``eids`` written,
+  and with ``edge_ids`` one 4-byte id read a valid slot."""
+  if mode == 'none':
+    return 0
+  return rows * k * 4 + (4 * mask_valid if mode == 'ids' else 0)
+
+
+def check_sampler(torch, ops, timer, indptr, indices, seeds, k, u, g,
+                  edge_ids=None, with_edge_ids=False, time_it=True):
+  """K1 against its plain version on one call's inputs (byte-equal
+  ``nbrs``, ``mask`` and, with ``with_edge_ids``, ``eids``), its bound
+  and both times."""
+  kw = {'edge_ids': edge_ids, 'with_edge_ids': with_edge_ids}
   before = ops.sample_one_hop_fused.launches
-  got = ops.sample_one_hop_fused(indptr, indices, seeds, k, u, g)
-  ref = ops.sample_one_hop(indptr, indices, seeds, k, u, g)
+  got = ops.sample_one_hop_fused(indptr, indices, seeds, k, u, g, **kw)
+  ref = ops.sample_one_hop(indptr, indices, seeds, k, u, g, **kw)
   sync(torch)
   if not (torch.equal(got.nbrs, ref.nbrs) and torch.equal(got.mask,
                                                           ref.mask)):
     bad = int((got.nbrs != ref.nbrs).sum())
     raise AssertionError(f'sampler kernel != plain version (k={k}, '
                          f'{bad} slots differ)')
+  mode = ('none' if not with_edge_ids
+          else 'positions' if edge_ids is None else 'ids')
+  if with_edge_ids and not (got.eids.dtype == ref.eids.dtype == torch.int32
+                            and torch.equal(got.eids, ref.eids)):
+    bad = int((got.eids != ref.eids).sum())
+    raise AssertionError(f'sampler kernel != plain version (k={k}, eids '
+                         f'{mode}, {bad} slots differ)')
   err = int((got.nbrs.long() - ref.nbrs.long()).abs().max())
+  if with_edge_ids:
+    err = max(err, int((got.eids.long() - ref.eids.long()).abs().max()))
   deg = ops.lookup_degree(indptr, seeds).cpu().numpy()
   deg = np.where(seeds.cpu().numpy() >= 0, deg, -1)
   w = g.shape[1]
-  nbytes = sample_bytes(deg, k, w)
+  nbytes = sample_bytes(deg, k, w) + edge_bytes(
+      int(got.mask.sum()), int(seeds.numel()), k, mode)
   rec = {
-      'rows': int(seeds.numel()), 'k': k, 'w': w,
+      'rows': int(seeds.numel()), 'k': k, 'w': w, 'eids': mode,
       'arms': {'empty_or_invalid': int((deg <= 0).sum()),
                'take_all': int(((deg > 0) & (deg <= k)).sum()),
                'window': int(((deg > k) & (deg <= w)).sum()),
                'hub': int((deg > w).sum())},
       'byte_equal': True, 'max_abs_err': err,
-      'kernel_ms': timer(lambda: ops.sample_one_hop_fused(
-          indptr, indices, seeds, k, u, g)),
-      'plain_ms': timer(lambda: ops.sample_one_hop(
-          indptr, indices, seeds, k, u, g)),
       'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  if time_it:
+    rec['kernel_ms'] = timer(lambda: ops.sample_one_hop_fused(
+        indptr, indices, seeds, k, u, g, **kw))
+    rec['plain_ms'] = timer(lambda: ops.sample_one_hop(
+        indptr, indices, seeds, k, u, g, **kw))
   rec['launches'] = ops.sample_one_hop_fused.launches - before
   return got, rec
 
 
-def check_gather(torch, ops, timer, table, ids):
+def check_gather(torch, ops, timer, table, ids, time_it=True):
   before = ops.gather_rows.launches
   got = ops.gather_rows(table, ids)
   ref = ops.gather_rows_plain(table, ids)
@@ -603,10 +679,12 @@ def check_gather(torch, ops, timer, table, ids):
   rec = {'ids': int(ids.numel()), 'valid': n_valid,
          'dtype': str(table.dtype).replace('torch.', ''),
          'row_bytes': row, 'byte_equal': True, 'max_abs_err': err,
-         'kernel_ms': timer(lambda: ops.gather_rows(table, ids)),
-         'plain_ms': timer(lambda: ops.gather_rows_plain(table, ids)),
-         'library_ms': timer(lambda: torch.index_select(table, 0, safe)),
          'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  if time_it:
+    rec.update(
+        kernel_ms=timer(lambda: ops.gather_rows(table, ids)),
+        plain_ms=timer(lambda: ops.gather_rows_plain(table, ids)),
+        library_ms=timer(lambda: torch.index_select(table, 0, safe)))
   rec['launches'] = ops.gather_rows.launches - before
   return rec
 
@@ -679,7 +757,7 @@ def forced_gather_sets(torch, ops, n=100_003, b=70_001, seed=11):
 SAMPLER_FANOUTS = (1, 4, 5, 8, 15, 16, 17, 32)
 
 
-def forced_sampler_sets(torch, ops, seed=13):
+def forced_sampler_sets(torch, ops, seed=13, with_eids=False):
   """K1 against its plain version (byte-equal) at every k of
   `SAMPLER_FANOUTS`, at the default window and at 256, on 150,001 and
   20,001 rows (lane groups of clamp(next_pow2(k), 4, 32) lanes, two
@@ -687,7 +765,9 @@ def forced_sampler_sets(torch, ops, seed=13):
   arm (deg 0, deg <= k, k < deg <= w, deg > w), invalid and
   out-of-range seeds, eight Gumbels tied at the top across lane-group
   boundaries (columns 3, 4, 7, 8, 15, 16, 31, 32), ties every 7th
-  column, and u just below 1."""
+  column, and u just below 1.  With ``with_eids`` each set runs with
+  the edge-id arm instead, in both modes (CSR positions, and a
+  permutation's ids), ``eids`` byte-equal too."""
   from graphlearn_tpu_torch.ops import default_window
   sets = [(k, w, rows) for k in SAMPLER_FANOUTS
           for w in sorted({default_window(k), 256})
@@ -704,13 +784,21 @@ def forced_sampler_sets(torch, ops, seed=13):
     g[:, ::7] = 0.5
     top = [c for c in (3, 4, 7, 8, 15, 16, 31, 32) if c < w]
     g[:, top] = 2.0
-    got = ops.sample_one_hop_fused(indptr, indices, seeds, k, u, g)
-    ref = ops.sample_one_hop(indptr, indices, seeds, k, u, g)
-    if not (torch.equal(got.nbrs, ref.nbrs)
-            and torch.equal(got.mask, ref.mask)):
-      bad = int((got.nbrs != ref.nbrs).sum())
-      raise AssertionError(f'sampler kernel != plain version (forced '
-                           f'k={k}, w={w}, {rows} rows, {bad} slots)')
+    modes = ((None, False),)
+    if with_eids:
+      perm = torch.randperm(indices.numel(), generator=gen, device=DEVICE)
+      modes = ((None, True), (perm.to(torch.int32), True))
+    for eid, on in modes:
+      got = ops.sample_one_hop_fused(indptr, indices, seeds, k, u, g,
+                                     edge_ids=eid, with_edge_ids=on)
+      ref = ops.sample_one_hop(indptr, indices, seeds, k, u, g, eid, on)
+      if not (torch.equal(got.nbrs, ref.nbrs)
+              and torch.equal(got.mask, ref.mask)
+              and (not on or torch.equal(got.eids, ref.eids))):
+        bad = int((got.nbrs != ref.nbrs).sum())
+        raise AssertionError(f'sampler kernel != plain version (forced '
+                             f'k={k}, w={w}, {rows} rows, eids {on}, '
+                             f'{bad} slots)')
     out.append({'k': k, 'w': w, 'rows': rows})
   return {'sets': out, 'byte_equal': True}
 
@@ -1523,17 +1611,19 @@ class TrainRecorder:
   and the first ``gathers`` row gathers'."""
 
   def __init__(self, torch, smod, gathers, hops=len(FANOUTS)):
+    # ``edges``: each recorded hop's (edge_ids, with_edge_ids)
     import graphlearn_tpu_torch.data.feature as fmod
     self.torch, self.fmod, self.smod = torch, fmod, smod
     self.n_gathers, self.n_hops = gathers, hops
     self.real_sample = smod.sample_one_hop_fused
     self.real_gather = fmod.gather_rows
-    self.hops, self.gathers = [], []
+    self.hops, self.gathers, self.edges = [], [], []
 
   def sample(self, indptr, indices, seeds, k, u, gumbel,
-             sort_locality=False):
+             sort_locality=False, edge_ids=None, with_edge_ids=False):
     torch = self.torch
     if len(self.hops) < self.n_hops:
+      self.edges.append((edge_ids, with_edge_ids))
       rows = seeds
       if sort_locality:
         rows = seeds[torch.argsort(torch.where(
@@ -1544,7 +1634,8 @@ class TrainRecorder:
       self.hops.append((indptr, indices, rows.clone(), k, u.clone(),
                         gumbel.clone()))
     return self.real_sample(indptr, indices, seeds, k, u, gumbel,
-                            sort_locality=sort_locality)
+                            sort_locality=sort_locality, edge_ids=edge_ids,
+                            with_edge_ids=with_edge_ids)
 
   def gather(self, table, ids, id2index=None):
     if len(self.gathers) < self.n_gathers:
@@ -5705,6 +5796,860 @@ def link_phases(torch, ops, timer, indptr, indices, feats, prof=False):
   return train, loader, seal_out
 
 
+#: the edges phase: BASELINE config 1 with sampled edge ids and an edge
+#: table of ogbn-proteins' published edge-feature width (8)
+EDGE_DIM = 8
+EDGE_WARM = 2
+EDGE_STEPS = 20
+EDGE_CHECK_BATCHES = 5
+#: with-edge SubGraphLoader batches (2 seeds each) and binary link
+#: batches (1,024 edges each) on the products graph
+EDGE_SUB_BATCHES = 8
+EDGE_LINK_BATCHES = 3
+#: `examples/hetero/bipartite_sage_unsup.py` at its full size
+BI_USERS, BI_ITEMS, BI_TASTE, BI_DEG, BI_DIM = 2000, 400, 8, 10, 32
+BI_HIDDEN = 64
+BI_FANOUTS = (8, 8)
+BI_BATCH = 512
+BI_EPOCHS = 10
+BI_LR = 3e-3
+BI_USER, BI_ITEM = 'user', 'item'
+BI_ET = (BI_USER, 'clicks', BI_ITEM)
+BI_ET_REV = (BI_ITEM, 'rev_clicks', BI_USER)
+#: the hetero link loader on the mag graph's ``writes`` relation
+MAG_WRITES = ('author', 'writes', 'paper')
+MAG_LINK_BATCH = 1024
+MAG_LINK_FANOUTS = (10, 10)
+MAG_LINK_BATCHES = 20
+MAG_EDGE_BATCHES = 3
+MAG_EDGE_DIM = 4
+#: random walks over the products graph and node2vec
+WALK_LENGTH = 8
+WALK_RESTART = 0.15
+WALK_WINDOW = 2
+N2V_STARTS = 262_144
+N2V_P, N2V_Q, N2V_MAX_DEGREE = 0.25, 4.0, 64
+WALK_CHECK = 4096
+#: `examples/deepwalk.py` at its size
+DW_NODES, DW_DEG, DW_CLASSES, DW_D, DW_INTRA = 2000, 8, 6, 4, 0.9
+DW_DIM, DW_NEG, DW_EPOCHS, DW_PAIRS, DW_LR = 32, 4, 5, 4096, 0.05
+
+
+def edge_table(torch, indices):
+  """The products graph's edge ids, a seeded permutation of ``[0, E)``
+  (int32, so K1 reads ``edge_ids[pos]``), and the ``[E, 8]`` f32 edge
+  table they address."""
+  gen = torch.Generator(device=DEVICE).manual_seed(31)
+  perm = torch.randperm(indices.numel(), generator=gen, device=DEVICE).to(
+      torch.int32)
+  table = torch.rand(indices.numel(), EDGE_DIM, generator=gen, device=DEVICE)
+  return perm, table
+
+
+def inverse_ids(torch, perm) -> np.ndarray:
+  """Each edge id's CSR position, on the host."""
+  inv = torch.empty_like(perm)
+  inv[perm.long()] = torch.arange(perm.numel(), dtype=torch.int32,
+                                  device=perm.device)
+  return inv.cpu().numpy()
+
+
+def check_edge_batch(torch, batch, inv_h, indptr_h, indices_h, table,
+                     transposed=True) -> int:
+  """Every valid ``edge`` id, looked up on the host: its CSR position
+  lies in the row of the edge's source (the seed side when
+  ``transposed``: ``edge_index[1]``) and holds the other end;
+  ``edge_attr`` equals the table's rows on the card; masked slots hold
+  -1 and zero rows.  Returns the edges checked."""
+  e, em = batch.edge, batch.edge_mask
+  if not (torch.equal(batch.edge_attr[em], table[e[em].long()])
+          and not bool(batch.edge_attr[~em].any())
+          and bool((e[~em] == -1).all())):
+    raise AssertionError('edge_attr differs from the edge table')
+  node = batch.node.cpu().numpy()
+  ei = batch.edge_index.cpu().numpy()
+  ok = em.cpu().numpy()
+  src, dst = (ei[1], ei[0]) if transposed else (ei[0], ei[1])
+  src, dst = node[src[ok]].astype(np.int64), node[dst[ok]]
+  pos = inv_h[e.cpu().numpy()[ok]].astype(np.int64)
+  if not ((pos >= indptr_h[src]).all() and (pos < indptr_h[src + 1]).all()
+          and (indices_h[pos] == dst).all()):
+    raise AssertionError('a sampled edge id does not name its edge')
+  return int(ok.sum())
+
+
+def with_edge_hops(torch, ops, timer, rec, what) -> list:
+  """K1 at each recorded hop of a with-edge step against its plain
+  version with ``edge_ids``, with CSR positions and without the arm,
+  each timed: the arm's cost at the same hop."""
+  out = []
+  for t, (args, (eid, on)) in enumerate(zip(rec.hops, rec.edges)):
+    if not on or eid is None:
+      raise AssertionError(f'{what} hop {t} ran without edge ids')
+    _, r = check_sampler(torch, ops, timer, *args, edge_ids=eid,
+                         with_edge_ids=True)
+    _, rpos = check_sampler(torch, ops, timer, *args, with_edge_ids=True)
+    _, rnone = check_sampler(torch, ops, timer, *args)
+    r.update(no_eids_ms=rnone['kernel_ms'], no_eids_bound_ms=rnone[
+        'bound_us'] / 1e3, no_eids_plain_ms=rnone['plain_ms'],
+        positions_ms=rpos['kernel_ms'],
+        positions_bound_ms=rpos['bound_us'] / 1e3, hop=t)
+    emit('kernel', kernel='sample_one_hop', shape=f'{what} hop {t}', **r)
+    out.append(r)
+  return out
+
+
+def check_recorded(torch, ops, timer, rec, what, timed=True):
+  """K1 and K2 at every call `rec` kept, each against its plain version
+  with the edge-id arm the path asked for (and timed with ``timed``);
+  one ``kernel`` line a call.  Returns the K1 and K2 records."""
+  hops, gathers = [], []
+  for t, (args, (eid, on)) in enumerate(zip(rec.hops, rec.edges)):
+    _, r = check_sampler(torch, ops, timer, *args, edge_ids=eid,
+                         with_edge_ids=on, time_it=timed)
+    r['call'] = t
+    emit('kernel', kernel='sample_one_hop', shape=f'{what} call {t}', **r)
+    hops.append(r)
+  for t, (tab, ids) in enumerate(rec.gathers):
+    r = check_gather(torch, ops, timer, tab, ids, time_it=timed)
+    r['call'] = t
+    emit('kernel', kernel='gather_rows', shape=f'{what} gather {t}', **r)
+    gathers.append(r)
+  if not (hops and gathers):
+    raise AssertionError(f'{what}: no kernel call recorded')
+  return hops, gathers
+
+
+def edges(torch, ops, timer, ds, feats, labels, table, inv_h, indptr_h,
+          indices_h) -> dict:
+  """BASELINE config 1 with edges: `NeighborLoader([15, 10, 5], batch
+  1,024, with_edge=True)` over the products graph whose edge ids are a
+  permutation, with the ``[E, 8]`` edge table, into
+  ``GraphSAGE(100, 256, 47, 3)`` and Adam(3e-3): `EDGE_WARM` warm steps
+  (the first one's kernel inputs recorded) and `EDGE_STEPS` timed ones,
+  then the loader alone over `EDGE_STEPS` more batches; the same without
+  edges over the same seeds and draws.  Checks: 3 K1 and 2 K2 launches a
+  with-edge batch (3 and 1 without), no plain call, the losses falling,
+  `EDGE_CHECK_BATCHES` batches' edge ids and rows on the host; K1 with
+  and without the edge-id arm at each hop, K2 at the edge rows."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as smod
+  from graphlearn_tpu_torch.loader import NeighborLoader
+  from graphlearn_tpu_torch.models import GraphSAGE, make_supervised_step
+  seeds = train_splits()[0][:TRAIN_BATCH * (EDGE_WARM + 2 * EDGE_STEPS)]
+  out, rec = {}, None
+  for with_edge in (True, False):
+    loader = NeighborLoader(ds, FANOUTS, seeds, batch_size=TRAIN_BATCH,
+                            shuffle=True, seed=0, with_edge=with_edge,
+                            device=DEVICE)
+    model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+    step = make_supervised_step(model, opt, TRAIN_BATCH)
+    it = iter(loader)
+    losses = []
+    for i in range(EDGE_WARM):
+      if with_edge and i == 0:
+        with TrainRecorder(torch, smod, 2) as rec:
+          batch = next(it)
+      else:
+        batch = next(it)
+      losses.append(float(step(batch)[0]))
+      check_batch(torch, batch, feats, labels)
+    del batch
+    reset_counts(ops)
+    sync(torch)
+    t0 = time.perf_counter()
+    losses += [step(b)[0] for b in itertools.islice(it, EDGE_STEPS)]
+    sync(torch)
+    step_secs = time.perf_counter() - t0
+    kept = []
+    t0 = time.perf_counter()
+    for b in itertools.islice(it, EDGE_STEPS):
+      if len(kept) < EDGE_CHECK_BATCHES:
+        kept.append(b)
+      del b
+    sync(torch)
+    load_secs = time.perf_counter() - t0
+    launches, plain = read_counts(ops)
+    runs = 2 * EDGE_STEPS
+    k2 = 2 if with_edge else 1
+    if not (launches['sample_one_hop'] == len(FANOUTS) * runs
+            and launches['gather_rows'] == k2 * runs and plain == 0):
+      raise AssertionError(f'edges (with_edge={with_edge}): launches '
+                           f'{launches}, plain calls {plain}')
+    losses = np.array([float(x) for x in losses])
+    if not (np.isfinite(losses).all()
+            and losses[-5:].mean() < losses[:EDGE_WARM].mean()):
+      raise AssertionError(f'edges losses do not fall: {losses}')
+    checked = 0
+    for b in kept:
+      check_batch(torch, b, feats, labels)
+      if with_edge:
+        checked += check_edge_batch(torch, b, inv_h, indptr_h, indices_h,
+                                    table)
+      elif b.edge is not None or b.edge_attr is not None:
+        raise AssertionError('a batch without with_edge carries edges')
+    key = 'with_edge' if with_edge else 'without_edge'
+    out[key] = {'step_ms': step_secs / EDGE_STEPS * 1e3,
+                'steps_per_s': EDGE_STEPS / step_secs,
+                'loader_batches_per_s': EDGE_STEPS / load_secs,
+                'edges_checked_on_host': checked,
+                'edge_slots': int(kept[0].edge_index.shape[1]),
+                'losses': losses.tolist(), 'launches': launches,
+                'plain_calls': plain}
+    del kept, loader, model, opt, step
+  hops = with_edge_hops(torch, ops, timer, rec, 'edges batch')
+  x_table, x_ids = rec.gathers[0]
+  e_table, e_ids = rec.gathers[1]
+  if e_table.data_ptr() != table.data_ptr() or x_table.data_ptr() != \
+      feats.data_ptr():
+    raise AssertionError('the edges batch gathered from other tables')
+  gathers = [check_gather(torch, ops, timer, x_table, x_ids),
+             check_gather(torch, ops, timer, e_table, e_ids)]
+  for g, what in zip(gathers, ('x', 'edge_attr')):
+    emit('kernel', kernel='gather_rows', shape=f'edges batch {what}', **g)
+  out['hops'] = [{'rows': h['rows'], 'k': h['k'],
+                  'ms': h['kernel_ms'], 'no_eids_ms': h['no_eids_ms'],
+                  'positions_ms': h['positions_ms']} for h in hops]
+  emit('edges', batch=TRAIN_BATCH, fanouts=list(FANOUTS),
+       edge_dim=EDGE_DIM, edge_ids='seeded permutation of [0, E)', **out)
+  del rec
+  return {'launches': {k: out[k]['launches']
+                       for k in ('with_edge', 'without_edge')},
+          'hops': hops, 'gathers': gathers}
+
+
+def edge_loaders(torch, ops, timer, ds, table, inv_h, indptr_h,
+                 indices_h) -> dict:
+  """`SubGraphLoader([8], batch 2, with_edge=True)` over
+  `EDGE_SUB_BATCHES` products edges' endpoints and `LinkNeighborLoader
+  ([15, 10, 5], batch 1,024, binary 1.0, with_edge=True)` over
+  `EDGE_LINK_BATCHES` batches: every batch's edge ids and rows checked
+  on the host; K1 (the closure without the arm, as JAX samples it; the
+  link hops with it) and K2 (x and the edge rows) launches a batch."""
+  import graphlearn_tpu_torch.sampler.neighbor_sampler as smod
+  from graphlearn_tpu_torch.loader import LinkNeighborLoader, SubGraphLoader
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  rng = np.random.default_rng(25)
+  e = indices_h.shape[0]
+  pos = rng.integers(0, e, EDGE_SUB_BATCHES + EDGE_LINK_BATCHES * 1024)
+  src = np.searchsorted(indptr_h, pos, side='right') - 1
+  dst = indices_h[pos]
+  out = {}
+  n = EDGE_SUB_BATCHES
+  sub = SubGraphLoader(ds, SEAL_FANOUTS, np.stack([src[:n], dst[:n]],
+                                                  1).reshape(-1),
+                       batch_size=2, with_edge=True, seed=25, device=DEVICE)
+  reset_counts(ops)
+  batches = list(sub)
+  sync(torch)
+  launches, plain = read_counts(ops)
+  if not (launches['sample_one_hop'] == n * len(SEAL_FANOUTS)
+          and launches['gather_rows'] == 2 * n and plain == 0):
+    raise AssertionError(f'with-edge subgraphs: launches {launches}, plain '
+                         f'calls {plain}')
+  checked = sum(check_edge_batch(torch, b, inv_h, indptr_h, indices_h,
+                                 table, transposed=False) for b in batches)
+  out['subgraph'] = {'batches': n, 'edges_checked_on_host': checked,
+                     'launches': launches, 'plain_calls': plain}
+  del batches, sub
+  link = LinkNeighborLoader(ds, FANOUTS, (src[n:], dst[n:]),
+                            neg_sampling=NegativeSampling('binary', 1.0),
+                            batch_size=1024, with_edge=True, seed=26,
+                            device=DEVICE)
+  reset_counts(ops)
+  with TrainRecorder(torch, smod, 0) as rec:
+    batches = list(link)
+  sync(torch)
+  launches, plain = read_counts(ops)
+  nb = EDGE_LINK_BATCHES
+  if not (launches['sample_one_hop'] == len(FANOUTS) * nb
+          and launches['gather_rows'] == 2 * nb and plain == 0):
+    raise AssertionError(f'with-edge link batches: launches {launches}, '
+                         f'plain calls {plain}')
+  checked = sum(check_edge_batch(torch, b, inv_h, indptr_h, indices_h, table)
+                for b in batches)
+  out['link'] = {'batches': nb, 'edges_checked_on_host': checked,
+                 'launches': launches, 'plain_calls': plain}
+  hops = with_edge_hops(torch, ops, timer, rec, 'with-edge link batch')
+  emit('edge_loaders', **out)
+  return {'launches': {k: v['launches'] for k, v in out.items()},
+          'hops': hops}
+
+
+def edges_cross_check(torch):
+  """A 4,000-node graph with a ``[E, 8]`` edge table (COO-order edge
+  ids) on the card and on the CPU: 2 with-edge `NeighborLoader` batches
+  with the same CPU-made draws byte-equal (node, x, edge_index,
+  edge_mask, edge, edge_attr)."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import NeighborLoader
+  from graphlearn_tpu_torch.ops import TorchDraws
+  rows, cols, feats, _ = clustered_graph(n=4000, deg=10, classes=7, d=16,
+                                         seed=13)
+  etab = np.random.default_rng(14).standard_normal(
+      (rows.shape[0], EDGE_DIM)).astype(np.float32)
+  cpu = TorchDraws(15, 'cpu')
+  out = {}
+  for dev in (DEVICE, 'cpu'):
+    def draws(step, hop, r, k, w, dev=dev):
+      return tuple(t.to(dev) for t in cpu(step, hop, r, k, w))
+    ds = (Dataset().init_graph((rows, cols), num_nodes=4000, device=dev)
+          .init_node_features(feats, device=dev)
+          .init_edge_features(etab, device=dev))
+    lo = NeighborLoader(ds, FANOUTS, np.arange(4000), batch_size=64,
+                        shuffle=True, seed=1, with_edge=True, draws=draws,
+                        device=dev)
+    out[dev] = [[t.cpu() for t in (b.node, b.x, b.edge_index, b.edge_mask,
+                                   b.edge, b.edge_attr)]
+                for b in itertools.islice(iter(lo), 2)]
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for name, x, y in zip(('node', 'x', 'edge_index', 'edge_mask', 'edge',
+                           'edge_attr'), a, c):
+      if x.dtype != y.dtype or not torch.equal(x, y):
+        raise AssertionError(f'card and CPU differ: with-edge batch {i} '
+                             f'{name}')
+  emit('edges_cross_check', batches=2, byte_equal=True,
+       edges=int((out['cpu'][0][3]).sum()))
+
+
+def bipartite_synthetic(nu=BI_USERS, ni=BI_ITEMS, taste=BI_TASTE,
+                        deg=BI_DEG, d=BI_DIM, seed=0):
+  """`examples/hetero/bipartite_sage_unsup.py::synthetic`, copied:
+  ``(rows, cols, user features, item features)`` of a user-item click
+  graph where 80% of a user's clicks stay in its taste group."""
+  rng = np.random.default_rng(seed)
+  ut = rng.integers(0, taste, nu)
+  it = rng.integers(0, taste, ni)
+  rows = np.repeat(np.arange(nu), deg)
+  match = rng.random(nu * deg) < 0.8
+  by_taste = [np.nonzero(it == t)[0] for t in range(taste)]
+  cols = np.empty(nu * deg, np.int64)
+  for t in range(taste):
+    m = ut[rows] == t
+    pool = by_taste[t] if len(by_taste[t]) else np.arange(ni)
+    cols[m] = pool[rng.integers(0, len(pool), m.sum())]
+  cols[~match] = rng.integers(0, ni, (~match).sum())
+  proto = rng.normal(0, 1, (taste, d)).astype(np.float32)
+  ufeat = 0.5 * proto[ut] + rng.standard_normal((nu, d)).astype(np.float32)
+  ifeat = 0.5 * proto[it] + rng.standard_normal((ni, d)).astype(np.float32)
+  return rows, cols, ufeat, ifeat
+
+
+def bisage_model(torch, etypes, dims, hidden=BI_HIDDEN):
+  """The bipartite example's ``BiSAGE`` on the port's modules: a
+  ``Linear(d, hidden)`` per node type (``lin_{type}``), then two
+  ``HeteroConv(make_conv=SAGEConv)`` layers (``conv0``, ``conv1``) with
+  a relu between them."""
+  from graphlearn_tpu_torch.models import HeteroConv, SAGEConv
+
+  class BiSAGE(torch.nn.Module):
+    def __init__(self):
+      super().__init__()
+      for nt, d in dims.items():
+        self.add_module(f'lin_{nt}', torch.nn.Linear(d, hidden))
+      for i in range(2):
+        self.add_module(f'conv{i}', HeteroConv(etypes, hidden, hidden,
+                                               make_conv=SAGEConv))
+
+    def forward(self, x_dict, edge_index_dict, edge_mask_dict):
+      h = {nt: getattr(self, f'lin_{nt}')(x) for nt, x in x_dict.items()}
+      h = self.conv0(h, edge_index_dict, edge_mask_dict)
+      h = {nt: torch.relu(v) for nt, v in h.items()}
+      return self.conv1(h, edge_index_dict, edge_mask_dict)
+  return BiSAGE()
+
+
+def bisage_loss(torch, h, metadata, src_type=BI_USER, dst_type=BI_ITEM):
+  """The bipartite example's link loss: the endpoints' dot product under
+  a sigmoid cross-entropy against ``min(edge_label, 1)``, averaged over
+  the valid label slots."""
+  import torch.nn.functional as F
+  eli = metadata['edge_label_index']
+  lab = torch.clamp(metadata['edge_label'], max=1).float()
+  hu, hv = h[src_type], h[dst_type]
+  eu = hu[eli[0].long().clamp(0, hu.shape[0] - 1)]
+  ev = hv[eli[1].long().clamp(0, hv.shape[0] - 1)]
+  logit = (eu * ev).sum(-1)
+  ls = F.binary_cross_entropy_with_logits(logit, lab, reduction='none')
+  w = (metadata['edge_label_mask'] & (eli[0] >= 0) & (eli[1] >= 0)).float()
+  return (ls * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def bipartite_link(torch, ops, timer) -> dict:
+  """`examples/hetero/bipartite_sage_unsup.py` at its full size: the
+  click graph (2,000 users, 400 items, degree 10) less 10% held out,
+  `LinkNeighborLoader([8, 8], (user, clicks, item), binary 1.0, batch
+  512, shuffled)` -> ``BiSAGE`` and Adam(3e-3) for `BI_EPOCHS` epochs;
+  then every node embedded through a per-type `NeighborLoader` and the
+  held-out clicks ranked against random pairs (AUC).  Checks: 4 K1 and 2
+  K2 launches a batch, no plain call, K1 and K2 at every call of the
+  first step and of the embedding loaders against their plain versions
+  (the step's timed), the loss falling, AUC above 0.5."""
+  import graphlearn_tpu_torch.sampler.hetero_neighbor_sampler as hmod
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.loader import LinkNeighborLoader, NeighborLoader
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  from graphlearn_tpu_torch.typing import reverse_edge_type
+  urow, icol, ufeat, ifeat = bipartite_synthetic()
+  nu, ni = len(ufeat), len(ifeat)
+  rng = np.random.default_rng(2)
+  m = len(urow)
+  perm = rng.permutation(m)
+  heldout, tr = perm[:m // 10], perm[m // 10:]
+  tr_u, tr_i = urow[tr], icol[tr]
+  ds = (Dataset().init_graph({BI_ET: (tr_u, tr_i), BI_ET_REV: (tr_i, tr_u)},
+                             layout='COO',
+                             num_nodes={BI_USER: nu, BI_ITEM: ni},
+                             device=DEVICE)
+        .init_node_features({BI_USER: ufeat, BI_ITEM: ifeat},
+                            device=DEVICE))
+  loader = LinkNeighborLoader(ds, BI_FANOUTS, (BI_ET, (tr_u, tr_i)),
+                              neg_sampling=NegativeSampling('binary', 1.0),
+                              batch_size=BI_BATCH, shuffle=True, seed=0,
+                              device=DEVICE)
+  etypes = tuple(sorted(reverse_edge_type(et) for et in ds.get_graph()))
+  with torch.random.fork_rng(devices=[]):
+    torch.manual_seed(0)
+    model = bisage_model(torch, etypes, {BI_USER: BI_DIM, BI_ITEM: BI_DIM})
+  model = model.to(DEVICE)
+  opt = torch.optim.Adam(model.parameters(), lr=BI_LR, eps=1e-8)
+  reset_counts(ops)
+  epoch_loss, steps = [], 0
+  sync(torch)
+  t0 = time.perf_counter()
+  # the first step's 4 K1 and 2 K2 calls are kept
+  with TrainRecorder(torch, hmod, 2, hops=4) as rec:
+    for _ in range(BI_EPOCHS):
+      tot = []
+      for batch in loader:
+        h = model(batch.x_dict, batch.edge_index_dict, batch.edge_mask_dict)
+        loss = bisage_loss(torch, h, batch.metadata)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        tot.append(loss.detach())
+        steps += 1
+      epoch_loss.append(float(torch.stack(tot).mean()))
+  sync(torch)
+  train_secs = time.perf_counter() - t0
+  launches, plain = read_counts(ops)
+  if not (launches['sample_one_hop'] == 4 * steps
+          and launches['gather_rows'] == 2 * steps and plain == 0):
+    raise AssertionError(f'bipartite link: launches {launches}, plain '
+                         f'calls {plain}, steps {steps}')
+  if not (np.isfinite(epoch_loss).all() and epoch_loss[-1] < epoch_loss[0]):
+    raise AssertionError(f'bipartite link losses do not fall: {epoch_loss}')
+
+  def embed(ntype, count):
+    emb = torch.zeros(count, BI_HIDDEN, device=DEVICE)
+    el = NeighborLoader(ds, BI_FANOUTS, (ntype, np.arange(count)),
+                        batch_size=BI_BATCH, device=DEVICE)
+    with torch.no_grad():
+      for b in el:
+        h = model(b.x_dict, b.edge_index_dict, b.edge_mask_dict)[ntype]
+        seeds = b.batch_dict[ntype]
+        ok = seeds >= 0
+        sl = b.metadata['seed_local']
+        emb[seeds[ok].long()] = h[sl[ok].long()]
+    return emb.cpu().numpy()
+  hops, gathers = check_recorded(torch, ops, timer, rec,
+                                 'bipartite link step')
+  checked = {'step': [len(hops), len(gathers)]}
+  embs = {}
+  for ntype, count in ((BI_USER, nu), (BI_ITEM, ni)):
+    # the first calls of the per-type embedding loader, checked untimed
+    with TrainRecorder(torch, hmod, 2, hops=4) as erec:
+      embs[ntype] = embed(ntype, count)
+    eh, eg = check_recorded(torch, ops, timer, erec,
+                            f'bipartite {ntype} embedding batch',
+                            timed=False)
+    checked[f'embed_{ntype}'] = [len(eh), len(eg)]
+    hops, gathers = hops + eh, gathers + eg
+  uemb, iemb = embs[BI_USER], embs[BI_ITEM]
+  pos_s = (uemb[urow[heldout]] * iemb[icol[heldout]]).sum(1)
+  neg_s = (uemb[rng.integers(0, nu, len(heldout))]
+           * iemb[rng.integers(0, ni, len(heldout))]).sum(1)
+  auc = float((pos_s[:, None] > neg_s[None, :]).mean())
+  if not auc > 0.5:
+    raise AssertionError(f'bipartite held-out AUC {auc}')
+  return {'users': nu, 'items': ni, 'train_edges': int(len(tr)),
+          'heldout': int(len(heldout)), 'epochs': BI_EPOCHS, 'steps': steps,
+          'step_ms': train_secs / steps * 1e3, 'epoch_loss': epoch_loss,
+          'heldout_auc': auc, 'launches': launches, 'plain_calls': plain,
+          'k1_k2_checked': checked, 'hops': hops, 'gathers': gathers}
+
+
+def mag_link(torch, ops, timer) -> dict:
+  """A hetero link loader on the mag graph's ``(author, writes, paper)``
+  relation: `LinkNeighborLoader([10, 10], batch 1,024, binary 1.0)` over
+  `MAG_LINK_BATCHES` batches of random ``writes`` edges (batches/s; 6
+  K1 and 2 K2 launches a batch); then with ``with_edge=True`` and a
+  ``[E_writes, 4]`` f32 table under the emitted type ``(paper,
+  rev_writes, author)`` (row ``e`` holds edge ``e``'s author, paper and
+  CSR position: the graph is built from tensors, so the ids are
+  positions) over `MAG_EDGE_BATCHES` batches: K1 and K2 at every call
+  against their plain versions (the first batch's timed; so are the
+  first batch's 6 K1 and 2 K2 calls without edges), every edge
+  row checked against its endpoints and position, the label indices
+  through ``node_dict``, negatives drawn in the paper space."""
+  import graphlearn_tpu_torch.sampler.hetero_neighbor_sampler as hmod
+  from graphlearn_tpu_torch.loader import LinkNeighborLoader
+  from graphlearn_tpu_torch.sampler import NegativeSampling
+  from graphlearn_tpu_torch.typing import as_str, reverse_edge_type
+  ds, feats, _ = mag_graph(torch)
+  g = ds.get_graph()[MAG_WRITES]
+  e = g.indices.numel()
+  gen = torch.Generator(device=DEVICE).manual_seed(27)
+  n = MAG_LINK_BATCHES * MAG_LINK_BATCH
+  pos = torch.randint(0, e, (n,), generator=gen, device=DEVICE)
+  src = (torch.searchsorted(g.indptr, pos, right=True) - 1).cpu().numpy()
+  dst = g.indices[pos].cpu().numpy()
+  rev = reverse_edge_type(MAG_WRITES)
+  # float32 holds the ids and positions exactly only below 2**24
+  if not max(e, MAG_AUTHOR, MAG_PAPER) < 2 ** 24:
+    raise AssertionError(f'the writes edge table cannot hold {e} edges '
+                         f'exactly in float32')
+  rows_of = torch.repeat_interleave(
+      torch.arange(g.num_nodes, device=DEVICE), g.indptr[1:] - g.indptr[:-1])
+  table = torch.stack([rows_of.float(), g.indices.float(),
+                       torch.arange(e, device=DEVICE).float(),
+                       torch.ones(e, device=DEVICE)], 1)
+  del rows_of
+  ds.init_edge_features({rev: table}, device=DEVICE)
+  out = {}
+  reset_counts(ops)
+  loader = LinkNeighborLoader(ds, MAG_LINK_FANOUTS, (MAG_WRITES, (src, dst)),
+                              neg_sampling=NegativeSampling('binary', 1.0),
+                              batch_size=MAG_LINK_BATCH, seed=24,
+                              device=DEVICE)
+  sync(torch)
+  t0 = time.perf_counter()
+  nb = 0
+  # the first batch's 6 K1 and 2 K2 calls are kept
+  with TrainRecorder(torch, hmod, 2, hops=6) as prec:
+    for b in loader:
+      nb += 1
+      del b
+  sync(torch)
+  secs = time.perf_counter() - t0
+  launches, plain = read_counts(ops)
+  if not (launches['sample_one_hop'] == 6 * nb
+          and launches['gather_rows'] == 2 * nb and plain == 0):
+    raise AssertionError(f'mag link loader: launches {launches}, plain '
+                         f'calls {plain}')
+  plain_hops, plain_gathers = check_recorded(torch, ops, timer, prec,
+                                             'mag link batch')
+  del prec
+  out['loader'] = {'batches': nb, 'batches_per_s': nb / secs,
+                   'edges_per_s': nb * MAG_LINK_BATCH / secs,
+                   'launches': launches, 'plain_calls': plain,
+                   'k1_checked': len(plain_hops),
+                   'k2_checked': len(plain_gathers)}
+  nb = MAG_EDGE_BATCHES
+  m = nb * MAG_LINK_BATCH
+  loader = LinkNeighborLoader(ds, MAG_LINK_FANOUTS,
+                              (MAG_WRITES, (src[:m], dst[:m])),
+                              neg_sampling=NegativeSampling('binary', 1.0),
+                              batch_size=MAG_LINK_BATCH, seed=28,
+                              with_edge=True, device=DEVICE)
+  reset_counts(ops)
+  with TrainRecorder(torch, hmod, 3 * nb, hops=6 * nb) as rec:
+    batches = list(loader)
+  sync(torch)
+  launches, plain = read_counts(ops)
+  if not (launches['sample_one_hop'] == 6 * nb
+          and launches['gather_rows'] == 3 * nb and plain == 0):
+    raise AssertionError(f'mag with-edge link: launches {launches}, plain '
+                         f'calls {plain}')
+  hops, gathers = [], []
+  for i, (args, (eid, on)) in enumerate(zip(rec.hops, rec.edges)):
+    if not on:
+      raise AssertionError('a with-edge hetero hop ran without edge ids')
+    _, r = check_sampler(torch, ops, timer, *args, edge_ids=eid,
+                         with_edge_ids=True, time_it=i < 6)
+    hops.append(r)
+  for i, (tab, ids) in enumerate(rec.gathers):
+    gathers.append(check_gather(torch, ops, timer, tab, ids,
+                                time_it=i < 3))
+  checked = 0
+  indptr_w = g.indptr.cpu().numpy()
+  indices_w = g.indices.cpu().numpy()
+  for b in batches:
+    if set(b.edge_attr_dict) != {rev}:
+      raise AssertionError(f'edge_attr_dict holds {list(b.edge_attr_dict)}')
+    ea = b.edge_attr_dict[rev]
+    ei, em = b.edge_index_dict[rev], b.edge_mask_dict[rev]
+    a = b.node_dict['author'][ei[1].clamp(min=0).long()]
+    p = b.node_dict['paper'][ei[0].clamp(min=0).long()]
+    if not (torch.equal(ea[em, 0], a[em].float())
+            and torch.equal(ea[em, 1], p[em].float())
+            and bool((ea[em, 3] == 1).all()) and not bool(ea[~em].any())):
+      raise AssertionError('an edge row does not match its endpoints')
+    posn = ea[em, 2].long().cpu().numpy()
+    an = a[em].cpu().numpy()
+    if not ((posn >= indptr_w[an]).all() and (posn < indptr_w[an + 1]).all()
+            and (indices_w[posn] == p[em].cpu().numpy()).all()):
+      raise AssertionError('a with-edge position does not name its edge')
+    checked += int(em.sum())
+    eli = b.metadata['edge_label_index']
+    if not (int(eli[1].max()) < b.node_dict['paper'].numel()
+            and int(eli[0].max()) < b.node_dict['author'].numel()):
+      raise AssertionError('edge_label_index outside the type tables')
+  emit('kernel', kernel='sample_one_hop',
+       shape=f'mag with-edge link batch, {len(hops)} calls', **hops[0])
+  emit('kernel', kernel='gather_rows',
+       shape=f'mag with-edge link batch edge rows', **gathers[2])
+  out['with_edge'] = {'batches': nb, 'relation': as_str(MAG_WRITES),
+                      'table': as_str(rev), 'table_shape': list(table.shape),
+                      'edges_checked': checked, 'k1_checked': len(hops),
+                      'k2_checked': len(gathers), 'launches': launches,
+                      'plain_calls': plain}
+  del ds, feats, batches, rec, loader, table
+  torch.cuda.empty_cache()
+  return {'out': out, 'hops': hops, 'gathers': gathers,
+          'plain_hops': plain_hops, 'plain_gathers': plain_gathers,
+          'launches': {'loader': out['loader']['launches'],
+                       'with_edge': launches}}
+
+
+def hetero_link(torch, ops, timer) -> dict:
+  """The `hetero_link` phase: `bipartite_link` and `mag_link`."""
+  t0 = time.perf_counter()
+  bi = bipartite_link(torch, ops, timer)
+  mag = mag_link(torch, ops, timer)
+  emit('hetero_link', bipartite={k: v for k, v in bi.items()
+                                 if k not in ('hops', 'gathers')},
+       mag=mag['out'], secs=time.perf_counter() - t0)
+  # 'hops'/'gathers': every checked call; the timed ones by shape
+  return {'launches': {'bipartite': bi['launches'], **mag['launches']},
+          'hops': bi['hops'] + mag['plain_hops'] + mag['hops'],
+          'gathers': bi['gathers'] + mag['plain_gathers'] + mag['gathers'],
+          'timed': {'bipartite_step': ([h for h in bi['hops']
+                                        if 'kernel_ms' in h],
+                                       [g for g in bi['gathers']
+                                        if 'kernel_ms' in g]),
+                    'mag_link_batch': (mag['plain_hops'],
+                                       mag['plain_gathers']),
+                    'mag_with_edge_batch': (
+                        [h for h in mag['hops'] if 'kernel_ms' in h],
+                        [g for g in mag['gathers'] if 'kernel_ms' in g])}}
+
+
+def skipgram_loss(torch, emb, ctx, src, dst, neg):
+  """`examples/deepwalk.py`'s skip-gram loss: ``-log sigmoid(e_s . c_d)
+  - sum log sigmoid(-e_s . c_n)`` over the valid pairs (either end -1 is
+  masked), averaged."""
+  import torch.nn.functional as F
+  ok = (src >= 0) & (dst >= 0)
+  s = torch.where(ok, src, 0).long()
+  d = torch.where(ok, dst, 0).long()
+  es = emb[s]
+  pos = (es * ctx[d]).sum(1)
+  negs = torch.einsum('ed,end->en', es, ctx[neg.long()])
+  loss = -F.logsigmoid(pos) - F.logsigmoid(-negs).sum(1)
+  return torch.where(ok, loss, 0.0).sum() / torch.clamp(ok.sum(), min=1)
+
+
+def deepwalk(torch, dev) -> dict:
+  """`examples/deepwalk.py` at its size on ``dev``: the clustered graph
+  (2,000 nodes, degree 8, 6 clusters), `random_walk` from every node an
+  epoch (length 8, counter draws keyed by the epoch), `walk_edges`
+  (window 2), skip-gram with 4 negatives a pair (drawn on the host, so
+  the card and the CPU train alike) in batches of 4,096 pairs, Adam
+  (0.05), 5 epochs; then the 1-NN cluster accuracy of 500 probes."""
+  from graphlearn_tpu_torch.data.topology import CSRTopo
+  from graphlearn_tpu_torch.ops import (CounterDraws, WalkDraws, random_walk,
+                                        walk_edges)
+  rows, cols, _, labels = clustered_graph(
+      n=DW_NODES, deg=DW_DEG, classes=DW_CLASSES, d=DW_D,
+      intra_p=DW_INTRA, seed=0)
+  n = len(labels)
+  topo = CSRTopo((rows, cols), num_nodes=n)
+  indptr = torch.from_numpy(np.asarray(topo.indptr, np.int64)).to(dev)
+  indices = torch.from_numpy(topo.indices).to(dev)
+  emb0 = np.random.default_rng(0).normal(0, 0.1, (n, DW_DIM)).astype(
+      np.float32)
+  emb = torch.nn.Parameter(torch.from_numpy(emb0).to(dev))
+  ctx = torch.nn.Parameter(torch.from_numpy(emb0.copy()).to(dev))
+  opt = torch.optim.Adam([emb, ctx], lr=DW_LR, eps=1e-8)
+  gen = torch.Generator().manual_seed(7)
+  losses, secs = [], []
+  for epoch in range(DW_EPOCHS):
+    if dev != 'cpu':
+      torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    starts = torch.from_numpy(np.random.default_rng(epoch).permutation(
+        n).astype(np.int32)).to(dev)
+    walks = random_walk(indptr, indices, starts, WALK_LENGTH,
+                        draws=WalkDraws(CounterDraws(epoch, dev)))
+    src, dst = walk_edges(walks, window=WALK_WINDOW)
+    order = torch.from_numpy(np.random.default_rng(500 + epoch).permutation(
+        src.shape[0])).to(dev)
+    tot = []
+    for lo in range(0, order.shape[0] - DW_PAIRS + 1, DW_PAIRS):
+      sl = order[lo:lo + DW_PAIRS]
+      neg = torch.randint(0, n, (DW_PAIRS, DW_NEG), generator=gen).to(dev)
+      loss = skipgram_loss(torch, emb, ctx, src[sl], dst[sl], neg)
+      opt.zero_grad()
+      loss.backward()
+      opt.step()
+      tot.append(loss.detach())
+    losses.append(float(torch.stack(tot).mean()))
+    if dev != 'cpu':
+      torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+  e = emb.detach().cpu().numpy()
+  e = e / (np.linalg.norm(e, axis=1, keepdims=True) + 1e-9)
+  probe = np.random.default_rng(9).permutation(n)[:500]
+  sims = e[probe] @ e.T
+  sims[np.arange(len(probe)), probe] = -np.inf
+  acc = float((labels[sims.argmax(1)] == labels[probe]).mean())
+  return {'accuracy': acc, 'epoch_losses': losses, 'epoch_secs': secs}
+
+
+def walk(torch, indptr, indices, indptr_h, indices_h, is_edge) -> dict:
+  """Random walks over the products graph: `random_walk` from all
+  2,449,029 nodes (length 8) without and with restarts (0.15),
+  `walk_edges` (window 2) over the first corpus, `node2vec_walk` from
+  262,144 starts (p 0.25, q 4, window 64), each timed (walk steps/s);
+  every consecutive pair of 4,096 walks an edge on the host (or, with
+  restarts, a jump back to the start); the card equal to the CPU on a
+  4,096-start slice; then DeepWalk on the card and on the CPU."""
+  from graphlearn_tpu_torch.ops import (CounterDraws, WalkDraws,
+                                        node2vec_walk, random_walk,
+                                        walk_edges)
+  t_phase = time.perf_counter()
+  gen = torch.Generator(device=DEVICE).manual_seed(29)
+  starts = torch.randperm(NUM_NODES, generator=gen, device=DEVICE).to(
+      torch.int32)
+  cpu_csr = (torch.from_numpy(indptr_h), torch.from_numpy(indices_h))
+  out = {}
+
+  def check(walks, what, restart=False):
+    w = walks[:WALK_CHECK].cpu().numpy()
+    a, b = w[:, :-1], w[:, 1:]
+    both = (a >= 0) & (b >= 0)
+    edge = is_edge(a[both], b[both])
+    jump = (b == w[:, :1])[both] if restart else np.zeros_like(edge)
+    if not (edge | jump).all():
+      raise AssertionError(f'{what}: a walk step is not an edge')
+    if not ((b[a < 0] < 0).all() or restart):
+      raise AssertionError(f'{what}: a walk left a dead end')
+    return {'steps_checked': int(both.sum()), 'restarts': int(
+        (jump & ~edge).sum())}
+
+  def timed(fn):
+    sync(torch)
+    t0 = time.perf_counter()
+    res = fn()
+    sync(torch)
+    return res, time.perf_counter() - t0
+
+  walks = None
+  for restart in (0.0, WALK_RESTART):
+    def run(dev, s):
+      return random_walk(*((indptr, indices) if dev == DEVICE else cpu_csr),
+                         s, WALK_LENGTH, restart_prob=restart,
+                         draws=WalkDraws(CounterDraws(41, dev)))
+    wk, secs = timed(lambda: run(DEVICE, starts))
+    rec = check(wk, f'random_walk restart {restart}', restart > 0)
+    if not torch.equal(wk[:WALK_CHECK].cpu(),
+                       run('cpu', starts[:WALK_CHECK].cpu())):
+      raise AssertionError(f'random_walk restart {restart}: card != CPU')
+    out[f'random_walk_restart_{restart}'] = dict(
+        starts=NUM_NODES, length=WALK_LENGTH, secs=secs,
+        walk_steps_per_s=NUM_NODES * WALK_LENGTH / secs,
+        valid_share=float((wk[:, -1] >= 0).float().mean()),
+        card_equals_cpu=True, **rec)
+    if walks is None:
+      walks = wk
+    del wk
+  (src, dst), secs = timed(lambda: walk_edges(walks, window=WALK_WINDOW))
+  out['walk_edges'] = {'window': WALK_WINDOW, 'pairs': int(src.numel()),
+                       'valid_pairs': int((src >= 0).sum()), 'secs': secs}
+  del walks, src, dst
+  s2 = starts[:N2V_STARTS]
+
+  def n2v(dev, s):
+    return node2vec_walk(*((indptr, indices) if dev == DEVICE else cpu_csr),
+                         s, WALK_LENGTH, p=N2V_P, q=N2V_Q,
+                         max_degree=N2V_MAX_DEGREE,
+                         draws=WalkDraws(CounterDraws(43, dev)))
+  wk, secs = timed(lambda: n2v(DEVICE, s2))
+  rec = check(wk, 'node2vec_walk')
+  if not torch.equal(wk[:WALK_CHECK].cpu(), n2v('cpu',
+                                                s2[:WALK_CHECK].cpu())):
+    raise AssertionError('node2vec_walk: card != CPU')
+  out['node2vec_walk'] = dict(
+      starts=N2V_STARTS, length=WALK_LENGTH, p=N2V_P, q=N2V_Q,
+      max_degree=N2V_MAX_DEGREE, secs=secs,
+      walk_steps_per_s=N2V_STARTS * WALK_LENGTH / secs,
+      card_equals_cpu=True, **rec)
+  del wk
+  dw = {DEVICE: deepwalk(torch, DEVICE), 'cpu': deepwalk(torch, 'cpu')}
+  if not dw[DEVICE]['accuracy'] > 1 / DW_CLASSES:
+    raise AssertionError(f'DeepWalk 1-NN accuracy {dw[DEVICE]["accuracy"]}')
+  out['deepwalk'] = {'card': dw[DEVICE], 'cpu_rehearsal': dw['cpu'],
+                     'chance': 1 / DW_CLASSES}
+  emit('walk', secs=time.perf_counter() - t_phase, **out)
+  return out
+
+
+def edges_phases(torch, ops, timer, indptr, indices, feats) -> dict:
+  """The edge-id and walk phases (`edges`, `edge_loaders`,
+  `edges_cross_check`, `hetero_link`, `walk`) over the products graph,
+  with its edge ids a permutation and the ``[E, 8]`` edge table; K1's
+  forced sets and every arm with the edge-id arm."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.ops import default_window
+  t0 = time.perf_counter()
+  perm, table = edge_table(torch, indices)
+  ds = (Dataset().init_graph((indptr, indices), edge_ids=perm, layout='CSR',
+                             num_nodes=NUM_NODES, device=DEVICE)
+        .init_node_features(feats, device=DEVICE)
+        .init_edge_features(table, device=DEVICE))
+  labels = make_labels(torch, feats)
+  ds.init_node_labels(labels)
+  indptr_h, indices_h = indptr.cpu().numpy(), indices.cpu().numpy()
+  inv_h = inverse_ids(torch, perm)
+  sync(torch)
+  emit('edge_data', edge_ids=int(perm.numel()),
+       edge_table_shape=list(table.shape),
+       bytes={'edge_ids': perm.numel() * 4, 'edge_table': table.numel() * 4},
+       secs=time.perf_counter() - t0)
+  arms = []
+  for k in FANOUTS:
+    w = default_window(k)
+    a_indptr, a_indices, a_seeds = arm_graph(torch, DEVICE, k, w)
+    gen = torch.Generator(device=DEVICE).manual_seed(k)
+    u = torch.rand(a_seeds.numel(), k, device=DEVICE, generator=gen)
+    g = torch.rand(a_seeds.numel(), w, device=DEVICE, generator=gen)
+    eid = torch.randperm(a_indices.numel(), generator=gen,
+                         device=DEVICE).to(torch.int32)
+    for e in (None, eid):
+      _, rec = check_sampler(torch, ops, timer, a_indptr, a_indices, a_seeds,
+                             k, u, g, edge_ids=e, with_edge_ids=True,
+                             time_it=False)
+      arms.append(rec['arms'])
+  forced = forced_sampler_sets(torch, ops, with_eids=True)
+  emit('kernel', kernel='sample_one_hop', shape='forced sets with eids',
+       sets=len(forced['sets']), every_arm=arms, byte_equal=True)
+  ed = edges(torch, ops, timer, ds, feats, labels, table, inv_h, indptr_h,
+             indices_h)
+  el = edge_loaders(torch, ops, timer, ds, table, inv_h, indptr_h,
+                    indices_h)
+  del ds, perm, table, inv_h, labels
+  torch.cuda.empty_cache()
+  edges_cross_check(torch)
+  hl = hetero_link(torch, ops, timer)
+  is_edge = edge_lookup(indptr_h, indices_h)
+  wk = walk(torch, indptr, indices, indptr_h, indices_h, is_edge)
+  del is_edge
+  return {'edges': ed, 'edge_loaders': el, 'hetero_link': hl, 'walk': wk,
+          'forced_sets': len(forced['sets'])}
+
+
 PORT_KERNELS = {'sample_one_hop': ('sample_one_hop_kernel',),
                 'sample_one_hop_gns': ('sample_gns_kernel',),
                 'gather_rows': ('gather_narrow', 'gather_wide'),
@@ -5939,6 +6884,10 @@ def run(torch, argv) -> list:
     link_phases(torch, ops, timer, indptr, indices, feats,
                 prof='--profile' in argv)
     return None
+  if '--edges' in argv:
+    del ds
+    edges_phases(torch, ops, timer, indptr, indices, feats)
+    return None
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -6056,6 +7005,16 @@ def run(torch, argv) -> list:
   # -- link prediction and enclosing subgraphs (BASELINE configs 2, 3) --
   link_tr, link_lo, seal_out = link_phases(torch, ops, timer, indptr, indices,
                                            feats, prof='--profile' in argv)
+  torch.cuda.empty_cache()
+
+  # -- sampled edge ids, edge features, hetero link and random walks ---
+  eo = edges_phases(torch, ops, timer, indptr, indices, feats)
+  ed, el, hlk = eo['edges'], eo['edge_loaders'], eo['hetero_link']
+  mag_we = hlk['timed']['mag_with_edge_batch']
+  hl_what = {'bipartite_step': f'{BI_BATCH}-edge bipartite link step '
+                               '(user clicks item, binary)',
+             'mag_link_batch': f'{MAG_LINK_BATCH}-edge mag link batch '
+                               '(author writes paper, binary)'}
 
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
@@ -6097,6 +7056,26 @@ def run(torch, argv) -> list:
             'max_abs_err': max(h['max_abs_err'] for h in hops),
             'byte_equal': True, 'hops': per_hop(hops)}
 
+  def eid_shape(what, hops):
+    return {'shape': f'{what}, hops of '
+                     + '/'.join(str(h['rows']) for h in hops) + ' rows, k '
+                     + '/'.join(str(h['k']) for h in hops)
+                     + ', eids = edge_ids[pos]',
+            'ms': sum(h['kernel_ms'] for h in hops),
+            'no_eids_ms': sum(h['no_eids_ms'] for h in hops),
+            'positions_ms': sum(h['positions_ms'] for h in hops),
+            'plain_ms': sum(h['plain_ms'] for h in hops),
+            'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
+            'no_eids_bound_ms': sum(h['no_eids_bound_ms'] for h in hops),
+            'max_abs_err': max(h['max_abs_err'] for h in hops),
+            'byte_equal': True,
+            'hops': [{'rows': h['rows'], 'k': h['k'], 'ms': h['kernel_ms'],
+                      'no_eids_ms': h['no_eids_ms'],
+                      'positions_ms': h['positions_ms'],
+                      'bound_ms': h['bound_us'] / 1e3,
+                      'no_eids_bound_ms': h['no_eids_bound_ms'],
+                      'plain_ms': h['plain_ms']} for h in hops]}
+
   def gather_shape(what, g):
     return {'shape': f'{what}: {g["ids"]} ids x {g["row_bytes"]} B '
                      f'{g["dtype"]}',
@@ -6119,7 +7098,8 @@ def run(torch, argv) -> list:
                           for h in hops + loader_path['hops'] + sub_hops
                           + fmesh_hops + het_hops + hl_hops
                           + link_tr['hops'] + link_lo['hops']
-                          + seal_out['hops']),
+                          + seal_out['hops'] + ed['hops'] + el['hops']
+                          + hlk['hops']),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -6152,7 +7132,39 @@ def run(torch, argv) -> list:
                                 for k, v in link_lo['launches'].items()},
                             'seal': {
                                 k: v['sample_one_hop']
-                                for k, v in seal_out['launches'].items()}},
+                                for k, v in seal_out['launches'].items()},
+                            'edges': {
+                                k: v['sample_one_hop']
+                                for k, v in ed['launches'].items()},
+                            'edge_loaders': {
+                                k: v['sample_one_hop']
+                                for k, v in el['launches'].items()},
+                            'hetero_link': {
+                                k: v['sample_one_hop']
+                                for k, v in hlk['launches'].items()}},
+       'edge_shapes': {
+           'products': eid_shape(
+               f'{TRAIN_BATCH}-seed with-edge per-batch step', ed['hops']),
+           'products_link': eid_shape(
+               '1,024-edge with-edge products link batch (binary)',
+               el['hops']),
+           'mag_link': {
+               'shape': 'mag with-edge hetero link batch (author writes '
+                        f'paper), first of {len(mag_we[0])} timed calls: '
+                        f'{mag_we[0][0]["rows"]} rows, k '
+                        f'{mag_we[0][0]["k"]}, eids = CSR positions',
+               'ms': mag_we[0][0]['kernel_ms'],
+               'plain_ms': mag_we[0][0]['plain_ms'],
+               'bound_ms': mag_we[0][0]['bound_us'] / 1e3,
+               'byte_equal': True},
+           'forced_sets_with_eids': eo['forced_sets']},
+       'hetero_link_shapes': [
+           {'shape': f'{hl_what[k]} call {h["call"]}: {h["rows"]} rows, '
+                     f'k {h["k"]}, eids {h["eids"]}',
+            'ms': h['kernel_ms'], 'plain_ms': h['plain_ms'],
+            'bound_ms': h['bound_us'] / 1e3, 'byte_equal': True}
+           for k, (hs, _) in hlk['timed'].items() if k in hl_what
+           for h in hs],
        'link_shapes': {
            'ppi_per_batch': link_shape(
                f'{LINK_BATCH}-edge PPI link batch (binary), per-batch',
@@ -6211,7 +7223,8 @@ def run(torch, argv) -> list:
                           for g in gathers + gathers_train + [train_gather]
                           + tree_levels + mesh_gathers + [sub_gather]
                           + fmesh_gathers + het_gathers + hl_gathers
-                          + link_tr['gathers'] + link_lo['gathers']),
+                          + link_tr['gathers'] + link_lo['gathers']
+                          + ed['gathers'] + hlk['gathers']),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -6265,7 +7278,26 @@ def run(torch, argv) -> list:
                                 for k, v in link_lo['launches'].items()},
                             'seal': {
                                 k: v['gather_rows']
-                                for k, v in seal_out['launches'].items()}},
+                                for k, v in seal_out['launches'].items()},
+                            'edges': {
+                                k: v['gather_rows']
+                                for k, v in ed['launches'].items()},
+                            'edge_loaders': {
+                                k: v['gather_rows']
+                                for k, v in el['launches'].items()},
+                            'hetero_link': {
+                                k: v['gather_rows']
+                                for k, v in hlk['launches'].items()}},
+       'edge_shapes': [
+           gather_shape('products with-edge batch x', ed['gathers'][0]),
+           gather_shape('products with-edge batch edge rows',
+                        ed['gathers'][1])] + [
+           gather_shape('mag with-edge hetero link batch', g)
+           for g in mag_we[1]],
+       'hetero_link_shapes': [
+           gather_shape(f'{hl_what[k]} gather {g["call"]}', g)
+           for k, (_, gs) in hlk['timed'].items() if k in hl_what
+           for g in gs],
        'link_shapes': [
            gather_shape('PPI link batch x, per-batch', link_tr['gathers'][0]),
            gather_shape('PPI FusedLinkEpoch step x', link_tr['gathers'][1]),

@@ -70,6 +70,14 @@
 // What bounds it now: the bytes it reads at sector granularity (a row's
 // Gumbels and its winners' ids are each a few 32-byte sectors), the
 // latency of the staged passes, and the shuffles of the threshold.
+//
+// Edge ids (the `eids` of `ops/pallas_sample.py:416-421`): a slot's CSR
+// position is known where its neighbor id is read, so the edge-id arm
+// is a compile-time mode of the same kernel (kEdge): 0 writes no ids,
+// 1 writes the position itself, 2 reads edge_ids[position] (one 4-byte
+// load a valid slot, issued beside the neighbor's) -- INVALID_ID where
+// the slot is masked.  The launches without edges keep mode 0's
+// registers and code.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -107,7 +115,8 @@ __host__ __device__ inline int warp_smem_words(int rows_per_pass, int stride,
   return (2 * stride + 2 * w) * rows_per_pass + tile * k;
 }
 
-template <int G>
+// kEdge: 0 no edge ids, 1 the slot's CSR position, 2 edge_ids at it
+template <int G, int kEdge>
 __global__ void __launch_bounds__(kWarps * 32)
 sample_one_hop_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
                       const int32_t* __restrict__ indices, int64_t n_edges,
@@ -115,7 +124,9 @@ sample_one_hop_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
                       const float* __restrict__ u,
                       const float* __restrict__ gumbel, int k, int w,
                       int passes, int stride, int32_t* __restrict__ nbrs,
-                      bool* __restrict__ mask) {
+                      bool* __restrict__ mask,
+                      const int32_t* __restrict__ edge_ids,
+                      int32_t* __restrict__ eids) {
   constexpr int kRowsPerPass = 32 / G;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
@@ -248,6 +259,7 @@ sample_one_hop_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
   bool* out_mask = mask + row0 * k;
   for (int s0 = 0; s0 < n_slots; s0 += 32 * kBatch) {
     int32_t v[kBatch];
+    int32_t ev[kBatch];
     bool on[kBatch];
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
@@ -264,6 +276,7 @@ sample_one_hop_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
       const int d = __shfl_sync(kFull, deg, r);
       on[i] = s < n_slots && j < (d < k ? d : k);
       v[i] = -1;
+      ev[i] = -1;
       if (on[i]) {
         int off = j;
         if (d > w) {
@@ -276,6 +289,8 @@ sample_one_hop_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
         int64_t pos = st + off;
         pos = pos < 0 ? 0 : (pos > last ? last : pos);
         v[i] = __ldg(indices + pos);
+        if constexpr (kEdge == 1) ev[i] = static_cast<int32_t>(pos);
+        if constexpr (kEdge == 2) ev[i] = __ldg(edge_ids + pos);
       }
     }
 #pragma unroll
@@ -284,16 +299,18 @@ sample_one_hop_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
       if (s < n_slots) {
         out[s] = v[i];
         out_mask[s] = on[i];
+        if constexpr (kEdge != 0) eids[row0 * k + s] = ev[i];
       }
     }
   }
 }
 
-template <int G>
+template <int G, int kEdge>
 int launch(const void* indptr, long long n_nodes, const void* indices,
            long long n_edges, const void* seeds, long long n_rows,
            const void* u, const void* gumbel, int k, int w, void* nbrs,
-           void* mask, cudaStream_t stream, int sms) {
+           void* mask, const void* edge_ids, void* eids,
+           cudaStream_t stream, int sms) {
   constexpr int kRowsPerPass = 32 / G;
   // two passes a warp once the card still holds 64 warps an SM that
   // way, else one: on the H100 the 153,600-row hop ran faster in two
@@ -308,30 +325,52 @@ int launch(const void* indptr, long long n_nodes, const void* indices,
                       warp_smem_words(kRowsPerPass, stride, tile, k, w);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sample_one_hop_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        sample_one_hop_kernel<G, kEdge>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long rows_per_block = static_cast<long long>(kWarps) * tile;
   const dim3 grid(
       static_cast<unsigned>((n_rows + rows_per_block - 1) / rows_per_block));
-  sample_one_hop_kernel<G><<<grid, kWarps * 32, smem, stream>>>(
+  sample_one_hop_kernel<G, kEdge><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const int64_t*>(indptr), n_nodes,
       static_cast<const int32_t*>(indices), n_edges,
       static_cast<const int32_t*>(seeds), n_rows,
       static_cast<const float*>(u), static_cast<const float*>(gumbel), k, w,
       passes, stride, static_cast<int32_t*>(nbrs),
-      static_cast<bool*>(mask));
+      static_cast<bool*>(mask), static_cast<const int32_t*>(edge_ids),
+      static_cast<int32_t*>(eids));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_edge(const void* indptr, long long n_nodes, const void* indices,
+                long long n_edges, const void* seeds, long long n_rows,
+                const void* u, const void* gumbel, int k, int w, void* nbrs,
+                void* mask, const void* edge_ids, void* eids,
+                cudaStream_t stream, int sms) {
+  if (eids == nullptr) {
+    return launch<G, 0>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                        gumbel, k, w, nbrs, mask, edge_ids, eids, stream,
+                        sms);
+  } else if (edge_ids == nullptr) {
+    return launch<G, 1>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                        gumbel, k, w, nbrs, mask, edge_ids, eids, stream,
+                        sms);
+  }
+  return launch<G, 2>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                      gumbel, k, w, nbrs, mask, edge_ids, eids, stream, sms);
 }
 
 }  // namespace
 
+// eids null: no edge ids; edge_ids null (eids given): CSR positions
 extern "C" int glt_sample_one_hop(const void* indptr, long long n_nodes,
                                   const void* indices, long long n_edges,
                                   const void* seeds, long long n_rows,
                                   const void* u, const void* gumbel, int k,
                                   int w, void* nbrs, void* mask,
+                                  const void* edge_ids, void* eids,
                                   void* stream) {
   if (k < 1 || w < k || w > kMaxWindow) return cudaErrorInvalidValue;
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
@@ -343,15 +382,16 @@ extern "C" int glt_sample_one_hop(const void* indptr, long long n_nodes,
   const long long lanes = static_cast<long long>(sms) * 512;
   while (g < 32 && (g < k || n_rows * g <= lanes)) g <<= 1;
   if (g == 4) {
-    return launch<4>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
-                     gumbel, k, w, nbrs, mask, s, sms);
+    return launch_edge<4>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                          gumbel, k, w, nbrs, mask, edge_ids, eids, s, sms);
   } else if (g == 8) {
-    return launch<8>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
-                     gumbel, k, w, nbrs, mask, s, sms);
+    return launch_edge<8>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                          gumbel, k, w, nbrs, mask, edge_ids, eids, s, sms);
   } else if (g == 16) {
-    return launch<16>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
-                      gumbel, k, w, nbrs, mask, s, sms);
+    return launch_edge<16>(indptr, n_nodes, indices, n_edges, seeds, n_rows,
+                           u, gumbel, k, w, nbrs, mask, edge_ids, eids, s,
+                           sms);
   }
-  return launch<32>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
-                    gumbel, k, w, nbrs, mask, s, sms);
+  return launch_edge<32>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                         gumbel, k, w, nbrs, mask, edge_ids, eids, s, sms);
 }

@@ -1,6 +1,6 @@
-"""User-facing data manager: topology, node features and labels, for a
-homogeneous graph or a heterogeneous one keyed by node and edge type
-(the JAX package's `data/dataset.py`)."""
+"""User-facing data manager: topology, node and edge features and
+labels, for a homogeneous graph or a heterogeneous one keyed by node and
+edge type (the JAX package's `data/dataset.py`)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
@@ -52,9 +52,11 @@ class Dataset:
   by edge type (``init_graph``) or node type (features, labels).
   """
 
-  def __init__(self, graph=None, node_features=None, node_labels=None):
+  def __init__(self, graph=None, node_features=None, node_labels=None,
+               edge_features=None):
     self.graph = graph
     self.node_features = node_features
+    self.edge_features = edge_features
     self.node_labels = node_labels
     self._device_labels: Dict[Optional[NodeType], torch.Tensor] = {}
     self._explicit_num_nodes = None
@@ -72,7 +74,10 @@ class Dataset:
     `CSRTopo`.  ``edge_index`` may be a dict ``{EdgeType: input}``
     (heterogeneous); ``num_nodes`` is then a scalar, or a dict keyed by
     edge type or by node type (read for each edge type's source type),
-    and ``edge_ids``/``layout`` may be dicts too.
+    and ``edge_ids``/``layout`` may be dicts too.  ``edge_ids`` are the
+    ids a sampler with ``with_edge`` emits (and edge features are read
+    by): by default each edge's index in a COO input, or its CSR
+    position in a CSR input.
     """
     if edge_index is None:
       return self
@@ -84,7 +89,10 @@ class Dataset:
                                  for ei in edge_index.values()):
         for etype, ei in edge_index.items():
           _check_tensor_csr(ei, _etype_num_nodes(num_nodes, etype), etype)
-        self.graph = {etype: Graph.from_tensors(ei[0], ei[1], device=dev)
+        self.graph = {etype: Graph.from_tensors(
+            ei[0], ei[1], device=dev,
+            edge_ids=(edge_ids.get(etype) if isinstance(edge_ids, dict)
+                      else None))
                       for etype, ei in edge_index.items()}
         return self
       graphs = {}
@@ -99,7 +107,7 @@ class Dataset:
     if layout == 'CSR' and _is_tensor_csr(edge_index):
       _check_tensor_csr(edge_index, num_nodes)
       self.graph = Graph.from_tensors(edge_index[0], edge_index[1],
-                                      device=dev)
+                                      device=dev, edge_ids=edge_ids)
       return self
     topo = CSRTopo(edge_index, edge_ids=edge_ids, layout=layout,
                    num_nodes=num_nodes)
@@ -165,6 +173,39 @@ class Dataset:
     return Feature(feats, id2index=id2idx, split_ratio=split_ratio,
                    device=device, dtype=dtype,
                    cold_cache_rows=cold_cache_rows)
+
+  def init_edge_features(self, edge_feature_data=None, id2idx=None,
+                         split_ratio: float = 1.0, device='cuda',
+                         dtype: Optional[torch.dtype] = None,
+                         cold_cache_rows='auto'):
+    """Create the edge feature store(s), rows addressed by edge id
+    (`init_graph`'s ``edge_ids``): one `Feature`, or a dict keyed by
+    edge type (``id2idx`` then a dict too), tiered by ``split_ratio``
+    as node features are.  A batch reads them when its sampler emits
+    edge ids (``with_edge``)."""
+    if edge_feature_data is None:
+      return self
+    if isinstance(edge_feature_data, dict):
+      self.edge_features = {
+          etype: Feature(feats,
+                         id2index=(id2idx.get(etype)
+                                   if isinstance(id2idx, dict) else None),
+                         split_ratio=split_ratio, device=device, dtype=dtype,
+                         cold_cache_rows=cold_cache_rows)
+          for etype, feats in edge_feature_data.items()}
+    else:
+      self.edge_features = Feature(edge_feature_data, id2index=id2idx,
+                                   split_ratio=split_ratio, device=device,
+                                   dtype=dtype,
+                                   cold_cache_rows=cold_cache_rows)
+    return self
+
+  def get_edge_feature(self, etype: Optional[EdgeType] = None):
+    """The edge `Feature`; on a heterogeneous dataset the one of
+    ``etype`` (None when it has none)."""
+    if isinstance(self.edge_features, dict):
+      return self.edge_features.get(etype)
+    return self.edge_features
 
   def init_node_labels(self, node_label_data=None):
     """Node labels, kept as given: a torch tensor stays where it is,
@@ -239,7 +280,13 @@ class Dataset:
     version-fencing consumers re-pin from (the `ServingEngine`, once per
     dispatch).  Consumers that read ``self.graph`` once keep the version
     pinned when they read it (a complete graph, never a torn one); call
-    again after a quiesce to re-snapshot."""
+    again after a quiesce to re-snapshot.  A dataset with edge features
+    cannot follow a stream (NotImplementedError, as in JAX): streamed
+    edges would get ids past the frozen edge table."""
+    if self.edge_features is not None:
+      raise NotImplementedError(
+          'attach_stream on a dataset with edge features is not supported: '
+          'streamed edges would get ids past the frozen edge-feature table')
     self.stream = stream
     self.graph = Graph.from_view(stream.pin())
     return self

@@ -5,6 +5,12 @@ Unlike the JAX package, ``indptr`` stays int64 at every size (edge
 positions never narrow); sampled ids are int32 either way.  A graph
 over a streaming view (`from_view`) holds the view's padded
 ``indices``: its edge count is the view's, not ``indices.numel()``.
+
+``edge_ids`` (int32, one per CSR position: the edge's id in the input,
+e.g. its COO index) go to the device on first use, as the JAX package
+puts them there with ``with_edge_ids``: only a sampler asked for edge
+ids reads them, so a graph that never emits edge ids never holds them
+on the card.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ class Graph:
     self.csr_topo = csr_topo
     self._num_edges: Optional[int] = None
     self._max_degree: Optional[int] = None
+    self._edge_ids: Optional[torch.Tensor] = None
     if csr_topo is not None:
       self.indptr = torch.from_numpy(
           np.asarray(csr_topo.indptr, np.int64)).to(dev)
@@ -38,14 +45,17 @@ class Graph:
 
   @classmethod
   def from_tensors(cls, indptr: torch.Tensor, indices: torch.Tensor,
-                   device='cuda') -> 'Graph':
+                   device='cuda', edge_ids=None) -> 'Graph':
     """Wrap CSR tensors that are already canonical (columns sorted
     within rows) — e.g. a graph generated on the card — without a host
-    round trip.  Dtypes become int64/int32 on ``device``."""
+    round trip.  Dtypes become int64/int32 on ``device``; ``edge_ids``
+    (optional, one per CSR position) int32 on ``device``."""
     dev = resolve_device(device)
     g = cls(None, device=dev)
     g.indptr = indptr.to(dev, torch.int64).contiguous()
     g.indices = indices.to(dev, torch.int32).contiguous()
+    if edge_ids is not None:
+      g._edge_ids = _edge_id_tensor(edge_ids, g.indices.numel(), dev)
     return g
 
   @classmethod
@@ -63,6 +73,17 @@ class Graph:
   @property
   def device(self) -> torch.device:
     return self.indptr.device
+
+  @property
+  def edge_ids(self) -> Optional[torch.Tensor]:
+    """``[E]`` int32 edge ids on the graph's device: the host
+    topology's, uploaded on first use, or those given to
+    `from_tensors`; None when there are none (a sampler then emits CSR
+    positions, as the JAX package does)."""
+    if self._edge_ids is None and self.csr_topo is not None:
+      self._edge_ids = _edge_id_tensor(self.csr_topo.edge_ids,
+                                       self.csr_topo.num_edges, self.device)
+    return self._edge_ids
 
   @property
   def num_nodes(self) -> int:
@@ -100,3 +121,19 @@ class Graph:
   def __repr__(self):
     return (f'Graph(num_nodes={self.num_nodes}, num_edges={self.num_edges}, '
             f'device={str(self.device)!r})')
+
+
+def _edge_id_tensor(edge_ids, num_edges: int, device) -> torch.Tensor:
+  """``[E]`` int32 ids on ``device``; ids past int32 raise (the
+  sampled ids are int32, as in the JAX package)."""
+  t = (edge_ids if isinstance(edge_ids, torch.Tensor)
+       else torch.from_numpy(np.ascontiguousarray(edge_ids)))
+  if t.shape != (num_edges,):
+    raise ValueError(f'edge_ids must hold one id per edge ({num_edges}), '
+                     f'got {tuple(t.shape)}')
+  if t.dtype != torch.int32:
+    if t.numel() and (int(t.max()) > torch.iinfo(torch.int32).max
+                      or int(t.min()) < 0):
+      raise ValueError('edge ids must lie in [0, 2**31)')
+    t = t.to(torch.int32)
+  return t.to(device).contiguous()

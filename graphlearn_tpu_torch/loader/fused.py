@@ -568,6 +568,16 @@ class FusedHeteroEpoch(_SupervisedEpoch):
         self._labels, node[self.input_type])
 
 
+def _homogeneous_pairs(edge_label_index):
+  """``(rows, cols)`` of homogeneous seed edges; seed edges of an edge
+  type raise ValueError."""
+  etype, rows, cols = as_edge_pairs(edge_label_index)
+  if etype is not None:
+    raise ValueError('FusedLinkEpoch is homogeneous-only: use '
+                     'LinkNeighborLoader for seed edges of an edge type')
+  return rows, cols
+
+
 class FusedLinkEpoch(_SupervisedEpoch):
   """Link-prediction (unsupervised) epochs (the JAX package's
   `FusedLinkEpoch`): each step draws the batch's negatives, samples the
@@ -627,7 +637,7 @@ class FusedLinkEpoch(_SupervisedEpoch):
           'FusedLinkEpoch over a tiered feature store is not ported yet (see '
           "the ROADMAP's slice catalogue, item 5): use split_ratio=1.0, or "
           'LinkNeighborLoader(prefetch=2)')
-    rows, cols = as_edge_pairs(edge_label_index)
+    rows, cols = _homogeneous_pairs(edge_label_index)
     batcher = EdgeSeedBatcher(rows, cols, edge_label, batch_size, shuffle,
                               drop_last, seed)
     self._init_driver(data, None, model, optimizer, batch_size, shuffle,
@@ -721,7 +731,7 @@ class FusedLinkEpoch(_SupervisedEpoch):
     Binary negative sampling only."""
     if not self.neg.is_binary():
       raise ValueError('evaluate() needs binary negative sampling')
-    rows, cols = as_edge_pairs(edge_label_index)
+    rows, cols = _homogeneous_pairs(edge_label_index)
     if len(np.asarray(rows)) == 0:
       raise ValueError('evaluate() got an empty split')
     seeds = np.stack([np.stack([r, c, np.ones_like(r)]) for r, c, _ in

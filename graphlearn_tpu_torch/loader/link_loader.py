@@ -7,9 +7,10 @@ As in JAX, binary negatives with user labels shift the labels up by
 one, so 0 means "sampled negative", on valid pair slots only (a padded
 slot keeps 0); the metadata names are PyG's (``edge_label_index`` /
 ``edge_label`` for binary, ``src_index`` / ``dst_pos_index`` /
-``dst_neg_index`` for triplet) plus the padding masks.  The loaders are
-homogeneous: seed edges of one edge type, ``(edge_type, (rows,
-cols))``, raise NotImplementedError.
+``dst_neg_index`` for triplet) plus the padding masks.  On a
+heterogeneous dataset the seed edges are of one edge type,
+``(edge_type, (rows, cols))``, sampled by `sampler.HeteroNeighborSampler`
+into a `HeteroBatch`.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..sampler.base import BaseSampler, EdgeSamplerInput, NegativeSampling
+from ..sampler.hetero_neighbor_sampler import HeteroNeighborSampler
 from ..sampler.neighbor_sampler import NeighborSampler
 from ..utils.padding import INVALID_ID
 from .node_loader import SeedBatcher
@@ -26,19 +28,19 @@ from .transform import Batch, collate
 
 
 def as_edge_pairs(edge_label_index):
-  """``(rows, cols)`` from a ``(rows, cols)`` pair or a ``[2, E]``
-  array; a heterogeneous ``(edge_type, (rows, cols))`` raises."""
+  """``(edge_type, rows, cols)`` from a ``(rows, cols)`` pair or a
+  ``[2, E]`` array (edge type None), or a heterogeneous ``(edge_type,
+  (rows, cols))``."""
+  etype = None
   if (isinstance(edge_label_index, tuple)
       and isinstance(edge_label_index[0], tuple)
       and len(edge_label_index[0]) == 3):
-    raise NotImplementedError(
-        'heterogeneous link loading is not ported yet: it is item 8 of the '
-        "ROADMAP's slice catalogue")
+    etype, edge_label_index = edge_label_index
   if isinstance(edge_label_index, (tuple, list)):
     rows, cols = edge_label_index
-    return rows, cols
+    return etype, rows, cols
   ei = np.asarray(edge_label_index)
-  return ei[0], ei[1]
+  return etype, ei[0], ei[1]
 
 
 def shift_binary_labels(rows, cols, labels):
@@ -83,7 +85,8 @@ class LinkLoader(PrefetchingLoader):
   Args:
     data: the `data.Dataset`.
     sampler: a sampler with ``sample_from_edges``.
-    edge_label_index: ``[2, E]`` or ``(rows, cols)`` seed edges.
+    edge_label_index: ``[2, E]`` or ``(rows, cols)`` seed edges;
+      ``(edge_type, (rows, cols))`` on a heterogeneous dataset.
     edge_label: optional ``[E]`` labels.
     neg_sampling: a `sampler.NegativeSampling`, a mode string or a
       ``(mode, amount)`` tuple.
@@ -99,7 +102,10 @@ class LinkLoader(PrefetchingLoader):
     self.data = data
     self.sampler = sampler
     self._prefetch_device = getattr(sampler, 'device', None)
-    rows, cols = as_edge_pairs(edge_label_index)
+    self.input_type, rows, cols = as_edge_pairs(edge_label_index)
+    if self.input_type is not None and not data.is_hetero:
+      raise ValueError(f'seed edges of edge type {self.input_type} need a '
+                       'heterogeneous dataset')
     self.neg_sampling = NegativeSampling.cast(neg_sampling)
     self._batcher = EdgeSeedBatcher(rows, cols, edge_label, batch_size,
                                     shuffle, drop_last, seed)
@@ -115,6 +121,7 @@ class LinkLoader(PrefetchingLoader):
       lab = shift_binary_labels(r, c, lab)
     return self._collate_fn(self.sampler.sample_from_edges(
         EdgeSamplerInput(row=r, col=c, label=lab,
+                         input_type=self.input_type,
                          neg_sampling=self.neg_sampling)))
 
   def _collate_fn(self, out) -> Batch:
@@ -124,7 +131,9 @@ class LinkLoader(PrefetchingLoader):
 class LinkNeighborLoader(LinkLoader):
   """A `LinkLoader` over a `sampler.NeighborSampler`: multi-hop uniform
   neighborhoods around every endpoint, the loader of unsupervised
-  GraphSAGE (BASELINE config 2).
+  GraphSAGE (BASELINE config 2); on a heterogeneous dataset over a
+  `sampler.HeteroNeighborSampler` with the dataset's node counts by
+  type (the negatives' id space), yielding `HeteroBatch` es.
 
   Example::
 
@@ -135,10 +144,21 @@ class LinkNeighborLoader(LinkLoader):
       for batch in loader:
         loss = step(batch)
 
+  On a bipartite graph::
+
+      loader = LinkNeighborLoader(ds, [8, 8], (('user', 'clicks', 'item'),
+                                               (users, items)),
+                                  neg_sampling='binary', batch_size=512)
+      for batch in loader:        # HeteroBatch
+        h = model(batch.x_dict, batch.edge_index_dict,
+                  batch.edge_mask_dict)
+
   Args:
-    num_neighbors: per-hop fanouts.
+    num_neighbors: per-hop fanouts (heterogeneous: one list for every
+      edge type, or ``{EdgeType: list}``).
+    with_edge: emit the sampled edges' ids and their features.
     draws / neg_draws: the sampler's draws providers
-      (`sampler.neighbor_sampler`).
+      (`sampler.neighbor_sampler`, `sampler.hetero_neighbor_sampler`).
     device: where sampling runs (default ``'cuda'``): the dataset's
       device.
     The rest as `LinkLoader`.
@@ -152,12 +172,15 @@ class LinkNeighborLoader(LinkLoader):
                neg_draws: Optional[Callable] = None, device='cuda',
                prefetch: int = 0):
     if data.is_hetero:
-      raise NotImplementedError(
-          'heterogeneous link loading is not ported yet: it is item 8 of the '
-          "ROADMAP's slice catalogue")
-    sampler = NeighborSampler(data.get_graph(), num_neighbors, device=device,
-                              with_edge=with_edge, seed=seed or 0,
-                              draws=draws, neg_draws=neg_draws)
+      sampler = HeteroNeighborSampler(
+          data.get_graph(), num_neighbors, device=device,
+          with_edge=with_edge, num_nodes=data.num_nodes_dict(),
+          seed=seed or 0, draws=draws, neg_draws=neg_draws)
+    else:
+      sampler = NeighborSampler(data.get_graph(), num_neighbors,
+                                device=device, with_edge=with_edge,
+                                seed=seed or 0, draws=draws,
+                                neg_draws=neg_draws)
     super().__init__(data, sampler, edge_label_index, edge_label,
                      neg_sampling, batch_size, shuffle, drop_last, seed,
                      prefetch)

@@ -36,6 +36,9 @@ class NeighborLoader(NodeLoader):
       edge type, or ``{EdgeType: list}``).
     input_nodes: seed ids (or a boolean mask); ``(node_type, ids)`` on
       a heterogeneous dataset.
+    with_edge: emit the sampled edges' ids (``Batch.edge``) and, where
+      the dataset has edge features, their rows (``edge_attr``; on a
+      heterogeneous dataset ``edge_attr_dict`` by emitted edge type).
     seed: seeds the shuffle and the default draws provider.
     draws: the sampler's draws provider (`sampler.neighbor_sampler`,
       `sampler.hetero_neighbor_sampler`).

@@ -26,6 +26,8 @@ class SubGraphLoader(NodeLoader):
     data: a homogeneous `data.Dataset` on ``device``.
     num_neighbors: per-hop fanouts bounding the closure.
     input_nodes: seed ids.
+    with_edge: the induced edges' ids (``Batch.edge``) and, where the
+      dataset has edge features, their rows (``edge_attr``).
     max_degree: a cap on each node's neighbor window in the induced-edge
       scan (default the graph's maximum degree: exact).
     draws: the sampler's draws provider (`sampler.neighbor_sampler`).

@@ -19,7 +19,9 @@ class Batch:
     y: ``[node_cap]`` node labels (0 where padded) or None.
     edge_index: ``[2, edge_cap]`` local COO, -1 where masked; row 0 is
       the sampled neighbor (message source), row 1 the target.
-    edge_attr: edge features or None (not ported).
+    edge_attr: ``[edge_cap, F]`` edge features (zero rows where masked)
+      when the sampler emitted edge ids and the dataset has an edge
+      table, else None.
     node: ``[node_cap]`` global node ids (-1 padded); node_mask its
       validity; edge_mask: ``[edge_cap]`` edge validity.
     edge: global edge ids or None.
@@ -67,7 +69,9 @@ class HeteroBatch:
     edge_index_dict / edge_mask_dict: ``{EdgeType: [2, edge_cap]}``
       local COO under the reversed edge type (row 0 indexes the message
       source's type) and its validity.
-    edge_attr_dict: edge features (not ported; empty).
+    edge_attr_dict: ``{EdgeType: [edge_cap, F]}`` edge features of the
+      emitted edge types whose table the dataset holds under that (the
+      emitted, reversed) type, when the sampler emitted edge ids.
     node_dict / node_mask_dict: ``{NodeType: [cap]}`` global ids (-1
       padded) and their validity.
     batch_dict: ``{NodeType: [B]}`` seed ids; batch_size the static
@@ -110,15 +114,21 @@ def _gather_labels(labels: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                             device=out.device))
 
 
-def to_data(out, node_feature=None, node_label=None) -> Batch:
+def to_data(out, node_feature=None, node_label=None,
+            edge_feature=None) -> Batch:
   """A `Batch` from a `sampler.SamplerOutput`: ``x`` from the feature
   store by the sampled ids (`data.Feature.get`, the row gather kernel on
-  the card), ``y`` by `_gather_labels`; the sampler's metadata is
-  forwarded."""
+  the card), ``y`` by `_gather_labels`, ``edge_attr`` from the edge
+  store by the sampled edge ids (the same gather; -1 ids give zero
+  rows); the sampler's metadata is forwarded."""
   x = node_feature.get(out.node) if node_feature is not None else None
   y = (_gather_labels(node_label, out.node) if node_label is not None
        else None)
+  edge_attr = None
+  if edge_feature is not None and out.edge is not None:
+    edge_attr = edge_feature.get(out.edge)
   return Batch(x=x, y=y, edge_index=torch.stack([out.row, out.col]),
+               edge_attr=edge_attr,
                node=out.node, node_mask=out.node >= 0,
                edge_mask=out.edge_mask, edge=out.edge, batch=out.batch,
                batch_size=out.batch_size,
@@ -128,23 +138,33 @@ def to_data(out, node_feature=None, node_label=None) -> Batch:
 
 
 def to_hetero_data(out: HeteroSamplerOutput, node_feature_dict=None,
-                   node_label_dict=None) -> HeteroBatch:
+                   node_label_dict=None,
+                   edge_feature_dict=None) -> HeteroBatch:
   """A `HeteroBatch` from a `sampler.HeteroSamplerOutput`: each type's
   ``x`` from its feature store (`data.Feature.get`, the row gather
-  kernel on the card), ``y`` by `_gather_labels`; the sampler's
-  metadata is forwarded."""
+  kernel on the card), ``y`` by `_gather_labels`, and each emitted edge
+  type's ``edge_attr`` from the edge store kept under that emitted
+  (reversed) type, as the JAX package looks it up: a table kept under
+  the forward type is not read.  The sampler's metadata is
+  forwarded."""
   x_dict, y_dict = {}, {}
   for ntype, ids in out.node.items():
     if node_feature_dict and ntype in node_feature_dict:
       x_dict[ntype] = node_feature_dict[ntype].get(ids)
     if node_label_dict and node_label_dict.get(ntype) is not None:
       y_dict[ntype] = _gather_labels(node_label_dict[ntype], ids)
+  edge_attr_dict = {}
+  if edge_feature_dict and out.edge is not None:
+    edge_attr_dict = {et: edge_feature_dict[et].get(out.edge[et])
+                      for et in out.row
+                      if et in edge_feature_dict and et in out.edge}
   batch_size = max((int(v.shape[0]) for v in (out.batch or {}).values()),
                    default=0)
   return HeteroBatch(
       x_dict=x_dict, y_dict=y_dict,
       edge_index_dict={et: torch.stack([out.row[et], out.col[et]])
                        for et in out.row},
+      edge_attr_dict=edge_attr_dict,
       node_dict=dict(out.node),
       node_mask_dict={nt: ids >= 0 for nt, ids in out.node.items()},
       edge_mask_dict=dict(out.edge_mask or {}),
@@ -163,7 +183,10 @@ def collate(data, out):
                 for nt in data.node_labels}
     feats = (data.node_features if isinstance(data.node_features, dict)
              else None)
+    efeats = (data.edge_features if isinstance(data.edge_features, dict)
+              else None)
     return to_hetero_data(out, node_feature_dict=feats,
-                          node_label_dict=labels)
+                          node_label_dict=labels, edge_feature_dict=efeats)
   return to_data(out, node_feature=data.node_features,
-                 node_label=data.get_node_label_device())
+                 node_label=data.get_node_label_device(),
+                 edge_feature=data.get_edge_feature())

@@ -1,6 +1,7 @@
-"""Heterogeneous GNNs over `HeteroBatch` dicts: `HeteroConv`, `RGCN`,
-`HGTConv` and `HGT` (the JAX package's `models/hetero.py:32-290`), and
-`rgcn_from_flax` / `hgt_from_flax`, which carry a Flax model's
+"""Heterogeneous GNNs over `HeteroBatch` dicts: `HeteroConv` (its RGCN
+mode and its factory mode), `RGCN`, `HGTConv` and `HGT` (the JAX
+package's `models/hetero.py:21-290`), and `rgcn_from_flax` /
+`hgt_from_flax` / `hetero_conv_from_flax`, which carry a Flax model's
 parameters into these modules.
 
 ``edge_index_dict[(a, rel, b)][0]`` indexes type-``a`` nodes (message
@@ -18,6 +19,7 @@ in f32.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -75,44 +77,77 @@ class _Resettable(nn.Module):
 
 
 class HeteroConv(_Resettable):
-  """Per-edge-type linear messages, mean-aggregated into each target
-  and summed (``aggr='sum'``) or averaged (``'mean'``) across edge
-  types, plus a per-type self term — the RGCN layer.
+  """A convolution per edge type, aggregated into each target type and
+  summed (``aggr='sum'``) or averaged (``'mean'``) across edge types.
+
+  Two modes, as in JAX:
+
+  * default: per-edge-type linear messages (``lin_{etype}``),
+    mean-aggregated, plus a per-type self term (``lin_self_{nt}``) —
+    the RGCN layer;
+  * ``make_conv``: each edge type gets a fresh homogeneous conv,
+    ``make_conv(in_features, out_features)`` (``conv_{etype}``; e.g.
+    `SAGEConv`), run on the bipartite pair by concatenating ``[x_dst;
+    x_src]`` and shifting the source ids by the target count (a
+    relation within one type runs directly), with no extra self term;
+    a type no edge type targets gets ``lin_self_{nt}``.  The factory
+    must give a torch module: `GATConv`, and with it JAX's RGAT
+    factory, is not ported (ROADMAP slice catalogue item 4).
 
   An edge type whose endpoint types both have inputs but which is
-  absent from a batch runs on an empty edge set (its weight gets a zero
-  gradient, as in JAX).  ``make_conv`` (a factory of homogeneous convs,
-  JAX's RGAT mode) needs `GATConv`, which is not ported.
+  absent from a batch runs on an empty edge set (its weights get a zero
+  gradient, as in JAX).
 
   Args:
     etypes: the edge types to convolve.
     in_features: input width, one for every node type of ``etypes`` or
-      ``{NodeType: width}`` (the types with inputs).
+      ``{NodeType: width}`` (the types with inputs); factory mode needs
+      equal widths on both ends of each edge type.
     out_features: per-type output width.
+    dtype: the RGCN mode's compute dtype (factory mode: set it in the
+      factory's convs).
   """
 
   def __init__(self, etypes: Sequence[EdgeType], in_features: InFeatures,
                out_features: int, aggr: str = 'sum', make_conv=None,
                dtype: Optional[torch.dtype] = None):
     super().__init__()
-    if make_conv is not None:
-      raise NotImplementedError(
-          'HeteroConv(make_conv=...) builds its per-edge-type convs from '
-          'a factory such as GATConv, which is not ported yet (slice 4 of '
-          'the ROADMAP)')
     if aggr not in ('sum', 'mean'):
       raise ValueError(f"aggr must be 'sum' or 'mean', got {aggr!r}")
+    if make_conv is not None and dtype is not None:
+      raise ValueError('HeteroConv(make_conv=..., dtype=...): set the '
+                       'compute dtype inside the factory instead')
     self.etypes = tuple(tuple(et) for et in etypes)
     self.aggr = aggr
     self.dtype = dtype
+    self.factory = make_conv is not None
     dims = _in_dims(in_features, _ntypes(self.etypes))
     self.ntypes = tuple(dims)
+    targets = set()
     for et in self.etypes:
-      if et[0] in dims and et[2] in dims:
+      a, _, b = et
+      if a not in dims or b not in dims:
+        continue
+      targets.add(b)
+      if not self.factory:
         self.add_module(f'lin_{as_str(et)}',
-                        nn.Linear(dims[et[0]], out_features, bias=False))
+                        nn.Linear(dims[a], out_features, bias=False))
+        continue
+      if dims[a] != dims[b]:
+        raise ValueError(
+            f'HeteroConv(make_conv=...) needs equal feature widths for '
+            f'{et}: {dims[a]} vs {dims[b]} — project per-type inputs first')
+      conv = make_conv(dims[a], out_features)
+      if not isinstance(conv, nn.Module):
+        raise NotImplementedError(
+            f'make_conv gave a {type(conv).__name__}, not a torch module: '
+            'the port\'s factories are its convs (SAGEConv, GCNConv); '
+            'GATConv, and with it the RGAT factory, is not ported yet '
+            '(ROADMAP slice catalogue item 4)')
+      self.add_module(f'conv_{as_str(et)}', conv)
     for nt, d in dims.items():
-      self.add_module(f'lin_self_{nt}', nn.Linear(d, out_features))
+      if not self.factory or nt not in targets:
+        self.add_module(f'lin_self_{nt}', nn.Linear(d, out_features))
 
   def forward(self, x_dict, edge_index_dict, edge_mask_dict=None):
     out, counts = {}, {}
@@ -128,19 +163,31 @@ class HeteroConv(_Resettable):
         ei = torch.zeros((2, 0), dtype=torch.int32, device=xa.device)
         em = torch.zeros(0, dtype=torch.bool, device=xa.device)
       na, nb = xa.shape[0], x_dict[b].shape[0]
-      src = ei[0].long().clamp(0, na - 1)
-      msg = _dense(getattr(self, f'lin_{as_str(et)}'),
-                   torch.index_select(xa, 0, src), self.dtype)
-      agg = segment_mean(msg, ei[1], nb, em)
+      if self.factory:
+        conv = getattr(self, f'conv_{as_str(et)}')
+        if a == b:
+          agg = conv(xa, ei, em)
+        else:
+          src = ei[0].clamp(0, na - 1) + nb
+          agg = conv(torch.cat([x_dict[b], xa]),
+                     torch.stack([src.to(ei.dtype), ei[1]]), em)[:nb]
+      else:
+        src = ei[0].long().clamp(0, na - 1)
+        msg = _dense(getattr(self, f'lin_{as_str(et)}'),
+                     torch.index_select(xa, 0, src), self.dtype)
+        agg = segment_mean(msg, ei[1], nb, em)
       out[b] = agg if b not in out else out[b] + agg
       counts[b] = counts.get(b, 0) + 1
     res = {}
     for nt, x in x_dict.items():
-      h = _dense(getattr(self, f'lin_self_{nt}'), x, self.dtype)
+      agg = None
       if nt in out:
         agg = out[nt] / counts[nt] if self.aggr == 'mean' else out[nt]
-        h = h + agg
-      res[nt] = h
+      if self.factory and agg is not None:
+        res[nt] = agg
+        continue
+      h = _dense(getattr(self, f'lin_self_{nt}'), x, self.dtype)
+      res[nt] = h if agg is None else h + agg
     return res
 
 
@@ -370,6 +417,16 @@ def _flax_state_dict(params) -> Dict[str, torch.Tensor]:
 def rgcn_from_flax(params) -> Dict[str, torch.Tensor]:
   """A Flax `RGCN` param tree -> an `RGCN` state dict."""
   return _flax_state_dict(params)
+
+
+def hetero_conv_from_flax(params) -> Dict[str, torch.Tensor]:
+  """A Flax param tree of `HeteroConv(make_conv=...)` layers (alone or
+  in a model, e.g. the bipartite example's ``BiSAGE``) -> a state dict
+  of the port's factory-mode `HeteroConv`: each ``conv_{etype}``
+  scope's one factory-made conv (Flax names it ``SAGEConv_0``) becomes
+  the port's ``conv_{etype}`` itself."""
+  return {re.sub(r'(^|\.)(conv_[^.]+)\.[A-Za-z]\w*_0\.', r'\1\2.', k): v
+          for k, v in _flax_state_dict(params).items()}
 
 
 def hgt_from_flax(params) -> Dict[str, torch.Tensor]:

@@ -5,7 +5,9 @@ CUDA graph draws anew on every replay) and the default provider of the
 per-batch samplers and the eager fused mesh epochs (`TorchDraws`).
 Beside the uniform and Gumbel streams of the one-hop sampler, the two
 providers draw the negative samplers' candidates: ``[trials, R]`` int32
-ids uniform in ``[0, high)`` (`ops.negative.sample_negative`).
+ids uniform in ``[0, high)`` (`ops.negative.sample_negative`), and one
+int32 id a row below that row's own bound (`row_ints`, the random
+walks' next-hop draw; `WalkDraws` gives a walk its streams).
 
 The JAX serving engine keys each seed's tree with threefry
 (``fold_in(key(engine_seed), node)``, then ``fold_in(·, hop)`` and
@@ -38,6 +40,7 @@ _STREAM_U = 0x5555
 _STREAM_GUMBEL = 0xAAAA
 _STREAM_V = 0x3333
 _STREAM_INT = 0x6666
+_STREAM_ROW_INT = 0x9999
 
 
 def _mix(x: torch.Tensor) -> torch.Tensor:
@@ -160,6 +163,14 @@ class CounterDraws:
     return self.ints((epoch, 0 if chunk is None else chunk, step, stream),
                      trials, r, high)
 
+  def row_ints(self, coords, high: torch.Tensor) -> torch.Tensor:
+    """``[R]`` int32 ids, row ``p`` in ``[0, high[p])`` (``high`` a
+    ``[R]`` tensor of bounds in ``[1, 2**31]``): a 32-bit hash ``h`` of
+    (key, row) mapped by ``(h * high) >> 32``."""
+    p = torch.arange(high.shape[0], dtype=torch.int64, device=self.device)
+    h = _mix(_mix(self.key(coords) ^ p) ^ _STREAM_ROW_INT)
+    return ((h * high.to(self.device, torch.int64)) >> 32).to(torch.int32)
+
 
 class TorchDraws:
   """The training samplers' default draws provider: a `torch.Generator`
@@ -225,3 +236,36 @@ class TorchDraws:
     gen.manual_seed(self._mixed((step, -1 - int(stream))) & ((1 << 63) - 1))
     return torch.randint(0, int(high), (trials, r), generator=gen,
                          device=self.device, dtype=torch.int32)
+
+  def row_ints(self, coords: Sequence[int],
+               high: torch.Tensor) -> torch.Tensor:
+    """``[R]`` int32 ids, row ``p`` in ``[0, high[p])`` (bounds in
+    ``[1, 2**31]``): 32 random bits ``h`` a row, mapped by ``(h * high)
+    >> 32``, from a generator seeded at ``(*coords, -1)``, coordinates
+    no other draw uses."""
+    gen = torch.Generator(device=self.device)
+    gen.manual_seed(self._mixed(tuple(coords) + (-1,)) & ((1 << 63) - 1))
+    h = torch.randint(0, 1 << 32, (high.shape[0],), generator=gen,
+                      device=self.device, dtype=torch.int64)
+    return ((h * high.to(self.device, torch.int64)) >> 32).to(torch.int32)
+
+
+class WalkDraws:
+  """The random walks' draws at walk step ``t`` (`ops.random_walk`),
+  from a `CounterDraws` or `TorchDraws`: ``ints(t, high)``, the ``[B]``
+  next-hop offsets (row ``p`` in ``[0, high[p])``, at coordinates ``(t,
+  0)``); ``uniform(t, b)``, the ``[B]`` f32 restart draws (``(t, 1)``);
+  ``gumbel(t, b, w)``, node2vec's ``[B, w]`` Gumbel noise (``(t,
+  2)``)."""
+
+  def __init__(self, base):
+    self.base = base
+
+  def ints(self, step, high: torch.Tensor) -> torch.Tensor:
+    return self.base.row_ints((step, 0), high)
+
+  def uniform(self, step, b: int) -> torch.Tensor:
+    return self.base.draw((step, 1), b, 1, 1)[0][:, 0]
+
+  def gumbel(self, step, b: int, w: int) -> torch.Tensor:
+    return self.base.draw((step, 2), b, 1, w)[1]

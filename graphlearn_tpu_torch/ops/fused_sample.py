@@ -26,7 +26,8 @@ import torch
 from .. import _build
 from .gns import bits_rows, bits_table, sample_one_hop_gns
 from .launches import counted
-from .neighbor import OneHopResult, default_window, sample_one_hop
+from .neighbor import (OneHopResult, check_edge_ids, default_window,
+                       sample_one_hop)
 
 #: the kernels keep a row's window in shared memory
 MAX_WINDOW = 256
@@ -34,7 +35,7 @@ MAX_WINDOW = 256
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGTYPES = (_P, _LL, _P, _LL, _P, _LL, _P, _P, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P)
+             _P, _P, _P, _P, _P)
 _GNS_ARGTYPES = (_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _LL, _P,
                  ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P)
 
@@ -66,18 +67,22 @@ def _sorted(seeds: torch.Tensor, run: Callable, per_row) -> OneHopResult:
     return None if t is None else torch.empty_like(t).index_copy_(0, order,
                                                                    t)
   return OneHopResult(nbrs=back(res.nbrs), mask=back(res.mask),
-                      weights=back(res.weights))
+                      eids=back(res.eids), weights=back(res.weights))
 
 
 def sample_one_hop_fused(indptr: torch.Tensor, indices: torch.Tensor,
                          seeds: torch.Tensor, k: int, u: torch.Tensor,
                          gumbel: torch.Tensor,
-                         sort_locality: bool = False) -> OneHopResult:
+                         sort_locality: bool = False,
+                         edge_ids: Optional[torch.Tensor] = None,
+                         with_edge_ids: bool = False) -> OneHopResult:
   """`ops.neighbor.sample_one_hop` through the CUDA kernel.
 
   On CUDA: ``indptr`` int64, ``indices`` int32, ``seeds`` int32,
-  ``u``/``gumbel`` f32, all contiguous on one device; ``k <= w <= 256``.
-  Launches on the current stream without synchronising.
+  ``u``/``gumbel`` f32, ``edge_ids`` (optional) int32, all contiguous on
+  one device; ``k <= w <= 256``.  With ``with_edge_ids`` the kernel
+  also writes ``eids`` (``edge_ids`` at each slot's position, or the
+  position).  Launches on the current stream without synchronising.
   """
   if gumbel.ndim != 2 or u.ndim != 2:
     raise ValueError('u must be [B, k] and gumbel [B, w]')
@@ -90,36 +95,49 @@ def sample_one_hop_fused(indptr: torch.Tensor, indices: torch.Tensor,
   if dev.type not in ('cpu', 'cuda'):
     raise ValueError(f'sample_one_hop_fused runs on cpu or cuda, not {dev}')
 
+  check_edge_ids(indices.numel(), edge_ids, with_edge_ids)
+  if not with_edge_ids:
+    edge_ids = None
+
   def run(s):
     if dev.type == 'cpu':
-      return sample_one_hop(indptr, indices, s, k, u, gumbel)
-    return _launch_uniform(indptr, indices, s, k, u, gumbel, w)
+      return sample_one_hop(indptr, indices, s, k, u, gumbel, edge_ids,
+                            with_edge_ids)
+    return _launch_uniform(indptr, indices, s, k, u, gumbel, w, edge_ids,
+                           with_edge_ids)
 
   if sort_locality and b > 1:
     return _sorted(seeds, run, ())
   return run(seeds)
 
 
-def _launch_uniform(indptr, indices, seeds, k, u, gumbel, w):
+def _launch_uniform(indptr, indices, seeds, k, u, gumbel, w, edge_ids=None,
+                    with_edge_ids=False):
   dev = seeds.device
   _check_cuda(dev, (('indptr', indptr, torch.int64),
                     ('indices', indices, torch.int32),
                     ('seeds', seeds, torch.int32),
                     ('u', u, torch.float32),
-                    ('gumbel', gumbel, torch.float32)))
+                    ('gumbel', gumbel, torch.float32))
+              + ((('edge_ids', edge_ids, torch.int32),)
+                 if edge_ids is not None else ()))
   b = seeds.shape[0]
   nbrs = torch.empty((b, k), dtype=torch.int32, device=dev)
   mask = torch.empty((b, k), dtype=torch.bool, device=dev)
+  eids = (torch.empty((b, k), dtype=torch.int32, device=dev)
+          if with_edge_ids else None)
   if b == 0:
-    return OneHopResult(nbrs=nbrs, mask=mask)
+    return OneHopResult(nbrs=nbrs, mask=mask, eids=eids)
   fn = _build.kernel('sample_one_hop', 'glt_sample_one_hop', _ARGTYPES)
   err = fn(indptr.data_ptr(), indptr.numel() - 1, indices.data_ptr(),
            indices.numel(), seeds.data_ptr(), b, u.data_ptr(),
            gumbel.data_ptr(), k, w, nbrs.data_ptr(), mask.data_ptr(),
+           None if edge_ids is None else edge_ids.data_ptr(),
+           None if eids is None else eids.data_ptr(),
            torch.cuda.current_stream(dev).cuda_stream)
   _build.check(err, 'sample_one_hop')
   sample_one_hop_fused.launches += 1
-  return OneHopResult(nbrs=nbrs, mask=mask)
+  return OneHopResult(nbrs=nbrs, mask=mask, eids=eids)
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)

@@ -102,12 +102,15 @@ def sample_negative(indptr: torch.Tensor, indices: torch.Tensor,
 
 def triplet_negatives(indptr: torch.Tensor, indices: torch.Tensor,
                       src: torch.Tensor, candidates: Candidates,
-                      amount: int) -> torch.Tensor:
+                      amount: int,
+                      num_nodes: Optional[int] = None) -> torch.Tensor:
   """``[B, amount]`` negative destinations per source: each slot's first
-  of 5 candidates (stream 0, ``[0, N)``) that is not an edge from its
-  source, or the last (the JAX package's `_triplet_neg_dst`)."""
+  of 5 candidates (stream 0, ``[0, num_nodes)``, default N) that is not
+  an edge from its source, or the last (the JAX package's
+  `_triplet_neg_dst`)."""
   b, trials = src.shape[0], 5
-  cand = candidates(0, trials, b * amount, indptr.shape[0] - 1)
+  cand = candidates(0, trials, b * amount,
+                    indptr.shape[0] - 1 if num_nodes is None else num_nodes)
   rows = src.repeat_interleave(amount)[None].expand(trials, -1)
   exists = edge_in_csr(indptr, indices, rows.reshape(-1),
                        cand.reshape(-1)).reshape(trials, b * amount)

@@ -84,7 +84,8 @@ class SamplerOutput:
     row / col: ``[edge_capacity]`` local COO, -1 where masked; emitted
       transposed for message passing (``row`` the neighbor, ``col`` the
       seed side).
-    edge: global edge ids or None (``with_edge`` is not ported).
+    edge: ``[edge_capacity]`` int32 global edge ids (-1 where masked)
+      with ``with_edge``, else None.
     edge_mask: ``[edge_capacity]`` validity.
     batch: ``[B]`` seed ids, -1-padded.
     num_sampled_nodes / num_sampled_edges: int32 per-hop counts.
@@ -127,12 +128,15 @@ class HeteroSamplerOutput:
     row / col / edge_mask: ``{EdgeType: [edge_cap]}`` local COO under
       the REVERSED edge type: ``row`` indexes the neighbor's type (the
       message source), ``col`` the seed side's; -1 where masked.
-    edge: global edge ids or None (``with_edge`` is not ported).
+    edge: ``{EdgeType: [edge_cap]}`` int32 global edge ids (-1 where
+      masked) under the reversed edge types with ``with_edge``, else
+      None.
     batch: ``{NodeType: [B]}`` seed ids of the seeded types.
     num_sampled_nodes: ``{NodeType: [hops + 1]}`` int32 new nodes a hop.
     edge_types: the declared (reversed) edge types, empty ones included.
-    metadata: ``seed_local`` (the seeds' local indices) and
-      ``input_type``.
+    metadata: ``seed_local`` (the seeds' local indices; a dict by type
+      for a link sample) and ``input_type``; a link sample adds its label
+      indices (`HeteroNeighborSampler.sample_from_edges`).
   """
 
   def __init__(self, node, node_count, row, col, edge=None, edge_mask=None,

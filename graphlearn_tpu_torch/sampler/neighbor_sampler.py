@@ -12,6 +12,12 @@ hop's insertion sorts the current capacity plus the hop's ``F * k`` new
 slots, not the final bound, and the table is padded to ``node_cap`` at
 the end.
 
+With ``with_edge`` each hop's kernel also emits the sampled edges' ids
+(the graph's ``edge_ids`` at the slots' CSR positions, or the
+positions; `ops.fused_sample`), kept where the inserted edge is valid:
+``SamplerOutput.edge`` lines up with ``row``/``col``.  The draws do not
+change with it.
+
 Random numbers come from a ``draws(step, hop, rows, k, w) -> (u [rows,
 k], gumbel [rows, w])`` provider, where ``step`` counts the sampler's
 steps from 1, ``rows`` is the hop's frontier width (``B``, ``B*k_1``,
@@ -41,7 +47,7 @@ from ..ops.neighbor import default_window
 from ..ops.subgraph import induced_subgraph
 from ..ops.unique import InducerState, expand_hops
 from ..utils.device import resolve_device
-from ..utils.padding import max_sampled_nodes, round_up
+from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from .base import (BaseSampler, EdgeSamplerInput, NegativeSampling,
                    NodeSamplerInput, SamplerOutput)
 
@@ -52,13 +58,20 @@ NegDraws = Callable[[int, int, int, int, int], torch.Tensor]
 
 def _multihop_sample(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, fanouts: Sequence[int],
-                     node_cap: int, draws: Draws, step: int
-                     ) -> SamplerOutput:
-  """One multi-hop sample of ``[B]`` int32 seeds (-1 padded)."""
+                     node_cap: int, draws: Draws, step: int,
+                     edge_ids: Optional[torch.Tensor] = None,
+                     with_edge: bool = False) -> SamplerOutput:
+  """One multi-hop sample of ``[B]`` int32 seeds (-1 padded); with
+  ``with_edge`` the output's ``edge`` holds each valid edge's id."""
+  eids_acc = []
+
   def one_hop(hop, frontier, k):
     u, gumbel = draws(step, hop, frontier.shape[1], k, default_window(k))
     res = sample_one_hop_fused(indptr, indices, frontier[0], k, u, gumbel,
-                               sort_locality=True)
+                               sort_locality=True, edge_ids=edge_ids,
+                               with_edge_ids=with_edge)
+    if with_edge:
+      eids_acc.append(res.eids.reshape(-1))
     return res.nbrs[None], res.mask[None]
 
   state, seed_local, rows_acc, cols_acc, nsn = expand_hops(
@@ -72,10 +85,36 @@ def _multihop_sample(indptr: torch.Tensor, indices: torch.Tensor,
   col = torch.cat(cols_acc) if cols_acc else empty
   nse = (torch.stack([(r >= 0).sum() for r in rows_acc]).to(torch.int32)
          if rows_acc else empty)
+  edge = None
+  if with_edge:
+    edge = (torch.cat([torch.where(r >= 0, e, INVALID_ID)
+                       for r, e in zip(rows_acc, eids_acc)])
+            if rows_acc else empty)
   return SamplerOutput(node=state.nodes, node_count=state.count, row=row,
-                       col=col, edge_mask=row >= 0, batch=seeds,
+                       col=col, edge=edge, edge_mask=row >= 0, batch=seeds,
                        num_sampled_nodes=nsn, num_sampled_edges=nse,
                        metadata={'seed_local': seed_local})
+
+
+def link_negatives(indptr: torch.Tensor, indices: torch.Tensor,
+                   src: torch.Tensor, neg: Optional[NegativeSampling],
+                   candidates: Candidates,
+                   num_cols: Optional[int] = None) -> list:
+  """A link batch's negative seeds: with binary negatives ``[rows,
+  cols]`` of ``ceil(amount * B)`` strict non-edges, with triplet ones
+  ``[dst]``, ``ceil(amount)`` destinations per source flattened, else
+  ``[]``.  Columns and destinations are drawn in ``[0, num_cols)``
+  (default N; a bipartite edge type's destination type)."""
+  if neg is None:
+    return []
+  if neg.is_binary():
+    res = sample_negative(indptr, indices, neg.sample_size(src.shape[0]),
+                          candidates, strict=True, padding=True,
+                          num_cols=num_cols)
+    return [res.rows, res.cols]
+  return [triplet_negatives(indptr, indices, src, candidates,
+                            int(np.ceil(float(neg.amount))),
+                            num_nodes=num_cols).reshape(-1)]
 
 
 def link_seeds(indptr: torch.Tensor, indices: torch.Tensor,
@@ -85,16 +124,8 @@ def link_seeds(indptr: torch.Tensor, indices: torch.Tensor,
   """The seeds of a link batch: ``[src, dst]``, then with binary
   negatives ``ceil(amount * B)`` strict non-edge rows and their columns,
   with triplet negatives ``ceil(amount)`` destinations per source."""
-  parts = [src, dst]
-  if neg is not None and neg.is_binary():
-    res = sample_negative(indptr, indices, neg.sample_size(src.shape[0]),
-                          candidates, strict=True, padding=True)
-    parts += [res.rows, res.cols]
-  elif neg is not None:
-    parts.append(triplet_negatives(
-        indptr, indices, src, candidates,
-        int(np.ceil(float(neg.amount)))).reshape(-1))
-  return torch.cat(parts)
+  return torch.cat([src, dst] + link_negatives(indptr, indices, src, neg,
+                                               candidates))
 
 
 def link_metadata(seed_local: torch.Tensor, src: torch.Tensor,
@@ -127,6 +158,14 @@ def link_metadata(seed_local: torch.Tensor, src: torch.Tensor,
       'seed_local': sl}
 
 
+def as_ids(ids, device) -> torch.Tensor:
+  """Seed ids (a tensor or anything numpy takes) as int32 on
+  ``device``."""
+  if isinstance(ids, torch.Tensor):
+    return ids.to(device, torch.int32)
+  return torch.from_numpy(np.asarray(ids, dtype=np.int32)).to(device)
+
+
 def _as_labels(label, device) -> Optional[torch.Tensor]:
   """Edge labels on ``device`` in the JAX package's dtypes (64-bit
   integers and floats narrowed to 32 bits)."""
@@ -149,8 +188,8 @@ class NeighborSampler(BaseSampler):
     num_neighbors: per-hop fanouts, e.g. ``[15, 10, 5]``.
     device: where the sampler runs (default ``'cuda'``); must be the
       graph's device.
-    with_edge: global edge ids on sampled edges — not ported (ROADMAP
-      slice catalogue item 3).
+    with_edge: emit the sampled edges' global ids (``edge``): the
+      graph's ``edge_ids``, or CSR positions where it has none.
     seed: seeds the default draws providers.
     draws / neg_draws: the hop and the negative-candidate draws
       providers (module docstring).
@@ -164,11 +203,8 @@ class NeighborSampler(BaseSampler):
     if graph.device != self.device:
       raise ValueError(f'the graph lives on {graph.device}, the sampler '
                        f'on {self.device}')
-    if with_edge:
-      raise NotImplementedError('with_edge (sampled edge ids) is not '
-                                'ported yet: it is item 3 of the ROADMAP\'s '
-                                'slice catalogue')
     self.graph = graph
+    self.with_edge = bool(with_edge)
     self.num_neighbors = tuple(int(k) for k in num_neighbors)
     default = TorchDraws(seed, self.device)
     self.draws = draws if draws is not None else default
@@ -181,23 +217,23 @@ class NeighborSampler(BaseSampler):
     return round_up(cap, 8)
 
   def _ids(self, ids) -> torch.Tensor:
-    if isinstance(ids, torch.Tensor):
-      return ids.to(self.device, torch.int32)
-    return torch.from_numpy(np.asarray(ids, dtype=np.int32)).to(self.device)
+    return as_ids(ids, self.device)
 
-  def _closure(self, seeds: torch.Tensor) -> SamplerOutput:
+  def _closure(self, seeds: torch.Tensor, with_edge: bool) -> SamplerOutput:
     self._step += 1
     return _multihop_sample(self.graph.indptr, self.graph.indices, seeds,
                             self.num_neighbors,
                             self.node_capacity(seeds.shape[0]), self.draws,
-                            self._step)
+                            self._step,
+                            self.graph.edge_ids if with_edge else None,
+                            with_edge)
 
   def sample_from_nodes(self, inputs: NodeSamplerInput,
                         **kwargs) -> SamplerOutput:
     """Sample the multi-hop neighborhood of ``inputs.node`` (``[B]``
     ids, -1 padded).  Enqueues on the card and returns without
     synchronising."""
-    return self._closure(self._ids(inputs.node))
+    return self._closure(self._ids(inputs.node), self.with_edge)
 
   def sample_from_edges(self, inputs: EdgeSamplerInput,
                         neg_sampling: Optional[NegativeSampling] = None,
@@ -207,9 +243,8 @@ class NeighborSampler(BaseSampler):
     the seeds of `link_seeds` through `sample_from_nodes`, the metadata
     of `link_metadata`.  Takes two steps (module docstring)."""
     if inputs.input_type is not None:
-      raise NotImplementedError(
-          'heterogeneous link sampling is not ported yet: it is item 8 of '
-          'the ROADMAP\'s slice catalogue')
+      raise ValueError('seed edges of an edge type need a '
+                       'HeteroNeighborSampler over a heterogeneous graph')
     neg = NegativeSampling.cast(neg_sampling) or inputs.neg_sampling
     src, dst = self._ids(inputs.row), self._ids(inputs.col)
     self._step += 1
@@ -219,7 +254,7 @@ class NeighborSampler(BaseSampler):
       return self.neg_draws(step, stream, trials, r, high)
     seeds = link_seeds(self.graph.indptr, self.graph.indices, src, dst, neg,
                        candidates)
-    out = self._closure(seeds)
+    out = self._closure(seeds, self.with_edge)
     out.metadata = link_metadata(out.metadata['seed_local'], src, dst,
                                  _as_labels(inputs.label, self.device), neg)
     return out
@@ -230,16 +265,22 @@ class NeighborSampler(BaseSampler):
     the closure's nodes (`ops.subgraph.induced_subgraph`), for SEAL's
     enclosing subgraphs.  ``max_degree`` caps each node's neighbor
     window (default the graph's maximum degree: exact); the metadata's
-    ``mapping`` is the seeds' local ids."""
+    ``mapping`` is the seeds' local ids.  The closure samples without
+    edge ids, as in JAX; with ``with_edge`` the induced edges carry
+    theirs."""
     seeds = self._ids(inputs.node)
-    out = self._closure(seeds)
+    out = self._closure(seeds, False)
     max_deg = max(int(max_degree) if max_degree else self.graph.max_degree,
                   1)
     sub = induced_subgraph(self.graph.indptr, self.graph.indices, out.node,
-                           max_degree=max_deg)
+                           max_degree=max_deg,
+                           edge_ids=(self.graph.edge_ids if self.with_edge
+                                     else None),
+                           with_edge_ids=self.with_edge)
     sl = out.metadata['seed_local']
     return SamplerOutput(node=out.node, node_count=out.node_count,
-                         row=sub.rows, col=sub.cols, edge_mask=sub.edge_mask,
+                         row=sub.rows, col=sub.cols, edge=sub.eids,
+                         edge_mask=sub.edge_mask,
                          batch=seeds, num_sampled_nodes=out.num_sampled_nodes,
                          metadata={'seed_local': sl, 'mapping': sl})
 

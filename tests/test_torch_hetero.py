@@ -37,7 +37,8 @@ from graphlearn_tpu_torch.data import Dataset
 from graphlearn_tpu_torch.loader import HeteroBatch, NeighborLoader
 from graphlearn_tpu_torch.ops import (CounterDraws, TorchDraws,
                                       hash_draws, sample_one_hop)
-from graphlearn_tpu_torch.sampler import (HeteroNeighborSampler,
+from graphlearn_tpu_torch.sampler import (EdgeSamplerInput,
+                                          HeteroNeighborSampler,
                                           HeteroSamplerOutput,
                                           NodeSamplerInput)
 from graphlearn_tpu_torch.sampler.hetero_neighbor_sampler import (
@@ -278,11 +279,18 @@ def test_sampler_contract():
   s = HeteroNeighborSampler(ds.get_graph(), [2], device='cpu')
   with pytest.raises(ValueError, match='input_type'):
     s.sample_from_nodes(NodeSamplerInput(node=np.arange(4)))
-  with pytest.raises(NotImplementedError, match='slice 7'):
-    s.sample_from_edges(None)
-  with pytest.raises(NotImplementedError, match='slice 7'):
-    HeteroNeighborSampler(ds.get_graph(), [2], device='cpu',
-                          with_edge=True)
+  # seed edges need their edge type (the link parity tests:
+  # test_torch_hetero_link.py); with_edge gives ids by emitted type
+  with pytest.raises(ValueError, match='input_type'):
+    s.sample_from_edges(EdgeSamplerInput(np.arange(3), np.arange(3)))
+  se = HeteroNeighborSampler(ds.get_graph(), [2], device='cpu',
+                             with_edge=True)
+  oe = se.sample_from_nodes(NodeSamplerInput(node=np.arange(8),
+                                             input_type=P))
+  assert set(oe.edge) == set(oe.row)
+  for et, e in oe.edge.items():
+    assert bool((e[oe.edge_mask[et]] >= 0).all())
+    assert bool((e[~oe.edge_mask[et]] == -1).all())
   # the default draws give a well-formed sample
   out = s.sample_from_nodes(NodeSamplerInput(node=np.arange(8),
                                              input_type=P))

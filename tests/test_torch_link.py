@@ -204,14 +204,16 @@ def test_link_losses_and_steps_match_jax(mode):
 
 
 def test_link_entry_points():
-  """Hetero seed edges and hetero datasets raise NotImplementedError;
-  the entry points default to the card (and raise without one)."""
+  """Seed edges of an edge type need a heterogeneous dataset (a
+  homogeneous one raises ValueError; hetero link loading is held
+  against JAX in test_torch_hetero_link.py); the entry points default
+  to the card (and raise without one)."""
   _, ds, rows, cols = _datasets()
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  with pytest.raises(ValueError, match='heterogeneous'):
     LinkNeighborLoader(ds, FANOUTS, (('a', 'to', 'b'), (rows, cols)),
                        device='cpu')
   sampler = NeighborSampler(ds.get_graph(), FANOUTS, device='cpu')
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  with pytest.raises(ValueError, match='HeteroNeighborSampler'):
     sampler.sample_from_edges(EdgeSamplerInput(
         rows[:4], cols[:4], input_type=('a', 'to', 'b')))
   assert NegativeSampling.cast('triplet') == NegativeSampling('triplet', 1)

@@ -202,8 +202,13 @@ def test_graphsage_train_and_eval_steps_match_jax():
 def test_sampler_and_loader_contract():
   _, ds, _, _ = _datasets()
   g = ds.get_graph()
-  with pytest.raises(NotImplementedError, match='item 3'):
-    NeighborSampler(g, FANOUTS, device='cpu', with_edge=True)
+  # with_edge: every valid edge carries its id, -1 elsewhere (the parity
+  # tests: test_torch_edges.py)
+  se = NeighborSampler(g, FANOUTS, device='cpu', with_edge=True)
+  out = se.sample_from_nodes(NodeSamplerInput(node=np.arange(6)))
+  assert out.edge.dtype == torch.int32 and out.edge.shape == out.row.shape
+  assert bool((out.edge[out.edge_mask] >= 0).all())
+  assert bool((out.edge[~out.edge_mask] == -1).all())
   s = NeighborSampler(g, FANOUTS, device='cpu')
   with pytest.raises(NotImplementedError, match='slice 11'):
     s.sample_prob(np.arange(3))
