@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
 per-batch training, fused epochs (tree, bf16 tree and subgraph, each
 step a CUDA graph; the mesh's), tiered feature store, GNS training,
-partitioned mesh, heterogeneous-graph, link-prediction,
-enclosing-subgraph, sampled-edge-id (edge features), heterogeneous
-link and random-walk paths on one NVIDIA card.
+partitioned mesh (with sampled edges and its link engine),
+heterogeneous-graph, link-prediction, enclosing-subgraph,
+sampled-edge-id (edge features), heterogeneous link and random-walk
+paths on one NVIDIA card.
 
 Run from the repository root, with one CUDA card visible::
 
@@ -13,6 +14,8 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --hetero   # build and the hetero phases alone
     python3 chip_smoke.py --link     # build, graph and the link phases
     python3 chip_smoke.py --edges    # build, graph, the edge and walk phases
+    python3 chip_smoke.py --mesh-link   # build, graph, the mesh's edges
+                                        # and link engine
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -230,7 +233,9 @@ Phases, one JSON line each; any failure exits nonzero:
           the card (`bench.py`'s ``dist_worker`` layout; the partitions
           share the one card): untiered (shards ``[8, 306,129, 100]``
           f32) and tiered at split 0.3 (91,839 hot rows a partition, the
-          whole table in pinned host memory).
+          whole table in pinned host memory); both share one mod-sharded
+          ``[8, 7,653,216, 8]`` f32 copy of an ``[E, 8]`` edge table by
+          global edge id (the CSR position; 1.96 GB).
   mesh_loader  the untiered store through `DistNeighborLoader([15, 10,
           5], batch_size=512, shuffle=True, seed=0,
           exchange_slack='adaptive')`: 3 epochs of 4 batches over the
@@ -298,6 +303,46 @@ Phases, one JSON line each; any failure exits nonzero:
           on the CPU with the same CPU-made draws: 3 steps of
           `FusedDistEpoch` and of `FusedDistTreeEpoch` at [10, 5], per-step
           losses within 1e-5 and exchange counters equal.
+  mesh_edges  `DistNeighborLoader(with_edge=True)` at `mesh_loader`'s
+          settings ([15, 10, 5], 512 seeds a partition, shuffled) on the
+          untiered store (K1 in its edge-id mode 2, ``edge_ids[pos]`` of
+          each owner's shard) and on the tiered store with ``gns=True``
+          (K1-GNS in mode 2): a recorded and 3 timed batches each.
+          Checks: 24 sampler and 24 K2 launches a batch (edge rows,
+          features, labels), no plain call, every recorded call in mode 2,
+          every valid edge id naming its sampled edge in the global CSR
+          and its ``edge_attr`` the table's row (on the card), ``x`` and
+          labels equal their source.  `kernel` lines: the recorded batch's
+          24 sampler calls and 24 gathers against their plain versions,
+          the samplers also timed without the arm (``no_eids_ms``).  With
+          ``--gns-ab FILE`` a ``gns_ab`` line: K1-GNS launches without
+          edges of this tree against FILE's kernel (another tree's
+          ``sample_one_hop_gns.cu``, built by the same ``nvcc``) at the
+          recorded hops, parent / change / change / parent.
+  mesh_link  `examples/distributed/dist_unsup_sage.py`'s engine at
+          products scale: `DistLinkNeighborLoader([5, 5], binary, 1,024
+          seed edges a partition, shuffled)` -> `make_dp_unsupervised_step`
+          with ``GraphSAGE(100, 64, 32, 2)``, Adam(1e-3): on the untiered
+          store 2 warm + 200 timed steps and the loader alone over 20
+          batches; on the tiered store with ``gns=True, with_edge=True``
+          2 + 20 steps.  Step ms, batches/s, losses, the exhausted-negative
+          share, exchange counters.  Checks: 16 sampler launches a batch
+          (16 K2, 24 with edge rows), no plain call, losses finite and
+          falling, the kept negatives of 3 batches non-edges by a host
+          lookup, edge ids and rows on the card; `kernel` lines for the
+          first batch's calls.
+  mesh_unsup  `dist_unsup_sage.py` end to end at its own size (2,000
+          nodes, P = 8, [5, 5], batch 32, 4 epochs, Flax's init): epoch
+          seconds and losses, and the intra-vs-inter cluster AUC beside
+          the JAX package's on the CPU (0.8092).  Checks: AUC within
+          0.03 of it, the loss falling, 16 K1 and 8 K2 launches a batch
+          of the training and embedding loaders, no plain call; `kernel`
+          lines for the first training batch's calls.
+  mesh_link_cross_check  a 600-node tiered graph at P = 4 with an edge
+          table on the card and on the CPU with the same CPU-made draws
+          (hops and negatives): 3 binary link batches with ``gns=True,
+          with_edge=True`` byte-equal (node, x, edges, edge rows and
+          weights, link labels), 2 DP steps' losses within 1e-5.
   mag_graph  `bench.py:538-560`'s ogbn-mag-scale graph built on the card
           (`benchmarks/common.py:123-148`'s recipe per edge type): 736,389
           papers and 1,134,649 authors, ``cites`` P->P at average degree
@@ -440,6 +485,10 @@ the hetero phases alone (`mag_graph` to `hetero_cross_check`) and
 prints no ``kernels`` or result line.
 ``--edges`` runs build, graph and the edge and walk phases alone
 (`edge_data` to `walk`) and prints no ``kernels`` or result line.
+``--mesh-link`` runs build, graph, `mesh_data` and the mesh's edge and
+link phases alone (`mesh_edges` to `mesh_link_cross_check`; with
+``--gns-ab FILE`` also the ``gns_ab`` line) and prints the ``kernels``
+line of that path (K1, K1-GNS, K2) and the result line.
 ``--link`` runs build, graph and the link phases alone (`link_train`
 to `link_cross_check`; with ``--profile`` also `profile_train` of 3
 per-batch and 3 replayed link steps, whose traces must show 2 K1 and 1
@@ -654,6 +703,8 @@ def check_sampler(torch, ops, timer, indptr, indices, seeds, k, u, g,
                'hub': int((deg > w).sum())},
       'byte_equal': True, 'max_abs_err': err,
       'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  if with_edge_ids:
+    rec['no_eids_bound_ms'] = sample_bytes(deg, k, w) / HBM_BYTES_PER_S * 1e3
   if time_it:
     rec['kernel_ms'] = timer(lambda: ops.sample_one_hop_fused(
         indptr, indices, seeds, k, u, g, **kw))
@@ -3448,28 +3499,39 @@ def gns_bytes(deg: np.ndarray, k: int, w: int) -> int:
 
 
 def check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v, bits,
-              boost, req, w):
+              boost, req, w, edge_ids=None, with_edge_ids=False):
   """The GNS kernel against its plain version on the same rows (seeds
-  in the order the kernel sees them): byte-equal nbrs, mask, weights."""
+  in the order the kernel sees them): byte-equal nbrs, mask, weights
+  and, with ``with_edge_ids``, eids (the kernel then also timed without
+  the edge-id arm, ``no_eids_ms``)."""
   before = ops.sample_one_hop_gns_fused.launches
   args = (indptr, indices, seeds, k, u, v, bits, boost)
-  got = ops.sample_one_hop_gns_fused(*args, req=req, window=w)
-  ref = ops.sample_one_hop_gns(*args, req=req, window=w)
+  ekw = {'edge_ids': edge_ids, 'with_edge_ids': with_edge_ids}
+  got = ops.sample_one_hop_gns_fused(*args, req=req, window=w, **ekw)
+  ref = ops.sample_one_hop_gns(*args, req=req, window=w, **ekw)
   sync(torch)
   same = (torch.equal(got.nbrs, ref.nbrs) and torch.equal(got.mask, ref.mask)
           and torch.equal(got.weights.view(torch.int32),
                           ref.weights.view(torch.int32)))
+  mode = ('none' if not with_edge_ids
+          else 'positions' if edge_ids is None else 'ids')
+  if with_edge_ids:
+    same = same and (got.eids.dtype == ref.eids.dtype == torch.int32
+                     and torch.equal(got.eids, ref.eids))
   if not same:
     bad = int((got.nbrs != ref.nbrs).sum()
               + (got.weights != ref.weights).sum())
     raise AssertionError(f'GNS kernel != plain version (k={k}, boost='
-                         f'{boost}, {bad} slots differ)')
+                         f'{boost}, eids {mode}, {bad} slots differ)')
   err = max(int((got.nbrs.long() - ref.nbrs.long()).abs().max()),
             float((got.weights - ref.weights).abs().max()))
+  if with_edge_ids:
+    err = max(err, int((got.eids.long() - ref.eids.long()).abs().max()))
   deg = ops.lookup_degree(indptr, seeds).cpu().numpy()
   deg = np.where(seeds.cpu().numpy() >= 0, deg, -1)
   m = got.mask
-  nbytes = gns_bytes(deg, k, w)
+  nbytes = gns_bytes(deg, k, w) + edge_bytes(int(m.sum()),
+                                             int(seeds.numel()), k, mode)
   # the kernel alone: the table row of each seed resolved outside the
   # timed call (the wrapper's small ops are timed as wrapper_ms)
   table = ops.gns.bits_table(bits)
@@ -3477,7 +3539,7 @@ def check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v, bits,
                            ).contiguous()
   rec = {
       'rows': int(seeds.numel()), 'k': k, 'w': w, 'boost': boost,
-      'table_rows': int(table.shape[0]),
+      'eids': mode, 'table_rows': int(table.shape[0]),
       'arms': {'empty_or_invalid': int((deg <= 0).sum()),
                'take_all': int(((deg > 0) & (deg <= k)).sum()),
                'window': int(((deg > k) & (deg <= w)).sum()),
@@ -3485,12 +3547,17 @@ def check_gns(torch, ops, timer, indptr, indices, seeds, k, u, v, bits,
       'weights_ne_1': int(((got.weights != 1.0) & m).sum()),
       'byte_equal': True, 'max_abs_err': err,
       'kernel_ms': timer(lambda: ops.fused_sample.gns_kernel(
-          indptr, indices, seeds, k, u, v, table, rows, boost, w)),
+          indptr, indices, seeds, k, u, v, table, rows, boost, w, **ekw)),
       'wrapper_ms': timer(lambda: ops.sample_one_hop_gns_fused(
-          *args, req=req, window=w)),
+          *args, req=req, window=w, **ekw)),
       'plain_ms': timer(lambda: ops.sample_one_hop_gns(
-          *args, req=req, window=w)),
+          *args, req=req, window=w, **ekw)),
       'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6}
+  if with_edge_ids:
+    plain_bytes = gns_bytes(deg, k, w)
+    rec.update(no_eids_ms=timer(lambda: ops.fused_sample.gns_kernel(
+        indptr, indices, seeds, k, u, v, table, rows, boost, w)),
+        no_eids_bound_ms=plain_bytes / HBM_BYTES_PER_S * 1e3)
   rec['launches'] = ops.sample_one_hop_gns_fused.launches - before
   return rec
 
@@ -3736,8 +3803,10 @@ class PathRecorder:
   ``gns``, else the uniform one) and its row gathers to keep the latest
   dispatch's kernel inputs: its ``hops x parts`` sampler calls (hop-major,
   each with its rows in the order the kernel sees them: ascending with
-  ``sort_locality``, else in arrival order) and its ``tables x parts``
-  gathers (the features, then the labels, each owner in turn)."""
+  ``sort_locality``, else in arrival order, and the edge-id arm it was
+  launched with in ``edges``) and its ``tables x parts`` gathers (the
+  edge rows with edge features, then the features, then the labels,
+  each owner in turn)."""
 
   def __init__(self, torch, mod, gns=True, parts=1, tables=2,
                hops=len(FANOUTS)):
@@ -3748,7 +3817,7 @@ class PathRecorder:
     self.hops, self.parts = hops, parts
     self.n_samples, self.n_gathers = hops * parts, tables * parts
     self.sorted_hops = {}
-    self.samples, self.calls = {}, 0
+    self.samples, self.edges, self.calls = {}, {}, 0
     self.gathers, self.gather_calls = {}, 0
 
   def gather(self, table, ids, id2index=None):
@@ -3757,7 +3826,8 @@ class PathRecorder:
     return self.real_gather(table, ids, id2index)
 
   def __call__(self, indptr, indices, seeds, k, u, v, *rest, req=None,
-               window=None, sort_locality=False):
+               window=None, sort_locality=False, edge_ids=None,
+               with_edge_ids=False):
     torch = self.torch
     if sort_locality and seeds.shape[0] > 1:
       order = torch.argsort(torch.where(seeds >= 0, seeds,
@@ -3769,15 +3839,21 @@ class PathRecorder:
     if self.gns:
       args += tuple(rest) + (req[order].contiguous(), window)
     self.samples[self.calls % self.n_samples] = args
+    self.edges[self.calls % self.n_samples] = (edge_ids, with_edge_ids)
     self.sorted_hops[self.calls % self.n_samples // self.parts] = bool(
         sort_locality)
     self.calls += 1
     kw = dict(req=req, window=window) if self.gns else {}
+    if with_edge_ids:
+      kw.update(edge_ids=edge_ids, with_edge_ids=True)
     return self.real(indptr, indices, seeds, k, u, v, *rest,
                      sort_locality=sort_locality, **kw)
 
   def sample_calls(self) -> list:
     return [self.samples[i] for i in range(self.n_samples)]
+
+  def edge_args(self) -> list:
+    return [self.edges[i] for i in range(self.n_samples)]
 
   def gather_calls_in_order(self) -> list:
     return [self.gathers[i] for i in range(self.n_gathers)]
@@ -3798,10 +3874,11 @@ def summed(recs) -> dict:
   out = {'owners': len(recs), 'byte_equal': True,
          'max_abs_err': max(r['max_abs_err'] for r in recs)}
   for key in ('rows', 'ids', 'valid', 'bytes', 'bound_us', 'kernel_ms',
-              'wrapper_ms', 'plain_ms', 'library_ms'):
+              'wrapper_ms', 'plain_ms', 'library_ms', 'no_eids_ms',
+              'no_eids_bound_ms'):
     if key in recs[0]:
       out[key] = sum(r[key] for r in recs)
-  for key in ('k', 'w', 'boost', 'dtype', 'row_bytes'):
+  for key in ('k', 'w', 'boost', 'dtype', 'row_bytes', 'eids'):
     if key in recs[0]:
       out[key] = recs[0][key]
   return out
@@ -3814,11 +3891,20 @@ def check_mesh_path(torch, ops, timer, rec, path,
   per hop and per table, summed over the owners."""
   per_hop, per_table = [], []
   for t in range(rec.hops):
-    calls = rec.sample_calls()[t * MESH_PARTS:(t + 1) * MESH_PARTS]
+    at = slice(t * MESH_PARTS, (t + 1) * MESH_PARTS)
+    calls = zip(rec.sample_calls()[at], rec.edge_args()[at])
     if rec.gns:
-      recs = [check_gns(torch, ops, timer, *a) for a in calls]
+      recs = [check_gns(torch, ops, timer, *a, edge_ids=e, with_edge_ids=on)
+              for a, (e, on) in calls]
     else:
-      recs = [check_sampler(torch, ops, timer, *a)[1] for a in calls]
+      recs = []
+      for a, (e, on) in calls:
+        r = check_sampler(torch, ops, timer, *a, edge_ids=e,
+                          with_edge_ids=on)[1]
+        if on:
+          r['no_eids_ms'] = check_sampler(torch, ops, timer, *a)[1][
+              'kernel_ms']
+        recs.append(r)
     per_hop.append(summed(recs))
     per_hop[-1]['sorted'] = rec.sorted_hops[t]
     emit('kernel', kernel='sample_one_hop_gns' if rec.gns else
@@ -4055,22 +4141,27 @@ def gns_cross_check(torch):
        cache_admits=admits[DEVICE], logits_max_abs_diff=diff)
 
 
-def mesh_data(torch, indptr, indices, feats, labels):
+def mesh_data(torch, indptr, indices, feats, labels, table=None):
   """The mesh paths' two stores of the products graph at P = 8
   partitions on the card (`bench.py`'s ``DIST_PARTS``): untiered (every
   shard wholly on the card) and tiered at split 0.3 (the hot rows on the
   card, the whole table in pinned host memory), both with the `train`
-  phase's labels."""
-  from graphlearn_tpu_torch.parallel import DistDataset
+  phase's labels and, given an ``[E, 8]`` edge ``table`` (by global
+  edge id, the CSR position here), its one mod-sharded copy."""
+  from graphlearn_tpu_torch.parallel import (DistDataset,
+                                             build_dist_edge_feature)
   t0 = time.perf_counter()
   deg = indptr[1:] - indptr[:-1]
   rows = torch.repeat_interleave(
       torch.arange(NUM_NODES, device=DEVICE), deg)
+  ef = (build_dist_edge_feature(table, MESH_PARTS, device=DEVICE)
+        if table is not None else None)
   stores = {}
   for name, split in (('untiered', 1.0), ('tiered', MESH_SPLIT)):
     stores[name] = DistDataset.from_full_graph(
         MESH_PARTS, rows, indices, node_feat=feats, node_label=labels,
-        num_nodes=NUM_NODES, split_ratio=split, device=DEVICE)
+        num_nodes=NUM_NODES, split_ratio=split, edge_feat=ef,
+        device=DEVICE)
   del rows
   sync(torch)
   u, t = stores['untiered'], stores['tiered']
@@ -4086,6 +4177,8 @@ def mesh_data(torch, indptr, indices, feats, labels):
        hot_bytes=t.node_features.shards.numel() * 4,
        cold_host_bytes=t.node_features.cold_host.numel() * 4,
        cold_host_pinned=bool(t.node_features.cold_host.is_pinned()),
+       edge_shard_shape=None if ef is None else list(ef.shards.shape),
+       edge_shard_bytes=0 if ef is None else ef.shards.numel() * 4,
        secs=time.perf_counter() - t0)
   return u, t
 
@@ -6650,6 +6743,713 @@ def edges_phases(torch, ops, timer, indptr, indices, feats) -> dict:
           'forced_sets': len(forced['sets'])}
 
 
+#: the mesh's edges and link engine: per-partition seed edges
+#: of the link cells (`benchmarks/bench_dist_loader.py`'s ``--batch``),
+#: `examples/distributed/dist_unsup_sage.py`'s fanouts and model
+MESH_EDGE_BATCHES = 3
+MESH_LINK_BATCH = 1024
+MESH_LINK_FANOUTS = (5, 5)
+MESH_LINK_HIDDEN = 64
+MESH_LINK_OUT = 32
+MESH_LINK_LR = 1e-3
+MESH_LINK_WARM = 2
+MESH_LINK_STEPS = 200
+MESH_LINK_GNS_STEPS = 20
+MESH_LINK_LOADER_BATCHES = 20
+MESH_LINK_CHECK_BATCHES = 3
+#: `dist_unsup_sage.py`'s `synthetic()` and its loop
+UNSUP_NODES, UNSUP_CLUSTERS, UNSUP_DEG, UNSUP_DIM = 2000, 8, 6, 32
+UNSUP_EPOCHS, UNSUP_BATCH = 4, 32
+#: the intra-vs-inter cluster AUC `dist_unsup_sage.py` gives on the JAX
+#: package (8 virtual CPU devices, run once with its defaults); the
+#: `mesh_unsup` phase fails when the port's AUC is further from it than
+#: `UNSUP_AUC_TOL`
+UNSUP_JAX_AUC = 0.8092
+UNSUP_AUC_TOL = 0.03
+
+
+def mesh_edge_table(torch, num_edges: int):
+  """The mesh's ``[E, 8]`` f32 edge table by global edge id: the input
+  edge order, which for `mesh_data`'s COO is the products CSR position
+  (1.96 GB, `EDGE_DIM` as in `edges`)."""
+  gen = torch.Generator(device=DEVICE).manual_seed(32)
+  return torch.rand(num_edges, EDGE_DIM, generator=gen, device=DEVICE)
+
+
+def check_mesh_edges(torch, batch, table, indptr, indices, new2old) -> int:
+  """Every valid ``edge`` id of a stacked mesh batch names its sampled
+  edge in the global CSR (the id is the CSR position: it lies in the
+  seed-side node's row and holds the neighbor), and ``edge_attr`` is the
+  table's row for it; masked slots hold -1 and zero rows.  Returns the
+  edges checked."""
+  e, em = batch.edge, batch.edge_mask
+  ea = batch.edge_attr
+  if not (torch.equal(ea[em], table[e[em].long()])
+          and not bool(ea[~em].any()) and bool((e[~em] == -1).all())):
+    raise AssertionError('a mesh edge_attr row differs from the edge table')
+  ei = batch.edge_index.long().clamp(min=0)
+  node = batch.node.long()
+  nbr = new2old[torch.gather(node, 1, ei[:, 0])]
+  seed = new2old[torch.gather(node, 1, ei[:, 1])]
+  eid = e.long().clamp(min=0)
+  ok = ((indptr[seed] <= eid) & (eid < indptr[seed + 1])
+        & (indices[eid].long() == nbr))
+  if not bool(ok[em].all()):
+    raise AssertionError('a mesh edge id does not name its sampled edge')
+  return int(em.sum())
+
+
+def edge_args_on(rec, what) -> None:
+  """Every recorded sampler call ran the edge-id arm with ``edge_ids``
+  (mode 2: the shards' global ids)."""
+  for i, (e, on) in enumerate(rec.edge_args()):
+    if not on or e is None:
+      raise AssertionError(f'{what} call {i} ran without edge ids')
+
+
+def gns_ab(torch, ops, timer, rec, source: str) -> dict:
+  """K1-GNS launches without edges, this tree's kernel against the one
+  built from ``source`` (another tree's ``sample_one_hop_gns.cu``), at
+  each recorded mesh hop: per hop the owners' calls summed, timed in
+  turns parent / change / change / parent (one process, one card)."""
+  import ctypes
+  from graphlearn_tpu_torch import _build
+  from graphlearn_tpu_torch.ops import fused_sample as fs
+  out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), 'gns_ab')
+  os.makedirs(out_dir, exist_ok=True)
+  lib = os.path.join(out_dir, 'parent_gns.so')
+  subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, '-I',
+                  str(_build.CSRC), '-o', lib, source], check=True,
+                 capture_output=True)
+  parent = ctypes.CDLL(lib).glt_sample_one_hop_gns
+  parent.argtypes = list(fs._GNS_ARGTYPES[:-3]) + [ctypes.c_void_p]
+  parent.restype = ctypes.c_int
+
+  def kernel_args(a):
+    # the table row of each seed resolved outside the timed calls
+    indptr, indices, seeds, k, u, v, bits, boost, req, w = a
+    rows = ops.gns.bits_rows(bits, req, seeds.numel(), seeds.device)
+    return (indptr, indices, seeds, k, u, v, ops.gns.bits_table(bits),
+            rows.contiguous(), boost, w)
+
+  def launch_parent(a):
+    indptr, indices, seeds, k, u, v, table, rows, boost, w = a
+    b = seeds.shape[0]
+    nbrs = torch.empty((b, k), dtype=torch.int32, device=seeds.device)
+    mask = torch.empty((b, k), dtype=torch.bool, device=seeds.device)
+    wts = torch.empty((b, k), dtype=torch.float32, device=seeds.device)
+    err = parent(indptr.data_ptr(), indptr.numel() - 1, indices.data_ptr(),
+                 indices.numel(), seeds.data_ptr(), b, u.data_ptr(),
+                 v.data_ptr(), table.data_ptr(), table.shape[0],
+                 table.shape[1], rows.data_ptr(), k, w,
+                 float(boost), nbrs.data_ptr(), mask.data_ptr(),
+                 wts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, 'parent sample_one_hop_gns')
+    return nbrs, mask, wts
+
+  def launch_change(a):
+    r = fs.gns_kernel(*a)
+    return r.nbrs, r.mask, r.weights
+
+  hops = []
+  calls = [kernel_args(a) for a in rec.sample_calls()]
+  for t in range(rec.hops):
+    hop = calls[t * MESH_PARTS:(t + 1) * MESH_PARTS]
+    for a in hop:
+      p_out, c_out = launch_parent(a), launch_change(a)
+      if not all(torch.equal(x, y) for x, y in zip(p_out, c_out)):
+        raise AssertionError('the parent and this tree\'s GNS kernels '
+                             'differ without edges')
+    turns = {'parent': [], 'change': []}
+    for who in ('parent', 'change', 'change', 'parent'):
+      fn = launch_parent if who == 'parent' else launch_change
+      turns[who].append(sum(timer(lambda a=a: fn(a)) for a in hop))
+    hops.append({'hop': t, 'rows': sum(int(a[2].numel()) for a in hop),
+                 'k': hop[0][3], 'parent_ms': turns['parent'],
+                 'change_ms': turns['change'],
+                 'change_over_parent': float(np.mean(turns['change'])
+                                             / np.mean(turns['parent']))})
+  emit('gns_ab', source=source, order='parent / change / change / parent',
+       hops=hops)
+  return {'hops': hops}
+
+
+def mesh_edges(torch, ops, timer, ds_u, ds_t, table, indptr, indices, feats,
+               labels, ab_source=None) -> dict:
+  """`DistNeighborLoader(with_edge=True)` at `mesh_loader`'s settings
+  ([15, 10, 5], 512 seeds a partition, shuffled) on both products
+  stores with the mod-sharded ``[E, 8]`` edge table: untiered (K1's
+  edge-id arm, mode 2, in every owner's hop) and tiered with
+  ``gns=True`` (K1-GNS's arm).  A recorded batch and `MESH_EDGE_BATCHES`
+  timed ones a store; every batch's ``x``, labels, edge ids and edge
+  rows checked on the card; 24 sampler and 24 gather launches a batch;
+  every recorded call (24 sampler calls, 24 gathers: edge rows,
+  features, labels) held against its plain version, the sampler also
+  timed without the arm."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistNeighborLoader
+  seeds = np.random.default_rng(0).permutation(NUM_NODES)[
+      :MESH_BATCH * MESH_PARTS * (MESH_EDGE_BATCHES + 1)]
+  out, paths, recs = {}, {}, {}
+  for name, ds, gns in (('untiered', ds_u, False), ('tiered', ds_t, True)):
+    # the tiered store's relabel orders each range by in-degree
+    new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+    kw = {}
+    if gns:
+      kw['cold_cache_rows'] = int(ds.node_features.hot_counts.max())
+    loader = DistNeighborLoader(ds, FANOUTS, seeds, batch_size=MESH_BATCH,
+                                shuffle=True, seed=0, with_edge=True,
+                                gns=gns, device=DEVICE, **kw)
+    s = loader.sampler
+    if not (s.collect_edge_features and s.ds.edge_features.mod_sharded
+            and s.gns == gns):
+      raise AssertionError(f'mesh_edges {name}: the sampler collects no '
+                           'mod-sharded edge rows')
+    reset_counts(ops)
+    it = iter(loader)
+    with PathRecorder(torch, dsm, gns=gns, parts=MESH_PARTS,
+                      tables=3) as rec:
+      b = next(it)
+    checked = check_mesh_edges(torch, b, table, indptr, indices, new2old)
+    check_mesh_batch(torch, b, feats, labels, new2old)
+    batch_ms = []
+    for _ in range(MESH_EDGE_BATCHES):
+      sync(torch)
+      t = time.perf_counter()
+      b = next(it)
+      n_edges = int(b.edge_mask.sum())              # synchronises
+      batch_ms.append((time.perf_counter() - t) * 1e3)
+      checked += check_mesh_edges(torch, b, table, indptr, indices, new2old)
+      check_mesh_batch(torch, b, feats, labels, new2old)
+    launches, plain = read_counts(ops)
+    k1 = 'sample_one_hop_gns' if gns else 'sample_one_hop'
+    other = 'sample_one_hop' if gns else 'sample_one_hop_gns'
+    n = MESH_EDGE_BATCHES + 1
+    if not (launches[k1] == len(FANOUTS) * MESH_PARTS * n
+            and launches[other] == 0
+            and launches['gather_rows'] == 3 * MESH_PARTS * n
+            and plain == 0):
+      raise AssertionError(f'mesh_edges {name}: launches {launches}, plain '
+                           f'{plain}')
+    edge_args_on(rec, f'mesh_edges {name}')
+    if gns:
+      ew, em = b.metadata['edge_weight'], b.edge_mask
+      if not (bool((ew[~em] == 0).all()) and bool((ew[em] > 0).all())):
+        raise AssertionError('mesh_edges: masked weight != 0 or valid <= 0')
+    ef = ds.edge_features.shards
+    tables = [g[0] for g in rec.gather_calls_in_order()[::MESH_PARTS]]
+    if tables[0].data_ptr() != ef[0].data_ptr():
+      raise AssertionError('mesh_edges: the first gathers are not the edge '
+                           'rows')
+    paths[name] = check_mesh_path(
+        torch, ops, timer, rec, f'mesh_edges {name}',
+        tables=('edge rows', 'features' if name == 'untiered'
+                else 'hot-tier features', 'labels'))
+    recs[name] = rec
+    st = s.exchange_stats()
+    out[name] = {'gns': gns, 'batch_ms': batch_ms,
+                 'batches_per_s': 1e3 * len(batch_ms) / sum(batch_ms),
+                 'edge_slots': int(b.edge.shape[1]),
+                 'edges_checked_on_card': checked,
+                 'sampled_edges_last': n_edges,
+                 'launches': launches, 'plain_calls': plain,
+                 'exchange': {k: v for k, v in st.items()
+                              if k.startswith(('dist.frontier',
+                                               'dist.feature.o',
+                                               'dist.feature.d',
+                                               'dist.feature.s'))}}
+    del loader, it, b
+  ab = gns_ab(torch, ops, timer, recs['tiered'], ab_source) \
+      if ab_source else None
+  del recs
+  emit('mesh_edges', parts=MESH_PARTS, batch=MESH_BATCH,
+       fanouts=list(FANOUTS), edge_dim=EDGE_DIM,
+       edge_table='mod-sharded [E, 8] f32 by global edge id', **out)
+  return {'launches': {k: v['launches'] for k, v in out.items()},
+          'paths': paths, 'ab': ab}
+
+
+def mesh_link_model(torch, in_dim, dev):
+  from graphlearn_tpu_torch.models import GraphSAGE
+  model = GraphSAGE(in_dim, MESH_LINK_HIDDEN, MESH_LINK_OUT,
+                    num_layers=2).to(dev)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  return model
+
+
+def mesh_link_seeds(indptr_h, indices_h, n, seed):
+  """``n`` products edges at seeded CSR positions, as (src, dst)."""
+  pos = np.random.default_rng(seed).integers(0, indices_h.shape[0], n)
+  return np.searchsorted(indptr_h, pos, side='right') - 1, indices_h[pos]
+
+
+def check_mesh_negatives(torch, batch, new2old_h, is_edge, b) -> tuple:
+  """The kept negatives of a stacked binary link batch, mapped through
+  ``node`` to input ids: none is an edge of the global CSR.  Returns
+  (kept, exhausted) negative slots."""
+  md = batch.metadata
+  keep = md['edge_label_mask'][:, b:].cpu().numpy()
+  eli = md['edge_label_index'][:, :, b:].cpu().numpy()
+  node = batch.node.cpu().numpy()
+  kept = 0
+  for p in range(node.shape[0]):
+    src = new2old_h[node[p][eli[p, 0][keep[p]]]]
+    dst = new2old_h[node[p][eli[p, 1][keep[p]]]]
+    if is_edge(src, dst).any():
+      raise AssertionError('a kept mesh negative is an edge')
+    kept += int(keep[p].sum())
+  return kept, int(keep.size - keep.sum())
+
+
+def mesh_link(torch, ops, timer, ds_u, ds_t, table, indptr, indices, feats,
+              labels, indptr_h, indices_h) -> dict:
+  """`examples/distributed/dist_unsup_sage.py`'s engine at products
+  scale: `DistLinkNeighborLoader([5, 5], binary)` with 1,024 seed edges
+  a partition (shuffled) -> `make_dp_unsupervised_step` with
+  ``GraphSAGE(100, 64, 32, 2)`` and Adam(1e-3) on the untiered store
+  (`MESH_LINK_WARM` warm steps, the first recorded, `MESH_LINK_STEPS`
+  timed steps, the loader alone over `MESH_LINK_LOADER_BATCHES`), then
+  on the tiered store with ``gns=True, with_edge=True``
+  (`MESH_LINK_GNS_STEPS` steps).  Checks: 16 sampler launches a batch
+  (and 16 gathers, 24 with edge rows), no plain call, every recorded
+  call byte-equal to its plain version, the losses finite and falling,
+  the kept negatives of `MESH_LINK_CHECK_BATCHES` batches non-edges by a
+  host lookup, and with edges every id and row checked on the card."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import (DistLinkNeighborLoader,
+                                             make_dp_unsupervised_step)
+  is_edge = edge_lookup(indptr_h, indices_h)
+  out, paths = {}, {}
+  b = MESH_LINK_BATCH
+  for name, ds, gns, steps in (
+      ('untiered', ds_u, False, MESH_LINK_STEPS),
+      ('tiered_gns_with_edge', ds_t, True, MESH_LINK_GNS_STEPS)):
+    new2old_h = ds.new2old
+    new2old = torch.from_numpy(new2old_h).to(DEVICE)
+    n_batches = MESH_LINK_WARM + steps + (
+        MESH_LINK_LOADER_BATCHES if not gns else 0)
+    src, dst = mesh_link_seeds(indptr_h, indices_h,
+                               b * MESH_PARTS * n_batches, 40 + gns)
+    kw = {}
+    if gns:
+      kw['cold_cache_rows'] = int(ds.node_features.hot_counts.max())
+    loader = DistLinkNeighborLoader(
+        ds, MESH_LINK_FANOUTS, (src, dst), neg_sampling='binary',
+        batch_size=b, shuffle=True, seed=0, with_edge=gns, gns=gns,
+        device=DEVICE, **kw)
+    s = loader.sampler
+    model = mesh_link_model(torch, FEAT_DIM, DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=MESH_LINK_LR, eps=1e-8)
+    step = make_dp_unsupervised_step(model, opt, s.mesh)
+    it = iter(loader)
+    losses = []
+    reset_counts(ops)
+    tables = 3 if gns else 2
+    for i in range(MESH_LINK_WARM):
+      if i == 0:
+        with PathRecorder(torch, dsm, gns=gns, parts=MESH_PARTS,
+                          tables=tables,
+                          hops=len(MESH_LINK_FANOUTS)) as rec:
+          batch = next(it)
+      else:
+        batch = next(it)
+      losses.append(step(batch))
+    sync(torch)
+    t0 = time.perf_counter()
+    to_check = []
+    for i in range(steps):
+      batch = next(it)
+      losses.append(step(batch))
+      if i < MESH_LINK_CHECK_BATCHES:
+        to_check.append(batch)
+    sync(torch)
+    secs = time.perf_counter() - t0
+    kept = exhausted = checked = 0
+    for batch in to_check:                 # outside the clock
+      k_, x_ = check_mesh_negatives(torch, batch, new2old_h, is_edge, b)
+      kept, exhausted = kept + k_, exhausted + x_
+      check_mesh_batch(torch, batch, feats, labels, new2old)
+      if gns:
+        checked += check_mesh_edges(torch, batch, table, indptr, indices,
+                                    new2old)
+    del to_check
+    loader_bps = None
+    if not gns:
+      sync(torch)
+      t0 = time.perf_counter()
+      for _ in range(MESH_LINK_LOADER_BATCHES):
+        last = next(it)
+      int(last.edge_mask.sum())
+      loader_bps = MESH_LINK_LOADER_BATCHES / (time.perf_counter() - t0)
+      del last
+    launches, plain = read_counts(ops)
+    n_run = MESH_LINK_WARM + steps + (0 if gns else
+                                       MESH_LINK_LOADER_BATCHES)
+    k1 = 'sample_one_hop_gns' if gns else 'sample_one_hop'
+    other = 'sample_one_hop' if gns else 'sample_one_hop_gns'
+    per = len(MESH_LINK_FANOUTS) * MESH_PARTS
+    if not (launches[k1] == per * n_run and launches[other] == 0
+            and launches['gather_rows'] == tables * MESH_PARTS * n_run
+            and plain == 0):
+      raise AssertionError(f'mesh_link {name}: launches {launches}, plain '
+                           f'{plain}, batches {n_run}')
+    if gns:
+      edge_args_on(rec, 'mesh_link tiered')
+    losses = np.array([float(x) for x in losses])
+    half = len(losses) // 2
+    if not (np.isfinite(losses).all()
+            and losses[-5:].mean() < losses[:MESH_LINK_WARM + 3].mean()
+            and (gns or losses[half:].mean() < losses[:half].mean())):
+      raise AssertionError(f'mesh_link {name}: losses {losses}')
+    paths[name] = check_mesh_path(
+        torch, ops, timer, rec, f'mesh_link {name}',
+        tables=(('edge rows', 'hot-tier features', 'labels') if gns
+                else ('features', 'labels')))
+    del rec
+    st = s.exchange_stats()
+    out[name] = {
+        'gns': gns, 'steps': steps,
+        'step_ms': secs / steps * 1e3,
+        'batches_per_s_step': steps / secs,
+        'loader_batches_per_s': loader_bps,
+        'losses_first': losses[:5].tolist(),
+        'losses_last': losses[-5:].tolist(),
+        'loss_mean_first_half': float(losses[:half].mean()),
+        'loss_mean_second_half': float(losses[half:].mean()),
+        'negatives_kept_checked': kept,
+        'negatives_masked_checked': exhausted,
+        'negative_lost_share': st['dist.negative.lost'] / max(
+            b * MESH_PARTS * n_run, 1),
+        'edges_checked_on_card': checked, 'launches': launches,
+        'plain_calls': plain,
+        'exchange': {k: v for k, v in st.items()
+                     if k.startswith(('dist.frontier', 'dist.feature.o',
+                                      'dist.feature.d', 'dist.feature.s',
+                                      'dist.negative'))}}
+    del loader, it, batch, model, opt, step
+  emit('mesh_link', parts=MESH_PARTS, batch_edges=b,
+       fanouts=list(MESH_LINK_FANOUTS), neg_sampling='binary 1.0',
+       model=f'GraphSAGE({FEAT_DIM}->{MESH_LINK_HIDDEN}->{MESH_LINK_OUT}, '
+             '2 layers)', optimizer=f'Adam({MESH_LINK_LR})', **out)
+  return {'launches': {k: v['launches'] for k, v in out.items()},
+          'paths': paths}
+
+
+def unsup_synthetic(n=UNSUP_NODES, clusters=UNSUP_CLUSTERS, deg=UNSUP_DEG,
+                    d=UNSUP_DIM, seed=0):
+  """`dist_unsup_sage.py`'s `synthetic()`: a clustered graph, 85% of the
+  edges inside a cluster, noisy features with a faint cluster
+  direction."""
+  rng = np.random.default_rng(seed)
+  cl = np.arange(n) % clusters
+  rows = np.repeat(np.arange(n), deg)
+  same = np.where(rng.random(n * deg) < 0.85,
+                  (rows + clusters * rng.integers(1, n // clusters,
+                                                  n * deg)) % n,
+                  rng.integers(0, n, n * deg))
+  proto = rng.normal(0, 1, (clusters, d)).astype(np.float32)
+  feats = (0.3 * proto[cl]
+           + rng.standard_normal((n, d)).astype(np.float32))
+  return rows, same, feats, cl
+
+
+def lecun_normal_(torch, model, seed: int) -> None:
+  """Flax's default init, which the example's model starts from: each
+  weight from a normal truncated at 2 standard deviations with variance
+  1 / fan_in (variance-corrected), biases zero; drawn on the CPU."""
+  gen = torch.Generator().manual_seed(seed)
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      if name.endswith('bias'):
+        p.zero_()
+        continue
+      std = (1.0 / p.shape[1]) ** 0.5 / 0.87962566103423978
+      w = torch.empty(p.shape, dtype=torch.float32)
+      torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=gen)
+      p.copy_(w)
+
+
+def mesh_unsup(torch, ops, timer) -> dict:
+  """`examples/distributed/dist_unsup_sage.py` end to end at its own
+  size on the card: `synthetic()` (2,000 nodes, 8 clusters) at P = 8,
+  `DistLinkNeighborLoader([5, 5], binary, batch 32, shuffled)` ->
+  ``GraphSAGE(32, 64, 32, 2)`` (Flax's init) with Adam(1e-3) through
+  `make_dp_unsupervised_step`, 4 epochs; then every node's embedding
+  from a `DistNeighborLoader([5, 5], batch 64)` and the AUC of
+  intra- against inter-cluster dot products over 2,000 random pairs.
+  Checks: 16 K1 and 8 K2 launches a batch of either loader (no labels,
+  so one gathered table), no plain call, and the first training batch's
+  calls byte-equal to their plain versions."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.parallel import (DistDataset,
+                                             DistLinkNeighborLoader,
+                                             DistNeighborLoader,
+                                             make_dp_unsupervised_step)
+  rows, cols, feats, cl = unsup_synthetic()
+  n = len(cl)
+  dds = DistDataset.from_full_graph(MESH_PARTS, rows, cols, node_feat=feats,
+                                    num_nodes=n, device=DEVICE)
+  loader = DistLinkNeighborLoader(
+      dds, list(MESH_LINK_FANOUTS), (rows, cols), neg_sampling='binary',
+      batch_size=UNSUP_BATCH, shuffle=True, seed=0, device=DEVICE)
+  model = GraphSAGE(UNSUP_DIM, MESH_LINK_HIDDEN, MESH_LINK_OUT,
+                    num_layers=2).to(DEVICE)
+  lecun_normal_(torch, model, 0)
+  opt = torch.optim.Adam(model.parameters(), lr=MESH_LINK_LR, eps=1e-8)
+  step = make_dp_unsupervised_step(model, opt, loader.sampler.mesh)
+  hops = len(MESH_LINK_FANOUTS)
+
+  def check_launches(what, batches):
+    launches, plain = read_counts(ops)
+    if not (launches['sample_one_hop'] == hops * MESH_PARTS * batches
+            and launches['gather_rows'] == MESH_PARTS * batches
+            and launches['sample_one_hop_gns'] == 0 and plain == 0):
+      raise AssertionError(f'mesh_unsup {what}: launches {launches}, '
+                           f'plain {plain}, batches {batches}')
+    return launches
+
+  epoch_secs, epoch_loss, steps, rec = [], [], 0, None
+  reset_counts(ops)
+  for _ in range(UNSUP_EPOCHS):
+    sync(torch)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    tot = []
+    if rec is None:
+      with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS, tables=1,
+                        hops=hops) as rec:
+        tot.append(step(next(it)))
+    tot += [step(batch) for batch in it]
+    epoch_loss.append(float(torch.stack(tot).mean()))
+    sync(torch)
+    epoch_secs.append(time.perf_counter() - t0)
+    steps = len(tot)
+  train_launches = check_launches('training', UNSUP_EPOCHS * steps)
+  nl = DistNeighborLoader(dds, list(MESH_LINK_FANOUTS), np.arange(n),
+                          batch_size=64, device=DEVICE)
+  emb = np.zeros((n, MESH_LINK_OUT), np.float32)
+  model.eval()
+  reset_counts(ops)
+  with torch.no_grad():
+    for batch in nl:
+      seeds = batch.batch.cpu().numpy()
+      for p in range(seeds.shape[0]):
+        v = seeds[p] >= 0
+        out = model(batch.x[p], batch.edge_index[p], batch.edge_mask[p])
+        emb[dds.new2old[seeds[p][v]]] = out[:seeds.shape[1]].cpu().numpy()[v]
+  embed_launches = check_launches('embedding loader', len(nl))
+  path = check_mesh_path(torch, ops, timer, rec, 'mesh_unsup training',
+                         tables=('features',))
+  del rec
+  rng = np.random.default_rng(1)
+  a = rng.integers(0, n, 2000)
+  b = rng.integers(0, n, 2000)
+  same_cl = cl[a] == cl[b]
+  score = (emb[a] * emb[b]).sum(1)
+  auc = float((score[same_cl][:, None] > score[~same_cl][None, :]).mean())
+  launches = {k: train_launches[k] + embed_launches[k]
+              for k in train_launches}
+  return {'auc': auc, 'epoch_secs': epoch_secs, 'epoch_loss': epoch_loss,
+          'steps_per_epoch': steps, 'embed_batches': len(nl),
+          'launches': launches, 'paths': {'untiered': path}}
+
+
+class DevDraws:
+  """A CPU draws provider's hop draws and negative candidates, moved to
+  ``dev`` (the card and the CPU then sample from the same numbers)."""
+
+  def __init__(self, base, dev):
+    self.base, self.dev = base, dev
+
+  def __call__(self, *a, **kw):
+    return tuple(t.to(self.dev) for t in self.base(*a, **kw))
+
+  def negatives(self, *a, **kw):
+    return self.base.negatives(*a, **kw).to(self.dev)
+
+
+def mesh_link_cross_check(torch):
+  """A small mesh (600 nodes, P = 4, tiered at split 0.3, an ``[E, 8]``
+  edge table) on the card and on the CPU with the same CPU-made draws
+  (the negatives' too): 3 binary `DistLinkNeighborLoader` batches with
+  ``gns=True, with_edge=True`` byte-equal (node, x, edge_index, edge,
+  edge_attr, edge_weight, the link metadata), and 2
+  `make_dp_unsupervised_step` losses within 1e-5."""
+  from graphlearn_tpu_torch.parallel import (DistDataset,
+                                             DistLinkNeighborLoader,
+                                             TorchDraws,
+                                             make_dp_unsupervised_step)
+  rng = np.random.default_rng(17)
+  n, parts = 600, 4
+  rows = np.repeat(np.arange(n), 10)
+  cols = np.where(rng.random(n * 10) < 0.3, rng.integers(0, 30, n * 10),
+                  rng.integers(0, n, n * 10))
+  feats = rng.standard_normal((n, 16)).astype(np.float32)
+  etab = rng.standard_normal((rows.shape[0], EDGE_DIM)).astype(np.float32)
+  cpu = TorchDraws(18, 'cpu')
+  out, losses = {}, {}
+  for dev in (DEVICE, 'cpu'):
+    ds = DistDataset.from_full_graph(parts, rows, cols, node_feat=feats,
+                                     num_nodes=n, split_ratio=0.3,
+                                     edge_feat=etab, device=dev)
+    lo = DistLinkNeighborLoader(ds, list(MESH_LINK_FANOUTS),
+                                (rows[:400], cols[:400]),
+                                neg_sampling='binary', batch_size=32,
+                                shuffle=True, seed=3, with_edge=True,
+                                gns=True, cold_cache_rows=40,
+                                draws=DevDraws(cpu, dev), device=dev)
+    batches = list(itertools.islice(iter(lo), 3))
+    out[dev] = [[t.cpu() for t in (
+        b.node, b.x, b.edge_index, b.edge_mask, b.edge, b.edge_attr,
+        b.metadata['edge_weight'], b.metadata['edge_label_index'],
+        b.metadata['edge_label'], b.metadata['edge_label_mask'])]
+        for b in batches]
+    model = mesh_link_model(torch, 16, dev)
+    opt = torch.optim.Adam(model.parameters(), lr=MESH_LINK_LR, eps=1e-8)
+    step = make_dp_unsupervised_step(model, opt, lo.sampler.mesh)
+    losses[dev] = [float(step(b)) for b in batches[:2]]
+  names = ('node', 'x', 'edge_index', 'edge_mask', 'edge', 'edge_attr',
+           'edge_weight', 'edge_label_index', 'edge_label',
+           'edge_label_mask')
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for name, x, y in zip(names, a, c):
+      if x.dtype != y.dtype or not torch.equal(x, y):
+        raise AssertionError(f'mesh link card and CPU differ: batch {i} '
+                             f'{name}')
+  diff = max(abs(x - y) for x, y in zip(losses[DEVICE], losses['cpu']))
+  if not diff <= 1e-5:
+    raise AssertionError(f'mesh link losses differ by {diff}')
+  emit('mesh_link_cross_check', parts=parts, batches=len(out['cpu']),
+       byte_equal=True, losses={'card': losses[DEVICE],
+                                'cpu': losses['cpu']},
+       loss_max_abs_diff=diff)
+
+
+def mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr, indices,
+                     feats, labels, ab_source=None) -> dict:
+  """The mesh's edge and link phases on `mesh_data`'s stores (with the
+  mod-sharded edge table): `mesh_edges`, `mesh_link`, `mesh_unsup` and
+  `mesh_link_cross_check`."""
+  indptr_h, indices_h = indptr.cpu().numpy(), indices.cpu().numpy()
+  me = mesh_edges(torch, ops, timer, ds_u, ds_t, table, indptr, indices,
+                  feats, labels, ab_source=ab_source)
+  ml = mesh_link(torch, ops, timer, ds_u, ds_t, table, indptr, indices,
+                 feats, labels, indptr_h, indices_h)
+  del indptr_h, indices_h
+  un = mesh_unsup(torch, ops, timer)
+  un['auc_minus_jax'] = un['auc'] - UNSUP_JAX_AUC
+  un['within_tol_of_jax'] = bool(abs(un['auc_minus_jax']) <= UNSUP_AUC_TOL)
+  emit('mesh_unsup', parts=MESH_PARTS, nodes=UNSUP_NODES,
+       epochs=UNSUP_EPOCHS, batch=UNSUP_BATCH, jax_cpu_auc=UNSUP_JAX_AUC,
+       tol=UNSUP_AUC_TOL, **{k: v for k, v in un.items() if k != 'paths'})
+  if not (un['within_tol_of_jax'] and np.isfinite(un['epoch_loss']).all()
+          and un['epoch_loss'][-1] < un['epoch_loss'][0]):
+    raise AssertionError(f'mesh_unsup: AUC {un["auc"]} not within '
+                         f'{UNSUP_AUC_TOL} of JAX\'s {UNSUP_JAX_AUC}, or '
+                         f'losses {un["epoch_loss"]} not falling')
+  mesh_link_cross_check(torch)
+  return {'edges': me, 'link': ml, 'unsup': un}
+
+
+def hops_shape(what, hops, eids=False) -> dict:
+  """A mesh path's sampler hops (each summed over the owners) as one
+  ``kernels``-line shape."""
+  out = {'shape': f'{what}, {MESH_PARTS} owners a hop, hops of '
+                  + '/'.join(str(h['rows']) for h in hops) + ' rows, k '
+                  + '/'.join(str(h['k']) for h in hops)
+                  + (', eids = edge_ids[pos]' if eids else ''),
+         'ms': sum(h['kernel_ms'] for h in hops),
+         'plain_ms': sum(h['plain_ms'] for h in hops),
+         'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
+         'max_abs_err': max(h['max_abs_err'] for h in hops),
+         'byte_equal': True,
+         'hops': [{'rows': h['rows'], 'k': h['k'], 'ms': h['kernel_ms'],
+                   'bound_ms': h['bound_us'] / 1e3,
+                   'plain_ms': h['plain_ms'],
+                   **({'no_eids_ms': h['no_eids_ms'],
+                       'no_eids_bound_ms': h['no_eids_bound_ms']}
+                      if eids else {})} for h in hops]}
+  if eids:
+    out['no_eids_ms'] = sum(h['no_eids_ms'] for h in hops)
+    out['no_eids_bound_ms'] = sum(h['no_eids_bound_ms'] for h in hops)
+  return out
+
+
+def mesh_gather_shape(what, g) -> dict:
+  return {'shape': f'{what}: {g["ids"]} ids x {g["row_bytes"]} B '
+                   f'{g["dtype"]} over {MESH_PARTS} owners',
+          'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+          'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+          'byte_equal': True}
+
+
+def mesh_link_kernels(ml: dict) -> list:
+  """The ``kernels`` entries of the mesh-link path alone (``--mesh-link``):
+  K1 and K1-GNS with the edge-id arm at `mesh_edges`' hops, K2 at its
+  edge-row gather; launches from the phases' runs."""
+  e, lk = ml['edges'], ml['link']
+  un = e['paths']['untiered']
+  ti = e['paths']['tiered']
+  k1 = hops_shape(f'mesh_edges untiered batch of {MESH_PARTS} x '
+                  f'{MESH_BATCH} seeds', un['hops'], eids=True)
+  gns = hops_shape(f'mesh_edges tiered GNS batch of {MESH_PARTS} x '
+                   f'{MESH_BATCH} seeds', ti['hops'], eids=True)
+  edge_rows = un['gathers'][0]
+
+  un_path = ml['unsup']['paths']['untiered']
+
+  def launches(name):
+    return {f'mesh_edges.{k}': v[name] for k, v in e['launches'].items()} | {
+        f'mesh_link.{k}': v[name] for k, v in lk['launches'].items()} | {
+        'mesh_unsup': ml['unsup']['launches'][name]}
+  link_k1 = lk['paths']['untiered']['hops'] + un_path['hops']
+  link_gns = lk['paths']['tiered_gns_with_edge']['hops']
+  link_gathers = [g for p in lk['paths'].values()
+                  for g in p['gathers']] + un_path['gathers']
+  return [
+      {'name': 'sample_one_hop', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
+       'launches': sum(launches('sample_one_hop').values()),
+       'max_abs_err': max(h['max_abs_err'] for h in un['hops'] + link_k1),
+       'ms': k1['ms'], 'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'],
+       'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
+       'shape': k1['shape'], 'hops': k1['hops'],
+       'no_eids_ms': k1['no_eids_ms'],
+       'launches_by_path': launches('sample_one_hop')},
+      {'name': 'sample_one_hop_gns', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop_gns.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247 (gns arm :178, '
+                   'eids :416-421)',
+       'launches': sum(launches('sample_one_hop_gns').values()),
+       'max_abs_err': max(h['max_abs_err'] for h in ti['hops'] + link_gns),
+       'ms': gns['ms'], 'plain_ms': gns['plain_ms'],
+       'bound_ms': gns['bound_ms'], 'bound_by': 'bytes', 'library_ms': None,
+       'byte_equal': True, 'edge_mode': 'edge_ids[pos] (kEdge 2)',
+       'shape': gns['shape'], 'hops': gns['hops'],
+       'no_eids_ms': gns['no_eids_ms'],
+       'launches_by_path': launches('sample_one_hop_gns')},
+      {'name': 'gather_rows', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
+       'launches': sum(launches('gather_rows').values()),
+       'max_abs_err': max(g['max_abs_err'] for g in
+                          un['gathers'] + ti['gathers'] + link_gathers),
+       'ms': edge_rows['kernel_ms'], 'plain_ms': edge_rows['plain_ms'],
+       'bound_ms': edge_rows['bound_us'] / 1e3, 'bound_by': 'bytes',
+       'library_ms': edge_rows['library_ms'], 'byte_equal': True,
+       'shape': mesh_gather_shape('mesh_edges untiered edge rows',
+                                  edge_rows)['shape'],
+       'mesh_link_shapes': [
+           mesh_gather_shape(f'mesh_edges {k} {t}', g)
+           for k, p in e['paths'].items()
+           for t, g in zip(('edge rows', 'x', 'y'), p['gathers'])],
+       'launches_by_path': launches('gather_rows')},
+  ]
+
+
 PORT_KERNELS = {'sample_one_hop': ('sample_one_hop_kernel',),
                 'sample_one_hop_gns': ('sample_gns_kernel',),
                 'gather_rows': ('gather_narrow', 'gather_wide'),
@@ -6888,6 +7688,16 @@ def run(torch, argv) -> list:
     del ds
     edges_phases(torch, ops, timer, indptr, indices, feats)
     return None
+  ab_source = (argv[argv.index('--gns-ab') + 1] if '--gns-ab' in argv
+               else None)
+  if '--mesh-link' in argv:
+    del ds
+    labels = make_labels(torch, feats)
+    table = mesh_edge_table(torch, int(indices.numel()))
+    ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels, table)
+    ml = mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr,
+                          indices, feats, labels, ab_source=ab_source)
+    return mesh_link_kernels(ml)
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -6981,14 +7791,19 @@ def run(torch, argv) -> list:
   # -- the partitioned mesh engine at P = 8 on the card ------------------
   del ds
   torch.cuda.empty_cache()
-  ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels)
+  table = mesh_edge_table(torch, int(indices.numel()))
+  ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels, table)
   loader_launches, node_table, loader_path = mesh_loader(
       torch, ops, timer, ds_u, feats, labels)
   k5 = k5_kernel(torch, timer, ds_u, node_table)
   del node_table
   fmesh_launches, fmesh_paths = fused_mesh(torch, ops, timer, ds_u)
   fused_mesh_cross_check(torch)
-  del ds_u
+  # -- the mesh's sampled edges and its link engine ---------------------
+  ml = mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr,
+                        indices, feats, labels, ab_source=ab_source)
+  del ds_u, table
+  ds_t.edge_features = None
   torch.cuda.empty_cache()
   mesh_launches, mesh_path = mesh_train(torch, ops, timer, ds_t, feats,
                                         labels, train_idx, test_idx,
@@ -7084,6 +7899,18 @@ def run(torch, argv) -> list:
             'byte_equal': True}
 
   mesh_gathers = loader_path['gathers'] + mesh_path['gathers']
+  ml_paths = {f'{ph}.{k}': p for ph in ('edges', 'link', 'unsup')
+              for k, p in ml[ph]['paths'].items()}
+  ml_k1 = [h for k, p in ml_paths.items() for h in p['hops']
+           if 'tiered' not in k or 'untiered' in k]
+  ml_gns = [h for k, p in ml_paths.items() for h in p['hops']
+            if 'tiered' in k and 'untiered' not in k]
+  ml_gathers = [g for p in ml_paths.values() for g in p['gathers']]
+  ml_kernels = mesh_link_kernels(ml)
+
+  def ml_launches(name):
+    return ml_kernels[[k['name'] for k in ml_kernels].index(name)][
+        'launches_by_path']
   fmesh_what = {'per_batch': 'fused_mesh per-batch DP loop batch',
                 'fused': 'FusedDistEpoch step',
                 'tree': 'FusedDistTreeEpoch step (arrival-order frontiers)'}
@@ -7099,7 +7926,7 @@ def run(torch, argv) -> list:
                           + fmesh_hops + het_hops + hl_hops
                           + link_tr['hops'] + link_lo['hops']
                           + seal_out['hops'] + ed['hops'] + el['hops']
-                          + hlk['hops']),
+                          + hlk['hops'] + ml_k1),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -7141,7 +7968,11 @@ def run(torch, argv) -> list:
                                 for k, v in el['launches'].items()},
                             'hetero_link': {
                                 k: v['sample_one_hop']
-                                for k, v in hlk['launches'].items()}},
+                                for k, v in hlk['launches'].items()},
+                            **ml_launches('sample_one_hop')},
+       'mesh_edge_shape': {
+           k: ml_kernels[0][k] for k in ('shape', 'ms', 'no_eids_ms',
+                                         'plain_ms', 'bound_ms', 'hops')},
        'edge_shapes': {
            'products': eid_shape(
                f'{TRAIN_BATCH}-seed with-edge per-batch step', ed['hops']),
@@ -7224,7 +8055,7 @@ def run(torch, argv) -> list:
                           + tree_levels + mesh_gathers + [sub_gather]
                           + fmesh_gathers + het_gathers + hl_gathers
                           + link_tr['gathers'] + link_lo['gathers']
-                          + ed['gathers'] + hlk['gathers']),
+                          + ed['gathers'] + hlk['gathers'] + ml_gathers),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -7287,7 +8118,9 @@ def run(torch, argv) -> list:
                                 for k, v in el['launches'].items()},
                             'hetero_link': {
                                 k: v['gather_rows']
-                                for k, v in hlk['launches'].items()}},
+                                for k, v in hlk['launches'].items()},
+                            **ml_launches('gather_rows')},
+       'mesh_link_shapes': ml_kernels[2]['mesh_link_shapes'],
        'edge_shapes': [
            gather_shape('products with-edge batch x', ed['gathers'][0]),
            gather_shape('products with-edge batch edge rows',
@@ -7336,7 +8169,7 @@ def run(torch, argv) -> list:
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247 (gns arm :178)',
        'launches': gns_launches['sample_one_hop_gns'],
        'max_abs_err': max(h['max_abs_err']
-                          for h in gns_hops + mesh_path['hops']),
+                          for h in gns_hops + mesh_path['hops'] + ml_gns),
        'ms': sum(h['kernel_ms'] for h in gns_hops),
        'plain_ms': sum(h['plain_ms'] for h in gns_hops),
        'bound_ms': sum(h['bound_us'] for h in gns_hops) / 1e3,
@@ -7345,9 +8178,15 @@ def run(torch, argv) -> list:
                 + '/'.join(str(h['rows']) for h in gns_hops)
                 + ' rows, k 15/10/5',
        'hops': per_hop(gns_hops), 'forced_sets': gns_forced['cases'],
+       'edge_mode': 'without edges here; edge_ids[pos] (kEdge 2) on '
+                    'mesh_edges / mesh_link (edge_shape)',
        'launches_by_path': {
            'gns_train': gns_launches['sample_one_hop_gns'],
-           'mesh_train': mesh_launches['sample_one_hop_gns']},
+           'mesh_train': mesh_launches['sample_one_hop_gns'],
+           **ml_launches('sample_one_hop_gns')},
+       'edge_shape': {k: ml_kernels[1][k] for k in (
+           'shape', 'ms', 'no_eids_ms', 'plain_ms', 'bound_ms', 'hops')},
+       'gns_ab': ml['edges']['ab'],
        'mesh_shape': mesh_shape('mesh train batch of 8 x 512 seeds',
                                 mesh_path['hops'])},
       {'name': 'csr_window_gather', 'route': 'cuda',

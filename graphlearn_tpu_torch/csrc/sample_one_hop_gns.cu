@@ -95,6 +95,18 @@
 // entries fill a launch of about 20,000 rows, by 2-3%, and on
 // half-padding buffers of about 20,000 rows at k <= 8, where two passes
 // of 4 rows put the valid rows in few warps, by 6-10% (PERF.md).
+//
+// Edge ids (the `eids` of `ops/pallas_sample.py:416-421` with gns=True,
+// and of `ops/gns.py:566-573`): a compile-time mode of the same kernel
+// (kEdge), as in csrc/sample_one_hop.cu: 0 writes no ids, 1 writes the
+// slot's CSR position, 2 reads edge_ids[position] -- INVALID_ID where
+// the slot is masked.  The position is the one the slot's neighbor id is
+// read at: start + offset clipped to [0, E-1].  A take-all or hub slot
+// knows it when its loads are issued (its edge id is loaded beside its
+// neighbor id); a medium slot carries its row's start until the search
+// has found the offset, then loads its edge id.  The launches without
+// edges keep mode 0's registers and code; modes 1 and 2 spill 28-52
+// bytes a thread at the 64-register cap (ptxas).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -124,18 +136,25 @@ __device__ __forceinline__ float weight_of(float boost, unsigned bit) {
 // One output slot of a tile in two registers: `meta` packs its tile row
 // (bits 0-4), whether it is on (bit 5) and on the medium arm (bit 6),
 // and a medium row's degree (bits 7-15); `raw` holds what its loads
-// brought: the draw v of a medium slot, else the neighbor id.
+// brought: the draw v of a medium slot, else the neighbor id.  With edge
+// ids (kEdge != 0) `pos` holds the slot's clipped CSR position (a medium
+// slot's row start until it is resolved) and `eid` its edge id; mode 0
+// never reads them, so the compiler drops them.
 struct Slot {
   int meta;
   int32_t raw;
+  int64_t pos;
+  int32_t eid;
 };
 
 // Issues slot s's loads (every lane calls it: it shuffles the row's
 // start and degree from the preload lanes).
+template <int kEdge>
 __device__ __forceinline__ Slot load_slot(
     int s, int n_slots, int k, int w, float inv_k, int64_t start, int deg,
     const float* __restrict__ u_t, const float* __restrict__ v_t,
-    const int32_t* __restrict__ indices, int64_t n_edges, int64_t last) {
+    const int32_t* __restrict__ indices, int64_t n_edges, int64_t last,
+    const int32_t* __restrict__ edge_ids) {
   // s / k exactly: s < 512 (tile * k <= 64 while k <= 32, tile <= 2 rows
   // beyond) keeps (s + 0.5) / k at least 0.5 / k from an integer, far
   // above the f32 error
@@ -150,6 +169,8 @@ __device__ __forceinline__ Slot load_slot(
   Slot t;
   t.meta = r | (on << 5) | (medium << 6) | (medium ? d << 7 : 0);
   t.raw = -1;
+  t.pos = st;
+  t.eid = -1;
   if (medium) {
     t.raw = __float_as_int(__ldg(v_t + s));
   } else if (on) {
@@ -163,6 +184,8 @@ __device__ __forceinline__ Slot load_slot(
       int64_t pos = st + off;
       pos = pos < 0 ? 0 : (pos > last ? last : pos);
       t.raw = __ldg(indices + pos);
+      if constexpr (kEdge == 1) t.eid = static_cast<int32_t>(pos);
+      if constexpr (kEdge == 2) t.eid = __ldg(edge_ids + pos);
     }
   }
   return t;
@@ -170,12 +193,16 @@ __device__ __forceinline__ Slot load_slot(
 
 // Resolves a medium slot by a binary search of its row's staged cum and
 // stores slot s.
+template <int kEdge>
 __device__ __forceinline__ void store_slot(
     Slot t, int s, int n_slots, float boost, int stride, int bstride,
     const int32_t* s_ids, const float* s_cum, const float* s_meta,
-    const uint8_t* s_bit, int32_t* out, bool* out_mask, float* out_w) {
+    const uint8_t* s_bit, int32_t* out, bool* out_mask, float* out_w,
+    int64_t n_edges, int64_t last, const int32_t* __restrict__ edge_ids,
+    int32_t* __restrict__ out_e) {
   const bool on = (t.meta >> 5) & 1;
   int32_t val = t.raw;
+  int32_t eid = t.eid;
   float wt = on ? 1.0f : 0.0f;
   if ((t.meta >> 6) & 1) {
     const int r = t.meta & 31, d = t.meta >> 7;
@@ -194,15 +221,24 @@ __device__ __forceinline__ void store_slot(
     val = s_ids[r * stride + off];
     wt = __fdiv_rn(s_meta[2 * r + 1],
                    fmaxf(weight_of(boost, s_bit[r * bstride + off]), 1e-9f));
+    if constexpr (kEdge != 0) {
+      if (n_edges > 0) {
+        int64_t pos = t.pos + off;
+        pos = pos < 0 ? 0 : (pos > last ? last : pos);
+        eid = kEdge == 1 ? static_cast<int32_t>(pos) : __ldg(edge_ids + pos);
+      }
+    }
   }
   if (s < n_slots) {
     out[s] = val;
     out_mask[s] = on;
     out_w[s] = wt;
+    if constexpr (kEdge != 0) out_e[s] = on ? eid : -1;
   }
 }
 
-template <int G>
+// kEdge: 0 no edge ids, 1 the slot's CSR position, 2 edge_ids at it
+template <int G, int kEdge>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 sample_gns_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
                   const int32_t* __restrict__ indices, int64_t n_edges,
@@ -212,7 +248,9 @@ sample_gns_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
                   int64_t nbytes, const int32_t* __restrict__ table_row,
                   int k, int w, float boost, int passes,
                   int32_t* __restrict__ nbrs, bool* __restrict__ mask,
-                  float* __restrict__ weights) {
+                  float* __restrict__ weights,
+                  const int32_t* __restrict__ edge_ids,
+                  int32_t* __restrict__ eids) {
   constexpr int kRowsPerPass = 32 / G;
   extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5;
@@ -257,12 +295,14 @@ sample_gns_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
   int32_t* out = nbrs + row0 * k;
   bool* out_mask = mask + row0 * k;
   float* out_w = weights + row0 * k;
+  int32_t* out_e = kEdge != 0 ? eids + row0 * k : nullptr;
   if (!__any_sync(kFull, deg > 0)) {
     // a tile of padding (or of empty rows): every slot masked
     for (int s = lane; s < n_slots; s += 32) {
       out[s] = -1;
       out_mask[s] = false;
       out_w[s] = 0.0f;
+      if constexpr (kEdge != 0) out_e[s] = -1;
     }
     return;
   }
@@ -275,8 +315,9 @@ sample_gns_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
   Slot slot[kBatch];
 #pragma unroll
   for (int b = 0; b < kBatch; ++b) {
-    slot[b] = load_slot(b * 32 + lane, n_slots, k, w, inv_k, start, deg,
-                        u_t, v_t, indices, n_edges, last);
+    slot[b] = load_slot<kEdge>(b * 32 + lane, n_slots, k, w, inv_k, start,
+                               deg, u_t, v_t, indices, n_edges, last,
+                               edge_ids);
   }
 
   // stage: group grp reads the windows of its medium tile rows (row
@@ -374,24 +415,27 @@ sample_gns_kernel(const int64_t* __restrict__ indptr, int64_t n_nodes,
   // turn
 #pragma unroll
   for (int b = 0; b < kBatch; ++b) {
-    store_slot(slot[b], b * 32 + lane, n_slots, boost, stride, bstride,
-               s_ids, s_cum, s_meta, s_bit, out, out_mask, out_w);
+    store_slot<kEdge>(slot[b], b * 32 + lane, n_slots, boost, stride,
+                      bstride, s_ids, s_cum, s_meta, s_bit, out, out_mask,
+                      out_w, n_edges, last, edge_ids, out_e);
   }
   for (int s0 = 32 * kBatch; s0 < n_slots; s0 += 32) {
-    const Slot x = load_slot(s0 + lane, n_slots, k, w, inv_k, start, deg,
-                             u_t, v_t, indices, n_edges, last);
-    store_slot(x, s0 + lane, n_slots, boost, stride, bstride, s_ids,
-               s_cum, s_meta, s_bit, out, out_mask, out_w);
+    const Slot x = load_slot<kEdge>(s0 + lane, n_slots, k, w, inv_k, start,
+                                    deg, u_t, v_t, indices, n_edges, last,
+                                    edge_ids);
+    store_slot<kEdge>(x, s0 + lane, n_slots, boost, stride, bstride, s_ids,
+                      s_cum, s_meta, s_bit, out, out_mask, out_w, n_edges,
+                      last, edge_ids, out_e);
   }
 }
 
-template <int G>
+template <int G, int kEdge>
 int launch(const void* indptr, long long n_nodes, const void* indices,
            long long n_edges, const void* seeds, long long n_rows,
            const void* u, const void* v, const void* table,
            long long table_rows, long long nbytes, const void* table_row,
            int k, int w, float boost, void* nbrs, void* mask, void* weights,
-           cudaStream_t stream, int sms) {
+           const void* edge_ids, void* eids, cudaStream_t stream, int sms) {
   constexpr int kRowsPerPass = 32 / G;
   // two passes a warp once one pass would not fit the rows in one wave
   // of the card (the blocks an SM holds, read once per window)
@@ -403,7 +447,7 @@ int launch(const void* indptr, long long n_nodes, const void* indices,
   if (blocks_at[w] == 0) {
     int b = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, sample_gns_kernel<G>, kWarps * 32, smem_of(1));
+        &b, sample_gns_kernel<G, kEdge>, kWarps * 32, smem_of(1));
     blocks_at[w] = b > 0 ? b : 1;
   }
   const long long one_wave =
@@ -416,7 +460,7 @@ int launch(const void* indptr, long long n_nodes, const void* indices,
   const long long rows_per_block = static_cast<long long>(kWarps) * tile;
   const dim3 grid(
       static_cast<unsigned>((n_rows + rows_per_block - 1) / rows_per_block));
-  sample_gns_kernel<G><<<grid, kWarps * 32, smem, stream>>>(
+  sample_gns_kernel<G, kEdge><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const int64_t*>(indptr), n_nodes,
       static_cast<const int32_t*>(indices), n_edges,
       static_cast<const int32_t*>(seeds), n_rows,
@@ -424,18 +468,43 @@ int launch(const void* indptr, long long n_nodes, const void* indices,
       static_cast<const uint8_t*>(table), table_rows, nbytes,
       static_cast<const int32_t*>(table_row), k, w, boost, passes,
       static_cast<int32_t*>(nbrs), static_cast<bool*>(mask),
-      static_cast<float*>(weights));
+      static_cast<float*>(weights), static_cast<const int32_t*>(edge_ids),
+      static_cast<int32_t*>(eids));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_edge(const void* indptr, long long n_nodes, const void* indices,
+                long long n_edges, const void* seeds, long long n_rows,
+                const void* u, const void* v, const void* table,
+                long long table_rows, long long nbytes, const void* table_row,
+                int k, int w, float boost, void* nbrs, void* mask,
+                void* weights, const void* edge_ids, void* eids,
+                cudaStream_t stream, int sms) {
+  if (eids == nullptr) {
+    return launch<G, 0>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                        v, table, table_rows, nbytes, table_row, k, w, boost,
+                        nbrs, mask, weights, edge_ids, eids, stream, sms);
+  } else if (edge_ids == nullptr) {
+    return launch<G, 1>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                        v, table, table_rows, nbytes, table_row, k, w, boost,
+                        nbrs, mask, weights, edge_ids, eids, stream, sms);
+  }
+  return launch<G, 2>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u, v,
+                      table, table_rows, nbytes, table_row, k, w, boost, nbrs,
+                      mask, weights, edge_ids, eids, stream, sms);
 }
 
 }  // namespace
 
+// eids null: no edge ids; edge_ids null (eids given): CSR positions
 extern "C" int glt_sample_one_hop_gns(
     const void* indptr, long long n_nodes, const void* indices,
     long long n_edges, const void* seeds, long long n_rows, const void* u,
     const void* v, const void* table, long long table_rows,
     long long nbytes, const void* table_row, int k, int w, float boost,
-    void* nbrs, void* mask, void* weights, void* stream) {
+    void* nbrs, void* mask, void* weights, const void* edge_ids, void* eids,
+    void* stream) {
   if (k < 1 || w < k || w > kMaxWindow || table_rows < 1 || nbytes < 1) {
     return cudaErrorInvalidValue;
   }
@@ -449,19 +518,20 @@ extern "C" int glt_sample_one_hop_gns(
   const long long lanes = static_cast<long long>(sms) * 512;
   while (g < 32 && (g < k || 8 * g < w || n_rows * g <= lanes)) g <<= 1;
   if (g == 4) {
-    return launch<4>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u, v,
-                     table, table_rows, nbytes, table_row, k, w, boost, nbrs,
-                     mask, weights, s, sms);
+    return launch_edge<4>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                          v, table, table_rows, nbytes, table_row, k, w,
+                          boost, nbrs, mask, weights, edge_ids, eids, s, sms);
   } else if (g == 8) {
-    return launch<8>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u, v,
-                     table, table_rows, nbytes, table_row, k, w, boost, nbrs,
-                     mask, weights, s, sms);
+    return launch_edge<8>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                          v, table, table_rows, nbytes, table_row, k, w,
+                          boost, nbrs, mask, weights, edge_ids, eids, s, sms);
   } else if (g == 16) {
-    return launch<16>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
-                      v, table, table_rows, nbytes, table_row, k, w, boost,
-                      nbrs, mask, weights, s, sms);
+    return launch_edge<16>(indptr, n_nodes, indices, n_edges, seeds, n_rows,
+                           u, v, table, table_rows, nbytes, table_row, k, w,
+                           boost, nbrs, mask, weights, edge_ids, eids, s,
+                           sms);
   }
-  return launch<32>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u, v,
-                    table, table_rows, nbytes, table_row, k, w, boost, nbrs,
-                    mask, weights, s, sms);
+  return launch_edge<32>(indptr, n_nodes, indices, n_edges, seeds, n_rows, u,
+                         v, table, table_rows, nbytes, table_row, k, w, boost,
+                         nbrs, mask, weights, edge_ids, eids, s, sms);
 }

@@ -189,7 +189,9 @@ class TorchDraws:
   `draw` takes any tuple of coordinates.  ``negatives(step, stream,
   trials, r, high)`` (the negative samplers' form) returns ``[trials,
   r]`` int32 candidates in ``[0, high)`` at ``(step, -1 - stream)``,
-  coordinates no hop draws at.
+  coordinates no hop draws at; the mesh's negatives pass the partition
+  that draws them, ``part=p``, as a third coordinate ``(step, -1 -
+  stream, p)``.
   """
 
   def __init__(self, seed: int, device):
@@ -231,9 +233,13 @@ class TorchDraws:
       coords += (etype,)
     return self._from(self._mixed(coords), rows, k, w, gns)
 
-  def negatives(self, step, stream, trials, r, high) -> torch.Tensor:
+  def negatives(self, step, stream, trials, r, high,
+                part=None) -> torch.Tensor:
+    coords = (step, -1 - int(stream))
+    if part is not None:
+      coords += (int(part),)
     gen = torch.Generator(device=self.device)
-    gen.manual_seed(self._mixed((step, -1 - int(stream))) & ((1 << 63) - 1))
+    gen.manual_seed(self._mixed(coords) & ((1 << 63) - 1))
     return torch.randint(0, int(high), (trials, r), generator=gen,
                          device=self.device, dtype=torch.int32)
 

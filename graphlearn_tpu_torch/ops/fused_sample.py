@@ -37,7 +37,8 @@ _LL = ctypes.c_longlong
 _ARGTYPES = (_P, _LL, _P, _LL, _P, _LL, _P, _P, ctypes.c_int, ctypes.c_int,
              _P, _P, _P, _P, _P)
 _GNS_ARGTYPES = (_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _LL, _P,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P)
+                 ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P,
+                 _P, _P)
 
 
 def _check_k(k: int, w: int) -> None:
@@ -149,13 +150,17 @@ def sample_one_hop_gns_fused(indptr: torch.Tensor, indices: torch.Tensor,
                              v: torch.Tensor, bits, boost: float,
                              req: Optional[torch.Tensor] = None,
                              window: Optional[int] = None,
-                             sort_locality: bool = False) -> OneHopResult:
+                             sort_locality: bool = False,
+                             edge_ids: Optional[torch.Tensor] = None,
+                             with_edge_ids: bool = False) -> OneHopResult:
   """`ops.gns.sample_one_hop_gns` through the CUDA kernel.
 
   On CUDA: ``indptr`` int64, ``indices`` int32, ``seeds`` int32, ``u``
   and ``v`` ``[B, k]`` f32, the bitmask's table uint8 (any of the three
-  forms, on the same device), all contiguous; ``k <= w <= 256``.
-  Launches on the current stream without synchronising.
+  forms, on the same device), ``edge_ids`` (optional) int32, all
+  contiguous; ``k <= w <= 256``.  With ``with_edge_ids`` the kernel also
+  writes ``eids`` (``edge_ids`` at each slot's position, or the
+  position).  Launches on the current stream without synchronising.
   """
   b = seeds.shape[0]
   w = int(window) if window is not None else default_window(k)
@@ -169,34 +174,43 @@ def sample_one_hop_gns_fused(indptr: torch.Tensor, indices: torch.Tensor,
   if dev.type not in ('cpu', 'cuda'):
     raise ValueError(f'sample_one_hop_gns_fused runs on cpu or cuda, not '
                      f'{dev}')
+  check_edge_ids(indices.numel(), edge_ids, with_edge_ids)
+  if not with_edge_ids:
+    edge_ids = None
 
   def run(s, r):
     if dev.type == 'cpu':
       return sample_one_hop_gns(indptr, indices, s, k, u, v, bits, boost,
-                                req=r, window=w)
-    return _launch_gns(indptr, indices, s, k, u, v, bits, boost, r, w)
+                                req=r, window=w, edge_ids=edge_ids,
+                                with_edge_ids=with_edge_ids)
+    return _launch_gns(indptr, indices, s, k, u, v, bits, boost, r, w,
+                       edge_ids, with_edge_ids)
 
   if sort_locality and b > 1:
     return _sorted(seeds, run, (req,))
   return run(seeds, req)
 
 
-def _launch_gns(indptr, indices, seeds, k, u, v, bits, boost, req, w):
+def _launch_gns(indptr, indices, seeds, k, u, v, bits, boost, req, w,
+                edge_ids=None, with_edge_ids=False):
   dev = seeds.device
   table = bits_table(bits)
   _check_cuda(dev, (('indptr', indptr, torch.int64),
                     ('indices', indices, torch.int32),
                     ('seeds', seeds, torch.int32),
                     ('u', u, torch.float32), ('v', v, torch.float32),
-                    ('bits table', table, torch.uint8)))
+                    ('bits table', table, torch.uint8))
+              + ((('edge_ids', edge_ids, torch.int32),)
+                 if edge_ids is not None else ()))
   if table.ndim != 2 or table.numel() == 0:
     raise ValueError('the bits table must be a non-empty [T, nbytes]')
   rows = bits_rows(bits, req, seeds.shape[0], dev).contiguous()
-  return gns_kernel(indptr, indices, seeds, k, u, v, table, rows, boost, w)
+  return gns_kernel(indptr, indices, seeds, k, u, v, table, rows, boost, w,
+                    edge_ids, with_edge_ids)
 
 
-def gns_kernel(indptr, indices, seeds, k, u, v, table, rows, boost, w
-               ) -> OneHopResult:
+def gns_kernel(indptr, indices, seeds, k, u, v, table, rows, boost, w,
+               edge_ids=None, with_edge_ids=False) -> OneHopResult:
   """The GNS kernel's launch alone, on inputs `_launch_gns` has checked
   (``table`` the ``[T, nbytes]`` byte table, ``rows`` the ``[B]`` int32
   table row of each seed): the outputs' allocation and one launch."""
@@ -205,18 +219,23 @@ def gns_kernel(indptr, indices, seeds, k, u, v, table, rows, boost, w
   nbrs = torch.empty((b, k), dtype=torch.int32, device=dev)
   mask = torch.empty((b, k), dtype=torch.bool, device=dev)
   weights = torch.empty((b, k), dtype=torch.float32, device=dev)
+  eids = (torch.empty((b, k), dtype=torch.int32, device=dev)
+          if with_edge_ids else None)
   if b == 0:
-    return OneHopResult(nbrs=nbrs, mask=mask, weights=weights)
+    return OneHopResult(nbrs=nbrs, mask=mask, eids=eids, weights=weights)
   fn = _build.kernel('sample_one_hop_gns', 'glt_sample_one_hop_gns',
                      _GNS_ARGTYPES)
   err = fn(indptr.data_ptr(), indptr.numel() - 1, indices.data_ptr(),
            indices.numel(), seeds.data_ptr(), b, u.data_ptr(), v.data_ptr(),
            table.data_ptr(), table.shape[0], table.shape[1], rows.data_ptr(),
            k, w, float(boost), nbrs.data_ptr(), mask.data_ptr(),
-           weights.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+           weights.data_ptr(),
+           None if edge_ids is None else edge_ids.data_ptr(),
+           None if eids is None else eids.data_ptr(),
+           torch.cuda.current_stream(dev).cuda_stream)
   _build.check(err, 'sample_one_hop_gns')
   sample_one_hop_gns_fused.launches += 1
-  return OneHopResult(nbrs=nbrs, mask=mask, weights=weights)
+  return OneHopResult(nbrs=nbrs, mask=mask, eids=eids, weights=weights)
 
 
 #: kernel launches (counted where the kernel is launched, nowhere else)

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ..utils.padding import INVALID_ID
-from .neighbor import OneHopResult, _seed_rows, default_window
+from .neighbor import (OneHopResult, _seed_rows, check_edge_ids,
+                       default_window)
 
 GNS_ENV = 'GLT_GNS'
 BOOST_ENV = 'GLT_GNS_BOOST'
@@ -241,7 +242,9 @@ def sample_one_hop_gns(indptr: torch.Tensor, indices: torch.Tensor,
                        seeds: torch.Tensor, k: int, u: torch.Tensor,
                        v: torch.Tensor, bits, boost: float,
                        req: Optional[torch.Tensor] = None,
-                       window: Optional[int] = None) -> OneHopResult:
+                       window: Optional[int] = None,
+                       edge_ids: Optional[torch.Tensor] = None,
+                       with_edge_ids: bool = False) -> OneHopResult:
   """Biased one-hop sampling with importance weights, the plain version
   (the JAX `sample_one_hop_gns` with ``sort_locality=False`` and its
   draws injected).
@@ -256,10 +259,16 @@ def sample_one_hop_gns(indptr: torch.Tensor, indices: torch.Tensor,
       per-requester forms.
     boost: a cached neighbor draws with weight ``1 + boost``.
     window: ``w`` (default `default_window(k)`).
+    edge_ids: optional ``[E]`` int32 edge ids, read at the sampled
+      positions.
+    with_edge_ids: also return ``eids``: ``edge_ids`` at each slot's
+      clipped CSR position (the position itself without ``edge_ids``),
+      -1 where masked.
   Returns ``OneHopResult`` with ``weights [B, k]`` f32 (0 where masked).
   """
   sample_one_hop_gns.calls += 1
   e = indices.numel()
+  check_edge_ids(e, edge_ids, with_edge_ids)
   dev = seeds.device
   w = int(window) if window is not None else default_window(k)
   start, deg = _seed_rows(indptr, seeds)
@@ -292,12 +301,18 @@ def sample_one_hop_gns(indptr: torch.Tensor, indices: torch.Tensor,
   off = torch.where((deg <= k)[:, None], slot[None, :],
                     torch.where(medium, off_b, rand_off))
   weights = torch.where(mask, torch.where(medium, iw, 1.0), 0.0)
+  eids = None
   if e == 0:
     nbrs = torch.full(mask.shape, INVALID_ID, dtype=torch.int32, device=dev)
+    if with_edge_ids:
+      eids = nbrs.clone()
   else:
     pos = torch.clamp(start[:, None] + off, 0, last)
     nbrs = torch.where(mask, indices[pos].to(torch.int32), INVALID_ID)
-  return OneHopResult(nbrs=nbrs, mask=mask,
+    if with_edge_ids:
+      ids = pos.to(torch.int32) if edge_ids is None else edge_ids[pos]
+      eids = torch.where(mask, ids, INVALID_ID)
+  return OneHopResult(nbrs=nbrs, mask=mask, eids=eids,
                       weights=weights.to(torch.float32))
 
 

@@ -1,15 +1,20 @@
-"""The mesh data plane, its partitions sharing one card: sharded graph
-and tiered feature store, the dense exchange, the mesh sampler and
-loader (GNS-biased or uniform, adaptive exchange slack), the
-remote-push row gather, data-parallel training and evaluation, and the
-fused mesh epochs."""
+"""The mesh data plane, its partitions sharing one card: sharded graph,
+tiered feature store and mod-sharded edge features, the dense exchange,
+the mesh sampler and loader (GNS-biased or uniform, adaptive exchange
+slack, sampled edge ids and rows), the link engine (strict negatives
+over the sharded graph, the link sampler and loader), the remote-push
+row gather, data-parallel training (supervised and link loss) and
+evaluation, and the fused mesh epochs."""
 from .dist_data import (DistDataset, DistFeature, DistGraph,
-                        build_dist_feature, build_dist_graph, hot_count,
-                        relabel_by_partition)
-from .dist_sampler import (SLACK_LADDER, AdaptiveSlack, DistNeighborLoader,
-                           DistNeighborSampler, TorchDraws, dist_gather,
-                           dist_gather_multi)
-from .dp import Mesh, make_dp_eval_step, make_dp_supervised_step, make_mesh
+                        build_dist_edge_feature, build_dist_feature,
+                        build_dist_graph, hot_count, relabel_by_partition)
+from .dist_sampler import (SLACK_LADDER, AdaptiveSlack,
+                           DistLinkNeighborLoader, DistLinkNeighborSampler,
+                           DistNeighborLoader, DistNeighborSampler,
+                           TorchDraws, dist_edge_exists, dist_gather,
+                           dist_gather_multi, dist_sample_negative)
+from .dp import (Mesh, make_dp_eval_step, make_dp_supervised_step,
+                 make_dp_unsupervised_step, make_mesh)
 from .fused import FusedDistEpoch, FusedDistTreeEpoch
 from .exchange import bucket_by_owner, capacity_spec, plan_exchange
 from .rdma_gather import push_rows, push_rows_plain, rdma_gather

@@ -1,5 +1,6 @@
-"""Sharded graph and tiered feature store (the JAX package's
-`parallel/dist_data.py:33-87,155-165,351-398,455-527,598-633,755-851`).
+"""Sharded graph, tiered feature store and mod-sharded edge features (the
+JAX package's `parallel/dist_data.py:33-87,155-165,351-398,455-527,
+598-661,755-851`).
 
 Nodes are relabelled to contiguous ownership ranges (``bounds [P+1]``),
 hottest first within each range; each partition holds the CSR of its own
@@ -12,8 +13,11 @@ the store lives on a card).
 The relabel is host numpy, as in JAX; the per-edge work (remap, CSR
 sort) runs in torch on the store's device.  The CSR sort is a stable
 sort on ``row * N + col``, which orders edges exactly as the JAX
-package's ``np.lexsort((cols, rows))``.  Range partitioner only: no
-replica cache, no edge features, no partition directory.
+package's ``np.lexsort((cols, rows))``.  Edge features are indexed by
+GLOBAL edge id (the input edge order, which the relabel keeps) and
+mod-sharded: shard ``p`` row ``r`` holds edge ``r * P + p``
+(`build_dist_edge_feature`).  Range partitioner only: no replica cache,
+no partition directory.
 """
 from __future__ import annotations
 
@@ -137,15 +141,20 @@ class DistFeature:
       ``g - bounds[owner] < hot_counts[owner]``.
     cold_host: ``[N, D]`` host table by relabelled id (pinned when the
       shards are on a card), or None for a store wholly on the card.
+    mod_sharded: True for strided ownership (owner ``id % P``, row ``id
+      // P``: `build_dist_edge_feature`), False for the ranges of
+      ``bounds``.
   """
 
-  def __init__(self, shards, bounds, hot_counts=None, cold_host=None):
+  def __init__(self, shards, bounds, hot_counts=None, cold_host=None,
+               mod_sharded: bool = False):
     self.shards = shards
     self.bounds = np.asarray(bounds, dtype=np.int64)
     self.hot_counts = (np.asarray(hot_counts, np.int32)
                        if hot_counts is not None
                        else np.diff(self.bounds).astype(np.int32))
     self.cold_host = cold_host
+    self.mod_sharded = bool(mod_sharded)
 
   @property
   def feature_dim(self) -> int:
@@ -191,19 +200,55 @@ def build_dist_feature(feats, old2new: np.ndarray, bounds: np.ndarray,
   return DistFeature(shards, bounds, hot_counts=hot_counts, cold_host=cold)
 
 
+def build_dist_edge_feature(efeats, num_parts: int,
+                            device='cuda') -> DistFeature:
+  """Mod-shard an ``[E, De]`` (or ``[E]``) edge-feature table indexed by
+  GLOBAL edge id: shard ``p`` row ``r`` holds edge ``r * P + p``.
+
+  A node's out-edges have consecutive ids in the usual COO order, so
+  range shards would send one seed's whole edge set to one owner and
+  overflow a capacity-bound gather; strided ownership spreads every run
+  of ids evenly over the owners.  ``efeats`` may be a numpy array or a
+  tensor on any device.
+  """
+  device = resolve_device(device)
+  efeats = efeats if isinstance(efeats, torch.Tensor) else torch.from_numpy(
+      np.asarray(efeats))
+  if efeats.ndim == 1:
+    efeats = efeats[:, None]
+  e = efeats.shape[0]
+  rows_max = max(-(-e // num_parts), 1)
+  shards = torch.zeros((num_parts, rows_max, efeats.shape[1]),
+                       dtype=efeats.dtype, device=device)
+  for p in range(num_parts):
+    own = efeats[p::num_parts]
+    shards[p, :own.shape[0]] = own.to(device)
+  return DistFeature(shards, np.arange(num_parts + 1, dtype=np.int64),
+                     mod_sharded=True)
+
+
 class DistDataset:
   """The sharded dataset: `DistGraph`, the node feature store, node
-  labels ``[P, max_nodes]`` (on the device) and the relabel
+  labels ``[P, max_nodes]`` (on the device), the mod-sharded edge
+  features (`build_dist_edge_feature`, or None) and the relabel
   (``old2new`` / ``new2old``, numpy)."""
 
   def __init__(self, graph: DistGraph, node_features=None,
-               node_labels=None, old2new=None, device='cuda'):
+               node_labels=None, old2new=None, device='cuda',
+               edge_features: Optional[DistFeature] = None):
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
+    self.device = resolve_device(device)
+    if edge_features is not None and not (
+        edge_features.mod_sharded
+        and edge_features.shards.shape[0] == graph.num_partitions
+        and edge_features.shards.device == self.device):
+      raise ValueError(f'edge_features must be a mod-sharded table of '
+                       f'{graph.num_partitions} shards on {self.device}')
+    self.edge_features = edge_features
     self.old2new = old2new
     self.new2old = np.argsort(old2new) if old2new is not None else None
-    self.device = resolve_device(device)
 
   @property
   def num_partitions(self) -> int:
@@ -215,14 +260,16 @@ class DistDataset:
                       node_pb: Optional[np.ndarray] = None, seed: int = 0,
                       split_ratio: float = 1.0,
                       hotness: Optional[np.ndarray] = None,
-                      device='cuda') -> 'DistDataset':
+                      edge_feat=None, device='cuda') -> 'DistDataset':
     """In-memory partition and shard onto ``device``.
 
     Without ``node_pb`` nodes are placed by the JAX package's seeded
     round-robin over a random permutation (its ``'range'``
     partitioner).  ``split_ratio < 1`` tiers the feature store;
     ``hotness`` defaults to in-degree then, so the card keeps the most
-    gathered rows.
+    gathered rows.  ``edge_feat`` is the ``[E, De]`` table by input edge
+    order, mod-sharded by `build_dist_edge_feature`, or such a
+    `DistFeature` already built (two stores of one graph share it).
     """
     device = resolve_device(device)
     cols_t = cols if isinstance(cols, torch.Tensor) else torch.from_numpy(
@@ -251,4 +298,7 @@ class DistDataset:
     if node_label is not None:
       nl = build_dist_feature(node_label, old2new, g.bounds,
                               device=device).shards[..., 0]
-    return cls(g, nf, nl, old2new, device=device)
+    ef = edge_feat
+    if ef is not None and not isinstance(ef, DistFeature):
+      ef = build_dist_edge_feature(ef, num_parts, device=device)
+    return cls(g, nf, nl, old2new, device=device, edge_features=ef)

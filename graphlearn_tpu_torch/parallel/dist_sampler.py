@@ -1,8 +1,10 @@
 """Mesh neighbor sampling with feature collection over a tiered store,
-and its loader (the JAX package's `parallel/dist_sampler.py`: the node
-path of `_dist_one_hop`, `dist_gather_multi`, `dist_gather`,
+its link engine and their loaders (the JAX package's
+`parallel/dist_sampler.py`: `_dist_one_hop`, `dist_gather_multi`,
+`dist_gather`, `dist_edge_exists`, `dist_sample_negative`,
 `_expand_and_collect`, `overlay_cold_host`, `AdaptiveSlack`,
-`DistNeighborSampler`, `DistNeighborLoader`).
+`DistNeighborSampler`, `DistNeighborLoader`, `DistLinkNeighborSampler`,
+`DistLinkNeighborLoader`).
 
 The mesh's ``P`` partitions share one card (`parallel.dp.Mesh`); every
 per-partition tensor is stacked on a leading ``[P]`` axis, and the
@@ -15,10 +17,23 @@ the stream; nothing else does):
           all-to-all of the stacked buffers -> each owner samples its
           receive buffer from its CSR (the GNS kernel with ``gns=True``,
           the uniform kernel otherwise; one launch per owner) -> reply
-          -> `induce_next` per partition;
+          -> `induce_next` per partition; with ``with_edge`` each owner
+          also writes its slots' GLOBAL edge ids (``edge_ids[pos]`` of
+          its shard, the kernels' edge-id arm), which ride the reply;
+  edges:  with edge features, one exchange gathers every sampled edge's
+          row from the mod-sharded table (owner ``eid % P``, row ``eid
+          // P``), each owner's read by the row gather kernel;
   rows:   one exchange gathers features (hot tier only: rows past the
           owner's hot count come back zero) and labels, each owner's
           read by the row gather kernel.
+
+The link sampler first draws each partition's strict negatives: ``5``
+candidate pairs a slot, one existence exchange for all of them (each
+pair travels to its row's owner, which searches its CSR; a pair past an
+owner's capacity answers "exists"), the first non-edge kept, and a slot
+whose every candidate is an edge keeps its last and is masked out of the
+labels (``dist.negative.lost`` counts them).  The positive endpoints and
+the negatives then expand as node seeds.
 
 `_finish_nodes` then does the host half for a tiered store: the cold
 overlay over the stacked ``[P, node_cap]`` table (victim-cache hits
@@ -31,6 +46,7 @@ order); batches are the same either way, except that the GNS mask of
 batch ``k+1`` is read at dispatch, before batch ``k``'s admissions — as
 in JAX.  ``prefetch=N`` runs both halves on a worker thread with its own
 CUDA stream (`loader.prefetch`), ``N`` batches ahead of the trainer.
+The link loader dispatches and finishes the same way.
 
 Random numbers come from a ``draws`` provider, ``draws(step, hop, rows,
 k, w, gns, owner=o) -> (u [rows, k], v [rows, k])`` for the GNS sampler
@@ -40,7 +56,10 @@ samples the rows and row ``j`` belongs to the ``j``-th row of that
 owner's receive buffer in ascending seed order.  The default
 (`TorchDraws`) is a `torch.Generator` on the sampler's device seeded
 from ``(seed, step, hop[, owner])``; the parity tests replay the JAX
-package's keys instead.
+package's keys instead.  The link sampler's negatives come from the same
+provider, ``draws.negatives(step, stream, trials, r, high, part=p)``:
+``[trials, r]`` int32 candidates in ``[0, high)`` for partition ``p``,
+stream 0 the rows and stream 1 the columns.
 """
 from __future__ import annotations
 
@@ -61,7 +80,9 @@ from ..ops.fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
 from ..ops.gather_rows import gather_rows
 from ..ops.gns import (cached_set_bits, dedup_requester_bits, gns_enabled,
                        resolve_boost)
+from ..ops.negative import edge_in_csr, first_non_edge
 from ..ops.neighbor import default_window
+from ..sampler.base import NegativeSampling
 from ..ops.unique import expand_hops
 from ..telemetry.aggregate import exchange_summary
 from ..telemetry.live import live
@@ -71,17 +92,23 @@ from ..utils.tensor import PinnedStaging
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
 from .exchange import capacity_spec, plan_exchange
-from .partition_book import hot_split_host, range_owner_fn
+from .partition_book import (edge_local_rows, edge_owner_fn, hot_split_host,
+                             range_owner_fn)
 
 #: per-destination exchange capacity for shuffled seeds, as a multiple
 #: of the balanced share (frontier / P)
 DEFAULT_EXCHANGE_SLACK = 2.0
 
 #: the exchange counters (offered = valid ids entering an exchange,
-#: dropped = valid ids past an owner's capacity, slots = send width)
+#: dropped = valid ids past an owner's capacity, slots = send width;
+#: negative.lost = strict-negative slots whose every trial was an edge)
 EXCHANGE_STAT_NAMES = (
     'frontier.offered', 'frontier.dropped', 'frontier.slots',
-    'feature.offered', 'feature.dropped', 'feature.slots')
+    'feature.offered', 'feature.dropped', 'feature.slots',
+    'negative.lost')
+
+#: candidate pairs a strict-negative slot draws
+NEG_TRIALS = 5
 
 #: the host's cold-tier counters (``dist.feature.<name>``)
 COLD_STAT_NAMES = ('lookups', 'cold_lookups', 'cold_misses', 'cache_hits',
@@ -128,13 +155,16 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
                   draws: Draws, step: int, hop: int,
                   capacity: Optional[int], gns_bits=None,
                   gns_boost: Optional[float] = None,
-                  sort_locality: bool = True):
+                  sort_locality: bool = True, eids_loc=None):
   """One hop for every partition's ``[P, F]`` frontier: exchange, each
   owner samples its receive rows (in ascending id order with
-  ``sort_locality``, else in arrival order) from its CSR, reply.
-  Returns ``(nbrs, mask, weights, stats)`` stacked ``[P, F, k]``
-  (``weights`` None without GNS) and the ``[3]`` exchange counters
-  summed over the partitions."""
+  ``sort_locality``, else in arrival order) from its CSR, reply.  With
+  ``eids_loc`` (the ``[P, E_max]`` int32 global edge ids of the shards)
+  each owner also returns its slots' ids, ``eids_loc[o][pos]``.
+  Returns ``(nbrs, mask, eids, weights, stats)``, the first four stacked
+  ``[P, F, k]`` (``eids`` None without ``eids_loc``, -1 where masked or
+  undelivered; ``weights`` None without GNS) and the ``[3]`` exchange
+  counters summed over the partitions."""
   plan = plan_exchange(frontier, range_owner_fn(bounds_t), mesh.size,
                        mesh, capacity)
   local = torch.where(plan.recv >= 0, plan.recv - bounds_t[:-1, None],
@@ -143,39 +173,55 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
   w = default_window(k)
   res = []
   for o in range(mesh.size):
+    edge = (dict(edge_ids=eids_loc[o], with_edge_ids=True)
+            if eids_loc is not None else {})
     if gns_bits is not None:
       u, v = draws(step, hop, rows, k, w, True, owner=o)
       res.append(sample_one_hop_gns_fused(
           indptr[o], indices[o], local[o], k, u, v, gns_bits, gns_boost,
           req=plan.requester_of_recv, window=w,
-          sort_locality=sort_locality))
+          sort_locality=sort_locality, **edge))
     else:
       u, g = draws(step, hop, rows, k, w, False, owner=o)
       res.append(sample_one_hop_fused(indptr[o], indices[o], local[o], k,
-                                      u, g, sort_locality=sort_locality))
+                                      u, g, sort_locality=sort_locality,
+                                      **edge))
   nbrs = plan.reply(torch.stack([r.nbrs for r in res]), fill=INVALID_ID)
   mask = plan.reply(torch.stack([r.mask for r in res]), fill=False)
+  eids = (plan.reply(torch.stack([r.eids for r in res]), fill=INVALID_ID)
+          if eids_loc is not None else None)
   weights = (plan.reply(torch.stack([r.weights for r in res]), fill=0.0)
              if gns_bits is not None else None)
-  return nbrs, mask, weights, plan.stats.sum(0)
+  return nbrs, mask, eids, weights, plan.stats.sum(0)
 
 
 def dist_gather_multi(mesh: Mesh, shards, bounds, ids,
-                      capacity: Optional[int] = None, hot_counts=None):
-  """Row gather from several range-sharded tables sharing one exchange,
-  for every partition's ``[P, F]`` ids: ``out_t[p, i] =
-  table_t[ids[p, i]]`` (zero rows for invalid or undelivered ids).
-  ``shards`` are stacked ``[P, rows, ...]`` tables; with
-  ``hot_counts`` (``[P]``) the FIRST is the hot tier: rows at or past
-  the owner's hot count come back zero (the cold overlay fills them).
-  Each owner's read is the row gather kernel (a ``[P, rows]`` table is
-  read as ``[rows, 1]``).  Returns ``(outs, stats)``, ``stats`` the
-  ``[3]`` counters summed over the partitions."""
-  bounds_t = int64_on(bounds, ids.device)
-  plan = plan_exchange(ids, range_owner_fn(bounds_t), mesh.size, mesh,
-                       capacity)
-  valid = plan.recv >= 0
-  local = torch.where(valid, plan.recv - bounds_t[:-1, None], 0)
+                      capacity: Optional[int] = None, hot_counts=None,
+                      shard_mode: str = 'range'):
+  """Row gather from several sharded tables sharing one exchange, for
+  every partition's ``[P, F]`` ids: ``out_t[p, i] = table_t[ids[p, i]]``
+  (zero rows for invalid or undelivered ids).  ``shards`` are stacked
+  ``[P, rows, ...]`` tables, owned by the ranges of ``bounds``
+  (``shard_mode='range'``) or by ``id % P`` at row ``id // P``
+  (``'mod'``: the edge-feature tables of `build_dist_edge_feature`);
+  with ``hot_counts`` (``[P]``) the FIRST is the hot tier: rows at or
+  past the owner's hot count come back zero (the cold overlay fills
+  them).  Each owner's read is the row gather kernel (a ``[P, rows]``
+  table is read as ``[rows, 1]``).  Returns ``(outs, stats)``, ``stats``
+  the ``[3]`` counters summed over the partitions."""
+  if shard_mode not in ('range', 'mod'):
+    raise ValueError(f'unknown shard_mode {shard_mode!r}')
+  if shard_mode == 'mod':
+    plan = plan_exchange(ids, edge_owner_fn(mesh.size), mesh.size, mesh,
+                         capacity)
+    valid = plan.recv >= 0
+    local = torch.where(valid, edge_local_rows(plan.recv, mesh.size), 0)
+  else:
+    bounds_t = int64_on(bounds, ids.device)
+    plan = plan_exchange(ids, range_owner_fn(bounds_t), mesh.size, mesh,
+                         capacity)
+    valid = plan.recv >= 0
+    local = torch.where(valid, plan.recv - bounds_t[:-1, None], 0)
   ok = (ids >= 0) & plan.delivered
   hot = (None if hot_counts is None
          else int64_on(hot_counts, ids.device)[:, None])
@@ -199,6 +245,55 @@ def dist_gather(mesh: Mesh, shard, bounds, ids,
   rows."""
   (out,), _ = dist_gather_multi(mesh, (shard,), bounds, ids, capacity)
   return out
+
+
+def dist_edge_exists(mesh: Mesh, indptr, indices, bounds_t, rows, cols,
+                     capacity: Optional[int] = None) -> torch.Tensor:
+  """Is ``(rows[p, i], cols[p, i])`` an edge of the global graph, for
+  every partition's ``[P, F]`` pairs?  Each pair travels to its row's
+  owner beside its column (one exchange each way), which answers with
+  `ops.negative.edge_in_csr` over its CSR.  A pair past an owner's
+  ``capacity`` answers True ("exists"), so it is never kept as a strict
+  negative."""
+  plan = plan_exchange(rows, range_owner_fn(bounds_t), mesh.size, mesh,
+                       capacity, payload=cols)
+  local = torch.where(plan.recv >= 0, plan.recv - bounds_t[:-1, None],
+                      INVALID_ID)
+  ex = torch.stack([edge_in_csr(indptr[o], indices[o], local[o],
+                                plan.recv_payload[o])
+                    for o in range(mesh.size)])
+  return plan.reply(ex, fill=True)
+
+
+def dist_sample_negative(mesh: Mesh, indptr, indices, bounds_t,
+                         num_rows: int, num_cols: int, req_num: int,
+                         draws, step: int, trials: int = NEG_TRIALS,
+                         capacity: Optional[int] = None,
+                         rows_fixed: Optional[torch.Tensor] = None):
+  """``req_num`` strict negative pairs a partition over the sharded
+  graph: ``trials`` candidate pairs a slot from ``draws.negatives(step,
+  stream, trials, req_num, high, part=p)`` (stream 0 rows in ``[0,
+  num_rows)``, stream 1 columns in ``[0, num_cols)``), ONE existence
+  exchange for all trials, each slot's first non-edge.  Returns ``(rows,
+  cols, ok)``, each ``[P, req_num]``: ``ok`` is False where every trial
+  was an edge (the slot keeps the last trial's pair, which may be an
+  edge; consumers mask it out).  ``rows_fixed`` (``[P, req_num]``) pins
+  each slot's row (triplet mode's negatives of a source)."""
+  parts = mesh.size
+  if rows_fixed is None:
+    rows = torch.stack([draws.negatives(step, 0, trials, req_num, num_rows,
+                                        part=p) for p in range(parts)])
+  else:
+    rows = rows_fixed[:, None, :].expand(parts, trials, req_num)
+  cols = torch.stack([draws.negatives(step, 1, trials, req_num, num_cols,
+                                      part=p) for p in range(parts)])
+  rows = rows.to(torch.int32)
+  exists = dist_edge_exists(
+      mesh, indptr, indices, bounds_t, rows.reshape(parts, -1),
+      cols.reshape(parts, -1), capacity).reshape(parts, trials, req_num)
+  pick = torch.stack([first_non_edge(e) for e in exists])[:, None, :]
+  ok = (~exists).any(dim=1)
+  return (rows.gather(1, pick)[:, 0], cols.gather(1, pick)[:, 0], ok)
 
 
 def overlay_cold_host(x: torch.Tensor, nodes_host: np.ndarray, cold_host,
@@ -256,7 +351,8 @@ class AdaptiveSlack:
 
   #: every loss channel the shared slack caps gate
   OFFER_KEYS = ('dist.frontier.offered', 'dist.feature.offered')
-  DROP_KEYS = ('dist.frontier.dropped', 'dist.feature.dropped')
+  DROP_KEYS = ('dist.frontier.dropped', 'dist.feature.dropped',
+               'dist.negative.lost')
 
   def __init__(self, sampler: 'DistNeighborSampler',
                start: float = DEFAULT_EXCHANGE_SLACK,
@@ -370,6 +466,9 @@ class DistNeighborSampler:
     cold_cache_rows: victim-cache rows per partition (tiered stores).
     gns: cache-aware sampling (``GLT_GNS`` when None); only meaningful
       on a tiered store, off otherwise.
+    with_edge: also return each sampled edge's global id (``edge``) and,
+      when the dataset has edge features and ``collect_features``, its
+      row (``edge_attr``).
     draws: the draws provider (module docstring).
   """
 
@@ -377,7 +476,8 @@ class DistNeighborSampler:
                mesh: Optional[Mesh] = None, collect_features: bool = True,
                seed: int = 0, exchange_slack: Optional[float] = None,
                cold_cache_rows='auto', gns=None,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               with_edge: bool = False):
     self.mesh = mesh if mesh is not None else make_mesh(
         dataset.num_partitions, device=device)
     self.device = self.mesh.device
@@ -393,6 +493,10 @@ class DistNeighborSampler:
     self.collect_features = (collect_features
                              and dataset.node_features is not None)
     self.collect_labels = dataset.node_labels is not None
+    self.with_edge = bool(with_edge)
+    self.collect_edge_features = (collect_features and self.with_edge
+                                  and dataset.edge_features is not None)
+    self._eids = None
     self.tiered = (self.collect_features
                    and dataset.node_features.is_tiered)
     self._cold_cache_spec = cold_cache_rows
@@ -429,6 +533,18 @@ class DistNeighborSampler:
     cap = min(cap, batch_size + self.ds.graph.num_nodes)
     return round_up(cap, 8)
 
+  def _edge_ids(self) -> torch.Tensor:
+    """The shards' global edge ids as one ``[P, E_max]`` int32 copy (the
+    kernels' edge-id arm reads int32), made once."""
+    if self._eids is None:
+      eids = self.ds.graph.edge_ids
+      top = int(eids.max()) if eids.numel() else -1
+      if top >= (1 << 31) - 1:
+        raise ValueError(f'{top + 1} edges: the global edge ids do not fit '
+                         'the int32 ids the samplers write')
+      self._eids = eids.to(torch.int32).contiguous()
+    return self._eids
+
   def sample_from_nodes(self, seeds_stacked: np.ndarray) -> dict:
     """``[P, B]`` per-partition seed batches (relabelled ids, -1 padded)
     -> the stacked batch pieces."""
@@ -449,19 +565,21 @@ class DistNeighborSampler:
     b = seeds.shape[1]
     bits = self._gns_arrays() if self.gns else None
     g = self.ds.graph
+    eids = self._edge_ids() if self.with_edge else None
     node_cap = self.node_capacity(b)
-    hws = []
+    hws, hes = [], []
     fr_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
 
     def one_hop(h, frontier, k):
       cap = capacity_spec(frontier.shape[1], self.num_parts,
                           self.exchange_slack)
-      nbrs, mask, hw, hstats = _dist_one_hop(
+      nbrs, mask, he, hw, hstats = _dist_one_hop(
           self.mesh, g.indptr, g.indices, self._bounds_t, frontier, k,
           draws, step, h, cap, gns_bits=bits,
-          gns_boost=self.gns_boost)
+          gns_boost=self.gns_boost, eids_loc=eids)
       fr_stats.add_(hstats)
       hws.append(hw)
+      hes.append(he)
       return nbrs, mask
 
     state, seed_local, rows_acc, cols_acc, nsn = expand_hops(
@@ -469,25 +587,39 @@ class DistNeighborSampler:
     out = dict(node=state.nodes, node_count=state.count,
                row=torch.cat(rows_acc, dim=1),
                col=torch.cat(cols_acc, dim=1), seed_local=seed_local,
-               x=None, y=None, num_sampled_nodes=nsn, batch=seeds)
+               x=None, y=None, edge=None, ef=None, num_sampled_nodes=nsn,
+               batch=seeds)
+    # induce_next flattens [F, k] row-major: the edge ids and weights
+    # line up with the edge list; masked and dropped edges carry -1 / 0
+    if self.with_edge:
+      out['edge'] = torch.cat(
+          [torch.where(rows >= 0, he.reshape(rows.shape), INVALID_ID)
+           for rows, he in zip(rows_acc, hes)], dim=1)
     if self.gns:
-      # induce_next flattens [F, k] row-major: the weights line up with
-      # the edge list; masked and dropped edges carry 0
       out['edge_weight'] = torch.cat(
           [torch.where(rows >= 0, hw.reshape(rows.shape), 0.0)
            for rows, hw in zip(rows_acc, hws)], dim=1)
     ft_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    if self.collect_edge_features:
+      ef = self.ds.edge_features
+      (out['ef'],), estats = dist_gather_multi(
+          self.mesh, (ef.shards,), ef.bounds, out['edge'],
+          capacity=capacity_spec(out['edge'].shape[1], self.num_parts,
+                                 self.exchange_slack),
+          shard_mode='mod')
+      ft_stats += estats
     tables = []
     if self.collect_features:
       tables.append(self.ds.node_features.shards)
     if self.collect_labels:
       tables.append(self.ds.node_labels)
     if tables:
-      got, ft_stats = dist_gather_multi(
+      got, gstats = dist_gather_multi(
           self.mesh, tables, self._bounds_t, state.nodes,
           capacity=capacity_spec(node_cap, self.num_parts,
                                  self.exchange_slack),
           hot_counts=self._hot_t if self.collect_features else None)
+      ft_stats += gstats
       got = list(got)
       if self.collect_features:
         out['x'] = got.pop(0)
@@ -497,10 +629,11 @@ class DistNeighborSampler:
     return out
 
   def _accumulate_stats(self, stats: torch.Tensor) -> None:
-    """Fold ``[6]`` exchange counters (`EXCHANGE_STAT_NAMES`) into the
-    device accumulator `exchange_stats` drains."""
+    """Fold the first ``len(stats)`` exchange counters
+    (`EXCHANGE_STAT_NAMES`) into the device accumulator `exchange_stats`
+    drains."""
     with self._stats_lock:
-      self._stats_acc += stats
+      self._stats_acc[:stats.shape[0]] += stats
 
   def _finish_nodes(self, out: dict) -> dict:
     """The host half of a dispatched batch: the cold overlay (nothing
@@ -603,10 +736,9 @@ class DistNeighborSampler:
     counters' since the previous ticking drain (the JAX package's
     rule), and records one ``dist.exchange`` event when the exchange
     counters moved and one ``dist.cold_tier`` event when cold lookups
-    did, with the JAX package's fields.  The JAX package's ``dist.feature.cold_hit_rate``
-    alias of ``cache_hit_rate`` is not carried, nor is its
-    ``dist.negative.lost`` (the port's mesh loader samples no negative
-    pairs).
+    did, with the JAX package's fields.  The JAX package's
+    ``dist.feature.cold_hit_rate`` alias of ``cache_hit_rate`` is not
+    carried.
     """
     with self._stats_lock:
       acc = self._stats_acc
@@ -675,7 +807,10 @@ class DistNeighborLoader(PrefetchingLoader):
   cold overlay runs (``GLT_COLD_PREFETCH=0``: one batch at a time).
   ``prefetch=N`` produces batches on a worker thread with its own CUDA
   stream, ``N`` ahead of the consumer (`loader.prefetch`); batches are
-  the same as without it.  Each ``iter()`` starts a new epoch.
+  the same as without it.  ``with_edge=True`` adds each sampled edge's
+  global id (``edge``, -1 where masked) and, over a dataset with edge
+  features, its row (``edge_attr``, zero where masked).  Each ``iter()``
+  starts a new epoch.
   """
 
   def __init__(self, dataset: DistDataset, num_neighbors, input_nodes,
@@ -684,16 +819,17 @@ class DistNeighborLoader(PrefetchingLoader):
                collect_features: bool = True, seed: int = 0,
                input_space: str = 'old', exchange_slack='auto',
                prefetch: int = 0, cold_cache_rows='auto', gns=None,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               with_edge: bool = False):
     self.prefetch = int(prefetch)
     slack = resolve_exchange_slack(exchange_slack, shuffle)
-    self.sampler = DistNeighborSampler(
+    self.sampler = self._make_sampler(
         dataset, num_neighbors, mesh=mesh,
         collect_features=collect_features, seed=seed,
         exchange_slack=(DEFAULT_EXCHANGE_SLACK if slack == 'adaptive'
                         else slack),
         cold_cache_rows=cold_cache_rows, gns=gns, draws=draws,
-        device=device)
+        device=device, with_edge=with_edge)
     self._prefetch_device = self.sampler.device
     self._adaptive = (AdaptiveSlack(self.sampler)
                       if slack == 'adaptive' else None)
@@ -701,13 +837,21 @@ class DistNeighborLoader(PrefetchingLoader):
     self._cold_pipeline = (self.sampler.tiered and os.environ.get(
         'GLT_COLD_PREFETCH', '1') != '0')
     self.ds = dataset
-    seeds = np.asarray(input_nodes).reshape(-1)
-    if input_space == 'old' and dataset.old2new is not None:
-      seeds = dataset.old2new[seeds]
     self.num_parts = dataset.num_partitions
     self.batch_size = int(batch_size)
-    self._batcher = SeedBatcher(seeds, self.batch_size * self.num_parts,
+    self._batcher = SeedBatcher(self._batch_items(input_nodes, input_space),
+                                self.batch_size * self.num_parts,
                                 shuffle, drop_last, seed)
+
+  def _make_sampler(self, dataset, num_neighbors, **kwargs):
+    return DistNeighborSampler(dataset, num_neighbors, **kwargs)
+
+  def _batch_items(self, input_nodes, input_space: str) -> np.ndarray:
+    """What the batcher splits: the relabelled seeds."""
+    seeds = np.asarray(input_nodes).reshape(-1)
+    if input_space == 'old' and self.ds.old2new is not None:
+      seeds = self.ds.old2new[seeds]
+    return seeds
 
   def __len__(self) -> int:
     return len(self._batcher)
@@ -726,9 +870,249 @@ class DistNeighborLoader(PrefetchingLoader):
     md = {'seed_local': out['seed_local']}
     if 'edge_weight' in out:
       md['edge_weight'] = out['edge_weight']
-    return Batch(x=out['x'], y=out['y'],
-                 edge_index=torch.stack([out['row'], out['col']], dim=1),
-                 node=out['node'], node_mask=out['node'] >= 0,
-                 edge_mask=out['row'] >= 0, batch=out['batch'],
-                 batch_size=self.batch_size,
-                 num_sampled_nodes=out['num_sampled_nodes'], metadata=md)
+    return _stacked_batch(out, md, self.batch_size)
+
+
+def _stacked_batch(out: dict, metadata: dict, batch_size: int) -> Batch:
+  """A sampler's stacked output as the `Batch` the DP steps take."""
+  return Batch(x=out['x'], y=out['y'],
+               edge_index=torch.stack([out['row'], out['col']], dim=1),
+               edge_attr=out['ef'], node=out['node'],
+               node_mask=out['node'] >= 0, edge_mask=out['row'] >= 0,
+               edge=out['edge'], batch=out['batch'], batch_size=batch_size,
+               num_sampled_nodes=out['num_sampled_nodes'],
+               metadata=metadata)
+
+
+def binary_num_negatives(batch: int, amount: float) -> int:
+  """Binary-mode negatives a ``batch``-edge seed slice draws:
+  ``ceil(batch * amount)`` (one definition for the sampler, the
+  capacity plan and the labels)."""
+  return int(np.ceil(batch * amount))
+
+
+def pack_link_seeds(edge_label_index, edge_label,
+                    neg_mode: Optional[str]):
+  """``(rows, cols, columns)``: the seed edges' endpoints as int64 and
+  the columns of the packed ``[E, 2|3]`` seed table — the endpoints,
+  then the integer labels if any (binary mode shifts them up by one, so
+  0 means "sampled negative")."""
+  if isinstance(edge_label_index, (tuple, list)):
+    rows, cols = edge_label_index
+  else:
+    ei = np.asarray(edge_label_index)
+    rows, cols = ei[0], ei[1]
+  rows = np.asarray(rows, np.int64)
+  cols = np.asarray(cols, np.int64)
+  columns = [rows, cols]
+  if edge_label is not None:
+    lab = np.asarray(edge_label)
+    if not np.issubdtype(lab.dtype, np.integer):
+      raise ValueError('the mesh link loader carries integer edge labels '
+                       'in its packed seed table')
+    lab = lab.astype(np.int64)
+    if neg_mode == 'binary':
+      lab = lab + 1
+    columns.append(lab)
+  return rows, cols, columns
+
+
+def pack_link_seeds_relabeled(edge_label_index, edge_label,
+                              neg_mode: Optional[str], dataset,
+                              input_space: str) -> np.ndarray:
+  """`pack_link_seeds` with the endpoints mapped through
+  ``dataset.old2new`` when ``input_space='old'``: the packed ``[E, 2|3]``
+  seed table."""
+  rows, cols, columns = pack_link_seeds(edge_label_index, edge_label,
+                                        neg_mode)
+  if input_space == 'old' and dataset.old2new is not None:
+    columns[0] = dataset.old2new[rows]
+    columns[1] = dataset.old2new[cols]
+  return np.stack(columns, axis=1)
+
+
+def link_step_metadata(neg_mode: Optional[str], seed_local, eli=None,
+                       elab=None, elab_mask=None, src_idx=None,
+                       dst_pos=None, dst_neg=None) -> dict:
+  """A link step's label outputs as the metadata dict
+  `models.train.link_loss_from_metadata` reads: ``src_index`` /
+  ``dst_pos_index`` / ``dst_neg_index`` / ``pair_mask`` for triplet
+  mode, ``edge_label_index`` / ``edge_label`` / ``edge_label_mask``
+  otherwise, beside ``seed_local``."""
+  md = {'seed_local': seed_local}
+  if neg_mode == 'triplet':
+    md.update(src_index=src_idx, dst_pos_index=dst_pos,
+              dst_neg_index=dst_neg, pair_mask=src_idx >= 0)
+  else:
+    md.update(edge_label_index=eli, edge_label=elab,
+              edge_label_mask=elab_mask)
+  return md
+
+
+class DistLinkNeighborSampler(DistNeighborSampler):
+  """Mesh link sampler: every partition's seed edges, strict negatives
+  against the GLOBAL sharded graph (`dist_sample_negative`), and the
+  endpoint expansion and collection of `DistNeighborSampler`.
+
+  Args:
+    neg_sampling: None, ``'binary'`` or ``('triplet', amount)`` (a
+      `sampler.NegativeSampling` or what it casts from).
+    Others as `DistNeighborSampler`.
+  """
+
+  def __init__(self, dataset: DistDataset, num_neighbors,
+               neg_sampling=None, **kwargs):
+    super().__init__(dataset, num_neighbors, **kwargs)
+    ns = NegativeSampling.cast(neg_sampling)
+    self.neg_mode = ns.mode if ns is not None else None
+    self.neg_amount = float(ns.amount) if ns is not None else 1.0
+
+  def _expansion_seeds(self, b: int) -> Tuple[int, int]:
+    """``(expansion seeds, negatives)`` of a ``b``-edge partition
+    batch."""
+    if self.neg_mode == 'binary':
+      nn = binary_num_negatives(b, self.neg_amount)
+      return 2 * b + 2 * nn, nn
+    if self.neg_mode == 'triplet':
+      amount = int(np.ceil(self.neg_amount))
+      return 2 * b + b * amount, b * amount
+    return 2 * b, 0
+
+  def sample_from_edges(self, pairs_stacked: np.ndarray) -> dict:
+    """``[P, B, 2|3]`` per-partition (src, dst[, label]) seed edges
+    (relabelled ids, -1 padded) -> the stacked batch pieces with the
+    link ``metadata``."""
+    return self._finish_nodes(self._dispatch_edges(pairs_stacked))
+
+  def _dispatch_edges(self, pairs_stacked: np.ndarray) -> dict:
+    """`_dispatch_nodes`' link twin: negatives, expansion and collection
+    on the card, without the cold overlay."""
+    self._step_cnt += 1
+    pairs = torch.from_numpy(np.asarray(pairs_stacked, np.int32)).to(
+        self.device)
+    return self._sample_link(pairs, self.draws, self._step_cnt)
+
+  def _sample_link(self, pairs: torch.Tensor, draws: Draws,
+                   step: int) -> dict:
+    p, b = pairs.shape[:2]
+    g = self.ds.graph
+    src, dst = pairs[..., 0], pairs[..., 1]
+    _, nn = self._expansion_seeds(b)
+    n = g.num_nodes
+    cap = capacity_spec(nn * NEG_TRIALS, self.num_parts,
+                        self.exchange_slack)
+    neg_ok = None
+    if self.neg_mode == 'binary':
+      nrows, ncols, neg_ok = dist_sample_negative(
+          self.mesh, g.indptr, g.indices, self._bounds_t, n, n, nn, draws,
+          step, capacity=cap)
+      seeds = torch.cat([src, dst, nrows, ncols], dim=1)
+    elif self.neg_mode == 'triplet':
+      amount = nn // b
+      fixed = torch.where(src >= 0, src, 0).repeat_interleave(amount, dim=1)
+      _, negs, neg_ok = dist_sample_negative(
+          self.mesh, g.indptr, g.indices, self._bounds_t, n, n, nn, draws,
+          step, capacity=cap, rows_fixed=fixed)
+      seeds = torch.cat([src, dst, negs], dim=1)
+    else:
+      seeds = torch.cat([src, dst], dim=1)
+    seeds = torch.where(seeds >= 0, seeds, INVALID_ID).to(torch.int32)
+    out = self._sample_collect(seeds, draws, step)
+    sl = out['seed_local']
+    dev = pairs.device
+    pair_valid = (src >= 0) & (dst >= 0)
+    lab = pairs[..., 2] if pairs.shape[2] > 2 else torch.ones_like(src)
+    pos_label = torch.where(pair_valid, lab, 0).to(torch.int32)
+    if self.neg_mode == 'binary':
+      eli = torch.stack([torch.cat([sl[:, :b], sl[:, 2 * b:2 * b + nn]], 1),
+                         torch.cat([sl[:, b:2 * b], sl[:, 2 * b + nn:]], 1)],
+                        dim=1)
+      elab = torch.cat([pos_label, torch.zeros((p, nn), dtype=torch.int32,
+                                               device=dev)], dim=1)
+      # an exhausted slot may be a real edge, and a padded tail batch
+      # keeps ceil(valid pairs * amount) negatives (f32, as JAX)
+      quota = torch.ceil(pair_valid.sum(1).to(torch.float32)
+                         * torch.tensor(self.neg_amount,
+                                        dtype=torch.float32,
+                                        device=dev)).to(torch.int32)
+      keep = neg_ok & (torch.arange(nn, device=dev)[None, :]
+                       < quota[:, None])
+      md = link_step_metadata(self.neg_mode, sl, eli, elab,
+                              torch.cat([pair_valid, keep], dim=1))
+    elif self.neg_mode == 'triplet':
+      dn = torch.where(neg_ok, sl[:, 2 * b:], INVALID_ID).reshape(
+          p, b, nn // b)
+      md = link_step_metadata(self.neg_mode, sl, src_idx=sl[:, :b],
+                              dst_pos=sl[:, b:2 * b], dst_neg=dn)
+    else:
+      md = link_step_metadata(self.neg_mode, sl,
+                              torch.stack([sl[:, :b], sl[:, b:2 * b]], 1),
+                              pos_label, pair_valid)
+    if neg_ok is not None:
+      lost = torch.zeros(len(EXCHANGE_STAT_NAMES), dtype=torch.int64,
+                         device=dev)
+      lost[6] = (~neg_ok).sum()
+      self._accumulate_stats(lost)
+    if 'edge_weight' in out:
+      md['edge_weight'] = out['edge_weight']
+    out['metadata'] = md
+    out['batch'] = pairs[..., 0]
+    return out
+
+
+class DistLinkNeighborLoader(DistNeighborLoader):
+  """Mesh link loader: splits the seed edges across the partitions,
+  draws each partition's strict negatives over the whole graph, and
+  yields stacked `Batch`es with link-label metadata for
+  `make_dp_unsupervised_step`.
+
+  Args:
+    edge_label_index: ``[2, E]`` (or ``(rows, cols)``) seed edges.
+    edge_label: optional integer labels (binary mode shifts them up by
+      one).
+    neg_sampling: None, ``'binary'`` or ``('triplet', amount)``.
+    input_space: ``'old'`` maps the endpoints through
+      ``dataset.old2new``.
+    Others as `DistNeighborLoader`; a padded tail batch keeps
+    ``ceil(valid pairs * amount)`` binary negatives.
+  """
+
+  def __init__(self, dataset: DistDataset, num_neighbors, edge_label_index,
+               edge_label=None, neg_sampling=None, batch_size: int = 1,
+               shuffle: bool = False, drop_last: bool = False,
+               mesh: Optional[Mesh] = None, with_edge: bool = False,
+               **kwargs):
+    self._edge_label, self._neg_sampling = edge_label, neg_sampling
+    super().__init__(dataset, num_neighbors, edge_label_index,
+                     batch_size=batch_size, shuffle=shuffle,
+                     drop_last=drop_last, mesh=mesh, with_edge=with_edge,
+                     **kwargs)
+
+  def _make_sampler(self, dataset, num_neighbors, **kwargs):
+    return DistLinkNeighborSampler(dataset, num_neighbors,
+                                   neg_sampling=self._neg_sampling, **kwargs)
+
+  def _batch_items(self, edge_label_index, input_space: str) -> np.ndarray:
+    """Row indices of the packed seed table (-1 padded by the batcher, so
+    a padded tail row is -1 in every column, as JAX's batcher pads the
+    packed table)."""
+    self.pairs = pack_link_seeds_relabeled(
+        edge_label_index, self._edge_label, self.sampler.neg_mode, self.ds,
+        input_space)
+    return np.arange(len(self.pairs))
+
+  def _pairs_of(self, idx: np.ndarray) -> np.ndarray:
+    rows = self.pairs[np.where(idx >= 0, idx, 0)]
+    rows = np.where(idx[:, None] >= 0, rows, INVALID_ID)
+    return rows.reshape(self.num_parts, self.batch_size, -1)
+
+  def _dispatch_flat(self, flat: np.ndarray) -> dict:
+    return self.sampler._dispatch_edges(self._pairs_of(flat))
+
+  def _produce(self, seed_iter) -> Batch:
+    if self._cold_pipeline:
+      out = self._pipelined(self._pipeline_acquire(seed_iter), seed_iter,
+                            self._dispatch_flat, self.sampler._finish_nodes)
+    else:
+      out = self.sampler.sample_from_edges(self._pairs_of(next(seed_iter)))
+    return _stacked_batch(out, out['metadata'], self.batch_size)

@@ -1,5 +1,5 @@
 """The partition mesh and data-parallel training (the JAX package's
-`parallel/dp.py:26-131`).
+`parallel/dp.py:26-170`).
 
 `Mesh` is the port's stand-in for a `jax.sharding.Mesh` over the
 ``data`` axis: ``size`` partitions, all on ONE card (``device``), in one
@@ -17,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from ..models.train import _correct, _loss_and_correct
+from ..models.train import (_correct, _loss_and_correct,
+                            link_loss_from_metadata)
 from ..utils.device import resolve_device
 
 
@@ -95,6 +96,36 @@ def make_dp_supervised_step(model, optimizer, batch_size: int, mesh: Mesh):
     mesh.mean_gradients(model.parameters())
     optimizer.step()
     return torch.stack(losses).mean(), torch.stack(correct).sum()
+
+  return step
+
+
+def make_dp_unsupervised_step(model, optimizer, mesh: Mesh):
+  """The data-parallel unsupervised (link-loss) step over a stacked link
+  batch (`DistLinkNeighborLoader`).
+
+  Returns ``step(stacked_batch) -> mean_loss``: each partition's piece
+  embeds its nodes and takes the link loss of its own positives and
+  negatives (`models.train.link_loss_from_metadata`: binary or triplet,
+  by the metadata's keys), forward and backward (the gradients add up
+  over the pieces); `Mesh.mean_gradients` turns the sum into the mean,
+  the optimizer steps once, and the loss mean comes back as a device
+  tensor.  As in JAX the model runs without the GNS edge weights.
+  """
+
+  def step(stacked):
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    losses = []
+    for p in range(mesh.size):
+      b = local_piece(stacked, p)
+      emb = model(b.x, b.edge_index, b.edge_mask)
+      loss = link_loss_from_metadata(emb, b.metadata)
+      loss.backward()
+      losses.append(loss.detach())
+    mesh.mean_gradients(model.parameters())
+    optimizer.step()
+    return torch.stack(losses).mean()
 
   return step
 

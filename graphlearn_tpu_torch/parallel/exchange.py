@@ -36,12 +36,15 @@ def capacity_spec(n: int, num_parts: int, slack: Optional[float],
 
 
 def bucket_stacked(ids: torch.Tensor, owner: torch.Tensor, num_parts: int,
-                   capacity: Optional[int] = None):
+                   capacity: Optional[int] = None,
+                   payload: Optional[torch.Tensor] = None):
   """`bucket_by_owner` for ``R`` id vectors at once: ``ids`` and
   ``owner`` are ``[R, F]``; returns ``send [R, P, C]``, ``slot_p [R,
   F]`` and ``slot_j [R, F]``, row ``r`` exactly what `bucket_by_owner`
   gives for ``ids[r]`` (one stable sort on ``(r, owner)`` keeps each
-  row's arrival order within an owner)."""
+  row's arrival order within an owner).  With a ``[R, F]`` ``payload``
+  a fourth ``[R, P, C]`` buffer carries ``payload[r, i]`` in the slot of
+  ``ids[r, i]`` (-1 in empty slots), as JAX's `bucket_with_payload`."""
   r, f = ids.shape
   dev = ids.device
   cap = f if capacity is None else min(int(capacity), f)
@@ -63,14 +66,21 @@ def bucket_stacked(ids: torch.Tensor, owner: torch.Tensor, num_parts: int,
   # non-fitting entries land in the extra column `num_parts`, cut below
   send = torch.full((r, width, max(cap, 1)), INVALID_ID, dtype=ids.dtype,
                     device=dev)
-  send[row_s, torch.where(fits, owner_s, num_parts),
-       torch.where(fits, rank, 0)] = ids_s
+  col_s = torch.where(fits, owner_s, num_parts)
+  rank_s = torch.where(fits, rank, 0)
+  send[row_s, col_s, rank_s] = ids_s
   send = send[:, :num_parts, :cap]
   slot_p = torch.zeros(r * f, dtype=torch.int64, device=dev)
   slot_p[perm] = torch.where(owner_s < num_parts, owner_s, 0)
   slot_j = torch.full((r * f,), -1, dtype=torch.int64, device=dev)
   slot_j[perm] = torch.where(fits, rank, -1)
-  return send, slot_p.reshape(r, f), slot_j.reshape(r, f)
+  out = (send, slot_p.reshape(r, f), slot_j.reshape(r, f))
+  if payload is None:
+    return out
+  send_pl = torch.full((r, width, max(cap, 1)), INVALID_ID,
+                       dtype=payload.dtype, device=dev)
+  send_pl[row_s, col_s, rank_s] = payload.reshape(-1)[perm]
+  return out + (send_pl[:, :num_parts, :cap],)
 
 
 def bucket_by_owner(ids: torch.Tensor, owner: torch.Tensor, num_parts: int,
@@ -100,20 +110,31 @@ class DensePlan:
     requester_of_recv: ``[P_src * C]`` int32 source partition of each
       receive row (the per-requester GNS mask's row; the same for every
       owner).
+    recv_payload: ``[P_owner, P_src * C]`` the payload beside each
+      received id (with ``payload``; the ids and the payload cross in
+      one all-to-all of ``[P, P, 2, C]``).
     stats: int64 ``[P, 3]`` (offered, dropped, slots) per partition.
   """
 
   def __init__(self, ids: torch.Tensor, owner_fn: Callable, num_parts: int,
-               mesh, capacity: Optional[int] = None):
+               mesh, capacity: Optional[int] = None,
+               payload: Optional[torch.Tensor] = None):
     if ids.ndim != 2 or ids.shape[0] != num_parts:
       raise ValueError(f'the plan takes [{num_parts}, F] ids, got '
                        f'{tuple(ids.shape)}')
-    send, self.slot_p, self.slot_j = bucket_stacked(
-        ids, owner_fn(ids), num_parts, capacity)
+    send, self.slot_p, self.slot_j, *send_pl = bucket_stacked(
+        ids, owner_fn(ids), num_parts, capacity,
+        payload=None if payload is None else payload.to(ids.dtype))
     self.mesh = mesh
     self.num_parts = num_parts
     self.cap = send.shape[2]
-    self.recv = mesh.all_to_all(send).reshape(num_parts, -1)
+    self.recv_payload = None
+    if payload is None:
+      self.recv = mesh.all_to_all(send).reshape(num_parts, -1)
+    else:
+      both = mesh.all_to_all(torch.stack([send, send_pl[0]], dim=2))
+      self.recv = both[:, :, 0].reshape(num_parts, -1)
+      self.recv_payload = both[:, :, 1].reshape(num_parts, -1)
     self.kept = self.slot_j >= 0
     self.delivered = self.kept
     self.requester_of_recv = torch.arange(
@@ -144,8 +165,10 @@ class DensePlan:
 
 
 def plan_exchange(ids: torch.Tensor, owner_fn: Callable, num_parts: int,
-                  mesh, capacity: Optional[int] = None) -> DensePlan:
+                  mesh, capacity: Optional[int] = None,
+                  payload: Optional[torch.Tensor] = None) -> DensePlan:
   """The exchange plan for the ``[P, F]`` request vectors of every
   partition (-1 padded) at per-destination ``capacity`` (None =
-  exact)."""
-  return DensePlan(ids, owner_fn, num_parts, mesh, capacity)
+  exact), with an optional ``[P, F]`` ``payload`` riding beside the
+  ids."""
+  return DensePlan(ids, owner_fn, num_parts, mesh, capacity, payload)

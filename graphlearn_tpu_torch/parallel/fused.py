@@ -310,7 +310,7 @@ class FusedDistTreeEpoch(_MeshEpochDriver):
     levels, frontier = [seeds], seeds
     fr_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
     for h, k in enumerate(self.fanouts):
-      nbrs, mask, _, st = _dist_one_hop(
+      nbrs, mask, _, _, st = _dist_one_hop(
           self.mesh, g.indptr, g.indices, smp._bounds_t, frontier, k, draws,
           step, h, capacity_spec(frontier.shape[1], self.num_parts, slack),
           sort_locality=False)

@@ -3,6 +3,8 @@ only): the JAX package's `parallel/partition_book.py:316-400`.
 
 Nodes are relabelled so partition ``p`` owns the contiguous id range
 ``[bounds[p], bounds[p+1])``; owner lookup is a `searchsorted`.
+Edge-feature tables are mod-sharded instead: edge ``e`` lives in row
+``e // P`` of partition ``e % P`` (`dist_data.build_dist_edge_feature`).
 """
 from __future__ import annotations
 
@@ -33,6 +35,19 @@ def range_owner_fn(bounds: torch.Tensor):
   def owner_fn(v):
     return range_of(bounds, v)
   return owner_fn
+
+
+def edge_owner_fn(num_parts: int):
+  """The owner function of mod-sharded edge-feature tables: owner =
+  ``eid % P``."""
+  def owner_fn(v):
+    return (v % num_parts).to(torch.int32)
+  return owner_fn
+
+
+def edge_local_rows(ids: torch.Tensor, num_parts: int) -> torch.Tensor:
+  """The local row of mod-sharded tables: ``eid // P``."""
+  return ids // num_parts
 
 
 def hot_split_host(bounds, hot_counts, ids, valid=None):
