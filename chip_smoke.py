@@ -618,8 +618,9 @@ class Timer:
 
   SLEEP_CYCLES = 5_000_000          # ~3 ms at the H100's SM clock
 
-  def __init__(self, torch):
+  def __init__(self, torch, reps=None):
     self.torch = torch
+    self.reps = reps
     self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
 
   def __call__(self, fn) -> float:
@@ -627,7 +628,7 @@ class Timer:
     for _ in range(3):
       fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(REPS if self.reps is None else self.reps):
       self.flush.zero_()
       start = torch.cuda.Event(enable_timing=True)
       end = torch.cuda.Event(enable_timing=True)
@@ -3885,10 +3886,13 @@ def summed(recs) -> dict:
 
 
 def check_mesh_path(torch, ops, timer, rec, path,
-                    tables=('hot-tier features', 'labels')) -> dict:
+                    tables=('hot-tier features', 'labels'),
+                    hop_names=None) -> dict:
   """Every sampler and row-gather call of one recorded mesh dispatch held
   against its plain version (byte-equal), each timed; one ``kernel`` line
-  per hop and per table, summed over the owners."""
+  per hop (``hop_names[t]``, for a heterogeneous dispatch the hop and
+  edge type of its ``t``-th sampler call) and per table, summed over the
+  owners."""
   per_hop, per_table = [], []
   for t in range(rec.hops):
     at = slice(t * MESH_PARTS, (t + 1) * MESH_PARTS)
@@ -3907,8 +3911,9 @@ def check_mesh_path(torch, ops, timer, rec, path,
         recs.append(r)
     per_hop.append(summed(recs))
     per_hop[-1]['sorted'] = rec.sorted_hops[t]
+    name = f'hop {t}' if hop_names is None else hop_names[t]
     emit('kernel', kernel='sample_one_hop_gns' if rec.gns else
-         'sample_one_hop', shape=f'{path} hop {t}, {MESH_PARTS} owners',
+         'sample_one_hop', shape=f'{path} {name}, {MESH_PARTS} owners',
          **per_hop[-1])
   calls = rec.gather_calls_in_order()
   for t, what in enumerate(tables):
@@ -7156,12 +7161,18 @@ def unsup_synthetic(n=UNSUP_NODES, clusters=UNSUP_CLUSTERS, deg=UNSUP_DEG,
 def lecun_normal_(torch, model, seed: int) -> None:
   """Flax's default init, which the example's model starts from: each
   weight from a normal truncated at 2 standard deviations with variance
-  1 / fan_in (variance-corrected), biases zero; drawn on the CPU."""
+  1 / fan_in (variance-corrected), biases zero, a GAT attention vector
+  Glorot-uniform; drawn on the CPU."""
   gen = torch.Generator().manual_seed(seed)
   with torch.no_grad():
     for name, p in model.named_parameters():
       if name.endswith('bias'):
         p.zero_()
+        continue
+      if name.rsplit('.', 1)[-1].startswith('att_'):
+        # GAT's attention vectors: Flax's glorot_uniform
+        bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=gen))
         continue
       std = (1.0 / p.shape[1]) ** 0.5 / 0.87962566103423978
       w = torch.empty(p.shape, dtype=torch.float32)
@@ -7351,6 +7362,590 @@ def mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr, indices,
                          f'losses {un["epoch_loss"]} not falling')
   mesh_link_cross_check(torch)
   return {'edges': me, 'link': ml, 'unsup': un}
+
+
+#: BASELINE config 5 (`BASELINE.json` configs[4]): the distributed RGNN
+#: example, `examples/igbh/dist_train_rgnn.py`, at P = 8 on the card.  The
+#: IGBH schema (`examples/igbh/train_rgnn.py:24-32`), its synthetic
+#: topology at IGBH-small's paper count with the generator's ratios, IGBH's
+#: 19 classes and IGB's 1,024-wide embeddings
+IGBH_ETYPES = (('paper', 'cites', 'paper'), ('paper', 'written_by', 'author'),
+               ('author', 'rev_written_by', 'paper'),
+               ('author', 'affiliated_to', 'institute'),
+               ('institute', 'rev_affiliated_to', 'author'),
+               ('paper', 'topic', 'fos'), ('fos', 'rev_topic', 'paper'))
+IGBH_FULL = dict(npaper=1_000_000, nauthor=400_000, ninst=20_000,
+                 nfos=16_000, classes=19, d=1024)
+#: the example's own `synthetic()` defaults (the cross-check and the
+#: accuracy gate)
+IGBH_EXAMPLE = dict(npaper=4000, nauthor=1600, ninst=80, nfos=64, classes=8,
+                    d=32)
+IGBH_FANOUTS = (4, 4)
+IGBH_BATCH = 64                     # paper seeds a partition
+IGBH_HIDDEN = 64
+IGBH_HEADS = 2
+IGBH_LR = 1e-3
+IGBH_SPLIT = 0.5                    # the tiered store's hot share
+IGBH_WARM = 2
+IGBH_STEPS = 50                     # timed DP steps a model and store
+IGBH_IDLE_STEPS = 3
+IGBH_EPOCHS = 3                     # the accuracy gate's epochs
+IGBH_ACC_SEEDS = 8                  # the accuracy gate's seeds, 0 to 7
+#: K1 and K2 launches a batch at [4, 4] from paper seeds: 3 edge types at
+#: hop 0 and 6 at hop 1, 8 owners each; 4 feature tables and the paper
+#: labels, 8 owners each
+IGBH_K1, IGBH_K2 = 72, 40
+#: the timer's repetitions at the path's 112 calls a store
+IGBH_PATH_REPS = 5
+#: JAX's paper training accuracy after 3 RGAT epochs of the example on the
+#: CPU (the 8-device virtual mesh), the mean over seeds 0 to 15 (seed 0
+#: alone: 0.586; one seed's figure spreads over 0.557-0.632, wider than
+#: the gate, so the gate holds the mean of `IGBH_ACC_SEEDS` runs), and
+#: the gate around it
+IGBH_JAX_ACC = 0.5956
+IGBH_ACC_TOL = 0.03
+
+
+def igbh_synthetic(torch, npaper, nauthor, ninst, nfos, classes, d, seed=0,
+                   device=None):
+  """`examples/igbh/train_rgnn.py::synthetic`: the topology from numpy's
+  ``default_rng(seed)`` exactly as the example draws it (papers cite
+  mostly same-topic peers, fos links carry the class); the features
+  from the same generator (``device=None``: the example's own arrays) or
+  from a ``torch.Generator`` on ``device`` seeded with ``seed``.
+  Returns ``(edges, feats, num_nodes, topic)``."""
+  rng = np.random.default_rng(seed)
+  topic = rng.integers(0, classes, npaper)
+  fos_of_class = nfos // classes
+
+  def paper_peers(src_topic):
+    order = np.argsort(topic, kind='stable')
+    ptr = np.searchsorted(topic[order], np.arange(classes + 1))
+    out = np.empty(len(src_topic), np.int64)
+    for c in range(classes):
+      m = src_topic == c
+      out[m] = order[rng.integers(ptr[c], ptr[c + 1], m.sum())]
+    return out
+
+  crow = np.repeat(np.arange(npaper), 3)
+  ccol = np.where(rng.random(npaper * 3) < 0.7, paper_peers(topic[crow]),
+                  rng.integers(0, npaper, npaper * 3))
+  wrow = np.repeat(np.arange(npaper), 2)
+  wcol = rng.integers(0, nauthor, npaper * 2)
+  arow = np.arange(nauthor)
+  acol = rng.integers(0, ninst, nauthor)
+  frow = np.repeat(np.arange(npaper), 2)
+  fcol = (topic[frow] * fos_of_class
+          + rng.integers(0, fos_of_class, npaper * 2))
+  pairs = ((crow, ccol), (wrow, wcol), (wcol, wrow), (arow, acol),
+           (acol, arow), (frow, fcol), (fcol, frow))
+  edges = dict(zip(IGBH_ETYPES, pairs))
+  nnodes = {'paper': npaper, 'author': nauthor, 'institute': ninst,
+            'fos': nfos}
+  if device is None:
+    feats = {nt: rng.standard_normal((n, d)).astype(np.float32)
+             for nt, n in nnodes.items()}
+  else:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = {nt: torch.randn(n, d, device=device, generator=gen)
+             for nt, n in nnodes.items()}
+  return edges, feats, nnodes, topic.astype(np.int32)
+
+
+def igbh_store(torch, data, split, device=None):
+  from graphlearn_tpu_torch.parallel import DistHeteroDataset
+  edges, feats, nnodes, topic = data
+  device = device or DEVICE
+  return DistHeteroDataset.from_full_graph(
+      MESH_PARTS, edges, node_feat_dict=feats,
+      node_label_dict={'paper': topic}, num_nodes_dict=nnodes,
+      split_ratio=split, device=device)
+
+
+def rgnn_model(torch, ntypes, etypes, in_dims, classes, kind,
+               hidden=IGBH_HIDDEN, heads=IGBH_HEADS, target='paper'):
+  """The example's ``RGNN`` (`dist_train_rgnn.py:128-137`) on the port's
+  modules: ``Dense_{i}`` (hidden) for the ``i``-th sorted node type, two
+  ``HeteroConv(make_conv=...)`` layers (``conv0``, ``conv1``) with relu,
+  GAT (``kind='rgat'``: ``GATConv(i, o // heads, heads)``) or SAGE
+  (``'rsage'``) a relation, and ``Dense_{len(ntypes)}`` (classes) on the
+  ``target`` type.  The names are Flax's, so `hetero_conv_from_flax`
+  loads the example's parameters."""
+  from graphlearn_tpu_torch.models import GATConv, HeteroConv, SAGEConv
+  make_conv = ((lambda i, o: GATConv(i, o // heads, heads=heads))
+               if kind == 'rgat' else SAGEConv)
+  ntypes = sorted(ntypes)
+
+  class RGNN(torch.nn.Module):
+    def __init__(self):
+      super().__init__()
+      for i, nt in enumerate(ntypes):
+        self.add_module(f'Dense_{i}', torch.nn.Linear(in_dims[nt], hidden))
+      for li in range(2):
+        self.add_module(f'conv{li}', HeteroConv(etypes, hidden, hidden,
+                                                make_conv=make_conv))
+      self.add_module(f'Dense_{len(ntypes)}',
+                      torch.nn.Linear(hidden, classes))
+
+    def forward(self, x_dict, edge_index_dict, edge_mask_dict):
+      h = {nt: getattr(self, f'Dense_{i}')(x_dict[nt])
+           for i, nt in enumerate(ntypes)}
+      for li in range(2):
+        h = getattr(self, f'conv{li}')(h, edge_index_dict, edge_mask_dict)
+        h = {nt: torch.relu(v) for nt, v in h.items()}
+      return getattr(self, f'Dense_{len(ntypes)}')(h[target])
+  return RGNN()
+
+
+def union_graph(torch, stacked):
+  """A stacked ``[P, ...]`` `HeteroBatch` as one graph of ``P`` disjoint
+  blocks: each type's rows concatenated (partition ``p``'s table at rows
+  ``[p * cap, (p + 1) * cap)``), each edge type's local ids shifted by
+  their partitions' offsets (-1 kept), the masks flattened.  A model's
+  output on the union is each partition's output on its own piece.
+  Returns ``(x_dict, edge_index_dict, edge_mask_dict)``."""
+  x = {nt: v.reshape((-1,) + tuple(v.shape[2:]))
+       for nt, v in stacked.x_dict.items()}
+  cap = {nt: v.shape[1] for nt, v in stacked.node_dict.items()}
+  ei, em = {}, {}
+  for et, e in stacked.edge_index_dict.items():
+    a, _, b = et
+    base = torch.arange(e.shape[0], device=e.device)[:, None, None]
+    off = torch.cat([base * cap[a], base * cap[b]], dim=1)
+    ei[et] = torch.where(e >= 0, e + off, -1).to(e.dtype).transpose(
+        0, 1).reshape(2, -1)
+    em[et] = stacked.edge_mask_dict[et].reshape(-1)
+  return x, ei, em
+
+
+def rgnn_seed_logits(torch, model, stacked, bs):
+  """Every partition's seeds' logits, ``[P, bs, classes]``: the model
+  once on `union_graph`."""
+  parts, cap = stacked.node_dict['paper'].shape
+  logits = model(*union_graph(torch, stacked))
+  return logits.reshape(parts, cap, -1)[:, :bs]
+
+
+def rgnn_dp_step(torch, model, opt, bs):
+  """The example's DP step (`dist_train_rgnn.py:143-160`) over a stacked
+  `HeteroBatch`: each partition's masked cross-entropy of its seeds'
+  logits, the mean over the partitions, its gradient (the mean of the
+  partitions' gradients), one Adam step.  The partitions run as one
+  union graph (`union_graph`): one forward and one backward for all of
+  them.  Returns the loss (a device tensor)."""
+  import torch.nn.functional as F
+
+  def step(stacked):
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    logits = rgnn_seed_logits(torch, model, stacked, bs)
+    parts = logits.shape[0]
+    ce = F.cross_entropy(logits.reshape(parts * bs, -1),
+                         stacked.y_dict['paper'][:, :bs].reshape(-1).long(),
+                         reduction='none').reshape(parts, bs)
+    valid = (stacked.batch_dict['paper'] >= 0).float()
+    loss = ((ce * valid).sum(1) / valid.sum(1).clamp(min=1.0)).mean()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+  return step
+
+
+def rgnn_accuracy(torch, model, loader, bs) -> float:
+  """The paper training accuracy: argmax of each partition's
+  ``logits[:bs]`` against its seeds' labels, over one pass of
+  ``loader``, valid seeds only."""
+  model.eval()
+  correct = total = 0
+  with torch.no_grad():
+    for batch in loader:
+      pred = rgnn_seed_logits(torch, model, batch, bs).argmax(-1)
+      valid = batch.batch_dict['paper'] >= 0
+      correct += int(((pred == batch.y_dict['paper'][:, :bs].long())
+                      & valid).sum())
+      total += int(valid.sum())
+  return correct / max(total, 1)
+
+
+def igbh_plan(loader):
+  """The sampler calls of one batch, ``(hop, edge type, frontier rows,
+  k)`` in launch order, and the gathered tables, in order."""
+  from graphlearn_tpu_torch.sampler.hetero_neighbor_sampler import (
+      HeteroPlan, _plan_capacities)
+  s = loader.sampler
+  _, caps, fcaps, _ = _plan_capacities(
+      s.etypes, s.fanouts, {'paper': loader.batch_size}, s.num_hops,
+      s.ds.num_nodes_dict())
+  plan = HeteroPlan(s.etypes, s.fanouts, s.num_hops, caps, fcaps)
+  tables = [f'{nt} x' for nt in s._feat_nts] + [
+      f'{nt} labels' for nt in s._label_nts]
+  return hetero_hops(plan), tables, caps
+
+
+def check_igbh_batch(torch, batch, ds, feats, topic_t) -> dict:
+  """Every partition's valid nodes: ``x`` rows equal their type's source
+  rows (through the store's relabel), paper labels their topics, padded
+  rows zero; valid edges inside both types' node counts, masked ones -1.
+  Returns the valid node counts by type."""
+  counts = {}
+  for nt, node in batch.node_dict.items():
+    ok = node >= 0
+    counts[nt] = int(ok.sum())
+    n2o = torch.from_numpy(ds.new2old[nt]).to(node.device)
+    src = n2o[node[ok].long()]
+    if not torch.equal(batch.x_dict[nt][ok], feats[nt][src]):
+      raise AssertionError(f'mesh_hetero: a {nt} x row differs from its '
+                           'source row')
+    if bool(batch.x_dict[nt][~ok].any()):
+      raise AssertionError(f'mesh_hetero: a padded {nt} slot is not zero')
+    if nt == 'paper' and not torch.equal(batch.y_dict[nt][ok],
+                                         topic_t[src]):
+      raise AssertionError('mesh_hetero: a paper label differs from its '
+                           'topic')
+  for et, ei in batch.edge_index_dict.items():
+    em = batch.edge_mask_dict[et]
+    a, _, b = et
+    na = (batch.node_dict[a] >= 0).sum(1, keepdim=True)
+    nb = (batch.node_dict[b] >= 0).sum(1, keepdim=True)
+    src, dst = ei[:, 0], ei[:, 1]
+    if not (bool(((src >= 0) & (src < na))[em].all())
+            and bool(((dst >= 0) & (dst < nb))[em].all())
+            and bool((src[~em] == -1).all()) and bool((dst[~em] == -1).all())):
+      raise AssertionError(f'mesh_hetero: edge_index of {et} outside its '
+                           'tables')
+  return counts
+
+
+def igbh_train(torch, ops, timer, ds, feats, topic_t, kind, store,
+               record) -> dict:
+  """The example's training at full width on one store: the shuffled
+  `DistHeteroNeighborLoader([4, 4], batch 64 a partition)`, `rgnn_model`
+  of ``kind`` (Flax's init, seed 0) and Adam(1e-3) through `rgnn_dp_step`:
+  the first batch (recorded with ``record``: every K1 and K2 call held
+  against its plain version and timed), `IGBH_WARM` more, `IGBH_STEPS`
+  timed one by one (batch and step, synchronised) and the idle share of
+  `IGBH_IDLE_STEPS` more.  Checks: the first batches' rows and labels
+  against their sources, `IGBH_K1` K1 and `IGBH_K2` K2 launches a batch
+  over the run, no plain call, no exchange drop (exact slack is not
+  needed: 'auto' gives 2.0 for shuffled seeds), finite losses."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistHeteroNeighborLoader
+  t_start = time.perf_counter()
+  npaper = ds.num_nodes_dict()['paper']
+  loader = DistHeteroNeighborLoader(
+      ds, list(IGBH_FANOUTS), ('paper', np.arange(npaper)),
+      batch_size=IGBH_BATCH, shuffle=True, seed=0, device=DEVICE)
+  hops, tables, caps = igbh_plan(loader)
+  if (len(hops) * MESH_PARTS, len(tables) * MESH_PARTS) != (IGBH_K1,
+                                                            IGBH_K2):
+    raise AssertionError(f'mesh_hetero plan: {len(hops)} sampler calls and '
+                         f'{len(tables)} tables a partition')
+  s = loader.sampler
+  etypes = tuple(reversed_types(hops))
+  model = rgnn_model(torch, s._feat_nts, etypes,
+                     {nt: ds.node_features[nt].feature_dim
+                      for nt in s._feat_nts}, len(np.unique(topic_t.cpu())),
+                     kind).to(DEVICE)
+  lecun_normal_(torch, model, 0)
+  opt = torch.optim.Adam(model.parameters(), lr=IGBH_LR, eps=1e-8)
+  step = rgnn_dp_step(torch, model, opt, IGBH_BATCH)
+  it = iter(loader)
+  reset_counts(ops)
+  s.overlay_secs = dict.fromkeys(s.overlay_secs, 0.0)
+  path = None
+  if record:
+    with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS,
+                      tables=len(tables), hops=len(hops)) as rec:
+      batch = next(it)
+  else:
+    batch = next(it)
+  losses = [float(step(batch))]
+  counts = check_igbh_batch(torch, batch, ds, feats, topic_t)
+  for _ in range(IGBH_WARM):
+    batch = next(it)
+    check_igbh_batch(torch, batch, ds, feats, topic_t)
+    losses.append(float(step(batch)))
+  del batch
+  sync(torch)
+  walls, loads, overlay0 = [], [], dict(s.overlay_secs)
+  st0 = s.exchange_stats()
+  for _ in range(IGBH_STEPS):
+    t = time.perf_counter()
+    batch = next(it)
+    sync(torch)
+    loads.append((time.perf_counter() - t) * 1e3)
+    losses.append(float(step(batch)))
+    walls.append((time.perf_counter() - t) * 1e3)
+  del batch
+  st1 = s.exchange_stats()
+  overlay = {k: (s.overlay_secs[k] - overlay0[k]) * 1e3 / IGBH_STEPS
+             for k in s.overlay_secs}
+  idle = device_idle(torch, lambda: step(next(it)), IGBH_IDLE_STEPS)
+  batches = s._step_cnt
+  launches, plain = read_counts(ops)
+  want = {'sample_one_hop': IGBH_K1 * batches, 'gather_rows':
+          IGBH_K2 * batches, 'sample_one_hop_gns': 0, 'csr_window_gather': 0}
+  if launches != want or plain:
+    raise AssertionError(f'mesh_hetero {store} {kind}: launches {launches}, '
+                         f'plain {plain}, want {want} over {batches} batches')
+  dropped = st1['dist.frontier.dropped'] + st1['dist.feature.dropped']
+  if dropped or not np.isfinite(losses).all():
+    raise AssertionError(f'mesh_hetero {store} {kind}: {dropped} exchange '
+                         f'drops, losses {losses[:5]}...')
+  if record:
+    names = [f'hop {h} {"__".join(et)}' for h, et, _, _ in hops]
+    path = check_mesh_path(torch, ops, timer, rec, f'mesh_hetero {store}',
+                           tables=tables, hop_names=names)
+    for g, table in zip(path['gathers'], tables):
+      g['table'] = table
+    for h, (hop, et, rows, k) in zip(path['hops'], hops):
+      h.update(hop=hop, etype='__'.join(et))
+      if h['k'] != k:
+        raise AssertionError(f'mesh_hetero: {et} hop {hop} sampled at k '
+                             f'{h["k"]}, planned {k}')
+    del rec
+  cold = {k: st1[f'dist.feature.{k}'] - st0[f'dist.feature.{k}']
+          for k in ('lookups', 'cold_lookups', 'cold_misses')}
+  out = {'store': store, 'model': kind, 'steps': IGBH_STEPS,
+         'step_ms_median': float(np.median(walls)),
+         'step_ms_p10_p90': [float(np.percentile(walls, 10)),
+                             float(np.percentile(walls, 90))],
+         'step_ms_min_max': [float(min(walls)), float(max(walls))],
+         'batch_ms_median': float(np.median(loads)),
+         'model_ms_median': float(np.median(np.subtract(walls, loads))),
+         'batches_per_s': 1e3 / float(np.mean(walls)),
+         'train_seeds_per_s': IGBH_BATCH * MESH_PARTS * 1e3
+                              / float(np.mean(walls)),
+         'device_idle': idle, 'overlay_ms_per_step_by_part': overlay,
+         'overlay_ms_per_step': sum(overlay.values()),
+         'cold_per_step': {k: v / IGBH_STEPS for k, v in cold.items()},
+         'first_batch_valid_nodes': counts, 'table_caps': caps,
+         'loss_first_last': [losses[0], float(np.mean(losses[-10:]))],
+         'batches': batches, 'launches': launches, 'plain_calls': plain,
+         'exchange': {k: st1[k] for k in st1 if k.startswith('dist.')},
+         'secs': time.perf_counter() - t_start}
+  emit('mesh_hetero_train', **out)
+  out['path'] = path
+  loader.close()
+  return out
+
+
+def reversed_types(hops) -> list:
+  """The emitted (reversed) edge types of a batch's sampler calls, in
+  the sorted order the model's `HeteroConv` layers take."""
+  from graphlearn_tpu_torch.typing import reverse_edge_type
+  return sorted({reverse_edge_type(et) for _, et, _, _ in hops})
+
+
+def igbh_batches(torch, ds, draws, n):
+  """The first ``n`` shuffled [4, 4] batches of ``ds`` (seed 1) as CPU
+  tensors by field and key."""
+  from graphlearn_tpu_torch.parallel import DistHeteroNeighborLoader
+  lo = DistHeteroNeighborLoader(
+      ds, list(IGBH_FANOUTS), ('paper', np.arange(ds.num_nodes_dict()[
+          'paper'])), batch_size=IGBH_BATCH, shuffle=True, seed=1,
+      draws=draws, device=ds.device)
+  out = []
+  for b in itertools.islice(iter(lo), n):
+    out.append({(f, k): v.cpu() for f in (
+        'x_dict', 'y_dict', 'node_dict', 'node_mask_dict', 'edge_index_dict',
+        'edge_mask_dict', 'batch_dict') for k, v in getattr(b, f).items()}
+               | {'seed_local': b.metadata['seed_local'].cpu()})
+  return out, lo.sampler.exchange_stats()
+
+
+def mesh_hetero_cross_check(torch):
+  """The example's own size (`synthetic()`'s defaults) at P = 8 on the
+  card and on the CPU with the same CPU-made draws: the first 3
+  batches of the untiered and the tiered (0.5) store byte-equal in
+  every field (nodes, masks, edge indices, x, y, seeds), the exchange
+  counters equal."""
+  from graphlearn_tpu_torch.parallel import TorchDraws
+  t0 = time.perf_counter()
+  data = igbh_synthetic(torch, **IGBH_EXAMPLE)
+  cpu = TorchDraws(5, 'cpu')
+  res = {}
+  for split in (1.0, IGBH_SPLIT):
+    got = {}
+    for dev in (DEVICE, 'cpu'):
+      ds = igbh_store(torch, data, split, device=dev)
+      got[dev] = igbh_batches(torch, ds, DevDraws(cpu, dev), 3)
+    (a, sa), (c, sc) = got[DEVICE], got['cpu']
+    for i, (x, y) in enumerate(zip(a, c)):
+      if set(x) != set(y):
+        raise AssertionError(f'mesh_hetero card and CPU batch {i} keys '
+                             'differ')
+      for key in x:
+        if x[key].dtype != y[key].dtype or not torch.equal(x[key], y[key]):
+          raise AssertionError(f'mesh_hetero card and CPU differ: split '
+                               f'{split} batch {i} {key}')
+    if sa != sc:
+      raise AssertionError(f'mesh_hetero exchange counters differ: {sa} '
+                           f'{sc}')
+    res[str(split)] = {'batches': len(a), 'fields': len(a[0]),
+                       'cold_lookups': sa['dist.feature.cold_lookups']}
+  emit('mesh_hetero_cross_check', parts=MESH_PARTS, byte_equal=True,
+       stores=res, secs=time.perf_counter() - t0)
+
+
+def igbh_accuracy(torch, ds, seed=0, epochs=IGBH_EPOCHS) -> dict:
+  """The example on ``ds``, its own size's store (`synthetic()`'s
+  defaults, P = 8): RGAT, batch 64 a partition, shuffled, for ``epochs``
+  epochs from Flax's init (seed ``seed``; the loader's seed too), then
+  the paper training accuracy over one more pass (`rgnn_accuracy`)."""
+  from graphlearn_tpu_torch.parallel import DistHeteroNeighborLoader
+  nnodes = ds.num_nodes_dict()
+  loader = DistHeteroNeighborLoader(
+      ds, list(IGBH_FANOUTS), ('paper', np.arange(nnodes['paper'])),
+      batch_size=IGBH_BATCH, shuffle=True, seed=seed, device=ds.device)
+  hops, _, _ = igbh_plan(loader)
+  feats = ds.node_features
+  model = rgnn_model(torch, feats, reversed_types(hops),
+                     {nt: f.feature_dim for nt, f in feats.items()},
+                     IGBH_EXAMPLE['classes'], 'rgat').to(ds.device)
+  lecun_normal_(torch, model, seed)
+  opt = torch.optim.Adam(model.parameters(), lr=IGBH_LR, eps=1e-8)
+  step = rgnn_dp_step(torch, model, opt, IGBH_BATCH)
+  epoch_loss = []
+  for _ in range(epochs):
+    epoch_loss.append(float(torch.stack([step(b) for b in loader]).mean()))
+  acc = rgnn_accuracy(torch, model, loader, IGBH_BATCH)
+  return {'accuracy': acc, 'epoch_loss': epoch_loss, 'seed': seed,
+          'steps_per_epoch': len(loader)}
+
+
+def mesh_hetero_phases(torch, ops, timer) -> dict:
+  """BASELINE config 5 on the card: the IGBH-schema graph at 1 M papers
+  (``[N, 1024]`` f32 features made on the card), its untiered and its
+  tiered (`IGBH_SPLIT`) 8-partition stores, RGAT and RSAGE trained on
+  each (`igbh_train`; each store's first batch's K1 and K2 calls checked
+  and timed), then the card-vs-CPU batches and the accuracy gate at the
+  example's own size."""
+  t0 = time.perf_counter()
+  data = igbh_synthetic(torch, **IGBH_FULL, device=DEVICE)
+  edges, feats, nnodes, topic = data
+  topic_t = torch.from_numpy(topic).to(DEVICE)
+  sync(torch)
+  emit('igbh_graph', num_nodes=nnodes,
+       edges={'__'.join(et): int(len(r)) for et, (r, _) in edges.items()},
+       total_edges=int(sum(len(r) for r, _ in edges.values())),
+       feature_dim=IGBH_FULL['d'], classes=IGBH_FULL['classes'],
+       feature_gb=sum(f.numel() * 4 for f in feats.values()) / 1e9,
+       secs=time.perf_counter() - t0)
+  path_timer = Timer(torch, reps=IGBH_PATH_REPS)
+  runs = {}
+  for store, split in (('untiered', 1.0), ('tiered', IGBH_SPLIT)):
+    t0 = time.perf_counter()
+    ds = igbh_store(torch, data, split)
+    sync(torch)
+    emit('igbh_store', store=store, split=split, parts=MESH_PARTS,
+         secs=time.perf_counter() - t0,
+         card_gb=sum(f.shards.numel() * 4
+                     for f in ds.node_features.values()) / 1e9,
+         host_gb=sum(f.cold_host.numel() * 4 for f in
+                     ds.node_features.values() if f.is_tiered) / 1e9,
+         hot_counts={nt: [int(c) for c in f.hot_counts]
+                     for nt, f in ds.node_features.items()})
+    for i, kind in enumerate(('rgat', 'rsage')):
+      runs[f'{store}.{kind}'] = igbh_train(torch, ops, path_timer, ds, feats,
+                                           topic_t, kind, store,
+                                           record=i == 0)
+    del ds
+    torch.cuda.empty_cache()
+  del data, edges, feats, topic_t
+  torch.cuda.empty_cache()
+  mesh_hetero_cross_check(torch)
+  t0 = time.perf_counter()
+  ds = igbh_store(torch, igbh_synthetic(torch, **IGBH_EXAMPLE), 1.0)
+  seeds = [igbh_accuracy(torch, ds, seed=s) for s in range(IGBH_ACC_SEEDS)]
+  del ds
+  mean = float(np.mean([r['accuracy'] for r in seeds]))
+  acc = {'accuracy': mean, 'seeds': seeds, 'jax_cpu_accuracy': IGBH_JAX_ACC,
+         'tol': IGBH_ACC_TOL, 'minus_jax': mean - IGBH_JAX_ACC,
+         'secs': time.perf_counter() - t0}
+  emit('mesh_hetero_accuracy', **acc)
+  if not abs(acc['minus_jax']) <= IGBH_ACC_TOL:
+    raise AssertionError(f'mesh_hetero: RGAT accuracy {mean} (mean of '
+                         f'{IGBH_ACC_SEEDS} seeds) not within '
+                         f'{IGBH_ACC_TOL} of JAX\'s {IGBH_JAX_ACC}')
+  return {'runs': runs, 'accuracy': acc}
+
+
+def mesh_hetero_kernels(mh: dict) -> list:
+  """The ``kernels`` entries of the mesh_hetero path alone
+  (``--mesh-hetero``): K1 and K2 at the untiered store's first batch,
+  the tiered store's as a second shape; launches from the four runs."""
+  paths = {k.split('.')[0]: r['path'] for k, r in mh['runs'].items()
+           if r['path'] is not None}
+  un = paths['untiered']
+  by = {name: {k: r['launches'][name] for k, r in mh['runs'].items()}
+        for name in ('sample_one_hop', 'gather_rows')}
+  k1 = hetero_mesh_shapes(paths)
+  k2 = hetero_mesh_gathers(paths)
+  return [
+      {'name': 'sample_one_hop', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
+       'launches': sum(by['sample_one_hop'].values()),
+       'max_abs_err': max(h['max_abs_err'] for p in paths.values()
+                          for h in p['hops']),
+       'ms': k1['untiered']['ms'], 'plain_ms': k1['untiered']['plain_ms'],
+       'bound_ms': k1['untiered']['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': None, 'byte_equal': True,
+       'shape': k1['untiered']['shape'], 'mesh_hetero_shapes': k1,
+       'launches_by_path': {'mesh_hetero': by['sample_one_hop']}},
+      {'name': 'gather_rows', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
+       'launches': sum(by['gather_rows'].values()),
+       'max_abs_err': max(g['max_abs_err'] for p in paths.values()
+                          for g in p['gathers']),
+       'ms': k2['untiered'][-2]['ms'],
+       'plain_ms': k2['untiered'][-2]['plain_ms'],
+       'bound_ms': k2['untiered'][-2]['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': k2['untiered'][-2]['library_ms'], 'byte_equal': True,
+       'shape': k2['untiered'][-2]['shape'], 'mesh_hetero_shapes': k2,
+       'launches_by_path': {'mesh_hetero': by['gather_rows']}},
+  ]
+
+
+def hetero_mesh_shapes(paths: dict) -> dict:
+  """K1 over one mesh_hetero batch a store: the 9 (hop, edge type) calls
+  of 8 owners each, their times and bounds summed."""
+  out = {}
+  for store, p in paths.items():
+    hs = p['hops']
+    out[store] = {
+        'shape': f'mesh_hetero {store} batch of {MESH_PARTS} x {IGBH_BATCH} '
+                 f'paper seeds, {len(hs)} (hop, edge type) calls of '
+                 f'{MESH_PARTS} owners: ' + ', '.join(
+                     f'hop {h["hop"]} {h["etype"]} {h["rows"]} rows k '
+                     f'{h["k"]}' for h in hs),
+        'ms': sum(h['kernel_ms'] for h in hs),
+        'plain_ms': sum(h['plain_ms'] for h in hs),
+        'bound_ms': sum(h['bound_us'] for h in hs) / 1e3,
+        'ms_per_call': sum(h['kernel_ms'] for h in hs) / (
+            len(hs) * MESH_PARTS),
+        'max_abs_err': max(h['max_abs_err'] for h in hs), 'byte_equal': True,
+        'hops': [{'hop': h['hop'], 'etype': h['etype'], 'rows': h['rows'],
+                  'k': h['k'], 'ms': h['kernel_ms'],
+                  'bound_ms': h['bound_us'] / 1e3, 'plain_ms': h['plain_ms']}
+                 for h in hs]}
+  return out
+
+
+def hetero_mesh_gathers(paths: dict) -> dict:
+  """K2 over one mesh_hetero batch a store: each gathered table's 8
+  owner calls summed."""
+  out = {}
+  for store, p in paths.items():
+    out[store] = [
+        {'shape': f'mesh_hetero {store} {g["table"]}: {g["ids"]} ids x '
+                  f'{g["row_bytes"]} B {g["dtype"]} over {MESH_PARTS} owners',
+         'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+         'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+         'valid': g['valid'], 'byte_equal': True} for g in p['gathers']]
+  return out
 
 
 def hops_shape(what, hops, eids=False) -> dict:
@@ -7658,6 +8253,8 @@ def run(torch, argv) -> list:
   if '--hetero' in argv:
     hetero_phases(torch, ops, timer, prof='--profile' in argv)
     return None
+  if '--mesh-hetero' in argv:
+    return mesh_hetero_kernels(mesh_hetero_phases(torch, ops, timer))
 
   # -- graph ------------------------------------------------------------
   t0 = time.perf_counter()
@@ -7831,6 +8428,10 @@ def run(torch, argv) -> list:
              'mag_link_batch': f'{MAG_LINK_BATCH}-edge mag link batch '
                                '(author writes paper, binary)'}
 
+  # -- BASELINE config 5: the heterogeneous mesh engine (IGBH, P = 8) ---
+  torch.cuda.empty_cache()
+  mhk = mesh_hetero_kernels(mesh_hetero_phases(torch, ops, timer))
+
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
 
@@ -7926,7 +8527,8 @@ def run(torch, argv) -> list:
                           + fmesh_hops + het_hops + hl_hops
                           + link_tr['hops'] + link_lo['hops']
                           + seal_out['hops'] + ed['hops'] + el['hops']
-                          + hlk['hops'] + ml_k1),
+                          + hlk['hops'] + ml_k1
+                          + [{'max_abs_err': mhk[0]['max_abs_err']}]),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -7969,7 +8571,9 @@ def run(torch, argv) -> list:
                             'hetero_link': {
                                 k: v['sample_one_hop']
                                 for k, v in hlk['launches'].items()},
-                            **ml_launches('sample_one_hop')},
+                            **ml_launches('sample_one_hop'),
+                            **mhk[0]['launches_by_path']},
+       'mesh_hetero_shapes': mhk[0]['mesh_hetero_shapes'],
        'mesh_edge_shape': {
            k: ml_kernels[0][k] for k in ('shape', 'ms', 'no_eids_ms',
                                          'plain_ms', 'bound_ms', 'hops')},
@@ -8055,7 +8659,8 @@ def run(torch, argv) -> list:
                           + tree_levels + mesh_gathers + [sub_gather]
                           + fmesh_gathers + het_gathers + hl_gathers
                           + link_tr['gathers'] + link_lo['gathers']
-                          + ed['gathers'] + hlk['gathers'] + ml_gathers),
+                          + ed['gathers'] + hlk['gathers'] + ml_gathers
+                          + [{'max_abs_err': mhk[1]['max_abs_err']}]),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -8119,7 +8724,9 @@ def run(torch, argv) -> list:
                             'hetero_link': {
                                 k: v['gather_rows']
                                 for k, v in hlk['launches'].items()},
-                            **ml_launches('gather_rows')},
+                            **ml_launches('gather_rows'),
+                            **mhk[1]['launches_by_path']},
+       'mesh_hetero_shapes': mhk[1]['mesh_hetero_shapes'],
        'mesh_link_shapes': ml_kernels[2]['mesh_link_shapes'],
        'edge_shapes': [
            gather_shape('products with-edge batch x', ed['gathers'][0]),

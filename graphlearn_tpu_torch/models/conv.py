@@ -1,7 +1,8 @@
 """Message passing on padded COO batches: `segment_mean`, the masked
-segment sum and max that `models.hetero.HGTConv` needs, `SAGEConv` and
-`GCNConv` (the JAX package's `models/conv.py:26-66,97-176`, as
-`nn.Module`s).
+segment sum and max that `models.hetero.HGTConv` needs, the attention
+normaliser `segment_softmax`, `SAGEConv`, `GCNConv` and `GATConv` (the
+JAX package's `models/conv.py:26-176,217-250`, as `nn.Module`s), and
+`gat_conv_from_flax`.
 
 Edges are ``[2, E]`` local COO with -1 in masked slots;
 ``edge_index[0]`` is the message source (the sampled neighbor) and
@@ -11,9 +12,12 @@ edges routed to an extra row that is cut off.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -72,6 +76,47 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
   out = out.scatter_reduce(0, idx, data, 'amax',
                            include_self=True)[:num_segments]
   return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def segment_softmax(e: torch.Tensor, dst: torch.Tensor, num_segments: int,
+                    valid: torch.Tensor) -> torch.Tensor:
+  """Masked softmax of the edge scores ``e`` ``[E, h]`` over each
+  target's incoming edges: masked edges score ``-inf`` and are routed
+  out of range, each target's scores are shifted by their max (a
+  target with no valid edge shifts by 0), exponentiated and normalised.
+  Masked edges get weight 0 and, as their exponent is filled with 0
+  before the ``exp``, a zero gradient (never NaN)."""
+  dsafe = torch.where(valid, dst, num_segments).long()
+  dc = dst.long().clamp(0, max(num_segments - 1, 0))
+  vm = valid[:, None]
+  e = torch.where(vm, e, float('-inf'))
+  idx = dsafe[:, None].expand_as(e)
+  emax = torch.full((num_segments + 1, e.shape[1]), float('-inf'),
+                    dtype=e.dtype, device=e.device)
+  emax = emax.scatter_reduce(0, idx, e, 'amax',
+                             include_self=False)[:num_segments]
+  emax = torch.where(torch.isfinite(emax), emax, torch.zeros_like(emax))
+  shifted = torch.where(vm, e - torch.index_select(emax, 0, dc),
+                        torch.zeros((), dtype=e.dtype, device=e.device))
+  ex = torch.where(vm, torch.exp(shifted),
+                   torch.zeros((), dtype=e.dtype, device=e.device))
+  denom = segment_sum(ex, dsafe, num_segments)
+  return ex / torch.clamp(torch.index_select(denom, 0, dc), min=1e-16)
+
+
+def _attention_aggregate(z_src_sel: torch.Tensor, w: torch.Tensor,
+                         dst: torch.Tensor, valid: torch.Tensor, n: int,
+                         heads: int, features: int,
+                         concat: bool) -> torch.Tensor:
+  """Weight each edge's ``[E, h, f]`` message by its softmaxed score,
+  sum into the target rows and merge the heads (concatenated, or
+  averaged)."""
+  dsafe = torch.where(valid, dst, n)
+  msg = z_src_sel * w.to(z_src_sel.dtype)[:, :, None]
+  agg = segment_sum(msg.reshape(-1, heads * features), dsafe, n)
+  if concat:
+    return agg
+  return agg.reshape(n, heads, features).mean(dim=1)
 
 
 class SAGEConv(nn.Module):
@@ -136,3 +181,61 @@ class GCNConv(nn.Module):
     agg = segment_sum(msg, dsafe, n)
     self_w = torch.rsqrt(deg_in) * torch.rsqrt(deg_out)
     return agg + h * self_w.to(h.dtype)[:, None]
+
+
+class GATConv(nn.Module):
+  """Graph attention: ``z = lin(x)`` split into ``heads`` heads of
+  ``out_features``, each edge ``u -> v`` scored ``leaky_relu(<z[u],
+  att_src> + <z[v], att_dst>)`` per head (in f32), the scores
+  softmaxed over each target's valid incoming edges
+  (`segment_softmax`) and the weighted messages ``z[u]`` summed; the
+  heads are concatenated (``concat``) or averaged.  ``lin`` has no bias
+  and there is no self loop, as in the Flax module; ``att_src`` and
+  ``att_dst`` are ``[heads, out_features]``, Glorot-uniform."""
+
+  def __init__(self, in_features: int, out_features: int, heads: int = 1,
+               concat: bool = True, negative_slope: float = 0.2):
+    super().__init__()
+    self.heads, self.out_features = int(heads), int(out_features)
+    self.concat, self.negative_slope = bool(concat), float(negative_slope)
+    self.lin = nn.Linear(in_features, self.heads * self.out_features,
+                         bias=False)
+    bound = math.sqrt(6.0 / (self.heads + self.out_features))
+    self.att_src = nn.Parameter(
+        torch.empty(self.heads, self.out_features).uniform_(-bound, bound))
+    self.att_dst = nn.Parameter(
+        torch.empty(self.heads, self.out_features).uniform_(-bound, bound))
+
+  def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
+              edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    n = x.shape[0]
+    h, f = self.heads, self.out_features
+    src, dst = edge_index[0], edge_index[1]
+    valid = edge_mask if edge_mask is not None else dst >= 0
+    z = self.lin(x).reshape(n, h, f)
+    alpha_src = (z * self.att_src.to(z.dtype)[None]).sum(-1).float()
+    alpha_dst = (z * self.att_dst.to(z.dtype)[None]).sum(-1).float()
+    sc = src.long().clamp(0, n - 1)
+    dc = dst.long().clamp(0, n - 1)
+    e = F.leaky_relu(torch.index_select(alpha_src, 0, sc)
+                     + torch.index_select(alpha_dst, 0, dc),
+                     self.negative_slope)
+    w = segment_softmax(e, dst, n, valid)
+    return _attention_aggregate(torch.index_select(z, 0, sc), w, dst, valid,
+                                n, h, f, self.concat)
+
+
+def gat_conv_from_flax(params) -> Dict[str, torch.Tensor]:
+  """A Flax `GATConv` param tree (``Dense_0/kernel``, ``att_src``,
+  ``att_dst``, with or without the top ``'params'`` level) -> a
+  `GATConv` state dict (``lin.weight`` is the kernel transposed)."""
+  tree = params.get('params', params)
+  out = {}
+  for name, val in tree.items():
+    if hasattr(val, 'items'):
+      key = 'lin' if name == 'Dense_0' else name
+      out[f'{key}.weight'] = torch.from_numpy(np.ascontiguousarray(
+          np.asarray(val['kernel'], np.float32).T))
+    else:
+      out[name] = torch.from_numpy(np.asarray(val, np.float32).copy())
+  return out

@@ -59,13 +59,14 @@ class _Resettable(nn.Module):
     """Init every parameter from ``generator`` on the CPU, so the values
     do not depend on the device: linear weights and biases from
     ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, HGT's relation matrices
-    Glorot-uniform (Flax's init), its priors 1."""
+    and GAT's attention vectors Glorot-uniform (Flax's init), HGT's
+    priors 1."""
     for name, p in self.named_parameters():
       leaf = name.rsplit('.', 1)[-1]
       if leaf.startswith('prior_'):
         vals = torch.ones(p.shape)
-      elif leaf.startswith(('w_att_', 'w_msg_')):
-        bound = math.sqrt(6.0 / (p.shape[1] + p.shape[2]))
+      elif leaf.startswith(('w_att_', 'w_msg_', 'att_')):
+        bound = math.sqrt(6.0 / (p.shape[-2] + p.shape[-1]))
         vals = torch.empty(p.shape).uniform_(-bound, bound,
                                              generator=generator)
       else:
@@ -91,8 +92,8 @@ class HeteroConv(_Resettable):
     x_src]`` and shifting the source ids by the target count (a
     relation within one type runs directly), with no extra self term;
     a type no edge type targets gets ``lin_self_{nt}``.  The factory
-    must give a torch module: `GATConv`, and with it JAX's RGAT
-    factory, is not ported (ROADMAP slice catalogue item 4).
+    must give a torch module (`SAGEConv`, `GCNConv`, `GATConv`: the
+    RGAT of ``lambda i, o: GATConv(i, o // heads, heads=heads)``).
 
   An edge type whose endpoint types both have inputs but which is
   absent from a batch runs on an empty edge set (its weights get a zero
@@ -141,9 +142,8 @@ class HeteroConv(_Resettable):
       if not isinstance(conv, nn.Module):
         raise NotImplementedError(
             f'make_conv gave a {type(conv).__name__}, not a torch module: '
-            'the port\'s factories are its convs (SAGEConv, GCNConv); '
-            'GATConv, and with it the RGAT factory, is not ported yet '
-            '(ROADMAP slice catalogue item 4)')
+            'a factory must return an nn.Module taking (x, edge_index, '
+            'edge_mask), e.g. SAGEConv, GCNConv or GATConv')
       self.add_module(f'conv_{as_str(et)}', conv)
     for nt, d in dims.items():
       if not self.factory or nt not in targets:
@@ -421,12 +421,17 @@ def rgcn_from_flax(params) -> Dict[str, torch.Tensor]:
 
 def hetero_conv_from_flax(params) -> Dict[str, torch.Tensor]:
   """A Flax param tree of `HeteroConv(make_conv=...)` layers (alone or
-  in a model, e.g. the bipartite example's ``BiSAGE``) -> a state dict
-  of the port's factory-mode `HeteroConv`: each ``conv_{etype}``
-  scope's one factory-made conv (Flax names it ``SAGEConv_0``) becomes
-  the port's ``conv_{etype}`` itself."""
-  return {re.sub(r'(^|\.)(conv_[^.]+)\.[A-Za-z]\w*_0\.', r'\1\2.', k): v
-          for k, v in _flax_state_dict(params).items()}
+  in a model, e.g. the bipartite example's ``BiSAGE`` or the IGBH
+  example's RGAT) -> a state dict of the port's factory-mode
+  `HeteroConv`: each ``conv_{etype}`` scope's one factory-made conv
+  (Flax names it ``SAGEConv_0`` or ``GATConv_0``) becomes the port's
+  ``conv_{etype}`` itself, and that conv's unnamed ``Dense_0`` (GAT's
+  and GCN's projection) its ``lin``."""
+  out = {}
+  for k, v in _flax_state_dict(params).items():
+    k = re.sub(r'(^|\.)(conv_[^.]+)\.[A-Za-z]\w*_0\.', r'\1\2.', k)
+    out[re.sub(r'(^|\.)(conv_[^.]+)\.Dense_0\.', r'\1\2.lin.', k)] = v
+  return out
 
 
 def hgt_from_flax(params) -> Dict[str, torch.Tensor]:

@@ -2,7 +2,9 @@
 tiered feature store and mod-sharded edge features, the dense exchange,
 the mesh sampler and loader (GNS-biased or uniform, adaptive exchange
 slack, sampled edge ids and rows), the link engine (strict negatives
-over the sharded graph, the link sampler and loader), the remote-push
+over the sharded graph, the link sampler and loader), the
+heterogeneous engine (per-type sharded stores, the heterogeneous mesh
+sampler and loader), the remote-push
 row gather, data-parallel training (supervised and link loss) and
 evaluation, and the fused mesh epochs."""
 from .dist_data import (DistDataset, DistFeature, DistGraph,
@@ -13,8 +15,10 @@ from .dist_sampler import (SLACK_LADDER, AdaptiveSlack,
                            DistNeighborLoader, DistNeighborSampler,
                            TorchDraws, dist_edge_exists, dist_gather,
                            dist_gather_multi, dist_sample_negative)
+from .dist_hetero import (DistHeteroDataset, DistHeteroNeighborLoader,
+                          DistHeteroNeighborSampler)
 from .dp import (Mesh, make_dp_eval_step, make_dp_supervised_step,
-                 make_dp_unsupervised_step, make_mesh)
+                 make_dp_unsupervised_step, local_piece, make_mesh)
 from .fused import FusedDistEpoch, FusedDistTreeEpoch
 from .exchange import bucket_by_owner, capacity_spec, plan_exchange
 from .rdma_gather import push_rows, push_rows_plain, rdma_gather

@@ -96,30 +96,44 @@ def build_dist_graph(rows, cols, node_pb: np.ndarray, num_nodes: int,
   node_pb = np.asarray(node_pb)
   if num_parts is None:
     num_parts = int(node_pb.max()) + 1 if node_pb.size else 1
-  old2new, counts, bounds = relabel_by_partition(node_pb, num_parts,
-                                                 hotness)
-  rows_t = _as_tensor(rows, device, torch.int64)
-  cols_t = _as_tensor(cols, device, torch.int64)
+  old2new, _, bounds = relabel_by_partition(node_pb, num_parts, hotness)
   o2n = torch.from_numpy(old2new).to(device)
-  rows_n = o2n[rows_t]
-  cols_n = o2n[cols_t]
-  owner = torch.from_numpy(node_pb.astype(np.int64)).to(device)[rows_t]
-  del rows_t, cols_t
-  edge_ids = torch.arange(rows_n.shape[0], dtype=torch.int64, device=device)
+  graph = stack_partition_csr(o2n[_as_tensor(rows, device, torch.int64)],
+                              o2n[_as_tensor(cols, device, torch.int64)],
+                              bounds, int(num_nodes), device)
+  return graph, old2new
+
+
+def stack_partition_csr(rows_new: torch.Tensor, cols_new: torch.Tensor,
+                        bounds: np.ndarray, num_cols: int,
+                        device) -> DistGraph:
+  """Stacked per-partition CSRs of relabelled COO edges: each edge lives
+  on its ROW's owner (the range of ``bounds`` holding it) at the local
+  row ``row - bounds[owner]``; columns stay global ids (below
+  ``num_cols``).  Edge ids are the input order.  Each CSR is a stable
+  sort on ``row * num_cols + col``, the order of the JAX package's
+  ``np.lexsort((cols, rows))``."""
+  num_parts = len(bounds) - 1
+  counts = np.diff(bounds)
+  bounds_t = torch.from_numpy(np.asarray(bounds, np.int64)).to(device)
+  owner = (torch.searchsorted(bounds_t, rows_new, right=True) - 1).clamp(
+      0, max(num_parts - 1, 0))
+  edge_ids = torch.arange(rows_new.shape[0], dtype=torch.int64,
+                          device=device)
   max_nodes = int(counts.max()) if num_parts else 0
-  max_edges = max(int(torch.bincount(owner, minlength=num_parts).max()), 1)
+  max_edges = max(int(torch.bincount(owner, minlength=num_parts).max())
+                  if owner.numel() else 0, 1)
   indptr_s = torch.zeros((num_parts, max_nodes + 1), dtype=torch.int64,
                          device=device)
   indices_s = torch.full((num_parts, max_edges), -1, dtype=torch.int32,
                          device=device)
   eids_s = torch.full((num_parts, max_edges), -1, dtype=torch.int64,
                       device=device)
-  n = int(num_nodes)
+  n = max(int(num_cols), 1)
   for p in range(num_parts):
     sel = owner == p
-    local = rows_n[sel] - int(bounds[p])
-    c = cols_n[sel]
-    # stable sort on (row, col): the order of np.lexsort((cols, rows))
+    local = rows_new[sel] - int(bounds[p])
+    c = cols_new[sel]
     perm = torch.sort(local * n + c, stable=True).indices
     e = perm.shape[0]
     deg = torch.bincount(local, minlength=int(counts[p]))
@@ -127,7 +141,7 @@ def build_dist_graph(rows, cols, node_pb: np.ndarray, num_nodes: int,
     indptr_s[p, len(deg) + 1:] = e
     indices_s[p, :e] = c[perm].to(torch.int32)
     eids_s[p, :e] = edge_ids[sel][perm]
-  return DistGraph(indptr_s, indices_s, eids_s, bounds), old2new
+  return DistGraph(indptr_s, indices_s, eids_s, bounds)
 
 
 class DistFeature:
@@ -169,11 +183,12 @@ def build_dist_feature(feats, old2new: np.ndarray, bounds: np.ndarray,
                        split_ratio: float = 1.0,
                        device='cuda') -> DistFeature:
   """Shard a ``[N, D]`` (or ``[N]``) table by the relabelled ranges;
-  ``split_ratio < 1`` builds the tiered store."""
+  ``split_ratio < 1`` builds the tiered store.  The rows are picked on
+  the table's own device (a table already on the card never crosses
+  the host link, except into a tiered store's host tier)."""
   device = resolve_device(device)
   feats = feats if isinstance(feats, torch.Tensor) else torch.from_numpy(
       np.asarray(feats))
-  feats = feats.cpu()
   if feats.ndim == 1:
     feats = feats[:, None]
   num_parts = len(bounds) - 1
@@ -187,16 +202,18 @@ def build_dist_feature(feats, old2new: np.ndarray, bounds: np.ndarray,
   hot_max = int(hot_counts.max()) if num_parts else 0
   if tiered:
     hot_max = max(hot_max, 1)
-  reordered = torch.empty_like(feats)
-  reordered[torch.from_numpy(old2new)] = feats
+  # the relabelled table's row i is feats[new2old[i]]
+  new2old = torch.from_numpy(np.argsort(old2new)).to(feats.device)
   shards = torch.zeros((num_parts, hot_max, feats.shape[1]),
                        dtype=feats.dtype, device=device)
   for p in range(num_parts):
     lo, h = int(bounds[p]), int(hot_counts[p])
-    shards[p, :h] = reordered[lo:lo + h].to(device)
+    shards[p, :h] = feats.index_select(0, new2old[lo:lo + h]).to(device)
   cold = None
   if tiered:
-    cold = reordered.pin_memory() if device.type == 'cuda' else reordered
+    cold = torch.empty(feats.shape, dtype=feats.dtype,
+                       pin_memory=device.type == 'cuda')
+    cold.copy_(feats.index_select(0, new2old))
   return DistFeature(shards, bounds, hot_counts=hot_counts, cold_host=cold)
 
 

@@ -17,9 +17,10 @@ the stream; nothing else does):
           all-to-all of the stacked buffers -> each owner samples its
           receive buffer from its CSR (the GNS kernel with ``gns=True``,
           the uniform kernel otherwise; one launch per owner) -> reply
-          -> `induce_next` per partition; with ``with_edge`` each owner
-          also writes its slots' GLOBAL edge ids (``edge_ids[pos]`` of
-          its shard, the kernels' edge-id arm), which ride the reply;
+          -> `induce_next` (every partition's table at once); with
+          ``with_edge`` each owner also writes its slots' GLOBAL edge
+          ids (``edge_ids[pos]`` of its shard, the kernels' edge-id
+          arm), which ride the reply;
   edges:  with edge features, one exchange gathers every sampled edge's
           row from the mod-sharded table (owner ``eid % P``, row ``eid
           // P``), each owner's read by the row gather kernel;
@@ -155,12 +156,16 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
                   draws: Draws, step: int, hop: int,
                   capacity: Optional[int], gns_bits=None,
                   gns_boost: Optional[float] = None,
-                  sort_locality: bool = True, eids_loc=None):
+                  sort_locality: bool = True, eids_loc=None,
+                  etype: Optional[int] = None):
   """One hop for every partition's ``[P, F]`` frontier: exchange, each
   owner samples its receive rows (in ascending id order with
   ``sort_locality``, else in arrival order) from its CSR, reply.  With
   ``eids_loc`` (the ``[P, E_max]`` int32 global edge ids of the shards)
-  each owner also returns its slots' ids, ``eids_loc[o][pos]``.
+  each owner also returns its slots' ids, ``eids_loc[o][pos]``.  A
+  heterogeneous hop passes its edge type's index ``etype`` on to the
+  draws (``draws(..., owner=o, etype=etype)``); without it the draws
+  are called as before.
   Returns ``(nbrs, mask, eids, weights, stats)``, the first four stacked
   ``[P, F, k]`` (``eids`` None without ``eids_loc``, -1 where masked or
   undelivered; ``weights`` None without GNS) and the ``[3]`` exchange
@@ -171,18 +176,19 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
                       INVALID_ID).to(torch.int32)
   rows = local.shape[1]
   w = default_window(k)
+  et = {} if etype is None else {'etype': etype}
   res = []
   for o in range(mesh.size):
     edge = (dict(edge_ids=eids_loc[o], with_edge_ids=True)
             if eids_loc is not None else {})
     if gns_bits is not None:
-      u, v = draws(step, hop, rows, k, w, True, owner=o)
+      u, v = draws(step, hop, rows, k, w, True, owner=o, **et)
       res.append(sample_one_hop_gns_fused(
           indptr[o], indices[o], local[o], k, u, v, gns_bits, gns_boost,
           req=plan.requester_of_recv, window=w,
           sort_locality=sort_locality, **edge))
     else:
-      u, g = draws(step, hop, rows, k, w, False, owner=o)
+      u, g = draws(step, hop, rows, k, w, False, owner=o, **et)
       res.append(sample_one_hop_fused(indptr[o], indices[o], local[o], k,
                                       u, g, sort_locality=sort_locality,
                                       **edge))
@@ -453,7 +459,100 @@ class AdaptiveSlack:
     self._last = {k: st[k] for k in self.OFFER_KEYS + self.DROP_KEYS}
 
 
-class DistNeighborSampler:
+class ExchangeTelemetry:
+  """The mesh samplers' exchange and cold-tier counters (the JAX
+  package's `ExchangeTelemetry`): a device accumulator of the
+  `EXCHANGE_STAT_NAMES` counters, drained into host totals by
+  `exchange_stats` under a lock (a drain may race a dispatch on a
+  prefetch worker), and the host's `COLD_STAT_NAMES` counters."""
+
+  def _init_stats(self, device) -> None:
+    self._stats_lock = threading.Lock()
+    self._stats_acc = torch.zeros(len(EXCHANGE_STAT_NAMES),
+                                  dtype=torch.int64, device=device)
+    self._stats_total = np.zeros(len(EXCHANGE_STAT_NAMES), np.int64)
+    self._feat_lookups = self._cold_lookups = self._cold_misses = 0
+    self._cache_hits = self._cache_admits = self._cache_evicts = 0
+    self._cold_reported = (0,) * len(COLD_STAT_NAMES)
+
+  def _accumulate_stats(self, stats: torch.Tensor) -> None:
+    """Fold the first ``len(stats)`` exchange counters
+    (`EXCHANGE_STAT_NAMES`) into the device accumulator `exchange_stats`
+    drains."""
+    with self._stats_lock:
+      self._stats_acc[:stats.shape[0]] += stats
+
+  def exchange_stats(self, tick_metrics: bool = True) -> dict:
+    """Cumulative exchange and cold-tier counters since construction,
+    summed over the partitions (one device sync): ``dist.frontier.*``,
+    ``dist.feature.*`` and the hit rates.
+
+    The drain runs under a lock.  With ``tick_metrics`` it ticks the
+    live counters of the same names (`telemetry.live`) by the exchange
+    counters' deltas since the previous drain and the cold-tier
+    counters' since the previous ticking drain (the JAX package's
+    rule), and records one ``dist.exchange`` event when the exchange
+    counters moved and one ``dist.cold_tier`` event when cold lookups
+    did, with the JAX package's fields.  The JAX package's
+    ``dist.feature.cold_hit_rate`` alias of ``cache_hit_rate`` is not
+    carried.
+    """
+    with self._stats_lock:
+      acc = self._stats_acc
+      self._stats_acc = torch.zeros_like(acc)
+      delta = acc.cpu().numpy().astype(np.int64)
+      self._stats_total += delta
+      totals = self._stats_total.copy()
+      cold_now = (self._feat_lookups, self._cold_lookups,
+                  self._cold_misses, self._cache_hits, self._cache_admits,
+                  self._cache_evicts)
+      cold_delta = (0,) * len(COLD_STAT_NAMES)
+      if tick_metrics:
+        cold_delta = tuple(n - p for n, p in zip(cold_now,
+                                                 self._cold_reported))
+        self._cold_reported = cold_now
+    out = {f'dist.{n}': int(v) for n, v in zip(EXCHANGE_STAT_NAMES, totals)}
+    for n, v in zip(COLD_STAT_NAMES, cold_now):
+      out[f'dist.feature.{n}'] = v
+    lookups, cold, misses = cold_now[:3]
+    out['dist.feature.hot_hit_rate'] = (1.0 - cold / lookups if lookups
+                                        else 1.0)
+    out['dist.feature.cache_hit_rate'] = (1.0 - misses / cold if cold
+                                          else 0.0)
+    if tick_metrics:
+      self._tick(delta, cold_delta)
+    return out
+
+  @staticmethod
+  def _tick(delta: np.ndarray, cold_delta: tuple) -> None:
+    for n, d in zip(EXCHANGE_STAT_NAMES, delta):
+      if d:
+        live.counter(f'dist.{n}').inc(float(d))
+    for n, d in zip(COLD_STAT_NAMES, cold_delta):
+      if d > 0:
+        live.counter(f'dist.feature.{n}').inc(float(d))
+    if delta.any():
+      recorder.emit('dist.exchange',
+                    **{n.replace('.', '_'): int(d)
+                       for n, d in zip(EXCHANGE_STAT_NAMES, delta)})
+    if cold_delta[1] > 0:
+      recorder.emit('dist.cold_tier', lookups=int(cold_delta[0]),
+                    cold_lookups=int(cold_delta[1]),
+                    misses=int(cold_delta[2]),
+                    cache_hits=int(cold_delta[3]),
+                    hit_rate=round(1.0 - cold_delta[2] / cold_delta[1], 6))
+
+  def cluster_exchange_stats(self) -> dict:
+    """`exchange_stats` plus ``num_hosts`` and the derived padding-waste
+    and drop-rate keys (`telemetry.aggregate.exchange_summary`).  The
+    port's mesh runs in one process, so the cluster is this host."""
+    st = dict(self.exchange_stats())
+    st['num_hosts'] = 1
+    st.update(exchange_summary(st))
+    return st
+
+
+class DistNeighborSampler(ExchangeTelemetry):
   """Mesh sampler with feature and label collection.
 
   Args:
@@ -515,15 +614,7 @@ class DistNeighborSampler:
     self._hot_t = (int64_on(dataset.node_features.hot_counts,
                                  self.device) if self.tiered else None)
     self._staging = PinnedStaging() if self.device.type == 'cuda' else None
-    # exchange counters: a device accumulator drained into host totals
-    # by `exchange_stats`, under the lock (a drain may race a dispatch)
-    self._stats_lock = threading.Lock()
-    self._stats_acc = torch.zeros(len(EXCHANGE_STAT_NAMES),
-                                  dtype=torch.int64, device=self.device)
-    self._stats_total = np.zeros(len(EXCHANGE_STAT_NAMES), np.int64)
-    self._feat_lookups = self._cold_lookups = self._cold_misses = 0
-    self._cache_hits = self._cache_admits = self._cache_evicts = 0
-    self._cold_reported = (0,) * len(COLD_STAT_NAMES)
+    self._init_stats(self.device)
     #: host seconds of the cold overlay by part (`OVERLAY_PARTS`), summed
     #: since construction; a caller resets it to read a window
     self.overlay_secs = dict.fromkeys(OVERLAY_PARTS, 0.0)
@@ -628,13 +719,6 @@ class DistNeighborSampler:
     self._accumulate_stats(torch.cat([fr_stats, ft_stats]))
     return out
 
-  def _accumulate_stats(self, stats: torch.Tensor) -> None:
-    """Fold the first ``len(stats)`` exchange counters
-    (`EXCHANGE_STAT_NAMES`) into the device accumulator `exchange_stats`
-    drains."""
-    with self._stats_lock:
-      self._stats_acc[:stats.shape[0]] += stats
-
   def _finish_nodes(self, out: dict) -> dict:
     """The host half of a dispatched batch: the cold overlay (nothing
     for a store wholly on the card)."""
@@ -724,76 +808,6 @@ class DistNeighborSampler:
     self._cache_admits += admits
     self._cache_evicts += evicts
     return x
-
-  def exchange_stats(self, tick_metrics: bool = True) -> dict:
-    """Cumulative exchange and cold-tier counters since construction,
-    summed over the partitions (one device sync): ``dist.frontier.*``,
-    ``dist.feature.*`` and the hit rates.
-
-    The drain runs under a lock.  With ``tick_metrics`` it ticks the
-    live counters of the same names (`telemetry.live`) by the exchange
-    counters' deltas since the previous drain and the cold-tier
-    counters' since the previous ticking drain (the JAX package's
-    rule), and records one ``dist.exchange`` event when the exchange
-    counters moved and one ``dist.cold_tier`` event when cold lookups
-    did, with the JAX package's fields.  The JAX package's
-    ``dist.feature.cold_hit_rate`` alias of ``cache_hit_rate`` is not
-    carried.
-    """
-    with self._stats_lock:
-      acc = self._stats_acc
-      self._stats_acc = torch.zeros_like(acc)
-      delta = acc.cpu().numpy().astype(np.int64)
-      self._stats_total += delta
-      totals = self._stats_total.copy()
-      cold_now = (self._feat_lookups, self._cold_lookups,
-                  self._cold_misses, self._cache_hits, self._cache_admits,
-                  self._cache_evicts)
-      cold_delta = (0,) * len(COLD_STAT_NAMES)
-      if tick_metrics:
-        cold_delta = tuple(n - p for n, p in zip(cold_now,
-                                                 self._cold_reported))
-        self._cold_reported = cold_now
-    out = {f'dist.{n}': int(v) for n, v in zip(EXCHANGE_STAT_NAMES, totals)}
-    for n, v in zip(COLD_STAT_NAMES, cold_now):
-      out[f'dist.feature.{n}'] = v
-    lookups, cold, misses = cold_now[:3]
-    out['dist.feature.hot_hit_rate'] = (1.0 - cold / lookups if lookups
-                                        else 1.0)
-    out['dist.feature.cache_hit_rate'] = (1.0 - misses / cold if cold
-                                          else 0.0)
-    if tick_metrics:
-      self._tick(delta, cold_delta)
-    return out
-
-  @staticmethod
-  def _tick(delta: np.ndarray, cold_delta: tuple) -> None:
-    for n, d in zip(EXCHANGE_STAT_NAMES, delta):
-      if d:
-        live.counter(f'dist.{n}').inc(float(d))
-    for n, d in zip(COLD_STAT_NAMES, cold_delta):
-      if d > 0:
-        live.counter(f'dist.feature.{n}').inc(float(d))
-    if delta.any():
-      recorder.emit('dist.exchange',
-                    **{n.replace('.', '_'): int(d)
-                       for n, d in zip(EXCHANGE_STAT_NAMES, delta)})
-    if cold_delta[1] > 0:
-      recorder.emit('dist.cold_tier', lookups=int(cold_delta[0]),
-                    cold_lookups=int(cold_delta[1]),
-                    misses=int(cold_delta[2]),
-                    cache_hits=int(cold_delta[3]),
-                    hit_rate=round(1.0 - cold_delta[2] / cold_delta[1], 6))
-
-  def cluster_exchange_stats(self) -> dict:
-    """`exchange_stats` plus ``num_hosts`` and the derived padding-waste
-    and drop-rate keys (`telemetry.aggregate.exchange_summary`).  The
-    port's mesh runs in one process, so the cluster is this host."""
-    st = dict(self.exchange_stats())
-    st['num_hosts'] = 1
-    st.update(exchange_summary(st))
-    return st
-
 
 class DistNeighborLoader(PrefetchingLoader):
   """Mesh loader: splits the (relabelled) seeds across the partitions

@@ -60,8 +60,9 @@ def make_mesh(n_devices: Optional[int] = 1, device='cuda') -> Mesh:
 
 
 def local_piece(batch, index: int = 0):
-  """Partition ``index``'s slice of a stacked ``[P, ...]`` Batch."""
-  from ..loader.transform import Batch
+  """Partition ``index``'s slice of a stacked ``[P, ...]`` `Batch` or
+  `HeteroBatch` (the dict fields sliced key by key)."""
+  cls = type(batch)
 
   def pick(v):
     if isinstance(v, torch.Tensor):
@@ -69,8 +70,8 @@ def local_piece(batch, index: int = 0):
     if isinstance(v, dict):
       return {k: pick(x) for k, x in v.items()}
     return v
-  return Batch(**{f: pick(getattr(batch, f)) for f in Batch.FIELDS},
-               batch_size=batch.batch_size)
+  return cls(**{f: pick(getattr(batch, f)) for f in cls.FIELDS},
+             batch_size=batch.batch_size)
 
 
 def make_dp_supervised_step(model, optimizer, batch_size: int, mesh: Mesh):

@@ -49,12 +49,15 @@ def _graph(n, deg=8, dim=6, seed=0):
 
 
 def jax_key_draws(seed):
-  """A draws provider that replays the JAX mesh sampler's keys."""
+  """A draws provider that replays the JAX mesh sampler's keys (a
+  heterogeneous hop folds its edge type's index in after the hop)."""
   base = jax.random.key(seed)
 
-  def draws(step, hop, rows, k, w, gns, owner=0):
-    own = jax.random.fold_in(jax.random.fold_in(
-        jax.random.fold_in(base, step), hop), owner)
+  def draws(step, hop, rows, k, w, gns, owner=0, etype=None):
+    hop_key = jax.random.fold_in(jax.random.fold_in(base, step), hop)
+    if etype is not None:
+      hop_key = jax.random.fold_in(hop_key, etype)
+    own = jax.random.fold_in(hop_key, owner)
     k_rand, k_win = jax.random.split(own)
     u = jax.random.uniform(k_rand, (rows, k))
     v = (jax.random.uniform(k_win, (rows, k)) if gns else

@@ -83,6 +83,41 @@ def test_init_node_and_induce_next_match_jax(capacity):
     assert int(state.count) == capacity            # overflowed
 
 
+@pytest.mark.parametrize('capacity', [10, 24, 200])
+def test_stacked_inducer_rows_match_jax(capacity):
+  """``R`` tables advanced at once (``[R, B]`` seeds, ``[R, F, k]``
+  neighbors: the mesh samplers' stacked form) give every row what JAX's
+  inducer gives that row alone, over two hops with overflow."""
+  rng = np.random.default_rng(capacity + 7)
+  rows = 3
+  seeds = rng.integers(-1, 12, (rows, 6)).astype(np.int32)
+  state, loc = init_node(_t(seeds), capacity)
+  jrows = [junique.init_node(jnp.asarray(s), capacity) for s in seeds]
+  np.testing.assert_array_equal(loc.numpy(),
+                                np.stack([np.asarray(j[1]) for j in jrows]))
+  jstates = [j[0] for j in jrows]
+  src = loc.numpy()
+  for k in (4, 3):
+    f = src.shape[1]
+    nbrs = rng.integers(0, 40, (rows, f, k)).astype(np.int32)
+    mask = rng.random((rows, f, k)) < 0.7
+    nbrs = np.where(mask, nbrs, -1).astype(np.int32)
+    state, r, c, prev = induce_next(state, _t(src), _t(nbrs), _t(mask))
+    for i in range(rows):
+      jstates[i], jr, jc, jprev = junique.induce_next(
+          jstates[i], jnp.asarray(src[i]), jnp.asarray(nbrs[i]),
+          jnp.asarray(mask[i]))
+      np.testing.assert_array_equal(state.nodes[i].numpy(),
+                                    np.asarray(jstates[i].nodes))
+      assert int(state.count[i]) == int(jstates[i].count)
+      np.testing.assert_array_equal(r[i].numpy(), np.asarray(jr))
+      np.testing.assert_array_equal(c[i].numpy(), np.asarray(jc))
+      assert int(prev[i]) == int(jprev)
+    src = np.where(np.arange(f * k) % 5 == 4, -1,
+                   np.repeat(np.arange(f, dtype=np.int32), k)).astype(
+                       np.int32)[None].repeat(rows, 0)
+
+
 # -- the membership bitmask and the sketch ---------------------------------
 
 def _bits_fixture(n=203, parts=3, seed=0):

@@ -143,16 +143,21 @@ def test_batch_without_an_edge_type_matches_flax(kind):
 
 def test_make_conv_is_not_ported():
   """The factory mode is ported (held against Flax in
-  test_torch_hetero_link.py): a `SAGEConv` factory gives one conv per
-  edge type and no self term for a targeted type; a factory that gives
-  no torch module, such as JAX's RGAT factory of `GATConv`s, raises
-  (GATConv is not ported yet), and so does a compute dtype beside a
-  factory."""
+  test_torch_hetero_link.py and, for GAT, test_torch_gat.py): a
+  `SAGEConv` or `GATConv` factory gives one conv per edge type and no
+  self term for a targeted type; a factory that gives no torch module,
+  such as JAX's own RGAT factory of Flax `GATConv`s, raises, and so
+  does a compute dtype beside a factory."""
+  from graphlearn_tpu_torch.models import GATConv
   etypes = [REV_WRITES, (P, 'cites', P)]
   conv = HeteroConv(etypes, D, 4, make_conv=SAGEConv)
   assert set(dict(conv.named_children())) == {
       'conv_paper__rev_writes__author', 'conv_paper__cites__paper'}
-  with pytest.raises(NotImplementedError, match='GATConv'):
+  gat = HeteroConv(etypes, D, 4,
+                   make_conv=lambda i, o: GATConv(i, o // 2, heads=2))
+  assert all(isinstance(getattr(gat, f'conv_{s}'), GATConv) for s in (
+      'paper__rev_writes__author', 'paper__cites__paper'))
+  with pytest.raises(NotImplementedError, match='not a torch module'):
     HeteroConv(etypes, D, 4, make_conv=lambda i, o: FlaxGATConv(o))
   with pytest.raises(ValueError, match='dtype'):
     HeteroConv(etypes, D, 4, make_conv=SAGEConv, dtype=torch.bfloat16)
