@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving, ingest, window-gather,
 per-batch training, fused epochs (tree, bf16 tree and subgraph, each
 step a CUDA graph; the mesh's), tiered feature store, GNS training,
-partitioned mesh (with sampled edges and its link engine),
+partitioned mesh (with sampled edges, its link engine, its induced
+subgraph, random-walk, fused link and heterogeneous link engines),
 heterogeneous-graph, link-prediction, enclosing-subgraph,
 sampled-edge-id (edge features), heterogeneous link and random-walk
 paths on one NVIDIA card.
@@ -16,6 +17,8 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --edges    # build, graph, the edge and walk phases
     python3 chip_smoke.py --mesh-link   # build, graph, the mesh's edges
                                         # and link engine
+    python3 chip_smoke.py --mesh-engines   # the mesh's subgraph, walk,
+                                           # fused link and hetero link
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -343,6 +346,49 @@ Phases, one JSON line each; any failure exits nonzero:
           (hops and negatives): 3 binary link batches with ``gns=True,
           with_edge=True`` byte-equal (node, x, edges, edge rows and
           weights, link labels), 2 DP steps' losses within 1e-5.
+  mesh_seal  `examples/seal_link_pred.py --mesh` at P = 8 on `seal`'s
+          graph (Cora's size, the 256 target links removed):
+          `DistSubGraphLoader([8], 2 seeds a partition)`, 8 links'
+          enclosing subgraphs a batch, the full-window hop answered by
+          K3 (exact: the shards' max degree); DRNL labels, SEAL's
+          classifier, 3 epochs.  Checks: 8 K1 and 8 K3 launches a batch,
+          no K2 and no plain call, the first batch's K1 and K3 calls
+          byte-equal, every induced edge and every subgraph's edge count
+          against the host, the test accuracy within 0.03 of JAX's mesh
+          example on the CPU (0.8544).
+  mesh_engines_cross_check  the SEAL graph's subgraph batches with edge
+          ids on the card and on the CPU, the same CPU-made draws: 3
+          batches byte-equal.
+  mesh_subgraph  the subgraph engine at `bench_dist_loader.py
+          --subgraph-worker`'s shape on the untiered products store
+          ([5, 5], 32 seeds a partition, features and labels), once in
+          one exchange of the closure and once in chunks of 512 with
+          edge ids: seeds/s, ``n_chunks``, K3 a call at the path's
+          ``S x max_degree``.  Checks: 16 K1, 16 K2 and 8 K3 a chunk (16
+          with edge ids) a batch, no plain call, the first batch's calls
+          byte-equal, induced edges and counts against the host, rows,
+          labels and edge ids against their sources, the same subgraphs
+          in both runs.
+  mesh_walk  `DistRandomWalker` over all products nodes (length 8,
+          65,536 starts a partition a call): walk steps/s; 8 K1 a walk
+          step, no plain call, the first two steps' K1 calls byte-equal,
+          4,096 walks' steps host-checked edges, card = CPU on a
+          4,096-start slice; then `examples/deepwalk.py --mesh` at its
+          size (1-NN accuracy within 0.03 of JAX's 0.8520).
+  mesh_fused_link  `FusedDistLinkEpoch` at `mesh_link`'s setup (16
+          steps an epoch) against the DP loop at the same draws: epoch 1
+          of both under deterministic algorithms (losses within 1e-5,
+          the first 2 batches byte-equal), epoch 2 timed (s a step, the
+          ratio); 16 K1 and 16 K2 a step; `evaluate`'s AUC.
+  mesh_hetero_link  `examples/hetero/bipartite_sage_unsup.py`'s BiSAGE
+          on the heterogeneous mesh at P = 8:
+          `DistHeteroLinkNeighborLoader(with_edge=True)` over a store
+          with caller-global edge ids and an ``[E, 8]`` table an edge
+          type, 512 edges a step, 10 epochs; held-out AUC within 0.03 of
+          the single-card `hetero_link` AUC of the same run.  Checks: 32
+          K1 and 32 K2 a step, the first step's calls byte-equal, edge
+          ids, rows and kept negatives checked, one key set in every
+          batch, triplet negatives, card = CPU on two batches.
   mag_graph  `bench.py:538-560`'s ogbn-mag-scale graph built on the card
           (`benchmarks/common.py:123-148`'s recipe per edge type): 736,389
           papers and 1,134,649 authors, ``cites`` P->P at average degree
@@ -489,6 +535,13 @@ prints no ``kernels`` or result line.
 link phases alone (`mesh_edges` to `mesh_link_cross_check`; with
 ``--gns-ab FILE`` also the ``gns_ab`` line) and prints the ``kernels``
 line of that path (K1, K1-GNS, K2) and the result line.
+``--mesh-engines`` runs build, graph, `mesh_data` (untiered) and the
+mesh engines' phases alone (`mesh_seal` to `mesh_fused_link`, then
+`hetero_link`'s single-card bipartite AUC as ``bipartite_reference``
+and `mesh_hetero_link`) and prints the ``kernels`` line of that path
+(K1, K2, K3) and the result line.  In the whole run `mesh_seal` to
+`mesh_fused_link` follow `mesh_link_cross_check` and `mesh_hetero_link`
+follows `walk`.  Every line carries ``at_s``, the seconds since start.
 ``--link`` runs build, graph and the link phases alone (`link_train`
 to `link_cross_check`; with ``--profile`` also `profile_train` of 3
 per-batch and 3 replayed link steps, whose traces must show 2 K1 and 1
@@ -565,8 +618,15 @@ MESH_TIMED = 6
 MESH_EVAL_BATCHES = 4
 
 
+#: the script's start, for each line's ``at_s``
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-  print(json.dumps({'phase': phase, **fields}), flush=True)
+  """One JSON line; ``at_s`` is the seconds since the script started."""
+  print(json.dumps({'phase': phase, **fields,
+                    'at_s': round(time.perf_counter() - T_START, 3)}),
+        flush=True)
 
 
 def products_graph(torch, device, seed=0):
@@ -3810,8 +3870,10 @@ class PathRecorder:
   each owner in turn)."""
 
   def __init__(self, torch, mod, gns=True, parts=1, tables=2,
-               hops=len(FANOUTS)):
+               hops=len(FANOUTS), first=False):
+    # ``first``: keep the first dispatch's calls instead of the latest's
     self.torch, self.mod, self.gns = torch, mod, gns
+    self.first = first
     self.name = 'sample_one_hop_gns_fused' if gns else 'sample_one_hop_fused'
     self.real = getattr(mod, self.name)
     self.real_gather = mod.gather_rows
@@ -3822,7 +3884,8 @@ class PathRecorder:
     self.gathers, self.gather_calls = {}, 0
 
   def gather(self, table, ids, id2index=None):
-    self.gathers[self.gather_calls % self.n_gathers] = (table, ids)
+    if not (self.first and self.gather_calls >= self.n_gathers):
+      self.gathers[self.gather_calls % self.n_gathers] = (table, ids)
     self.gather_calls += 1
     return self.real_gather(table, ids, id2index)
 
@@ -3830,6 +3893,13 @@ class PathRecorder:
                window=None, sort_locality=False, edge_ids=None,
                with_edge_ids=False):
     torch = self.torch
+    if self.first and self.calls >= self.n_samples:
+      self.calls += 1
+      kw = dict(req=req, window=window) if self.gns else {}
+      if with_edge_ids:
+        kw.update(edge_ids=edge_ids, with_edge_ids=True)
+      return self.real(indptr, indices, seeds, k, u, v, *rest,
+                       sort_locality=sort_locality, **kw)
     if sort_locality and seeds.shape[0] > 1:
       order = torch.argsort(torch.where(seeds >= 0, seeds,
                                         torch.iinfo(seeds.dtype).max),
@@ -4146,7 +4216,8 @@ def gns_cross_check(torch):
        cache_admits=admits[DEVICE], logits_max_abs_diff=diff)
 
 
-def mesh_data(torch, indptr, indices, feats, labels, table=None):
+def mesh_data(torch, indptr, indices, feats, labels, table=None,
+              tiered=True):
   """The mesh paths' two stores of the products graph at P = 8
   partitions on the card (`bench.py`'s ``DIST_PARTS``): untiered (every
   shard wholly on the card) and tiered at split 0.3 (the hot rows on the
@@ -4161,8 +4232,10 @@ def mesh_data(torch, indptr, indices, feats, labels, table=None):
       torch.arange(NUM_NODES, device=DEVICE), deg)
   ef = (build_dist_edge_feature(table, MESH_PARTS, device=DEVICE)
         if table is not None else None)
-  stores = {}
+  stores = {'tiered': None}
   for name, split in (('untiered', 1.0), ('tiered', MESH_SPLIT)):
+    if name == 'tiered' and not tiered:
+      continue
     stores[name] = DistDataset.from_full_graph(
         MESH_PARTS, rows, indices, node_feat=feats, node_label=labels,
         num_nodes=NUM_NODES, split_ratio=split, edge_feat=ef,
@@ -4177,11 +4250,12 @@ def mesh_data(torch, indptr, indices, feats, labels, table=None):
        shard_bytes=u.node_features.shards.numel() * 4,
        csr_bytes=(g.indptr.numel() * 8 + g.indices.numel() * 4
                   + g.edge_ids.numel() * 8),
-       split_ratio=MESH_SPLIT,
-       hot_counts=t.node_features.hot_counts.tolist(),
-       hot_bytes=t.node_features.shards.numel() * 4,
-       cold_host_bytes=t.node_features.cold_host.numel() * 4,
-       cold_host_pinned=bool(t.node_features.cold_host.is_pinned()),
+       split_ratio=MESH_SPLIT if t is not None else None,
+       **({} if t is None else dict(
+           hot_counts=t.node_features.hot_counts.tolist(),
+           hot_bytes=t.node_features.shards.numel() * 4,
+           cold_host_bytes=t.node_features.cold_host.numel() * 4,
+           cold_host_pinned=bool(t.node_features.cold_host.is_pinned()))),
        edge_shard_shape=None if ef is None else list(ef.shards.shape),
        edge_shard_bytes=0 if ef is None else ef.shards.numel() * 4,
        secs=time.perf_counter() - t0)
@@ -6521,6 +6595,7 @@ def hetero_link(torch, ops, timer) -> dict:
        mag=mag['out'], secs=time.perf_counter() - t0)
   # 'hops'/'gathers': every checked call; the timed ones by shape
   return {'launches': {'bipartite': bi['launches'], **mag['launches']},
+          'bipartite_auc': bi['heldout_auc'],
           'hops': bi['hops'] + mag['plain_hops'] + mag['hops'],
           'gathers': bi['gathers'] + mag['plain_gathers'] + mag['gathers'],
           'timed': {'bipartite_step': ([h for h in bi['hops']
@@ -6549,13 +6624,16 @@ def skipgram_loss(torch, emb, ctx, src, dst, neg):
   return torch.where(ok, loss, 0.0).sum() / torch.clamp(ok.sum(), min=1)
 
 
-def deepwalk(torch, dev) -> dict:
+def deepwalk(torch, dev, mesh_walks=None) -> dict:
   """`examples/deepwalk.py` at its size on ``dev``: the clustered graph
   (2,000 nodes, degree 8, 6 clusters), `random_walk` from every node an
   epoch (length 8, counter draws keyed by the epoch), `walk_edges`
   (window 2), skip-gram with 4 negatives a pair (drawn on the host, so
   the card and the CPU train alike) in batches of 4,096 pairs, Adam
-  (0.05), 5 epochs; then the 1-NN cluster accuracy of 500 probes."""
+  (0.05), 5 epochs; then the 1-NN cluster accuracy of 500 probes.
+  ``mesh_walks(rows, cols, n)`` makes the example's ``--mesh`` arm: it
+  returns ``gen_walks(epoch)``, the epoch's ``[n, L + 1]`` walks in
+  input ids."""
   from graphlearn_tpu_torch.data.topology import CSRTopo
   from graphlearn_tpu_torch.ops import (CounterDraws, WalkDraws, random_walk,
                                         walk_edges)
@@ -6566,6 +6644,7 @@ def deepwalk(torch, dev) -> dict:
   topo = CSRTopo((rows, cols), num_nodes=n)
   indptr = torch.from_numpy(np.asarray(topo.indptr, np.int64)).to(dev)
   indices = torch.from_numpy(topo.indices).to(dev)
+  gen_walks = mesh_walks(rows, cols, n) if mesh_walks is not None else None
   emb0 = np.random.default_rng(0).normal(0, 0.1, (n, DW_DIM)).astype(
       np.float32)
   emb = torch.nn.Parameter(torch.from_numpy(emb0).to(dev))
@@ -6577,10 +6656,13 @@ def deepwalk(torch, dev) -> dict:
     if dev != 'cpu':
       torch.cuda.synchronize()
     t0 = time.perf_counter()
-    starts = torch.from_numpy(np.random.default_rng(epoch).permutation(
-        n).astype(np.int32)).to(dev)
-    walks = random_walk(indptr, indices, starts, WALK_LENGTH,
-                        draws=WalkDraws(CounterDraws(epoch, dev)))
+    if gen_walks is not None:
+      walks = gen_walks(epoch)
+    else:
+      starts = torch.from_numpy(np.random.default_rng(epoch).permutation(
+          n).astype(np.int32)).to(dev)
+      walks = random_walk(indptr, indices, starts, WALK_LENGTH,
+                          draws=WalkDraws(CounterDraws(epoch, dev)))
     src, dst = walk_edges(walks, window=WALK_WINDOW)
     order = torch.from_numpy(np.random.default_rng(500 + epoch).permutation(
         src.shape[0])).to(dev)
@@ -7362,6 +7444,1014 @@ def mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr, indices,
                          f'losses {un["epoch_loss"]} not falling')
   mesh_link_cross_check(torch)
   return {'edges': me, 'link': ml, 'unsup': un}
+
+
+#: the mesh engines (`mesh_engines_phases`, `--mesh-engines`): SEAL and
+#: DeepWalk on the mesh at their examples' sizes, the subgraph engine at
+#: `bench_dist_loader.py --subgraph-worker`'s shape ([5, 5], 32 seeds a
+#: partition; one exchange of the closure, then chunks of 512 with edge
+#: ids), walks over all products nodes, `FusedDistLinkEpoch` at
+#: `mesh_link`'s setup and BiSAGE on the heterogeneous mesh
+MESH_SUB_FANOUTS = (5, 5)
+MESH_SUB_BATCH = 32
+MESH_SUB_BATCHES = 8
+MESH_SUB_CHUNK = 512
+MESH_WALK_BATCH = 65_536            # starts a partition a walk call
+FUSED_LINK_STEPS = 16               # steps an epoch (depth cut)
+FUSED_LINK_EVAL_STEPS = 4
+MESH_BI_BATCH = BI_BATCH // MESH_PARTS   # 512 seed edges a step
+MESH_BI_CHECK_BATCHES = 2
+MESH_BI_EDGE_DIM = 8
+#: JAX's `examples/seal_link_pred.py --mesh --cpu --data <seal_graph>`
+#: (`seal_graph` at `SEAL_NODES` written to an npz) and `examples/
+#: deepwalk.py --mesh --cpu`, both on the 8-device virtual CPU mesh, run
+#: once with their defaults: the SEAL test accuracy and the DeepWalk 1-NN
+#: accuracy the mesh phases are held to within `ENGINES_ACC_TOL`
+SEAL_MESH_JAX_ACC = 0.8544
+DW_MESH_JAX_ACC = 0.8520
+ENGINES_ACC_TOL = 0.03
+#: the timer's repetitions for the mesh engines' recorded calls
+ENGINES_PATH_REPS = 5
+
+
+class WindowRecorder:
+  """Keeps the mesh sampler's first ``n`` window-gather calls
+  ``(indices, starts, w)`` (through the module ``mod`` that calls it)."""
+
+  def __init__(self, mod, n):
+    self.mod, self.n = mod, n
+    self.real = mod.csr_window_gather
+    self.calls = []
+
+  def __call__(self, indices, starts, w):
+    if len(self.calls) < self.n:
+      self.calls.append((indices, starts, int(w)))
+    return self.real(indices, starts, w)
+
+  def __enter__(self):
+    self.mod.csr_window_gather = self
+    return self
+
+  def __exit__(self, *exc):
+    self.mod.csr_window_gather = self.real
+
+
+def check_window(torch, ops, timer, indices, starts, w) -> dict:
+  """K3 against its plain version on one call's inputs (byte-equal), its
+  bound (the starts read, the ``[S, w]`` window read and written) and
+  its times beside the plain version's and one `index_select` over the
+  flat positions."""
+  got = ops.csr_window_gather(indices, starts, w)
+  ref = ops.csr_window_gather_plain(indices, starts, w)
+  sync(torch)
+  if not torch.equal(got, ref):
+    raise AssertionError(f'window kernel != plain version (w={w}, '
+                         f'{int((got != ref).sum())} slots differ)')
+  s, e = starts.numel(), indices.numel()
+  flat = (starts.clamp(0, e - 1)[:, None] + torch.arange(
+      w, device=starts.device)).clamp(max=e - 1).reshape(-1)
+  nbytes = s * starts.element_size() + 2 * s * w * 4
+  return {'rows': s, 'w': w, 'byte_equal': True, 'max_abs_err': 0,
+          'bytes': nbytes, 'bound_us': nbytes / HBM_BYTES_PER_S * 1e6,
+          'kernel_ms': timer(lambda: ops.csr_window_gather(indices, starts,
+                                                           w)),
+          'plain_ms': timer(lambda: ops.csr_window_gather_plain(
+              indices, starts, w)),
+          'library_ms': timer(lambda: torch.index_select(indices, 0, flat))}
+
+
+def check_windows(torch, ops, timer, wrec, what) -> list:
+  """Every recorded K3 call, summed over each group of the 8 owners'
+  calls (a chunk, or its edge-id twin), one ``kernel`` line a group."""
+  out = []
+  for g in range(len(wrec.calls) // MESH_PARTS):
+    recs = [check_window(torch, ops, timer, *a)
+            for a in wrec.calls[g * MESH_PARTS:(g + 1) * MESH_PARTS]]
+    out.append(summed(recs))
+    emit('kernel', kernel='csr_window_gather',
+         shape=f'{what} window group {g}, {MESH_PARTS} owners', **out[-1])
+  return out
+
+
+def require_counts(ops, what, per_batch: dict, batches: int) -> dict:
+  """The kernels' launches since `reset_counts` must be ``per_batch``
+  times ``batches`` for every kernel (0 for the others), with no plain
+  call."""
+  launches, plain = read_counts(ops)
+  want = {k: per_batch.get(k, 0) * batches for k in launches}
+  if launches != want or plain:
+    raise AssertionError(f'{what}: launches {launches}, want {want}, plain '
+                         f'calls {plain}')
+  return launches
+
+
+def seal_links(n, rows, cols):
+  """`seal`'s targets: ``SEAL_LINKS`` positive links (removed from the
+  graph with their reverses) and as many non-edges, shuffled; returns
+  ``(pairs [2m, 2], labels, kept edge mask)``."""
+  edge_set = set(zip(rows.tolist(), cols.tolist()))
+  rng = np.random.default_rng(1)
+  m = SEAL_LINKS
+  pos_idx = rng.choice(len(rows), m, replace=False)
+  pos = np.stack([rows[pos_idx], cols[pos_idx]], 1)
+  pos_pairs = set(map(tuple, pos.tolist()))
+  drop = np.fromiter(((r, c) in pos_pairs or (c, r) in pos_pairs
+                      for r, c in zip(rows.tolist(), cols.tolist())), bool,
+                     len(rows))
+  neg = []
+  while len(neg) < m:
+    u, v = rng.integers(0, n, 2)
+    if (u, v) not in edge_set and (v, u) not in edge_set and u != v:
+      neg.append((u, v))
+  pairs = np.concatenate([pos, np.asarray(neg)])
+  labels = np.concatenate([np.ones(m), np.zeros(m)]).astype(np.int64)
+  order = rng.permutation(2 * m)
+  return pairs[order], labels[order], ~drop
+
+
+def check_induced(torch, batch, new2old, indptr_h, indices_h,
+                  is_edge) -> int:
+  """Every valid induced edge of a stacked subgraph batch maps through
+  ``new2old`` to an edge of the host CSR (``is_edge``), and each
+  partition's edge count equals the host's count of edges among its
+  node table.  Returns the edges checked."""
+  node = batch.node.cpu().numpy()
+  ei = batch.edge_index.cpu().numpy()
+  em = batch.edge_mask.cpu().numpy()
+  inset = np.zeros(indptr_h.shape[0] - 1, bool)
+  total = 0
+  for p in range(node.shape[0]):
+    old = new2old[node[p][node[p] >= 0]]
+    u = new2old[node[p][ei[p, 0][em[p]]]]
+    v = new2old[node[p][ei[p, 1][em[p]]]]
+    if not is_edge(u, v).all():
+      raise AssertionError('an induced mesh edge is not an edge')
+    inset[old] = True
+    want = sum(int(inset[indices_h[indptr_h[x]:indptr_h[x + 1]]].sum())
+               for x in old)
+    inset[old] = False
+    if int(em[p].sum()) != want:
+      raise AssertionError(f'a mesh subgraph has {int(em[p].sum())} edges, '
+                           f'the host counts {want}')
+    total += want
+  return total
+
+
+def mesh_seal(torch, ops, timer) -> dict:
+  """`examples/seal_link_pred.py --mesh` at P = 8 on `seal`'s graph
+  (Cora's size, the 256 target links removed): `DistSubGraphLoader([8],
+  batch 2 a partition)`, one link's enclosing subgraph a partition, 8
+  links a batch; DRNL labels on the host; `seal_model` trained as in
+  `seal`.  Checks: 8 K1 and 8 K3 launches a batch (the exact window
+  hop), no K2, no plain call; the first batch's K1 and K3 calls
+  byte-equal to their plain versions; every induced edge and every
+  partition's edge count held against the host; the test accuracy
+  within `ENGINES_ACC_TOL` of JAX's mesh example."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  import torch.nn.functional as F
+  from graphlearn_tpu_torch.parallel import DistDataset, DistSubGraphLoader
+  t_phase = time.perf_counter()
+  rows, cols, _ = seal_graph(n=SEAL_NODES, clusters=SEAL_CLUSTERS,
+                             deg=SEAL_DEG)
+  n = SEAL_NODES
+  pairs, labels, keep = seal_links(n, rows, cols)
+  dds = DistDataset.from_full_graph(MESH_PARTS, rows[keep], cols[keep],
+                                    num_nodes=n, device=DEVICE)
+  loader = DistSubGraphLoader(dds, list(SEAL_FANOUTS), pairs.reshape(-1),
+                              batch_size=2, collect_features=False, seed=0,
+                              device=DEVICE)
+  s = loader.sampler
+  if not s.exact_window:
+    raise AssertionError('mesh SEAL: the default window is not exact')
+  g = dds.graph
+  indptr_h = np.zeros(n + 1, np.int64)
+  obs = np.lexsort((cols[keep], rows[keep]))
+  indptr_h[1:] = np.cumsum(np.bincount(rows[keep], minlength=n))
+  indices_h = cols[keep][obs]
+  is_edge = edge_lookup(indptr_h, indices_h)
+  reset_counts(ops)
+  sync(torch)
+  t0 = time.perf_counter()
+  sub, checked = [], 0
+  it = iter(loader)
+  with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS, tables=0,
+                    hops=len(SEAL_FANOUTS), first=True) as rec, \
+      WindowRecorder(dsm, MESH_PARTS) as wrec:
+    first = next(it)
+  for i, batch in enumerate(itertools.chain([first], it)):
+    checked += check_induced(torch, batch, dds.new2old, indptr_h, indices_h,
+                             is_edge)
+    nmask = batch.node_mask.cpu().numpy()
+    ei = batch.edge_index.cpu().numpy()
+    em = batch.edge_mask.cpu().numpy()
+    mapping = batch.metadata['mapping'].cpu().numpy()
+    for p in range(MESH_PARTS):
+      link = i * MESH_PARTS + p
+      if link >= len(labels) or mapping[p, 0] < 0:
+        continue
+      lab = drnl(nmask[p], ei[p], em[p], int(mapping[p, 0]),
+                 int(mapping[p, 1]))
+      sub.append(tuple(torch.from_numpy(a).to(DEVICE)
+                       for a in (lab, ei[p], em[p], nmask[p]))
+                 + (torch.tensor(labels[link], device=DEVICE),))
+  extract_secs = time.perf_counter() - t0
+  n_batches = len(loader)
+  launches = require_counts(ops, 'mesh SEAL', {
+      'sample_one_hop': MESH_PARTS * len(SEAL_FANOUTS),
+      'csr_window_gather': MESH_PARTS}, n_batches)
+  path = check_mesh_path(torch, ops, timer, rec, 'mesh SEAL', tables=())
+  windows = check_windows(torch, ops, timer, wrec, 'mesh SEAL')
+  del rec, wrec
+  model = seal_model(torch).to(DEVICE)
+  opt = torch.optim.Adam(model.parameters(), lr=SEAL_LR)
+  ntr = int(0.8 * len(sub))
+  means = []
+  t0 = time.perf_counter()
+  for _ in range(SEAL_EPOCHS):
+    tot = torch.zeros((), device=DEVICE)
+    for lab, ei, em, nm, y in sub[:ntr]:
+      opt.zero_grad(set_to_none=True)
+      loss = F.cross_entropy(model(lab, ei, em, nm)[None], y[None])
+      loss.backward()
+      opt.step()
+      tot += loss.detach()
+    means.append(float(tot) / ntr)
+  train_secs = time.perf_counter() - t0
+  model.eval()
+  with torch.no_grad():
+    correct = sum(int(torch.argmax(model(lab, ei, em, nm)) == y)
+                  for lab, ei, em, nm, y in sub[ntr:])
+  acc = correct / max(len(sub) - ntr, 1)
+  out = dict(graph={'nodes': n, 'edges': int(keep.sum())},
+             parts=MESH_PARTS, links=len(labels), batches=n_batches,
+             subgraphs=len(sub), max_degree=s.max_degree,
+             node_cap=int(first.node.shape[1]), extract_secs=extract_secs,
+             links_per_s=len(sub) / extract_secs,
+             induced_edges_checked=checked, train_secs=train_secs,
+             epoch_mean_losses=means, test_links=len(sub) - ntr,
+             test_accuracy=acc, jax_mesh_accuracy=SEAL_MESH_JAX_ACC,
+             minus_jax=acc - SEAL_MESH_JAX_ACC, launches=launches,
+             secs=time.perf_counter() - t_phase)
+  emit('mesh_seal', **out)
+  if not (len(sub) == len(labels) and np.isfinite(means).all()
+          and means[-1] < means[0]
+          and abs(acc - SEAL_MESH_JAX_ACC) <= ENGINES_ACC_TOL):
+    raise AssertionError(f'mesh SEAL: {len(sub)} subgraphs, losses {means}, '
+                         f'test accuracy {acc} (JAX {SEAL_MESH_JAX_ACC})')
+  return {'launches': launches, 'hops': path['hops'], 'windows': windows,
+          'out': out}
+
+
+def mesh_subgraph(torch, ops, timer, ds, feats, labels, indptr_h,
+                  indices_h, is_edge) -> dict:
+  """The subgraph engine at products scale (`bench_dist_loader.py
+  --subgraph-worker`'s shape on `mesh_data`'s untiered store): [5, 5]
+  closures of 32 shuffled seeds a partition, features and labels
+  collected, run once with one exchange of the whole closure and once
+  in chunks of `MESH_SUB_CHUNK` with edge ids.  Checks: 16 K1 and 16 K2
+  launches a batch and 8 K3 a chunk (16 with edge ids), no plain call,
+  the first batch's calls byte-equal, every induced edge and each
+  partition's edge count against the host, rows and labels equal their
+  sources, the edge ids name their edges, and both runs the same
+  subgraphs on the same seeds."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistSubGraphLoader
+  new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+  seeds = np.random.default_rng(1).integers(
+      0, NUM_NODES, MESH_SUB_BATCH * MESH_PARTS * MESH_SUB_BATCHES)
+  indptr = torch.from_numpy(indptr_h).to(DEVICE)
+  indices = torch.from_numpy(indices_h).to(DEVICE)
+  runs, kept = {}, {}
+  for name, chunk, edge in (('one_exchange', None, False),
+                            (f'chunk_{MESH_SUB_CHUNK}', MESH_SUB_CHUNK,
+                             True)):
+    loader = DistSubGraphLoader(ds, list(MESH_SUB_FANOUTS), seeds,
+                                batch_size=MESH_SUB_BATCH, shuffle=True,
+                                seed=0, hop_chunk=chunk, with_edge=edge,
+                                device=DEVICE)
+    s = loader.sampler
+    node_cap = s.node_capacity(MESH_SUB_BATCH)
+    n_chunks = -(-node_cap // (chunk or node_cap))
+    per = {'sample_one_hop': MESH_PARTS * len(MESH_SUB_FANOUTS),
+           'gather_rows': 2 * MESH_PARTS,
+           'csr_window_gather': n_chunks * MESH_PARTS * (2 if edge else 1)}
+    it = iter(loader)
+    reset_counts(ops)
+    with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS, tables=2,
+                      hops=len(MESH_SUB_FANOUTS), first=True) as rec, \
+        WindowRecorder(dsm, per['csr_window_gather']) as wrec:
+      first = next(it)
+    sync(torch)
+    t0 = time.perf_counter()
+    batches = [first] + list(it)
+    sync(torch)
+    secs = time.perf_counter() - t0
+    launches = require_counts(ops, f'mesh subgraph {name}', per,
+                              len(batches))
+    checked = check_induced(torch, first, ds.new2old, indptr_h, indices_h,
+                            is_edge)
+    check_mesh_batch(torch, first, feats, labels, new2old)
+    if edge:
+      em = first.edge_mask
+      e = first.edge.long().clamp(min=0)
+      node = first.node.long()
+      ei = first.edge_index.long().clamp(min=0)
+      u = new2old[torch.gather(node, 1, ei[:, 0])]
+      v = new2old[torch.gather(node, 1, ei[:, 1])]
+      ok = ((indptr[u] <= e) & (e < indptr[u + 1])
+            & (indices[e].long() == v))
+      if not (bool(ok[em].all()) and bool((first.edge[~em] == -1).all())):
+        raise AssertionError('a mesh subgraph edge id does not name its '
+                             'edge')
+    kept[name] = [b.edge_index for b in batches]
+    path = check_mesh_path(torch, ops, timer, rec, f'mesh subgraph {name}',
+                           tables=('features', 'labels'))
+    windows = check_windows(torch, ops, timer, wrec,
+                            f'mesh subgraph {name}')
+    st = s.exchange_stats()
+    runs[name] = {
+        'hop_chunk': chunk, 'with_edge': edge, 'node_cap': node_cap,
+        'max_degree': s.max_degree, 'n_chunks': n_chunks,
+        # one owner's window reply: P requesters x the chunk x the width
+        'reply_elements_per_owner': MESH_PARTS * min(chunk or node_cap,
+                                                     node_cap)
+        * s.max_degree,
+        'batches': len(batches), 'secs_after_first': secs,
+        'seeds_per_s': (len(batches) - 1) * MESH_SUB_BATCH * MESH_PARTS
+        / secs,
+        'induced_edges_first_batch': checked, 'launches': launches,
+        'frontier_dropped': st['dist.frontier.dropped'],
+        'path': path, 'windows': windows}
+    del loader, it, batches, first, rec, wrec
+  a, b = kept.values()
+  if not all(torch.equal(x, y) for x, y in zip(a, b)):
+    raise AssertionError('mesh subgraph: the chunked run gave other '
+                         'subgraphs')
+  emit('mesh_subgraph', parts=MESH_PARTS, fanouts=list(MESH_SUB_FANOUTS),
+       batch=MESH_SUB_BATCH, same_subgraphs=True,
+       **{k: {kk: vv for kk, vv in v.items() if kk not in ('path',
+                                                            'windows')}
+          for k, v in runs.items()})
+  return runs
+
+
+def mesh_walks_fn(torch, dev):
+  """`examples/deepwalk.py --mesh`'s walk generator on ``dev``: the
+  graph on a P = 8 store, `DistRandomWalker` (length `WALK_LENGTH`,
+  seed 0), every node a start each epoch (a seeded permutation, -1
+  padded to a multiple of P), the walks mapped back to input ids."""
+  from graphlearn_tpu_torch.parallel import DistDataset, DistRandomWalker
+
+  def make(rows, cols, n):
+    ds = DistDataset.from_full_graph(MESH_PARTS, rows, cols, num_nodes=n,
+                                     device=dev)
+    walker = DistRandomWalker(ds, WALK_LENGTH, seed=0, device=dev)
+    new2old = torch.from_numpy(ds.new2old).to(dev)
+
+    def gen_walks(epoch):
+      starts = ds.old2new[np.random.default_rng(epoch).permutation(n)]
+      per = -(-n // MESH_PARTS)
+      padded = np.full(per * MESH_PARTS, -1, np.int64)
+      padded[:n] = starts
+      w = walker.walk(padded.reshape(MESH_PARTS, per)).reshape(
+          -1, WALK_LENGTH + 1)
+      return torch.where(w >= 0, new2old[w.long().clamp(min=0)], -1).to(
+          torch.int32)
+    return gen_walks
+  return make
+
+
+def mesh_walk(torch, ops, timer, ds, indptr_h, indices_h, is_edge) -> dict:
+  """The walk engine: walks of length `WALK_LENGTH` from all products
+  nodes (shuffled) at P = 8, `MESH_WALK_BATCH` starts a partition a call,
+  exact exchange; then `examples/deepwalk.py --mesh` at its size on the
+  card.  Checks: 8 K1 launches a walk step, no plain call, the first
+  call's first two steps' K1 calls byte-equal, every consecutive valid
+  pair of the first `WALK_CHECK` walks an edge of the host CSR and an
+  ended walk ended, the card's walks equal the CPU's on a `WALK_CHECK`-
+  start slice, the DeepWalk 1-NN accuracy within `ENGINES_ACC_TOL` of
+  JAX's mesh example."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import (DistDataset, DistGraph,
+                                             DistRandomWalker, TorchDraws)
+  t_phase = time.perf_counter()
+  walker = DistRandomWalker(ds, WALK_LENGTH, seed=0, device=DEVICE)
+  gen = torch.Generator(device=DEVICE).manual_seed(31)
+  perm = torch.randperm(NUM_NODES, generator=gen, device=DEVICE).cpu()
+  starts = ds.old2new[perm.numpy()]
+  per_call = MESH_WALK_BATCH * MESH_PARTS
+  calls = -(-NUM_NODES // per_call)
+  padded = np.full(calls * per_call, -1, np.int64)
+  padded[:NUM_NODES] = starts
+  padded = padded.reshape(calls, MESH_PARTS, MESH_WALK_BATCH)
+  reset_counts(ops)
+  with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS, tables=0,
+                    hops=2, first=True) as rec:
+    first = walker.walk(padded[0])
+  sync(torch)
+  t0 = time.perf_counter()
+  rest = [walker.walk(padded[c]) for c in range(1, calls)]
+  sync(torch)
+  secs = time.perf_counter() - t0
+  launches = require_counts(ops, 'mesh walk', {
+      'sample_one_hop': MESH_PARTS * WALK_LENGTH}, calls)
+  w = first.reshape(-1, WALK_LENGTH + 1)[:WALK_CHECK].cpu().numpy()
+  old = np.where(w >= 0, ds.new2old[np.maximum(w, 0)], -1)
+  a, b = old[:, :-1], old[:, 1:]
+  both = (a >= 0) & (b >= 0)
+  if not (is_edge(a[both], b[both]).all() and (b[a < 0] < 0).all()):
+    raise AssertionError('mesh walk: a step is not an edge, or an ended '
+                         'walk moved')
+  valid_share = float((torch.cat([first] + rest, 1)[..., -1] >= 0).sum()
+                      / NUM_NODES)
+  path = check_mesh_path(torch, ops, timer, rec, 'mesh walk', tables=())
+  del rec, first, rest
+  # card = CPU on a slice, both from the same CPU-made draws
+  g = ds.graph
+  cpu_ds = DistDataset(DistGraph(g.indptr.cpu(), g.indices.cpu(),
+                                 g.edge_ids.cpu(), g.bounds), device='cpu',
+                       old2new=ds.old2new)
+  sl = padded[0][:, :WALK_CHECK // MESH_PARTS]
+  draws = TorchDraws(37, 'cpu')
+  got = {dev: DistRandomWalker(d, WALK_LENGTH, draws=DevDraws(draws, dev),
+                               device=dev).walk(sl).cpu()
+         for dev, d in ((DEVICE, ds), ('cpu', cpu_ds))}
+  if not torch.equal(got[DEVICE], got['cpu']):
+    raise AssertionError('mesh walk: card != CPU')
+  del cpu_ds, got
+  dw = deepwalk(torch, DEVICE, mesh_walks=mesh_walks_fn(torch, DEVICE))
+  out = {'starts': NUM_NODES, 'length': WALK_LENGTH, 'calls': calls,
+         'starts_per_call': per_call,
+         'secs_after_first': secs,
+         'walk_steps_per_s': (calls - 1) * per_call * WALK_LENGTH / secs,
+         'valid_share_at_end': valid_share, 'steps_checked': int(
+             both.sum()), 'card_equals_cpu_starts': WALK_CHECK,
+         'launches': launches, 'deepwalk': dw,
+         'deepwalk_jax_mesh_accuracy': DW_MESH_JAX_ACC,
+         'deepwalk_minus_jax': dw['accuracy'] - DW_MESH_JAX_ACC,
+         'secs': time.perf_counter() - t_phase}
+  emit('mesh_walk', **out)
+  if not abs(dw['accuracy'] - DW_MESH_JAX_ACC) <= ENGINES_ACC_TOL:
+    raise AssertionError(f'mesh DeepWalk accuracy {dw["accuracy"]} not '
+                         f'within {ENGINES_ACC_TOL} of JAX\'s '
+                         f'{DW_MESH_JAX_ACC}')
+  return {'launches': launches, 'hops': path['hops'], 'out': out}
+
+
+class LoaderDraws:
+  """A fused mesh epoch's ``draws(epoch, step, ...)`` in the per-batch
+  loader's ``draws(step, ...)`` form: loader step ``s`` (from 1) is step
+  ``(s - 1) % steps`` of epoch ``(s - 1) // steps + 1``."""
+
+  def __init__(self, draws, steps):
+    self.draws, self.steps = draws, steps
+
+  def _at(self, step):
+    return (step - 1) // self.steps + 1, (step - 1) % self.steps
+
+  def __call__(self, step, hop, rows, k, w, gns=False, owner=0):
+    return self.draws(*self._at(step), hop, rows, k, w, gns, owner)
+
+  def negatives(self, step, stream, trials, r, high, part=None):
+    return self.draws.negatives(*self._at(step), stream, trials, r, high,
+                                part=part)
+
+
+def mesh_fused_link(torch, ops, timer, ds, indptr_h, indices_h) -> dict:
+  """`FusedDistLinkEpoch` at `mesh_link`'s setup on the untiered
+  products store ([5, 5], binary, 1,024 seed edges a partition,
+  ``GraphSAGE(100, 64, 32, 2)``, Adam 1e-3; `FUSED_LINK_STEPS` steps an
+  epoch) against the DP loop (`DistLinkNeighborLoader` +
+  `make_dp_unsupervised_step`) at the same draws and initial
+  parameters: epoch 1 of both under deterministic algorithms (losses
+  within 1e-5), epoch 2 of both timed.  Checks: the first two batches
+  byte-equal, the first step's K1 and K2 calls byte-equal, 16 K1 and 16
+  K2 launches a step in both, no plain call, the losses falling; then
+  `evaluate`'s AUC over held-out edges (reported: the features are
+  noise)."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import (DistLinkNeighborLoader,
+                                             FusedDistLinkEpoch,
+                                             make_dp_unsupervised_step)
+  b = MESH_LINK_BATCH
+  src, dst = mesh_link_seeds(indptr_h, indices_h,
+                             b * MESH_PARTS * FUSED_LINK_STEPS, 50)
+  hs, hd = mesh_link_seeds(indptr_h, indices_h,
+                           b * MESH_PARTS * FUSED_LINK_EVAL_STEPS, 51)
+  models = [mesh_link_model(torch, FEAT_DIM, DEVICE) for _ in range(2)]
+  opts = [torch.optim.Adam(m.parameters(), lr=MESH_LINK_LR, eps=1e-8)
+          for m in models]
+  fe = FusedDistLinkEpoch(ds, MESH_LINK_FANOUTS, (src, dst), models[0],
+                          opts[0], batch_size=b, neg_sampling='binary',
+                          seed=0, device=DEVICE)
+  lo = DistLinkNeighborLoader(ds, MESH_LINK_FANOUTS, (src, dst),
+                              neg_sampling='binary', batch_size=b,
+                              shuffle=True, seed=0,
+                              draws=LoaderDraws(fe.draws, len(fe)),
+                              device=DEVICE)
+  step = make_dp_unsupervised_step(models[1], opts[1], lo.sampler.mesh)
+  kept = []
+  real_collate = fe._collate
+
+  def collate(*a):
+    batch = real_collate(*a)
+    if len(kept) < 2:
+      kept.append(batch)
+    return batch
+  fe._collate = collate
+  per = {'sample_one_hop': 2 * MESH_PARTS, 'gather_rows': 2 * MESH_PARTS}
+  losses, secs, launches = {}, {}, {}
+  for epoch in (1, 2):
+    deterministic = epoch == 1
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+      reset_counts(ops)
+      sync(torch)
+      t0 = time.perf_counter()
+      if epoch == 1:
+        with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS, tables=2,
+                          hops=len(MESH_LINK_FANOUTS), first=True) as rec:
+          fused = fe.run().losses
+      else:
+        fused = fe.run().losses
+      fused = fused.cpu().numpy()
+      secs[f'fused_{epoch}'] = time.perf_counter() - t0
+      launches[f'fused_{epoch}'] = require_counts(
+          ops, f'FusedDistLinkEpoch epoch {epoch}', per, len(fe))
+      loop_batches = []
+      reset_counts(ops)
+      sync(torch)
+      t0 = time.perf_counter()
+      loop = []
+      for i, batch in enumerate(lo):
+        loop.append(step(batch))
+        if epoch == 1 and i < 2:
+          loop_batches.append(batch)
+      loop = torch.stack(loop).cpu().numpy()
+      secs[f'loop_{epoch}'] = time.perf_counter() - t0
+      launches[f'loop_{epoch}'] = require_counts(
+          ops, f'mesh link DP loop epoch {epoch}', per, len(fe))
+    finally:
+      torch.use_deterministic_algorithms(False)
+    losses[epoch] = (fused, loop)
+    if epoch == 1:
+      fe._collate = real_collate
+      for i, (x, y) in enumerate(zip(kept, loop_batches)):
+        for f in ('node', 'x', 'edge_index', 'edge_mask', 'batch'):
+          if not torch.equal(getattr(x, f), getattr(y, f)):
+            raise AssertionError(f'fused link batch {i} {f} != the loader')
+        for k in ('edge_label_index', 'edge_label', 'edge_label_mask'):
+          if not torch.equal(x.metadata[k], y.metadata[k]):
+            raise AssertionError(f'fused link batch {i} {k} != the loader')
+      del kept, loop_batches
+  diff = {e: float(np.abs(f - l).max()) for e, (f, l) in losses.items()}
+  allf = np.concatenate([losses[1][0], losses[2][0]])
+  if not (diff[1] <= 1e-5 and np.isfinite(allf).all()
+          and allf[-4:].mean() < allf[:4].mean()):
+    raise AssertionError(f'FusedDistLinkEpoch: losses {losses}, max diff '
+                         f'{diff}')
+  path = check_mesh_path(torch, ops, timer, rec, 'FusedDistLinkEpoch step',
+                         tables=('features', 'labels'))
+  del rec
+  t0 = time.perf_counter()
+  auc = fe.evaluate((hs, hd))
+  eval_secs = time.perf_counter() - t0
+  steps = len(fe)
+  out = {'steps_per_epoch': steps, 'batch_edges': b,
+         'fanouts': list(MESH_LINK_FANOUTS),
+         'fused_s_per_step': secs['fused_2'] / steps,
+         'loop_s_per_step': secs['loop_2'] / steps,
+         'fused_over_loop': secs['fused_2'] / secs['loop_2'],
+         'deterministic_epoch_s': {'fused': secs['fused_1'],
+                                   'loop': secs['loop_1']},
+         'loss_max_abs_diff': diff,
+         'losses_fused': allf.tolist(),
+         'eval_auc': auc, 'eval_edges': int(len(hs)),
+         'eval_secs': eval_secs, 'launches': launches,
+         'batches_byte_equal': 2}
+  emit('mesh_fused_link', **out)
+  # the products recipe's features are noise: the AUC is reported, not
+  # gated
+  if not 0.0 <= auc <= 1.0:
+    raise AssertionError(f'FusedDistLinkEpoch AUC {auc}')
+  del fe, lo, step, models, opts
+  return {'launches': launches, 'hops': path['hops'],
+          'gathers': path['gathers'], 'out': out}
+
+
+def bisage_dp_step(torch, model, opt):
+  """The bipartite example's step data-parallel over a stacked
+  `HeteroBatch`: the mean over the partitions of each piece's
+  `bisage_loss`, its gradient (the mean of the pieces' gradients), one
+  optimizer step.  The partitions run as one union graph
+  (`union_graph`): one forward and one backward for all of them.
+  Returns the loss."""
+  import torch.nn.functional as F
+
+  def step(stacked):
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    h = model(*union_graph(torch, stacked))
+    md = stacked.metadata
+    eli = md['edge_label_index'].long()                 # [P, 2, L]
+    parts = eli.shape[0]
+    at = torch.arange(parts, device=eli.device)[:, None]
+    hu = h[BI_USER].reshape(parts, -1, h[BI_USER].shape[-1])
+    hv = h[BI_ITEM].reshape(parts, -1, h[BI_ITEM].shape[-1])
+    eu = hu[at, eli[:, 0].clamp(0, hu.shape[1] - 1)]
+    ev = hv[at, eli[:, 1].clamp(0, hv.shape[1] - 1)]
+    ls = F.binary_cross_entropy_with_logits(
+        (eu * ev).sum(-1), torch.clamp(md['edge_label'], max=1).float(),
+        reduction='none')
+    w = (md['edge_label_mask'] & (eli[:, 0] >= 0)
+         & (eli[:, 1] >= 0)).float()
+    loss = ((ls * w).sum(1) / w.sum(1).clamp(min=1.0)).mean()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+  return step
+
+
+def bipartite_mesh_store(torch, dev, urow, icol, ufeat, ifeat, tr):
+  """The click graph's training edges (ids: their indices into the whole
+  click list) on a P = 8 heterogeneous store on ``dev`` with an ``[E,
+  8]`` f32 table an edge type by global id, made on ``dev`` from a
+  seed."""
+  from graphlearn_tpu_torch.parallel import DistHeteroDataset
+  m = len(urow)
+  tabs = {}
+  for i, et in enumerate((BI_ET, BI_ET_REV)):
+    gen = torch.Generator(device=dev).manual_seed(60 + i)
+    tabs[et] = torch.rand(m, MESH_BI_EDGE_DIM, generator=gen, device=dev)
+  edges = {BI_ET: (urow[tr], icol[tr]), BI_ET_REV: (icol[tr], urow[tr])}
+  ds = DistHeteroDataset.from_full_graph(
+      MESH_PARTS, edges, node_feat_dict={BI_USER: ufeat, BI_ITEM: ifeat},
+      num_nodes_dict={BI_USER: len(ufeat), BI_ITEM: len(ifeat)},
+      edge_ids_dict={BI_ET: tr, BI_ET_REV: tr}, edge_feat_dict=tabs,
+      device=dev)
+  return ds, tabs
+
+
+def check_hetero_link_batch(torch, batch, ds, tabs, urow, icol,
+                            train_set) -> tuple:
+  """A stacked bipartite link batch: every sampled edge id is a click
+  from the seed-side node to the neighbor and its row the table's (-1
+  and zero rows where masked), and the kept negatives are not training
+  clicks.  Returns (edges checked, negatives kept)."""
+  from graphlearn_tpu_torch.typing import reverse_edge_type
+  emitted = {reverse_edge_type(et): et for et in (BI_ET, BI_ET_REV)}
+  checked = 0
+  for ret, e in batch.metadata['edge_dict'].items():
+    et = emitted[ret]
+    em = batch.edge_mask_dict[ret]
+    ea = batch.edge_attr_dict[ret]
+    if not (torch.equal(ea[em], tabs[et][e[em].long()])
+            and not bool(ea[~em].any()) and bool((e[~em] == -1).all())):
+      raise AssertionError(f'a hetero mesh edge row differs ({ret})')
+    e_h, em_h = e.cpu().numpy(), em.cpu().numpy()
+    ei = batch.edge_index_dict[ret].cpu().numpy()
+    nb_t, sd_t = ret[0], ret[2]
+    ends = (urow, icol) if et == BI_ET else (icol, urow)
+    for p in range(MESH_PARTS):
+      nb = ds.new2old[nb_t][batch.node_dict[nb_t][p].cpu().numpy()[
+          ei[p, 0][em_h[p]]]]
+      sd = ds.new2old[sd_t][batch.node_dict[sd_t][p].cpu().numpy()[
+          ei[p, 1][em_h[p]]]]
+      ids = e_h[p][em_h[p]]
+      if not ((ends[0][ids] == sd).all() and (ends[1][ids] == nb).all()):
+        raise AssertionError(f'a hetero mesh edge id does not name its '
+                             f'edge ({ret})')
+      checked += len(ids)
+  md = batch.metadata
+  eli = md['edge_label_index'].cpu().numpy()
+  keep = md['edge_label_mask'].cpu().numpy()
+  lab = md['edge_label'].cpu().numpy()
+  kept = 0
+  for p in range(MESH_PARTS):
+    neg = keep[p] & (lab[p] == 0)
+    u = ds.new2old[BI_USER][batch.node_dict[BI_USER][p].cpu().numpy()[
+        eli[p, 0][neg]]]
+    i = ds.new2old[BI_ITEM][batch.node_dict[BI_ITEM][p].cpu().numpy()[
+        eli[p, 1][neg]]]
+    if any((a, c) in train_set for a, c in zip(u.tolist(), i.tolist())):
+      raise AssertionError('a kept hetero mesh negative is a click')
+    kept += int(neg.sum())
+  return checked, kept
+
+
+def hetero_batch_tensors(batch) -> list:
+  """Every tensor of a `HeteroBatch` by a sorted key, on the host."""
+  out = []
+  for f in batch.FIELDS:
+    v = getattr(batch, f)
+    if isinstance(v, dict):
+      for k in sorted(v, key=str):
+        x = v[k]
+        if isinstance(x, dict):
+          out += [(f, k, kk, x[kk].cpu()) for kk in sorted(x, key=str)]
+        elif hasattr(x, 'cpu'):
+          out.append((f, k, x.cpu()))
+  return out
+
+
+def mesh_hetero_link(torch, ops, timer, ref_auc) -> dict:
+  """`examples/hetero/bipartite_sage_unsup.py`'s BiSAGE on the
+  heterogeneous mesh at P = 8 with `bipartite_link`'s constants (the
+  click graph less 10% held out, [8, 8], 512 seed edges a step (64 a
+  partition), binary 1.0, `BI_EPOCHS` epochs, Adam 3e-3):
+  `DistHeteroLinkNeighborLoader(with_edge=True)` over a store with
+  caller-global edge ids and an ``[E, 8]`` table an edge type, then
+  every node embedded through a `DistHeteroNeighborLoader` a type and
+  the held-out clicks ranked as `bipartite_link` ranks them.  Checks: 32
+  K1 and 32 K2 launches a step (4 (hop, edge type) calls and 4 tables of
+  8 owners), no plain call, the first step's calls byte-equal, the edge
+  ids, rows and kept negatives of `MESH_BI_CHECK_BATCHES` batches, the
+  same key set in every batch, triplet batches' negatives, card = CPU on
+  two batches, the losses falling and the AUC within `ENGINES_ACC_TOL`
+  of the single-card ``ref_auc`` of the same run."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import (DistHeteroLinkNeighborLoader,
+                                             DistHeteroNeighborLoader,
+                                             TorchDraws)
+  from graphlearn_tpu_torch.typing import reverse_edge_type
+  t_phase = time.perf_counter()
+  timer = Timer(torch, reps=ENGINES_PATH_REPS)
+  urow, icol, ufeat, ifeat = bipartite_synthetic()
+  nu, ni = len(ufeat), len(ifeat)
+  rng = np.random.default_rng(2)
+  m = len(urow)
+  perm = rng.permutation(m)
+  heldout, tr = perm[:m // 10], perm[m // 10:]
+  train_set = set(zip(urow[tr].tolist(), icol[tr].tolist()))
+  ds, tabs = bipartite_mesh_store(torch, DEVICE, urow, icol, ufeat, ifeat,
+                                  tr)
+  seeds = (BI_ET, (urow[tr], icol[tr]))
+  loader = DistHeteroLinkNeighborLoader(
+      ds, BI_FANOUTS, seeds, neg_sampling='binary', batch_size=MESH_BI_BATCH,
+      shuffle=True, seed=0, with_edge=True, device=DEVICE)
+  etypes = tuple(sorted(reverse_edge_type(et) for et in ds.etypes))
+  with torch.random.fork_rng(devices=[]):
+    torch.manual_seed(0)
+    model = bisage_model(torch, etypes, {BI_USER: BI_DIM, BI_ITEM: BI_DIM})
+  model = model.to(DEVICE)
+  opt = torch.optim.Adam(model.parameters(), lr=BI_LR, eps=1e-8)
+  step = bisage_dp_step(torch, model, opt)
+  hops = [f'hop {h} {"__".join(et)}' for h in range(len(BI_FANOUTS))
+          for et in loader.sampler.etypes]
+  tables = (f'x {BI_ITEM}', f'x {BI_USER}') + tuple(
+      f'edge rows {"__".join(et)}' for et in sorted(tabs))
+  reset_counts(ops)
+  epoch_loss, steps, keys, checked, kept = [], 0, set(), 0, 0
+  sync(torch)
+  t0 = time.perf_counter()
+  with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS,
+                    tables=len(tables), hops=len(hops), first=True) as rec:
+    for _ in range(BI_EPOCHS):
+      tot = []
+      for batch in loader:
+        keys.add((tuple(sorted(batch.edge_index_dict)),
+                  tuple(sorted(batch.metadata['edge_dict'])),
+                  tuple(sorted(batch.edge_attr_dict))))
+        if steps < MESH_BI_CHECK_BATCHES:
+          c, k = check_hetero_link_batch(torch, batch, ds, tabs, urow, icol,
+                                         train_set)
+          checked, kept = checked + c, kept + k
+        tot.append(step(batch))
+        steps += 1
+      epoch_loss.append(float(torch.stack(tot).mean()))
+  sync(torch)
+  train_secs = time.perf_counter() - t0
+  launches = require_counts(ops, 'hetero mesh link', {
+      'sample_one_hop': len(hops) * MESH_PARTS,
+      'gather_rows': len(tables) * MESH_PARTS}, steps)
+  if len(keys) != 1:
+    raise AssertionError(f'hetero mesh link batches change keys: {keys}')
+  if not (np.isfinite(epoch_loss).all() and epoch_loss[-1] < epoch_loss[0]):
+    raise AssertionError(f'hetero mesh link losses {epoch_loss}')
+  path = check_mesh_path(torch, ops, timer, rec, 'hetero mesh link step',
+                         tables=tables, hop_names=hops)
+  del rec
+  # triplet mode on its first batches
+  tl = DistHeteroLinkNeighborLoader(
+      ds, BI_FANOUTS, seeds, neg_sampling=('triplet', 1),
+      batch_size=MESH_BI_BATCH, shuffle=True, seed=1, with_edge=True,
+      device=DEVICE)
+  trip = 0
+  for batch in itertools.islice(iter(tl), MESH_BI_CHECK_BATCHES):
+    md = batch.metadata
+    dn = md['dst_neg_index'].cpu().numpy()
+    si = md['src_index'].cpu().numpy()
+    for p in range(MESH_PARTS):
+      u = ds.new2old[BI_USER][batch.node_dict[BI_USER][p].cpu().numpy()[
+          si[p]]]
+      for j in range(dn.shape[1]):
+        for c in dn[p, j][dn[p, j] >= 0]:
+          i = ds.new2old[BI_ITEM][int(batch.node_dict[BI_ITEM][p][c])]
+          if (int(u[j]), int(i)) in train_set:
+            raise AssertionError('a triplet hetero mesh negative is a click')
+          trip += 1
+  del tl
+
+  def embed(ntype, count):
+    emb = torch.zeros(count, BI_HIDDEN, device=DEVICE)
+    new2old = torch.from_numpy(ds.new2old[ntype]).to(DEVICE)
+    el = DistHeteroNeighborLoader(ds, BI_FANOUTS, (ntype, np.arange(count)),
+                                  batch_size=MESH_BI_BATCH, device=DEVICE)
+    model.eval()
+    with torch.no_grad():
+      for b in el:
+        h = model(*union_graph(torch, b))[ntype].reshape(
+            MESH_PARTS, -1, BI_HIDDEN)
+        s = b.batch_dict[ntype]
+        ok = s >= 0
+        at = torch.arange(MESH_PARTS, device=s.device)[:, None].expand_as(s)
+        emb[new2old[s[ok].long()]] = h[at[ok],
+                                       b.metadata['seed_local'][ok].long()]
+    return emb.cpu().numpy()
+  uemb, iemb = embed(BI_USER, nu), embed(BI_ITEM, ni)
+  pos_s = (uemb[urow[heldout]] * iemb[icol[heldout]]).sum(1)
+  neg_s = (uemb[rng.integers(0, nu, len(heldout))]
+           * iemb[rng.integers(0, ni, len(heldout))]).sum(1)
+  auc = float((pos_s[:, None] > neg_s[None, :]).mean())
+  # card = CPU on the first batches, from the same CPU-made draws
+  cpu_draws = TorchDraws(19, 'cpu')
+  got = {}
+  for dev in (DEVICE, 'cpu'):
+    dsd = (ds if dev == DEVICE else bipartite_mesh_store(
+        torch, 'cpu', urow, icol, ufeat, ifeat, tr)[0])
+    if dev == 'cpu':
+      # the same tables on both sides
+      for et, f in dsd.edge_features.items():
+        f.shards = ds.edge_features[et].shards.cpu()
+    lo = DistHeteroLinkNeighborLoader(
+        dsd, BI_FANOUTS, seeds, neg_sampling='binary',
+        batch_size=MESH_BI_BATCH, shuffle=True, seed=4, with_edge=True,
+        draws=DevDraws(cpu_draws, dev), device=dev)
+    got[dev] = [hetero_batch_tensors(b)
+                for b in itertools.islice(iter(lo), 2)]
+  for i, (x, y) in enumerate(zip(got[DEVICE], got['cpu'])):
+    if len(x) != len(y):
+      raise AssertionError(f'hetero mesh link batch {i}: key sets differ')
+    for a, c in zip(x, y):
+      if a[:-1] != c[:-1] or a[-1].dtype != c[-1].dtype or not torch.equal(
+          a[-1], c[-1]):
+        raise AssertionError(f'hetero mesh link card != CPU: batch {i} '
+                             f'{a[:-1]}')
+  out = {'users': nu, 'items': ni, 'train_edges': int(len(tr)),
+         'heldout': int(len(heldout)), 'epochs': BI_EPOCHS, 'steps': steps,
+         'batch_a_partition': MESH_BI_BATCH,
+         'step_ms': train_secs / steps * 1e3, 'epoch_loss': epoch_loss,
+         'heldout_auc': auc, 'single_card_auc': ref_auc,
+         'minus_single_card': auc - ref_auc,
+         'edges_checked': checked, 'negatives_kept_checked': kept,
+         'triplet_negatives_checked': trip, 'card_equals_cpu_batches': 2,
+         'launches': launches, 'secs': time.perf_counter() - t_phase}
+  emit('mesh_hetero_link', **out)
+  if not abs(auc - ref_auc) <= ENGINES_ACC_TOL:
+    raise AssertionError(f'hetero mesh link AUC {auc} not within '
+                         f'{ENGINES_ACC_TOL} of the single card\'s {ref_auc}')
+  del ds, loader, model, opt
+  return {'launches': launches, 'hops': path['hops'],
+          'gathers': path['gathers'], 'out': out}
+
+
+def mesh_engines_cross_check(torch):
+  """The subgraph engine at the SEAL example's size on the card and on
+  the CPU with the same CPU-made draws: the first 3 batches with edge
+  ids byte-equal (node, edge_index, edge_mask, edge, mapping)."""
+  from graphlearn_tpu_torch.parallel import (DistDataset, DistSubGraphLoader,
+                                             TorchDraws)
+  rows, cols, _ = seal_graph(n=SEAL_NODES, clusters=SEAL_CLUSTERS,
+                             deg=SEAL_DEG)
+  pairs, _, keep = seal_links(SEAL_NODES, rows, cols)
+  draws = TorchDraws(23, 'cpu')
+  out = {}
+  for dev in (DEVICE, 'cpu'):
+    dds = DistDataset.from_full_graph(MESH_PARTS, rows[keep], cols[keep],
+                                      num_nodes=SEAL_NODES, device=dev)
+    lo = DistSubGraphLoader(dds, list(SEAL_FANOUTS), pairs.reshape(-1),
+                            batch_size=2, collect_features=False,
+                            with_edge=True, draws=DevDraws(draws, dev),
+                            device=dev)
+    out[dev] = [[t.cpu() for t in (b.node, b.edge_index, b.edge_mask,
+                                   b.edge, b.metadata['mapping'])]
+                for b in itertools.islice(iter(lo), 3)]
+  for i, (a, c) in enumerate(zip(out[DEVICE], out['cpu'])):
+    for x, y in zip(a, c):
+      if x.dtype != y.dtype or not torch.equal(x, y):
+        raise AssertionError(f'mesh subgraph card != CPU (batch {i})')
+  emit('mesh_engines_cross_check', parts=MESH_PARTS, batches=3,
+       byte_equal=True)
+
+
+def mesh_engines_phases(torch, ops, timer, ds, feats, labels, indptr,
+                        indices) -> dict:
+  """The mesh's subgraph, walk and fused link engines on `mesh_data`'s
+  untiered store (phases A, B and C; the hetero link phase D runs on
+  its own graph, `mesh_hetero_link`)."""
+  indptr_h, indices_h = indptr.cpu().numpy(), indices.cpu().numpy()
+  is_edge = edge_lookup(indptr_h, indices_h)
+  timer = Timer(torch, reps=ENGINES_PATH_REPS)
+  out = {'seal': mesh_seal(torch, ops, timer)}
+  mesh_engines_cross_check(torch)
+  out['subgraph'] = mesh_subgraph(torch, ops, timer, ds, feats, labels,
+                                  indptr_h, indices_h, is_edge)
+  torch.cuda.empty_cache()
+  out['walk'] = mesh_walk(torch, ops, timer, ds, indptr_h, indices_h,
+                          is_edge)
+  torch.cuda.empty_cache()
+  out['fused_link'] = mesh_fused_link(torch, ops, timer, ds, indptr_h,
+                                      indices_h)
+  torch.cuda.empty_cache()
+  return out
+
+
+def engines_kernels(me: dict) -> dict:
+  """The mesh engines' ``kernels``-line parts: K1 / K2 / K3 shapes, their
+  errors and launches by path."""
+  sub = me['subgraph']
+  k1_paths = {'mesh_seal': me['seal']['hops'],
+              **{f'mesh_subgraph.{k}': r['path']['hops']
+                 for k, r in sub.items()},
+              'mesh_walk': me['walk']['hops'],
+              'mesh_fused_link': me['fused_link']['hops'],
+              'mesh_hetero_link': me['hetero_link']['hops']}
+  k2_paths = {**{f'mesh_subgraph.{k}': r['path']['gathers']
+                 for k, r in sub.items()},
+              'mesh_fused_link': me['fused_link']['gathers'],
+              'mesh_hetero_link': me['hetero_link']['gathers']}
+  k3_paths = {'mesh_seal': me['seal']['windows'],
+              **{f'mesh_subgraph.{k}': r['windows'] for k, r in sub.items()}}
+
+  def launches(name):
+    return {'mesh_seal': me['seal']['launches'][name],
+            **{f'mesh_subgraph.{k}': r['launches'][name]
+               for k, r in sub.items()},
+            'mesh_walk': me['walk']['launches'][name],
+            **{f'mesh_fused_link.{k}': v[name]
+               for k, v in me['fused_link']['launches'].items()},
+            'mesh_hetero_link': me['hetero_link']['launches'][name]}
+  k3_shapes = [
+      {'shape': f'{p} window group {i}: {g["rows"]} starts x {g["w"]} over '
+                f'{MESH_PARTS} owners',
+       'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+       'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms'],
+       'ms_per_call': g['kernel_ms'] / MESH_PARTS, 'byte_equal': True}
+      for p, gs in k3_paths.items() for i, g in enumerate(gs)]
+  return {
+      'k1': {'max_abs_err': max(h['max_abs_err'] for hs in k1_paths.values()
+                                for h in hs),
+             'shapes': {k: hops_shape(k, hs) for k, hs in k1_paths.items()},
+             'launches_by_path': launches('sample_one_hop')},
+      'k2': {'max_abs_err': max(g['max_abs_err'] for gs in k2_paths.values()
+                                for g in gs),
+             'shapes': [mesh_gather_shape(f'{k} table {i}', g)
+                        for k, gs in k2_paths.items()
+                        for i, g in enumerate(gs)],
+             'launches_by_path': launches('gather_rows')},
+      'k3': {'max_abs_err': 0, 'shapes': k3_shapes,
+             'launches_by_path': {
+                 k: v for k, v in launches('csr_window_gather').items()
+                 if k.startswith(('mesh_seal', 'mesh_subgraph'))}}}
+
+
+def mesh_engines_kernels(me: dict) -> list:
+  """The ``kernels`` entries of the mesh engines alone
+  (``--mesh-engines``): K1, K2 and K3 at their first recorded shapes,
+  launches from the phases' runs."""
+  ek = engines_kernels(me)
+  k1 = ek['k1']['shapes']['mesh_subgraph.one_exchange']
+  k2 = ek['k2']['shapes'][0]
+  k3 = ek['k3']['shapes'][1]
+  common = {'route': 'cuda', 'bound_by': 'bytes', 'byte_equal': True}
+  return [
+      {'name': 'sample_one_hop', **common,
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
+       'launches': sum(ek['k1']['launches_by_path'].values()),
+       'max_abs_err': ek['k1']['max_abs_err'], 'ms': k1['ms'],
+       'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'],
+       'library_ms': None, 'shape': k1['shape'],
+       'mesh_engine_shapes': ek['k1']['shapes'],
+       'launches_by_path': ek['k1']['launches_by_path']},
+      {'name': 'gather_rows', **common,
+       'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
+       'launches': sum(ek['k2']['launches_by_path'].values()),
+       'max_abs_err': ek['k2']['max_abs_err'], 'ms': k2['ms'],
+       'plain_ms': k2['plain_ms'], 'bound_ms': k2['bound_ms'],
+       'library_ms': k2['library_ms'], 'shape': k2['shape'],
+       'mesh_engine_shapes': ek['k2']['shapes'],
+       'launches_by_path': ek['k2']['launches_by_path']},
+      {'name': 'csr_window_gather', **common,
+       'source': 'graphlearn_tpu_torch/csrc/csr_window_gather.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_window.py:82',
+       'launches': sum(ek['k3']['launches_by_path'].values()),
+       'max_abs_err': 0, 'ms': k3['ms'], 'plain_ms': k3['plain_ms'],
+       'bound_ms': k3['bound_ms'], 'library_ms': k3['library_ms'],
+       'shape': k3['shape'], 'mesh_shapes': ek['k3']['shapes'],
+       'launches_by_path': ek['k3']['launches_by_path']},
+  ]
 
 
 #: BASELINE config 5 (`BASELINE.json` configs[4]): the distributed RGNN
@@ -8295,6 +9385,19 @@ def run(torch, argv) -> list:
     ml = mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr,
                           indices, feats, labels, ab_source=ab_source)
     return mesh_link_kernels(ml)
+  if '--mesh-engines' in argv:
+    del ds
+    labels = make_labels(torch, feats)
+    ds_u, _ = mesh_data(torch, indptr, indices, feats, labels, tiered=False)
+    me = mesh_engines_phases(torch, ops, timer, ds_u, feats, labels, indptr,
+                             indices)
+    del ds_u
+    torch.cuda.empty_cache()
+    bi = bipartite_link(torch, ops, timer)
+    emit('bipartite_reference', heldout_auc=bi['heldout_auc'],
+         step_ms=bi['step_ms'])
+    me['hetero_link'] = mesh_hetero_link(torch, ops, timer, bi['heldout_auc'])
+    return mesh_engines_kernels(me)
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -8399,6 +9502,9 @@ def run(torch, argv) -> list:
   # -- the mesh's sampled edges and its link engine ---------------------
   ml = mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr,
                         indices, feats, labels, ab_source=ab_source)
+  # -- the mesh's subgraph, walk and fused link engines -----------------
+  me = mesh_engines_phases(torch, ops, timer, ds_u, feats, labels, indptr,
+                           indices)
   del ds_u, table
   ds_t.edge_features = None
   torch.cuda.empty_cache()
@@ -8427,6 +9533,11 @@ def run(torch, argv) -> list:
                                '(user clicks item, binary)',
              'mag_link_batch': f'{MAG_LINK_BATCH}-edge mag link batch '
                                '(author writes paper, binary)'}
+
+  # -- the hetero mesh's link loader, against the single card's AUC ------
+  me['hetero_link'] = mesh_hetero_link(torch, ops, timer,
+                                       hlk['bipartite_auc'])
+  ek = engines_kernels(me)
 
   # -- BASELINE config 5: the heterogeneous mesh engine (IGBH, P = 8) ---
   torch.cuda.empty_cache()
@@ -8528,7 +9639,8 @@ def run(torch, argv) -> list:
                           + link_tr['hops'] + link_lo['hops']
                           + seal_out['hops'] + ed['hops'] + el['hops']
                           + hlk['hops'] + ml_k1
-                          + [{'max_abs_err': mhk[0]['max_abs_err']}]),
+                          + [{'max_abs_err': mhk[0]['max_abs_err']},
+                             {'max_abs_err': ek['k1']['max_abs_err']}]),
        'ms': sum(h['kernel_ms'] for h in hops),
        'plain_ms': sum(h['plain_ms'] for h in hops),
        'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
@@ -8572,8 +9684,10 @@ def run(torch, argv) -> list:
                                 k: v['sample_one_hop']
                                 for k, v in hlk['launches'].items()},
                             **ml_launches('sample_one_hop'),
-                            **mhk[0]['launches_by_path']},
+                            **mhk[0]['launches_by_path'],
+                            **ek['k1']['launches_by_path']},
        'mesh_hetero_shapes': mhk[0]['mesh_hetero_shapes'],
+       'mesh_engine_shapes': ek['k1']['shapes'],
        'mesh_edge_shape': {
            k: ml_kernels[0][k] for k in ('shape', 'ms', 'no_eids_ms',
                                          'plain_ms', 'bound_ms', 'hops')},
@@ -8660,7 +9774,8 @@ def run(torch, argv) -> list:
                           + fmesh_gathers + het_gathers + hl_gathers
                           + link_tr['gathers'] + link_lo['gathers']
                           + ed['gathers'] + hlk['gathers'] + ml_gathers
-                          + [{'max_abs_err': mhk[1]['max_abs_err']}]),
+                          + [{'max_abs_err': mhk[1]['max_abs_err']},
+                             {'max_abs_err': ek['k2']['max_abs_err']}]),
        'ms': f32['kernel_ms'],
        'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_us'] / 1e3,
        'bound_by': 'bytes', 'library_ms': f32['library_ms'],
@@ -8725,8 +9840,10 @@ def run(torch, argv) -> list:
                                 k: v['gather_rows']
                                 for k, v in hlk['launches'].items()},
                             **ml_launches('gather_rows'),
-                            **mhk[1]['launches_by_path']},
+                            **mhk[1]['launches_by_path'],
+                            **ek['k2']['launches_by_path']},
        'mesh_hetero_shapes': mhk[1]['mesh_hetero_shapes'],
+       'mesh_engine_shapes': ek['k2']['shapes'],
        'mesh_link_shapes': ml_kernels[2]['mesh_link_shapes'],
        'edge_shapes': [
            gather_shape('products with-edge batch x', ed['gathers'][0]),
@@ -8811,7 +9928,10 @@ def run(torch, argv) -> list:
                    'library_ms': win['ms_flushed']['library'],
                    'timer': 'one call, L2 flushed, median of 30'},
        'forced_sets': win['forced_sets'],
-       'forced_width_ms': win['forced_width_ms']},
+       'forced_width_ms': win['forced_width_ms'],
+       'launches_by_path': {'window': win['launches'],
+                            **ek['k3']['launches_by_path']},
+       'mesh_shapes': ek['k3']['shapes']},
       {'name': 'push_rows', 'route': 'cuda',
        'source': 'graphlearn_tpu_torch/csrc/push_rows.cu',
        'replaces': 'graphlearn_tpu/parallel/rdma_gather.py:71',

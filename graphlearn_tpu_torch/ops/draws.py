@@ -238,6 +238,12 @@ class TorchDraws:
     coords = (step, -1 - int(stream))
     if part is not None:
       coords += (int(part),)
+    return self.int_draw(coords, trials, r, high)
+
+  def int_draw(self, coords: Sequence[int], trials: int, r: int,
+               high) -> torch.Tensor:
+    """``[trials, r]`` int32 in ``[0, high)`` at integer ``coords``
+    (`negatives` at its coordinates)."""
     gen = torch.Generator(device=self.device)
     gen.manual_seed(self._mixed(coords) & ((1 << 63) - 1))
     return torch.randint(0, int(high), (trials, r), generator=gen,

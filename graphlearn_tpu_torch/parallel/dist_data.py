@@ -105,21 +105,23 @@ def build_dist_graph(rows, cols, node_pb: np.ndarray, num_nodes: int,
 
 
 def stack_partition_csr(rows_new: torch.Tensor, cols_new: torch.Tensor,
-                        bounds: np.ndarray, num_cols: int,
-                        device) -> DistGraph:
+                        bounds: np.ndarray, num_cols: int, device,
+                        edge_ids=None) -> DistGraph:
   """Stacked per-partition CSRs of relabelled COO edges: each edge lives
   on its ROW's owner (the range of ``bounds`` holding it) at the local
   row ``row - bounds[owner]``; columns stay global ids (below
-  ``num_cols``).  Edge ids are the input order.  Each CSR is a stable
-  sort on ``row * num_cols + col``, the order of the JAX package's
-  ``np.lexsort((cols, rows))``."""
+  ``num_cols``).  Edge ids are ``edge_ids`` (``[E]``, the caller's
+  global ids) or the input order.  Each CSR is a stable sort on ``row *
+  num_cols + col``, the order of the JAX package's ``np.lexsort((cols,
+  rows))``."""
   num_parts = len(bounds) - 1
   counts = np.diff(bounds)
   bounds_t = torch.from_numpy(np.asarray(bounds, np.int64)).to(device)
   owner = (torch.searchsorted(bounds_t, rows_new, right=True) - 1).clamp(
       0, max(num_parts - 1, 0))
-  edge_ids = torch.arange(rows_new.shape[0], dtype=torch.int64,
-                          device=device)
+  edge_ids = (torch.arange(rows_new.shape[0], dtype=torch.int64,
+                           device=device) if edge_ids is None
+              else _as_tensor(edge_ids, device, torch.int64))
   max_nodes = int(counts.max()) if num_parts else 0
   max_edges = max(int(torch.bincount(owner, minlength=num_parts).max())
                   if owner.numel() else 0, 1)

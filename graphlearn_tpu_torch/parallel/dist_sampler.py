@@ -4,7 +4,9 @@ its link engine and their loaders (the JAX package's
 `dist_gather`, `dist_edge_exists`, `dist_sample_negative`,
 `_expand_and_collect`, `overlay_cold_host`, `AdaptiveSlack`,
 `DistNeighborSampler`, `DistNeighborLoader`, `DistLinkNeighborSampler`,
-`DistLinkNeighborLoader`).
+`DistLinkNeighborLoader`, the induced-subgraph step,
+`resolve_hop_chunk`, `DistSubGraphSampler`, `DistSubGraphLoader`, the
+walk step and `DistRandomWalker`).
 
 The mesh's ``P`` partitions share one card (`parallel.dp.Mesh`); every
 per-partition tensor is stacked on a leading ``[P]`` axis, and the
@@ -27,6 +29,21 @@ the stream; nothing else does):
   rows:   one exchange gathers features (hot tier only: rows past the
           owner's hot count come back zero) and labels, each owner's
           read by the row gather kernel.
+
+The subgraph sampler expands its seeds as above (without edge ids), then
+takes ONE full-window hop over its closure, chunk by chunk: each owner
+answers its receive rows with every out-neighbor in CSR order.  With
+``max_degree`` at least the shards' true max degree (the default) that
+hop is exact: the CSR window gather kernel reads each row's
+``max_degree`` slots from ``indptr[row]`` and the slots past the row's
+degree are masked (no draw is taken; the JAX package's sampler returns
+the same window whatever its draws, since ``deg <= k``).  A smaller
+``max_degree`` truncates: the hop samples ``k = max_degree`` through the
+uniform sampler kernel at ``draws(step, chunk, ...)``, as JAX keys
+chunk ``ci`` with the key of expansion hop ``ci``.  Each partition then
+keeps the window entries that are members of its own closure (a sort
+and a binary search) and relabels them to local ids.  The walker takes
+one hop of fanout 1 a walk step, at ``draws(step, t, ...)``.
 
 The link sampler first draws each partition's strict negatives: ``5``
 candidate pairs a slot, one existence exchange for all of them (each
@@ -77,7 +94,8 @@ from ..loader.node_loader import SeedBatcher
 from ..loader.prefetch import PrefetchingLoader
 from ..loader.transform import Batch
 from ..ops.draws import TorchDraws
-from ..ops.fused_sample import sample_one_hop_fused, sample_one_hop_gns_fused
+from ..ops.fused_sample import (MAX_WINDOW, sample_one_hop_fused,
+                                sample_one_hop_gns_fused)
 from ..ops.gather_rows import gather_rows
 from ..ops.gns import (cached_set_bits, dedup_requester_bits, gns_enabled,
                        resolve_boost)
@@ -85,6 +103,7 @@ from ..ops.negative import edge_in_csr, first_non_edge
 from ..ops.neighbor import default_window
 from ..sampler.base import NegativeSampling
 from ..ops.unique import expand_hops
+from ..ops.window_gather import csr_window_gather
 from ..telemetry.aggregate import exchange_summary
 from ..telemetry.live import live
 from ..telemetry.recorder import recorder
@@ -92,7 +111,7 @@ from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from ..utils.tensor import PinnedStaging
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
-from .exchange import capacity_spec, plan_exchange
+from .exchange import MIN_EXCHANGE_CAP, capacity_spec, plan_exchange
 from .partition_book import (edge_local_rows, edge_owner_fn, hot_split_host,
                              range_owner_fn)
 
@@ -199,6 +218,39 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
   weights = (plan.reply(torch.stack([r.weights for r in res]), fill=0.0)
              if gns_bits is not None else None)
   return nbrs, mask, eids, weights, plan.stats.sum(0)
+
+
+def _dist_window_hop(mesh: Mesh, indptr, indices, bounds_t, frontier,
+                     width: int, capacity: Optional[int], eids_loc=None):
+  """The exact full-window hop for every partition's ``[P, F]``
+  frontier: exchange, each owner answers its receive rows with their
+  first ``width`` CSR slots (the window gather kernel from ``indptr[row]``,
+  a second call over ``eids_loc`` for the edge ids), the slots at or
+  past a row's degree masked, reply.  Exact when no row's degree passes
+  ``width``; no draw is taken.  Returns ``(nbrs, mask, eids, stats)``,
+  the first three ``[P, F, width]`` (``eids`` None without
+  ``eids_loc``) and the ``[3]`` exchange counters."""
+  plan = plan_exchange(frontier, range_owner_fn(bounds_t), mesh.size,
+                       mesh, capacity)
+  ok = plan.recv >= 0
+  local = torch.where(ok, plan.recv - bounds_t[:-1, None], 0)
+  lane = torch.arange(width, dtype=torch.int64, device=frontier.device)
+  starts, mask = [], []
+  for o in range(mesh.size):
+    start = indptr[o][local[o]]
+    deg = torch.where(ok[o], indptr[o][local[o] + 1] - start, 0)
+    starts.append(start)
+    mask.append(lane[None, :] < deg[:, None])
+  mask = torch.stack(mask)
+
+  def windows(tables):
+    win = torch.stack([csr_window_gather(tables[o], starts[o], width)
+                       for o in range(mesh.size)])
+    return plan.reply(torch.where(mask, win, INVALID_ID), fill=INVALID_ID)
+  out_n = windows(indices)
+  out_e = windows(eids_loc) if eids_loc is not None else None
+  out_m = plan.reply(mask, fill=False)
+  return out_n, out_m, out_e, plan.stats.sum(0)
 
 
 def dist_gather_multi(mesh: Mesh, shards, bounds, ids,
@@ -650,13 +702,16 @@ class DistNeighborSampler(ExchangeTelemetry):
     return self._sample_collect(seeds, self.draws, self._step_cnt)
 
   def _sample_collect(self, seeds: torch.Tensor, draws: Draws,
-                      step: int) -> dict:
+                      step: int, with_edge: Optional[bool] = None) -> dict:
     """`_dispatch_nodes` for ``[P, B]`` int32 seeds on the card, drawing
-    from ``draws`` at ``step`` (the fused mesh epochs pass their own)."""
+    from ``draws`` at ``step`` (the fused mesh epochs pass their own);
+    ``with_edge=False`` expands without edge ids whatever the sampler's
+    flag (the subgraph sampler's closure)."""
     b = seeds.shape[1]
     bits = self._gns_arrays() if self.gns else None
     g = self.ds.graph
-    eids = self._edge_ids() if self.with_edge else None
+    with_edge = self.with_edge if with_edge is None else with_edge
+    eids = self._edge_ids() if with_edge else None
     node_cap = self.node_capacity(b)
     hws, hes = [], []
     fr_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
@@ -682,7 +737,7 @@ class DistNeighborSampler(ExchangeTelemetry):
                batch=seeds)
     # induce_next flattens [F, k] row-major: the edge ids and weights
     # line up with the edge list; masked and dropped edges carry -1 / 0
-    if self.with_edge:
+    if with_edge:
       out['edge'] = torch.cat(
           [torch.where(rows >= 0, he.reshape(rows.shape), INVALID_ID)
            for rows, he in zip(rows_acc, hes)], dim=1)
@@ -691,7 +746,7 @@ class DistNeighborSampler(ExchangeTelemetry):
           [torch.where(rows >= 0, hw.reshape(rows.shape), 0.0)
            for rows, hw in zip(rows_acc, hws)], dim=1)
     ft_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
-    if self.collect_edge_features:
+    if self.collect_edge_features and with_edge:
       ef = self.ds.edge_features
       (out['ef'],), estats = dist_gather_multi(
           self.mesh, (ef.shards,), ef.bounds, out['edge'],
@@ -945,6 +1000,14 @@ def pack_link_seeds_relabeled(edge_label_index, edge_label,
   return np.stack(columns, axis=1)
 
 
+def packed_rows(pairs: np.ndarray, idx: np.ndarray) -> np.ndarray:
+  """Rows ``idx`` (any shape, -1 padded) of a packed ``[E, 2|3]`` seed
+  table: ``idx.shape + (2|3,)``, a padded row -1 in every column (as
+  JAX's batcher pads the packed table)."""
+  rows = pairs[np.where(idx >= 0, idx, 0)]
+  return np.where(idx[..., None] >= 0, rows, INVALID_ID)
+
+
 def link_step_metadata(neg_mode: Optional[str], seed_local, eli=None,
                        elab=None, elab_mask=None, src_idx=None,
                        dst_pos=None, dst_neg=None) -> dict:
@@ -1116,9 +1179,8 @@ class DistLinkNeighborLoader(DistNeighborLoader):
     return np.arange(len(self.pairs))
 
   def _pairs_of(self, idx: np.ndarray) -> np.ndarray:
-    rows = self.pairs[np.where(idx >= 0, idx, 0)]
-    rows = np.where(idx[:, None] >= 0, rows, INVALID_ID)
-    return rows.reshape(self.num_parts, self.batch_size, -1)
+    return packed_rows(self.pairs, idx).reshape(self.num_parts,
+                                                self.batch_size, -1)
 
   def _dispatch_flat(self, flat: np.ndarray) -> dict:
     return self.sampler._dispatch_edges(self._pairs_of(flat))
@@ -1130,3 +1192,249 @@ class DistLinkNeighborLoader(DistNeighborLoader):
     else:
       out = self.sampler.sample_from_edges(self._pairs_of(next(seed_iter)))
     return _stacked_batch(out, out['metadata'], self.batch_size)
+
+
+#: `hop_chunk='auto'` chunks the full-window hop once one reply buffer
+#: (``node_cap * max_degree`` int32 a destination) would pass this many
+#: elements
+SUBGRAPH_WINDOW_BUDGET = 1 << 24
+
+
+def resolve_hop_chunk(hop_chunk, node_cap: int,
+                      max_degree: int) -> Optional[int]:
+  """The subgraph samplers' ``'auto'``: None (one exchange of the whole
+  closure) while ``node_cap * max_degree`` stays within
+  `SUBGRAPH_WINDOW_BUDGET`, else the closure nodes a chunk that keep
+  ``chunk * max_degree`` within it (rounded down to 8, at least
+  `MIN_EXCHANGE_CAP`).  Results are exact either way."""
+  if isinstance(hop_chunk, str):
+    if hop_chunk != 'auto':
+      raise ValueError(f'unknown hop_chunk {hop_chunk!r}')
+    if node_cap * max_degree <= SUBGRAPH_WINDOW_BUDGET:
+      return None
+    return max(SUBGRAPH_WINDOW_BUDGET // max_degree // 8 * 8,
+               MIN_EXCHANGE_CAP)
+  return hop_chunk
+
+
+class DistSubGraphSampler(DistNeighborSampler):
+  """Mesh induced-subgraph sampler: the multi-hop closure of the seeds,
+  one full-window hop over it and each partition's membership test and
+  relabel against its own closure (the module docstring).
+
+  Args:
+    max_degree: the window a closure node contributes; None = the
+      shards' true max degree (exact: the window gather kernel answers
+      the hop).  A smaller width truncates through the uniform sampler
+      kernel, whose window ``default_window(max_degree)`` must stay
+      within its 256-slot cap (ValueError otherwise).
+    hop_chunk: closure nodes a full-window exchange (``[P, chunk,
+      max_degree]`` replies); ``'auto'`` (`resolve_hop_chunk`) or None
+      (one exchange of the whole closure).
+    Others as `DistNeighborSampler`; GNS is always off (induced
+      subgraphs are exact by contract).
+  """
+
+  def __init__(self, dataset: DistDataset, num_neighbors,
+               max_degree: Optional[int] = None, hop_chunk='auto',
+               **kwargs):
+    super().__init__(dataset, num_neighbors, **kwargs)
+    self.gns = False
+    self.gns_boost = None
+    g = dataset.graph
+    true_max = int((g.indptr[:, 1:] - g.indptr[:, :-1]).max()) if (
+        g.indptr.shape[1] > 1) else 0
+    if max_degree is None:
+      max_degree = true_max
+    self.max_degree = max(int(max_degree), 1)
+    self.hop_chunk = hop_chunk
+    #: the full-window hop's arm, fixed here: the window gather kernel
+    #: when no row is truncated, else the uniform sampler kernel
+    self.exact_window = self.max_degree >= true_max
+    w = default_window(self.max_degree)
+    if not self.exact_window and w > MAX_WINDOW:
+      raise ValueError(
+          f'max_degree={self.max_degree} truncates rows (the true max '
+          f'degree is {true_max}) through the sampler kernel, whose window '
+          f'{w} passes its {MAX_WINDOW}-slot cap: pass max_degree=None '
+          f'for the exact window, or at most {MAX_WINDOW // 8}')
+
+  def sample_subgraph(self, seeds_stacked: np.ndarray) -> dict:
+    """``[P, B]`` per-partition seeds (relabelled ids, -1 padded) -> the
+    stacked induced-subgraph pieces: edges in (source, destination)
+    order as local ids, ``seed_local`` (the ``mapping``), ``x``/``y``
+    of the closure and ``edge`` (global ids, with ``with_edge``)."""
+    self._step_cnt += 1
+    seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
+        self.device)
+    return self._finish_nodes(self._sample_subgraph(seeds, self.draws,
+                                                    self._step_cnt))
+
+  def _sample_subgraph(self, seeds: torch.Tensor, draws: Draws,
+                       step: int) -> dict:
+    out = self._sample_collect(seeds, draws, step, with_edge=False)
+    g = self.ds.graph
+    nodes = out['node']
+    parts, node_cap = nodes.shape
+    d = self.max_degree
+    chunk = node_cap
+    hc = resolve_hop_chunk(self.hop_chunk, node_cap, d)
+    if hc is not None:
+      chunk = min(max(int(hc), 1), node_cap)
+    n_chunks = -(-node_cap // chunk)
+    pad = n_chunks * chunk - node_cap
+    nodes_pad = (torch.cat([nodes, torch.full((parts, pad), INVALID_ID,
+                                              dtype=nodes.dtype,
+                                              device=nodes.device)], 1)
+                 if pad else nodes)
+    eids_loc = self._edge_ids() if self.with_edge else None
+    cap = capacity_spec(chunk, self.num_parts, self.exchange_slack)
+    nb, mk, ei = [], [], []
+    stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    for ci in range(n_chunks):
+      fr = nodes_pad[:, ci * chunk:(ci + 1) * chunk]
+      if self.exact_window:
+        n_, m_, e_, st = _dist_window_hop(self.mesh, g.indptr, g.indices,
+                                          self._bounds_t, fr, d, cap,
+                                          eids_loc=eids_loc)
+      else:
+        # JAX keys chunk ci as expansion hop ci: fold_in(step key, ci)
+        n_, m_, e_, _, st = _dist_one_hop(
+            self.mesh, g.indptr, g.indices, self._bounds_t, fr, d, draws,
+            step, ci, cap, eids_loc=eids_loc)
+      stats += st
+      nb.append(n_)
+      mk.append(m_)
+      ei.append(e_)
+    self._accumulate_stats(stats)
+    nbrs = torch.cat(nb, 1)[:, :node_cap].reshape(parts, -1)
+    mask = torch.cat(mk, 1)[:, :node_cap].reshape(parts, -1)
+    # membership in each partition's own closure, relabelled to local ids
+    keyed = torch.where(nodes >= 0, nodes, torch.iinfo(torch.int32).max)
+    order = torch.argsort(keyed, dim=1, stable=True)
+    sorted_nodes = keyed.gather(1, order)
+    loc = torch.searchsorted(sorted_nodes, nbrs.contiguous()).clamp(
+        0, node_cap - 1)
+    hit = (sorted_nodes.gather(1, loc) == nbrs) & (nbrs >= 0) & mask
+    out['col'] = torch.where(hit, order.gather(1, loc),
+                             INVALID_ID).to(torch.int32)
+    row = torch.arange(node_cap, dtype=torch.int32,
+                       device=nodes.device).repeat_interleave(d)
+    out['row'] = torch.where(hit, row[None, :], INVALID_ID)
+    out['edge'] = (torch.where(hit, torch.cat(ei, 1)[:, :node_cap].reshape(
+        parts, -1), INVALID_ID) if self.with_edge else None)
+    return out
+
+
+class DistSubGraphLoader(PrefetchingLoader):
+  """Mesh induced-subgraph loader (the JAX package's
+  `DistSubGraphLoader`): splits the seeds across the partitions and
+  yields stacked `Batch`es with ``metadata['mapping']`` (= ``seed_local``)
+  locating each seed in its partition's node table, the SEAL contract.
+
+  ``exchange_slack='auto'`` is exact whether or not the seeds are
+  shuffled: a closure node dropped at a capacity cap would lose its
+  whole window and corrupt the subgraph.  ``'adaptive'`` raises; a
+  number opts into a cap.  ``hop_chunk`` bounds the full-window
+  exchange instead.  Others as `DistSubGraphSampler` and
+  `DistNeighborLoader`.
+  """
+
+  def __init__(self, dataset: DistDataset, num_neighbors, input_nodes,
+               batch_size: int = 1, shuffle: bool = False,
+               drop_last: bool = False, mesh: Optional[Mesh] = None,
+               with_edge: bool = False, collect_features: bool = True,
+               max_degree: Optional[int] = None, seed: int = 0,
+               input_space: str = 'old', exchange_slack='auto',
+               hop_chunk='auto', prefetch: int = 0,
+               draws: Optional[Draws] = None, device='cuda'):
+    if exchange_slack == 'adaptive':
+      raise ValueError(
+          "exchange_slack='adaptive' is not supported for induced "
+          'subgraphs: any capacity drop corrupts SEAL/DRNL labels, so '
+          'the loader stays exact (hop_chunk bounds the exchange '
+          'instead)')
+    if exchange_slack == 'auto':
+      exchange_slack = None
+    self.prefetch = int(prefetch)
+    self.sampler = DistSubGraphSampler(
+        dataset, num_neighbors, max_degree=max_degree, hop_chunk=hop_chunk,
+        mesh=mesh, with_edge=with_edge, collect_features=collect_features,
+        seed=seed, exchange_slack=resolve_exchange_slack(exchange_slack,
+                                                         shuffle),
+        draws=draws, device=device)
+    self._prefetch_device = self.sampler.device
+    self.ds = dataset
+    seeds = np.asarray(input_nodes).reshape(-1)
+    if input_space == 'old' and dataset.old2new is not None:
+      seeds = dataset.old2new[seeds]
+    self.num_parts = dataset.num_partitions
+    self.batch_size = int(batch_size)
+    self._batcher = SeedBatcher(seeds, self.batch_size * self.num_parts,
+                                shuffle, drop_last, seed)
+
+  def __len__(self) -> int:
+    return len(self._batcher)
+
+  def _produce(self, seed_iter) -> Batch:
+    out = self.sampler.sample_subgraph(
+        next(seed_iter).reshape(self.num_parts, self.batch_size))
+    return Batch(x=out['x'], y=out['y'],
+                 edge_index=torch.stack([out['row'], out['col']], dim=1),
+                 node=out['node'], node_mask=out['node'] >= 0,
+                 edge_mask=out['row'] >= 0, edge=out['edge'],
+                 batch=out['batch'], batch_size=self.batch_size,
+                 num_sampled_nodes=out['num_sampled_nodes'],
+                 metadata={'seed_local': out['seed_local'],
+                           'mapping': out['seed_local']})
+
+
+class DistRandomWalker(DistNeighborSampler):
+  """Mesh uniform random walks (DeepWalk corpora over the sharded
+  graph): each walk step is one hop of fanout 1 through the owners'
+  uniform sampler kernel.  A node without out-edges ends its walk (-1
+  from then on), as does a -1 start.
+
+  Args:
+    dataset: `DistDataset` on ``device``.
+    walk_length: steps a walk (``walk`` returns ``[P, B, L + 1]``).
+    exchange_slack: exact by default (None or ``'auto'``): a dropped id
+      truncates the rest of its walk; a number opts into a cap;
+      ``'adaptive'`` raises.
+    Others as `DistNeighborSampler` (no features, labels or edges).
+  """
+
+  def __init__(self, dataset: DistDataset, walk_length: int,
+               exchange_slack=None, **kwargs):
+    if exchange_slack == 'adaptive':
+      raise ValueError(
+          "exchange_slack='adaptive' is not supported for random "
+          'walks: a dropped frontier id truncates the whole walk '
+          'remainder, so the walker stays exact (pass a float to opt '
+          'into a cap where partition balance is known)')
+    super().__init__(dataset, [], collect_features=False, with_edge=False,
+                     exchange_slack=resolve_exchange_slack(exchange_slack,
+                                                           False),
+                     **kwargs)
+    self.walk_length = int(walk_length)
+
+  def walk(self, starts_stacked: np.ndarray) -> torch.Tensor:
+    """``[P, B]`` per-partition start nodes (relabelled ids, -1 padded)
+    -> ``[P, B, walk_length + 1]`` int32 walks, the start in column
+    0."""
+    self._step_cnt += 1
+    cur = torch.from_numpy(np.asarray(starts_stacked, np.int32)).to(
+        self.device)
+    g = self.ds.graph
+    path = [cur]
+    stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    for t in range(self.walk_length):
+      nbrs, mask, _, _, st = _dist_one_hop(
+          self.mesh, g.indptr, g.indices, self._bounds_t, cur, 1,
+          self.draws, self._step_cnt, t,
+          capacity_spec(cur.shape[1], self.num_parts, self.exchange_slack))
+      stats += st
+      cur = torch.where(mask[..., 0], nbrs[..., 0], INVALID_ID)
+      path.append(cur)
+    self._accumulate_stats(stats)
+    return torch.stack(path, dim=2)

@@ -1,6 +1,7 @@
 """Fused data-parallel epochs over the partition mesh (the JAX package's
-`parallel/fused.py:65-1100`: `_MeshEpochDriver`, `FusedDistEpoch`,
-`FusedDistTreeEpoch`), for stores wholly on the card.
+`parallel/fused.py:65-1406`: `_MeshEpochDriver`, `FusedDistEpoch`,
+`FusedDistTreeEpoch`, `FusedDistLinkEpoch`), for stores wholly on the
+card.
 
 JAX runs a mesh epoch as one SPMD `lax.scan` program.  The port's mesh
 holds its ``P`` partitions on one card (`parallel.dp.Mesh`), and its
@@ -22,6 +23,12 @@ nothing replays a seed baked into a graph, and a generator's uniforms
 cost the card less than `ops.draws.CounterDraws`' hash (which the
 single-card epochs need for their captured steps).
 
+`FusedDistLinkEpoch`'s provider also draws the strict negatives,
+``draws.negatives(epoch, step, stream, trials, r, high, part)`` (JAX's
+``fold_in(fold_in(step key, part), 977)``, split into the rows and the
+columns); the default takes them from a generator at ``(epoch, step, -1
+- stream, part)``.
+
 The exchange counters of every step are folded into the sampler's
 accumulator, so ``sampler.exchange_stats()`` reads what the per-batch
 loader would have counted at the same draws.  The slack is static:
@@ -31,6 +38,7 @@ chaos seams are ROADMAP Queue 1 item 5.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -43,10 +51,14 @@ from ..models.train import _correct, supervised_loss
 from ..ops.draws import TorchDraws
 from ..telemetry.aggregate import per_hop_padding
 from ..telemetry.recorder import recorder
+from ..sampler.base import NegativeSampling
 from .dist_data import DistDataset
-from .dist_sampler import (DistNeighborSampler, _dist_one_hop,
-                           dist_gather_multi, resolve_exchange_slack)
-from .dp import Mesh, make_dp_eval_step, make_dp_supervised_step
+from .dist_sampler import (DistLinkNeighborSampler, DistNeighborSampler,
+                           _dist_one_hop, _stacked_batch, dist_gather_multi,
+                           pack_link_seeds_relabeled, packed_rows,
+                           resolve_exchange_slack)
+from .dp import (Mesh, local_piece, make_dp_eval_step,
+                 make_dp_supervised_step, make_dp_unsupervised_step)
 from .exchange import capacity_spec
 
 #: ``draws(epoch, step, hop, rows, k, w, gns=False, owner=0) -> (u
@@ -59,40 +71,78 @@ def _generator_draws(seed: int, device) -> MeshEpochDraws:
 
   def draws(epoch, step, hop, rows, k, w, gns=False, owner=0):
     return gen.draw((epoch, step, hop, owner), rows, k, w, gns)
+
+  def negatives(epoch, step, stream, trials, r, high, part=None):
+    return gen.int_draw((epoch, step, -1 - int(stream), int(part or 0)),
+                        trials, r, high)
+  draws.negatives = negatives
   return draws
+
+
+def _node_items(dataset: DistDataset, input_nodes,
+                input_space: str) -> np.ndarray:
+  """The node epochs' batcher items: the seeds, relabelled when
+  ``input_space='old'``."""
+  seeds = np.asarray(input_nodes).reshape(-1)
+  if input_space == 'old' and dataset.old2new is not None:
+    seeds = dataset.old2new[seeds]
+  return seeds
+
+
+class _EpochDraws:
+  """An epoch's draws in the samplers' form: ``draws(step, hop, rows, k,
+  w, gns, owner)`` and ``negatives(step, stream, trials, r, high,
+  part)`` (the link samplers'), at the epoch's coordinate."""
+
+  def __init__(self, draws: MeshEpochDraws, epoch: int):
+    self.draws, self.epoch = draws, epoch
+
+  def __call__(self, step, hop, rows, k, w, gns=False, owner=0):
+    return self.draws(self.epoch, step, hop, rows, k, w, gns, owner)
+
+  def negatives(self, step, stream, trials, r, high, part=None):
+    return self.draws.negatives(self.epoch, step, stream, trials, r, high,
+                                part=part)
 
 
 class _MeshEpochDriver:
   """The host driver the fused mesh epochs share: the seed schedule,
   the draw coordinates, `run`, `evaluate` and the ``hop.padding``
-  events.  A subclass supplies ``_train_step(seeds [P, B], draws,
-  step, any_valid)`` -> ``(loss, correct, valid, hop_counts [H+1])``
-  (``any_valid``: the step holds a valid seed, known on the host) and
+  events.  A subclass supplies ``_train_step(seeds, draws, step,
+  any_valid)`` -> ``(loss, correct, valid, hop_counts [H+1] or None)``
+  (``seeds`` a step's ``[P, B]`` seeds, or ``[P, B, 2|3]`` seed edges;
+  ``any_valid``: the step holds a valid seed, known on the host) and
   ``_eval_step(seeds, draws, step)`` -> ``(correct, total)``."""
 
   _owner = 'the fused mesh epoch'
 
-  def _init_driver(self, dataset: DistDataset, num_neighbors, input_nodes,
-                   model, optimizer, batch_size: int, mesh: Optional[Mesh],
-                   shuffle: bool, drop_last: bool, seed: int,
-                   input_space: str, exchange_slack,
-                   draws: Optional[MeshEpochDraws], device):
-    if dataset.node_features is None or dataset.node_labels is None:
-      raise ValueError(f'{self._owner} needs node features and labels')
+  def _init_driver(self, dataset: DistDataset, make_sampler: Callable,
+                   items: np.ndarray, model, optimizer, batch_size: int,
+                   mesh: Optional[Mesh], shuffle: bool, drop_last: bool,
+                   seed: int, exchange_slack,
+                   draws: Optional[MeshEpochDraws], device,
+                   need_labels: bool = True):
+    """``make_sampler(dataset, mesh=, collect_features=, seed=,
+    exchange_slack=, device=)`` builds the epoch's sampler; ``items``
+    are what the batcher splits (relabelled seeds, or row indices of a
+    packed seed-edge table)."""
+    if dataset.node_features is None or (need_labels
+                                         and dataset.node_labels is None):
+      raise ValueError(f'{self._owner} needs node features'
+                       + (' and labels' if need_labels else ''))
     if exchange_slack == 'adaptive':
       raise ValueError(
           "exchange_slack='adaptive' retunes between batches on the "
           f"host; {self._owner} takes a static slack ('auto' or a "
-          'number) — or use DistNeighborLoader for adaptive tuning')
+          'number) — or use the per-batch loader for adaptive tuning')
     if dataset.node_features.is_tiered:
       raise NotImplementedError(
           f'{self._owner} runs on stores wholly on the card; tiered '
           '(split_ratio < 1) fused mesh epochs are not ported yet: they '
           'are ROADMAP Queue 1 item 5')
-    self.sampler = DistNeighborSampler(
-        dataset, num_neighbors, mesh=mesh, collect_features=True,
-        seed=seed, exchange_slack=resolve_exchange_slack(exchange_slack,
-                                                         shuffle),
+    self.sampler = make_sampler(
+        dataset, mesh=mesh, collect_features=True, seed=seed,
+        exchange_slack=resolve_exchange_slack(exchange_slack, shuffle),
         device=device)
     self.ds = dataset
     self.mesh = self.sampler.mesh
@@ -101,10 +151,7 @@ class _MeshEpochDriver:
     self.batch_size = int(batch_size)
     self.model = model
     self.optimizer = optimizer
-    seeds = np.asarray(input_nodes).reshape(-1)
-    if input_space == 'old' and dataset.old2new is not None:
-      seeds = dataset.old2new[seeds]
-    self._batcher = SeedBatcher(seeds, self.batch_size * self.num_parts,
+    self._batcher = SeedBatcher(items, self.batch_size * self.num_parts,
                                 shuffle, drop_last, seed)
     self.draws = (draws if draws is not None
                   else _generator_draws(seed, self.device))
@@ -119,19 +166,17 @@ class _MeshEpochDriver:
       return t.pin_memory().to(self.device, non_blocking=True)
     return t
 
-  def _step_draws(self, epoch: int):
-    """The sampler's ``draws(step, hop, rows, k, w, gns, owner)`` form
-    of the epoch's draws."""
-    def draws(step, hop, rows, k, w, gns=False, owner=0):
-      return self.draws(epoch, step, hop, rows, k, w, gns, owner)
-    return draws
+  def _steps(self, flat: np.ndarray) -> torch.Tensor:
+    """The batcher's ``[S, P*B]`` items as the steps' seeds on the
+    card."""
+    return self._upload(flat.reshape(-1, self.num_parts, self.batch_size))
 
   def run(self) -> EpochStats:
     """One training epoch; returns its lazy `EpochStats`."""
     flat = np.stack(list(self._batcher))           # [S, P*B]
-    seeds = self._upload(flat.reshape(-1, self.num_parts, self.batch_size))
+    seeds = self._steps(flat)
     self._epoch_idx += 1
-    draws = self._step_draws(self._epoch_idx)
+    draws = _EpochDraws(self.draws, self._epoch_idx)
     losses, counts, hops = [], [], None
     for i in range(seeds.shape[0]):
       loss, correct, valid, hop = self._train_step(
@@ -156,8 +201,8 @@ class _MeshEpochDriver:
       ids = self.ds.old2new[ids]
     flat = np.stack(list(SeedBatcher(ids, self.batch_size * self.num_parts,
                                      shuffle=False)))
-    seeds = self._upload(flat.reshape(-1, self.num_parts, self.batch_size))
-    draws = self._step_draws(0)
+    seeds = self._steps(flat)
+    draws = _EpochDraws(self.draws, 0)
     counts = torch.stack([torch.stack(self._eval_step(seeds[i], draws, i))
                           for i in range(seeds.shape[0])])
     correct, total = (int(v) for v in counts.sum(0).cpu())
@@ -226,9 +271,12 @@ class FusedDistEpoch(_MeshEpochDriver):
                input_space: str = 'old', exchange_slack='auto',
                remat: bool = False, draws: Optional[MeshEpochDraws] = None,
                device='cuda'):
-    self._init_driver(dataset, num_neighbors, input_nodes, model,
-                      optimizer, batch_size, mesh, shuffle, drop_last, seed,
-                      input_space, exchange_slack, draws, device)
+    self._init_driver(
+        dataset, functools.partial(DistNeighborSampler,
+                                   num_neighbors=num_neighbors),
+        _node_items(dataset, input_nodes, input_space), model,
+        optimizer, batch_size, mesh, shuffle, drop_last, seed,
+        exchange_slack, draws, device)
     step_model = Rematerialized(model) if remat else model
     self._dp_step = make_dp_supervised_step(step_model, optimizer,
                                             self.batch_size, self.mesh)
@@ -294,9 +342,11 @@ class FusedDistTreeEpoch(_MeshEpochDriver):
           f'len(num_neighbors)={len(self.fanouts)}')
     # the sampler's scaffolding (mesh, tables, counters) without its
     # multi-hop induce
-    self._init_driver(dataset, [], input_nodes, model, optimizer,
-                      batch_size, mesh, shuffle, drop_last, seed,
-                      input_space, exchange_slack, draws, device)
+    self._init_driver(
+        dataset, functools.partial(DistNeighborSampler, num_neighbors=[]),
+        _node_items(dataset, input_nodes, input_space), model,
+        optimizer, batch_size, mesh, shuffle, drop_last, seed,
+        exchange_slack, draws, device)
     self._train_model = Rematerialized(model) if remat else model
 
   def _expand_collect(self, seeds: torch.Tensor, draws, step: int):
@@ -354,3 +404,115 @@ class FusedDistTreeEpoch(_MeshEpochDriver):
       logits = self.model([x[p] for x in xs], [m[p] for m in masks])
       correct.append(_correct(logits, y[p], seeds[p], self.batch_size))
     return torch.stack(correct).sum(), (seeds >= 0).sum()
+
+
+class FusedDistLinkEpoch(_MeshEpochDriver):
+  """Data-parallel link-prediction epochs over the mesh (JAX's
+  `FusedDistLinkEpoch`).  Each step is the mesh link sampler's step
+  (`DistLinkNeighborSampler`: every partition's seed edges, strict
+  negatives against the whole sharded graph, the endpoints' expansion
+  and feature collection, the same program `DistLinkNeighborLoader`
+  dispatches) and the data-parallel link-loss step
+  (`make_dp_unsupervised_step`: binary or triplet by the metadata).
+
+  Its draws provider also draws the negatives (module docstring).
+
+  Args:
+    dataset: a `DistDataset` wholly on the card (a tiered one raises
+      NotImplementedError); labels are not needed.
+    num_neighbors: per-hop fanouts of the endpoint expansion.
+    edge_label_index: ``[2, E]`` (or ``(rows, cols)``) seed edges.
+    model / optimizer: an embedding model (``(x, edge_index, edge_mask)
+      -> [N, D]``), trained in place.
+    batch_size: seed edges a partition a step.
+    neg_sampling: ``'binary'`` (default) or ``('triplet', amount)``.
+    edge_label: optional integer labels (binary mode shifts them up by
+      one).
+    Others as `FusedDistEpoch`.
+  """
+
+  _owner = 'FusedDistLinkEpoch'
+
+  def __init__(self, dataset: DistDataset, num_neighbors, edge_label_index,
+               model, optimizer: torch.optim.Optimizer, batch_size: int,
+               neg_sampling='binary', edge_label=None,
+               mesh: Optional[Mesh] = None, shuffle: bool = True,
+               drop_last: bool = False, seed: int = 0,
+               input_space: str = 'old', exchange_slack='auto',
+               remat: bool = False, draws: Optional[MeshEpochDraws] = None,
+               device='cuda'):
+    mode = NegativeSampling.cast(neg_sampling)
+    self.pairs = pack_link_seeds_relabeled(
+        edge_label_index, edge_label, mode.mode if mode else None, dataset,
+        input_space)
+    self._init_driver(
+        dataset, functools.partial(DistLinkNeighborSampler,
+                                   num_neighbors=num_neighbors,
+                                   neg_sampling=neg_sampling),
+        np.arange(len(self.pairs)), model, optimizer, batch_size, mesh,
+        shuffle, drop_last, seed, exchange_slack, draws, device,
+        need_labels=False)
+    step_model = Rematerialized(model) if remat else model
+    self._dp_step = make_dp_unsupervised_step(step_model, optimizer,
+                                              self.mesh)
+
+  def _steps(self, flat: np.ndarray, pairs=None) -> torch.Tensor:
+    """Row indices ``[S, P*B]`` of ``pairs`` (default: the training
+    table) -> the packed seed edges ``[S, P, B, 2|3]`` on the card."""
+    pairs = self.pairs if pairs is None else pairs
+    return self._upload(packed_rows(pairs, flat).reshape(
+        -1, self.num_parts, self.batch_size, pairs.shape[1]))
+
+  def _collate(self, pairs: torch.Tensor, draws, step: int) -> Batch:
+    out = self.sampler._sample_link(pairs, draws, step)
+    return _stacked_batch(out, out['metadata'], self.batch_size)
+
+  def _train_step(self, pairs, draws, step, any_valid):
+    # as JAX's scan body: every step moves the optimizer
+    loss = self._dp_step(self._collate(pairs, draws, step))
+    valid = ((pairs[..., 0] >= 0) & (pairs[..., 1] >= 0)).sum()
+    return loss, torch.zeros((), dtype=torch.int64,
+                             device=self.device), valid, None
+
+  def evaluate(self, edge_label_index, input_space: str = 'old') -> float:
+    """Held-out link AUC over ``edge_label_index``: per step of ``P *
+    B`` edges, fresh strict negatives (epoch 0's draws, JAX's eval
+    domain), each partition's embeddings, and every (positive,
+    negative) score comparison of a partition counted, ties a half.
+    Binary negative sampling only; its exchanges count in
+    `exchange_stats`."""
+    if self.sampler.neg_mode != 'binary':
+      raise ValueError('evaluate() needs binary negative sampling')
+    pairs = pack_link_seeds_relabeled(edge_label_index, None, 'binary',
+                                      self.ds, input_space)
+    if pairs.shape[0] == 0:
+      raise ValueError('evaluate() got an empty split')
+    if pairs.shape[1] != self.pairs.shape[1]:
+      # the seed rows keep the training table's width (JAX pads ones)
+      pairs = np.concatenate([pairs, np.ones(
+          (pairs.shape[0], self.pairs.shape[1] - pairs.shape[1]),
+          pairs.dtype)], axis=1)
+    flat = np.stack(list(SeedBatcher(np.arange(len(pairs)),
+                                     self.batch_size * self.num_parts,
+                                     shuffle=False)))
+    steps = self._steps(flat, pairs)
+    draws = _EpochDraws(self.draws, 0)
+    b = self.batch_size
+    counts = []
+    self.model.eval()
+    with torch.no_grad():
+      for i in range(steps.shape[0]):
+        batch = self._collate(steps[i], draws, i)
+        for p in range(self.num_parts):
+          piece = local_piece(batch, p)
+          emb = self.model(piece.x, piece.edge_index, piece.edge_mask)
+          eli = piece.metadata['edge_label_index'].long()
+          mask = piece.metadata['edge_label_mask']
+          score = (emb[eli[0]] * emb[eli[1]]).sum(-1)
+          ps, ns = score[:b, None], score[None, b:]
+          ok = mask[:b, None] & mask[None, b:]
+          counts.append(torch.stack([
+              2 * ((ps > ns) & ok).sum() + ((ps == ns) & ok).sum(),
+              ok.sum()]))
+    wins2, total = (int(v) for v in torch.stack(counts).sum(0).cpu())
+    return wins2 / 2 / max(total, 1)

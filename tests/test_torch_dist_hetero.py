@@ -6,7 +6,7 @@ example's schema (`examples/igbh/train_rgnn.py::synthetic`, cut down):
 per-edge-type dict fanouts, untiered and tiered with the cold rows
 overlaid, exact and dropping exchange slack), `local_piece` and the
 RGNN example's model on `chip_smoke.union_graph` against its pieces,
-the prefetching and adaptive-slack loaders, the refusals, the CUDA
+the prefetching and adaptive-slack loaders, the refusals left, the CUDA
 default and the homogeneous draws' digest (the DP step:
 `test_torch_dist_hetero_dp.py`).
 
@@ -245,20 +245,19 @@ def test_prefetch_and_adaptive_slack(data):
 
 
 def test_unported_options_raise(data):
+  """The options still refused; edge features and ``with_edge`` are
+  ported (`test_torch_dist_hetero_link.py`)."""
   edges, feats, nnodes, topic = data
-  for kw, match in (({'edge_feat_dict': {next(iter(edges)): feats[PAPER]}},
-                     'PR 18'),
-                    ({'partitioner': 'locality'}, 'PR 21')):
-    with pytest.raises(NotImplementedError, match=match):
-      DistHeteroDataset.from_full_graph(NP, edges, device='cpu', **kw)
+  with pytest.raises(NotImplementedError, match='partitioner'):
+    DistHeteroDataset.from_full_graph(NP, edges, device='cpu',
+                                      partitioner='locality')
   with pytest.raises(NotImplementedError, match='item 11'):
     DistHeteroDataset.from_partition_dir('/nonexistent')
   with pytest.raises(NotImplementedError, match='item 11'):
     DistHeteroDataset({}, {PAPER: [0, 1]}, device='cpu', host_parts=[0])
   _, ds = _datasets(data, 1.0)
-  with pytest.raises(NotImplementedError, match='PR 18'):
-    DistHeteroNeighborLoader(ds, [2], (PAPER, np.arange(8)), with_edge=True,
-                             device='cpu')
+  assert DistHeteroNeighborLoader(ds, [2], (PAPER, np.arange(8)),
+                                  with_edge=True, device='cpu').sampler.with_edge
 
 
 def test_hetero_mesh_entry_points_default_to_cuda(data):
