@@ -19,6 +19,8 @@ Run from the repository root, with one CUDA card visible::
                                         # and link engine
     python3 chip_smoke.py --mesh-engines   # the mesh's subgraph, walk,
                                            # fused link and hetero link
+    python3 chip_smoke.py --resume   # build, graph and the snapshot and
+                                     # resume phases
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -153,6 +155,19 @@ Phases, one JSON line each; any failure exits nonzero:
           GraphSAGE step losses within 1e-5; 2 tree-epoch and 3
           subgraph-epoch (remat) steps with the default counter draws,
           captured on the card and eager on the CPU, within 1e-5.
+  kernel  K1 at the three hops and K2 at the four level gathers of the
+          first step `resume_fused`'s resumed epoch runs (eagerly,
+          before its capture), against their plain versions.
+  resume_fused  snapshots and mid-epoch resume of the captured tree
+          epoch (`tree_train`'s model and optimizer, chunks of 25 steps,
+          under deterministic algorithms): a twin runs 2 epochs; a driver
+          snapshotting every chunk is killed at the 4th chunk's
+          ``fused.dispatch`` seam; a fresh driver (another init) restores
+          and finishes the epoch, then runs the next.  Checks: losses,
+          counts, parameters and Adam state bitwise the twin's in both
+          epochs; 3 K1 and 4 K2 launches a resumed step.  ``restore_secs``,
+          chunks skipped, save ms and bytes, and the epoch s with a
+          snapshot every chunk against none (min of 3 each).
   kernel  the cold-row gather (K6) against its plain version on forced
           shapes (`forced_cold_sets`: rows of 4, 12, 200 (bf16 x 100),
           400, 512 and 1,024 bytes, M = 0 / 1 / 7 miss rows with ``rel``
@@ -179,7 +194,7 @@ Phases, one JSON line each; any failure exits nonzero:
   tiered_train  BASELINE config 1's step over the same sort at split 0.2
           (489,806 hot rows, 1,959,223 cold rows pinned, a 293,884-row
           cache): `NeighborLoader` at ``prefetch=0`` and then 2 over the
-          same seeds, 3 warm + 20 timed steps each (with ``--profile``
+          same seeds, 3 warm + 12 timed steps each (with ``--profile``
           the device idle share of 3 more), the ``prefetch=0`` step
           split into sample / collate / model.  Checks: both runs' batches byte-equal (the warm ones
           whole, the timed ones by digest), x rows and labels equal their
@@ -190,7 +205,7 @@ Phases, one JSON line each; any failure exits nonzero:
           `pin_memory` block and over a huge-page-advised block, timed
           in interleaved rounds beside their bounds and same-bytes copies,
           with how the host backs each block (``host_pages``).
-  feature_lookup  `bench_feature.py`'s sweep over 8 recorded node sets:
+  feature_lookup  `bench_feature.py`'s sweep over 4 recorded node sets:
           GB/s at split 1.0 / 0.5 / 0.2 with no cache, and at split 0.2
           with caches of 0 / 5% / 15% of the cold rows (hit rates).
   tiered_cross_check  a 4,000-node tiered graph on the card (the loader
@@ -261,6 +276,21 @@ Phases, one JSON line each; any failure exits nonzero:
           `rdma_gather` against the whole `dist_gather_multi`.  Forced
           set: invalid ids, partition-0 ids at capacity 8 (drops), bf16
           D = 100 and 3, the int32 label column, f32 D = 3.
+  resume_mesh  `bench_dist_loader.py --resume`'s row on the mesh loader
+          (`mesh_train`'s tiered GNS loader over 16 batches of 512 x 8,
+          ``prefetch=0``): reference epochs 1 and 2 give per-batch
+          digests; a loader consumes 8 batches, saves and is dropped; a
+          fresh one restores and `resume_epoch` finishes the epoch.  The
+          resumed loader then times 4 epochs in ABBA order, with a
+          snapshot every ``GLT_SNAPSHOT_EVERY`` (8) batches / without /
+          without / with (the first held to the reference's epoch 2).
+          Checks: every digest the reference's, x rows and labels their
+          source, 24 K1-GNS and 16 K2 launches a resumed dispatch (the
+          first one's calls in `kernel` lines against the plain versions).
+          The row's fields (``restore_secs``, ``replayed_batches``,
+          ``resumed_batches``, ``consumed_before_kill``, seeds/s with and
+          without snapshots, ``snapshot_overhead_pct``,
+          ``snap_over_nosnap_ratio``) and ``snapshot_bytes``.
   mesh_train  the tiered store through `DistNeighborLoader(gns=True,
           cold_cache_rows=91,839)` (the equal-HBM victim cache), batch
           512 x 8, into `make_dp_supervised_step` with ``GraphSAGE(100,
@@ -306,6 +336,14 @@ Phases, one JSON line each; any failure exits nonzero:
           on the CPU with the same CPU-made draws: 3 steps of
           `FusedDistEpoch` and of `FusedDistTreeEpoch` at [10, 5], per-step
           losses within 1e-5 and exchange counters equal.
+  resume_fused_mesh  `fused_mesh`'s `FusedDistEpoch` at an epoch
+          boundary, under deterministic algorithms: a driver saving at
+          each epoch's end is killed at epoch 2's dispatch; a fresh
+          driver restores, returns epoch 1's saved stats without a launch
+          and reruns epoch 2 bitwise the uninterrupted run's (losses,
+          counts, parameters, Adam state), 16 K1 and 16 K2 launches a
+          step, its first step's calls in `kernel` lines against the
+          plain versions.
   mesh_edges  `DistNeighborLoader(with_edge=True)` at `mesh_loader`'s
           settings ([15, 10, 5], 512 seeds a partition, shuffled) on the
           untiered store (K1 in its edge-id mode 2, ``edge_ids[pos]`` of
@@ -326,7 +364,7 @@ Phases, one JSON line each; any failure exits nonzero:
           products scale: `DistLinkNeighborLoader([5, 5], binary, 1,024
           seed edges a partition, shuffled)` -> `make_dp_unsupervised_step`
           with ``GraphSAGE(100, 64, 32, 2)``, Adam(1e-3): on the untiered
-          store 2 warm + 200 timed steps and the loader alone over 20
+          store 2 warm + 100 timed steps and the loader alone over 20
           batches; on the tiered store with ``gns=True, with_edge=True``
           2 + 20 steps.  Step ms, batches/s, losses, the exhausted-negative
           share, exchange counters.  Checks: 16 sampler launches a batch
@@ -546,6 +584,9 @@ follows `walk`.  Every line carries ``at_s``, the seconds since start.
 to `link_cross_check`; with ``--profile`` also `profile_train` of 3
 per-batch and 3 replayed link steps, whose traces must show 2 K1 and 1
 K2 kernels a step, and of 3 SEAL training steps) and
+prints no ``kernels`` or result line.
+``--resume`` runs build, graph and the snapshot and resume phases alone
+(`resume_fused`, `mesh_data`, `resume_fused_mesh`, `resume_mesh`) and
 prints no ``kernels`` or result line.
 ``--fused`` runs build, graph and the fused epochs' phases alone
 (`tree_train`, `fused_session`, `train_cross_check`, `mesh_data`,
@@ -2614,13 +2655,13 @@ def train_cross_check(torch):
 TIERED_SERVE_SPLIT = 0.5
 TIERED_TRAIN_SPLIT = 0.2
 TIERED_WARM = 3
-TIERED_TIMED = 20
+TIERED_TIMED = 12
 TIERED_SPLIT_STEPS = 3
 TIERED_PROFILE_STEPS = 3
 ZIPF_A = 1.1
 LOOKUP_SPLITS = (1.0, 0.5, 0.2)
 LOOKUP_BUDGETS = (0.0, 0.05, 0.15)
-LOOKUP_SETS = 8
+LOOKUP_SETS = 4
 #: K6's forced row layouts (columns, dtype): rows of 4, 12, 200 (bf16 x
 #: 100), 400, 512 and 1,024 bytes, over a block of `COLD_FORCED_ROWS` rows
 COLD_LAYOUTS = ((1, 'float32'), (3, 'float32'), (100, 'bfloat16'),
@@ -2919,7 +2960,7 @@ def host_pages(t) -> dict:
 
 
 #: timing rounds of K6's diagnosis cases, taken in turns
-K6_DIAG_ROUNDS = 3
+K6_DIAG_ROUNDS = 2
 
 
 def k6_diagnosis(torch, ops, timer, b, cold, pos, rel):
@@ -3271,8 +3312,8 @@ def tiered_train(torch, ops, timer, indptr, indices, feats_h, feats, labels,
   hot rows, 1,959,223 cold rows pinned, the 'auto' cache), batch 1,024,
   ``GraphSAGE(100, 256, 47, 3)``, Adam(3e-3); `NeighborLoader` with
   ``prefetch=0``, then ``prefetch=2`` over the same seeds (the model
-  re-initialised alike): 3 warm and 20 timed steps each, and with
-  ``prof`` the device's idle share over 3 more (a `torch.profiler`
+  re-initialised alike): 3 warm and `TIERED_TIMED` timed steps each, and
+  with ``prof`` the device's idle share over 3 more (a `torch.profiler`
   window; its stop crashed some runs while the prefetch worker ran, so
   the default run leaves it out).  Checks: the runs' batches byte-equal (whole
   warm batches, digests of the timed ones), every valid node's x row and
@@ -6840,7 +6881,7 @@ MESH_LINK_HIDDEN = 64
 MESH_LINK_OUT = 32
 MESH_LINK_LR = 1e-3
 MESH_LINK_WARM = 2
-MESH_LINK_STEPS = 200
+MESH_LINK_STEPS = 100
 MESH_LINK_GNS_STEPS = 20
 MESH_LINK_LOADER_BATCHES = 20
 MESH_LINK_CHECK_BATCHES = 3
@@ -9238,6 +9279,487 @@ def profile(torch, eng):
             for us, k, c in top[:10]])
 
 
+# -- snapshots and mid-epoch resume ---------------------------------------
+#: `resume_fused`: the tree epoch's chunk (``max_steps_per_program``) and
+#: the planned preemption (the 4th chunk's dispatch: 3 chunks saved)
+RESUME_CHUNK = 25
+RESUME_KILL = 'fused.dispatch:kill:4'
+#: epochs a timed arm (no snapshot / a snapshot every chunk), min counts
+RESUME_TIMED = 3
+#: `resume_mesh`: batches an epoch, batches consumed before the kill, and
+#: the resumed loader's epochs with a snapshot at the bench row's cadence
+#: (``GLT_SNAPSHOT_EVERY``, default 8 batches) after the resumed one; the
+#: no-snapshot arm is the reference's epochs 1 and 2
+RESUME_MESH_BATCHES = 16
+RESUME_MESH_KILL_AFTER = 8
+RESUME_MESH_PAIRS = 2
+#: timed calls of each resumed kernel call's check: the checks are for
+#: byte-equality; the same shapes are timed at 30 calls by earlier phases
+RESUME_CHECK_REPS = 5
+
+
+def dir_bytes(path) -> int:
+  """Bytes of the files under ``path``."""
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files)
+
+
+def timed_saves(torch, fused) -> list:
+  """Wrap a fused driver's chunk-boundary snapshot: the returned list
+  gets ``(seconds, bytes)`` for each save that happened, timed from the
+  card's end of the chunk (the host copies of the losses and the train
+  state included)."""
+  real = fused._save_chunk_snapshot
+  out = []
+
+  def wrapped(*a, **kw):
+    idx = fused._snap._save_idx
+    sync(torch)
+    t = time.perf_counter()
+    real(*a, **kw)
+    if fused._snap._save_idx != idx:
+      step = fused._snap._ckpt._step_dir(fused._snap._save_idx)
+      out.append((time.perf_counter() - t, dir_bytes(step)))
+  fused._save_chunk_snapshot = wrapped
+  return out
+
+
+def killed_run(chaos, plan, fn) -> None:
+  """Run ``fn`` under the fault ``plan``, which must kill it."""
+  chaos.install(plan)
+  try:
+    fn()
+  except chaos.ChaosKilledError:
+    return
+  finally:
+    chaos.uninstall()
+  raise AssertionError(f'the planned kill {plan!r} did not fire')
+
+
+def train_state_copy(fused) -> dict:
+  """Copies of a driver's parameters and optimizer state by name (a
+  restored optimizer keeps a parameter's state under the same keys, in
+  another order)."""
+  out = {f'model.{k}': v.clone() for k, v in fused.model.state_dict().items()}
+  params = [p for g in fused.optimizer.param_groups for p in g['params']]
+  for i, p in enumerate(params):
+    for k, v in fused.optimizer.state[p].items():
+      if hasattr(v, 'clone'):
+        out[f'optimizer.{i}.{k}'] = v.clone()
+  return out
+
+
+def same_tensors(what, got: dict, want: dict) -> None:
+  bad = [k for k in want if k not in got or not got[k].equal(want[k])]
+  if bad or got.keys() != want.keys():
+    raise AssertionError(f'{what}: {bad or "the keys"} differ from the '
+                         'uninterrupted run')
+
+
+def resume_fused(torch, ops, timer, ds, feats, train_idx) -> dict:
+  """Snapshots and mid-epoch resume of the captured tree epoch
+  (`tree_train`'s setup with chunks of `RESUME_CHUNK` steps), under
+  deterministic algorithms: an uninterrupted twin runs two epochs; a
+  second driver snapshots every chunk and is killed at the 4th chunk's
+  dispatch; a fresh driver with a model and optimizer from another init
+  restores, finishes the epoch and runs the next.  Its losses, counts,
+  parameters and Adam state must be bitwise the twin's in both epochs,
+  the resumed steps 3 K1 and 4 K2 launches each, and their first step's
+  K1 and K2 calls byte-equal to the plain versions.  Then a driver
+  captured outside deterministic mode (as `tree_train`'s) runs a warm
+  epoch, `RESUME_TIMED` epochs without snapshots and as many with one
+  every chunk."""
+  import shutil
+  import tempfile
+  import graphlearn_tpu_torch.loader.fused_tree as ftmod
+  from graphlearn_tpu_torch.loader import FusedTreeEpoch
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.testing import chaos
+  from graphlearn_tpu_torch.utils.checkpoint import SnapshotManager
+
+  def make(init):
+    model = TreeSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(init))
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8,
+                           capturable=True)
+    return FusedTreeEpoch(ds, FANOUTS, train_idx, model, opt,
+                          batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+                          max_steps_per_program=RESUME_CHUNK, device=DEVICE)
+
+  def epoch(fused):
+    st = fused.run()
+    return (st.losses.clone(), int(st.correct), int(st.seeds),
+            train_state_copy(fused))
+
+  def same(what, got, want):
+    if not (torch.equal(got[0], want[0]) and got[1:3] == want[1:3]):
+      raise AssertionError(f'{what}: losses or counts differ from the '
+                           'uninterrupted run')
+    same_tensors(what, got[3], want[3])
+
+  root = tempfile.mkdtemp(prefix='glt_resume_fused_')
+  try:
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+      ref = make(0)
+      ref_epochs = [epoch(ref), epoch(ref)]
+      steps = len(ref)
+      del ref
+      killed = make(0)
+      killed.attach_snapshots(SnapshotManager(f'{root}/kill', every=1))
+      kill_saves = timed_saves(torch, killed)
+      killed_run(chaos, RESUME_KILL, killed.run)
+      del killed
+      resumed = make(11)
+      resumed.attach_snapshots(SnapshotManager(f'{root}/kill'))
+      sync(torch)
+      t0 = time.perf_counter()
+      prog = resumed.restore_from_snapshot()
+      sync(torch)
+      restore_secs = time.perf_counter() - t0
+      next_chunk = int(prog['next_chunk'])
+      reset_counts(ops)
+      with TrainRecorder(torch, ftmod, len(FANOUTS) + 1) as rec:
+        got1 = epoch(resumed)
+      resumed_steps = steps - next_chunk
+      launches = check_replay_counts(ops, 'resumed tree epoch',
+                                     resumed_steps, len(FANOUTS),
+                                     len(FANOUTS) + 1)
+      same('resumed epoch 1', got1, ref_epochs[0])
+      same('epoch 2 after the resume', epoch(resumed), ref_epochs[1])
+      del resumed
+    finally:
+      torch.use_deterministic_algorithms(False)
+      chaos.uninstall()
+    # deterministic mode fills every fresh allocation first, so the
+    # kernels are checked and the epochs timed outside it
+    hops, levels = [], []
+    for t in range(len(FANOUTS)):
+      r = check_sampler(torch, ops, timer, *rec.hops[t])[1]
+      emit('kernel', kernel='sample_one_hop', shape=f'resume_fused hop {t}',
+           **r)
+      hops.append(r)
+    for t, (table, ids) in enumerate(rec.gathers):
+      r = check_gather(torch, ops, timer, table, ids)
+      emit('kernel', kernel='gather_rows', shape=f'resume_fused level {t}',
+           **r)
+      levels.append(r)
+    del rec
+    timed = make(0)
+    timed.run()                                  # captures the step
+    arms = {'none': [], 'every_chunk': []}
+    saves = []
+    for arm in arms:
+      if arm == 'every_chunk':
+        timed.attach_snapshots(SnapshotManager(f'{root}/overhead', every=1))
+        saves = timed_saves(torch, timed)
+      for _ in range(RESUME_TIMED):
+        sync(torch)
+        t = time.perf_counter()
+        timed.run()
+        sync(torch)
+        arms[arm].append(time.perf_counter() - t)
+    del timed
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  none, snap = min(arms['none']), min(arms['every_chunk'])
+  out = dict(
+      model=f'TreeSAGE({FEAT_DIM}->256->{GNS_CLASSES}, 3 layers), '
+            f'Adam({TRAIN_LR}, capturable), captured',
+      batch=TRAIN_BATCH, steps_per_epoch=steps, chunk_steps=RESUME_CHUNK,
+      kill=RESUME_KILL, saves_before_kill=len(kill_saves),
+      chunks_skipped=next_chunk // RESUME_CHUNK, resumed_steps=resumed_steps,
+      restore_secs=restore_secs,
+      kill_save_ms=[s * 1e3 for s, _ in kill_saves],
+      save_ms=[s * 1e3 for s, _ in saves],
+      save_ms_median=float(np.median([s for s, _ in saves])) * 1e3,
+      snapshot_bytes=kill_saves[-1][1],
+      epoch_secs_nosnap_runs=arms['none'],
+      epoch_secs_snap_runs=arms['every_chunk'], epoch_secs_nosnap=none,
+      epoch_secs_snap=snap, snapshot_overhead_pct=100.0 * (snap - none) / none,
+      snap_over_nosnap_ratio=none / snap,
+      deterministic={'bitwise_part': True, 'kernel_checks_and_timed': False},
+      bitwise_equal={'epoch_1': True, 'epoch_2': True},
+      launches=launches, launches_per_step={
+          'sample_one_hop': len(FANOUTS), 'gather_rows': len(FANOUTS) + 1},
+      plain_calls=0)
+  emit('resume_fused', **out)
+  out.update(hops=hops, levels=levels)
+  return out
+
+
+def resume_mesh(torch, ops, timer, ds, feats, labels, train_idx) -> dict:
+  """`bench_dist_loader.py --resume`'s kill -> durable restore -> finish
+  loop on the mesh loader: the tiered GNS store at P = 8 (`mesh_train`'s
+  loader, 512 seeds a partition, the equal-HBM victim cache, the
+  dispatch-ahead overlay, ``prefetch=0``) over the first `RESUME_MESH_
+  BATCHES` batches' worth of the train split.  A reference loader's
+  epochs 1 and 2 give per-batch digests (node, edge_index, x, y, edge
+  weights); a second loader consumes `RESUME_MESH_KILL_AFTER` batches,
+  saves and is dropped; a fresh loader loads the snapshot and
+  `resume_epoch` hands out the rest.  The resumed loader (its victim
+  cache warm from a whole epoch) then runs `RESUME_MESH_PAIRS` pairs of
+  epochs in ABBA order, snap / none / none / snap, so that drift across
+  epochs cancels: the snap arm saves every ``GLT_SNAPSHOT_EVERY``
+  (default 8) batches, the none arm not at all; the first epoch is held
+  to the reference's epoch 2.  The ratio is over the pairs' sums, on one
+  loader, so cache warmth and epoch order weigh on both arms alike.
+  Every digest must
+  equal the reference's, every x row and label its source, the resumed
+  dispatches 24 K1-GNS and 16 K2 launches each, and the first resumed
+  dispatch's calls byte-equal to the plain versions.
+  ``replayed_batches`` is 0 on this path: the batcher skips the consumed
+  batches before any sampling."""
+  import shutil
+  import tempfile
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistNeighborLoader
+  from graphlearn_tpu_torch.utils.checkpoint import (SnapshotManager,
+                                                     snapshot_every_from_env)
+  n_seeds = MESH_BATCH * MESH_PARTS * RESUME_MESH_BATCHES
+  seeds = train_idx[:n_seeds]
+  cache_rows = int(ds.node_features.hot_counts.max())
+
+  def make():
+    return DistNeighborLoader(ds, FANOUTS, seeds, batch_size=MESH_BATCH,
+                              shuffle=True, seed=0,
+                              cold_cache_rows=cache_rows, gns=True,
+                              device=DEVICE)
+
+  def batch_digest(b):
+    return digest(torch, [b.node, b.edge_index, b.x, b.y,
+                          b.metadata['edge_weight']])
+
+  def timed_epoch(loader, snap=None):
+    """One epoch's digests and seconds (to its last batch's end on the
+    card), with a snapshot whenever ``snap`` is due."""
+    sync(torch)
+    t = time.perf_counter()
+    got, seen = [], 0
+    for b in loader:
+      got.append(batch_digest(b))
+      seen += 1
+      if snap is not None and snap.due():
+        sync(torch)
+        ts = time.perf_counter()
+        snap.save(loader.state_dict(), {'epoch': 0, 'next_chunk': seen})
+        save_secs.append(time.perf_counter() - ts)
+    sync(torch)
+    return torch.stack(got).cpu(), time.perf_counter() - t
+
+  new2old = torch.from_numpy(ds.new2old).to(DEVICE)
+  every = snapshot_every_from_env(default=8)
+  root = tempfile.mkdtemp(prefix='glt_resume_mesh_')
+  mgrs, save_secs, arms = [], [], {'none': [], 'snap': []}
+  try:
+    ref = make()
+    ref_digests = [timed_epoch(ref)[0] for _ in range(2)]
+    del ref
+    if len(ref_digests[0]) != RESUME_MESH_BATCHES:
+      raise AssertionError(f'{len(ref_digests[0])} batches an epoch')
+    loader = make()
+    it = iter(loader)
+    pre = torch.stack([batch_digest(next(it))
+                       for _ in range(RESUME_MESH_KILL_AFTER)]).cpu()
+    kill = SnapshotManager(f'{root}/kill', every=1)
+    mgrs.append(kill)
+    sync(torch)
+    t0 = time.perf_counter()
+    if not kill.save(loader.state_dict(),
+                     {'epoch': 1, 'next_chunk': loader._consumed}):
+      raise AssertionError('the snapshot before the kill failed')
+    kill_save_secs = time.perf_counter() - t0
+    snapshot_bytes = dir_bytes(kill.directory)
+    del loader, it                               # the preemption
+    resumed = make()
+    sync(torch)
+    t0 = time.perf_counter()
+    fresh = SnapshotManager(f'{root}/kill')
+    mgrs.append(fresh)
+    resumed.load_state_dict(fresh.restore_latest()['plane'])
+    sync(torch)
+    restore_secs = time.perf_counter() - t0
+    reset_counts(ops)
+    rest, valid = [], 0
+    with PathRecorder(torch, dsm, gns=True, parts=MESH_PARTS,
+                      first=True) as rec:
+      for b in resumed.resume_epoch():
+        valid += check_mesh_batch(torch, b, feats, labels, new2old)
+        rest.append(batch_digest(b))
+    launches, plain = read_counts(ops)
+    resumed_batches = len(rest)
+    want = {'sample_one_hop_gns': len(FANOUTS) * MESH_PARTS
+            * resumed_batches, 'gather_rows': 2 * MESH_PARTS
+            * resumed_batches}
+    if (any(launches[k] != v for k, v in want.items())
+        or launches['sample_one_hop'] or plain or resumed_batches == 0):
+      raise AssertionError(f'resumed mesh epoch: launches {launches}, plain '
+                           f'{plain}, want {want}')
+    if not (torch.equal(torch.cat([pre, torch.stack(rest).cpu()]),
+                        ref_digests[0])
+            and RESUME_MESH_KILL_AFTER + resumed_batches
+            == RESUME_MESH_BATCHES):
+      raise AssertionError('the resumed mesh epoch differs from the '
+                           'uninterrupted one')
+    snap = SnapshotManager(f'{root}/overhead', every=every)
+    mgrs.append(snap)
+    order = ['snap', 'none', 'none', 'snap'] * (RESUME_MESH_PAIRS // 2)
+    for e, arm in enumerate(order):
+      d, secs = timed_epoch(resumed, snap if arm == 'snap' else None)
+      arms[arm].append(secs)
+      if e == 0 and not torch.equal(d, ref_digests[1]):
+        raise AssertionError('the epoch after the resume differs from the '
+                             "uninterrupted run's next epoch")
+    del resumed
+    path = check_mesh_path(torch, ops, timer, rec, 'resume_mesh')
+    del rec
+  finally:
+    for m in mgrs:
+      m.close()
+    shutil.rmtree(root, ignore_errors=True)
+  rate = {arm: n_seeds * len(v) / sum(v) for arm, v in arms.items()}
+  out = dict(
+      parts=MESH_PARTS, batch=MESH_BATCH, fanouts=list(FANOUTS),
+      store=f'tiered split {MESH_SPLIT}, GNS, victim cache {cache_rows} '
+            'rows a partition, dispatch-ahead overlay, prefetch=0',
+      batches_per_epoch=RESUME_MESH_BATCHES,
+      restore_secs=restore_secs, replayed_batches=0,
+      replayed_note='the batcher skips the consumed batches before any '
+                    'sampling: nothing is re-produced',
+      resumed_batches=resumed_batches,
+      consumed_before_kill=RESUME_MESH_KILL_AFTER,
+      seeds_per_sec_nosnap=rate['none'], seeds_per_sec_snap=rate['snap'],
+      snapshot_overhead_pct=100.0 * (sum(arms['snap']) - sum(arms['none']))
+      / sum(arms['none']),
+      snap_over_nosnap_ratio=rate['snap'] / rate['none'],
+      arm_order=order,
+      pair_ratios=[n / s for n, s in zip(arms['none'], arms['snap'])],
+      snapshot_every=every, snapshot_bytes=snapshot_bytes,
+      kill_save_secs=kill_save_secs, save_secs=save_secs,
+      epoch_secs=arms, valid_nodes=valid,
+      digests_equal={'resumed_epoch': True, 'next_epoch': True},
+      launches=launches, plain_calls=0, x_rows_byte_equal=True,
+      y_byte_equal=True)
+  emit('resume_mesh', **out)
+  out.update(path=path)
+  return out
+
+
+def resume_fused_mesh(torch, ops, timer, ds) -> dict:
+  """A fused mesh epoch at an epoch boundary: `fused_mesh`'s
+  `FusedDistEpoch` setup (untiered P = 8 store, ``GraphSAGE(100, 64, 47,
+  2)``, Adam(3e-3), 512 seeds a partition, [10, 5], 4 steps an epoch)
+  under deterministic algorithms.  An uninterrupted run takes two
+  epochs; a second driver, saving at each epoch's end, is killed at
+  epoch 2's dispatch; a fresh driver (another init) restores: its first
+  `run` returns epoch 1's saved stats without a launch, its second reruns
+  epoch 2, whose losses, counts, parameters and Adam state must be
+  bitwise the uninterrupted run's, with 16 K1 and 16 K2 launches a step
+  and the first step's calls byte-equal to the plain versions."""
+  import shutil
+  import tempfile
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.models import GraphSAGE
+  from graphlearn_tpu_torch.parallel import FusedDistEpoch
+  from graphlearn_tpu_torch.testing import chaos
+  from graphlearn_tpu_torch.utils.checkpoint import SnapshotManager
+  b, fan = MESH_BATCH, FUSED_MESH_FANOUTS
+  per_step = len(fan) * MESH_PARTS
+  seeds = np.random.default_rng(0).permutation(NUM_NODES)[
+      :b * MESH_PARTS * FUSED_MESH_BATCHES]
+
+  def make(init):
+    m = GraphSAGE(FEAT_DIM, FUSED_MESH_HIDDEN, GNS_CLASSES,
+                  num_layers=2).to(DEVICE)
+    m.reset_parameters(torch.Generator().manual_seed(init))
+    opt = torch.optim.Adam(m.parameters(), lr=TRAIN_LR, eps=1e-8)
+    return FusedDistEpoch(ds, fan, seeds, m, opt, batch_size=b, shuffle=True,
+                          seed=0, device=DEVICE)
+
+  def epoch(fused):
+    st = fused.run()
+    return (st.losses.clone(), int(st.correct), int(st.seeds),
+            train_state_copy(fused))
+
+  root = tempfile.mkdtemp(prefix='glt_resume_fmesh_')
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    ref = make(1)
+    ref_epochs = [epoch(ref), epoch(ref)]
+    del ref
+    killed = make(1)
+    killed.attach_snapshots(SnapshotManager(root, every=1))
+    saves = timed_saves(torch, killed)
+    killed.run()
+    killed_run(chaos, 'fused.dispatch:kill:1:epoch=2', killed.run)
+    del killed
+    resumed = make(3)
+    resumed.attach_snapshots(SnapshotManager(root))
+    sync(torch)
+    t0 = time.perf_counter()
+    prog = resumed.restore_from_snapshot()
+    sync(torch)
+    restore_secs = time.perf_counter() - t0
+    reset_counts(ops)
+    again = epoch(resumed)
+    skipped_launches, plain = read_counts(ops)
+    if any(skipped_launches.values()) or plain or int(prog['epoch']) != 1:
+      raise AssertionError(f'the finished epoch ran again: launches '
+                           f'{skipped_launches}, plain {plain}')
+    if not (torch.equal(again[0], ref_epochs[0][0])
+            and again[1:3] == ref_epochs[0][1:3]):
+      raise AssertionError('the restored epoch 1 stats differ')
+    reset_counts(ops)
+    with PathRecorder(torch, dsm, gns=False, parts=MESH_PARTS,
+                      hops=len(fan), first=True) as rec:
+      got2 = epoch(resumed)
+    launches = check_replay_counts(ops, 'resumed fused mesh epoch',
+                                   FUSED_MESH_BATCHES, per_step, per_step)
+    if not (torch.equal(got2[0], ref_epochs[1][0])
+            and got2[1:3] == ref_epochs[1][1:3]):
+      raise AssertionError('the rerun epoch 2 differs from the '
+                           'uninterrupted one')
+    same_tensors('the rerun epoch 2', got2[3], ref_epochs[1][3])
+    del resumed
+  finally:
+    torch.use_deterministic_algorithms(False)
+    chaos.uninstall()
+    shutil.rmtree(root, ignore_errors=True)
+  path = check_mesh_path(torch, ops, timer, rec, 'resume_fused_mesh',
+                         tables=('features', 'labels'))
+  del rec
+  out = dict(
+      parts=MESH_PARTS, batch=b, fanouts=list(fan),
+      steps_per_epoch=FUSED_MESH_BATCHES,
+      kill='fused.dispatch:kill:1:epoch=2', saves=len(saves),
+      save_ms=[s * 1e3 for s, _ in saves], snapshot_bytes=saves[-1][1],
+      restore_secs=restore_secs, restored_epoch=int(prog['epoch']),
+      finished_epoch_launches=skipped_launches, deterministic=True,
+      bitwise_equal={'epoch_2': True}, launches=launches,
+      launches_per_step={'sample_one_hop': per_step,
+                         'gather_rows': per_step}, plain_calls=0)
+  emit('resume_fused_mesh', **out)
+  out.update(path=path)
+  return out
+
+
+def resume_phases(torch, ops, timer, indptr, indices, feats, ds) -> None:
+  """``--resume``: the snapshot and resume phases alone (`resume_fused`
+  on the products dataset, then `mesh_data`, `resume_fused_mesh` on the
+  untiered store and `resume_mesh` on the tiered one)."""
+  labels = make_labels(torch, feats)
+  ds.init_node_labels(labels)
+  train_idx = train_splits()[0]
+  timer = Timer(torch, reps=RESUME_CHECK_REPS)
+  resume_fused(torch, ops, timer, ds, feats, train_idx)
+  torch.cuda.empty_cache()
+  ds_u, ds_t = mesh_data(torch, indptr, indices, feats, labels)
+  resume_fused_mesh(torch, ops, timer, ds_u)
+  del ds_u
+  torch.cuda.empty_cache()
+  resume_mesh(torch, ops, timer, ds_t, feats, labels, train_idx)
+
+
 def tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
                   train_idx, full=True, prof=False) -> tuple:
   """The single-card tiered store and K6: the link's rate, K6's forced
@@ -9366,6 +9888,9 @@ def run(torch, argv) -> list:
     fused_phases(torch, ops, timer, indptr, indices, feats, ds,
                  prof='--profile' in argv)
     return None
+  if '--resume' in argv:
+    resume_phases(torch, ops, timer, indptr, indices, feats, ds)
+    return None
   if '--link' in argv:
     del ds
     link_phases(torch, ops, timer, indptr, indices, feats,
@@ -9475,6 +10000,10 @@ def run(torch, argv) -> list:
   del tree_fused
   train_cross_check(torch)
   torch.cuda.empty_cache()
+  # -- snapshots and mid-epoch resume of the captured tree epoch ---------
+  rf = resume_fused(torch, ops, Timer(torch, reps=RESUME_CHECK_REPS), ds,
+                    feats, train_idx)
+  torch.cuda.empty_cache()
 
   # -- the single-card tiered store and its cold gather (K6) ------------
   link, k6_forced, tserve_launches, k6_serve, ttrain_runs, k6_train = (
@@ -9499,6 +10028,8 @@ def run(torch, argv) -> list:
   del node_table
   fmesh_launches, fmesh_paths = fused_mesh(torch, ops, timer, ds_u)
   fused_mesh_cross_check(torch)
+  rfm = resume_fused_mesh(torch, ops, Timer(torch, reps=RESUME_CHECK_REPS),
+                          ds_u)
   # -- the mesh's sampled edges and its link engine ---------------------
   ml = mesh_link_phases(torch, ops, timer, ds_u, ds_t, table, indptr,
                         indices, feats, labels, ab_source=ab_source)
@@ -9508,6 +10039,8 @@ def run(torch, argv) -> list:
   del ds_u, table
   ds_t.edge_features = None
   torch.cuda.empty_cache()
+  rm = resume_mesh(torch, ops, Timer(torch, reps=RESUME_CHECK_REPS), ds_t,
+                   feats, labels, train_idx)
   mesh_launches, mesh_path = mesh_train(torch, ops, timer, ds_t, feats,
                                         labels, train_idx, test_idx,
                                         prof='--profile' in argv)
@@ -9638,7 +10171,8 @@ def run(torch, argv) -> list:
                           + fmesh_hops + het_hops + hl_hops
                           + link_tr['hops'] + link_lo['hops']
                           + seal_out['hops'] + ed['hops'] + el['hops']
-                          + hlk['hops'] + ml_k1
+                          + hlk['hops'] + ml_k1 + rf['hops']
+                          + rfm['path']['hops']
                           + [{'max_abs_err': mhk[0]['max_abs_err']},
                              {'max_abs_err': ek['k1']['max_abs_err']}]),
        'ms': sum(h['kernel_ms'] for h in hops),
@@ -9685,7 +10219,10 @@ def run(torch, argv) -> list:
                                 for k, v in hlk['launches'].items()},
                             **ml_launches('sample_one_hop'),
                             **mhk[0]['launches_by_path'],
-                            **ek['k1']['launches_by_path']},
+                            **ek['k1']['launches_by_path'],
+                            'resume_fused': rf['launches']['sample_one_hop'],
+                            'resume_fused_mesh':
+                                rfm['launches']['sample_one_hop']},
        'mesh_hetero_shapes': mhk[0]['mesh_hetero_shapes'],
        'mesh_engine_shapes': ek['k1']['shapes'],
        'mesh_edge_shape': {
@@ -9774,6 +10311,8 @@ def run(torch, argv) -> list:
                           + fmesh_gathers + het_gathers + hl_gathers
                           + link_tr['gathers'] + link_lo['gathers']
                           + ed['gathers'] + hlk['gathers'] + ml_gathers
+                          + rf['levels'] + rm['path']['gathers']
+                          + rfm['path']['gathers']
                           + [{'max_abs_err': mhk[1]['max_abs_err']},
                              {'max_abs_err': ek['k2']['max_abs_err']}]),
        'ms': f32['kernel_ms'],
@@ -9841,7 +10380,11 @@ def run(torch, argv) -> list:
                                 for k, v in hlk['launches'].items()},
                             **ml_launches('gather_rows'),
                             **mhk[1]['launches_by_path'],
-                            **ek['k2']['launches_by_path']},
+                            **ek['k2']['launches_by_path'],
+                            'resume_fused': rf['launches']['gather_rows'],
+                            'resume_mesh': rm['launches']['gather_rows'],
+                            'resume_fused_mesh':
+                                rfm['launches']['gather_rows']},
        'mesh_hetero_shapes': mhk[1]['mesh_hetero_shapes'],
        'mesh_engine_shapes': ek['k2']['shapes'],
        'mesh_link_shapes': ml_kernels[2]['mesh_link_shapes'],
@@ -9893,7 +10436,8 @@ def run(torch, argv) -> list:
        'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247 (gns arm :178)',
        'launches': gns_launches['sample_one_hop_gns'],
        'max_abs_err': max(h['max_abs_err']
-                          for h in gns_hops + mesh_path['hops'] + ml_gns),
+                          for h in gns_hops + mesh_path['hops'] + ml_gns
+                          + rm['path']['hops']),
        'ms': sum(h['kernel_ms'] for h in gns_hops),
        'plain_ms': sum(h['plain_ms'] for h in gns_hops),
        'bound_ms': sum(h['bound_us'] for h in gns_hops) / 1e3,
@@ -9907,7 +10451,8 @@ def run(torch, argv) -> list:
        'launches_by_path': {
            'gns_train': gns_launches['sample_one_hop_gns'],
            'mesh_train': mesh_launches['sample_one_hop_gns'],
-           **ml_launches('sample_one_hop_gns')},
+           **ml_launches('sample_one_hop_gns'),
+           'resume_mesh': rm['launches']['sample_one_hop_gns']},
        'edge_shape': {k: ml_kernels[1][k] for k in (
            'shape', 'ms', 'no_eids_ms', 'plain_ms', 'bound_ms', 'hops')},
        'gns_ab': ml['edges']['ab'],

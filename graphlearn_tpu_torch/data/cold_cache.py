@@ -420,3 +420,20 @@ class MeshColdCache:
     for sh, (adm, slots, _src, _ev) in zip(self.shards, plans):
       sh.commit(adm, slots)
     return admits, evicts
+
+  # -- DataPlaneState: every shard's policy and the row rings --------------
+  def state_dict(self) -> dict:
+    """The JAX package's layout: ``{'shards': [policy state, ...],
+    'rows': [P, C, D]}``."""
+    return {'shards': [sh.state_dict() for sh in self.shards],
+            'rows': self.rows.cpu().numpy()}
+
+  def load_state_dict(self, state: dict) -> None:
+    shards = state['shards']
+    if len(shards) != len(self.shards):
+      raise ValueError(f'cold-cache snapshot has {len(shards)} shards, this '
+                       f'mesh cache holds {len(self.shards)}')
+    for sh, st in zip(self.shards, shards):
+      sh.load_state_dict(st)                 # checks the capacity
+    self.rows.copy_(torch.as_tensor(np.asarray(state['rows'])).to(
+        self.rows.dtype))

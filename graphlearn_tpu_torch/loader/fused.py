@@ -65,6 +65,10 @@ from ..sampler.hetero_neighbor_sampler import (HeteroNeighborSampler,
                                                _hetero_multihop)
 from ..sampler.neighbor_sampler import (NeighborSampler, _multihop_sample,
                                         link_metadata, link_seeds)
+from ..testing import chaos
+from ..utils.checkpoint import (CheckpointMismatchError, SnapshotManager,
+                                snapshot_dir_from_env, to_numpy,
+                                validate_tree)
 from ..utils.device import resolve_device
 from .link_loader import EdgeSeedBatcher, as_edge_pairs, shift_binary_labels
 from .node_loader import SeedBatcher
@@ -157,7 +161,213 @@ class CapturedStep:
     return self.outputs
 
 
-class _SupervisedEpoch:
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+  return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def _like(t: torch.Tensor) -> np.ndarray:
+  """A numpy stand-in with ``t``'s shape and dtype (no copy: what a
+  template leaf needs)."""
+  return np.broadcast_to(np.zeros((), _np_dtype(t)), tuple(t.shape))
+
+
+def _hparams(group: dict) -> dict:
+  """The numeric hyperparameters of an optimizer's parameter group (the
+  values a scheduler moves: lr, betas, eps, weight decay, momentum...);
+  flags and the params list stay the live optimizer's."""
+  out = {}
+  for k, v in group.items():
+    if k == 'params' or isinstance(v, bool):
+      continue
+    if isinstance(v, (int, float)) or (
+        isinstance(v, tuple) and v
+        and all(isinstance(x, float) for x in v)):
+      out[k] = v
+  return out
+
+
+def _hparam(v) -> object:
+  """A saved hyperparameter leaf as the optimizer keeps it: a Python
+  number, or a tuple of them (Adam's betas)."""
+  v = np.asarray(v).tolist()
+  return tuple(v) if isinstance(v, list) else v
+
+
+class _SnapshotHooks:
+  """Chunk-boundary snapshots and mid-epoch resume for the fused epochs
+  (the JAX package's `_SnapshotHooks`, `loader/fused.py:261-425`),
+  shared by the single-card drivers here and the mesh drivers in
+  `parallel.fused`, so the save and restore contracts cannot drift.
+
+  Lifecycle::
+
+      fused.attach_snapshots(SnapshotManager(dir, every=2))
+      fused.run()                       # saves at chunk boundaries
+      # ... a preemption; in a fresh process, same constructor args:
+      fused.attach_snapshots(SnapshotManager(dir))
+      fused.restore_from_snapshot()     # rewinds the data plane and
+      fused.run()                       # loads model and optimizer;
+                                        # finishes the epoch
+
+  A payload holds (a) the data plane: the epoch counter, the batcher's
+  RNG at the epoch's start (a resume re-draws the interrupted epoch's
+  permutation) and, on a tiered store, the feature store's cold-cache
+  ring; (b) the progress: the next chunk's first step, the chunk length
+  and the finished steps' losses and counts; (c) the train state: the
+  model's and the optimizer's state as numpy.  The draws are keyed by
+  (epoch, chunk, step), so the resumed steps draw as the uninterrupted
+  ones do.
+
+  A restore copies into the model's live parameters and loads the
+  optimizer through `load_state_dict`, which makes new state tensors:
+  any captured step is dropped, and the next step captures again.
+  """
+
+  _snap = None
+  _resume = None
+
+  def attach_snapshots(self, manager=None):
+    """Attach a `utils.checkpoint.SnapshotManager` (None builds one from
+    ``GLT_SNAPSHOT_DIR`` when it is set); returns the manager or
+    None."""
+    if manager is None:
+      if snapshot_dir_from_env() is None:
+        return None
+      manager = SnapshotManager()
+    self._snap = manager
+    return manager
+
+  # -- the data plane (overridden by the mesh drivers) ------------------------
+  def data_plane_state(self) -> dict:
+    st = {'epoch_idx': self._epoch_idx,
+          'batcher': self._batcher.state_dict()}
+    if getattr(self, '_tiered', False):
+      st['feat'] = self._feat.state_dict()
+    return st
+
+  def load_data_plane_state(self, plane: dict) -> None:
+    # run() pre-increments the epoch counter, and the batcher rewinds to
+    # the interrupted epoch's start, so run() re-draws that epoch
+    self._epoch_idx = int(np.asarray(plane['epoch_idx'])) - 1
+    self._batcher.load_state_dict(plane['batcher'], mid_epoch=True)
+    if 'feat' in plane and getattr(self, '_tiered', False):
+      self._feat.load_state_dict(plane['feat'])
+
+  # -- the train state --------------------------------------------------------
+  def train_state(self) -> dict:
+    """The model's and the optimizer's state as host numpy arrays."""
+    opt = self.optimizer.state_dict()
+    return to_numpy({
+        'model': dict(self.model.state_dict()),
+        'optimizer': {'kind': type(self.optimizer).__name__,
+                      'state': opt['state'],
+                      'groups': [_hparams(g) for g in
+                                 self.optimizer.param_groups]}})
+
+  def _train_template(self, saved: dict) -> dict:
+    """What a restorable train state must look like, from the parameters
+    alone (an optimizer that has not stepped yet has no state): each
+    saved tensor of a parameter's state has that parameter's shape and
+    dtype, a 0-d leaf (such as Adam's step) its own."""
+    params = [p for g in self.optimizer.param_groups for p in g['params']]
+    state = {}
+    for i, st in (saved.get('optimizer', {}).get('state') or {}).items():
+      if not (isinstance(st, dict) and isinstance(i, int)
+              and 0 <= i < len(params)):
+        continue                   # no such parameter: validate_tree names it
+      state[i] = {k: (_like(params[i]) if np.asarray(v).ndim
+                      else np.asarray(v)) for k, v in st.items()}
+    return {'model': {k: _like(v) for k, v in self.model.state_dict().items()},
+            'optimizer': {
+                'kind': np.asarray(type(self.optimizer).__name__),
+                'state': state,
+                'groups': to_numpy([_hparams(g) for g in
+                                    self.optimizer.param_groups])}}
+
+  def load_train_state(self, train: dict) -> None:
+    """Validate ``train`` against the live model and optimizer
+    (`CheckpointMismatchError` naming the first diverging path), then
+    load it."""
+    kind = str(np.asarray(train.get('optimizer', {}).get('kind', '')))
+    if kind != type(self.optimizer).__name__:
+      raise CheckpointMismatchError(
+          f'the snapshot holds a {kind} optimizer state, this driver runs '
+          f'{type(self.optimizer).__name__}', path="['optimizer']['kind']")
+    validate_tree(train, self._train_template(train))
+    with torch.no_grad():
+      for k, t in self.model.state_dict().items():
+        t.copy_(torch.from_numpy(np.asarray(train['model'][k])))
+    sd = self.optimizer.state_dict()
+    sd['state'] = {i: {k: torch.from_numpy(np.array(v))
+                       for k, v in st.items()}
+                   for i, st in train['optimizer']['state'].items()}
+    for g, hp in zip(sd['param_groups'], train['optimizer']['groups']):
+      g.update({k: _hparam(v) for k, v in hp.items()})
+    self.optimizer.load_state_dict(sd)
+    # new state tensors: a captured step would train the old ones
+    getattr(self, '_replays', {}).clear()
+
+  def restore_from_snapshot(self) -> Optional[dict]:
+    """Load the newest snapshot: the model and optimizer state (checked
+    first: `CheckpointMismatchError` on a stale snapshot), then the
+    data plane; the next `run` continues the interrupted epoch.  Returns
+    the snapshot's progress (``epoch``, ``next_chunk``, ...), or None
+    when the directory holds no snapshot."""
+    if self._snap is None:
+      raise ValueError('restore_from_snapshot() needs attach_snapshots() '
+                       'first')
+    payload = self._snap.restore_latest()
+    if payload is None:
+      return None
+    if payload.get('train') is not None:
+      self.load_train_state(payload['train'])
+    self.load_data_plane_state(payload['plane'])
+    self._resume = payload['progress']
+    return self._resume
+
+  # -- run()-side helpers -----------------------------------------------------
+  def _take_resume(self, chunk_steps: int) -> Optional[dict]:
+    """Pop the pending resume progress (one epoch continuation a
+    restore); raise `CheckpointMismatchError` when it was taken at
+    another chunk length."""
+    prog, self._resume = self._resume, None
+    if prog is None:
+      return None
+    saved = int(np.asarray(prog['chunk_steps']))
+    if saved != chunk_steps:
+      raise CheckpointMismatchError(
+          f'the snapshot was taken with chunks of {saved} steps, this '
+          f'epoch runs chunks of {chunk_steps}: resume with the same '
+          'max_steps_per_program', path='progress.chunk_steps')
+    return prog
+
+  def _resume_outs(self, chunk_steps: int, outs) -> Tuple[int, int]:
+    """``(the first chunk to run, steps done)``; the done steps' losses
+    and counts are copied from the snapshot into ``outs``."""
+    prog = self._take_resume(chunk_steps)
+    if prog is None:
+      return 0, 0
+    done = int(np.asarray(prog['losses']).shape[0])
+    for buf, key in zip(outs, ('losses', 'counts')):
+      buf[:done].copy_(torch.from_numpy(np.asarray(prog[key])))
+    return int(np.asarray(prog['next_chunk'])), done
+
+  def _save_chunk_snapshot(self, next_chunk: int, chunk_steps: int, losses,
+                           counts, force: bool = False, **extra) -> None:
+    """One boundary's snapshot when due (``force``: whatever the
+    cadence).  Reading the losses and the train state waits for the
+    card."""
+    if self._snap is None or not (force or self._snap.due()):
+      return
+    progress = {'epoch': self._epoch_idx, 'next_chunk': int(next_chunk),
+                'chunk_steps': int(chunk_steps), 'losses': losses,
+                'counts': counts}
+    progress.update({k: v for k, v in extra.items() if v is not None})
+    self._snap.save(self.data_plane_state(), progress,
+                    train=self.train_state())
+
+
+class _SupervisedEpoch(_SnapshotHooks):
   """The host driver of the single-card fused epochs.  A subclass sets
   ``_owner`` and supplies ``_sample(seeds, draws) -> sample`` (the
   sampler half) and ``_gather(sample, seeds) -> (inputs, y)`` (the
@@ -252,8 +462,9 @@ class _SupervisedEpoch:
 
   def _schedule(self, seeds: np.ndarray, epoch: int,
                 one_chunk: bool = False):
-    """The steps that hold a valid seed, chunk by chunk: ``[(seeds_i,
-    (epoch, chunk, step)), ...]`` on the host."""
+    """The chunk length and the steps that hold a valid seed, chunk by
+    chunk: ``(chunk, [(c0, [(seeds_i, (epoch, chunk, step)), ...]),
+    ...])`` on the host."""
     parts = list(self._chunks(seeds, one_chunk))
     out = []
     for c0, part in parts:
@@ -262,8 +473,8 @@ class _SupervisedEpoch:
       for i in range(part.shape[0]):
         if self._valid_step(part[i]):
           piece.append((part[i], (epoch, chunk, i)))
-      out.append(piece)
-    return out
+      out.append((c0, piece))
+    return (parts[0][1].shape[0] if parts else 0), out
 
   def _upload(self, a: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
@@ -349,51 +560,66 @@ class _SupervisedEpoch:
                  one_chunk: bool = False) -> List[torch.Tensor]:
     """Every step of an epoch over ``[S, B]`` seeds; returns the
     per-step outputs stacked: ``[losses [n], counts [n, 2]]`` for
-    training, ``[counts [n, 2]]`` for evaluation."""
-    plan = self._schedule(seeds, epoch, one_chunk)
-    steps = [s for piece in plan for s in piece]
-    n = len(steps)
+    training, ``[counts [n, 2]]`` for evaluation.  A training epoch
+    passes the ``fused.dispatch`` seam before each chunk and offers a
+    snapshot after it; a resumed one starts at the snapshot's chunk,
+    the earlier steps' outputs taken from the snapshot."""
+    chunk_steps, plan = self._schedule(seeds, epoch, one_chunk)
+    n = sum(len(piece) for _, piece in plan)
     outs = [torch.empty((n, 2), dtype=torch.int64, device=self.device)]
-    if kind == 'train':
+    train = kind == 'train'
+    if train:
       outs.insert(0, torch.empty(n, dtype=torch.float32,
                                  device=self.device))
     if n == 0:
       return outs
-    if self._tiered:
-      self._run_tiered(kind, plan, outs)
-    elif not self._capture:
-      fn = self._train_step if kind == 'train' else self._eval_step
-      for j, (row, coords) in enumerate(steps):
-        for buf, val in zip(outs, fn(self._upload(row), coords)):
-          buf[j].copy_(val)
-    else:
-      seeds_d = self._upload(np.stack([row for row, _ in steps]))
-      coords_d = self._upload(np.array(
-          [(e, c or 0, i) for _, (e, c, i) in steps], np.int64))
-      graph = self._replays.get(kind)
-      first = 0
-      if graph is None:
-        graph = self._captured(kind, seeds_d[0], coords_d[0], outs, 0)
-        first = 1
-      for j in range(first, n):
-        for buf, val in zip(outs, graph.replay(seeds_d[j], coords_d[j])):
-          buf[j].copy_(val)
+    skip, j = self._resume_outs(chunk_steps, outs) if train else (0, 0)
+    for c0, piece in plan:
+      if c0 < skip or not piece:
+        continue
+      if train:
+        chaos.fused_dispatch_check(chunk=c0, epoch=epoch)
+      if self._tiered:
+        self._run_tiered(kind, piece, outs, j)
+      elif not self._capture:
+        fn = self._train_step if train else self._eval_step
+        for i, (row, coords) in enumerate(piece):
+          for buf, val in zip(outs, fn(self._upload(row), coords)):
+            buf[j + i].copy_(val)
+      else:
+        self._run_captured(kind, piece, outs, j)
+      j += len(piece)
+      if train:
+        self._save_chunk_snapshot(c0 + chunk_steps, chunk_steps,
+                                  outs[0][:j], outs[1][:j])
     return outs
 
-  def _run_tiered(self, kind: str, plan, outs) -> None:
-    """A tiered epoch, chunk by chunk: sample every step, serve every
-    step's rows in step order, then train (or evaluate) every step."""
-    j = 0
+  def _run_captured(self, kind: str, piece, outs, j: int) -> None:
+    """One chunk's steps as replays of the captured step (captured at
+    the first step that runs, which writes its own outputs)."""
+    seeds_d = self._upload(np.stack([row for row, _ in piece]))
+    coords_d = self._upload(np.array(
+        [(e, c or 0, i) for _, (e, c, i) in piece], np.int64))
+    graph = self._replays.get(kind)
+    first = 0
+    if graph is None:
+      graph = self._captured(kind, seeds_d[0], coords_d[0], outs, j)
+      first = 1
+    for i in range(first, len(piece)):
+      for buf, val in zip(outs, graph.replay(seeds_d[i], coords_d[i])):
+        buf[j + i].copy_(val)
+
+  def _run_tiered(self, kind: str, piece, outs, j: int) -> None:
+    """A tiered chunk: sample every step, serve every step's rows in step
+    order, then train (or evaluate) every step."""
     on = self._train_on if kind == 'train' else self._eval_on
-    for piece in plan:
-      rows = [self._upload(row) for row, _ in piece]
-      samples = [self._sample(s, self._step_draws(coords))
-                 for s, (_, coords) in zip(rows, piece)]
-      gathered = [self._gather(smp, s) for smp, s in zip(samples, rows)]
-      for s, (inputs, y) in zip(rows, gathered):
-        for buf, val in zip(outs, on(s, inputs, y)):
-          buf[j].copy_(val)
-        j += 1
+    rows = [self._upload(row) for row, _ in piece]
+    samples = [self._sample(s, self._step_draws(coords))
+               for s, (_, coords) in zip(rows, piece)]
+    gathered = [self._gather(smp, s) for smp, s in zip(samples, rows)]
+    for i, (s, (inputs, y)) in enumerate(zip(rows, gathered)):
+      for buf, val in zip(outs, on(s, inputs, y)):
+        buf[j + i].copy_(val)
 
   # -- the driver -------------------------------------------------------------
 

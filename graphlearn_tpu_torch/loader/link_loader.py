@@ -78,6 +78,13 @@ class EdgeSeedBatcher:
         lab = np.where(valid, self.labels[safe], 0)
       yield r, c, lab
 
+  # -- DataPlaneState: the cursor lives in the index batcher -----------------
+  def state_dict(self) -> dict:
+    return self._idx.state_dict()
+
+  def load_state_dict(self, state: dict, mid_epoch: bool = False) -> None:
+    self._idx.load_state_dict(state, mid_epoch=mid_epoch)
+
 
 class LinkLoader(PrefetchingLoader):
   """Seed edges -> ``sampler.sample_from_edges`` -> collate.

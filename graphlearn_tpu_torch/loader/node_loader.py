@@ -3,6 +3,8 @@
 `SeedBatcher` is the host-side seed iterator: shuffle with numpy's
 `default_rng(seed)`, slice, and pad the tail batch to the static batch
 size with -1, so a seeded run visits seeds in the JAX package's order.
+Its `state_dict` is laid out as JAX's, so either package's batcher
+state loads into the other's.
 `NodeLoader` runs a sampler on each seed batch and collates the result
 (`loader.transform.collate`) into a `Batch` (a `HeteroBatch` on a
 heterogeneous graph); with ``prefetch=N`` a
@@ -14,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from ..sampler.base import BaseSampler, NodeSamplerInput
+from ..utils.checkpoint import pack_rng_state, restore_rng_state
 from ..utils.padding import INVALID_ID
 from .prefetch import PrefetchingLoader
 from .transform import collate
@@ -31,6 +34,8 @@ class SeedBatcher:
     self.shuffle = shuffle
     self.drop_last = drop_last
     self._rng = np.random.default_rng(seed)
+    self.epochs_started = 0
+    self._epoch_start_rng = None   # the packed RNG state at the last iter()
 
   def __len__(self) -> int:
     n = len(self.seeds)
@@ -39,9 +44,35 @@ class SeedBatcher:
     return -(-n // self.batch_size)
 
   def __iter__(self):
+    # the state BEFORE this epoch's draw: a mid-epoch resume re-draws
+    # the interrupted epoch's permutation from it
+    self._epoch_start_rng = pack_rng_state(self._rng)
+    self.epochs_started += 1
     n = len(self.seeds)
     order = self._rng.permutation(n) if self.shuffle else np.arange(n)
     return self._epoch(order)
+
+  # -- DataPlaneState (`utils.checkpoint`) -----------------------------------
+  def state_dict(self) -> dict:
+    """``rng``: the current stream (an epoch-boundary resume point);
+    ``epoch_rng``: the stream at the last epoch's start (a mid-epoch
+    resume re-draws that epoch's permutation); ``epochs_started``."""
+    now = pack_rng_state(self._rng)
+    return {'rng': now,
+            'epoch_rng': (self._epoch_start_rng
+                          if self._epoch_start_rng is not None else now),
+            'epochs_started': self.epochs_started}
+
+  def load_state_dict(self, state: dict, mid_epoch: bool = False) -> None:
+    """``mid_epoch=True`` rewinds the RNG to the interrupted epoch's start
+    (the next ``iter()`` re-draws its permutation) and takes that epoch
+    back off ``epochs_started``; False resumes at the epoch boundary."""
+    self.epochs_started = int(np.asarray(state['epochs_started']))
+    if mid_epoch:
+      restore_rng_state(self._rng, state['epoch_rng'])
+      self.epochs_started = max(self.epochs_started - 1, 0)
+    else:
+      restore_rng_state(self._rng, state['rng'])
 
   def _epoch(self, order: np.ndarray):
     n = len(self.seeds)

@@ -107,6 +107,7 @@ from ..ops.window_gather import csr_window_gather
 from ..telemetry.aggregate import exchange_summary
 from ..telemetry.live import live
 from ..telemetry.recorder import recorder
+from ..testing import chaos
 from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from ..utils.tensor import PinnedStaging
 from .dist_data import DistDataset
@@ -658,6 +659,7 @@ class DistNeighborSampler(ExchangeTelemetry):
     self._gns_bits = None
     self._gns_hot_bits = None
     self._gns_ver = -1
+    self._gns_inflight = None
     self.exchange_slack = exchange_slack
     self.draws = draws if draws is not None else TorchDraws(seed,
                                                             self.device)
@@ -774,6 +776,36 @@ class DistNeighborSampler(ExchangeTelemetry):
     self._accumulate_stats(torch.cat([fr_stats, ft_stats]))
     return out
 
+  # -- DataPlaneState (`utils.checkpoint`) -----------------------------------
+  def data_plane_state(self, inflight: bool = False) -> dict:
+    """The draw cursor ``step_cnt`` (the draws are keyed by it, so
+    restoring it makes resumed batches byte-identical) and, on a tiered
+    store, the cold cache's policies and rows.  ``inflight``: a batch was
+    dispatched ahead and is lost with the process; with GNS on, the
+    cached-set bits it sampled with are kept (``gns_inflight``), so its
+    re-dispatch samples as it did (the cache has moved on since).  That
+    leaf is the port's alone: the JAX package's state has none, and its
+    own resume of a GNS loader differs from its uninterrupted epoch from
+    the re-dispatched batch on."""
+    state = {'step_cnt': self._step_cnt}
+    cache = self._ensure_cold_cache()
+    if cache is not None:
+      state['cache'] = cache.state_dict()
+    if inflight and self.gns and self._gns_bits is not None:
+      state['gns_inflight'] = [t.cpu().numpy() for t in self._gns_bits]
+    return state
+
+  def load_data_plane_state(self, state: dict) -> None:
+    self._step_cnt = int(np.asarray(state['step_cnt']))
+    if 'cache' in state:
+      cache = self._ensure_cold_cache()
+      if cache is not None:
+        cache.load_state_dict(state['cache'])
+    self._gns_inflight = None
+    if 'gns_inflight' in state and self.gns:
+      self._gns_inflight = tuple(torch.from_numpy(np.asarray(a)).to(
+          self.device) for a in state['gns_inflight'])
+
   def _finish_nodes(self, out: dict) -> dict:
     """The host half of a dispatched batch: the cold overlay (nothing
     for a store wholly on the card)."""
@@ -801,6 +833,11 @@ class DistNeighborSampler(ExchangeTelemetry):
     """The per-requester cached-set bitmask ``(table [T, N/8] uint8,
     row_index [P+1] int32)`` on the card, rebuilt only when the cold
     cache's residency moved (its version)."""
+    if self._gns_inflight is not None:
+      # the re-dispatch of a batch lost in flight (`load_data_plane_state`)
+      bits, self._gns_inflight = self._gns_inflight, None
+      self._gns_bits, self._gns_ver = bits, -1
+      return bits
     cache = self._ensure_cold_cache()
     ver = cache.version if cache is not None else 0
     if self._gns_bits is None or ver != self._gns_ver:
@@ -826,6 +863,9 @@ class DistNeighborSampler(ExchangeTelemetry):
                     ) -> torch.Tensor:
     """Victim-cache hits served on the card, the misses from the host
     tier, then the corrected misses admitted to the cache."""
+    # the host cold tier can die mid-epoch: a planned 'fail' lands here,
+    # before any host gather
+    chaos.cold_service_check('dist')
     nf = self.ds.node_features
     g = self.ds.graph
     cache = self._ensure_cold_cache()
@@ -864,7 +904,77 @@ class DistNeighborSampler(ExchangeTelemetry):
     self._cache_evicts += evicts
     return x
 
-class DistNeighborLoader(PrefetchingLoader):
+class _ResumableEpochMixin:
+  """Mid-epoch snapshots and resume for the mesh loaders (the JAX
+  package's `_ResumableEpochMixin`; the DataPlaneState protocol of
+  `utils.checkpoint`, loader-shaped).
+
+  `state_dict` captures the epoch's cursor: the batcher's RNG (the
+  interrupted epoch's permutation is re-drawn on resume, not stored),
+  the batches handed out, the draw cursor those batches reached, the
+  cold cache and the `AdaptiveSlack` ladder.  `load_state_dict` then
+  `resume_epoch` continue the epoch in a fresh loader with
+  byte-identical remaining batches: the same permutation and the same
+  draws (``step_cnt`` is the handed-out batches' cursor, so the batch a
+  tiered store dispatched ahead, lost with the process, is re-dispatched
+  at its own step; with GNS it samples with the cached-set bits it had).
+  A loader with a live prefetch worker refuses to snapshot: the worker
+  runs ahead of the trainer.  Iterating the returned epoch hands out the
+  remaining batches; ``iter(loader)`` afterwards starts the next epoch
+  where an uninterrupted run would.
+  """
+
+  _consumed = 0
+  _resume_consumed = None
+
+  def _start_epoch(self, seed_iter):
+    self._epoch_start_steps = self.sampler._step_cnt
+    self._consumed = 0
+    return super()._start_epoch(seed_iter)
+
+  def state_dict(self) -> dict:
+    if getattr(self, '_active_prefetch', None) is not None:
+      raise ValueError(
+          'mid-epoch snapshots need a synchronous epoch (prefetch=0): a '
+          'prefetch worker produces ahead of the trainer, so the cursor '
+          'would count batches the trainer never saw')
+    c = int(self._consumed)
+    start = getattr(self, '_epoch_start_steps', self.sampler._step_cnt)
+    sampler = self.sampler.data_plane_state(
+        inflight=getattr(self, '_pending', None) is not None)
+    sampler['step_cnt'] = start + c
+    out = {'batcher': self._batcher.state_dict(), 'consumed': c,
+           'epoch_count': int(getattr(self, '_epoch_count', 0)),
+           'sampler': sampler}
+    if self._adaptive is not None:
+      out['slack'] = self._adaptive.state_dict()
+    return out
+
+  def load_state_dict(self, state: dict) -> None:
+    self._batcher.load_state_dict(state['batcher'], mid_epoch=True)
+    self.sampler.load_data_plane_state(state['sampler'])
+    if self._adaptive is not None and 'slack' in state:
+      self._adaptive.load_state_dict(state['slack'])
+    self._epoch_count = int(np.asarray(state.get('epoch_count', 0)))
+    self._resume_consumed = int(np.asarray(state['consumed']))
+
+  def resume_epoch(self):
+    """The interrupted epoch's remaining batches (after
+    `load_state_dict`)."""
+    consumed = self._resume_consumed
+    if consumed is None:
+      raise ValueError('resume_epoch() needs load_state_dict() first')
+    self._resume_consumed = None
+    it = iter(self._batcher)         # re-draws the interrupted epoch
+    for _ in range(consumed):
+      next(it)                       # what the trainer already has
+    # set before the epoch starts: a prefetch worker counts from here
+    self._consumed = consumed
+    self._epoch_start_steps = self.sampler._step_cnt - consumed
+    return PrefetchingLoader._start_epoch(self, it)
+
+
+class DistNeighborLoader(_ResumableEpochMixin, PrefetchingLoader):
   """Mesh loader: splits the (relabelled) seeds across the partitions
   and yields stacked `Batch`es (leading axis = partition) for
   `make_dp_supervised_step`.
@@ -939,6 +1049,7 @@ class DistNeighborLoader(PrefetchingLoader):
     md = {'seed_local': out['seed_local']}
     if 'edge_weight' in out:
       md['edge_weight'] = out['edge_weight']
+    self._consumed += 1
     return _stacked_batch(out, md, self.batch_size)
 
 
@@ -1191,6 +1302,7 @@ class DistLinkNeighborLoader(DistNeighborLoader):
                             self._dispatch_flat, self.sampler._finish_nodes)
     else:
       out = self.sampler.sample_from_edges(self._pairs_of(next(seed_iter)))
+    self._consumed += 1
     return _stacked_batch(out, out['metadata'], self.batch_size)
 
 

@@ -33,8 +33,17 @@ The exchange counters of every step are folded into the sampler's
 accumulator, so ``sampler.exchange_stats()`` reads what the per-batch
 loader would have counted at the same draws.  The slack is static:
 ``'adaptive'`` retunes between batches on the host, which a fused epoch
-does not do.  Tiered stores, captured mesh steps, snapshots and the
-chaos seams are ROADMAP Queue 1 item 5.
+does not do.
+
+Snapshots (`loader.fused._SnapshotHooks`): a mesh epoch is one chunk,
+as JAX's untiered epoch is one program, so it passes the
+``fused.dispatch`` seam once, before its first step, and saves once at
+its end whatever the cadence; a restored epoch that had finished returns
+its saved stats without running a step, and the next `run` continues
+with the next epoch.  Not ported: tiered stores and captured mesh steps
+(the ROADMAP's slice catalogue, item 5), and the rollback of a stalled
+mesh epoch to its last snapshot with the stall watchdog (JAX's
+`distributed/resilience.py`, item 11).
 """
 from __future__ import annotations
 
@@ -44,13 +53,14 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..loader.fused import EpochStats, Rematerialized
+from ..loader.fused import EpochStats, Rematerialized, _SnapshotHooks
 from ..loader.node_loader import SeedBatcher
 from ..loader.transform import Batch
 from ..models.train import _correct, supervised_loss
 from ..ops.draws import TorchDraws
 from ..telemetry.aggregate import per_hop_padding
 from ..telemetry.recorder import recorder
+from ..testing import chaos
 from ..sampler.base import NegativeSampling
 from .dist_data import DistDataset
 from .dist_sampler import (DistLinkNeighborSampler, DistNeighborSampler,
@@ -105,7 +115,7 @@ class _EpochDraws:
                                 part=part)
 
 
-class _MeshEpochDriver:
+class _MeshEpochDriver(_SnapshotHooks):
   """The host driver the fused mesh epochs share: the seed schedule,
   the draw coordinates, `run`, `evaluate` and the ``hop.padding``
   events.  A subclass supplies ``_train_step(seeds, draws, step,
@@ -171,23 +181,44 @@ class _MeshEpochDriver:
     card."""
     return self._upload(flat.reshape(-1, self.num_parts, self.batch_size))
 
+  def data_plane_state(self) -> dict:
+    return {'epoch_idx': self._epoch_idx,
+            'batcher': self._batcher.state_dict(),
+            'sampler': self.sampler.data_plane_state()}
+
+  def load_data_plane_state(self, plane: dict) -> None:
+    self._epoch_idx = int(np.asarray(plane['epoch_idx'])) - 1
+    self._batcher.load_state_dict(plane['batcher'], mid_epoch=True)
+    self.sampler.load_data_plane_state(plane['sampler'])
+
   def run(self) -> EpochStats:
     """One training epoch; returns its lazy `EpochStats`."""
     flat = np.stack(list(self._batcher))           # [S, P*B]
-    seeds = self._steps(flat)
+    s = flat.shape[0]
     self._epoch_idx += 1
+    prog = self._take_resume(s)
+    if prog is not None and int(np.asarray(prog['next_chunk'])) >= s:
+      # the snapshot was taken at this epoch's end: its stats, no step
+      losses = torch.from_numpy(np.asarray(prog['losses'])).to(self.device)
+      counts = torch.from_numpy(np.asarray(prog['counts'])).to(self.device)
+      hops = prog.get('hops')
+      if hops is not None:
+        self._emit_hop_events(torch.from_numpy(np.asarray(hops)), s)
+      return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
+    seeds = self._steps(flat)
     draws = _EpochDraws(self.draws, self._epoch_idx)
+    chaos.fused_dispatch_check(chunk=0, epoch=self._epoch_idx)
     losses, counts, hops = [], [], None
-    for i in range(seeds.shape[0]):
+    for i in range(s):
       loss, correct, valid, hop = self._train_step(
           seeds[i], draws, i, bool((flat[i] >= 0).any()))
       losses.append(loss)
       counts.append(torch.stack([correct, valid]))
       hops = hop if hops is None else hops + hop
-    counts = torch.stack(counts)
-    self._emit_hop_events(hops, seeds.shape[0])
-    return EpochStats(torch.stack(losses), counts[:, 0].sum(),
-                      counts[:, 1].sum())
+    losses, counts = torch.stack(losses), torch.stack(counts)
+    self._emit_hop_events(hops, s)
+    self._save_chunk_snapshot(s, s, losses, counts, force=True, hops=hops)
+    return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
 
   def evaluate(self, input_nodes, input_space: str = 'old') -> float:
     """Accuracy over ``input_nodes`` (e.g. the test split); its

@@ -27,9 +27,16 @@ reads the same in the other.  Sites and actions:
       ``kill`` raises :class:`ChaosKilledError`.
   ``feature.cold_service``
       Inside `data.Feature.get`, on a lookup of a mixed table that
-      needs the host cold tier (``op`` is ``'feature'``).  ``fail``
-      raises :class:`InjectedFault`: the cold tier died under the
-      batch.
+      needs the host cold tier (``op`` is ``'feature'``), and at the top
+      of the mesh sampler's cold overlay (``op`` is ``'dist'``).
+      ``fail`` raises :class:`InjectedFault`: the cold tier died under
+      the batch.
+  ``fused.dispatch``
+      Before each chunk of a fused epoch (`loader.fused`; a fused mesh
+      epoch is one chunk, `parallel.fused`).  ``kill`` raises
+      :class:`ChaosKilledError` (the in-process stand-in for a
+      preemption), ``delay`` sleeps ``secs``.  ``epoch`` filters by
+      epoch.
 
 Plans install programmatically (:func:`install`) or from the
 ``GLT_FAULT_PLAN`` env var.  JSON::
@@ -51,7 +58,7 @@ from typing import Any, Dict, List, Optional
 FAULT_PLAN_ENV = 'GLT_FAULT_PLAN'
 
 _SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
-          'feature.cold_service')
+          'feature.cold_service', 'fused.dispatch')
 _ACTIONS = ('delay', 'kill', 'fail', 'truncate')
 
 
@@ -74,6 +81,7 @@ class Fault:
   nth: int = 1
   count: int = 1
   op: Optional[str] = None
+  epoch: Optional[int] = None     # fused.dispatch: epoch filter
   secs: float = 0.1               # delay duration
   _seen: int = field(default=0, repr=False, compare=False)
 
@@ -84,6 +92,11 @@ class Fault:
     if self.action not in _ACTIONS:
       raise ValueError(f'unknown fault action {self.action!r} '
                        f'(expected one of {_ACTIONS})')
+
+  def _matches(self, ctx: Dict[str, Any]) -> bool:
+    if self.op is not None and ctx.get('op') != self.op:
+      return False
+    return self.epoch is None or ctx.get('epoch') == self.epoch
 
 
 class ChaosPlan:
@@ -98,7 +111,7 @@ class ChaosPlan:
     fired = []
     with self._lock:
       for f in self.faults:
-        if f.site != site or (f.op is not None and ctx.get('op') != f.op):
+        if f.site != site or not f._matches(ctx):
           continue
         f._seen += 1
         if f.nth <= f._seen < f.nth + f.count:
@@ -109,6 +122,11 @@ class ChaosPlan:
         recorder.emit('fault.injected', site=site, action=f.action,
                       nth=f.nth, arrival=f._seen, op=ctx.get('op'))
     return fired
+
+  def exhausted(self) -> bool:
+    """Every planned fault has fired its full count."""
+    with self._lock:
+      return all(f._seen >= f.nth + f.count - 1 for f in self.faults)
 
 
 def parse_plan(spec) -> ChaosPlan:
@@ -139,7 +157,7 @@ def _parse_compact(part: str) -> Fault:
     if '=' not in tok:
       raise ValueError(f'bad compact fault field {tok!r} in {part!r}')
     k, v = tok.split('=', 1)
-    kw[k] = int(v) if k in ('nth', 'count') else (
+    kw[k] = int(v) if k in ('nth', 'count', 'epoch') else (
         float(v) if k == 'secs' else v)
   return Fault(**kw)
 
@@ -223,3 +241,18 @@ def cold_service_check(scope: str = '') -> None:
     if f.action == 'fail':
       raise InjectedFault(
           f'injected cold-tier service failure (scope {scope!r})')
+
+
+def fused_dispatch_check(chunk: int = 0, epoch: int = 0,
+                         phase: str = '') -> None:
+  """Fused-chunk-dispatch seam, before a chunk's first step: ``delay``
+  sleeps in place, ``kill`` raises `ChaosKilledError` (the preemption
+  stand-in: the run resumes from its durable snapshot in a fresh
+  driver)."""
+  for f in on('fused.dispatch', chunk=int(chunk), epoch=int(epoch),
+              op=phase or None):
+    if f.action == 'delay':
+      time.sleep(f.secs)
+    elif f.action == 'kill':
+      raise ChaosKilledError(
+          f'injected fused.dispatch kill (epoch {epoch}, chunk {chunk})')
