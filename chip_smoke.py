@@ -21,6 +21,8 @@ Run from the repository root, with one CUDA card visible::
                                            # fused link and hetero link
     python3 chip_smoke.py --resume   # build, graph and the snapshot and
                                      # resume phases
+    python3 chip_smoke.py --fleet    # build, graph and the rest of
+                                     # serving (swap, fleet, autoscale, aot)
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -203,9 +205,9 @@ Phases, one JSON line each; any failure exits nonzero:
           then its diagnosis (`k6_diagnosis`): the same misses sorted by
           block row, read as one stream, over 512-byte rows, over a
           `pin_memory` block and over a huge-page-advised block, timed
-          in interleaved rounds beside their bounds and same-bytes copies,
+          once each, in turn, beside their bounds and same-bytes copies,
           with how the host backs each block (``host_pages``).
-  feature_lookup  `bench_feature.py`'s sweep over 4 recorded node sets:
+  feature_lookup  `bench_feature.py`'s sweep over 2 recorded node sets:
           GB/s at split 1.0 / 0.5 / 0.2 with no cache, and at split 0.2
           with caches of 0 / 5% / 15% of the cold rows (hit rates).
   tiered_cross_check  a 4,000-node tiered graph on the card (the loader
@@ -557,6 +559,44 @@ Phases, one JSON line each; any failure exits nonzero:
           slice (counter draws); DeepWalk at `examples/deepwalk.py`'s
           size on the card and the CPU (1-NN accuracy above 1/6).
 
+Last in the whole run, the ``fleet`` group (the rest of serving, at the
+serve phase's width: the products graph, ``[N, 100]`` f32, fanouts [15,
+10, 5], buckets 1-16, ``TreeSAGE(100, 256, 47, 3)``):
+
+  swap    `hot_swap` under live traffic on the untiered engine (4
+          clients, 256 requests of 1-16 seeds; drain sheds resubmitted
+          after their hint): no drop, version + 1, every answer the old
+          or the new params' (nodes byte-equal, logits within 1e-5), all
+          after the swap the new ones'; a wrong-width state refused
+          before the door drains; a candidate failing the probe
+          (``atol=0``, or a NaN bias where cross-bucket logits are
+          bitwise) rolled back with the answers bitwise unchanged.
+  fleet   `bench_serving.py --fleet 3`: three tiered replicas (split 0.5,
+          each its own `Feature`) behind a `FleetRouter`, a 5 s closed
+          lap, then 20 s of open-loop Zipf(1.1) traffic at 0.7x its rate
+          with r0 stalled 0.12 s a dispatch and killed mid-run: 0 failed,
+          r0 evicted, redrives exactly once, recovery >= 0.6x, 32
+          answers = a survivor's `offline_reference`, 3 K1 / 1 K2
+          launches a dispatch, K6 on every dispatch with misses, no
+          plain call; p50/p99, qps around the kill, ``device_idle``
+          (``nvidia-smi`` utilization); then K1, K2 and K6 at a fleet
+          dispatch's shapes against their plain versions.
+  autoscale  `bench_autoscale.py`'s phases A (one static replica) and B
+          (`ElasticController`, 1-3 replicas, the first spawn failed by
+          ``scale.spawn:fail:1``) over one diurnal cycle (0.15x -> 1.3x
+          -> 0.15x one replica's closed-loop rate; SLO windows 1 s and
+          3 s, p99 target 2x the trough p50): >= 1 scale-out and
+          scale-in, the typed rollback re-armed, 0 failed requests,
+          every spawned replica at ``compile_count() == 0``.
+  aot     the kernel-build cache: a child process (``--aot-child DIR``)
+          with empty build and ``GLT_AOT_CACHE_DIR`` directories runs 7
+          ``nvcc`` and publishes 7 entries, a second restores all 7 and
+          runs none, both K1 and K2 digests = this process's; a scrambled
+          entry misses (``corrupt``) and is rebuilt.
+
+``--fleet`` runs build, graph and the group alone and prints the
+``kernels`` line of its path (K1, K2, K6 at the fleet shapes) and the
+result line.
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, GNS
 and mesh training paths), the tiered-train idle shares and the idle
@@ -2661,7 +2701,7 @@ TIERED_PROFILE_STEPS = 3
 ZIPF_A = 1.1
 LOOKUP_SPLITS = (1.0, 0.5, 0.2)
 LOOKUP_BUDGETS = (0.0, 0.05, 0.15)
-LOOKUP_SETS = 4
+LOOKUP_SETS = 2
 #: K6's forced row layouts (columns, dtype): rows of 4, 12, 200 (bf16 x
 #: 100), 400, 512 and 1,024 bytes, over a block of `COLD_FORCED_ROWS` rows
 COLD_LAYOUTS = ((1, 'float32'), (3, 'float32'), (100, 'bfloat16'),
@@ -2960,7 +3000,7 @@ def host_pages(t) -> dict:
 
 
 #: timing rounds of K6's diagnosis cases, taken in turns
-K6_DIAG_ROUNDS = 2
+K6_DIAG_ROUNDS = 1
 
 
 def k6_diagnosis(torch, ops, timer, b, cold, pos, rel):
@@ -9806,6 +9846,830 @@ def fused_phases(torch, ops, timer, indptr, indices, feats, ds,
   fused_mesh_cross_check(torch)
 
 
+# -- the rest of serving: hot swap, the fleet, autoscaling, the build cache --
+FLEET_REPLICAS = 3
+FLEET_SPLIT = 0.5                   # bench_serving.py --fleet's tiered split
+FLEET_MAX_WAIT_MS = 10.0            # bench_serving.py:409-410
+FLEET_DEADLINE_MS = 2000.0
+FLEET_LAP_S = 5.0                   # the closed-loop capacity lap
+FLEET_LAP_CLIENTS = 12
+FLEET_LOAD = 0.7                    # open-loop rate / the lap's rate
+FLEET_DRIVE_S = 20.0
+FLEET_STALL_S = 0.12                # bench_serving.py:440-448's plan
+FLEET_CHECKED = 32
+FLEET_SIZES = (1, 1, 1, 1, 2, 2, 4)  # bench_serving.make_schedule's mix
+AUTO_PEAK, AUTO_TROUGH = 1.3, 0.15  # x one replica's rate (160 : 20)
+AUTO_CYCLE_S = 24.0
+AUTO_LAP_S = 3.0
+AUTO_LAP_CLIENTS = 8
+AUTO_TROUGH_S = 3.0
+AUTO_MAX = 3
+AUTO_MAX_WAIT_MS = 8.0              # bench_autoscale.make_replica
+AUTO_SLO_WINDOWS = (1.0, 3.0)       # bench_autoscale.BENCH_SLO_WINDOWS
+AUTO_SLO_BUDGET = 0.1               # bench_autoscale.BENCH_SLO_BUDGET
+AUTO_GRACE_S = 6.0
+AOT_CORRUPT = 'push_rows'
+
+
+def fleet_schedule(rate, secs, seed, peak=None, trough=None):
+  """`bench_serving.make_schedule`'s open-loop plan, ``[(offset,
+  seeds)]``: Poisson arrivals at ``rate`` (or, with ``peak``/``trough``,
+  `bench_autoscale.make_diurnal_schedule`'s one sinusoidal cycle by
+  thinning), 1-4 Zipf(1.1) seeds through a fixed permutation."""
+  rng = np.random.default_rng(seed)
+  top = rate if peak is None else peak
+  arrivals, t = [], 0.0
+  while True:
+    t += rng.exponential(1.0 / top)
+    if t >= secs:
+      break
+    if peak is not None:
+      r = trough + (peak - trough) * 0.5 * (1 - np.cos(2 * np.pi * t / secs))
+      if rng.random() >= r / peak:
+        continue
+    arrivals.append(t)
+  perm = rng.permutation(NUM_NODES)
+  return [(a, perm[(rng.zipf(ZIPF_A, int(rng.choice(FLEET_SIZES))) - 1)
+                   % NUM_NODES].astype(np.int64)) for a in arrivals]
+
+
+def pace(plan, submit, max_retries=8):
+  """`bench_serving.pace_schedule`: submit each request at its offset,
+  never waiting on earlier ones; a ``draining`` refusal is resubmitted
+  after its ``retry_after_ms`` (up to ``max_retries`` times), other
+  refusals are sheds.  Returns ``([(offset, future | 'shed' |
+  'error')], t0, retries)``."""
+  import heapq
+  from graphlearn_tpu_torch.serving import AdmissionRejected
+  out, retryq, t0 = [], [], time.monotonic()
+  n_retry = [0]
+
+  def attempt(offset, seeds, tries):
+    try:
+      out.append((offset, submit(seeds)))
+    except AdmissionRejected as e:
+      if (e.reason == 'draining' and e.retry_after_ms is not None
+          and tries < max_retries):
+        n_retry[0] += 1
+        heapq.heappush(retryq, (time.monotonic() - t0
+                                + e.retry_after_ms / 1e3, n_retry[0],
+                                offset, seeds, tries + 1))
+      else:
+        out.append((offset, 'shed'))
+    except Exception:               # noqa: BLE001 — a door failure
+      out.append((offset, 'error'))
+
+  for offset, seeds in plan:
+    while retryq and retryq[0][0] <= time.monotonic() - t0:
+      _, _, o, s, tries = heapq.heappop(retryq)
+      attempt(o, s, tries)
+    wait = offset - (time.monotonic() - t0)
+    if wait > 0:
+      time.sleep(wait)
+    attempt(offset, seeds, 0)
+  while retryq:
+    due, _, o, s, tries = heapq.heappop(retryq)
+    wait = due - (time.monotonic() - t0)
+    if wait > 0:
+      time.sleep(wait)
+    attempt(o, s, tries)
+  return out, t0, n_retry[0]
+
+
+def collect(pending, t0) -> dict:
+  """Resolve `pace`'s futures: ok latencies from the scheduled arrival
+  (sorted), counts by outcome, the ok results by offset, the first
+  error."""
+  from graphlearn_tpu_torch.serving import AdmissionRejected
+  lats, ok, outcomes, first = [], [], [], None
+  for offset, fut in pending:
+    if isinstance(fut, str):
+      outcomes.append((offset, fut))
+      continue
+    try:
+      res = fut.result(30.0)
+    except AdmissionRejected:
+      outcomes.append((offset, 'shed'))
+      continue
+    except Exception as e:          # noqa: BLE001 — counted, then fatal
+      outcomes.append((offset, 'error'))
+      first = first or f'{type(e).__name__}: {e}'
+      continue
+    lats.append((offset,
+                 max(1e3 * (fut.done_monotonic - (t0 + offset)), 0.0)))
+    ok.append((offset, res))
+    outcomes.append((offset, 'ok'))
+  count = {k: sum(1 for _, o in outcomes if o == k)
+           for k in ('ok', 'shed', 'error')}
+  return {'lats': sorted(lat for _, lat in lats), 'timed': lats,
+          'results': ok, 'outcomes': outcomes, 'first_error': first,
+          **count}
+
+
+def pct(lats, p) -> float:
+  return float(np.percentile(lats, p)) if lats else 0.0
+
+
+def closed_lap(submit, reqs, clients, secs) -> dict:
+  """``clients`` threads each submit and wait, back to back, for
+  ``secs``: the closed-loop requests/s and latencies."""
+  stop = time.perf_counter() + secs
+  lats, errors = [], []
+
+  def client(c):
+    i = c
+    while time.perf_counter() < stop:
+      t = time.perf_counter()
+      try:
+        submit(reqs[i % len(reqs)]).result(60.0)
+        lats.append((time.perf_counter() - t) * 1e3)
+      except Exception as e:        # noqa: BLE001 — counted, then fatal
+        errors.append(f'{type(e).__name__}: {e}')
+      i += clients
+
+  t0 = time.perf_counter()
+  threads = [threading.Thread(target=client, args=(c,))
+             for c in range(clients)]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  wall = time.perf_counter() - t0
+  if errors:
+    raise AssertionError(f'closed lap failed: {errors[:3]}')
+  return {'requests': len(lats), 'secs': wall,
+          'requests_per_s': len(lats) / wall, 'p50_ms': pct(lats, 50),
+          'p99_ms': pct(lats, 99)}
+
+
+class SmiSampler:
+  """The card's idle share over a window, from ``nvidia-smi``'s
+  ``utilization.gpu`` (the share of the last sample period in which a
+  kernel ran), read every 100 ms by one child process that the window's
+  end stops."""
+
+  def __enter__(self):
+    self.proc = subprocess.Popen(
+        ['nvidia-smi', '--query-gpu=utilization.gpu',
+         '--format=csv,noheader,nounits', '-lms', '100'],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    return self
+
+  def __exit__(self, *exc):
+    self.proc.terminate()
+    out, _ = self.proc.communicate(timeout=10)
+    vals = [float(v) for v in out.split() if v.replace('.', '').isdigit()]
+    self.result = {'device_idle_share': (1 - float(np.mean(vals)) / 100
+                                         if vals else None),
+                   'samples': len(vals),
+                   'source': 'nvidia-smi utilization.gpu every 100 ms'}
+
+
+def fleet_state(torch) -> dict:
+  """The served model's random params, from a seed."""
+  from graphlearn_tpu_torch.models import TreeSAGE
+  model = TreeSAGE(FEAT_DIM, 256, 47, 3)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  return model.state_dict()
+
+
+def swap_phase(torch, indptr, indices, feats, state) -> dict:
+  """Hot swap under live traffic on the untiered engine: 4 clients send
+  the serve phase's 256 requests (1-16 seeds; a ``draining`` refusal is
+  resubmitted after its hint), and a third of the way in `hot_swap`
+  moves to params from ``Generator().manual_seed(1)``.  Checks: nothing
+  fails or drops, the version is bumped by 1, every answer equals the
+  engine's answer under the old or the new params (nodes byte-equal,
+  logits within 1e-5; the request served alone, and 16 of them
+  against `offline_reference`), every request submitted after the swap
+  returned is the new params'.  Then a wrong-width state is refused
+  with `SwapValidationError` before the door drains, and a candidate
+  that fails the parity probe (``atol=0`` when the card's logits differ
+  across buckets, else a NaN in one bias) gives `SwapParityError` with
+  the version unchanged and an answer bitwise the one before."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.serving import (AdmissionRejected, ServingEngine,
+                                            ServingFrontend,
+                                            SwapParityError,
+                                            SwapValidationError, hot_swap)
+  from graphlearn_tpu_torch.telemetry import recorder
+  ds = (Dataset().init_graph((indptr, indices), layout='CSR',
+                             num_nodes=NUM_NODES, device=DEVICE)
+        .init_node_features(feats, device=DEVICE))
+  eng = ServingEngine(ds, FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
+                      params=state, seed=0, buckets=BUCKETS, device=DEVICE)
+  fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+
+  def params(seed, hidden=256):
+    m = TreeSAGE(FEAT_DIM, hidden, 47, 3)
+    m.reset_parameters(torch.Generator().manual_seed(seed))
+    return {k: v.to(DEVICE) for k, v in m.state_dict().items()}
+
+  old = {k: v.to(DEVICE) for k, v in state.items()}
+  new = params(1)
+  rng = np.random.default_rng(0)
+  reqs = [rng.integers(0, NUM_NODES, int(rng.integers(1, 17)))
+          for _ in range(N_REQUESTS)]
+  results, sent = [None] * len(reqs), [0.0] * len(reqs)
+  errors, retries, resolved = [], [0], [0]
+
+  def client(lo):
+    for i in range(lo, len(reqs), N_CLIENTS):
+      while True:
+        sent[i] = time.monotonic()
+        try:
+          results[i] = fe.submit(reqs[i]).result(60.0)
+          resolved[0] += 1
+          break
+        except AdmissionRejected as e:
+          if e.reason != 'draining':
+            errors.append(f'request {i}: shed {e.reason}')
+            break
+          retries[0] += 1
+          time.sleep(e.retry_after_ms / 1e3)
+        except Exception as e:      # noqa: BLE001 — counted, then fatal
+          errors.append(f'request {i}: {type(e).__name__}: {e}')
+          break
+
+  threads = [threading.Thread(target=client, args=(c,))
+             for c in range(N_CLIENTS)]
+  t0 = time.perf_counter()
+  for t in threads:
+    t.start()
+  while resolved[0] < len(reqs) // 3 and any(t.is_alive() for t in threads):
+    time.sleep(0.0005)
+  swapped_after = resolved[0]
+  out = hot_swap(fe, new)
+  t_swapped = time.monotonic()
+  for t in threads:
+    t.join()
+  wall = time.perf_counter() - t0
+  if errors or any(r is None for r in results):
+    raise AssertionError(f'swap under traffic dropped requests: {errors[:3]}')
+  if out['version'] != 1 or eng.model_version != 1:
+    raise AssertionError(f'swap version {out}, engine {eng.model_version}')
+  served_by, worst = [0, 0], 0.0
+  for i, res in enumerate(results):
+    refs = [eng.infer(reqs[i], params=p) for p in (old, new)]
+    close = []
+    for ref in refs:
+      if ref.nodes.tobytes() != res.nodes.tobytes():
+        raise AssertionError(f'swap request {i}: nodes differ')
+      close.append(bool(np.allclose(res.logits, ref.logits, rtol=1e-5,
+                                    atol=1e-5)))
+    if not any(close) or (sent[i] > t_swapped and not close[1]):
+      raise AssertionError(f'swap request {i}: logits match neither '
+                           f'version ({close}, after swap: '
+                           f'{sent[i] > t_swapped})')
+    v = int(close[1])
+    served_by[v] += 1
+    if i < 16:
+      ref = eng.offline_reference(reqs[i], params=(old, new)[v])
+      if ref.nodes.tobytes() != res.nodes.tobytes():
+        raise AssertionError(f'swap request {i}: nodes != offline')
+      np.testing.assert_allclose(res.logits, ref.logits, rtol=1e-5,
+                                 atol=1e-5)
+      worst = max(worst, float(np.abs(res.logits - ref.logits).max()))
+  # a wrong-width state: refused before the door drains
+  drained0 = fe.admission.stats()['shed']['draining']
+  events0 = len(recorder.events('serving.swap'))
+  try:
+    hot_swap(fe, params(2, hidden=128))
+    raise AssertionError('a wrong-width state was accepted')
+  except SwapValidationError:
+    pass
+  if (fe.admission.draining() or eng.model_version != 1
+      or fe.admission.stats()['shed']['draining'] != drained0
+      or len(recorder.events('serving.swap')) != events0):
+    raise AssertionError('the validation refusal drained the door')
+  # a candidate that fails the probe
+  probe = np.unique(np.linspace(0, NUM_NODES - 1, 4).astype(np.int64))
+  bad = params(3)
+  gap = float(np.abs(eng.infer(probe, params=bad).logits
+                     - eng.offline_reference(probe, params=bad).logits).max())
+  if gap > 0:
+    forced_by, atol = f'atol=0 (cross-bucket logits differ by {gap:.3e})', 0.0
+  else:
+    forced_by, atol = 'a NaN in layer2_self.bias (cross-bucket bitwise)', 1e-4
+    bad['layer2_self.bias'][0] = float('nan')
+  before = fe.infer(reqs[0])
+  try:
+    hot_swap(fe, bad, atol=atol)
+    raise AssertionError('a candidate that fails the probe was installed')
+  except SwapParityError as e:
+    parity_err = e.max_err
+  after = fe.infer(reqs[0])
+  if (eng.model_version != 1 or fe.admission.draining()
+      or after.logits.tobytes() != before.logits.tobytes()
+      or after.nodes.tobytes() != before.nodes.tobytes()):
+    raise AssertionError('the failed swap changed what is served')
+  swaps = recorder.events('serving.swap')
+  fe.shutdown()
+  emit('swap', requests=len(reqs), clients=N_CLIENTS, wall_secs=wall,
+       swapped_after_requests=swapped_after, version=out['version'],
+       drained_ms=out['drained_ms'], parity_max_err=out['parity_max_err'],
+       drain_retries=retries[0],
+       served_by={'old': served_by[0], 'new': served_by[1]},
+       offline_checked=16, offline_logits_max_abs_diff=worst,
+       validation='SwapValidationError, door never drained',
+       parity_failure={'error': 'SwapParityError', 'forced_by': forced_by,
+                       'max_err': parity_err, 'version_after': 1,
+                       'answer_bitwise_unchanged': True},
+       swap_events=[{k: e.get(k) for k in ('ok', 'rolled_back', 'version',
+                                           'drained_ms')} for e in swaps])
+  return {'drained_ms': out['drained_ms'], 'forced_by': forced_by}
+
+
+def tiered_replica(torch, name, indptr, indices, feats_h, state, made,
+                   max_wait_ms=FLEET_MAX_WAIT_MS):
+  """One fleet replica: its own tiered `Feature` at `FLEET_SPLIT` over
+  the shared graph, ``TreeSAGE(100, 256, 47, 3)`` with ``state``, a
+  warmed `ServingFrontend`; appended to ``made``."""
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.serving import (LocalReplica, ServingEngine,
+                                            ServingFrontend)
+  ds = tiered_dataset(torch, indptr, indices, feats_h, FLEET_SPLIT)
+  eng = ServingEngine(ds, FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
+                      params=state, seed=0, buckets=BUCKETS, device=DEVICE)
+  fe = ServingFrontend(eng, max_wait_ms=max_wait_ms,
+                       default_deadline_ms=FLEET_DEADLINE_MS)
+  rep = LocalReplica(name, fe)
+  made.append(rep)
+  return rep
+
+
+def close_replicas(made) -> None:
+  """Close each replica and free its tiered store's card and pinned
+  host memory."""
+  for rep in made:
+    rep.close()
+    rep.frontend.engine.data.node_features.close()
+
+
+def fleet_kernel_checks(torch, ops, timer, eng, seeds, cold_last) -> dict:
+  """K1 at the three hops and K2 at the hot gather of one 16-seed
+  dispatch of ``eng``, and K6 at the drive's last dispatch with misses,
+  each against its plain version (byte-equal) and timed."""
+  import graphlearn_tpu_torch.loader.fused_tree as ftmod
+  with TrainRecorder(torch, ftmod, 1) as rec:
+    eng.infer(seeds)
+  hops = []
+  for t in range(len(FANOUTS)):
+    _, r = check_sampler(torch, ops, timer, *rec.hops[t])
+    emit('kernel', kernel='sample_one_hop', shape=f'fleet dispatch hop {t}',
+         **r)
+    hops.append(r)
+  gather = check_gather(torch, ops, timer, *rec.gathers[0])
+  emit('kernel', kernel='gather_rows', shape='fleet dispatch hot rows',
+       **gather)
+  cold = check_cold(torch, ops, timer, *cold_last)
+  emit('kernel', kernel='cold_gather', shape='fleet dispatch misses', **cold)
+  return {'hops': hops, 'gather': gather, 'cold': cold}
+
+
+def fleet_phase(torch, ops, timer, indptr, indices, feats_h, state) -> dict:
+  """`bench_serving.py --fleet 3` on the card: three tiered replicas
+  behind a `FleetRouter`, a 5 s closed-loop lap for the fleet's rate,
+  then 20 s of open-loop Zipf traffic at 0.7x that rate with r0 stalled
+  0.12 s a dispatch and killed at its ``kill_nth`` submit.  Checks:
+  every request ok or shed typed (0 failed), r0 evicted, redrives >= 1
+  and none twice, post-kill rate >= 0.6x pre-kill, 32 sampled answers
+  equal a survivor's `offline_reference`, 3 K1 and 1 K2 launches a
+  dispatch summed over replicas, K6 on every dispatch with misses, no
+  plain call."""
+  from graphlearn_tpu_torch.serving import FleetRouter
+  from graphlearn_tpu_torch.telemetry import recorder
+  from graphlearn_tpu_torch.testing import chaos
+  made = []
+  t0 = time.perf_counter()
+  reps = [tiered_replica(torch, f'r{i}', indptr, indices, feats_h, state,
+                         made) for i in range(FLEET_REPLICAS)]
+  setup_secs = time.perf_counter() - t0
+  router = FleetRouter(reps, heartbeat_ms=50.0, dead_after=2)
+  lap_reqs = [s for _, s in fleet_schedule(1000.0, 2.0, seed=9)]
+  lap = closed_lap(router.submit, lap_reqs, FLEET_LAP_CLIENTS, FLEET_LAP_S)
+  rate = FLEET_LOAD * lap['requests_per_s']
+  plan = fleet_schedule(rate, FLEET_DRIVE_S, seed=3)
+  kill_t = FLEET_DRIVE_S / 2
+  pre = sum(1 for a, _ in plan if a < kill_t)
+  kill_nth = max(pre // FLEET_REPLICAS, 2)
+  chaos.install({'faults': [
+      {'site': 'serving.request', 'action': 'delay', 'op': 'dispatch',
+       'replica': 'r0', 'nth': 1, 'count': 10 ** 6, 'secs': FLEET_STALL_S},
+      {'site': 'serving.replica', 'action': 'kill', 'op': 'submit',
+       'replica': 'r0', 'nth': kill_nth}]})
+  recorder.clear()
+  d0 = [r.frontend.stats()['dispatches'] for r in reps]
+  reset_tiered_counts(ops)
+  try:
+    with ColdRecorder() as cold, SmiSampler() as smi:
+      t_run = time.perf_counter()
+      pending, t_sched, retries = pace(plan, router.submit)
+      res = collect(pending, t_sched)
+      run_s = time.perf_counter() - t_run
+  finally:
+    chaos.uninstall()
+  launches, plain = read_tiered_counts(ops)
+  d = sum(r.frontend.stats()['dispatches'] - a for r, a in zip(reps, d0))
+  st = router.stats()
+  failover = recorder.events('serving.failover')
+  router.close()
+  if res['error'] or len(res['outcomes']) != len(plan):
+    raise AssertionError(f'fleet: {res["error"]} failed of {len(plan)}, '
+                         f'first {res["first_error"]}')
+  redrives = sum(1 for e in failover if e.get('event') == 'redrive')
+  exhausted = sum(1 for e in failover if e.get('event') == 'exhausted')
+  if not (st['replicas']['r0']['state'] == 'dead' and st['evictions'] >= 1
+          and st['redriven'] >= 1 and redrives == st['redriven']
+          and exhausted == 0 and st['resolved']['error'] == 0):
+    raise AssertionError(f'fleet failover: {st}, redrive events {redrives}, '
+                         f'exhausted {exhausted}')
+  pre_ok = sum(1 for t, o in res['outcomes'] if o == 'ok' and t < kill_t)
+  post_ok = sum(1 for t, o in res['outcomes'] if o == 'ok' and t >= kill_t)
+  pre_qps = pre_ok / kill_t
+  post_qps = post_ok / (FLEET_DRIVE_S - kill_t)
+  recovery = post_qps / max(pre_qps, 1e-9)
+  if recovery < 0.6:
+    raise AssertionError(f'fleet recovery {recovery:.3f} < 0.6 '
+                         f'({pre_qps:.1f} -> {post_qps:.1f} requests/s)')
+  with_misses = sum(1 for m in cold.misses if m)
+  plans = sum(k6_expected_plans(m) for m in cold.misses)
+  if not (launches['sample_one_hop'] == len(FANOUTS) * d
+          and launches['gather_rows'] == d > 0
+          and launches['cold_gather'] == with_misses > 0
+          and launches['cold_gather_plans'] == plans and plain == 0):
+    raise AssertionError(f'fleet launches {launches}, plain {plain}, '
+                         f'dispatches {d}, with misses {with_misses}')
+  survivor = reps[1].frontend.engine
+  seeds_at = dict(plan)
+  worst = 0.0
+  oks = res['results']
+  for j in np.linspace(0, len(oks) - 1, FLEET_CHECKED).astype(int):
+    offset, got = oks[j]
+    ref = survivor.offline_reference(seeds_at[offset])
+    if ref.nodes.tobytes() != got.nodes.tobytes():
+      raise AssertionError(f'fleet answer at {offset:.3f} s: nodes differ '
+                           'from the offline reference')
+    np.testing.assert_allclose(got.logits, ref.logits, rtol=1e-5, atol=1e-5)
+    worst = max(worst, float(np.abs(got.logits - ref.logits).max()))
+  kernels = fleet_kernel_checks(
+      torch, ops, timer, survivor,
+      np.concatenate([s for _, s in plan])[:BUCKETS[-1]], cold.last)
+  close_replicas(made)
+  lats = res['lats']
+  around = {k: [lat for t, lat in res['timed'] if (t < kill_t) == (k == 'pre')]
+            for k in ('pre', 'post')}
+  emit('fleet', replicas=FLEET_REPLICAS, split_ratio=FLEET_SPLIT,
+       setup_secs=setup_secs, lap=lap, rate_rps=rate, drive_secs=run_s,
+       requests=len(plan), completed=res['ok'], shed=res['shed'],
+       failed=res['error'], drain_retries=retries,
+       latency_ms={'p50': pct(lats, 50), 'p99': pct(lats, 99),
+                   'max': lats[-1] if lats else 0.0,
+                   **{f'{k}_kill': {'p50': pct(v, 50), 'p99': pct(v, 99)}
+                      for k, v in around.items()}},
+       kill_at_s=kill_t, kill_nth_submit=kill_nth, pre_kill_qps=pre_qps,
+       post_kill_qps=post_qps, recovery_ratio=recovery,
+       redriven=st['redriven'], evictions=st['evictions'],
+       resolved=st['resolved'], dispatches=d,
+       dispatches_with_misses=with_misses, launches=launches,
+       plain_calls=plain, offline_checked=FLEET_CHECKED,
+       logits_max_abs_diff=worst, device_idle=smi.result)
+  return {'launches': launches, 'dispatches': d, 'kernels': kernels}
+
+
+def autoscale_phase(torch, ops, indptr, indices, feats_h, state) -> dict:
+  """`bench_autoscale.py`'s phases A and B on the card.  One tiered
+  replica's closed-loop rate and its p50 at the trough rate set the
+  diurnal schedule (trough 0.15x -> peak 1.3x -> trough over
+  `AUTO_CYCLE_S`) and the p99 target (2x that p50; SLO windows 1 s and
+  3 s, budget 0.1).  A: one static replica.  B: an `ElasticController`
+  (1-3 replicas, the bench's thresholds) whose first spawn fails under
+  ``scale.spawn:fail:1``.  Checks: >= 1 scale-out and >= 1 scale-in,
+  the failed spawn rolled back typed and a later evaluation landed
+  capacity, 0 failed requests (drain sheds resubmitted after their
+  hint), every spawned replica at ``compile_count() == 0``, 3 K1 and 1
+  K2 launches a dispatch (warmups included), K6 on every dispatch with
+  misses, no plain call."""
+  from graphlearn_tpu_torch.serving import ElasticController, FleetRouter
+  from graphlearn_tpu_torch.testing import chaos
+  made = []
+
+  def replica(name, target_ms):
+    rep = tiered_replica(torch, name, indptr, indices, feats_h, state, made,
+                         max_wait_ms=AUTO_MAX_WAIT_MS)
+    slo = rep.frontend.slo
+    slo.windows, slo.budget = AUTO_SLO_WINDOWS, AUTO_SLO_BUDGET
+    slo._tripped = {w: False for w in AUTO_SLO_WINDOWS}
+    slo.p99_target_ms = target_ms
+    return rep
+
+  cal = replica('cal', 0.0)
+  lap = closed_lap(cal.frontend.submit,
+                   [s for _, s in fleet_schedule(1000.0, 2.0, seed=11)],
+                   AUTO_LAP_CLIENTS, AUTO_LAP_S)
+  cap = lap['requests_per_s']
+  pending, t_s, _ = pace(fleet_schedule(AUTO_TROUGH * cap, AUTO_TROUGH_S,
+                                        seed=12), cal.frontend.submit)
+  trough = collect(pending, t_s)
+  target_ms = 2.0 * pct(trough['lats'], 50)
+  close_replicas(made)
+  made.clear()
+  plan = fleet_schedule(None, AUTO_CYCLE_S, seed=13, peak=AUTO_PEAK * cap,
+                        trough=AUTO_TROUGH * cap)
+
+  # A: the static single replica
+  router = FleetRouter([replica('s0', target_ms)], heartbeat_ms=40.0,
+                       dead_after=3)
+  pending, t_s, _ = pace(plan, router.submit)
+  static = collect(pending, t_s)
+  router.close()
+  close_replicas(made)
+  made.clear()
+
+  # B: the elastic drive
+  spawned = []
+
+  def spawn():
+    rep = replica(f'e{len(spawned) + 1}', target_ms)
+    spawned.append(rep)
+    return rep
+
+  router = FleetRouter([replica('e0', target_ms)], heartbeat_ms=40.0,
+                       dead_after=3)
+  chaos.install('scale.spawn:fail:1')
+  reset_tiered_counts(ops)
+  ctl = ElasticController(router, spawn, min_replicas=1,
+                          max_replicas=AUTO_MAX, eval_s=0.12,
+                          cooldown_s=(0.5, 1.5), out_burn=0.5, in_burn=0.15,
+                          queue_ratio=0.15, quiesce_timeout_s=8.0)
+  samples, stop = [], threading.Event()
+
+  def watch():
+    while not stop.is_set():
+      sig = ctl.signals()
+      samples.append((time.monotonic(),
+                      max(sig['short_burn'], sig['long_burn']),
+                      sig['replicas']))
+      stop.wait(0.05)
+
+  watcher = threading.Thread(target=watch)
+  watcher.start()
+  try:
+    with ColdRecorder() as cold:
+      t_run = time.perf_counter()
+      pending, t_s, retries = pace(plan, router.submit)
+      elastic = collect(pending, t_s)
+      run_s = time.perf_counter() - t_run
+      grace = time.monotonic() + AUTO_GRACE_S
+      while time.monotonic() < grace and not any(
+          x['dir'] == 'in' and x['outcome'] == 'ok'
+          for x in ctl.decisions()):
+        time.sleep(0.1)
+  finally:
+    stop.set()
+    watcher.join()
+    ctl.close()
+    chaos.uninstall()
+  launches, plain = read_tiered_counts(ops)
+  decisions = ctl.decisions()
+  d = sum(r.frontend.stats()['dispatches'] for r in made)
+  warm = len(BUCKETS) * len(spawned)
+  pins = [r.frontend.engine.compile_count() for r in spawned]
+  router.close()
+  close_replicas(made)
+  outs = [x for x in decisions if x['dir'] == 'out']
+  ins_ok = sum(1 for x in decisions
+               if x['dir'] == 'in' and x['outcome'] == 'ok')
+  first_rb = next((i for i, x in enumerate(outs)
+                   if x['outcome'] == 'rolled_back'), None)
+  landed = first_rb is not None and any(
+      x['outcome'] == 'ok' for x in outs[first_rb + 1:])
+  if not (sum(1 for x in outs if x['outcome'] == 'ok') >= 1 and ins_ok >= 1
+          and landed and 'InjectedFault' in (outs[first_rb]['error'] or '')):
+    raise AssertionError(f'autoscale decisions: {decisions}')
+  if static['error'] or elastic['error']:
+    raise AssertionError(f'autoscale failed requests: static '
+                         f'{static["error"]}, elastic {elastic["error"]} '
+                         f'({elastic["first_error"] or static["first_error"]})')
+  if any(pins):
+    raise AssertionError(f'a spawned replica compiled: {pins}')
+  with_misses = sum(1 for m in cold.misses if m)
+  if not (launches['sample_one_hop'] == len(FANOUTS) * (d + warm)
+          and launches['gather_rows'] == d + warm
+          and launches['cold_gather'] == with_misses and plain == 0):
+    raise AssertionError(f'autoscale launches {launches}, plain {plain}, '
+                         f'dispatches {d} + warmups {warm}')
+  w = AUTO_SLO_WINDOWS[0]
+  spans = []
+  for i, x in enumerate(outs):
+    if x['outcome'] == 'rolled_back':
+      end = next((y['at'] + w for y in outs[i + 1:] if y['outcome'] == 'ok'),
+                 x['at'] + 3.0)
+      spans.append((x['at'] - w, end + w))
+  outside = [b for t, b, _ in samples
+             if not any(a <= t <= z for a, z in spans)]
+  outcomes = {}
+  for x in decisions:
+    key = f"{x['dir']}:{x['outcome']}"
+    outcomes[key] = outcomes.get(key, 0) + 1
+
+  def summary(r):
+    return {'ok': r['ok'], 'shed': r['shed'], 'error': r['error'],
+            'p50_ms': pct(r['lats'], 50), 'p99_ms': pct(r['lats'], 99)}
+
+  emit('autoscale', capacity_lap=lap, trough_p50_ms=pct(trough['lats'], 50),
+       p99_target_ms=target_ms, peak_rps=AUTO_PEAK * cap,
+       trough_rps=AUTO_TROUGH * cap, cycle_secs=AUTO_CYCLE_S,
+       requests=len(plan), static=summary(static),
+       elastic={**summary(elastic), 'drive_secs': run_s,
+                'drain_retries': retries},
+       p99_held_ms={'static': pct(static['lats'], 99),
+                    'elastic': pct(elastic['lats'], 99)},
+       burn_max_outside_incident=max(outside) if outside else 0.0,
+       incident_windows=len(spans), decision_outcomes=outcomes,
+       replicas_min=min(r for _, _, r in samples),
+       replicas_max=max(r for _, _, r in samples),
+       spawned=len(spawned), spawned_compile_counts=pins,
+       dispatches=d, warmup_dispatches=warm, launches=launches,
+       plain_calls=plain)
+  return {'launches': launches}
+
+
+def aot_digests(torch, ops) -> list:
+  """K1 and K2 on one fixed input (`arm_graph` at k 10, draws and a
+  table from seeds): the digests of their outputs."""
+  from graphlearn_tpu_torch.ops import default_window
+  k, w = 10, default_window(10)
+  indptr, indices, seeds = arm_graph(torch, DEVICE, k, w)
+  gen = torch.Generator(device=DEVICE).manual_seed(7)
+  u = torch.rand(seeds.numel(), k, device=DEVICE, generator=gen)
+  g = torch.rand(seeds.numel(), w, device=DEVICE, generator=gen)
+  res = ops.sample_one_hop_fused(indptr, indices, seeds, k, u, g)
+  table = torch.randn(4096, FEAT_DIM, device=DEVICE, generator=gen)
+  ids = torch.randint(-1, 4096, (70_001,), device=DEVICE, generator=gen,
+                      dtype=torch.int32)
+  rows = ops.gather_rows(table, ids)
+  return [int(v) for v in digest(torch, [res.nbrs, res.mask.to(torch.int32),
+                                         rows]).tolist()]
+
+
+def aot_child(build_dir: str) -> int:
+  """``--aot-child DIR``: a fresh process that builds or restores every
+  kernel into ``DIR`` (through ``GLT_AOT_CACHE_DIR``), runs
+  `aot_digests` and prints one JSON line."""
+  from pathlib import Path
+
+  import torch
+  from graphlearn_tpu_torch import _build, ops
+  from graphlearn_tpu_torch.serving import aot_cache
+  _build.BUILD_DIR = Path(build_dir)
+  t0 = time.perf_counter()
+  info = _build.build_all()
+  secs = time.perf_counter() - t0
+  print(json.dumps({'nvcc_runs': _build.NVCC_RUNS, 'build_secs': secs,
+                    'sources': {k: v['source'] for k, v in info.items()},
+                    'digests': aot_digests(torch, ops),
+                    'entries': len(aot_cache.from_env().entries())}),
+        flush=True)
+  return 0
+
+
+def aot_phase(torch, ops) -> dict:
+  """The kernel-build cache across processes: a child with an empty
+  build directory and an empty ``GLT_AOT_CACHE_DIR`` runs 7 ``nvcc`` and
+  publishes 7 entries; a second child with another empty build directory
+  and the same cache runs none and restores 7; both give K1 and K2
+  digests equal to this process's.  Then one entry's payload is
+  scrambled: a build of that kernel here into a third directory misses
+  with reason ``corrupt``, runs ``nvcc`` once and loads."""
+  import ctypes
+  import tempfile
+  from graphlearn_tpu_torch import _build
+  from graphlearn_tpu_torch.serving import AotExecutableCache
+  from graphlearn_tpu_torch.telemetry import recorder
+  want = aot_digests(torch, ops)
+  n = len(_build.SOURCES)
+  with tempfile.TemporaryDirectory(prefix='glt-aot-') as tmp:
+    cache_dir = os.path.join(tmp, 'cache')
+    env = dict(os.environ, GLT_AOT_CACHE_DIR=cache_dir)
+    kids = []
+    for b in ('b1', 'b2'):
+      t0 = time.perf_counter()
+      run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--aot-child', os.path.join(tmp, b)], env=env,
+                           capture_output=True, text=True, timeout=300)
+      if run.returncode != 0:
+        raise AssertionError(f'aot child {b} exit {run.returncode}: '
+                             f'{run.stderr[-2000:]}')
+      kid = json.loads(run.stdout.strip().splitlines()[-1])
+      kid['process_secs'] = time.perf_counter() - t0
+      kids.append(kid)
+    cold_kid, warm_kid = kids
+    if not (cold_kid['nvcc_runs'] == n and cold_kid['entries'] == n
+            and set(cold_kid['sources'].values()) == {'built'}
+            and warm_kid['nvcc_runs'] == 0
+            and set(warm_kid['sources'].values()) == {'restored'}
+            and cold_kid['digests'] == warm_kid['digests'] == want):
+      raise AssertionError(f'aot children {kids}, parent digests {want}')
+    cache = AotExecutableCache(cache_dir)
+    entry = cache.path(_build.fingerprint(AOT_CORRUPT))
+    blob = bytearray(entry.read_bytes())
+    blob[-64:] = bytes(b ^ 0xFF for b in blob[-64:])
+    entry.write_bytes(bytes(blob))
+    recorder.clear()
+    runs0 = _build.NVCC_RUNS
+    t0 = time.perf_counter()
+    info = _build.build_all([AOT_CORRUPT], build_dir=os.path.join(tmp, 'b3'),
+                            aot_cache=cache)[AOT_CORRUPT]
+    rebuild_secs = time.perf_counter() - t0
+    reasons = [e['reason'] for e in recorder.events('aot.cache_miss')]
+    ctypes.CDLL(info['path'])
+    if not (info['source'] == 'built' and _build.NVCC_RUNS - runs0 == 1
+            and reasons == ['corrupt']
+            and cache.load(_build.fingerprint(AOT_CORRUPT)) is not None):
+      raise AssertionError(f'corrupt entry: {info}, misses {reasons}')
+    entry_bytes = sum(os.path.getsize(os.path.join(cache_dir, f))
+                      for f in cache.entries())
+  emit('aot', kernels=n, build_secs=cold_kid['build_secs'],
+       restore_secs=warm_kid['build_secs'],
+       process_secs={'build': cold_kid['process_secs'],
+                     'restore': warm_kid['process_secs']},
+       nvcc_runs={'build': cold_kid['nvcc_runs'],
+                  'restore': warm_kid['nvcc_runs']},
+       entries=cold_kid['entries'], entry_bytes=entry_bytes,
+       digests_equal=True, corrupt={'kernel': AOT_CORRUPT,
+                                    'miss_reasons': reasons,
+                                    'rebuild_secs': rebuild_secs})
+  return {'build_secs': cold_kid['build_secs'],
+          'restore_secs': warm_kid['build_secs']}
+
+
+def fleet_group(torch, ops, timer, indptr, indices, feats) -> dict:
+  """The rest of serving on the card: `swap_phase`, `fleet_phase`,
+  `autoscale_phase`, `aot_phase`; one ``fleet_group`` line with the
+  group's wall time."""
+  from graphlearn_tpu_torch.telemetry import recorder
+  t0 = time.perf_counter()
+  recorder.enable()
+  state = fleet_state(torch)
+  out = {'swap': swap_phase(torch, indptr, indices, feats, state)}
+  feats_h = feats.cpu()
+  out['fleet'] = fleet_phase(torch, ops, timer, indptr, indices, feats_h,
+                             state)
+  out['autoscale'] = autoscale_phase(torch, ops, indptr, indices, feats_h,
+                                     state)
+  del feats_h
+  out['aot'] = aot_phase(torch, ops)
+  recorder.disable()
+  recorder.clear()
+  emit('fleet_group', wall_secs=time.perf_counter() - t0)
+  return out
+
+
+def fleet_kernels(fg: dict) -> list:
+  """The ``kernels`` entries of ``--fleet`` alone: K1, K2 and K6 at the
+  fleet dispatch's shapes, launches from the fleet drive."""
+  k, lf = fg['fleet']['kernels'], fg['fleet']['launches']
+  hops, g, c = k['hops'], k['gather'], k['cold']
+  by_path = {'fleet': lf, 'autoscale': fg['autoscale']['launches']}
+  return [
+      {'name': 'sample_one_hop', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
+       'launches': lf['sample_one_hop'],
+       'max_abs_err': max(h['max_abs_err'] for h in hops),
+       'ms': sum(h['kernel_ms'] for h in hops),
+       'plain_ms': sum(h['plain_ms'] for h in hops),
+       'bound_ms': sum(h['bound_us'] for h in hops) / 1e3,
+       'bound_by': 'bytes', 'library_ms': None, 'byte_equal': True,
+       'shape': 'fleet dispatch, hops of '
+                + '/'.join(str(h['rows']) for h in hops) + ' rows, k 15/10/5',
+       'launches_by_path': {p: v['sample_one_hop']
+                            for p, v in by_path.items()}},
+      {'name': 'gather_rows', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
+       'launches': lf['gather_rows'], 'max_abs_err': g['max_abs_err'],
+       'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+       'bound_ms': g['bound_us'] / 1e3, 'bound_by': 'bytes',
+       'library_ms': g['library_ms'], 'byte_equal': True,
+       'shape': f'fleet dispatch hot rows: {g["ids"]} ids x '
+                f'{g["row_bytes"]} B {g["dtype"]}',
+       'launches_by_path': {p: v['gather_rows'] for p, v in by_path.items()}},
+      {'name': 'cold_gather', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/cold_gather.cu',
+       'replaces': 'graphlearn_tpu/data/cold_cache.py:507',
+       'launches': lf['cold_gather'], 'max_abs_err': c['max_abs_err'],
+       'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'],
+       'bound_ms': c['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': c['library_ms'], 'byte_equal': True,
+       'shape': f'{c["rows"]} miss rows x {c["row_bytes"]} B of a fleet '
+                'dispatch (pinned host -> card)',
+       'launches_by_path': {p: v['cold_gather'] for p, v in by_path.items()}},
+  ]
+
+
 def main(argv) -> int:
   t_start = time.perf_counter()
   import torch
@@ -9820,6 +10684,8 @@ def main(argv) -> int:
     print(f'chip_smoke: the graphlearn_tpu_torch package is not beside '
           f'this script ({e})', file=sys.stderr)
     return 2
+  if argv[:1] == ['--aot-child']:
+    return aot_child(argv[1])
 
   # -- env --------------------------------------------------------------
   smi = subprocess.run(
@@ -9923,6 +10789,10 @@ def run(torch, argv) -> list:
          step_ms=bi['step_ms'])
     me['hetero_link'] = mesh_hetero_link(torch, ops, timer, bi['heldout_auc'])
     return mesh_engines_kernels(me)
+  if '--fleet' in argv:
+    del ds
+    return fleet_kernels(fleet_group(torch, ops, timer, indptr, indices,
+                                     feats))
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -10075,6 +10945,10 @@ def run(torch, argv) -> list:
   # -- BASELINE config 5: the heterogeneous mesh engine (IGBH, P = 8) ---
   torch.cuda.empty_cache()
   mhk = mesh_hetero_kernels(mesh_hetero_phases(torch, ops, timer))
+
+  # -- the rest of serving: swap, fleet, autoscale, the build cache ------
+  torch.cuda.empty_cache()
+  fk = fleet_kernels(fleet_group(torch, ops, timer, indptr, indices, feats))
 
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
@@ -10529,6 +11403,13 @@ def run(torch, argv) -> list:
            'tiered_train': {k: r['launches']['cold_gather_plans']
                             for k, r in ttrain_runs.items()}}},
   ]
+  by_name = {k['name']: k for k in kernels}
+  for f in fk:                      # the fleet group's shapes and launches
+    entry = by_name[f['name']]
+    entry['max_abs_err'] = max(entry['max_abs_err'], f['max_abs_err'])
+    entry['launches_by_path'].update(f['launches_by_path'])
+    entry['fleet_shape'] = {k: f[k] for k in ('shape', 'ms', 'plain_ms',
+                                              'bound_ms', 'library_ms')}
   return kernels
 
 

@@ -152,6 +152,11 @@ class AdmissionController:
     #: let the first one's exit reopen admission
     self._draining = 0              # guarded-by: self._lock
     self.drain_retry_after_ms = drain_retry_ms_from_env()
+    #: optional SLO feed, ``slo_feed(reason, waited_ms)``, called for the
+    #: sheds that burn latency budget (``queue_full``, ``deadline``: the
+    #: tier failing its callers); intentional sheds (``draining``,
+    #: ``shutdown``, ``too_large``) do not burn it
+    self.slo_feed = None
     self.admitted = 0
     self.shed = {'queue_full': 0, 'deadline': 0, 'too_large': 0,
                  'shutdown': 0, 'draining': 0}
@@ -186,6 +191,8 @@ class AdmissionController:
             queue_depth=len(self._q))
       if len(self._q) >= self.max_queue:
         self.shed['queue_full'] += 1
+        if self.slo_feed is not None:
+          self.slo_feed('queue_full', 0.0)
         raise AdmissionRejected(
             f'serving queue at capacity ({len(self._q)}/'
             f'{self.max_queue} requests waiting) — overload; retry '
@@ -205,6 +212,8 @@ class AdmissionController:
       if req.expired(now):
         self.shed['deadline'] += 1
         waited = req.waited_ms(now)
+        if self.slo_feed is not None:
+          self.slo_feed('deadline', waited)
         req.future.set_error(AdmissionRejected(
             f'deadline passed after {waited:.1f}ms in queue '
             '(executor saturated — shed, not silently dropped)',

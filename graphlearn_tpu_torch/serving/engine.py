@@ -38,7 +38,19 @@ the inverse map on the card.  Each rider's rows are byte-equal to the
 fully-hot engine's.  `last_collect` and `last_cold_fill` hold the
 dispatch's sampling and fill ``(monotonic t0, seconds)``.
 
-The executable cache and hot model swaps are later slices (ROADMAP).
+**Model versions.**  `set_params` installs a new state dict and bumps
+``model_version`` (`serving.swap.hot_swap` quiesces and parity-checks
+first); `validate_params` refuses a candidate whose keys, shapes or
+dtypes differ from the model's.  ``params=`` on `infer` and
+`offline_reference` runs a candidate without installing it, through
+`torch.func.functional_call` over the engine's module.
+
+**Kernel builds.**  A dispatch is eager torch and compiles nothing; what
+a fresh process compiles is its kernels (`_build`).  `warmup` makes them
+present first, through the durable kernel-build cache
+(``GLT_AOT_CACHE_DIR``, `serving.aot_cache`), and `compile_count` counts
+the ``nvcc`` runs this process started since the engine was built — 0
+for a replica whose kernels were restored or already loaded.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..data.dataset import Dataset
 from ..data.feature import _device_gather
 from ..data.graph import Graph
@@ -180,6 +193,11 @@ class ServingEngine:
       if params is not None:
         model.load_state_dict(params)
         self._params_ready = True
+    #: bumped by `set_params` (the hot-swap commit)
+    self.model_version = 0
+    self._nvcc_base = _build.NVCC_RUNS
+    #: kernel libraries `warmup` restored from the kernel-build cache
+    self._aot_restores = 0
     #: bucket capacity -> True once `warmup` ran it
     self.warm = {cap: False for cap in self.buckets}
 
@@ -282,12 +300,15 @@ class ServingEngine:
     return torch.from_numpy(out).to(self.device)
 
   @torch.inference_mode()
-  def _dispatch(self, padded: torch.Tensor) -> ServingResult:
+  def _dispatch(self, padded: torch.Tensor,
+                params: Optional[dict] = None) -> ServingResult:
     """One bucket dispatch (``padded`` already at a bucket capacity):
     re-pin the graph, sample, gather every tree row in one launch, then
-    the model.  The graph is read once here: a concurrent publish lands
-    in the next dispatch, never mid-run."""
-    if self.model is not None and not self._params_ready:
+    the model — under ``params`` (a state dict on the engine's device)
+    when given, else the installed version.  The graph is read once
+    here: a concurrent publish lands in the next dispatch, never
+    mid-run."""
+    if self.model is not None and params is None and not self._params_ready:
       raise ValueError(
           'ServingEngine has a model but no params — call '
           'init_params(generator) (or pass params=) before serving')
@@ -307,7 +328,9 @@ class ServingEngine:
     if self.model is None:
       return ServingResult(nodes=_host(nodes), x=_host(x))
     masks = [lvl >= 0 for lvl in self._split_levels(nodes)]
-    logits = self.model(self._split_levels(x), masks)
+    args = (self._split_levels(x), masks)
+    logits = (self.model(*args) if params is None else
+              torch.func.functional_call(self.model, params, args))
     return ServingResult(nodes=_host(nodes), logits=_host(logits))
 
   def _tiered_fill(self, nodes_h: np.ndarray) -> torch.Tensor:
@@ -325,20 +348,28 @@ class ServingEngine:
     self.last_cold_fill = (t0, time.monotonic() - t0)
     return x
 
-  def infer(self, seeds, cap: Optional[int] = None) -> ServingResult:
+  def infer(self, seeds, cap: Optional[int] = None,
+            params: Optional[dict] = None) -> ServingResult:
     """Serve one (possibly coalesced) seed batch; results sliced back
     to ``len(seeds)``.  ``cap`` pins the bucket (the frontend picks it
-    once per coalesced dispatch); default = smallest fitting."""
+    once per coalesced dispatch); default = smallest fitting.
+    ``params`` runs a candidate state dict for this call without
+    installing it (hot-swap validation)."""
     seeds = np.asarray(seeds).reshape(-1)
     cap = self.bucket_for(len(seeds)) if cap is None else cap
-    return self._dispatch(self._pad(seeds, cap)).slice(0, len(seeds))
+    if params is not None:
+      params = self._params_on_device(params)
+    return self._dispatch(self._pad(seeds, cap),
+                          params=params).slice(0, len(seeds))
 
-  def offline_reference(self, seeds,
-                        cap: Optional[int] = None) -> ServingResult:
+  def offline_reference(self, seeds, cap: Optional[int] = None,
+                        params: Optional[dict] = None) -> ServingResult:
     """Every seed served ALONE — through the smallest bucket by
     default, or a pinned ``cap`` — the reference the coalesced path is
-    held to."""
-    parts = [self.infer(np.asarray([s]), cap=cap)
+    held to (under ``params`` when given)."""
+    if params is not None:
+      params = self._params_on_device(params)
+    parts = [self.infer(np.asarray([s]), cap=cap, params=params)
              for s in np.asarray(seeds).reshape(-1)]
     return ServingResult(
         nodes=np.concatenate([p.nodes for p in parts]),
@@ -347,12 +378,59 @@ class ServingEngine:
         logits=(None if parts[0].logits is None
                 else np.concatenate([p.logits for p in parts])))
 
-  def warmup(self) -> dict:
-    """Run every bucket once at server start (which also builds the
-    kernels), with valid ids and, where the bucket has room, one
-    INVALID tail slot.  Returns ``{'buckets': {...}, 'secs': wall}``."""
-    import time
+  # -- model versions -------------------------------------------------------
+  def _params_on_device(self, params) -> dict:
+    self.validate_params(params)
+    return {k: torch.as_tensor(v).to(self.device) for k, v in params.items()}
+
+  def validate_params(self, params) -> None:
+    """Refuse a candidate state dict that is not the installed model's
+    architecture: the same keys, and each tensor's shape and dtype.
+    Raises ValueError naming the first difference."""
+    if self.model is None:
+      raise ValueError('validate_params on a model-less engine')
+    want = self.model.state_dict()
+    missing = sorted(set(want) - set(params))
+    extra = sorted(set(params) - set(want))
+    if missing or extra:
+      raise ValueError(
+          f'state dict keys changed (missing {missing}, extra {extra}) — '
+          'a hot swap must keep the architecture; deploy a new engine '
+          'for a new architecture')
+    for key, old in want.items():
+      new = torch.as_tensor(params[key])
+      if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
+        raise ValueError(
+            f'param {key!r} changed shape/dtype ({tuple(new.shape)} '
+            f'{new.dtype} vs {tuple(old.shape)} {old.dtype}) — refused')
+
+  def set_params(self, params, version: Optional[int] = None) -> int:
+    """Install a new model version (the hot-swap commit: callers go
+    through `serving.swap.hot_swap`, which quiesces the executor and
+    parity-checks first, since the copy into the module is not atomic
+    against a concurrent dispatch).  Returns the new ``model_version``."""
+    state = self._params_on_device(params)
+    with torch.no_grad():
+      self.model.load_state_dict(state)
+    self._params_ready = True
+    self.model_version = (int(version) if version is not None
+                          else self.model_version + 1)
+    return self.model_version
+
+  # -- warmup and kernel builds ---------------------------------------------
+  def warmup(self, aot_cache='env') -> dict:
+    """Make the kernels present (on the card: `_build.build_all`
+    through the kernel-build cache, ``'env'`` = ``GLT_AOT_CACHE_DIR``),
+    then run every bucket once, with valid ids and, where the bucket has
+    room, one INVALID tail slot.  Returns ``{'buckets', 'compiles' (nvcc
+    runs), 'secs', 'aot_restored' (libraries restored by this call)}``."""
     t0 = time.perf_counter()
+    runs0 = _build.NVCC_RUNS
+    restored = 0
+    if self.device.type == 'cuda':
+      info = _build.build_all(aot_cache=aot_cache)
+      restored = sum(v['source'] == 'restored' for v in info.values())
+      self._aot_restores += restored
     n = min(self.num_nodes, 8)
     for cap in self.buckets:
       seeds = np.arange(cap, dtype=np.int32) % n
@@ -361,4 +439,22 @@ class ServingEngine:
       self._dispatch(torch.from_numpy(seeds).to(self.device))
       self.warm[cap] = True
     return {'buckets': dict(self.warm),
-            'secs': round(time.perf_counter() - t0, 3)}
+            'compiles': _build.NVCC_RUNS - runs0,
+            'secs': round(time.perf_counter() - t0, 3),
+            'aot_restored': restored}
+
+  def compile_count(self) -> int:
+    """``nvcc`` runs this process started since the engine was built
+    (the warm pin of a spawned replica: 0 when every kernel was restored
+    or already loaded)."""
+    return _build.NVCC_RUNS - self._nvcc_base
+
+  def compile_status(self) -> dict:
+    """Per-bucket warm status and build counters (the heartbeat's
+    serving block)."""
+    return {'buckets': {str(c): bool(w) for c, w in self.warm.items()},
+            'compiles': self.compile_count(),
+            'aot_programs': self._aot_restores,
+            'model_version': self.model_version,
+            'graph_version': self.graph_version,
+            'tiered': self._tiered}

@@ -75,6 +75,38 @@ METRIC_NAMES: Dict[str, str] = {
         'counter: rows admitted into a victim cache, by scope',
     'cache.evicts_total':
         'counter: residents displaced by admissions, by scope',
+    'serving.slo.p50_ms':
+        'gauge: SloTracker short-window request latency p50 (ms)',
+    'serving.slo.p99_ms':
+        'gauge: SloTracker short-window request latency p99 (ms)',
+    'serving.slo.qps':
+        'gauge: SloTracker short-window completed-request rate',
+    'serving.slo.qps_ratio':
+        'gauge: short-window qps / GLT_SERVING_SLO_QPS (only with a '
+        'target)',
+    'serving.slo.burn_rate':
+        'gauge: latency-SLO error-budget burn rate per sliding window '
+        '(label window=)',
+    'fleet.headroom_qps':
+        'gauge: sustainable request rate minus carried short-window qps '
+        '(CapacityModel)',
+    'fleet.replicas':
+        'gauge: FleetRouter replica count by state (label state=)',
+    'fleet.redrives_total':
+        'counter: in-flight requests redriven from a lost replica',
+    'fleet.evictions_total':
+        'counter: replicas evicted after consecutive heartbeat misses',
+    'fleet.quarantines_total':
+        'counter: replicas quarantined by the flap damper',
+    'scale.replicas':
+        'counter: ElasticController scaling actions (label dir=out|in)',
+    'serving.swaps_total':
+        'counter: hot model-swap attempts (label '
+        'outcome=ok|rolled_back|aborted)',
+    'aot.cache_hits_total':
+        'counter: kernel libraries restored from GLT_AOT_CACHE_DIR',
+    'aot.cache_misses_total':
+        'counter: cache lookups that fell back to nvcc',
 }
 
 
@@ -115,6 +147,9 @@ class Counter:
 
   def inc(self, value: float = 1.0) -> None:
     self._store.inc(self.key, value)
+
+  def value(self) -> float:
+    return float(self._store.snapshot().get(self.key, 0.0))
 
 
 class Gauge:

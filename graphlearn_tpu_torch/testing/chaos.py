@@ -37,6 +37,31 @@ reads the same in the other.  Sites and actions:
       :class:`ChaosKilledError` (the in-process stand-in for a
       preemption), ``delay`` sleeps ``secs``.  ``epoch`` filters by
       epoch.
+  ``serving.request``
+      Inside the serving executor just before a coalesced dispatch
+      (``op='dispatch'``; ``replica`` is the frontend's fleet name).
+      ``delay`` sleeps ``secs`` (a slow executor: queued requests behind
+      it expire and shed typed), ``drop`` raises :class:`InjectedFault`
+      on every rider of the dispatch.
+  ``serving.replica``
+      Inside a fleet replica handle (`serving.router`), on
+      ``op='submit'`` and ``op='heartbeat'``; ``replica`` filters by
+      name.  ``kill`` (the replica dies for good: its executor stops
+      cold and its queued requests freeze until the router redrives
+      them), ``delay`` (a slow replica, classified overloaded, not
+      dead), ``flap`` (unreachable for ``secs``, then back).
+  ``scale.spawn``
+      Inside `serving.autoscaler.ElasticController`'s scale-out, once
+      per spawn attempt before the replica factory runs.  ``delay``
+      sleeps, ``fail`` raises :class:`InjectedFault`, ``kill`` raises
+      :class:`ChaosKilledError`; either raise rolls the decision back
+      typed and leaves the cooldown unspent.
+  ``aot.cache``
+      Inside the kernel-build cache (`serving.aot_cache`), ``op`` =
+      ``'save'`` / ``'load'``.  ``fail`` raises :class:`InjectedFault`
+      (absorbed: a cache fault costs an ``nvcc`` run, never a kernel),
+      ``corrupt`` scrambles the payload before publish (a later load
+      must catch the checksum and rebuild).
 
 Plans install programmatically (:func:`install`) or from the
 ``GLT_FAULT_PLAN`` env var.  JSON::
@@ -58,8 +83,10 @@ from typing import Any, Dict, List, Optional
 FAULT_PLAN_ENV = 'GLT_FAULT_PLAN'
 
 _SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
-          'feature.cold_service', 'fused.dispatch')
-_ACTIONS = ('delay', 'kill', 'fail', 'truncate')
+          'feature.cold_service', 'fused.dispatch', 'serving.request',
+          'serving.replica', 'scale.spawn', 'aot.cache')
+_ACTIONS = ('drop', 'delay', 'corrupt', 'kill', 'fail', 'truncate',
+            'flap')
 
 
 class InjectedFault(RuntimeError):
@@ -82,7 +109,8 @@ class Fault:
   count: int = 1
   op: Optional[str] = None
   epoch: Optional[int] = None     # fused.dispatch: epoch filter
-  secs: float = 0.1               # delay duration
+  replica: Optional[str] = None   # serving.*, scale.spawn: name filter
+  secs: float = 0.1               # delay / flap duration
   _seen: int = field(default=0, repr=False, compare=False)
 
   def __post_init__(self):
@@ -95,6 +123,8 @@ class Fault:
 
   def _matches(self, ctx: Dict[str, Any]) -> bool:
     if self.op is not None and ctx.get('op') != self.op:
+      return False
+    if self.replica is not None and ctx.get('replica') != self.replica:
       return False
     return self.epoch is None or ctx.get('epoch') == self.epoch
 
@@ -256,3 +286,54 @@ def fused_dispatch_check(chunk: int = 0, epoch: int = 0,
     elif f.action == 'kill':
       raise ChaosKilledError(
           f'injected fused.dispatch kill (epoch {epoch}, chunk {chunk})')
+
+
+def maybe_delay(faults: List[Fault]) -> None:
+  for f in faults:
+    if f.action == 'delay':
+      time.sleep(f.secs)
+
+
+def serving_request_check(op: str = '', replica: str = '') -> None:
+  """Serving-executor seam, before each coalesced dispatch: ``delay``
+  sleeps in place, ``drop`` raises `InjectedFault`.  ``replica`` is the
+  frontend's fleet name, so a plan can stall one replica."""
+  for f in on('serving.request', op=op or None, replica=replica or None):
+    if f.action == 'delay':
+      time.sleep(f.secs)
+    elif f.action == 'drop':
+      raise InjectedFault(f'injected serving request drop (op {op!r})')
+
+
+def replica_faults(replica: str, op: str) -> List[Fault]:
+  """Fleet-replica seam, one arrival per ``submit`` / ``heartbeat``:
+  ``delay`` sleeps here; ``kill`` and ``flap`` are returned for the
+  handle to apply (it owns the dead or flapping state)."""
+  fired = on('serving.replica', replica=replica, op=op)
+  maybe_delay(fired)
+  return fired
+
+
+def aot_cache_faults(op: str) -> List[str]:
+  """Kernel-build-cache seam, ``op`` ``'save'`` / ``'load'``: ``fail``
+  raises `InjectedFault` (the caller absorbs it into an ``nvcc`` run);
+  ``corrupt`` is returned so the writer scrambles what it publishes."""
+  actions = [f.action for f in on('aot.cache', op=op)]
+  if 'fail' in actions:
+    raise InjectedFault(f'injected aot cache failure (op {op!r})')
+  return actions
+
+
+def scale_spawn_check(replica: str = '') -> None:
+  """Elastic scale-out seam, once per spawn attempt before the replica
+  factory runs: ``delay`` sleeps, ``fail`` raises `InjectedFault`,
+  ``kill`` raises `ChaosKilledError`."""
+  fired = on('scale.spawn', replica=replica or None)
+  maybe_delay(fired)
+  for f in fired:
+    if f.action == 'fail':
+      raise InjectedFault(f'injected scale.spawn provisioning failure '
+                          f'(replica {replica!r})')
+    if f.action == 'kill':
+      raise ChaosKilledError(f'injected scale.spawn kill (replica '
+                             f'{replica!r})')

@@ -42,6 +42,12 @@ def test_import_pulls_in_no_jax():
       'before = set(sys.modules)\n'
       'import graphlearn_tpu_torch\n'
       'import graphlearn_tpu_torch.serving.frontend\n'
+      'import graphlearn_tpu_torch.serving.router\n'
+      'import graphlearn_tpu_torch.serving.autoscaler\n'
+      'import graphlearn_tpu_torch.serving.swap\n'
+      'import graphlearn_tpu_torch.serving.aot_cache\n'
+      'import graphlearn_tpu_torch.telemetry.slo\n'
+      'import graphlearn_tpu_torch.distributed.resilience\n'
       'import graphlearn_tpu_torch.streaming\n'
       'import graphlearn_tpu_torch.telemetry.postmortem\n'
       'import graphlearn_tpu_torch.testing.chaos\n'
