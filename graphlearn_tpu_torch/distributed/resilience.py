@@ -1,11 +1,23 @@
-"""Typed failover errors of the serving fleet.
+"""Typed failover errors of the serving fleet and the degraded-completion
+knob of the mesh.
 
-The port's copy of `ReplicaLostError` and `FailoverExhausted` from the
-JAX package's `distributed/resilience.py`; the rest of that module (the
-RPC retry layer, the stall watchdog) belongs to the host runtime,
-ROADMAP item 11.
+The port's copy of `ReplicaLostError`, `FailoverExhausted` and
+`degraded_ok` from the JAX package's `distributed/resilience.py`; the
+rest of that module (the RPC retry layer, the stall watchdog) belongs to
+the host runtime, ROADMAP item 11.
 """
 from __future__ import annotations
+
+import os
+
+DEGRADED_ENV = 'GLT_DEGRADED_OK'
+
+
+def degraded_ok() -> bool:
+  """``GLT_DEGRADED_OK=1``: a mesh epoch that lost a partition owner and
+  cannot adopt its shard finishes on the surviving ranges (the loss
+  flagged in the flight recorder) instead of raising."""
+  return os.environ.get(DEGRADED_ENV, '') == '1'
 
 
 class ReplicaLostError(RuntimeError):

@@ -6,8 +6,10 @@ over the sharded graph, the link sampler and loader), the induced
 subgraph and random-walk engines, the heterogeneous engine (per-type
 sharded stores with edge ids and edge features, the heterogeneous mesh
 sampler, its node and link loaders), the remote-push row gather,
-data-parallel training (supervised and link loss) and evaluation, and
-the fused mesh epochs (node, tree and link)."""
+data-parallel training (supervised and link loss) and evaluation, the
+fused mesh epochs (node, tree and link), and partition failover: the
+versioned `PartitionBook`, durable shards and adoption (`failover`) and
+the fenced planned handoff (`handoff`)."""
 from .dist_data import (DistDataset, DistFeature, DistGraph,
                         build_dist_edge_feature, build_dist_feature,
                         build_dist_graph, hot_count, relabel_by_partition)
@@ -25,4 +27,9 @@ from .dp import (Mesh, make_dp_eval_step, make_dp_supervised_step,
                  make_dp_unsupervised_step, local_piece, make_mesh)
 from .fused import FusedDistEpoch, FusedDistLinkEpoch, FusedDistTreeEpoch
 from .exchange import bucket_by_owner, capacity_spec, plan_exchange
+from .failover import (NoDurableShardError, PartitionLostError, ShardStore,
+                       adopt_shard)
+from .handoff import HandoffAbortedError
+from .partition_book import (AdoptionRefusedError, BookSpec, BookView,
+                             PartitionBook)
 from .rdma_gather import push_rows, push_rows_plain, rdma_gather

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .partition_book import PartitionBook, range_of
 
 
 class DistGraph:
@@ -117,8 +118,7 @@ def stack_partition_csr(rows_new: torch.Tensor, cols_new: torch.Tensor,
   num_parts = len(bounds) - 1
   counts = np.diff(bounds)
   bounds_t = torch.from_numpy(np.asarray(bounds, np.int64)).to(device)
-  owner = (torch.searchsorted(bounds_t, rows_new, right=True) - 1).clamp(
-      0, max(num_parts - 1, 0))
+  owner = range_of(bounds_t, rows_new).long().clamp(0, max(num_parts - 1, 0))
   edge_ids = (torch.arange(rows_new.shape[0], dtype=torch.int64,
                            device=device) if edge_ids is None
               else _as_tensor(edge_ids, device, torch.int64))
@@ -250,7 +250,14 @@ class DistDataset:
   """The sharded dataset: `DistGraph`, the node feature store, node
   labels ``[P, max_nodes]`` (on the device), the mod-sharded edge
   features (`build_dist_edge_feature`, or None) and the relabel
-  (``old2new`` / ``new2old``, numpy)."""
+  (``old2new`` / ``new2old``, numpy).
+
+  Failover state, shared by every sampler over the dataset: the
+  `partition_book` (made on first use), ``adopted_shards`` (the durable
+  payloads `failover.adopt_shard` and `handoff.handoff` parked, by range,
+  host numpy; `adopted_lane` puts one on the card) and
+  ``degraded_partitions`` (ranges written off under
+  ``GLT_DEGRADED_OK``)."""
 
   def __init__(self, graph: DistGraph, node_features=None,
                node_labels=None, old2new=None, device='cuda',
@@ -268,10 +275,55 @@ class DistDataset:
     self.edge_features = edge_features
     self.old2new = old2new
     self.new2old = np.argsort(old2new) if old2new is not None else None
+    self._partition_book = None
+    self.adopted_shards = {}
+    self._adopted_device = {}   # range -> (payload, its tensors on the card)
+    self.degraded_partitions = set()
 
   @property
   def num_partitions(self) -> int:
     return self.graph.num_partitions
+
+  @property
+  def partition_book(self) -> PartitionBook:
+    """The routing authority: one `PartitionBook` a dataset, shared by
+    every sampler, loader and epoch over it, so a move one reader sees
+    every reader sees at its next fence."""
+    if self._partition_book is None:
+      self._partition_book = PartitionBook(self.graph.bounds)
+    return self._partition_book
+
+  def adopted_lane(self, r: int) -> dict:
+    """Range ``r``'s parked payload (``adopted_shards[r]``) as tensors on
+    the dataset's device, uploaded once a payload and shared by every
+    sampler over the dataset; edge ids as int32 (the kernels' edge-id
+    arm).  A payload that left ``adopted_shards`` leaves the card too."""
+    for k in [k for k, (pl, _) in self._adopted_device.items()
+              if self.adopted_shards.get(k) is not pl]:
+      del self._adopted_device[k]
+    payload = self.adopted_shards[r]
+    hit = self._adopted_device.get(r)
+    if hit is not None:
+      return hit[1]
+    out = {}
+    for key, a in payload.items():
+      if key in ('hot_count', 'cold'):
+        continue
+      t = torch.from_numpy(np.ascontiguousarray(a))
+      if key == 'eids':
+        top = int(t.max()) if t.numel() else -1
+        if top >= (1 << 31) - 1:
+          raise ValueError(f'{top + 1} edges: the global edge ids do not '
+                           'fit the int32 ids the samplers write')
+        t = t.to(torch.int32)
+      out[key] = t.to(self.device)
+    self._adopted_device[r] = (payload, out)
+    return out
+
+  def drop_adopted(self, r: int) -> None:
+    """Unpark range ``r``'s payload, on the host and on the card."""
+    self.adopted_shards.pop(r, None)
+    self._adopted_device.pop(r, None)
 
   @classmethod
   def from_full_graph(cls, num_parts: int, rows, cols, node_feat=None,

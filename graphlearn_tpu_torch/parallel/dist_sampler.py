@@ -6,7 +6,8 @@ its link engine and their loaders (the JAX package's
 `DistNeighborSampler`, `DistNeighborLoader`, `DistLinkNeighborSampler`,
 `DistLinkNeighborLoader`, the induced-subgraph step,
 `resolve_hop_chunk`, `DistSubGraphSampler`, `DistSubGraphLoader`, the
-walk step and `DistRandomWalker`).
+walk step and `DistRandomWalker`, and the book-routed exchange and
+failover seams: `_BookPlan` and the samplers' supervision and fence).
 
 The mesh's ``P`` partitions share one card (`parallel.dp.Mesh`); every
 per-partition tensor is stacked on a leading ``[P]`` axis, and the
@@ -66,6 +67,22 @@ in JAX.  ``prefetch=N`` runs both halves on a worker thread with its own
 CUDA stream (`loader.prefetch`), ``N`` batches ahead of the trainer.
 The link loader dispatches and finishes the same way.
 
+Ownership is the dataset's `PartitionBook`.  Every dispatch (node, link,
+subgraph, walk) first runs owner supervision (the ``partition.owner``
+chaos seam: a dead owner's range is adopted from its durable shard under
+``GLT_SHARD_DIR``, else written off under ``GLT_DEGRADED_OK``, else a
+typed `failover.PartitionLostError`), then the book fence
+(`DistNeighborSampler.maybe_refresh_book`), before the draw cursor
+advances.  Every exchange is a `_BookPlan` over the pinned view: ids
+bucket to (position, lane) virtual destinations at the per-range
+capacity, and each lane samples its range's rows from its range's
+sources (`BookLanes`: the live stacks, or a moved range's payload put on
+the card once, `DistDataset.adopted_lane`) at ``draws(..., owner=r)`` —
+the range, not the position — so an adopted epoch's batches equal the
+fault-free run's.  At the identity book (one lane a position) that is
+the exchange above; the kernels are launched once a range a hop either
+way.
+
 Random numbers come from a ``draws`` provider, ``draws(step, hop, rows,
 k, w, gns, owner=o) -> (u [rows, k], v [rows, k])`` for the GNS sampler
 or ``(u [rows, k], gumbel [rows, w])`` for the uniform one, where
@@ -81,6 +98,7 @@ stream 0 the rows and stream 1 the columns.
 """
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -112,9 +130,10 @@ from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from ..utils.tensor import PinnedStaging
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
-from .exchange import MIN_EXCHANGE_CAP, capacity_spec, plan_exchange
-from .partition_book import (edge_local_rows, edge_owner_fn, hot_split_host,
-                             range_owner_fn)
+from .exchange import (MIN_EXCHANGE_CAP, DensePlan, bucket_stacked,
+                       capacity_spec)
+from .partition_book import (BookSpec, book_owner_fn, edge_book_owner_fn,
+                             edge_local_rows, hot_split_host, identity_spec)
 
 #: per-destination exchange capacity for shuffled seeds, as a multiple
 #: of the balanced share (frontier / P)
@@ -172,91 +191,220 @@ def resolve_exchange_slack(exchange_slack, shuffle: bool):
   return exchange_slack
 
 
+class BookLanes:
+  """The sources the exchange's lanes read, by range: ``stacks`` (key ->
+  ``() -> [P, ...]`` stacked tensor) give range ``r`` its row ``r``, and
+  a range whose shard was adopted or handed off reads its payload on the
+  card (``adopted``: range -> key -> tensor, `DistDataset.adopted_lane`).
+  ``spec`` is the pinned view's `BookSpec`; `identity` is the identity
+  book's over given tables."""
+
+  def __init__(self, spec: BookSpec, stacks: dict, adopted=None):
+    self.spec = spec
+    self._stacks = stacks
+    self._adopted = adopted or {}
+
+  @classmethod
+  def identity(cls, num_parts: int, tables: dict) -> 'BookLanes':
+    """The identity book over ``tables`` (key -> stacked tensor)."""
+    return cls(identity_spec(num_parts),
+               {k: (lambda t=t: t) for k, t in tables.items()})
+
+  def get(self, key, r: int) -> torch.Tensor:
+    moved = self._adopted.get(r)
+    if moved is not None and key in moved:
+      return moved[key]
+    return self._stacks[key]()[r]
+
+
+@functools.lru_cache(maxsize=32)
+def _lane_ranges(spec: BookSpec, device) -> torch.Tensor:
+  """``[P * S]`` int64: the range each (position, lane) row serves (0 for
+  an unassigned lane, which nothing routes to)."""
+  return torch.tensor([max(r, 0) for row in spec.slot_ranges for r in row],
+                      dtype=torch.int64, device=device)
+
+
+class _BookPlan(DensePlan):
+  """The book's exchange (the JAX package's `_BookPlan`): ids bucket to
+  the ``P * S`` virtual destinations ``owners[r] * S + lane[r]`` at the
+  PER-RANGE capacity, cross as one ``[P_src, P, S * C]`` all-to-all, and
+  each (position, lane)'s receive buffer comes out exactly as the range's
+  original owner would have received it.  At the identity book (``S =
+  1``, range ``r`` at position ``r``) this is the plain dense exchange.
+
+  Attributes beyond `DensePlan`'s: ``recv_lanes`` ``[P * S, P_src *
+  C]`` (row ``d * S + j`` is position ``d``'s lane ``j``),
+  ``recv_payload_lanes`` beside it, ``lane_range`` (`_lane_ranges`) and
+  ``lanes``: ``(row, range)`` of every assigned lane in range order.
+  """
+
+  def __init__(self, ids: torch.Tensor, bounds_t: torch.Tensor,
+               spec: BookSpec, mesh, capacity: Optional[int] = None,
+               payload: Optional[torch.Tensor] = None,
+               owner_mode: str = 'range'):
+    p, s = int(spec.num_parts), int(spec.num_lanes)
+    if ids.ndim != 2 or ids.shape[0] != p:
+      raise ValueError(f'the plan takes [{p}, F] ids, got '
+                       f'{tuple(ids.shape)}')
+    owner = (edge_book_owner_fn(p, spec) if owner_mode == 'mod'
+             else book_owner_fn(bounds_t, spec))(ids)
+    send, self.slot_p, self.slot_j, *send_pl = bucket_stacked(
+        ids, owner, p * s, capacity,
+        payload=None if payload is None else payload.to(ids.dtype))
+    cap = send.shape[2]
+    self.mesh, self.num_parts, self.cap, self._lanes = mesh, p, cap, s
+
+    def lanes_of(x):               # [P_dev, P_src, S * C] -> [P*S, P_src*C]
+      return x.reshape(p, p, s, cap).transpose(1, 2).reshape(p * s, p * cap)
+    self.recv_payload_lanes = None
+    if payload is None:
+      self.recv_lanes = lanes_of(mesh.all_to_all(send.reshape(p, p, s * cap)))
+    else:
+      both = mesh.all_to_all(torch.stack(
+          [send.reshape(p, p, s * cap), send_pl[0].reshape(p, p, s * cap)],
+          dim=2))
+      self.recv_lanes = lanes_of(both[:, :, 0])
+      self.recv_payload_lanes = lanes_of(both[:, :, 1])
+    self.kept = self.slot_j >= 0
+    self.delivered = self.kept
+    self.requester_of_recv = torch.arange(
+        p, dtype=torch.int32, device=ids.device).repeat_interleave(cap)
+    valid = ids >= 0
+    self.stats = torch.stack([
+        valid.sum(1), (valid & ~self.kept).sum(1),
+        torch.full((p,), p * s * cap, dtype=torch.int64, device=ids.device)],
+        dim=1)
+    self.lane_range = _lane_ranges(spec, ids.device)
+    self.lanes = sorted(((d * s + j, r) for d in range(p) for j in range(s)
+                         if (r := spec.slot_ranges[d][j]) >= 0),
+                        key=lambda x: x[1])
+
+  def local(self, bounds_t: torch.Tensor, fill) -> torch.Tensor:
+    """Every lane's receive ids as its range's local rows (``fill`` where
+    empty), ``[P * S, P_src * C]``."""
+    base = bounds_t[self.lane_range][:, None]
+    return torch.where(self.recv_lanes >= 0, self.recv_lanes - base, fill)
+
+  def stack(self, by_row: dict, fill) -> torch.Tensor:
+    """Per-lane values ``{row: [P_src * C, ...]}`` -> ``[P * S, P_src * C,
+    ...]``, unassigned lanes filled (nothing routes to them)."""
+    t = next(iter(by_row.values()))
+    return torch.stack([by_row[i] if i in by_row else torch.full_like(t, fill)
+                        for i in range(self.num_parts * self._lanes)])
+
+  def reply(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+    """Lane-side ``[P * S, P_src * C, ...]`` values -> ``[P, F, ...]`` in
+    each partition's request order."""
+    p, s, cap = self.num_parts, self._lanes, self.cap
+    trail = tuple(values.shape[2:])
+    v = values.reshape((p, s, p, cap) + trail).transpose(1, 2)
+    back = self.mesh.all_to_all(v.reshape((p, p, s * cap) + trail))
+    return self.stitch(back.reshape((p, p * s, cap) + trail), fill)
+
+
 def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
                   draws: Draws, step: int, hop: int,
                   capacity: Optional[int], gns_bits=None,
                   gns_boost: Optional[float] = None,
                   sort_locality: bool = True, eids_loc=None,
-                  etype: Optional[int] = None):
+                  etype: Optional[int] = None,
+                  book: Optional[BookLanes] = None):
   """One hop for every partition's ``[P, F]`` frontier: exchange, each
-  owner samples its receive rows (in ascending id order with
-  ``sort_locality``, else in arrival order) from its CSR, reply.  With
-  ``eids_loc`` (the ``[P, E_max]`` int32 global edge ids of the shards)
-  each owner also returns its slots' ids, ``eids_loc[o][pos]``.  A
-  heterogeneous hop passes its edge type's index ``etype`` on to the
-  draws (``draws(..., owner=o, etype=etype)``); without it the draws
-  are called as before.
+  range's rows sampled (in ascending id order with ``sort_locality``,
+  else in arrival order) from its CSR, reply.  With ``eids_loc`` (the
+  ``[P, E_max]`` int32 global edge ids of the shards) each range also
+  returns its slots' ids, ``eids_loc[r][pos]``.  A heterogeneous hop
+  passes its edge type's index ``etype`` on to the draws
+  (``draws(..., owner=r, etype=etype)``); without it the draws are
+  called as before.  The exchange routes per (position, lane) of
+  ``book`` (a pinned view's `BookLanes`; None: the identity book over
+  ``indptr``, ``indices`` and ``eids_loc``), and each lane samples its
+  RANGE's rows from the range's sources at ``draws(..., owner=r)``, so
+  its samples equal the range's original owner's: one kernel launch a
+  range.
   Returns ``(nbrs, mask, eids, weights, stats)``, the first four stacked
   ``[P, F, k]`` (``eids`` None without ``eids_loc``, -1 where masked or
   undelivered; ``weights`` None without GNS) and the ``[3]`` exchange
   counters summed over the partitions."""
-  plan = plan_exchange(frontier, range_owner_fn(bounds_t), mesh.size,
-                       mesh, capacity)
-  local = torch.where(plan.recv >= 0, plan.recv - bounds_t[:-1, None],
-                      INVALID_ID).to(torch.int32)
+  with_edge = eids_loc is not None
+  if book is None:
+    book = BookLanes.identity(mesh.size, {'indptr': indptr,
+                                          'indices': indices,
+                                          'eids': eids_loc})
+  plan = _BookPlan(frontier, bounds_t, book.spec, mesh, capacity)
+  local = plan.local(bounds_t, INVALID_ID).to(torch.int32)
   rows = local.shape[1]
   w = default_window(k)
   et = {} if etype is None else {'etype': etype}
-  res = []
-  for o in range(mesh.size):
-    edge = (dict(edge_ids=eids_loc[o], with_edge_ids=True)
-            if eids_loc is not None else {})
+  res = {}
+  for row, r in plan.lanes:
+    edge = (dict(edge_ids=book.get('eids', r), with_edge_ids=True)
+            if with_edge else {})
+    indptr_r, indices_r = book.get('indptr', r), book.get('indices', r)
     if gns_bits is not None:
-      u, v = draws(step, hop, rows, k, w, True, owner=o, **et)
-      res.append(sample_one_hop_gns_fused(
-          indptr[o], indices[o], local[o], k, u, v, gns_bits, gns_boost,
-          req=plan.requester_of_recv, window=w,
-          sort_locality=sort_locality, **edge))
+      u, v = draws(step, hop, rows, k, w, True, owner=r, **et)
+      res[row] = sample_one_hop_gns_fused(
+          indptr_r, indices_r, local[row], k, u, v, gns_bits, gns_boost,
+          req=plan.requester_of_recv, window=w, sort_locality=sort_locality,
+          **edge)
     else:
-      u, g = draws(step, hop, rows, k, w, False, owner=o, **et)
-      res.append(sample_one_hop_fused(indptr[o], indices[o], local[o], k,
-                                      u, g, sort_locality=sort_locality,
-                                      **edge))
-  nbrs = plan.reply(torch.stack([r.nbrs for r in res]), fill=INVALID_ID)
-  mask = plan.reply(torch.stack([r.mask for r in res]), fill=False)
-  eids = (plan.reply(torch.stack([r.eids for r in res]), fill=INVALID_ID)
-          if eids_loc is not None else None)
-  weights = (plan.reply(torch.stack([r.weights for r in res]), fill=0.0)
-             if gns_bits is not None else None)
-  return nbrs, mask, eids, weights, plan.stats.sum(0)
+      u, g = draws(step, hop, rows, k, w, False, owner=r, **et)
+      res[row] = sample_one_hop_fused(indptr_r, indices_r, local[row], k, u,
+                                      g, sort_locality=sort_locality, **edge)
+
+  def reply(field, fill):
+    return plan.reply(plan.stack({i: getattr(x, field)
+                                  for i, x in res.items()}, fill), fill)
+  return (reply('nbrs', INVALID_ID), reply('mask', False),
+          reply('eids', INVALID_ID) if with_edge else None,
+          reply('weights', 0.0) if gns_bits is not None else None,
+          plan.stats.sum(0))
 
 
 def _dist_window_hop(mesh: Mesh, indptr, indices, bounds_t, frontier,
-                     width: int, capacity: Optional[int], eids_loc=None):
+                     width: int, capacity: Optional[int], eids_loc=None,
+                     book: Optional[BookLanes] = None):
   """The exact full-window hop for every partition's ``[P, F]``
-  frontier: exchange, each owner answers its receive rows with their
+  frontier: exchange, each range answers its receive rows with their
   first ``width`` CSR slots (the window gather kernel from ``indptr[row]``,
   a second call over ``eids_loc`` for the edge ids), the slots at or
   past a row's degree masked, reply.  Exact when no row's degree passes
   ``width``; no draw is taken.  Returns ``(nbrs, mask, eids, stats)``,
   the first three ``[P, F, width]`` (``eids`` None without
-  ``eids_loc``) and the ``[3]`` exchange counters."""
-  plan = plan_exchange(frontier, range_owner_fn(bounds_t), mesh.size,
-                       mesh, capacity)
-  ok = plan.recv >= 0
-  local = torch.where(ok, plan.recv - bounds_t[:-1, None], 0)
+  ``eids_loc``) and the ``[3]`` exchange counters.  ``book``: as
+  `_dist_one_hop`."""
+  with_edge = eids_loc is not None
+  if book is None:
+    book = BookLanes.identity(mesh.size, {'indptr': indptr,
+                                          'indices': indices,
+                                          'eids': eids_loc})
+  plan = _BookPlan(frontier, bounds_t, book.spec, mesh, capacity)
+  ok = plan.recv_lanes >= 0
+  local = plan.local(bounds_t, 0)
   lane = torch.arange(width, dtype=torch.int64, device=frontier.device)
-  starts, mask = [], []
-  for o in range(mesh.size):
-    start = indptr[o][local[o]]
-    deg = torch.where(ok[o], indptr[o][local[o] + 1] - start, 0)
-    starts.append(start)
-    mask.append(lane[None, :] < deg[:, None])
-  mask = torch.stack(mask)
+  starts, mask = {}, {}
+  for row, r in plan.lanes:
+    indptr_r = book.get('indptr', r)
+    starts[row] = indptr_r[local[row]]
+    deg = torch.where(ok[row], indptr_r[local[row] + 1] - starts[row], 0)
+    mask[row] = lane[None, :] < deg[:, None]
 
-  def windows(tables):
-    win = torch.stack([csr_window_gather(tables[o], starts[o], width)
-                       for o in range(mesh.size)])
-    return plan.reply(torch.where(mask, win, INVALID_ID), fill=INVALID_ID)
-  out_n = windows(indices)
-  out_e = windows(eids_loc) if eids_loc is not None else None
-  out_m = plan.reply(mask, fill=False)
+  def windows(key):
+    win = {row: torch.where(mask[row], csr_window_gather(
+        book.get(key, r), starts[row], width), INVALID_ID)
+           for row, r in plan.lanes}
+    return plan.reply(plan.stack(win, INVALID_ID), fill=INVALID_ID)
+  out_n = windows('indices')
+  out_e = windows('eids') if with_edge else None
+  out_m = plan.reply(plan.stack(mask, False), fill=False)
   return out_n, out_m, out_e, plan.stats.sum(0)
 
 
 def dist_gather_multi(mesh: Mesh, shards, bounds, ids,
                       capacity: Optional[int] = None, hot_counts=None,
-                      shard_mode: str = 'range'):
+                      shard_mode: str = 'range',
+                      book: Optional[BookLanes] = None, book_keys=()):
   """Row gather from several sharded tables sharing one exchange, for
   every partition's ``[P, F]`` ids: ``out_t[p, i] = table_t[ids[p, i]]``
   (zero rows for invalid or undelivered ids).  ``shards`` are stacked
@@ -264,34 +412,38 @@ def dist_gather_multi(mesh: Mesh, shards, bounds, ids,
   (``shard_mode='range'``) or by ``id % P`` at row ``id // P``
   (``'mod'``: the edge-feature tables of `build_dist_edge_feature`);
   with ``hot_counts`` (``[P]``) the FIRST is the hot tier: rows at or
-  past the owner's hot count come back zero (the cold overlay fills
-  them).  Each owner's read is the row gather kernel (a ``[P, rows]``
-  table is read as ``[rows, 1]``).  Returns ``(outs, stats)``, ``stats``
-  the ``[3]`` counters summed over the partitions."""
+  past the RANGE's hot count come back zero (the cold overlay fills
+  them; placement never moves).  Each range's read is the row gather
+  kernel (a ``[P, rows]`` table is read as ``[rows, 1]``).  Returns
+  ``(outs, stats)``, ``stats`` the ``[3]`` counters summed over the
+  partitions.  Under a pinned view's `BookLanes` (``book``) table ``t``
+  is read, lane by lane, from the book's source ``book_keys[t]``; None
+  is the identity book over ``shards``."""
   if shard_mode not in ('range', 'mod'):
     raise ValueError(f'unknown shard_mode {shard_mode!r}')
-  if shard_mode == 'mod':
-    plan = plan_exchange(ids, edge_owner_fn(mesh.size), mesh.size, mesh,
-                         capacity)
-    valid = plan.recv >= 0
-    local = torch.where(valid, edge_local_rows(plan.recv, mesh.size), 0)
-  else:
-    bounds_t = int64_on(bounds, ids.device)
-    plan = plan_exchange(ids, range_owner_fn(bounds_t), mesh.size, mesh,
-                         capacity)
-    valid = plan.recv >= 0
-    local = torch.where(valid, plan.recv - bounds_t[:-1, None], 0)
+  p = mesh.size
+  if book is None:
+    book, book_keys = BookLanes.identity(p, dict(enumerate(shards))), \
+        range(len(shards))
+  bounds_t = int64_on(bounds, ids.device)
+  plan = _BookPlan(ids, bounds_t, book.spec, mesh, capacity,
+                   owner_mode=shard_mode)
+  valid = plan.recv_lanes >= 0
+  local = (torch.where(valid, edge_local_rows(plan.recv_lanes, p), 0)
+           if shard_mode == 'mod' else plan.local(bounds_t, 0))
   ok = (ids >= 0) & plan.delivered
-  hot = (None if hot_counts is None
-         else int64_on(hot_counts, ids.device)[:, None])
+  hot = (None if hot_counts is None else
+         int64_on(hot_counts, ids.device)[plan.lane_range][:, None])
   outs = []
-  for t, shard in enumerate(shards):
+  for t, (key, shard) in enumerate(zip(book_keys, shards)):
     row_valid = valid if t or hot is None else valid & (local < hot)
     idx = torch.where(row_valid, local, INVALID_ID)
-    rows = torch.stack([
-        gather_rows(shard[o] if shard.ndim == 3 else shard[o][:, None],
-                    idx[o]) for o in range(mesh.size)])
-    out = plan.reply(rows, fill=0)
+    rows = {}
+    for row, r in plan.lanes:
+      table = book.get(key, r)
+      rows[row] = gather_rows(table if shard.ndim == 3 else table[:, None],
+                              idx[row])
+    out = plan.reply(plan.stack(rows, 0), fill=0)
     out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
                                                       device=out.device))
     outs.append(out if shard.ndim == 3 else out[..., 0])
@@ -307,28 +459,31 @@ def dist_gather(mesh: Mesh, shard, bounds, ids,
 
 
 def dist_edge_exists(mesh: Mesh, indptr, indices, bounds_t, rows, cols,
-                     capacity: Optional[int] = None) -> torch.Tensor:
+                     capacity: Optional[int] = None,
+                     book: Optional[BookLanes] = None) -> torch.Tensor:
   """Is ``(rows[p, i], cols[p, i])`` an edge of the global graph, for
   every partition's ``[P, F]`` pairs?  Each pair travels to its row's
-  owner beside its column (one exchange each way), which answers with
-  `ops.negative.edge_in_csr` over its CSR.  A pair past an owner's
+  range beside its column (one exchange each way), which answers with
+  `ops.negative.edge_in_csr` over its CSR.  A pair past a range's
   ``capacity`` answers True ("exists"), so it is never kept as a strict
-  negative."""
-  plan = plan_exchange(rows, range_owner_fn(bounds_t), mesh.size, mesh,
-                       capacity, payload=cols)
-  local = torch.where(plan.recv >= 0, plan.recv - bounds_t[:-1, None],
-                      INVALID_ID)
-  ex = torch.stack([edge_in_csr(indptr[o], indices[o], local[o],
-                                plan.recv_payload[o])
-                    for o in range(mesh.size)])
-  return plan.reply(ex, fill=True)
+  negative.  ``book``: as `_dist_one_hop`."""
+  if book is None:
+    book = BookLanes.identity(mesh.size, {'indptr': indptr,
+                                          'indices': indices})
+  plan = _BookPlan(rows, bounds_t, book.spec, mesh, capacity, payload=cols)
+  local = plan.local(bounds_t, INVALID_ID)
+  ex = {row: edge_in_csr(book.get('indptr', r), book.get('indices', r),
+                         local[row], plan.recv_payload_lanes[row])
+        for row, r in plan.lanes}
+  return plan.reply(plan.stack(ex, True), fill=True)
 
 
 def dist_sample_negative(mesh: Mesh, indptr, indices, bounds_t,
                          num_rows: int, num_cols: int, req_num: int,
                          draws, step: int, trials: int = NEG_TRIALS,
                          capacity: Optional[int] = None,
-                         rows_fixed: Optional[torch.Tensor] = None):
+                         rows_fixed: Optional[torch.Tensor] = None,
+                         book: Optional[BookLanes] = None):
   """``req_num`` strict negative pairs a partition over the sharded
   graph: ``trials`` candidate pairs a slot from ``draws.negatives(step,
   stream, trials, req_num, high, part=p)`` (stream 0 rows in ``[0,
@@ -337,7 +492,8 @@ def dist_sample_negative(mesh: Mesh, indptr, indices, bounds_t,
   cols, ok)``, each ``[P, req_num]``: ``ok`` is False where every trial
   was an edge (the slot keeps the last trial's pair, which may be an
   edge; consumers mask it out).  ``rows_fixed`` (``[P, req_num]``) pins
-  each slot's row (triplet mode's negatives of a source)."""
+  each slot's row (triplet mode's negatives of a source).  ``book``: as
+  `dist_edge_exists`."""
   parts = mesh.size
   if rows_fixed is None:
     rows = torch.stack([draws.negatives(step, 0, trials, req_num, num_rows,
@@ -349,7 +505,8 @@ def dist_sample_negative(mesh: Mesh, indptr, indices, bounds_t,
   rows = rows.to(torch.int32)
   exists = dist_edge_exists(
       mesh, indptr, indices, bounds_t, rows.reshape(parts, -1),
-      cols.reshape(parts, -1), capacity).reshape(parts, trials, req_num)
+      cols.reshape(parts, -1), capacity, book=book).reshape(parts, trials,
+                                                            req_num)
   pick = torch.stack([first_non_edge(e) for e in exists])[:, None, :]
   ok = (~exists).any(dim=1)
   return (rows.gather(1, pick)[:, 0], cols.gather(1, pick)[:, 0], ok)
@@ -672,6 +829,19 @@ class DistNeighborSampler(ExchangeTelemetry):
     #: host seconds of the cold overlay by part (`OVERLAY_PARTS`), summed
     #: since construction; a caller resets it to read a window
     self.overlay_secs = dict.fromkeys(OVERLAY_PARTS, 0.0)
+    #: the routing authority, shared with every reader of the dataset;
+    #: the sampler pins one view a dispatch (`maybe_refresh_book`) and its
+    #: lanes' sources (None while the book is the identity)
+    self.book = dataset.partition_book
+    self._book_view = None
+    self._book_lanes: Optional[BookLanes] = None
+    self._degraded_partitions = dataset.degraded_partitions
+    self._degraded_seen = len(self._degraded_partitions)
+    self._adopt_pending_t0 = None
+    self._shard_store = None
+    # the load-time durable copy: with GLT_SHARD_DIR set the shards are
+    # written now, so an owner lost later adopts from this copy
+    self._resolve_shard_store()
 
   def node_capacity(self, batch_size: int) -> int:
     cap = max_sampled_nodes(batch_size, self.fanouts)
@@ -697,11 +867,171 @@ class DistNeighborSampler(ExchangeTelemetry):
 
   def _dispatch_nodes(self, seeds_stacked: np.ndarray) -> dict:
     """Sample and collect one stacked batch on the card, every
-    partition hop by hop in lockstep, without the cold overlay."""
+    partition hop by hop in lockstep, without the cold overlay.  Owner
+    supervision and the book fence run before the draw cursor advances
+    (a recovered dispatch draws as the fault-free one did)."""
+    self._fence()
     self._step_cnt += 1
     seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
         self.device)
-    return self._sample_collect(seeds, self.draws, self._step_cnt)
+    out = self._sample_collect(seeds, self.draws, self._step_cnt)
+    self._complete_recovery()
+    return out
+
+  # -- partition failover ---------------------------------------------------
+  def _fence(self) -> None:
+    """The dispatch seam: owner supervision, then the book fence."""
+    self._partition_supervision()
+    self.maybe_refresh_book()
+
+  def _resolve_shard_store(self):
+    """The durable `failover.ShardStore` under ``GLT_SHARD_DIR`` (None:
+    failover off).  Its first resolution writes the dataset's shards
+    unless the store already holds this graph's (by shape and
+    fingerprint); once a dataset."""
+    if self._shard_store is not None:
+      return self._shard_store
+    from .failover import ShardStore, dataset_fingerprint, shard_dir_from_env
+    d = shard_dir_from_env()
+    if d is None:
+      return None
+    store = ShardStore(d)
+    g = self.ds.graph
+    if not getattr(self.ds, '_shards_written', False):
+      meta = store.meta()
+      stale = (meta is None
+               or meta.get('num_parts') != self.num_parts
+               or meta.get('num_nodes') != int(g.num_nodes)
+               or meta.get('node_width') != int(g.indptr.shape[1])
+               or int(meta.get('edge_width', 0)) > int(g.indices.shape[1])
+               or meta.get('fingerprint') not in
+               (None, dataset_fingerprint(self.ds)))
+      if stale:
+        store.write_dataset_shards(self.ds)
+    self.ds._shards_written = True
+    self._shard_store = store
+    return store
+
+  def _partition_supervision(self) -> None:
+    """The ``partition.owner`` chaos seam at every dispatch: a kill
+    classifies that owner dead and runs the recovery ladder — adopt (a
+    durable shard exists), else degraded (``GLT_DEGRADED_OK=1``), else a
+    typed `PartitionLostError`.  After an adoption the same dispatch
+    proceeds."""
+    from .failover import PartitionLostError
+    try:
+      chaos.partition_owner_check(step=self._step_cnt + 1)
+    except PartitionLostError as e:
+      self._on_partition_lost(e)
+
+  def _on_partition_lost(self, err) -> None:
+    """One owner classified dead: the fallback ladder."""
+    from ..distributed.resilience import degraded_ok
+    from .failover import NoDurableShardError, adopt_shard
+    from .partition_book import AdoptionRefusedError
+    p = int(err.partition or 0)
+    if p in self._degraded_partitions:
+      return                          # already written off
+    if int(self.book.view().owners[p]) != p:
+      return                          # already adopted: the reader fences
+    t0 = time.monotonic()
+    try:
+      info = adopt_shard(self.ds, self._resolve_shard_store(), p)
+    except (NoDurableShardError, AdoptionRefusedError) as e:
+      if not degraded_ok():
+        raise type(err)(
+            f'partition {p} lost and adoption is unavailable ({e}); set '
+            'GLT_SHARD_DIR for elastic failover or GLT_DEGRADED_OK=1 for '
+            'reduced completion', partition=p) from e
+      self._enter_degraded(p)
+      return
+    self._adopt_pending_t0 = (t0, p, info['survivor'])
+    recorder.emit('peer.lost', peer=p, peer_kind='partition',
+                  degraded=False, adopted=True, survivor=info['survivor'])
+
+  def _enter_degraded(self, p: int) -> None:
+    """The ``GLT_DEGRADED_OK`` fallback: the orphaned range's CSR row and
+    feature shard are emptied in place (its expansions vanish from the
+    epoch and its nodes read zero rows), flagged ``peer.lost
+    degraded=True``."""
+    self._degraded_partitions.add(p)
+    g = self.ds.graph
+    g.indptr[p] = 0
+    g.indices[p] = -1
+    g.edge_ids[p] = -1
+    nf = self.ds.node_features
+    if nf is not None:
+      nf.shards[p] = 0
+      if nf.cold_host is not None:
+        b = np.asarray(g.bounds, np.int64)
+        nf.cold_host[b[p]:b[p + 1]] = 0
+    recorder.emit('peer.lost', peer=p, peer_kind='partition', degraded=True,
+                  adopted=False)
+    self.maybe_refresh_book()
+
+  def _complete_recovery(self) -> None:
+    """The first dispatch after an adoption closes the recovery clock
+    (classification -> dispatched batch) into the
+    ``partition.recovery_secs`` gauge and a ``partition.adopt`` event of
+    phase ``recovered``."""
+    pending = self._adopt_pending_t0
+    if pending is None:
+      return
+    t0, p, survivor = pending
+    self._adopt_pending_t0 = None
+    secs = time.monotonic() - t0
+    live.gauge('partition.recovery_secs', fn=lambda: secs)
+    recorder.emit('partition.adopt', partition=p, survivor=survivor,
+                  version=self.book.version, phase='recovered',
+                  secs=round(secs, 6))
+
+  def maybe_refresh_book(self) -> int:
+    """The book fence: when the shared `PartitionBook` published a newer
+    view (or a range was written off), pin it, rebuild the lanes'
+    sources (`book_lanes`) and invalidate what derives from the
+    placement (the GNS bitmask, the int32 edge-id copy).  Readers hold
+    one view a dispatch; a move mid-dispatch is seen at the next one."""
+    ver = self.book.version
+    ndeg = len(self._degraded_partitions)
+    view = self._book_view
+    if view is not None and view.version == ver and \
+        ndeg == self._degraded_seen:
+      return ver
+    if ndeg != self._degraded_seen:
+      self._eids = None
+    self._book_view = view = self.book.view()
+    self._degraded_seen = ndeg
+    self._book_lanes = self.book_lanes(view)
+    self._gns_ver = -1
+    return ver
+
+  @property
+  def book_spec(self) -> Optional[BookSpec]:
+    """The pinned view's routing tables (None: the identity book)."""
+    if self._book_view is None:
+      self.maybe_refresh_book()
+    return self._book_view.spec()
+
+  def book_lanes(self, view) -> Optional[BookLanes]:
+    """The sources of a moved ``view``'s lanes: the live stacks, and
+    the adopted ranges' payloads on the card (`DistDataset.adopted_lane`);
+    None for the identity book (each exchange reads the tables it is
+    given)."""
+    spec = view.spec()
+    if spec is None:
+      return None
+    ds = self.ds
+    stacks = {'indptr': lambda: ds.graph.indptr,
+              'indices': lambda: ds.graph.indices, 'eids': self._edge_ids}
+    if ds.node_features is not None:
+      stacks['fshard'] = lambda: ds.node_features.shards
+    if ds.node_labels is not None:
+      stacks['lshard'] = lambda: ds.node_labels
+    if ds.edge_features is not None:
+      stacks['efshard'] = lambda: ds.edge_features.shards
+    moved = {r: ds.adopted_lane(r) for r in range(spec.num_parts)
+             if spec.owners[r] != r}
+    return BookLanes(spec, stacks, moved)
 
   def _sample_collect(self, seeds: torch.Tensor, draws: Draws,
                       step: int, with_edge: Optional[bool] = None) -> dict:
@@ -711,6 +1041,7 @@ class DistNeighborSampler(ExchangeTelemetry):
     flag (the subgraph sampler's closure)."""
     b = seeds.shape[1]
     bits = self._gns_arrays() if self.gns else None
+    book = self._book_lanes
     g = self.ds.graph
     with_edge = self.with_edge if with_edge is None else with_edge
     eids = self._edge_ids() if with_edge else None
@@ -724,7 +1055,7 @@ class DistNeighborSampler(ExchangeTelemetry):
       nbrs, mask, he, hw, hstats = _dist_one_hop(
           self.mesh, g.indptr, g.indices, self._bounds_t, frontier, k,
           draws, step, h, cap, gns_bits=bits,
-          gns_boost=self.gns_boost, eids_loc=eids)
+          gns_boost=self.gns_boost, eids_loc=eids, book=book)
       fr_stats.add_(hstats)
       hws.append(hw)
       hes.append(he)
@@ -754,19 +1085,22 @@ class DistNeighborSampler(ExchangeTelemetry):
           self.mesh, (ef.shards,), ef.bounds, out['edge'],
           capacity=capacity_spec(out['edge'].shape[1], self.num_parts,
                                  self.exchange_slack),
-          shard_mode='mod')
+          shard_mode='mod', book=book, book_keys=('efshard',))
       ft_stats += estats
-    tables = []
+    tables, keys = [], []
     if self.collect_features:
       tables.append(self.ds.node_features.shards)
+      keys.append('fshard')
     if self.collect_labels:
       tables.append(self.ds.node_labels)
+      keys.append('lshard')
     if tables:
       got, gstats = dist_gather_multi(
           self.mesh, tables, self._bounds_t, state.nodes,
           capacity=capacity_spec(node_cap, self.num_parts,
                                  self.exchange_slack),
-          hot_counts=self._hot_t if self.collect_features else None)
+          hot_counts=self._hot_t if self.collect_features else None,
+          book=book, book_keys=keys)
       ft_stats += gstats
       got = list(got)
       if self.collect_features:
@@ -1175,10 +1509,13 @@ class DistLinkNeighborSampler(DistNeighborSampler):
   def _dispatch_edges(self, pairs_stacked: np.ndarray) -> dict:
     """`_dispatch_nodes`' link twin: negatives, expansion and collection
     on the card, without the cold overlay."""
+    self._fence()
     self._step_cnt += 1
     pairs = torch.from_numpy(np.asarray(pairs_stacked, np.int32)).to(
         self.device)
-    return self._sample_link(pairs, self.draws, self._step_cnt)
+    out = self._sample_link(pairs, self.draws, self._step_cnt)
+    self._complete_recovery()
+    return out
 
   def _sample_link(self, pairs: torch.Tensor, draws: Draws,
                    step: int) -> dict:
@@ -1193,14 +1530,14 @@ class DistLinkNeighborSampler(DistNeighborSampler):
     if self.neg_mode == 'binary':
       nrows, ncols, neg_ok = dist_sample_negative(
           self.mesh, g.indptr, g.indices, self._bounds_t, n, n, nn, draws,
-          step, capacity=cap)
+          step, capacity=cap, book=self._book_lanes)
       seeds = torch.cat([src, dst, nrows, ncols], dim=1)
     elif self.neg_mode == 'triplet':
       amount = nn // b
       fixed = torch.where(src >= 0, src, 0).repeat_interleave(amount, dim=1)
       _, negs, neg_ok = dist_sample_negative(
           self.mesh, g.indptr, g.indices, self._bounds_t, n, n, nn, draws,
-          step, capacity=cap, rows_fixed=fixed)
+          step, capacity=cap, rows_fixed=fixed, book=self._book_lanes)
       seeds = torch.cat([src, dst, negs], dim=1)
     else:
       seeds = torch.cat([src, dst], dim=1)
@@ -1376,11 +1713,13 @@ class DistSubGraphSampler(DistNeighborSampler):
     stacked induced-subgraph pieces: edges in (source, destination)
     order as local ids, ``seed_local`` (the ``mapping``), ``x``/``y``
     of the closure and ``edge`` (global ids, with ``with_edge``)."""
+    self._fence()
     self._step_cnt += 1
     seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
         self.device)
-    return self._finish_nodes(self._sample_subgraph(seeds, self.draws,
-                                                    self._step_cnt))
+    out = self._sample_subgraph(seeds, self.draws, self._step_cnt)
+    self._complete_recovery()
+    return self._finish_nodes(out)
 
   def _sample_subgraph(self, seeds: torch.Tensor, draws: Draws,
                        step: int) -> dict:
@@ -1408,12 +1747,13 @@ class DistSubGraphSampler(DistNeighborSampler):
       if self.exact_window:
         n_, m_, e_, st = _dist_window_hop(self.mesh, g.indptr, g.indices,
                                           self._bounds_t, fr, d, cap,
-                                          eids_loc=eids_loc)
+                                          eids_loc=eids_loc,
+                                          book=self._book_lanes)
       else:
         # JAX keys chunk ci as expansion hop ci: fold_in(step key, ci)
         n_, m_, e_, _, st = _dist_one_hop(
             self.mesh, g.indptr, g.indices, self._bounds_t, fr, d, draws,
-            step, ci, cap, eids_loc=eids_loc)
+            step, ci, cap, eids_loc=eids_loc, book=self._book_lanes)
       stats += st
       nb.append(n_)
       mk.append(m_)
@@ -1534,6 +1874,7 @@ class DistRandomWalker(DistNeighborSampler):
     """``[P, B]`` per-partition start nodes (relabelled ids, -1 padded)
     -> ``[P, B, walk_length + 1]`` int32 walks, the start in column
     0."""
+    self._fence()
     self._step_cnt += 1
     cur = torch.from_numpy(np.asarray(starts_stacked, np.int32)).to(
         self.device)
@@ -1544,9 +1885,11 @@ class DistRandomWalker(DistNeighborSampler):
       nbrs, mask, _, _, st = _dist_one_hop(
           self.mesh, g.indptr, g.indices, self._bounds_t, cur, 1,
           self.draws, self._step_cnt, t,
-          capacity_spec(cur.shape[1], self.num_parts, self.exchange_slack))
+          capacity_spec(cur.shape[1], self.num_parts, self.exchange_slack),
+          book=self._book_lanes)
       stats += st
       cur = torch.where(mask[..., 0], nbrs[..., 0], INVALID_ID)
       path.append(cur)
+    self._complete_recovery()
     self._accumulate_stats(stats)
     return torch.stack(path, dim=2)

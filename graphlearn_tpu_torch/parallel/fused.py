@@ -35,6 +35,12 @@ loader would have counted at the same draws.  The slack is static:
 ``'adaptive'`` retunes between batches on the host, which a fused epoch
 does not do.
 
+Partition failover: at each chunk boundary (a `run`, an `evaluate`) the
+driver closes a pending adoption's recovery clock, runs owner
+supervision and the book fence (`_chunk_fence`), so a ``partition.owner``
+kill lands at the same arrival as in JAX and every step of the chunk
+reads one pinned view.
+
 Snapshots (`loader.fused._SnapshotHooks`): a mesh epoch is one chunk,
 as JAX's untiered epoch is one program, so it passes the
 ``fused.dispatch`` seam once, before its first step, and saves once at
@@ -208,6 +214,7 @@ class _MeshEpochDriver(_SnapshotHooks):
     seeds = self._steps(flat)
     draws = _EpochDraws(self.draws, self._epoch_idx)
     chaos.fused_dispatch_check(chunk=0, epoch=self._epoch_idx)
+    self._chunk_fence()
     losses, counts, hops = [], [], None
     for i in range(s):
       loss, correct, valid, hop = self._train_step(
@@ -234,10 +241,21 @@ class _MeshEpochDriver(_SnapshotHooks):
                                      shuffle=False)))
     seeds = self._steps(flat)
     draws = _EpochDraws(self.draws, 0)
+    self._chunk_fence()
     counts = torch.stack([torch.stack(self._eval_step(seeds[i], draws, i))
                           for i in range(seeds.shape[0])])
     correct, total = (int(v) for v in counts.sum(0).cpu())
     return correct / max(total, 1)
+
+  def _chunk_fence(self) -> None:
+    """The chunk boundary (a mesh epoch is one chunk; `evaluate` is
+    another), as JAX's ``_chunk_arrs``: close a pending adoption's
+    recovery clock (the previous chunk has been dispatched), run owner
+    supervision, then the book fence — every step of the chunk reads the
+    view pinned here."""
+    self.sampler._complete_recovery()
+    self.sampler._partition_supervision()
+    self.sampler.maybe_refresh_book()
 
   def _emit_hop_events(self, hop_counts: torch.Tensor, steps: int) -> None:
     """One ``hop.padding`` event a hop for the epoch (its node count,
@@ -394,7 +412,7 @@ class FusedDistTreeEpoch(_MeshEpochDriver):
       nbrs, mask, _, _, st = _dist_one_hop(
           self.mesh, g.indptr, g.indices, smp._bounds_t, frontier, k, draws,
           step, h, capacity_spec(frontier.shape[1], self.num_parts, slack),
-          sort_locality=False)
+          sort_locality=False, book=smp._book_lanes)
       fr_stats += st
       frontier = torch.where(mask, nbrs, -1).reshape(self.num_parts, -1)
       levels.append(frontier)
@@ -402,7 +420,8 @@ class FusedDistTreeEpoch(_MeshEpochDriver):
     (feats, labels), ft_stats = dist_gather_multi(
         self.mesh, (self.ds.node_features.shards, self.ds.node_labels),
         smp._bounds_t, all_ids,
-        capacity=capacity_spec(all_ids.shape[1], self.num_parts, slack))
+        capacity=capacity_spec(all_ids.shape[1], self.num_parts, slack),
+        book=smp._book_lanes, book_keys=('fshard', 'lshard'))
     smp._accumulate_stats(torch.cat([fr_stats, ft_stats]))
     xs = list(torch.split(feats, [lvl.shape[1] for lvl in levels], dim=1))
     masks = [lvl >= 0 for lvl in levels]
@@ -528,6 +547,7 @@ class FusedDistLinkEpoch(_MeshEpochDriver):
                                      shuffle=False)))
     steps = self._steps(flat, pairs)
     draws = _EpochDraws(self.draws, 0)
+    self._chunk_fence()
     b = self.batch_size
     counts = []
     self.model.eval()

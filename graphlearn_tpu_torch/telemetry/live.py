@@ -107,6 +107,17 @@ METRIC_NAMES: Dict[str, str] = {
         'counter: kernel libraries restored from GLT_AOT_CACHE_DIR',
     'aot.cache_misses_total':
         'counter: cache lookups that fell back to nvcc',
+    'partition.adoptions_total':
+        'counter: partition-ownership transfers executed '
+        '(failover.adopt_shard: durable shard loaded, book version bumped, '
+        'survivor serving the orphaned range)',
+    'partition.book_version':
+        "gauge: the PartitionBook's current published version (0 = "
+        'identity ownership; each move bumps it and every reader re-fences '
+        'at its next dispatch seam)',
+    'partition.recovery_secs':
+        'gauge: classification-to-first-served-batch wall time of the most '
+        'recent partition adoption (shard load + lane upload + the batch)',
 }
 
 

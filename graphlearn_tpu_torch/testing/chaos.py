@@ -62,6 +62,20 @@ reads the same in the other.  Sites and actions:
       (absorbed: a cache fault costs an ``nvcc`` run, never a kernel),
       ``corrupt`` scrambles the payload before publish (a later load
       must catch the checksum and rebuild).
+  ``partition.owner``
+      At every mesh dispatch seam (`parallel.dist_sampler`'s node, link,
+      subgraph and walk dispatches; a fused mesh epoch's chunk boundary),
+      before the draw cursor advances.  ``kill`` classifies the fault's
+      ``partition`` dead and raises `parallel.failover.PartitionLostError`
+      (the sampler's recovery ladder: adopt, else degraded, else typed);
+      ``delay`` sleeps ``secs`` (a slow owner, not a dead one).
+  ``handoff.transfer``
+      Inside `parallel.handoff.handoff`, once a phase with ``op`` = the
+      seam (``snapshot`` / ``transfer`` / ``fence`` / ``cutover`` /
+      ``drain``) and ``partition`` = the moving range.  ``delay`` sleeps,
+      ``fail`` raises :class:`InjectedFault`, ``kill`` raises
+      :class:`ChaosKilledError`.  A raise before ``cutover`` unwinds to the
+      source; at ``drain`` it is absorbed (the move stands).
 
 Plans install programmatically (:func:`install`) or from the
 ``GLT_FAULT_PLAN`` env var.  JSON::
@@ -84,7 +98,8 @@ FAULT_PLAN_ENV = 'GLT_FAULT_PLAN'
 
 _SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
           'feature.cold_service', 'fused.dispatch', 'serving.request',
-          'serving.replica', 'scale.spawn', 'aot.cache')
+          'serving.replica', 'scale.spawn', 'aot.cache', 'partition.owner',
+          'handoff.transfer')
 _ACTIONS = ('drop', 'delay', 'corrupt', 'kill', 'fail', 'truncate',
             'flap')
 
@@ -110,6 +125,9 @@ class Fault:
   op: Optional[str] = None
   epoch: Optional[int] = None     # fused.dispatch: epoch filter
   replica: Optional[str] = None   # serving.*, scale.spawn: name filter
+  #: partition.owner: the victim partition (a kill classifies it dead);
+  #: also a filter where the seam names one (handoff.transfer)
+  partition: Optional[int] = None
   secs: float = 0.1               # delay / flap duration
   _seen: int = field(default=0, repr=False, compare=False)
 
@@ -125,6 +143,9 @@ class Fault:
     if self.op is not None and ctx.get('op') != self.op:
       return False
     if self.replica is not None and ctx.get('replica') != self.replica:
+      return False
+    if (self.partition is not None and 'partition' in ctx
+        and ctx.get('partition') != self.partition):
       return False
     return self.epoch is None or ctx.get('epoch') == self.epoch
 
@@ -187,7 +208,7 @@ def _parse_compact(part: str) -> Fault:
     if '=' not in tok:
       raise ValueError(f'bad compact fault field {tok!r} in {part!r}')
     k, v = tok.split('=', 1)
-    kw[k] = int(v) if k in ('nth', 'count', 'epoch') else (
+    kw[k] = int(v) if k in ('nth', 'count', 'epoch', 'partition') else (
         float(v) if k == 'secs' else v)
   return Fault(**kw)
 
@@ -337,3 +358,35 @@ def scale_spawn_check(replica: str = '') -> None:
     if f.action == 'kill':
       raise ChaosKilledError(f'injected scale.spawn kill (replica '
                              f'{replica!r})')
+
+
+def partition_owner_check(step: int = 0) -> None:
+  """Partition-owner seam, one arrival a mesh dispatch, before the draw
+  cursor advances (a recovered dispatch then draws as the fault-free one
+  did): ``delay`` sleeps in place (a slow owner is not reclassified);
+  ``kill`` raises `parallel.failover.PartitionLostError` naming the
+  fault's ``partition``."""
+  fired = on('partition.owner', step=int(step))
+  maybe_delay(fired)
+  for f in fired:
+    if f.action == 'kill':
+      from ..parallel.failover import PartitionLostError
+      p = int(f.partition or 0)
+      raise PartitionLostError(
+          f'injected partition.owner kill: partition {p} classified dead '
+          f'at dispatch step {step}', partition=p)
+
+
+def handoff_transfer_check(seam: str, partition: int = 0) -> None:
+  """Planned-handoff seam, once a phase (``op`` = the seam name):
+  ``delay`` sleeps in place (the source keeps serving), ``fail`` raises
+  `InjectedFault`, ``kill`` raises `ChaosKilledError`."""
+  fired = on('handoff.transfer', op=seam, partition=int(partition))
+  maybe_delay(fired)
+  for f in fired:
+    if f.action == 'fail':
+      raise InjectedFault(
+          f'injected handoff {seam} failure (partition {partition})')
+    if f.action == 'kill':
+      raise ChaosKilledError(
+          f'injected handoff {seam} kill (partition {partition})')

@@ -54,6 +54,8 @@ def test_import_pulls_in_no_jax():
       'import graphlearn_tpu_torch.utils.checkpoint\n'
       'import graphlearn_tpu_torch.parallel\n'
       'import graphlearn_tpu_torch.parallel.rdma_gather\n'
+      'import graphlearn_tpu_torch.parallel.failover\n'
+      'import graphlearn_tpu_torch.parallel.handoff\n'
       'import graphlearn_tpu_torch.data.cold_cache\n'
       'import graphlearn_tpu_torch.data.reorder\n'
       'import graphlearn_tpu_torch.ops.cold_gather\n'
@@ -68,6 +70,9 @@ def test_import_pulls_in_no_jax():
       'assert "graphlearn_tpu_torch.telemetry.live" in sys.modules\n'
       'assert "graphlearn_tpu_torch.parallel.dist_sampler" in sys.modules\n'
       'assert "graphlearn_tpu_torch.parallel.rdma_gather" in sys.modules\n'
+      'assert "graphlearn_tpu_torch.parallel.partition_book" in '
+      'sys.modules\n'
+      'assert "graphlearn_tpu_torch.parallel.handoff" in sys.modules\n'
       'assert "graphlearn_tpu_torch.ops.gns" in sys.modules\n'
       'assert "graphlearn_tpu_torch.models.basic_gnn" in sys.modules\n'
       'assert "graphlearn_tpu_torch.sampler.neighbor_sampler" in '
@@ -98,6 +103,20 @@ def test_no_forbidden_import_in_sources():
         continue
       bad = [n for n in names if _forbidden(n)]
       assert not bad, f'{path.relative_to(PKG)} imports {bad}'
+
+
+def test_every_knob_the_port_reads_is_documented():
+  """Knob hygiene: every ``GLT_*`` name in the port's sources is one the
+  JAX package documents in ``benchmarks/README.md``."""
+  import re
+  doc = (PKG.parent / 'benchmarks' / 'README.md').read_text()
+  knobs = set()
+  for path in PKG.rglob('*.py'):
+    knobs.update(re.findall(r'[\'"](GLT_[A-Z0-9_]+)[\'"]',
+                            path.read_text()))
+  assert {'GLT_SHARD_DIR', 'GLT_ADOPT_TIMEOUT_S',
+          'GLT_DEGRADED_OK'} <= knobs
+  assert sorted(k for k in knobs if k not in doc) == []
 
 
 @pytest.mark.parametrize('script', ['chip_smoke.py'])
