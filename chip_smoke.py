@@ -23,12 +23,16 @@ Run from the repository root, with one CUDA card visible::
                                      # resume phases
     python3 chip_smoke.py --fleet    # build, graph and the rest of
                                      # serving (swap, fleet, autoscale, aot)
+    python3 chip_smoke.py --locality # build, graph and the mesh at P = 16
+                                     # and 64 (with the P = 64 locality
+                                     # comparison the whole run leaves out)
 
 Phases, one JSON line each; any failure exits nonzero:
 
   env     card (``nvidia-smi`` name and power limit), torch and CUDA
           versions; TF32 matmuls off.
-  build   the seven CUDA kernels compiled from
+  build   the seven CUDA kernels and the locality greedy's host code
+          compiled from
           ``graphlearn_tpu_torch/csrc`` (one ``nvcc`` per source, started
           together).
   graph   the ogbn-products-scale synthetic graph (2,449,029 nodes,
@@ -627,6 +631,47 @@ failover and planned handoff at P = 8, on `mesh_data`'s two stores):
 
 ``--failover`` runs build, graph and the group alone and prints the
 ``kernels`` line of its path (K1, K2, K1-GNS) and the result line.
+
+Then the ``locality`` group (the mesh at P = 16 and 64 partitions of the
+card, `bench.py` phase 3c rebuilt in-process on the products graph):
+
+  envelope_p16 / envelope_p64  the range-partitioned featureless store;
+          `DistNeighborLoader([5, 5], shuffle=True,
+          exchange_slack='adaptive')` at batch 64 (P = 16) / 32 (P = 64)
+          a partition under the default layout (compact at both), the
+          first batch (its seconds; its kernel inputs recorded), 5 epochs
+          of 2 batches: waste and drops by epoch and cumulative,
+          ``slack_final``, seeds/s, the attribution; then one epoch a
+          layout (dense, compact, hier) at slack 1.25, the hier epoch's
+          first dispatch recorded.  2P K1 launches a batch, no plain
+          call; every recorded call (the compact and hier receive
+          shapes) byte-equal to the plain version; the card's peak bytes.
+  locality_p16  `bench_dist_loader._locality_comparison` under
+          ``GLT_EXCHANGE_EWMA=1``, featured: the range arm and the
+          locality arm (the greedy, compiled for the host; a replica
+          cache of 0.35 N rows a partition), 4 epochs and a re-timed 2
+          over 64 x 16 x 8 seeds: cross-partition byte and id fractions,
+          locally served ids, steady seeds/s, drops, the greedy's host
+          seconds, the edge cut, retunes; 2P K1 and P (range) or 3P
+          (locality: exchange, replica overlay, own rows) K2 launches a
+          batch, each arm's first dispatch byte-equal to the plain
+          versions.  Then the rename twin: identity relabel and one
+          epoch digest-equal, else it raises.
+  rebalance  P = 16, ``node % 16`` with the hubs (the lowest 1% of ids)
+          on partition 3, dense at slack 1.5: `rebalance_plan` and
+          `execute_rebalance` after 3 of 8 batches; range 3 moves first,
+          every batch digest-equal to the undisturbed epoch, one bump a
+          move, no adoption, a lower cross-partition byte fraction,
+          seconds by seam.
+  locality_cross_check  card = CPU on the 20,000-node envelope graph:
+          each layout's first P = 16 batch, the greedy's ``node_pb``
+          (compiled vs numpy) and both relabels; both greedies' host
+          microseconds a node.
+
+``--locality`` runs build, graph and the group alone, with the P = 64
+locality comparison too (left out of the whole run: its two replica
+caches alone take about 44 GB and its greedy and builds about a minute),
+and prints the ``kernels`` line of its path (K1, K2) and the result line.
 ``--profile`` adds `profile` (serving) and `profile_train` (kernel time
 by name and the device idle share of 3 steps of the per-batch, GNS
 and mesh training paths), the tiered-train idle shares and the idle
@@ -4068,15 +4113,15 @@ def summed(recs) -> dict:
 
 def check_mesh_path(torch, ops, timer, rec, path,
                     tables=('hot-tier features', 'labels'),
-                    hop_names=None) -> dict:
+                    hop_names=None, parts=MESH_PARTS) -> dict:
   """Every sampler and row-gather call of one recorded mesh dispatch held
   against its plain version (byte-equal), each timed; one ``kernel`` line
   per hop (``hop_names[t]``, for a heterogeneous dispatch the hop and
   edge type of its ``t``-th sampler call) and per table, summed over the
-  owners."""
+  ``parts`` owners."""
   per_hop, per_table = [], []
   for t in range(rec.hops):
-    at = slice(t * MESH_PARTS, (t + 1) * MESH_PARTS)
+    at = slice(t * parts, (t + 1) * parts)
     calls = zip(rec.sample_calls()[at], rec.edge_args()[at])
     if rec.gns:
       recs = [check_gns(torch, ops, timer, *a, edge_ids=e, with_edge_ids=on)
@@ -4094,15 +4139,15 @@ def check_mesh_path(torch, ops, timer, rec, path,
     per_hop[-1]['sorted'] = rec.sorted_hops[t]
     name = f'hop {t}' if hop_names is None else hop_names[t]
     emit('kernel', kernel='sample_one_hop_gns' if rec.gns else
-         'sample_one_hop', shape=f'{path} {name}, {MESH_PARTS} owners',
+         'sample_one_hop', shape=f'{path} {name}, {parts} owners',
          **per_hop[-1])
   calls = rec.gather_calls_in_order()
   for t, what in enumerate(tables):
     recs = [check_gather(torch, ops, timer, *a)
-            for a in calls[t * MESH_PARTS:(t + 1) * MESH_PARTS]]
+            for a in calls[t * parts:(t + 1) * parts]]
     per_table.append(summed(recs))
     emit('kernel', kernel='gather_rows',
-         shape=f'{path} {what}, {MESH_PARTS} owners', **per_table[-1])
+         shape=f'{path} {what}, {parts} owners', **per_table[-1])
   return {'hops': per_hop, 'gathers': per_table}
 
 
@@ -10554,10 +10599,13 @@ def check_elastic(el: dict, hops: int, warm_per_replica: int,
     return any(a <= t <= z for a, z in spans)
   outside = [(b, t, per) for t, b, _, per in el['samples'] if not incident(t)]
   worst = max(outside, default=(0.0, el['t0'], {}), key=lambda x: x[0])
+  # by time alone: a latency and an outcome kind at one offset do not
+  # compare
   slow = sorted([(round(o, 3), round(lat, 1)) for o, lat in el['timed']
                  if lat > target_ms and not incident(el['t0'] + o)]
                 + [(round(o, 3), kind) for o, kind in el['outcomes']
-                   if kind != 'ok' and not incident(el['t0'] + o)])
+                   if kind != 'ok' and not incident(el['t0'] + o)],
+                key=lambda v: v[0])
   outcomes = {}
   for x in decisions:
     key = f"{x['dir']}:{x['outcome']}"
@@ -10997,22 +11045,21 @@ def durable_dir(ds) -> tuple:
   return d, need
 
 
-class ShardDirEnv:
-  """``GLT_SHARD_DIR`` set to a directory for a block (``GLT_DEGRADED_OK``
-  unset), both restored after."""
+class EnvKnobs:
+  """Environment knobs set for a block (the named ones cleared first),
+  all restored after."""
 
-  def __init__(self, path):
-    self.path = path
+  def __init__(self, clear=(), **knobs):
+    self.clear, self.knobs = tuple(clear) + tuple(knobs), knobs
 
   def __enter__(self):
-    self.saved = {k: os.environ.pop(k, None)
-                  for k in ('GLT_SHARD_DIR', 'GLT_DEGRADED_OK')}
-    os.environ['GLT_SHARD_DIR'] = self.path
+    self.saved = {k: os.environ.pop(k, None) for k in self.clear}
+    os.environ.update(self.knobs)
     return self
 
   def __exit__(self, *exc):
-    os.environ.pop('GLT_SHARD_DIR', None)
     for k, v in self.saved.items():
+      os.environ.pop(k, None)
       if v is not None:
         os.environ[k] = v
 
@@ -11022,7 +11069,7 @@ def card_bytes(torch) -> int:
 
 
 def counted_epoch(torch, ops, it, per_batch: dict, digest_fn, record_at=None,
-                  recorder_kw=None, between=None):
+                  recorder_kw=None, between=None, parts=MESH_PARTS):
   """Iterate a mesh loader's epoch: each batch's digest, the launches
   over the whole epoch counted and checked against ``per_batch`` (kernel
   -> launches a batch) times the batches, no plain call, and, in the
@@ -11042,7 +11089,7 @@ def counted_epoch(torch, ops, it, per_batch: dict, digest_fn, record_at=None,
       between[1]()
     try:
       if len(out) == record_at:
-        with PathRecorder(torch, dsm, parts=MESH_PARTS, first=True,
+        with PathRecorder(torch, dsm, parts=parts, first=True,
                           **(recorder_kw or {})) as rec:
           b = next(it)
       else:
@@ -11131,7 +11178,7 @@ def failover_arm(torch, ops, timer, ds) -> dict:
   kill_step, victim = max(2, n // 2), MESH_PARTS // 2
   shard_dir, need = durable_dir(ds)
   try:
-    with ShardDirEnv(shard_dir):
+    with EnvKnobs(clear=('GLT_DEGRADED_OK',), GLT_SHARD_DIR=shard_dir):
       ds_f = fresh_view(ds)
       sync(torch)
       t0 = time.perf_counter()
@@ -11294,7 +11341,7 @@ def gns_failover_arm(torch, ops, timer, ds, train_idx) -> dict:
   kill_step, victim = FO_GNS_BATCHES // 2, MESH_PARTS // 2
   shard_dir, need = durable_dir(ds)
   try:
-    with ShardDirEnv(shard_dir):
+    with EnvKnobs(clear=('GLT_DEGRADED_OK',), GLT_SHARD_DIR=shard_dir):
       ds_f = fresh_view(ds)
       t0 = time.perf_counter()
       loader = make(ds_f)
@@ -11437,6 +11484,616 @@ def failover_kernels(fg: dict) -> list:
   ]
 
 
+# -- the mesh at P = 16 and 64: layouts, attribution, locality, rebalance ----
+ENV_NODES = 20_000                  # bench.py's envelope graph (phase 3c)
+ENV_ROWS = ((16, 64), (64, 32))     # (partitions, batch a partition)
+ENV_FANOUTS = (5, 5)
+ENV_EPOCHS = 5
+ENV_LAYOUT_SLACK = 1.25
+LOC_PARTS = 16
+LOC_EPOCHS = 4
+LOC_RETIMED = 2
+LOC_REPLICA = 0.35
+LOC_SLACK = 1.25
+REB_PARTS = 16
+REB_BATCH = 64
+REB_BATCHES = 8
+REB_AFTER = 3                       # batches before the rebalance
+REB_SLACK = 1.5
+PATH_REPS = 3                       # timer reps of the per-owner checks
+
+
+def coo_rows(torch, indptr):
+  """The CSR's source ids, one an edge, on the card."""
+  deg = indptr[1:] - indptr[:-1]
+  return torch.repeat_interleave(
+      torch.arange(deg.numel(), device=indptr.device), deg)
+
+
+def envelope_graph(seed=0):
+  """`benchmarks/common.py:build_graph`'s recipe (host numpy) at
+  `ENV_NODES` nodes."""
+  n, avg_deg = ENV_NODES, AVG_DEG
+  rng = np.random.default_rng(seed)
+  e = n * avg_deg
+  rows = rng.integers(0, n, e, dtype=np.int64)
+  hubs = rng.random(e) < 0.3
+  cols = np.where(hubs, (rng.random(e) ** 2 * n).astype(np.int64),
+                  rng.integers(0, n, e, dtype=np.int64))
+  return rows, cols.astype(np.int64)
+
+
+def frontier_epochs(torch, loader, epochs):
+  """`bench_dist_loader._epoch_exchange_rows`: ``epochs`` epochs, each
+  epoch's frontier ``(waste %, drop %)`` from the counter deltas, and the
+  seconds (the card synchronised at the end)."""
+  s = loader.sampler
+  rows, n = [], 0
+  t0 = time.perf_counter()
+  for _ in range(epochs):
+    prev = s.exchange_stats()
+    for _ in loader:
+      n += 1
+    st = s.exchange_stats()
+    off, drop, slots = (st[f'dist.frontier.{k}'] - prev[f'dist.frontier.{k}']
+                        for k in ('offered', 'dropped', 'slots'))
+    rows.append((100.0 * (1 - (off - drop) / max(slots, 1)),
+                 100.0 * drop / max(off, 1)))
+  sync(torch)
+  return rows, n, time.perf_counter() - t0
+
+
+def check_path_hops(torch, ops, rec, what, parts):
+  """A recorded featureless dispatch's ``hops x parts`` sampler calls
+  held against the plain version, timed (`PATH_REPS`)."""
+  return check_mesh_path(torch, ops, Timer(torch, reps=PATH_REPS), rec, what,
+                         tables=(), parts=parts)['hops']
+
+
+def envelope_phase(torch, ops, indptr, indices, rows_t, parts,
+                   batch) -> dict:
+  """`bench.py` phase 3c's envelope row (`bench_dist_loader.
+  envelope_worker`, homo) at products scale on ``parts`` partitions of
+  the card: the range-partitioned featureless store; the headline
+  `DistNeighborLoader([5, 5], shuffle=True, exchange_slack='adaptive')`
+  under the default layout (compact at 16 and 64), its first batch
+  (kernel inputs recorded), then 5 epochs of 2 batches, waste and drops
+  by epoch and cumulative, the attribution; then one epoch a layout
+  (dense, compact, hier) at slack 1.25, the hier loader's first
+  dispatch recorded.  Checks: 2P K1 launches a batch and no plain call,
+  every recorded call byte-equal to the plain version."""
+  import graphlearn_tpu_torch.parallel.dist_sampler as dsm
+  from graphlearn_tpu_torch.parallel import DistDataset, DistNeighborLoader
+  from graphlearn_tpu_torch.parallel.exchange import resolve_layout
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  ds = DistDataset.from_full_graph(parts, rows_t, indices,
+                                   num_nodes=NUM_NODES, device=DEVICE)
+  sync(torch)
+  build_secs = time.perf_counter() - t0
+  rng = np.random.default_rng(1)
+  per_batch = {'sample_one_hop': len(ENV_FANOUTS) * parts, 'gather_rows': 0}
+
+  def make(layout=None, slack='adaptive'):
+    seeds = rng.integers(0, NUM_NODES, batch * parts * 2)
+    return DistNeighborLoader(ds, ENV_FANOUTS, seeds, batch_size=batch,
+                              shuffle=True, collect_features=False, seed=0,
+                              exchange_slack=slack, exchange_layout=layout,
+                              device=DEVICE)
+
+  def counted(fn):
+    reset_counts(ops)
+    out = fn()
+    sync(torch)
+    launches, plain = read_counts(ops)
+    return out, launches, plain
+
+  loader = make()
+  sync(torch)
+  t0 = time.perf_counter()
+  with PathRecorder(torch, dsm, gns=False, parts=parts, tables=0,
+                    hops=len(ENV_FANOUTS), first=True) as rec:
+    (_, l0, p0) = counted(lambda: next(iter(loader)))
+  first_secs = time.perf_counter() - t0
+  (rows, n_batches, secs), l1, p1 = counted(
+      lambda: frontier_epochs(torch, loader, ENV_EPOCHS))
+  want = per_batch['sample_one_hop'] * (n_batches + 1)
+  if (l0['sample_one_hop'] + l1['sample_one_hop'] != want or p0 or p1
+      or l0['gather_rows'] + l1['gather_rows']):
+    raise AssertionError(f'envelope P={parts}: launches {l0} {l1}, plain '
+                         f'{p0 + p1}, want {want} K1')
+  st = loader.sampler.exchange_stats()
+  sent = st['dist.frontier.offered'] - st['dist.frontier.dropped']
+  layout = resolve_layout(loader.sampler.exchange_layout, parts)
+  hops_compact = check_path_hops(torch, ops, rec, f'envelope P={parts} '
+                                 f'{layout} first batch', parts)
+  del rec
+  att = loader.sampler.attribution_stats(tick_metrics=False)
+  out = dict(
+      parts=parts, batch=batch, fanouts=list(ENV_FANOUTS),
+      num_nodes=NUM_NODES, partitioner=ds.partitioner,
+      build_secs=build_secs, first_batch_secs=first_secs,
+      seeds_per_sec=n_batches * batch * parts / secs,
+      padding_waste_pct=rows[-1][0], drop_rate_pct=rows[-1][1],
+      padding_waste_pct_by_epoch=[r[0] for r in rows],
+      drop_rate_pct_by_epoch=[r[1] for r in rows],
+      padding_waste_pct_cum=100.0 * (1 - sent / max(
+          st['dist.frontier.slots'], 1)),
+      drop_rate_pct_cum=100.0 * st['dist.frontier.dropped'] / max(
+          st['dist.frontier.offered'], 1),
+      slack_final=loader.sampler.exchange_slack, exchange_layout=layout,
+      launches_per_batch=per_batch, batches=n_batches + 1,
+      launches={'sample_one_hop': want, 'gather_rows': 0}, plain_calls=0,
+      attribution={k: att[k] for k in (
+          'cross_partition_ids_frac', 'cross_partition_bytes_frac',
+          'local_ids', 'cross_ids', 'hot_range_coverage', 'hot_ranges',
+          'hotness_source')})
+  del loader
+  layouts, hops_hier = {}, None
+  for name in ('dense', 'compact', 'hier'):
+    ll = make(name, ENV_LAYOUT_SLACK)
+    if name == 'hier':
+      with PathRecorder(torch, dsm, gns=False, parts=parts, tables=0,
+                        hops=len(ENV_FANOUTS), first=True) as rec:
+        (lrows, nb, lsecs), ll_l, ll_p = counted(
+            lambda: frontier_epochs(torch, ll, 1))
+      hops_hier = check_path_hops(torch, ops, rec, f'envelope P={parts} '
+                                  'hier layout epoch', parts)
+      del rec
+    else:
+      (lrows, nb, lsecs), ll_l, ll_p = counted(
+          lambda: frontier_epochs(torch, ll, 1))
+    if ll_l['sample_one_hop'] != per_batch['sample_one_hop'] * nb or ll_p:
+      raise AssertionError(f'{name} P={parts}: launches {ll_l}, plain {ll_p}')
+    lst = ll.sampler.exchange_stats()
+    layouts[name] = {
+        'resolved': resolve_layout(name, parts),
+        'padding_waste_pct': lrows[-1][0], 'drop_rate_pct': lrows[-1][1],
+        'frontier_slots': lst['dist.frontier.slots'],
+        'frontier_offered': lst['dist.frontier.offered'],
+        'frontier_dropped': lst['dist.frontier.dropped'],
+        'seeds_per_sec': nb * batch * parts / lsecs, 'batches': nb}
+    del ll
+  out.update(layouts=layouts,
+             peak_card_bytes=torch.cuda.max_memory_allocated())
+  emit(f'envelope_p{parts}', **out)
+  del ds
+  torch.cuda.empty_cache()
+  out.update(path={layout: hops_compact, 'hier': hops_hier})
+  return out
+
+
+def timed_partition():
+  """Wrap `locality.locality_partition` to keep its host seconds (the
+  greedy and its adjacency build); returns ``(secs list, restore)``."""
+  import graphlearn_tpu_torch.parallel.locality as loc
+  real, secs = loc.locality_partition, []
+
+  def wrapped(*a, **kw):
+    t0 = time.perf_counter()
+    out = real(*a, **kw)
+    secs.append(time.perf_counter() - t0)
+    return out
+  loc.locality_partition = wrapped
+  return secs, lambda: setattr(loc, 'locality_partition', real)
+
+
+def edge_cut_on_card(torch, ds, rows_t, indices) -> float:
+  """The fraction of the graph's edges whose endpoints ``ds`` places on
+  different partitions (counted on the card)."""
+  bounds = torch.from_numpy(ds.graph.bounds).to(DEVICE)
+  o2n = torch.from_numpy(ds.old2new).to(DEVICE)
+  part = torch.searchsorted(bounds, o2n, right=True)
+  return float((part[rows_t] != part[indices.long()]).float().mean())
+
+
+def locality_comparison(torch, ops, indptr, indices, feats, rows_t, parts,
+                        batch) -> dict:
+  """`bench_dist_loader._locality_comparison` at products scale on
+  ``parts`` partitions, ``GLT_EXCHANGE_EWMA=1``: the range arm and the
+  locality arm (the greedy, the replica cache of ``ceil(0.35 N)`` rows a
+  partition, the EWMA retunes), each featured over ``batch * P * 8``
+  seeds, 4 epochs then a re-timed window of 2 (the steady rate), the
+  attribution, drops and retunes; each arm's first dispatch recorded and
+  every K1 and K2 call held against its plain version.  Then the rename
+  twin: the locality placement replayed as an explicit ``node_pb`` over
+  the relabelled edges must relabel to the identity and give one epoch
+  digest-equal in node, x, edge_index and batch (raises otherwise).
+  Launches a batch: 2P K1; K2 P for the range arm's exchange, 3P for the
+  locality arm's (the exchange, the replica overlay, the own rows)."""
+  from graphlearn_tpu_torch.parallel import DistDataset, DistNeighborLoader
+  from graphlearn_tpu_torch.telemetry import recorder
+  seeds = np.random.default_rng(2).integers(0, NUM_NODES,
+                                            batch * parts * 8)
+  res, ds_loc = {}, None
+  dig = lambda b: digest(torch, [b.node, b.x, b.edge_index,  # noqa: E731
+                                 b.batch])
+  t_group = time.perf_counter()
+  with EnvKnobs(clear=('GLT_PARTITIONER', 'GLT_LOCALITY_REPLICA_FRAC'),
+                GLT_EXCHANGE_EWMA='1'):
+    for arm in ('range', 'locality'):
+      torch.cuda.reset_peak_memory_stats()
+      psecs, restore = timed_partition()
+      t0 = time.perf_counter()
+      try:
+        ds = DistDataset.from_full_graph(
+            parts, rows_t, indices, node_feat=feats, num_nodes=NUM_NODES,
+            partitioner=arm,
+            replica_frac=LOC_REPLICA if arm == 'locality' else None,
+            device=DEVICE)
+      finally:
+        restore()
+      sync(torch)
+      build_secs = time.perf_counter() - t0
+      loader = DistNeighborLoader(ds, ENV_FANOUTS, seeds, batch_size=batch,
+                                  shuffle=True, seed=0,
+                                  exchange_slack=LOC_SLACK, device=DEVICE)
+      k2 = parts * (3 if loader.sampler.cache_local else 1)
+      per_batch = {'sample_one_hop': len(ENV_FANOUTS) * parts,
+                   'gather_rows': k2}
+      recorder.enable()
+      recorder.clear()
+      rates, launches, rec = [], {}, None
+      try:
+        for ep in range(LOC_EPOCHS + LOC_RETIMED):
+          got = counted_epoch(
+              torch, ops, iter(loader), per_batch, dig, parts=parts,
+              record_at=0 if ep == 0 else None,
+              recorder_kw={'gns': False, 'hops': len(ENV_FANOUTS),
+                           'tables': k2 // parts})
+          if ep == 0:
+            rec = got[2]
+          for k, v in got[4].items():
+            launches[k] = launches.get(k, 0) + v
+          rates.append((len(got[0]), got[1]))
+        retunes = len(recorder.events('exchange.retune'))
+      finally:
+        recorder.disable()
+        recorder.clear()
+      tables = ('features exchange',) + (
+          ('replica overlay', 'own rows') if k2 > parts else ())
+      path = check_mesh_path(torch, ops, Timer(torch, reps=PATH_REPS), rec,
+                             f'locality P={parts} {arm} arm', tables=tables,
+                             parts=parts)
+      del rec
+      att = loader.sampler.attribution_stats(tick_metrics=False)
+      st = loader.sampler.exchange_stats()
+      window = rates[LOC_EPOCHS:]
+      res[arm] = {
+          'partitioner': ds.partitioner,
+          'partition_secs': psecs[0] if psecs else 0.0,
+          'build_secs': build_secs,
+          'edge_cut_frac': edge_cut_on_card(torch, ds, rows_t, indices),
+          'cross_partition_bytes_frac': att['cross_partition_bytes_frac'],
+          'cross_partition_ids_frac': att['cross_partition_ids_frac'],
+          'locally_served_ids': att['locally_served_ids'],
+          'seeds_per_sec': sum(n for n, _ in window) * batch * parts
+                           / sum(t for _, t in window),
+          'seeds_per_sec_by_epoch': [n * batch * parts / t
+                                     for n, t in rates[:LOC_EPOCHS]],
+          'drop_rate_pct': 100.0 * st['dist.frontier.dropped'] / max(
+              st['dist.frontier.offered'], 1),
+          'feature_drop_rate_pct': 100.0 * st['dist.feature.dropped'] / max(
+              st['dist.feature.offered'], 1),
+          'retunes': retunes, 'ewma_caps': loader.sampler._ewma_caps(),
+          'replicated_rows': (int(ds.node_features.cache_ids.shape[1])
+                              if ds.node_features.has_cache else 0),
+          'launches_per_batch': per_batch, 'launches': launches,
+          'plain_calls': 0,
+          'peak_card_bytes': torch.cuda.max_memory_allocated()}
+      res[arm]['path'] = path
+      del loader
+      if arm == 'locality':
+        ds_loc = ds
+      del ds
+      torch.cuda.empty_cache()
+  res['locality_over_range_speedup'] = (res['locality']['seeds_per_sec']
+                                        / res['range']['seeds_per_sec'])
+  # the rename twin
+  t0 = time.perf_counter()
+  o2n = torch.from_numpy(ds_loc.old2new).to(DEVICE)
+  n2o = torch.from_numpy(ds_loc.new2old).to(DEVICE)
+  pb_new = (np.searchsorted(ds_loc.graph.bounds, np.arange(NUM_NODES),
+                            'right') - 1).astype(np.int32)
+  cols_new = o2n[indices.long()]
+  twin = DistDataset.from_full_graph(
+      parts, o2n[rows_t], cols_new, node_feat=feats[n2o],
+      num_nodes=NUM_NODES, node_pb=pb_new, replica_frac=LOC_REPLICA,
+      hotness=torch.bincount(cols_new, minlength=NUM_NODES).cpu().numpy(),
+      device=DEVICE)
+  del cols_new
+  equivalent = bool(np.array_equal(twin.old2new, np.arange(NUM_NODES)))
+  digs = []
+  for d, s_ in ((ds_loc, seeds), (twin, ds_loc.old2new[seeds])):
+    lo = DistNeighborLoader(d, ENV_FANOUTS, s_, batch_size=batch,
+                            shuffle=True, seed=0, exchange_slack=LOC_SLACK,
+                            device=DEVICE)
+    digs.append(torch.stack([dig(b) for b in lo]).cpu())
+    del lo
+  equivalent = equivalent and bool(torch.equal(digs[0], digs[1]))
+  res['rename_equivalent'] = equivalent
+  res['rename_secs'] = time.perf_counter() - t0
+  del twin, ds_loc, o2n, n2o
+  torch.cuda.empty_cache()
+  if not equivalent:
+    raise AssertionError(f'locality P={parts}: the rename twin differs')
+  res['secs'] = time.perf_counter() - t_group
+  emit(f'locality_p{parts}', **{k: ({kk: vv for kk, vv in v.items()
+                                      if kk != 'path'}
+                                     if isinstance(v, dict) else v)
+                                  for k, v in res.items()})
+  return res
+
+
+def rebalance_phase(torch, ops, indptr, indices, feats, rows_t) -> dict:
+  """`tests/test_locality.py::test_mid_epoch_rebalance_byte_identical` at
+  products scale, P = 16: an explicit placement (``node % 16``) with the
+  hubs — the lowest 1% of ids, the generator's hottest targets — on
+  partition 3, featured; `DistNeighborLoader([5, 5], batch_size=64,
+  shuffle=True, seed=0, exchange_slack=1.5, exchange_layout='dense')`
+  over 8 batches (dense: the moved book's `_BookPlan` then takes the
+  same receive shapes as the identity book's exchange).  An undisturbed
+  epoch gives the reference digests; in a second epoch over its own
+  book, after 3 batches, `attribution_stats` -> `rebalance_plan` ->
+  `execute_rebalance` through a `ShardStore` in a fresh directory.
+  Raises unless the plan moves range 3 first, every batch is
+  digest-equal, the book version equals the moves, there is no adoption
+  and the cross-partition byte fraction drops; 2P K1 and P K2 launches a
+  batch and no plain call."""
+  import shutil
+  import tempfile
+  from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
+                                             ShardStore)
+  from graphlearn_tpu_torch.parallel.locality import (execute_rebalance,
+                                                      rebalance_plan)
+  from graphlearn_tpu_torch.telemetry import recorder
+  parts = REB_PARTS
+  pb = (np.arange(NUM_NODES) % parts).astype(np.int32)
+  pb[:NUM_NODES // 100] = 3
+  t0 = time.perf_counter()
+  ds = DistDataset.from_full_graph(parts, rows_t, indices, node_feat=feats,
+                                   num_nodes=NUM_NODES, node_pb=pb,
+                                   device=DEVICE)
+  sync(torch)
+  build_secs = time.perf_counter() - t0
+  seeds = np.random.default_rng(3).integers(0, NUM_NODES,
+                                            REB_BATCH * parts * REB_BATCHES)
+  per_batch = {'sample_one_hop': len(ENV_FANOUTS) * parts,
+               'gather_rows': parts}
+  dig = lambda b: digest(torch, [b.node, b.x, b.edge_index,  # noqa: E731
+                                 b.batch])
+
+  def make(d):
+    return DistNeighborLoader(d, ENV_FANOUTS, seeds, batch_size=REB_BATCH,
+                              shuffle=True, seed=0, exchange_slack=REB_SLACK,
+                              exchange_layout='dense', device=DEVICE)
+  ref, ref_secs = counted_epoch(torch, ops, iter(make(fresh_view(ds))),
+                                per_batch, dig, parts=parts)[:2]
+  ds2 = fresh_view(ds)
+  loader = make(ds2)
+  state, store_dir = {}, tempfile.mkdtemp(prefix='glt_rebalance_')
+
+  def rebalance():
+    t = time.perf_counter()
+    att = loader.sampler.attribution_stats(tick_metrics=False)
+    plan = rebalance_plan(att, book=ds2.partition_book)
+    t_plan = time.perf_counter()
+    infos = execute_rebalance(ds2, plan, store=ShardStore(store_dir))
+    state.update(att=att, plan=plan, infos=infos,
+                 plan_secs=t_plan - t, execute_secs=time.perf_counter() - t_plan)
+  recorder.enable()
+  recorder.clear()
+  try:
+    got, secs, _, _, launches = counted_epoch(
+        torch, ops, iter(loader), per_batch, dig, parts=parts,
+        between=(REB_AFTER, rebalance))
+    seams = recorder.events('handoff.transfer')
+  finally:
+    recorder.disable()
+    recorder.clear()
+    shutil.rmtree(store_dir, ignore_errors=True)
+  att2 = loader.sampler.attribution_stats(tick_metrics=False)
+  book = ds2.partition_book
+  plan = state['plan']
+  same = [bool(torch.equal(a, b)) for a, b in zip(ref, got)]
+  ok = (bool(plan) and plan[0]['range'] == 3 and len(got) == len(ref)
+        and all(same) and book.version == len(plan)
+        and book.adoptions() == []
+        and att2['cross_partition_bytes_frac']
+        < state['att']['cross_partition_bytes_frac'])
+  if not ok:
+    raise AssertionError(
+        f'rebalance: plan {plan}, digest-equal {same}, book {book.version}, '
+        f'adoptions {book.adoptions()}, cross '
+        f'{state["att"]["cross_partition_bytes_frac"]} -> '
+        f'{att2["cross_partition_bytes_frac"]}')
+  by_seam = {}
+  for mv in plan:
+    evs = [e for e in seams if e['partition'] == mv['range']]
+    prev = 0.0
+    for e in evs:
+      by_seam[e['phase']] = by_seam.get(e['phase'], 0.0) + e['secs'] - prev
+      prev = e['secs']
+  out = dict(parts=parts, batch=REB_BATCH, fanouts=list(ENV_FANOUTS),
+             hubs=NUM_NODES // 100, build_secs=build_secs,
+             plan=[{k: mv[k] for k in ('range', 'frm', 'to', 'demand')}
+                   for mv in plan],
+             moves=len(plan), book_version=book.version,
+             adoptions=len(book.adoptions()), transfers=book.transfers(),
+             digest_equal=True, batches=len(got),
+             cross_partition_bytes_frac_before=state['att'][
+                 'cross_partition_bytes_frac'],
+             cross_partition_bytes_frac_after=att2[
+                 'cross_partition_bytes_frac'],
+             plan_secs=state['plan_secs'],
+             execute_secs=state['execute_secs'], secs_by_seam=by_seam,
+             undisturbed_epoch_secs=ref_secs, rebalanced_epoch_secs=secs,
+             launches_per_batch=per_batch, launches=launches, plain_calls=0)
+  emit('rebalance', **out)
+  del loader, ds2, ds
+  torch.cuda.empty_cache()
+  return out
+
+
+def locality_cross_check(torch) -> dict:
+  """Card = CPU on the envelope's own 20,000-node graph at P = 16: the
+  first batch of each layout (dense, compact, hier) with the same
+  CPU-made draws digest-equal on both devices, and the locality
+  partition's ``node_pb`` — the compiled greedy on the card's host, the
+  numpy greedy on the CPU — equal, as are both datasets' relabels.  Host
+  microseconds a node and sweep of both greedies."""
+  from graphlearn_tpu_torch.parallel import (DistDataset, DistNeighborLoader,
+                                             TorchDraws)
+  from graphlearn_tpu_torch.parallel import locality as loc
+  rows, cols = envelope_graph()
+  n, parts, batch = ENV_NODES, 16, 64
+  cpu_draws = TorchDraws(5, 'cpu')
+  firsts = {}
+  for dev in (DEVICE, 'cpu'):
+    def draws(*a, dev=dev, **kw):
+      return tuple(t.to(dev) for t in cpu_draws(*a, **kw))
+    ds = DistDataset.from_full_graph(parts, rows, cols, num_nodes=n,
+                                     device=dev)
+    seeds = np.random.default_rng(4).integers(0, n, batch * parts * 2)
+    for layout in ('dense', 'compact', 'hier'):
+      lo = DistNeighborLoader(ds, ENV_FANOUTS, seeds, batch_size=batch,
+                              shuffle=True, collect_features=False, seed=0,
+                              exchange_slack=ENV_LAYOUT_SLACK,
+                              exchange_layout=layout, draws=draws,
+                              device=dev)
+      b = next(iter(lo))
+      firsts[(dev, layout)] = digest(torch, [b.node, b.edge_index]).cpu()
+  same = {layout: bool(torch.equal(firsts[(DEVICE, layout)],
+                                   firsts[('cpu', layout)]))
+          for layout in ('dense', 'compact', 'hier')}
+  hot = np.bincount(cols, minlength=n)
+  t0 = time.perf_counter()
+  pb_np, st_np = loc.locality_partition(rows, cols, n, parts, seed=0,
+                                        hotness=hot)
+  t_np = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  pb_c, st_c = loc.locality_partition(rows, cols, n, parts, seed=0,
+                                      hotness=hot, greedy=loc.compiled_greedy)
+  t_c = time.perf_counter() - t0
+  relabel = {}
+  for dev in (DEVICE, 'cpu'):
+    d = DistDataset.from_full_graph(parts, rows, cols, num_nodes=n,
+                                    partitioner='locality', device=dev)
+    relabel[dev] = (d.old2new, d.graph.bounds)
+  pb_same = bool(np.array_equal(pb_np, pb_c)) and st_np == st_c
+  relabel_same = all(np.array_equal(a, b) for a, b in zip(
+      relabel[DEVICE], relabel['cpu']))
+  if not (all(same.values()) and pb_same and relabel_same):
+    raise AssertionError(f'locality card != CPU: first batches {same}, '
+                         f'node_pb {pb_same}, relabel {relabel_same}')
+  sweeps = 1 + st_np['passes']
+  out = {'nodes': n, 'parts': parts, 'first_batch_equal': same,
+         'node_pb_equal': True, 'relabel_equal': True,
+         'edge_cut_frac': st_np['edge_cut_frac'],
+         'numpy_greedy_secs': t_np, 'compiled_greedy_secs': t_c,
+         'numpy_us_per_node_sweep': t_np / n / sweeps * 1e6,
+         'compiled_us_per_node_sweep': t_c / n / sweeps * 1e6}
+  emit('locality_cross_check', **out)
+  return out
+
+
+def locality_group(torch, ops, indptr, indices, feats, full=True) -> dict:
+  """``--locality`` and the whole run: `envelope_phase` at P = 16 and 64,
+  `locality_comparison` at P = 16 (and at P = 64 with ``full``: its two
+  replica caches alone take about 44 GB, so the whole run leaves it
+  out), `rebalance_phase`, `locality_cross_check`; one
+  ``locality_group`` line with the group's seconds."""
+  t0 = time.perf_counter()
+  rows_t = coo_rows(torch, indptr)
+  env = {p: envelope_phase(torch, ops, indptr, indices, rows_t, p, b)
+         for p, b in ENV_ROWS}
+  loc = {LOC_PARTS: locality_comparison(torch, ops, indptr, indices, feats,
+                                        rows_t, LOC_PARTS, 64)}
+  if full:
+    loc[64] = locality_comparison(torch, ops, indptr, indices, feats, rows_t,
+                                  64, 32)
+  reb = rebalance_phase(torch, ops, indptr, indices, feats, rows_t)
+  del rows_t
+  torch.cuda.empty_cache()
+  cc = locality_cross_check(torch)
+  emit('locality_group', wall_secs=time.perf_counter() - t0,
+       phases=sorted([f'envelope_p{p}' for p in env]
+                     + [f'locality_p{p}' for p in loc]) + ['rebalance'])
+  return {'envelope': env, 'locality': loc, 'rebalance': reb, 'cross': cc}
+
+
+def locality_kernels(lg: dict) -> list:
+  """The ``kernels`` entries of the locality group: K1 at the compact and
+  hier receive shapes of the envelopes and the locality arms' dispatches,
+  K2 at the locality arms' exchange, replica-overlay and own-row gathers;
+  the launches each path counted."""
+  env, loc = lg['envelope'], lg['locality']
+  hops, shapes, gathers, gshapes = [], {}, [], {}
+  for p, e in env.items():
+    for layout, hs in e['path'].items():
+      hops += hs
+      shapes[f'envelope_p{p}_{layout}'] = {
+          'shape': f'P={p} {layout} first dispatch, {p} owners a hop, '
+                   'receive rows ' + '/'.join(
+                       str(h['rows'] // p) for h in hs) + ' an owner, k 5/5',
+          'ms': sum(h['kernel_ms'] for h in hs),
+          'plain_ms': sum(h['plain_ms'] for h in hs),
+          'bound_ms': sum(h['bound_us'] for h in hs) / 1e3}
+  for p, r in loc.items():
+    for arm in ('range', 'locality'):
+      path = r[arm]['path']
+      hops += path['hops']
+      gathers += path['gathers']
+      shapes[f'locality_p{p}_{arm}'] = {
+          'shape': f'P={p} {arm} arm first dispatch, receive rows '
+                   + '/'.join(str(h['rows'] // p) for h in path['hops'])
+                   + ' an owner',
+          'ms': sum(h['kernel_ms'] for h in path['hops']),
+          'plain_ms': sum(h['plain_ms'] for h in path['hops']),
+          'bound_ms': sum(h['bound_us'] for h in path['hops']) / 1e3}
+      for name, g in zip(('exchange', 'replica_overlay', 'own_rows'),
+                         path['gathers']):
+        gshapes[f'locality_p{p}_{arm}_{name}'] = {
+            'shape': f'P={p} {arm} arm {name}: {g["ids"]} ids x '
+                     f'{g["row_bytes"]} B over {p} owners '
+                     f'({g["valid"]} valid)',
+            'ms': g['kernel_ms'], 'plain_ms': g['plain_ms'],
+            'bound_ms': g['bound_us'] / 1e3, 'library_ms': g['library_ms']}
+  k1_launch = {f'envelope_p{p}': e['launches']['sample_one_hop']
+               for p, e in env.items()}
+  k2_launch = {}
+  for p, r in loc.items():
+    for arm in ('range', 'locality'):
+      k1_launch[f'locality_p{p}_{arm}'] = r[arm]['launches']['sample_one_hop']
+      k2_launch[f'locality_p{p}_{arm}'] = r[arm]['launches']['gather_rows']
+  reb = lg['rebalance']
+  k1_launch['rebalance'] = reb['launches']['sample_one_hop']
+  k2_launch['rebalance'] = reb['launches']['gather_rows']
+  first = shapes[f'envelope_p{LOC_PARTS}_compact']
+  g0 = gshapes[f'locality_p{LOC_PARTS}_locality_exchange']
+  return [
+      {'name': 'sample_one_hop', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/sample_one_hop.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_sample.py:247',
+       'launches': sum(k1_launch.values()),
+       'max_abs_err': max(h['max_abs_err'] for h in hops),
+       'ms': first['ms'], 'plain_ms': first['plain_ms'],
+       'bound_ms': first['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': None, 'byte_equal': True, 'shape': first['shape'],
+       'locality_shapes': shapes, 'launches_by_path': k1_launch},
+      {'name': 'gather_rows', 'route': 'cuda',
+       'source': 'graphlearn_tpu_torch/csrc/gather_rows.cu',
+       'replaces': 'graphlearn_tpu/ops/pallas_gather.py:152',
+       'launches': sum(k2_launch.values()),
+       'max_abs_err': max(g['max_abs_err'] for g in gathers),
+       'ms': g0['ms'], 'plain_ms': g0['plain_ms'],
+       'bound_ms': g0['bound_ms'], 'bound_by': 'bytes',
+       'library_ms': g0['library_ms'], 'byte_equal': True,
+       'shape': g0['shape'], 'locality_shapes': gshapes,
+       'launches_by_path': k2_launch},
+  ]
+
+
 def main(argv) -> int:
   t_start = time.perf_counter()
   import torch
@@ -11568,6 +12225,10 @@ def run(torch, argv) -> list:
     del ds
     return failover_kernels(failover_phases(torch, ops, timer, indptr,
                                             indices, feats))
+  if '--locality' in argv:
+    del ds
+    return locality_kernels(locality_group(torch, ops, indptr, indices,
+                                           feats, full=True))
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -11729,6 +12390,11 @@ def run(torch, argv) -> list:
   torch.cuda.empty_cache()
   fok = failover_kernels(failover_phases(torch, ops, timer, indptr, indices,
                                          feats))
+
+  # -- the mesh at P = 16 and 64: layouts, locality, rebalance -----------
+  torch.cuda.empty_cache()
+  lok = locality_kernels(locality_group(torch, ops, indptr, indices, feats,
+                                        full=False))
 
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]
@@ -12184,13 +12850,16 @@ def run(torch, argv) -> list:
                             for k, r in ttrain_runs.items()}}},
   ]
   by_name = {k['name']: k for k in kernels}
-  for group, entries in (('fleet', fk), ('failover', fok)):
+  for group, entries in (('fleet', fk), ('failover', fok),
+                         ('locality', lok)):
     for f in entries:               # the group's shapes and launches
       entry = by_name[f['name']]
       entry['max_abs_err'] = max(entry['max_abs_err'], f['max_abs_err'])
       entry['launches_by_path'].update(f['launches_by_path'])
       entry[f'{group}_shape'] = {k: f[k] for k in (
           'shape', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}
+      if 'locality_shapes' in f:
+        entry['locality_shapes'] = f['locality_shapes']
   return kernels
 
 

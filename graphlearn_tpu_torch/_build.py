@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface, for ``sm_90a`` (Hopper), on first CUDA use, and
-loaded with `ctypes`.  The build directory is ``build/glt_torch/``
+loaded with `ctypes`.  A ``csrc/*.cpp`` source (host code only: the
+locality greedy) is built and loaded the same way.  The build directory is ``build/glt_torch/``
 beside the package (gitignored) unless a caller names another; a
 library's file name carries a hash of its source and flags, so an
 edited source is rebuilt and a stale library is never loaded.
@@ -34,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / 'glt_torch'
 SOURCES = ('sample_one_hop', 'sample_one_hop_gns', 'gather_rows',
-           'merge_ranks', 'csr_window_gather', 'push_rows', 'cold_gather')
+           'merge_ranks', 'csr_window_gather', 'push_rows', 'cold_gather',
+           'locality_greedy')
 NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
@@ -74,8 +76,14 @@ def compute_capability() -> list:
   return list(torch.cuda.get_device_capability())
 
 
+def _source(name: str) -> Path:
+  """``csrc/<name>.cu``, or ``csrc/<name>.cpp`` for host code."""
+  cu = CSRC / f'{name}.cu'
+  return cu if cu.exists() else CSRC / f'{name}.cpp'
+
+
 def _source_bytes(name: str) -> bytes:
-  src = (CSRC / f'{name}.cu').read_bytes()
+  src = _source(name).read_bytes()
   for hdr in sorted(CSRC.glob('*.cuh')):
     src += hdr.read_bytes()
   return src
@@ -100,8 +108,8 @@ def fingerprint(name: str) -> dict:
 
 
 def _start_nvcc(name: str, out: Path) -> subprocess.Popen:
-  """One ``nvcc`` compiling ``csrc/<name>.cu`` into ``out``."""
-  cmd = [nvcc(), *NVCC_FLAGS, '-o', str(out), str(CSRC / f'{name}.cu')]
+  """One ``nvcc`` compiling ``name``'s source into ``out``."""
+  cmd = [nvcc(), *NVCC_FLAGS, '-o', str(out), str(_source(name))]
   return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
 
@@ -163,7 +171,8 @@ def _build(names, build_dir, cache, restore: bool) -> Dict[str, dict]:
     log, _ = proc.communicate()
     info[name].update(secs=time.perf_counter() - t0, ptxas=log or '')
     if proc.returncode != 0:
-      failed.append(f'{name}.cu (nvcc exit {proc.returncode}):\n{log}')
+      failed.append(f'{_source(name).name} (nvcc exit {proc.returncode}):'
+                    f'\n{log}')
       continue
     os.replace(tmp, path)       # atomic: a concurrent build sees all
     info[name]['source'] = 'built'

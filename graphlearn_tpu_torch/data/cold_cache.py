@@ -59,12 +59,13 @@ class ClockShardCache:
   """CLOCK second-chance id -> slot policy for ONE partition's cache (host
   metadata only: tags, reference bits, the hand, the visit sketch)."""
 
-  def __init__(self, capacity: int):
+  def __init__(self, capacity: int, bounds=None):
     self.capacity = int(capacity)
     self.ids = np.full(self.capacity, -1, np.int64)
     self.ref = np.zeros(self.capacity, np.uint8)
     self.hand = 0
-    self.sketch = DecayedSketch()
+    # with the book's bounds the sketch keeps the per-range mass too
+    self.sketch = DecayedSketch(bounds=bounds)
     #: bumped on every committed admission wave (the GNS mask refresh
     #: rebuilds only when it moved)
     self.version = 0
@@ -347,12 +348,20 @@ class MeshColdCache:
   mask tables the cold overlay already holds."""
 
   def __init__(self, capacity: int, dim: int, dtype, num_local: int = 1,
-               device='cuda'):
+               device='cuda', bounds=None):
     device = resolve_device(device)
     self.capacity = int(capacity)
-    self.shards = [ClockShardCache(capacity) for _ in range(num_local)]
+    self.shards = [ClockShardCache(capacity, bounds=bounds)
+                   for _ in range(num_local)]
     self.rows = torch.zeros((num_local, max(self.capacity, 1), int(dim)),
                             dtype=dtype, device=device)
+    self._hotness_fns = ()
+    if bounds is not None:
+      # the sketches' range mass: the top-K gns.range_hotness gauges
+      from ..ops.gns import register_hotness_gauges
+      self._hotness_fns = register_hotness_gauges(
+          lambda: [sh.sketch for sh in self.shards],
+          max(len(np.asarray(bounds)) - 1, 1))
 
   @property
   def version(self) -> int:

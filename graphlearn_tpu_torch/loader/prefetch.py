@@ -42,7 +42,9 @@ class PrefetchingLoader:
   epoch closes and joins the previous epoch's worker, so an abandoned
   epoch can neither take the next one's batches nor leak its thread.
   A loader with an ``_adaptive`` controller (`parallel.dist_sampler.
-  AdaptiveSlack`) retunes it between epochs, after that join.
+  AdaptiveSlack`) retunes it between epochs, after that join, and a
+  sampler with an EWMA capacity model (``GLT_EXCHANGE_EWMA=1``) retunes
+  its capacities there too (`capacity_retune`).
   """
 
   prefetch: int = 0
@@ -50,13 +52,18 @@ class PrefetchingLoader:
 
   def __iter__(self):
     ctl = getattr(self, '_adaptive', None)
-    if ctl is not None:
+    sampler = getattr(self, 'sampler', None)
+    ewma = getattr(sampler, '_ewma_model', None) is not None
+    if ctl is not None or ewma:
       # join a live worker BEFORE retuning: a worker mid-_produce must
       # not sample at the new capacity while the finished epoch's
       # counters are read
       self.close()
       if getattr(self, '_epoch_count', 0) > 0:
-        ctl.on_epoch_end()
+        if ctl is not None:
+          ctl.on_epoch_end()
+        if ewma:
+          sampler.capacity_retune()
       self._epoch_count = getattr(self, '_epoch_count', 0) + 1
     return self._start_epoch(iter(self._batcher))
 

@@ -30,7 +30,7 @@ need ``req``, each row's requester index.
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,13 +94,18 @@ _HASH_MULT = np.uint64(0x9E3779B97F4A7C15)
 class DecayedSketch:
   """Hashed, exponentially decayed visit-frequency sketch (host numpy,
   fixed size): ``scores[hash(id) % slots]`` approximates an id's
-  decayed visit count.  The cold cache ranks admissions by it."""
+  decayed visit count.  The cold cache ranks admissions by it.  With the
+  book's ``bounds`` it also keeps ``range_mass``, the exact decayed visit
+  count of each range (`register_hotness_gauges` exports it)."""
 
   def __init__(self, slots: Optional[int] = None,
-               decay: Optional[float] = None):
+               decay: Optional[float] = None, bounds=None):
     self.slots = resolve_sketch_slots(slots)
     self.decay = resolve_decay(decay)
     self.scores = np.zeros(self.slots, np.float32)
+    self.bounds = None if bounds is None else np.asarray(bounds, np.int64)
+    self.range_mass = (None if bounds is None else
+                       np.zeros(max(len(self.bounds) - 1, 1), np.float32))
 
   def _slot(self, ids: np.ndarray) -> np.ndarray:
     mixed = ids.astype(np.uint64) * _HASH_MULT        # wraps mod 2^64
@@ -113,6 +118,8 @@ class DecayedSketch:
     sel = ids >= 0
     ids = ids[sel]
     self.scores *= self.decay
+    if self.range_mass is not None:
+      self.range_mass *= self.decay
     if len(ids) == 0:
       return 0
     if counts is None:
@@ -120,7 +127,25 @@ class DecayedSketch:
     else:
       add = np.asarray(counts, np.float32).reshape(-1)[sel]
     np.add.at(self.scores, self._slot(ids), add)
+    if self.range_mass is not None:
+      rng = np.clip(np.searchsorted(self.bounds, ids, side='right') - 1,
+                    0, len(self.range_mass) - 1)
+      np.add.at(self.range_mass, rng, add)
     return len(ids)
+
+  def hot_ranges(self, top_k: Optional[int] = None
+                 ) -> List[Tuple[int, float]]:
+    """``[(range, share), ...]`` of the top-K ranges by decayed mass
+    (``K = max(1, P // 4)`` by default; empty without bounds or mass)."""
+    if self.range_mass is None:
+      return []
+    total = float(self.range_mass.sum())
+    if total <= 0:
+      return []
+    p = len(self.range_mass)
+    k = min(max(1, p // 4) if top_k is None else int(top_k), p)
+    order = np.argsort(-self.range_mass, kind='stable')[:k]
+    return [(int(r), float(self.range_mass[r] / total)) for r in order]
 
   def score(self, ids) -> np.ndarray:
     ids = np.asarray(ids, np.int64).reshape(-1)
@@ -128,7 +153,10 @@ class DecayedSketch:
     return np.where(ids >= 0, out, 0.0).astype(np.float32)
 
   def state_dict(self) -> dict:
-    return {'scores': self.scores.copy(), 'decay': np.float32(self.decay)}
+    out = {'scores': self.scores.copy(), 'decay': np.float32(self.decay)}
+    if self.range_mass is not None:
+      out['range_mass'] = self.range_mass.copy()
+    return out
 
   def load_state_dict(self, state: dict) -> None:
     scores = np.asarray(state['scores'], np.float32)
@@ -139,6 +167,48 @@ class DecayedSketch:
           f'{SKETCH_ENV} the snapshot was taken under')
     self.scores = scores.copy()
     self.decay = float(np.asarray(state['decay']))
+    if self.range_mass is not None and 'range_mass' in state:
+      rm = np.asarray(state['range_mass'], np.float32)
+      if rm.shape == self.range_mass.shape:
+        # an older snapshot, or another mesh, restarts the histogram cold
+        self.range_mass = rm.copy()
+
+
+def register_hotness_gauges(get_sketches, num_parts: int,
+                            registry=None) -> list:
+  """Register the ``gns.range_hotness{partition=p}`` gauges, one a range,
+  reading the decayed range mass summed over ``get_sketches()``; only
+  the top-K (``K = max(1, P // 4)``) ranges report a value (the others
+  return None and drop from the scrape).  Returns the callbacks."""
+  if registry is None:
+    from ..telemetry.live import live as registry
+
+  def make(p: int):
+    def read() -> Optional[float]:
+      mass = None
+      for sk in get_sketches():
+        if sk.range_mass is None:
+          continue
+        mass = (sk.range_mass.copy() if mass is None
+                else mass + sk.range_mass)
+      if mass is None:
+        return None
+      total = float(mass.sum())
+      if total <= 0:
+        return None
+      k = min(max(1, num_parts // 4), len(mass))
+      hot = np.argsort(-mass, kind='stable')[:k]
+      if p >= len(mass) or p not in hot:
+        return None
+      return round(float(mass[p] / total), 6)
+    return read
+
+  fns = []
+  for p in range(int(num_parts)):
+    fn = make(p)
+    registry.gauge('gns.range_hotness', labels={'partition': str(p)}, fn=fn)
+    fns.append(fn)
+  return fns
 
 
 def cached_set_bits(num_nodes: int, bounds, hot_counts,
@@ -195,6 +265,14 @@ def is_per_requester(bits) -> bool:
   if isinstance(bits, tuple):
     return True
   return bits.ndim == 2
+
+
+def fallback_req_index(bits) -> int:
+  """The requester row whose mask is the hot-split-only fallback (rows no
+  plan can attribute read it): the last row of either form."""
+  if isinstance(bits, tuple):
+    return int(bits[1].shape[0] - 1)
+  return int(bits.shape[0] - 1)
 
 
 def bits_table(bits) -> torch.Tensor:

@@ -16,11 +16,15 @@ sort on ``row * N + col``, which orders edges exactly as the JAX
 package's ``np.lexsort((cols, rows))``.  Edge features are indexed by
 GLOBAL edge id (the input edge order, which the relabel keeps) and
 mod-sharded: shard ``p`` row ``r`` holds edge ``r * P + p``
-(`build_dist_edge_feature`).  Range partitioner only: no replica cache,
-no partition directory.
+(`build_dist_edge_feature`).  The placement is the seeded round-robin
+(``'range'``), the locality greedy (`locality.locality_partition`), an
+explicit ``node_pb`` or a callable; ``replica_frac > 0`` adds the
+read-only replica cache of the hottest remote rows
+(`build_replica_cache`).  No partition directory.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -160,10 +164,17 @@ class DistFeature:
     mod_sharded: True for strided ownership (owner ``id % P``, row ``id
       // P``: `build_dist_edge_feature`), False for the ranges of
       ``bounds``.
+    cache_ids: ``[P, C]`` int32 sorted relabelled ids of the remote rows
+      partition ``p`` holds a copy of (`CACHE_PAD_ID` padded), on the
+      shards' device, or None.
+    cache_rows: ``[P, C, D]`` those rows.
+    cache_local: the cache is the replica set: its rows count as local
+      (masked out of the feature exchange and overlaid).
   """
 
   def __init__(self, shards, bounds, hot_counts=None, cold_host=None,
-               mod_sharded: bool = False):
+               mod_sharded: bool = False, cache_ids=None, cache_rows=None,
+               cache_local: bool = False):
     self.shards = shards
     self.bounds = np.asarray(bounds, dtype=np.int64)
     self.hot_counts = (np.asarray(hot_counts, np.int32)
@@ -171,10 +182,17 @@ class DistFeature:
                        else np.diff(self.bounds).astype(np.int32))
     self.cold_host = cold_host
     self.mod_sharded = bool(mod_sharded)
+    self.cache_ids = cache_ids
+    self.cache_rows = cache_rows
+    self.cache_local = bool(cache_local)
 
   @property
   def feature_dim(self) -> int:
     return self.shards.shape[-1]
+
+  @property
+  def has_cache(self) -> bool:
+    return self.cache_ids is not None and self.cache_ids.shape[1] > 0
 
   @property
   def is_tiered(self) -> bool:
@@ -217,6 +235,59 @@ def build_dist_feature(feats, old2new: np.ndarray, bounds: np.ndarray,
                        pin_memory=device.type == 'cuda')
     cold.copy_(feats.index_select(0, new2old))
   return DistFeature(shards, bounds, hot_counts=hot_counts, cold_host=cold)
+
+
+#: the replica cache's padding id (sorts after every real id)
+CACHE_PAD_ID = np.iinfo(np.int32).max
+
+
+def build_replica_cache(feats, old2new: np.ndarray, bounds: np.ndarray,
+                        hotness_new: np.ndarray, frac: float,
+                        device='cuda'):
+  """The read-only replica cache (the JAX package's
+  `build_replica_cache`): each partition holds the ``ceil(frac * N)``
+  hottest rows it does NOT own, ranked by ``hotness_new`` (relabelled
+  id space, ties by id).  ``feats`` is the ``[N, D]`` (or ``[N]``) table
+  in the original id space (numpy or a tensor on any device).  Returns
+  ``(cache_ids [P, C] int32 sorted, CACHE_PAD_ID padded, cache_rows [P,
+  C, D])`` on ``device``, or ``(None, None)`` at a zero budget; sets the
+  ``partition.replicated_rows`` gauge."""
+  device = resolve_device(device)
+  bounds = np.asarray(bounds, np.int64)
+  num_parts = len(bounds) - 1
+  n = int(bounds[-1])
+  c = int(np.ceil(float(frac) * n))
+  if c <= 0 or n == 0:
+    return None, None
+  feats = feats if isinstance(feats, torch.Tensor) else torch.from_numpy(
+      np.asarray(feats))
+  if feats.ndim == 1:
+    feats = feats[:, None]
+  order = np.argsort(-np.asarray(hotness_new, np.float64), kind='stable')
+  new2old = torch.from_numpy(np.argsort(old2new)).to(feats.device)
+  ids = np.full((num_parts, c), CACHE_PAD_ID, np.int32)
+  rows = torch.zeros((num_parts, c, feats.shape[1]), dtype=feats.dtype,
+                     device=device)
+  for p in range(num_parts):
+    remote = np.sort(order[(order < bounds[p]) | (order >= bounds[p + 1])][:c])
+    ids[p, :len(remote)] = remote
+    rows[p, :len(remote)] = feats.index_select(
+        0, new2old[torch.from_numpy(remote).to(feats.device)]).to(device)
+  from ..telemetry.live import live
+  live.gauge('partition.replicated_rows', fn=lambda: float(c))
+  return torch.from_numpy(ids).to(device), rows
+
+
+def replica_budget_frac(replica_frac=None) -> float:
+  """The replication budget: the argument, else
+  ``GLT_LOCALITY_REPLICA_FRAC`` (the fraction of all nodes each partition
+  copies; 0, the default, builds no cache)."""
+  if replica_frac is not None:
+    return float(replica_frac)
+  try:
+    return float(os.environ.get('GLT_LOCALITY_REPLICA_FRAC', 0.0))
+  except ValueError:
+    return 0.0
 
 
 def build_dist_edge_feature(efeats, num_parts: int,
@@ -275,6 +346,8 @@ class DistDataset:
     self.edge_features = edge_features
     self.old2new = old2new
     self.new2old = np.argsort(old2new) if old2new is not None else None
+    #: what placed the nodes (`from_full_graph`; None: built directly)
+    self.partitioner = None
     self._partition_book = None
     self.adopted_shards = {}
     self._adopted_device = {}   # range -> (payload, its tensors on the card)
@@ -331,17 +404,30 @@ class DistDataset:
                       node_pb: Optional[np.ndarray] = None, seed: int = 0,
                       split_ratio: float = 1.0,
                       hotness: Optional[np.ndarray] = None,
-                      edge_feat=None, device='cuda') -> 'DistDataset':
+                      edge_feat=None, device='cuda', partitioner=None,
+                      replica_frac: Optional[float] = None
+                      ) -> 'DistDataset':
     """In-memory partition and shard onto ``device``.
 
-    Without ``node_pb`` nodes are placed by the JAX package's seeded
-    round-robin over a random permutation (its ``'range'``
-    partitioner).  ``split_ratio < 1`` tiers the feature store;
+    Without ``node_pb`` the ``partitioner`` (`locality.
+    resolve_partitioner`: the argument, else ``GLT_PARTITIONER``) places
+    the nodes: ``'range'`` (default) is the JAX package's seeded
+    round-robin over a random permutation; ``'locality'`` the streaming
+    greedy `locality.locality_partition` (weighted by ``hotness``, an
+    array or a `DecayedSketch`, default in-degree; on a CUDA device its
+    compiled host copy runs); an array is a ``node_pb``; a callable is
+    called as ``partitioner(rows, cols, num_nodes, num_parts)``.
+    ``ds.partitioner`` names what placed them (``'explicit'`` for a
+    ``node_pb``).  ``split_ratio < 1`` tiers the feature store;
     ``hotness`` defaults to in-degree then, so the card keeps the most
-    gathered rows.  ``edge_feat`` is the ``[E, De]`` table by input edge
-    order, mod-sharded by `build_dist_edge_feature`, or such a
-    `DistFeature` already built (two stores of one graph share it).
+    gathered rows.  ``replica_frac > 0`` (else
+    ``GLT_LOCALITY_REPLICA_FRAC``) builds the replica cache
+    (`build_replica_cache`, ranked by ``hotness``, else in-degree).
+    ``edge_feat`` is the ``[E, De]`` table by input edge order,
+    mod-sharded by `build_dist_edge_feature`, or such a `DistFeature`
+    already built (two stores of one graph share it).
     """
+    from .locality import locality_partition, resolve_partitioner
     device = resolve_device(device)
     cols_t = cols if isinstance(cols, torch.Tensor) else torch.from_numpy(
         np.asarray(cols))
@@ -351,20 +437,54 @@ class DistDataset:
       num_nodes = int(max(int(rows_t.max()) if rows_t.numel() else -1,
                           int(cols_t.max()) if cols_t.numel() else -1)) + 1
     n = int(num_nodes)
+    if hotness is not None and hasattr(hotness, 'score'):
+      hotness = hotness.score(np.arange(n))
+    in_degree = lambda: torch.bincount(  # noqa: E731
+        cols_t.long(), minlength=n).cpu().numpy()
+    identity = 'explicit'
     if node_pb is None:
-      rng = np.random.default_rng(seed)
-      node_pb = np.empty(n, dtype=np.int32)
-      perm = rng.permutation(n)
-      for p in range(num_parts):
-        node_pb[perm[p::num_parts]] = p
+      part = resolve_partitioner(partitioner)
+      if isinstance(part, str) and part == 'range':
+        identity = 'range'
+        rng = np.random.default_rng(seed)
+        node_pb = np.empty(n, dtype=np.int32)
+        perm = rng.permutation(n)
+        for p in range(num_parts):
+          node_pb[perm[p::num_parts]] = p
+      elif isinstance(part, str):
+        identity = 'locality'
+        if hotness is None:
+          hotness = in_degree()
+        greedy = None
+        if device.type == 'cuda':
+          from .locality import compiled_greedy as greedy
+        node_pb, _ = locality_partition(
+            rows_t.cpu().numpy(), cols_t.cpu().numpy(), n, num_parts,
+            seed=seed, hotness=hotness, greedy=greedy)
+      elif callable(part):
+        identity = 'custom'
+        node_pb = np.asarray(part(rows_t.cpu().numpy(), cols_t.cpu().numpy(),
+                                  n, num_parts))
+      else:
+        identity = 'custom'
+        node_pb = part
     if split_ratio < 1.0 and hotness is None:
-      hotness = torch.bincount(cols_t.long(), minlength=n).cpu().numpy()
+      hotness = in_degree()
     g, old2new = build_dist_graph(rows_t, cols_t, node_pb, n,
                                   num_parts=num_parts, hotness=hotness,
                                   device=device)
     nf = (build_dist_feature(node_feat, old2new, g.bounds,
                              split_ratio=split_ratio, device=device)
           if node_feat is not None else None)
+    rep = replica_budget_frac(replica_frac)
+    if nf is not None and rep > 0:
+      rank = np.asarray(hotness) if hotness is not None else in_degree()
+      rank_new = np.empty(n, np.float64)
+      rank_new[old2new] = rank
+      cids, crows = build_replica_cache(node_feat, old2new, g.bounds,
+                                        rank_new, rep, device=device)
+      if cids is not None:
+        nf.cache_ids, nf.cache_rows, nf.cache_local = cids, crows, True
     nl = None
     if node_label is not None:
       nl = build_dist_feature(node_label, old2new, g.bounds,
@@ -372,4 +492,6 @@ class DistDataset:
     ef = edge_feat
     if ef is not None and not isinstance(ef, DistFeature):
       ef = build_dist_edge_feature(ef, num_parts, device=device)
-    return cls(g, nf, nl, old2new, device=device, edge_features=ef)
+    ds = cls(g, nf, nl, old2new, device=device, edge_features=ef)
+    ds.partitioner = identity
+    return ds

@@ -75,7 +75,6 @@ from .dist_sampler import (DEFAULT_EXCHANGE_SLACK, NEG_TRIALS,
                            overlay_cold_host, pack_link_seeds, packed_rows,
                            resolve_exchange_slack)
 from .dp import Mesh, make_mesh
-from .exchange import capacity_spec
 from .partition_book import hot_split_host
 
 
@@ -156,9 +155,15 @@ class DistHeteroDataset:
     order), and each ``edge_feat_dict`` table is mod-sharded
     (`build_dist_edge_feature`).  Edge endpoints, features and labels may
     be numpy arrays or tensors on any device; a table already on the
-    card is sharded there."""
-    if partitioner not in (None, 'range'):
-      raise _not_ported(f'partitioner={partitioner!r}', 'PR 21')
+    card is sharded there.
+
+    ``partitioner`` (else ``GLT_PARTITIONER``): ``'locality'`` runs
+    `locality.locality_partition` once over the disjoint union of every
+    node type (each type's ids offset by the types before it in sorted
+    order) and splits the assignment back per type, so the balance cap
+    holds on the union; ``'range'`` (default) is the round-robin above.
+    A ``node_pb_dict`` entry wins for its type."""
+    from .locality import locality_partition, resolve_partitioner
     device = resolve_device(device)
     node_feat_dict = node_feat_dict or {}
     node_label_dict = node_label_dict or {}
@@ -185,6 +190,23 @@ class DistHeteroDataset:
 
     rng = np.random.default_rng(seed)
     node_pb_dict = dict(node_pb_dict or {})
+    missing = [nt for nt in ntypes if nt not in node_pb_dict]
+    kind = resolve_partitioner(partitioner)
+    if missing and isinstance(kind, str) and kind == 'locality':
+      off, tot = {}, 0
+      for nt in ntypes:
+        off[nt] = tot
+        tot += num_nodes_dict[nt]
+      g_rows = [off[s] + r.cpu().numpy() for (s, _, d), (r, c)
+                in edges.items()]
+      g_cols = [off[d] + c.cpu().numpy() for (s, _, d), (r, c)
+                in edges.items()]
+      joint, _ = locality_partition(
+          np.concatenate(g_rows) if g_rows else np.empty(0, np.int64),
+          np.concatenate(g_cols) if g_cols else np.empty(0, np.int64),
+          tot, num_parts, seed=seed)
+      for nt in missing:
+        node_pb_dict[nt] = joint[off[nt]:off[nt] + num_nodes_dict[nt]].copy()
     old2new, bounds = {}, {}
     for nt in ntypes:
       n = num_nodes_dict[nt]
@@ -242,13 +264,15 @@ class DistHeteroNeighborSampler(ExchangeTelemetry):
     seed: seeds the default draws provider.
     exchange_slack: per-destination capacity multiplier (None = exact).
     draws: the draws provider (module docstring).
+    exchange_layout: the exchange layout (`exchange.resolve_layout`).
   """
 
   def __init__(self, dataset: DistHeteroDataset, num_neighbors,
                mesh: Optional[Mesh] = None, with_edge: bool = False,
                collect_features: bool = True, seed: int = 0,
                exchange_slack: Optional[float] = None,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               exchange_layout: Optional[str] = None):
     self.mesh = mesh if mesh is not None else make_mesh(
         dataset.num_partitions, device=device)
     self.device = self.mesh.device
@@ -265,6 +289,7 @@ class DistHeteroNeighborSampler(ExchangeTelemetry):
     self.collect_features = bool(collect_features)
     self.with_edge = bool(with_edge)
     self.exchange_slack = exchange_slack
+    self.exchange_layout = exchange_layout or 'auto'
     self.draws = draws if draws is not None else TorchDraws(seed,
                                                             self.device)
     self._step_cnt = 0
@@ -364,8 +389,7 @@ class DistHeteroNeighborSampler(ExchangeTelemetry):
           continue
         fr_nodes, fr_local = frontiers[s]
         g = self.ds.graphs[et]
-        cap = capacity_spec(fr_nodes.shape[1], self.num_parts,
-                            self.exchange_slack)
+        cap = self._channel_cap(fr_nodes.shape[1])
         nbrs, mask, he, _, hstats = _dist_one_hop(
             self.mesh, g.indptr, g.indices, self._bounds_t[s], fr_nodes,
             int(k), draws, step, h, cap, etype=ei,
@@ -395,15 +419,13 @@ class DistHeteroNeighborSampler(ExchangeTelemetry):
       nf = self.ds.node_features[nt]
       (x[nt],), gstats = dist_gather_multi(
           self.mesh, (nf.shards,), self._bounds_t[nt], node[nt],
-          capacity=capacity_spec(table_cap[nt], self.num_parts,
-                                 self.exchange_slack),
+          capacity=self._channel_cap(table_cap[nt]),
           hot_counts=self._hot_t.get(nt))
       ft_stats += gstats
     for nt in self._label_nts:
       (y[nt],), gstats = dist_gather_multi(
           self.mesh, (self.ds.node_labels[nt],), self._bounds_t[nt],
-          node[nt], capacity=capacity_spec(table_cap[nt], self.num_parts,
-                                           self.exchange_slack))
+          node[nt], capacity=self._channel_cap(table_cap[nt]))
       ft_stats += gstats
     rev = {et: reverse_edge_type(et) for et in self.etypes if rows_acc[et]}
     for et in self._efeat_ets:
@@ -413,8 +435,7 @@ class DistHeteroNeighborSampler(ExchangeTelemetry):
       all_eids = torch.cat(eids_acc[et], dim=1)
       (ef[rev[et]],), gstats = dist_gather_multi(
           self.mesh, (f.shards,), f.bounds, all_eids,
-          capacity=capacity_spec(all_eids.shape[1], self.num_parts,
-                                 self.exchange_slack),
+          capacity=self._channel_cap(all_eids.shape[1]),
           shard_mode='mod' if f.mod_sharded else 'range')
       ft_stats += gstats
     pieces = dict(
@@ -459,8 +480,7 @@ class DistHeteroNeighborSampler(ExchangeTelemetry):
     g = self.ds.graphs[et]
     src, dst = pairs[..., 0], pairs[..., 1]
     neg_ok = None
-    neg_kw = dict(capacity=capacity_spec(nn * NEG_TRIALS, self.num_parts,
-                                         self.exchange_slack))
+    neg_kw = dict(capacity=self._channel_cap(nn * NEG_TRIALS))
     if mode == 'binary':
       nrows, ncols, neg_ok = dist_sample_negative(
           self.mesh, g.indptr, g.indices, self._bounds_t[s_t],
@@ -583,7 +603,8 @@ class DistHeteroNeighborLoader(PrefetchingLoader):
                with_edge: bool = False, collect_features: bool = True,
                seed: int = 0, input_space: str = 'old',
                exchange_slack='auto', prefetch: int = 0,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               exchange_layout: Optional[str] = None):
     self.prefetch = int(prefetch)
     input_type, seeds = input_nodes
     self.input_type = input_type
@@ -592,7 +613,8 @@ class DistHeteroNeighborLoader(PrefetchingLoader):
         dataset, num_neighbors, mesh=mesh, with_edge=with_edge,
         collect_features=collect_features, seed=seed,
         exchange_slack=(DEFAULT_EXCHANGE_SLACK if slack == 'adaptive'
-                        else slack), draws=draws, device=device)
+                        else slack), draws=draws, device=device,
+        exchange_layout=exchange_layout)
     self._prefetch_device = self.sampler.device
     self._adaptive = (AdaptiveSlack(self.sampler)
                       if slack == 'adaptive' else None)
@@ -664,7 +686,8 @@ class DistHeteroLinkNeighborLoader(PrefetchingLoader):
                with_edge: bool = False, collect_features: bool = True,
                seed: int = 0, input_space: str = 'old',
                exchange_slack='auto', prefetch: int = 0,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               exchange_layout: Optional[str] = None):
     self.prefetch = int(prefetch)
     input_type, pairs = edge_label_index
     self.input_type = tuple(input_type)
@@ -674,7 +697,8 @@ class DistHeteroLinkNeighborLoader(PrefetchingLoader):
         dataset, num_neighbors, mesh=mesh, with_edge=with_edge,
         collect_features=collect_features, seed=seed,
         exchange_slack=(DEFAULT_EXCHANGE_SLACK if slack == 'adaptive'
-                        else slack), draws=draws, device=device)
+                        else slack), draws=draws, device=device,
+        exchange_layout=exchange_layout)
     self._prefetch_device = self.sampler.device
     self._adaptive = (AdaptiveSlack(self.sampler)
                       if slack == 'adaptive' else None)

@@ -6,8 +6,10 @@ its link engine and their loaders (the JAX package's
 `DistNeighborSampler`, `DistNeighborLoader`, `DistLinkNeighborSampler`,
 `DistLinkNeighborLoader`, the induced-subgraph step,
 `resolve_hop_chunk`, `DistSubGraphSampler`, `DistSubGraphLoader`, the
-walk step and `DistRandomWalker`, and the book-routed exchange and
-failover seams: `_BookPlan` and the samplers' supervision and fence).
+walk step and `DistRandomWalker`, the book-routed exchange and
+failover seams: `_BookPlan` and the samplers' supervision and fence, and
+the exchange layouts' routing, the traffic attribution, `cache_overlay`
+and `capacity_retune`).
 
 The mesh's ``P`` partitions share one card (`parallel.dp.Mesh`); every
 per-partition tensor is stacked on a leading ``[P]`` axis, and the
@@ -73,15 +75,30 @@ chaos seam: a dead owner's range is adopted from its durable shard under
 ``GLT_SHARD_DIR``, else written off under ``GLT_DEGRADED_OK``, else a
 typed `failover.PartitionLostError`), then the book fence
 (`DistNeighborSampler.maybe_refresh_book`), before the draw cursor
-advances.  Every exchange is a `_BookPlan` over the pinned view: ids
-bucket to (position, lane) virtual destinations at the per-range
-capacity, and each lane samples its range's rows from its range's
-sources (`BookLanes`: the live stacks, or a moved range's payload put on
-the card once, `DistDataset.adopted_lane`) at ``draws(..., owner=r)`` —
-the range, not the position — so an adopted epoch's batches equal the
-fault-free run's.  At the identity book (one lane a position) that is
-the exchange above; the kernels are launched once a range a hop either
-way.
+advances.  At the identity book an exchange is the plan of the
+sampler's layout (``exchange_layout``; dense below 16 partitions,
+compact from 16: `exchange.resolve_layout`); the dense one is
+`_BookPlan` with one lane a position, the compact and hier ones
+`_LayoutPlan`.  Under a moved book every exchange is a `_BookPlan` over
+the pinned view, whatever the layout (JAX's rule; the compact and hier
+budgets flatten to a per-range capacity): ids bucket to (position, lane)
+virtual destinations at the per-range capacity, and each lane samples
+its range's rows from its range's sources (`BookLanes`: the live stacks,
+or a moved range's payload put on the card once,
+`DistDataset.adopted_lane`) at ``draws(..., owner=r)`` — the range, not
+the position — so an adopted epoch's batches equal the fault-free run's
+under the dense layout.  The kernels are launched once a range a hop
+either way.
+
+Each dispatch also counts its traffic by destination RANGE (the
+``[P, 2P + 1]`` attribution: frontier ids, feature ids, locally served
+feature ids; `ExchangeTelemetry.attribution_matrices`), which the EWMA
+capacity model (``GLT_EXCHANGE_EWMA=1``, `capacity_retune` at each epoch
+end) and `locality.rebalance_plan` read.  With a replica cache
+(`DistDataset.from_full_graph(replica_frac=)`) the replicated rows, and
+on an untiered store at the identity book a partition's own rows, skip
+the feature exchange and are read from the replica or the shard
+(`cache_overlay`).
 
 Random numbers come from a ``draws`` provider, ``draws(step, hop, rows,
 k, w, gns, owner=o) -> (u [rows, k], v [rows, k])`` for the GNS sampler
@@ -115,8 +132,8 @@ from ..ops.draws import TorchDraws
 from ..ops.fused_sample import (MAX_WINDOW, sample_one_hop_fused,
                                 sample_one_hop_gns_fused)
 from ..ops.gather_rows import gather_rows
-from ..ops.gns import (cached_set_bits, dedup_requester_bits, gns_enabled,
-                       resolve_boost)
+from ..ops.gns import (cached_set_bits, dedup_requester_bits,
+                       fallback_req_index, gns_enabled, resolve_boost)
 from ..ops.negative import edge_in_csr, first_non_edge
 from ..ops.neighbor import default_window
 from ..sampler.base import NegativeSampling
@@ -130,10 +147,13 @@ from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from ..utils.tensor import PinnedStaging
 from .dist_data import DistDataset
 from .dp import Mesh, make_mesh
-from .exchange import (MIN_EXCHANGE_CAP, DensePlan, bucket_stacked,
-                       capacity_spec)
+from .exchange import (MIN_EXCHANGE_CAP, DensePlan, EwmaCapacityModel,
+                       ExchangeSpec, bucket_stacked, capacity_spec,
+                       dest_histogram, ewma_enabled, plan_exchange,
+                       resolve_layout)
 from .partition_book import (BookSpec, book_owner_fn, edge_book_owner_fn,
-                             edge_local_rows, hot_split_host, identity_spec)
+                             edge_local_rows, edge_owner_fn, hot_split_host,
+                             identity_spec, range_owner_fn)
 
 #: per-destination exchange capacity for shuffled seeds, as a multiple
 #: of the balanced share (frontier / P)
@@ -247,6 +267,11 @@ class _BookPlan(DensePlan):
     if ids.ndim != 2 or ids.shape[0] != p:
       raise ValueError(f'the plan takes [{p}, F] ids, got '
                        f'{tuple(ids.shape)}')
+    if isinstance(capacity, ExchangeSpec):
+      # the per-range capacity of a layout's plan: the dense cap as is;
+      # the compact and hier budgets flattened to slots / P, floored
+      capacity = (capacity.capacity if capacity.layout == 'dense' else
+                  max(round_up(-(-capacity.slots // p), 8), MIN_EXCHANGE_CAP))
     owner = (edge_book_owner_fn(p, spec) if owner_mode == 'mod'
              else book_owner_fn(bounds_t, spec))(ids)
     send, self.slot_p, self.slot_j, *send_pl = bucket_stacked(
@@ -266,6 +291,7 @@ class _BookPlan(DensePlan):
           dim=2))
       self.recv_lanes = lanes_of(both[:, :, 0])
       self.recv_payload_lanes = lanes_of(both[:, :, 1])
+    self.owned = self.recv_lanes >= 0
     self.kept = self.slot_j >= 0
     self.delivered = self.kept
     self.requester_of_recv = torch.arange(
@@ -282,9 +308,9 @@ class _BookPlan(DensePlan):
 
   def local(self, bounds_t: torch.Tensor, fill) -> torch.Tensor:
     """Every lane's receive ids as its range's local rows (``fill`` where
-    empty), ``[P * S, P_src * C]``."""
+    empty or not the lane's), ``[P * S, R]``."""
     base = bounds_t[self.lane_range][:, None]
-    return torch.where(self.recv_lanes >= 0, self.recv_lanes - base, fill)
+    return torch.where(self.owned, self.recv_lanes - base, fill)
 
   def stack(self, by_row: dict, fill) -> torch.Tensor:
     """Per-lane values ``{row: [P_src * C, ...]}`` -> ``[P * S, P_src * C,
@@ -301,6 +327,60 @@ class _BookPlan(DensePlan):
     v = values.reshape((p, s, p, cap) + trail).transpose(1, 2)
     back = self.mesh.all_to_all(v.reshape((p, p, s * cap) + trail))
     return self.stitch(back.reshape((p, p * s, cap) + trail), fill)
+
+
+class _LayoutPlan(_BookPlan):
+  """The identity book's exchange under the compact or hier layout
+  (`exchange.plan_exchange`) behind `_BookPlan`'s lane interface: one
+  lane a partition, serving its own range.  A compact owner's receive
+  buffer also holds every other partition's pool ids: ``owned`` masks
+  them out of its local rows (their answers are never read)."""
+
+  def __init__(self, ids: torch.Tensor, bounds_t: torch.Tensor, mesh,
+               spec: ExchangeSpec, payload: Optional[torch.Tensor] = None,
+               owner_mode: str = 'range'):
+    p = mesh.size
+    owner_fn = (edge_owner_fn(p) if owner_mode == 'mod'
+                else range_owner_fn(bounds_t))
+    plan = plan_exchange(ids, owner_fn, p, mesh, spec, payload)
+    self._plan, self.mesh, self.num_parts, self._lanes = plan, mesh, p, 1
+    self.recv_lanes = plan.recv
+    self.recv_payload_lanes = plan.recv_payload
+    self.kept, self.delivered = plan.kept, plan.delivered
+    self.requester_of_recv = plan.requester_of_recv
+    self.stats = plan.stats
+    self.lane_range = torch.arange(p, device=ids.device)
+    self.lanes = [(d, d) for d in range(p)]
+    r = self.recv_lanes
+    mine = (torch.remainder(r, p) == self.lane_range[:, None]
+            if owner_mode == 'mod' else
+            (r >= bounds_t[:-1, None]) & (r < bounds_t[1:, None]))
+    self.owned = (r >= 0) & mine
+
+  def reply(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+    return self._plan.reply(values, fill)
+
+
+def _make_plan(ids: torch.Tensor, bounds_t: torch.Tensor, spec: BookSpec,
+               mesh, capacity=None, payload: Optional[torch.Tensor] = None,
+               owner_mode: str = 'range') -> _BookPlan:
+  """The exchange of one request: the layout's plan at the identity book
+  (`_LayoutPlan`; dense is `_BookPlan` itself), `_BookPlan` at a moved
+  book whatever the layout, as the JAX package routes them."""
+  if (spec.is_identity and isinstance(capacity, ExchangeSpec)
+      and capacity.layout != 'dense'):
+    return _LayoutPlan(ids, bounds_t, mesh, capacity, payload, owner_mode)
+  return _BookPlan(ids, bounds_t, spec, mesh, capacity, payload, owner_mode)
+
+
+def _slack_cap(n: int, num_parts: int, exchange_slack,
+               exchange_layout: Optional[str] = None, caps=None):
+  """The capacity plan of one ``n``-id exchange under the sampler's slack
+  and layout (None = exact); ``caps``: the `EwmaCapacityModel`'s
+  ``(dest_cap, traffic_cap)`` for the channel (None: uniform shares)."""
+  d, t = caps if caps is not None else (None, None)
+  return capacity_spec(n, num_parts, exchange_slack, layout=exchange_layout,
+                       dest_cap=d, traffic_cap=t)
 
 
 def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
@@ -332,10 +412,15 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
     book = BookLanes.identity(mesh.size, {'indptr': indptr,
                                           'indices': indices,
                                           'eids': eids_loc})
-  plan = _BookPlan(frontier, bounds_t, book.spec, mesh, capacity)
+  plan = _make_plan(frontier, bounds_t, book.spec, mesh, capacity)
   local = plan.local(bounds_t, INVALID_ID).to(torch.int32)
   rows = local.shape[1]
   w = default_window(k)
+  req = plan.requester_of_recv
+  if gns_bits is not None and req is None:
+    # hier's stage-2 rows have no requester: the hot-split-only row
+    req = torch.full((rows,), fallback_req_index(gns_bits),
+                     dtype=torch.int32, device=frontier.device)
   et = {} if etype is None else {'etype': etype}
   res = {}
   for row, r in plan.lanes:
@@ -346,7 +431,7 @@ def _dist_one_hop(mesh: Mesh, indptr, indices, bounds_t, frontier, k: int,
       u, v = draws(step, hop, rows, k, w, True, owner=r, **et)
       res[row] = sample_one_hop_gns_fused(
           indptr_r, indices_r, local[row], k, u, v, gns_bits, gns_boost,
-          req=plan.requester_of_recv, window=w, sort_locality=sort_locality,
+          req=req, window=w, sort_locality=sort_locality,
           **edge)
     else:
       u, g = draws(step, hop, rows, k, w, False, owner=r, **et)
@@ -379,8 +464,8 @@ def _dist_window_hop(mesh: Mesh, indptr, indices, bounds_t, frontier,
     book = BookLanes.identity(mesh.size, {'indptr': indptr,
                                           'indices': indices,
                                           'eids': eids_loc})
-  plan = _BookPlan(frontier, bounds_t, book.spec, mesh, capacity)
-  ok = plan.recv_lanes >= 0
+  plan = _make_plan(frontier, bounds_t, book.spec, mesh, capacity)
+  ok = plan.owned
   local = plan.local(bounds_t, 0)
   lane = torch.arange(width, dtype=torch.int64, device=frontier.device)
   starts, mask = {}, {}
@@ -426,9 +511,9 @@ def dist_gather_multi(mesh: Mesh, shards, bounds, ids,
     book, book_keys = BookLanes.identity(p, dict(enumerate(shards))), \
         range(len(shards))
   bounds_t = int64_on(bounds, ids.device)
-  plan = _BookPlan(ids, bounds_t, book.spec, mesh, capacity,
-                   owner_mode=shard_mode)
-  valid = plan.recv_lanes >= 0
+  plan = _make_plan(ids, bounds_t, book.spec, mesh, capacity,
+                    owner_mode=shard_mode)
+  valid = plan.owned
   local = (torch.where(valid, edge_local_rows(plan.recv_lanes, p), 0)
            if shard_mode == 'mod' else plan.local(bounds_t, 0))
   ok = (ids >= 0) & plan.delivered
@@ -470,7 +555,7 @@ def dist_edge_exists(mesh: Mesh, indptr, indices, bounds_t, rows, cols,
   if book is None:
     book = BookLanes.identity(mesh.size, {'indptr': indptr,
                                           'indices': indices})
-  plan = _BookPlan(rows, bounds_t, book.spec, mesh, capacity, payload=cols)
+  plan = _make_plan(rows, bounds_t, book.spec, mesh, capacity, payload=cols)
   local = plan.local(bounds_t, INVALID_ID)
   ex = {row: edge_in_csr(book.get('indptr', r), book.get('indices', r),
                          local[row], plan.recv_payload_lanes[row])
@@ -512,6 +597,17 @@ def dist_sample_negative(mesh: Mesh, indptr, indices, bounds_t,
   return (rows.gather(1, pick)[:, 0], cols.gather(1, pick)[:, 0], ok)
 
 
+def cache_overlay(x: torch.Tensor, hit: torch.Tensor, rows: torch.Tensor,
+                  table: torch.Tensor) -> torch.Tensor:
+  """``x[p, i] = table[p, rows[p, i]]`` where ``hit[p, i]`` (the JAX
+  package's `cache_overlay`: a partition's replica rows, or its own
+  shard's rows, over the exchanged ones), each partition's read by the
+  row gather kernel."""
+  got = torch.stack([gather_rows(table[q], torch.where(hit[q], rows[q], -1))
+                     for q in range(x.shape[0])])
+  return torch.where(hit[..., None], got, x)
+
+
 def overlay_cold_host(x: torch.Tensor, nodes_host: np.ndarray, cold_host,
                       cold_mask: np.ndarray, staging=None) -> int:
   """Fill the node-table rows marked in ``cold_mask`` from the host
@@ -551,7 +647,8 @@ ADAPTIVE_DROP_TOLERANCE = 1e-3
 
 class AdaptiveSlack:
   """Epoch-level exchange-capacity tuner over `SLACK_LADDER` (the JAX
-  package's, dense layout).
+  package's); the one slack sizes every capacity of the sampler's
+  layout.
 
   It starts at ``start`` (a rung, default `DEFAULT_EXCHANGE_SLACK`); its
   floor is ``floor`` when given, else ``GLT_SLACK_FLOOR`` (default
@@ -627,6 +724,11 @@ class AdaptiveSlack:
       return
     rate = dropped / offered
     tol = ADAPTIVE_DROP_TOLERANCE
+    if resolve_layout(self.sampler.exchange_layout,
+                      self.sampler.num_parts) == 'hier':
+      # hier counts an id once a stage in 'offered': the same per-id
+      # loss reads up to half the rate
+      tol = ADAPTIVE_DROP_TOLERANCE / 2
     if self._pinned and (self._pin_reason != 'floor' or rate <= tol):
       # a reversal pin is final; a floor pin only stops tightening
       return
@@ -684,6 +786,13 @@ class ExchangeTelemetry:
     self._feat_lookups = self._cold_lookups = self._cold_misses = 0
     self._cache_hits = self._cache_admits = self._cache_evicts = 0
     self._cold_reported = (0,) * len(COLD_STAT_NAMES)
+    # the src -> dst range attribution: a [P, 2P + 1] device accumulator
+    # (frontier ids by destination range, feature ids by destination
+    # range, the ids served without the exchange), drained with the
+    # counters into host totals
+    self._attr_acc = None
+    self._attr_total: Optional[np.ndarray] = None
+    self._attr_reported = (0, 0)
 
   def _accumulate_stats(self, stats: torch.Tensor) -> None:
     """Fold the first ``len(stats)`` exchange counters
@@ -691,6 +800,22 @@ class ExchangeTelemetry:
     drains."""
     with self._stats_lock:
       self._stats_acc[:stats.shape[0]] += stats
+
+  def _accumulate_attr(self, frontier: torch.Tensor,
+                       feature: Optional[torch.Tensor] = None,
+                       served: Optional[torch.Tensor] = None) -> None:
+    """Fold one dispatch's ``[P, P]`` frontier and feature destination
+    histograms (`exchange.dest_histogram`) and ``[P]`` locally served
+    feature ids into the attribution accumulator."""
+    p = frontier.shape[0]
+    z = torch.zeros((p, p), dtype=torch.int64, device=frontier.device)
+    tail = torch.cat([frontier, z if feature is None else feature,
+                      (torch.zeros((p, 1), dtype=torch.int64,
+                                   device=frontier.device)
+                       if served is None else served.reshape(p, 1))], 1)
+    with self._stats_lock:
+      self._attr_acc = tail if self._attr_acc is None \
+          else self._attr_acc + tail
 
   def exchange_stats(self, tick_metrics: bool = True) -> dict:
     """Cumulative exchange and cold-tier counters since construction,
@@ -712,6 +837,12 @@ class ExchangeTelemetry:
       self._stats_acc = torch.zeros_like(acc)
       delta = acc.cpu().numpy().astype(np.int64)
       self._stats_total += delta
+      attr, self._attr_acc = self._attr_acc, None
+      if attr is not None:
+        a = attr.cpu().numpy().astype(np.int64)
+        if self._attr_total is None or self._attr_total.shape != a.shape:
+          self._attr_total = np.zeros_like(a)
+        self._attr_total += a
       totals = self._stats_total.copy()
       cold_now = (self._feat_lookups, self._cold_lookups,
                   self._cold_misses, self._cache_hits, self._cache_admits,
@@ -752,6 +883,188 @@ class ExchangeTelemetry:
                     cache_hits=int(cold_delta[3]),
                     hit_rate=round(1.0 - cold_delta[2] / cold_delta[1], 6))
 
+  # -- traffic attribution (the JAX package's `ExchangeTelemetry`) ---------
+  def _stats_state(self) -> np.ndarray:
+    """The cumulative counters as one int64 vector: the exchange totals,
+    the cold-tier counters, then the flattened ``[P, 2P + 1]``
+    attribution matrix (absent before any dispatch)."""
+    self.exchange_stats(tick_metrics=False)
+    with self._stats_lock:
+      cold = (self._feat_lookups, self._cold_lookups, self._cold_misses,
+              self._cache_hits, self._cache_admits, self._cache_evicts)
+      parts = [self._stats_total, np.asarray(cold, np.int64)]
+      if self._attr_total is not None:
+        parts.append(self._attr_total.reshape(-1))
+      return np.concatenate(parts)
+
+  def _load_stats_state(self, packed) -> None:
+    """Restore `_stats_state`; a vector from before the attribution tail
+    (13 counters) restores the counters and restarts the matrix cold."""
+    arr = np.asarray(packed, np.int64)
+    n = len(EXCHANGE_STAT_NAMES)
+    with self._stats_lock:
+      self._stats_acc = torch.zeros_like(self._stats_acc)
+      self._attr_acc = None
+      self._stats_total = arr[:n].copy()
+      (self._feat_lookups, self._cold_lookups, self._cold_misses,
+       self._cache_hits, self._cache_admits,
+       self._cache_evicts) = (int(v) for v in arr[n:n + 6])
+      tail = arr[n + 6:]
+      self._attr_total = (tail.reshape(-1, 2 * self.num_parts + 1).copy()
+                          if tail.size else None)
+      # the ticked watermark never passes the rewound counters
+      self._cold_reported = tuple(min(r, int(v)) for r, v in zip(
+          self._cold_reported, arr[n:n + 6]))
+
+  def attribution_matrices(self) -> Tuple[np.ndarray, np.ndarray]:
+    """``(frontier, feature)``: two ``[P, P]`` int64 id counts, row = the
+    requesting partition, column = the destination RANGE (so a column
+    keeps meaning "range r" under a moved book).  Drains the device
+    accumulator."""
+    self.exchange_stats(tick_metrics=False)
+    with self._stats_lock:
+      tot = self._attr_total
+      if tot is None:
+        z = np.zeros((self.num_parts, self.num_parts), np.int64)
+        return z, z.copy()
+      p = tot.shape[1] // 2
+      return tot[:, :p].copy(), tot[:, p:2 * p].copy()
+
+  def replica_hits(self) -> int:
+    """Feature lookups served without the exchange: replica hits and the
+    owner bypass's own rows (0 without a replica cache)."""
+    self.exchange_stats(tick_metrics=False)
+    with self._stats_lock:
+      tot = self._attr_total
+      return 0 if tot is None else int(tot[:, -1].sum())
+
+  def attribution_stats(self, top_k: Optional[int] = None,
+                        feature_row_bytes: Optional[int] = None,
+                        tick_metrics: bool = True) -> dict:
+    """The traffic rollup (the JAX package's `attribution_stats`):
+    frontier ids weigh 4 B, feature ids one feature row.  A cell is local
+    when the book routes its range to its row's partition (the diagonal
+    at the identity book); locally served feature ids count as local.
+    ``hot_ranges`` prefers the GNS sketches' range mass
+    (``hotness_source: 'gns_sketch'``), else the matrices' column mass.
+    With ``tick_metrics`` the ``exchange.local_ids_total`` and
+    ``exchange.cross_ids_total`` counters tick by their deltas."""
+    fr, ft = self.attribution_matrices()
+    p = int(fr.shape[0])
+    if feature_row_bytes is None:
+      feature_row_bytes = 4
+      nf = self.ds.node_features
+      if nf is not None:
+        feature_row_bytes = int(nf.shards.shape[-1]) * int(
+            nf.shards.element_size())
+    ids = fr + ft
+    bytes_m = fr * 4 + ft * int(feature_row_bytes)
+    owners = np.asarray(self.book.view().owners)
+    local_mask = owners[None, :] == np.arange(p)[:, None]
+    rep = self.replica_hits()
+    total_ids = int(ids.sum()) + rep
+    local_ids = int(ids[local_mask].sum()) + rep
+    cross_ids = total_ids - local_ids
+    rep_bytes = rep * int(feature_row_bytes)
+    total_bytes = int(bytes_m.sum()) + rep_bytes
+    cross_bytes = total_bytes - (int(bytes_m[local_mask].sum()) + rep_bytes)
+    mass, source = None, 'exchange'
+    cache = getattr(self, '_cold_cache', None)
+    if cache is not None and cache.shards:
+      ms = [sh.sketch.range_mass for sh in cache.shards
+            if sh.sketch.range_mass is not None]
+      if ms:
+        agg = np.sum(ms, axis=0)
+        if float(agg.sum()) > 0 and len(agg) == p:
+          mass, source = agg.astype(np.float64), 'gns_sketch'
+    if mass is None:
+      mass = ids.sum(axis=0).astype(np.float64)
+    total_mass = float(mass.sum())
+    k = min(max(1, p // 4) if top_k is None else max(int(top_k), 1),
+            max(p, 1))
+    hot, coverage = [], 0.0
+    if p and total_mass > 0:
+      order = np.argsort(-mass, kind='stable')[:k]
+      hot = [{'partition': int(r),
+              'share': round(float(mass[r] / total_mass), 6)}
+             for r in order]
+      coverage = round(float(mass[order].sum() / total_mass), 6)
+    if tick_metrics:
+      d_local = max(local_ids - self._attr_reported[0], 0)
+      d_cross = max(cross_ids - self._attr_reported[1], 0)
+      self._attr_reported = (local_ids, cross_ids)
+      if d_local:
+        live.counter('exchange.local_ids_total').inc(d_local)
+      if d_cross:
+        live.counter('exchange.cross_ids_total').inc(d_cross)
+    return {
+        'num_parts': p,
+        'feature_row_bytes': int(feature_row_bytes),
+        'frontier_ids': fr.tolist(),
+        'feature_ids': ft.tolist(),
+        'bytes_matrix': bytes_m.tolist(),
+        'local_ids': local_ids,
+        'locally_served_ids': rep,
+        'cross_ids': cross_ids,
+        'cross_partition_ids_frac': (round(cross_ids / total_ids, 6)
+                                     if total_ids else 0.0),
+        'total_bytes': total_bytes,
+        'cross_partition_bytes': cross_bytes,
+        'cross_partition_bytes_frac': (round(cross_bytes / total_bytes, 6)
+                                       if total_bytes else 0.0),
+        'hotness_source': source,
+        'top_k': k if p else 0,
+        'hot_ranges': hot,
+        'hot_range_coverage': coverage,
+    }
+
+  def _ewma_caps(self):
+    """Per-channel ``(dest_cap, traffic_cap)``, or None while the EWMA
+    model is off or has observed nothing (uniform shares)."""
+    m = getattr(self, '_ewma_model', None)
+    if m is None:
+      return None
+    caps = {c: m.caps(c) for c in m.CHANNELS}
+    return caps if any(v != (None, None) for v in caps.values()) else None
+
+  def _channel_cap(self, n: int, channel: Optional[str] = None):
+    """`_slack_cap` of an ``n``-id exchange under this sampler's slack,
+    layout and (for ``channel`` ``'frontier'`` / ``'feature'``) EWMA
+    caps."""
+    caps = self._ewma_caps()
+    return _slack_cap(n, self.num_parts, self.exchange_slack,
+                      self.exchange_layout,
+                      caps.get(channel) if caps and channel else None)
+
+  def capacity_retune(self) -> bool:
+    """The epoch-end seam of the EWMA capacity model
+    (``GLT_EXCHANGE_EWMA=1``): feed it the attribution deltas since the
+    last retune; True (and an ``exchange.retune`` event) when a quantized
+    cap moved, which the next dispatch's capacity plans read."""
+    m = getattr(self, '_ewma_model', None)
+    if m is None:
+      return False
+    steps = int(self._step_cnt)
+    d_steps = steps - self._ewma_last_steps
+    if d_steps <= 0:
+      return False
+    fr, ft = self.attribution_matrices()
+    last = self._ewma_last
+    d_fr = fr - last[0] if last is not None else fr
+    d_ft = ft - last[1] if last is not None else ft
+    self._ewma_last = (fr, ft)
+    self._ewma_last_steps = steps
+    changed = m.observe('frontier', d_fr, d_steps)
+    changed = m.observe('feature', d_ft, d_steps) or changed
+    if changed:
+      caps = {c: m.caps(c) for c in m.CHANNELS}
+      recorder.emit('exchange.retune', steps=d_steps,
+                    frontier_dest_cap=caps['frontier'][0],
+                    frontier_traffic_cap=caps['frontier'][1],
+                    feature_dest_cap=caps['feature'][0],
+                    feature_traffic_cap=caps['feature'][1])
+    return changed
+
   def cluster_exchange_stats(self) -> dict:
     """`exchange_stats` plus ``num_hosts`` and the derived padding-waste
     and drop-rate keys (`telemetry.aggregate.exchange_summary`).  The
@@ -779,6 +1092,8 @@ class DistNeighborSampler(ExchangeTelemetry):
       when the dataset has edge features and ``collect_features``, its
       row (``edge_attr``).
     draws: the draws provider (module docstring).
+    exchange_layout: the exchange layout (`exchange.resolve_layout`;
+      None / ``'auto'``: dense below 16 partitions, compact from 16).
   """
 
   def __init__(self, dataset: DistDataset, num_neighbors,
@@ -786,7 +1101,8 @@ class DistNeighborSampler(ExchangeTelemetry):
                seed: int = 0, exchange_slack: Optional[float] = None,
                cold_cache_rows='auto', gns=None,
                draws: Optional[Draws] = None, device='cuda',
-               with_edge: bool = False):
+               with_edge: bool = False,
+               exchange_layout: Optional[str] = None):
     self.mesh = mesh if mesh is not None else make_mesh(
         dataset.num_partitions, device=device)
     self.device = self.mesh.device
@@ -818,6 +1134,21 @@ class DistNeighborSampler(ExchangeTelemetry):
     self._gns_ver = -1
     self._gns_inflight = None
     self.exchange_slack = exchange_slack
+    self.exchange_layout = exchange_layout or 'auto'
+    # the replica cache (`DistDataset.from_full_graph(replica_frac=)`):
+    # its rows are exact copies of remote rows, so with ``cache_local``
+    # the feature gather masks them out of the exchange and overlays
+    # them; a gather that carries labels too keeps the full exchange
+    nf = dataset.node_features
+    self.with_cache = self.collect_features and nf.has_cache
+    self.cache_local = bool(self.with_cache and nf.cache_local
+                            and not self.collect_labels)
+    # the EWMA capacity model (``GLT_EXCHANGE_EWMA=1``), fed at each
+    # epoch end (`capacity_retune`)
+    self._ewma_model = (EwmaCapacityModel(self.num_parts)
+                        if ewma_enabled() else None)
+    self._ewma_last = None
+    self._ewma_last_steps = 0
     self.draws = draws if draws is not None else TorchDraws(seed,
                                                             self.device)
     self._step_cnt = 0
@@ -1048,14 +1379,17 @@ class DistNeighborSampler(ExchangeTelemetry):
     node_cap = self.node_capacity(b)
     hws, hes = [], []
     fr_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    p = self.num_parts
+    range_owner = range_owner_fn(self._bounds_t)
+    attr_fr = torch.zeros((p, p), dtype=torch.int64, device=self.device)
+    attr_ft = torch.zeros_like(attr_fr)
 
     def one_hop(h, frontier, k):
-      cap = capacity_spec(frontier.shape[1], self.num_parts,
-                          self.exchange_slack)
+      attr_fr.add_(dest_histogram(frontier, range_owner, p))
       nbrs, mask, he, hw, hstats = _dist_one_hop(
           self.mesh, g.indptr, g.indices, self._bounds_t, frontier, k,
-          draws, step, h, cap, gns_bits=bits,
-          gns_boost=self.gns_boost, eids_loc=eids, book=book)
+          draws, step, h, self._channel_cap(frontier.shape[1], 'frontier'),
+          gns_bits=bits, gns_boost=self.gns_boost, eids_loc=eids, book=book)
       fr_stats.add_(hstats)
       hws.append(hw)
       hes.append(he)
@@ -1083,10 +1417,10 @@ class DistNeighborSampler(ExchangeTelemetry):
       ef = self.ds.edge_features
       (out['ef'],), estats = dist_gather_multi(
           self.mesh, (ef.shards,), ef.bounds, out['edge'],
-          capacity=capacity_spec(out['edge'].shape[1], self.num_parts,
-                                 self.exchange_slack),
+          capacity=self._channel_cap(out['edge'].shape[1], 'feature'),
           shard_mode='mod', book=book, book_keys=('efshard',))
       ft_stats += estats
+      attr_ft.add_(dest_histogram(out['edge'], edge_owner_fn(p), p))
     tables, keys = [], []
     if self.collect_features:
       tables.append(self.ds.node_features.shards)
@@ -1094,27 +1428,57 @@ class DistNeighborSampler(ExchangeTelemetry):
     if self.collect_labels:
       tables.append(self.ds.node_labels)
       keys.append('lshard')
+    served = None
     if tables:
+      nodes = state.nodes
+      node_valid = (torch.arange(node_cap, device=self.device)[None, :]
+                    < state.count.reshape(p, 1))
+      gather_ids, own = nodes, None
+      if self.with_cache:
+        cids = self.ds.node_features.cache_ids
+        pos = torch.searchsorted(cids, nodes.to(cids.dtype)).clamp(
+            0, cids.shape[1] - 1)
+        hit = (cids.gather(1, pos) == nodes) & (nodes >= 0)
+      if self.cache_local:
+        # replica rows are local: masked out of the exchange, overlaid
+        # below and counted as served.  On a store wholly on the card at
+        # the identity book a partition's own rows skip the exchange too
+        local_hit = hit & node_valid
+        if not self.tiered and book is None:
+          lo = self._bounds_t[:-1, None]
+          own = (nodes >= lo) & (nodes < self._bounds_t[1:, None]) \
+              & node_valid
+          local_hit = local_hit | own
+        gather_ids = torch.where(local_hit, INVALID_ID, nodes)
+        served = local_hit.sum(1)
       got, gstats = dist_gather_multi(
-          self.mesh, tables, self._bounds_t, state.nodes,
-          capacity=capacity_spec(node_cap, self.num_parts,
-                                 self.exchange_slack),
+          self.mesh, tables, self._bounds_t, gather_ids,
+          capacity=self._channel_cap(node_cap, 'feature'),
           hot_counts=self._hot_t if self.collect_features else None,
           book=book, book_keys=keys)
       ft_stats += gstats
+      attr_ft.add_(dest_histogram(gather_ids, range_owner, p,
+                                  valid=node_valid & (gather_ids >= 0)))
       got = list(got)
       if self.collect_features:
-        out['x'] = got.pop(0)
+        x = got.pop(0)
+        if self.with_cache:
+          x = cache_overlay(x, hit, pos, self.ds.node_features.cache_rows)
+        if own is not None:
+          x = cache_overlay(x, own, nodes - lo, self.ds.node_features.shards)
+        out['x'] = x
       if self.collect_labels:
         out['y'] = got.pop(0)
     self._accumulate_stats(torch.cat([fr_stats, ft_stats]))
+    self._accumulate_attr(attr_fr, attr_ft, served)
     return out
 
   # -- DataPlaneState (`utils.checkpoint`) -----------------------------------
   def data_plane_state(self, inflight: bool = False) -> dict:
     """The draw cursor ``step_cnt`` (the draws are keyed by it, so
-    restoring it makes resumed batches byte-identical) and, on a tiered
-    store, the cold cache's policies and rows.  ``inflight``: a batch was
+    restoring it makes resumed batches byte-identical), the attribution
+    matrices (``attribution``, ``[P, 2P + 1]``) and, on a tiered store,
+    the cold cache's policies and rows.  ``inflight``: a batch was
     dispatched ahead and is lost with the process; with GNS on, the
     cached-set bits it sampled with are kept (``gns_inflight``), so its
     re-dispatch samples as it did (the cache has moved on since).  That
@@ -1127,10 +1491,20 @@ class DistNeighborSampler(ExchangeTelemetry):
       state['cache'] = cache.state_dict()
     if inflight and self.gns and self._gns_bits is not None:
       state['gns_inflight'] = [t.cpu().numpy() for t in self._gns_bits]
+    self.exchange_stats(tick_metrics=False)
+    if self._attr_total is not None:
+      state['attribution'] = self._attr_total.copy()
     return state
 
   def load_data_plane_state(self, state: dict) -> None:
+    """Restore `data_plane_state`.  The attribution matrices restore with
+    it; a state from before attribution restarts them at zero."""
     self._step_cnt = int(np.asarray(state['step_cnt']))
+    self.exchange_stats(tick_metrics=False)
+    with self._stats_lock:
+      attr = state.get('attribution')
+      self._attr_total = (None if attr is None else
+                          np.asarray(attr, np.int64).copy())
     if 'cache' in state:
       cache = self._ensure_cold_cache()
       if cache is not None:
@@ -1160,7 +1534,8 @@ class DistNeighborSampler(ExchangeTelemetry):
     if cap > 0:
       self._cold_cache = MeshColdCache(cap, nf.feature_dim,
                                        nf.shards.dtype, self.num_parts,
-                                       self.device)
+                                       self.device,
+                                       bounds=self.ds.graph.bounds)
     return self._cold_cache
 
   def _gns_arrays(self):
@@ -1315,7 +1690,10 @@ class DistNeighborLoader(_ResumableEpochMixin, PrefetchingLoader):
 
   ``input_space='old'`` maps the seeds through ``dataset.old2new``.
   ``exchange_slack='adaptive'`` starts at 2.0 and retunes the exchange
-  capacity (`AdaptiveSlack`) when a new epoch starts after the first.
+  capacity (`AdaptiveSlack`) when a new epoch starts after the first, as
+  does the EWMA capacity model under ``GLT_EXCHANGE_EWMA=1``
+  (`capacity_retune`).  ``exchange_layout`` picks the exchange layout
+  (`exchange.resolve_layout`).
   For a tiered store batch ``k+1`` is dispatched before batch ``k``'s
   cold overlay runs (``GLT_COLD_PREFETCH=0``: one batch at a time).
   ``prefetch=N`` produces batches on a worker thread with its own CUDA
@@ -1333,7 +1711,8 @@ class DistNeighborLoader(_ResumableEpochMixin, PrefetchingLoader):
                input_space: str = 'old', exchange_slack='auto',
                prefetch: int = 0, cold_cache_rows='auto', gns=None,
                draws: Optional[Draws] = None, device='cuda',
-               with_edge: bool = False):
+               with_edge: bool = False,
+               exchange_layout: Optional[str] = None):
     self.prefetch = int(prefetch)
     slack = resolve_exchange_slack(exchange_slack, shuffle)
     self.sampler = self._make_sampler(
@@ -1342,7 +1721,7 @@ class DistNeighborLoader(_ResumableEpochMixin, PrefetchingLoader):
         exchange_slack=(DEFAULT_EXCHANGE_SLACK if slack == 'adaptive'
                         else slack),
         cold_cache_rows=cold_cache_rows, gns=gns, draws=draws,
-        device=device, with_edge=with_edge)
+        device=device, with_edge=with_edge, exchange_layout=exchange_layout)
     self._prefetch_device = self.sampler.device
     self._adaptive = (AdaptiveSlack(self.sampler)
                       if slack == 'adaptive' else None)
@@ -1524,8 +1903,7 @@ class DistLinkNeighborSampler(DistNeighborSampler):
     src, dst = pairs[..., 0], pairs[..., 1]
     _, nn = self._expansion_seeds(b)
     n = g.num_nodes
-    cap = capacity_spec(nn * NEG_TRIALS, self.num_parts,
-                        self.exchange_slack)
+    cap = self._channel_cap(nn * NEG_TRIALS)
     neg_ok = None
     if self.neg_mode == 'binary':
       nrows, ncols, neg_ok = dist_sample_negative(
@@ -1739,11 +2117,15 @@ class DistSubGraphSampler(DistNeighborSampler):
                                               device=nodes.device)], 1)
                  if pad else nodes)
     eids_loc = self._edge_ids() if self.with_edge else None
-    cap = capacity_spec(chunk, self.num_parts, self.exchange_slack)
+    cap = self._channel_cap(chunk)
     nb, mk, ei = [], [], []
     stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    range_owner = range_owner_fn(self._bounds_t)
+    attr = torch.zeros((parts, parts), dtype=torch.int64, device=self.device)
     for ci in range(n_chunks):
       fr = nodes_pad[:, ci * chunk:(ci + 1) * chunk]
+      # the full-window hop is frontier traffic too
+      attr += dest_histogram(fr, range_owner, parts)
       if self.exact_window:
         n_, m_, e_, st = _dist_window_hop(self.mesh, g.indptr, g.indices,
                                           self._bounds_t, fr, d, cap,
@@ -1759,6 +2141,7 @@ class DistSubGraphSampler(DistNeighborSampler):
       mk.append(m_)
       ei.append(e_)
     self._accumulate_stats(stats)
+    self._accumulate_attr(attr)
     nbrs = torch.cat(nb, 1)[:, :node_cap].reshape(parts, -1)
     mask = torch.cat(mk, 1)[:, :node_cap].reshape(parts, -1)
     # membership in each partition's own closure, relabelled to local ids
@@ -1799,7 +2182,8 @@ class DistSubGraphLoader(PrefetchingLoader):
                max_degree: Optional[int] = None, seed: int = 0,
                input_space: str = 'old', exchange_slack='auto',
                hop_chunk='auto', prefetch: int = 0,
-               draws: Optional[Draws] = None, device='cuda'):
+               draws: Optional[Draws] = None, device='cuda',
+               exchange_layout: Optional[str] = None):
     if exchange_slack == 'adaptive':
       raise ValueError(
           "exchange_slack='adaptive' is not supported for induced "
@@ -1814,7 +2198,7 @@ class DistSubGraphLoader(PrefetchingLoader):
         mesh=mesh, with_edge=with_edge, collect_features=collect_features,
         seed=seed, exchange_slack=resolve_exchange_slack(exchange_slack,
                                                          shuffle),
-        draws=draws, device=device)
+        draws=draws, device=device, exchange_layout=exchange_layout)
     self._prefetch_device = self.sampler.device
     self.ds = dataset
     seeds = np.asarray(input_nodes).reshape(-1)
@@ -1881,15 +2265,19 @@ class DistRandomWalker(DistNeighborSampler):
     g = self.ds.graph
     path = [cur]
     stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    p = self.num_parts
+    range_owner = range_owner_fn(self._bounds_t)
+    attr = torch.zeros((p, p), dtype=torch.int64, device=self.device)
     for t in range(self.walk_length):
+      attr += dest_histogram(cur, range_owner, p)
       nbrs, mask, _, _, st = _dist_one_hop(
           self.mesh, g.indptr, g.indices, self._bounds_t, cur, 1,
-          self.draws, self._step_cnt, t,
-          capacity_spec(cur.shape[1], self.num_parts, self.exchange_slack),
+          self.draws, self._step_cnt, t, self._channel_cap(cur.shape[1]),
           book=self._book_lanes)
       stats += st
       cur = torch.where(mask[..., 0], nbrs[..., 0], INVALID_ID)
       path.append(cur)
     self._complete_recovery()
     self._accumulate_stats(stats)
+    self._accumulate_attr(attr)
     return torch.stack(path, dim=2)

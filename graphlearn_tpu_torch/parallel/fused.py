@@ -75,7 +75,8 @@ from .dist_sampler import (DistLinkNeighborSampler, DistNeighborSampler,
                            resolve_exchange_slack)
 from .dp import (Mesh, local_piece, make_dp_eval_step,
                  make_dp_supervised_step, make_dp_unsupervised_step)
-from .exchange import capacity_spec
+from .exchange import dest_histogram
+from .partition_book import range_owner_fn
 
 #: ``draws(epoch, step, hop, rows, k, w, gns=False, owner=0) -> (u
 #: [rows, k], gumbel [rows, w])``
@@ -405,24 +406,29 @@ class FusedDistTreeEpoch(_MeshEpochDriver):
     partitions."""
     smp = self.sampler
     g = self.ds.graph
-    slack = smp.exchange_slack
+    p = self.num_parts
     levels, frontier = [seeds], seeds
     fr_stats = torch.zeros(3, dtype=torch.int64, device=self.device)
+    # the src -> dst range attribution of both exchanges
+    range_owner = range_owner_fn(smp._bounds_t)
+    attr_fr = torch.zeros((p, p), dtype=torch.int64, device=self.device)
     for h, k in enumerate(self.fanouts):
+      attr_fr += dest_histogram(frontier, range_owner, p)
       nbrs, mask, _, _, st = _dist_one_hop(
           self.mesh, g.indptr, g.indices, smp._bounds_t, frontier, k, draws,
-          step, h, capacity_spec(frontier.shape[1], self.num_parts, slack),
+          step, h, smp._channel_cap(frontier.shape[1], 'frontier'),
           sort_locality=False, book=smp._book_lanes)
       fr_stats += st
-      frontier = torch.where(mask, nbrs, -1).reshape(self.num_parts, -1)
+      frontier = torch.where(mask, nbrs, -1).reshape(p, -1)
       levels.append(frontier)
     all_ids = torch.cat(levels, dim=1)
     (feats, labels), ft_stats = dist_gather_multi(
         self.mesh, (self.ds.node_features.shards, self.ds.node_labels),
         smp._bounds_t, all_ids,
-        capacity=capacity_spec(all_ids.shape[1], self.num_parts, slack),
+        capacity=smp._channel_cap(all_ids.shape[1], 'feature'),
         book=smp._book_lanes, book_keys=('fshard', 'lshard'))
     smp._accumulate_stats(torch.cat([fr_stats, ft_stats]))
+    smp._accumulate_attr(attr_fr, dest_histogram(all_ids, range_owner, p))
     xs = list(torch.split(feats, [lvl.shape[1] for lvl in levels], dim=1))
     masks = [lvl >= 0 for lvl in levels]
     hop_counts = torch.stack([m.sum() for m in masks])

@@ -118,6 +118,20 @@ METRIC_NAMES: Dict[str, str] = {
     'partition.recovery_secs':
         'gauge: classification-to-first-served-batch wall time of the most '
         'recent partition adoption (shard load + lane upload + the batch)',
+    'gns.range_hotness':
+        'gauge: decayed visit mass share of one range from the GNS sketches '
+        '(label partition=; only the K hottest ranges report)',
+    'exchange.local_ids_total':
+        'counter: exchange ids whose destination range the requester '
+        'serves itself (the attribution diagonal, owner-aware)',
+    'exchange.cross_ids_total':
+        'counter: exchange ids routed to another partition\'s range',
+    'partition.replicated_rows':
+        'gauge: rows of the read-only replica cache each partition holds '
+        '(0 = replication off)',
+    'locality.edge_cut_frac':
+        'gauge: fraction of edges crossing partitions under the most '
+        'recent locality_partition run',
 }
 
 

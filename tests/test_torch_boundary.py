@@ -115,7 +115,11 @@ def test_every_knob_the_port_reads_is_documented():
     knobs.update(re.findall(r'[\'"](GLT_[A-Z0-9_]+)[\'"]',
                             path.read_text()))
   assert {'GLT_SHARD_DIR', 'GLT_ADOPT_TIMEOUT_S',
-          'GLT_DEGRADED_OK'} <= knobs
+          'GLT_DEGRADED_OK', 'GLT_PARTITIONER', 'GLT_LOCALITY_EPS',
+          'GLT_LOCALITY_PASSES', 'GLT_LOCALITY_REPLICA_FRAC',
+          'GLT_REBALANCE_OVERLOAD', 'GLT_EXCHANGE_LAYOUT',
+          'GLT_EXCHANGE_POOL_FRAC', 'GLT_EXCHANGE_EWMA',
+          'GLT_EXCHANGE_EWMA_ALPHA', 'GLT_EXCHANGE_EWMA_HEADROOM'} <= knobs
   assert sorted(k for k in knobs if k not in doc) == []
 
 

@@ -246,11 +246,14 @@ def test_prefetch_and_adaptive_slack(data):
 
 def test_unported_options_raise(data):
   """The options still refused; edge features and ``with_edge`` are
-  ported (`test_torch_dist_hetero_link.py`)."""
+  ported (`test_torch_dist_hetero_link.py`), as is the locality
+  partitioner (`test_torch_locality.py`): it builds here."""
   edges, feats, nnodes, topic = data
-  with pytest.raises(NotImplementedError, match='partitioner'):
-    DistHeteroDataset.from_full_graph(NP, edges, device='cpu',
-                                      partitioner='locality')
+  loc = DistHeteroDataset.from_full_graph(NP, edges, device='cpu',
+                                          partitioner='locality')
+  assert sum(int(b[-1]) for b in loc.bounds.values()) == sum(
+      int(b[-1]) for b in DistHeteroDataset.from_full_graph(
+          NP, edges, device='cpu').bounds.values())
   with pytest.raises(NotImplementedError, match='item 11'):
     DistHeteroDataset.from_partition_dir('/nonexistent')
   with pytest.raises(NotImplementedError, match='item 11'):

@@ -509,5 +509,6 @@ def test_capacity_spec_matches_jax_dense(n):
     for slack in (None, 1.0, 2.0):
       ref = jax_capacity(n, parts, slack, layout='dense')
       got = capacity_spec(n, parts, slack)
-      assert got == (None if ref is None else ref.capacity)
+      assert (None if got is None else (got.layout, got.capacity)) == \
+          (None if ref is None else (ref.layout, ref.capacity))
   assert MIN_EXCHANGE_CAP == 64
