@@ -26,6 +26,8 @@ Run from the repository root, with one CUDA card visible::
     python3 chip_smoke.py --locality # build, graph and the mesh at P = 16
                                      # and 64 (with the P = 64 locality
                                      # comparison the whole run leaves out)
+    python3 chip_smoke.py --telemetry   # build, graph and the telemetry
+                                        # group alone
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -78,7 +80,16 @@ Phases, one JSON line each; any failure exits nonzero:
           client threads; every future must resolve, launch counts must
           show the kernels (never the plain versions) served; 16
           requests held against `offline_reference`; a small graph
-          served on the card and on the CPU must agree.
+          served on the card and on the CPU must agree.  An `OpsServer`
+          on an ephemeral port is scraped once half the requests are
+          answered: ``/metrics`` parses strictly with the queue depth,
+          shed rate, latency histogram and SLO burn rate (and
+          ``/varz``).  After the drive, `measure_tracing_overhead`: 150
+          single-seed requests untraced and traced, a warm-up lap and
+          the best of 2 each, the ratio against 1.05 (a miss is reported
+          in ``bench_gates_missed``: the bench's laps mint no trace, so
+          the ratio is the host's lap-to-lap spread), and the same laps
+          routed (each request traced), reported.
   ingest  the serve phase's engine and model over a `StreamingGraph` of
           the same products CSR, with an `IngestPipeline` (WAL in a
           temporary directory) applying 8 batches of 4,096 uniform
@@ -195,7 +206,8 @@ Phases, one JSON line each; any failure exits nonzero:
           permutation, 4 clients; p50/p99, requests/s, fill ms, hit rate,
           miss rows a dispatch.  Checks: 3 K1, 1 K2 and (with misses) 1
           K6 launch a dispatch, no plain call; 16 requests' x byte-equal
-          to the fully-hot engine's and logits within 1e-5.  Then a
+          to the fully-hot engine's and logits within 1e-5; the serve
+          phase's mid-run scrape, also with the cache hit rate.  Then a
           `kernel` line: K6 at the last dispatch's miss set.
   tiered_train  BASELINE config 1's step over the same sort at split 0.2
           (489,806 hot rows, 1,959,223 cold rows pinned, a 293,884-row
@@ -584,7 +596,12 @@ serve phase's width: the products graph, ``[N, 100]`` f32, fanouts [15,
           launches a dispatch, K6 on every dispatch with misses, no
           plain call; p50/p99, qps around the kill, ``device_idle``
           (``nvidia-smi`` utilization); then K1, K2 and K6 at a fleet
-          dispatch's shapes against their plain versions.
+          dispatch's shapes against their plain versions.  Traced as
+          the bench drives it (1-in-10 sampled, slower than 100 ms kept),
+          with ``/fleet`` of `make_scraper` strictly parsed over HTTP
+          every 0.15 s: >= 1 scrape, 0 failures, >= 2 replicas
+          federated, a slow-tail trace of >= 5 spans (its Chrome
+          rendering loaded), ``fleet_headroom_qps`` present.
   autoscale  `bench_autoscale.py`'s phases A (one static replica) and B
           (`ElasticController`, 1-3 replicas, the first spawn failed by
           ``scale.spawn:fail:1``), in two arms.  The bench's own arm
@@ -667,6 +684,16 @@ card, `bench.py` phase 3c rebuilt in-process on the products graph):
           each layout's first P = 16 batch, the greedy's ``node_pb``
           (compiled vs numpy) and both relabels; both greedies' host
           microseconds a node.
+
+Last, the ``telemetry`` group: `mesh_loader`'s configuration on the
+tiered P = 8 store, 4 batches with the recorder off and 4 writing JSON
+lines (digest-equal, the same launches, no plain call), `report`'s stage
+table (a ``batch``, ``sample.exchange``, ``feature.lookup`` and
+``stitch`` row a batch) and the Chrome export, a post-mortem bundle with
+the time-series rings (loaded, rendered), and the regression gate over
+this run's figures written by `sink` (first check 0, second 0, a copy
+30% slower 1).  ``--telemetry`` runs build, graph and the group alone and
+prints no ``kernels`` or result line.
 
 ``--locality`` runs build, graph and the group alone, with the P = 64
 locality comparison too (left out of the whole run: its two replica
@@ -773,6 +800,9 @@ MESH_WARM = 2
 MESH_TIMED = 6
 MESH_EVAL_BATCHES = 4
 
+
+#: the flight recorder's ring (``GLT_TELEMETRY_EVENTS``) for the run
+RECORDER_EVENTS = 1 << 17
 
 #: the script's start, for each line's ``at_s``
 T_START = time.perf_counter()
@@ -1341,21 +1371,200 @@ def merge_kernel(torch, ops, timer, indptr, indices, indptr_h, indices_h):
   return k4, hub, floor, forced
 
 
+#: `bench_serving.py`'s default latency SLO (``GLT_SERVING_SLO_P99_MS``):
+#: the burn-rate gauges the mid-run scrape needs read a target, and the
+#: fleet drive's tracer keeps every request slower than it
+SLO_P99_MS = 100.0
+#: `measure_tracing_overhead`: single-seed requests a lap, timed laps a
+#: mode after one warm-up lap, and the bench's gate on the ratio (the
+#: regression gate's pinned line).  The bench's laps submit to the
+#: frontend, where no trace is minted, so the ratio is the host's
+#: lap-to-lap spread: 0.984 and 1.052 in two runs on the H100's host.
+#: A miss is reported (``bench_gates_missed``), not raised, as the
+#: autoscale phase reports its burn gate
+TRACE_REQUESTS = 150
+TRACE_REPS = 2
+TRACE_RATIO_MAX = 1.05
+#: `federation_watch`'s period between strict ``/fleet`` scrapes
+FED_WATCH_S = 0.15
+#: this run's serving and mesh figures, for the telemetry group's
+#: artifact (JAX's dotted keys) and its regression gate
+TELEMETRY = {}
+
+
+class slo_target:
+  """``GLT_SERVING_SLO_P99_MS`` set to `SLO_P99_MS` while a frontend is
+  built (its `SloTracker` reads the target then) and restored after, so
+  later phases see the environment they had."""
+
+  def __enter__(self):
+    self.old = os.environ.get('GLT_SERVING_SLO_P99_MS')
+    os.environ['GLT_SERVING_SLO_P99_MS'] = str(SLO_P99_MS)
+
+  def __exit__(self, *exc):
+    if self.old is None:
+      del os.environ['GLT_SERVING_SLO_P99_MS']
+    else:
+      os.environ['GLT_SERVING_SLO_P99_MS'] = self.old
+
+
+def http_get(url, timeout=10.0):
+  """``(status, body text, ms)`` of one GET."""
+  import urllib.request
+  t = time.perf_counter()
+  with urllib.request.urlopen(url, timeout=timeout) as r:
+    body = r.read().decode('utf-8')
+    status = r.status
+  return status, body, (time.perf_counter() - t) * 1e3
+
+
+class MidRunScrape:
+  """`bench_serving.scrape_ops` on the port (gate 1): once half of a
+  drive's ``total`` requests have been answered (`tick` after each),
+  pull ``/metrics`` and ``/varz`` off the ops server, parse the text
+  strictly and check the families the bench promises: the queue depth,
+  the shed rate, the request-latency histogram, the SLO burn rate and,
+  on the tiered engine, the cache hit rate."""
+
+  def __init__(self, srv, total: int, require_cache: bool = False):
+    self.srv, self.half, self.require_cache = srv, total // 2, require_cache
+    self.out = {'scrape_ok': False,
+                'error': 'the scrape thread did not complete'}
+    self._n = 0
+    self._lock = threading.Lock()
+    self._at_half = threading.Event()
+    self._thread = threading.Thread(target=self._run, daemon=True)
+    self._thread.start()
+
+  def tick(self) -> None:
+    with self._lock:
+      self._n += 1
+      if self._n >= self.half:
+        self._at_half.set()
+
+  def _run(self) -> None:
+    from graphlearn_tpu_torch.telemetry import parse_prometheus_text
+    if not self._at_half.wait(600.0):
+      self.out['error'] = 'half the drive never completed'
+      return
+    try:
+      with self._lock:
+        at = self._n
+      _, text, metrics_ms = http_get(f'{self.srv.url}/metrics')
+      samples = parse_prometheus_text(text)
+      _, body, varz_ms = http_get(f'{self.srv.url}/varz')
+      varz = json.loads(body)
+      present = {
+          'queue_depth': 'glt_serving_queue_depth' in samples,
+          'shed_rate': 'glt_serving_shed_rate' in samples,
+          'latency_hist': any(k.startswith(
+              'glt_serving_request_latency_bucket') for k in samples),
+          'slo_burn_rate': any(k.startswith('glt_serving_slo_burn_rate')
+                               for k in samples)}
+      if self.require_cache:
+        present['cache_hit_rate'] = 'glt_cache_hit_rate' in samples
+      self.out = {'scrape_ok': True, 'at_request': at,
+                  'samples': len(samples),
+                  'varz_keys': len(varz.get('metrics', {})),
+                  'present': present, 'all_present': all(present.values()),
+                  'metrics_ms': metrics_ms, 'varz_ms': varz_ms,
+                  'metrics_bytes': len(text)}
+    except Exception as e:          # noqa: BLE001 — reported, then gated
+      self.out = {'scrape_ok': False, 'error': f'{type(e).__name__}: {e}'}
+
+  def result(self, what: str) -> dict:
+    """The scrape's block; raises unless it parsed with every family."""
+    self._thread.join(60.0)
+    if not (self.out.get('scrape_ok') and self.out.get('all_present')):
+      raise AssertionError(f'{what}: mid-run ops scrape failed: {self.out}')
+    TELEMETRY.setdefault('scrape_ms', []).extend(
+        [self.out['metrics_ms'], self.out['varz_ms']])
+    return self.out
+
+
+def measure_tracing_overhead(submit, what: str) -> dict:
+  """`bench_serving.measure_tracing_overhead` (gate 5): the same
+  closed-loop schedule of `TRACE_REQUESTS` single-seed requests through
+  ``submit`` with tracing off (``sample=0``) and on (``sample=1``), a
+  warm-up lap of each, then the best of `TRACE_REPS` laps a mode; the
+  traced over untraced wall-time ratio."""
+  from graphlearn_tpu_torch.telemetry import tracer
+  rng = np.random.default_rng(7)
+  seeds = [np.asarray([s], np.int64)
+           for s in rng.integers(0, NUM_NODES, TRACE_REQUESTS)]
+  laps = {'untraced': [], 'traced': []}
+  try:
+    for rep in range(TRACE_REPS + 1):
+      for mode, sample in (('untraced', 0), ('traced', 1)):
+        tracer.configure(sample=sample, slow_ms=1e9, buffer=None)
+        t0 = time.perf_counter()
+        for s in seeds:
+          submit(s).result(30.0)
+        took = time.perf_counter() - t0
+        if rep:
+          laps[mode].append(took)
+    minted = tracer.stats()['minted']
+  finally:
+    tracer.configure()
+    tracer.clear()
+  best = {m: min(v) for m, v in laps.items()}
+  return {'what': what, 'requests': TRACE_REQUESTS, 'reps': TRACE_REPS,
+          'lap_secs': laps, 'ratio': best['traced'] / best['untraced'],
+          'traces_minted': minted}
+
+
+def federation_watch(scraper, srv, stop, out: dict) -> None:
+  """`bench_serving.federation_watch` (gate 2): while the drive runs,
+  sweep the replicas and strictly parse ``/fleet`` over HTTP every
+  `FED_WATCH_S`, counting scrapes, parse failures and the replicas each
+  exposition federates."""
+  import re
+  from graphlearn_tpu_torch.telemetry import parse_prometheus_text
+  while not stop.is_set():
+    try:
+      t = time.perf_counter()
+      scraper.scrape()
+      sweep_ms = (time.perf_counter() - t) * 1e3
+      _, text, ms = http_get(f'{srv.url}/fleet', timeout=5.0)
+      parse_prometheus_text(text)
+      seen = len(set(re.findall(r'replica="([^"]+)"', text)))
+      out['scrapes'] = out.get('scrapes', 0) + 1
+      out.setdefault('fleet_ms', []).append(ms)
+      out.setdefault('sweep_ms', []).append(sweep_ms)
+      out['max_replicas_federated'] = max(
+          out.get('max_replicas_federated', 0), seen)
+    except Exception as e:          # noqa: BLE001 — every failure counts
+      out['parse_failures'] = out.get('parse_failures', 0) + 1
+      out.setdefault('errors', []).append(f'{type(e).__name__}: {e}')
+    stop.wait(FED_WATCH_S)
+
+
+def ms_summary(vals) -> dict:
+  vals = sorted(vals)
+  return {'n': len(vals), 'median': float(np.median(vals)) if vals else None,
+          'max': vals[-1] if vals else None}
+
+
 def serve(torch, ds):
   from graphlearn_tpu_torch.models import TreeSAGE
   from graphlearn_tpu_torch.ops import (gather_rows, gather_rows_plain,
                                         sample_one_hop,
                                         sample_one_hop_fused)
-  from graphlearn_tpu_torch.serving import ServingEngine, ServingFrontend
+  from graphlearn_tpu_torch.serving import (FleetRouter, LocalReplica,
+                                            ServingEngine, ServingFrontend)
+  from graphlearn_tpu_torch.telemetry import OpsServer
   eng = ServingEngine(ds, FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
                       seed=0, buckets=BUCKETS, device=DEVICE)
   eng.init_params(torch.Generator().manual_seed(0))
   warm = eng.warmup()
-  fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+  with slo_target():
+    fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
   rng = np.random.default_rng(0)
   reqs = [rng.integers(0, NUM_NODES, int(rng.integers(1, 17)))
           for _ in range(N_REQUESTS)]
   results, lat, errors = [None] * len(reqs), [0.0] * len(reqs), []
+  srv = OpsServer(port=0)
+  watch = MidRunScrape(srv, len(reqs))
 
   def client(lo):
     for i in range(lo, len(reqs), N_CLIENTS):
@@ -1365,6 +1574,7 @@ def serve(torch, ds):
       except Exception as e:       # noqa: BLE001 — counted, then fatal
         errors.append(f'request {i}: {type(e).__name__}: {e}')
       lat[i] = (time.perf_counter() - t0) * 1e3
+      watch.tick()
 
   for fn in (sample_one_hop_fused, gather_rows):
     fn.launches = 0
@@ -1381,8 +1591,20 @@ def serve(torch, ds):
   launches = {'sample_one_hop': sample_one_hop_fused.launches,
               'gather_rows': gather_rows.launches}
   plain_calls = sample_one_hop.calls + gather_rows_plain.calls
-  fe.shutdown()
   stats = fe.stats()
+  scrape = watch.result('serve')
+  # the tracing cost on the warm, idle engine after the drive: the
+  # bench's laps (frontend submits) and the same laps routed, where
+  # each traced request also mints, records its spans and is retained
+  tracing = measure_tracing_overhead(fe.submit, 'frontend')
+  router = FleetRouter([LocalReplica('r0', fe)], auto_start=False)
+  routed = measure_tracing_overhead(router.submit, 'router')
+  router.close()
+  fe.shutdown()
+  srv.close()
+  missed = (['tracing_overhead_ratio']
+            if tracing['ratio'] > TRACE_RATIO_MAX else [])
+  TELEMETRY['gates_missed'] = missed
   if errors or stats['failed'] or any(r is None for r in results):
     raise AssertionError(f'serving failed: {errors[:3]} stats={stats}')
   d = stats['dispatches']
@@ -1413,7 +1635,15 @@ def serve(torch, ds):
                    'p99': float(np.percentile(lat, 99)),
                    'max': float(np.max(lat))},
        launches=launches, plain_calls=plain_calls,
-       offline_checked=16, offline_logits_max_abs_diff=worst)
+       offline_checked=16, offline_logits_max_abs_diff=worst,
+       ops_scrape=scrape, tracing_overhead=tracing,
+       routed_tracing_overhead=routed, bench_gates_missed=missed,
+       reported_not_held=missed)
+  TELEMETRY['serving'] = {
+      'p99_ms': float(np.percentile(lat, 99)),
+      'qps': len(reqs) / wall,
+      'tracing_overhead_ratio': tracing['ratio']}
+  TELEMETRY['routed_tracing_ratio'] = routed['ratio']
   return eng, launches, reqs, lat
 
 
@@ -3261,6 +3491,7 @@ def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
   x byte-equal and logits within 1e-5 against the fully-hot engine."""
   from graphlearn_tpu_torch.models import TreeSAGE
   from graphlearn_tpu_torch.serving import ServingEngine, ServingFrontend
+  from graphlearn_tpu_torch.telemetry import OpsServer
   t0 = time.perf_counter()
   ds = tiered_dataset(torch, indptr, indices, feats_h, TIERED_SERVE_SPLIT)
   setup_secs = time.perf_counter() - t0
@@ -3269,9 +3500,12 @@ def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
                       seed=0, buckets=BUCKETS, device=DEVICE)
   eng.init_params(torch.Generator().manual_seed(0))
   warm = eng.warmup()
-  fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+  with slo_target():
+    fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
   reqs = zipf_requests()
   results, lat, errors = [None] * len(reqs), [0.0] * len(reqs), []
+  srv = OpsServer(port=0)
+  watch = MidRunScrape(srv, len(reqs), require_cache=True)
   fills = []
   real_fill = eng._tiered_fill
 
@@ -3289,6 +3523,7 @@ def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
       except Exception as e:       # noqa: BLE001 — counted, then fatal
         errors.append(f'request {i}: {type(e).__name__}: {e}')
       lat[i] = (time.perf_counter() - t) * 1e3
+      watch.tick()
 
   eng._tiered_fill = recorded_fill
   stats0 = f.cold_cache.stats.snapshot()
@@ -3307,6 +3542,8 @@ def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
   launches, plain = read_tiered_counts(ops)
   del eng._tiered_fill
   fe.shutdown()
+  scrape = watch.result('tiered serve')
+  srv.close()
   st = fe.stats()
   if errors or st['failed'] or any(r is None for r in results):
     raise AssertionError(f'tiered serving failed: {errors[:3]} stats={st}')
@@ -3368,7 +3605,8 @@ def tiered_serve(torch, ops, timer, indptr, indices, feats_h, ds_hot):
        dispatches_with_misses=with_misses, cache=rates,
        lookup_ms_by_part={k: v * 1e3 / d for k, v in f.lookup_secs.items()},
        launches=launches, plain_calls=plain, hot_engine_checked=16,
-       x_byte_equal_to_hot=True, logits_max_abs_diff_to_hot=worst)
+       x_byte_equal_to_hot=True, logits_max_abs_diff_to_hot=worst,
+       ops_scrape=scrape)
   k6 = check_cold(torch, ops, timer, *rec.last)
   emit('kernel', kernel='cold_gather', shape='tiered serve dispatch misses',
        **k6)
@@ -4477,6 +4715,7 @@ def mesh_loader(torch, ops, timer, ds, feats, labels):
     waste.append(100.0 * (1 - sent / max(slots, 1)))
   launches, plain = read_counts(ops)
   batches, secs = len(batch_ms), sum(batch_ms) / 1e3
+  TELEMETRY['seeds_per_sec'] = batches * MESH_BATCH * MESH_PARTS / secs
   per_dispatch = len(FANOUTS) * MESH_PARTS       # K1: one per owner a hop
   if not (launches['sample_one_hop'] == per_dispatch * batches
           and launches['gather_rows'] == 2 * MESH_PARTS * batches
@@ -10331,9 +10570,16 @@ def fleet_phase(torch, ops, timer, indptr, indices, feats_h, state) -> dict:
   and none twice, post-kill rate >= 0.6x pre-kill, 32 sampled answers
   equal a survivor's `offline_reference`, 3 K1 and 1 K2 launches a
   dispatch summed over replicas, K6 on every dispatch with misses, no
-  plain call."""
+  plain call.  As the bench drives it, every request is traced
+  (1-in-10 head-sampled, anything slower than the SLO p99 kept) and a
+  `FleetScraper` from `make_scraper`, attached to an `OpsServer`, is
+  strictly parsed over HTTP ``/fleet`` all through the drive: at least
+  one scrape, none failing, at least 2 replicas federated (gate 2); at
+  least one slow-tail trace of 5 or more spans, one of them loaded from
+  ``/trace?format=chrome`` (gate 3); ``fleet_headroom_qps`` present
+  (gate 4)."""
   from graphlearn_tpu_torch.serving import FleetRouter
-  from graphlearn_tpu_torch.telemetry import recorder
+  from graphlearn_tpu_torch.telemetry import OpsServer, live, recorder, tracer
   from graphlearn_tpu_torch.testing import chaos
   made = []
   t0 = time.perf_counter()
@@ -10341,6 +10587,12 @@ def fleet_phase(torch, ops, timer, indptr, indices, feats_h, state) -> dict:
                          made) for i in range(FLEET_REPLICAS)]
   setup_secs = time.perf_counter() - t0
   router = FleetRouter(reps, heartbeat_ms=50.0, dead_after=2)
+  trace_slow_ms = float(os.environ.get('GLT_SERVING_SLO_P99_MS', '')
+                        or SLO_P99_MS)
+  tracer.configure(sample=10, slow_ms=trace_slow_ms, buffer=None)
+  scraper = router.make_scraper(registry=live)
+  srv = OpsServer(port=0)
+  srv.attach_fleet(scraper)
   lap_reqs = [s for _, s in fleet_schedule(1000.0, 2.0, seed=9)]
   lap = closed_lap(router.submit, lap_reqs, FLEET_LAP_CLIENTS, FLEET_LAP_S)
   rate = FLEET_LOAD * lap['requests_per_s']
@@ -10354,8 +10606,13 @@ def fleet_phase(torch, ops, timer, indptr, indices, feats_h, state) -> dict:
       {'site': 'serving.replica', 'action': 'kill', 'op': 'submit',
        'replica': 'r0', 'nth': kill_nth}]})
   recorder.clear()
+  tracer.clear()
   d0 = [r.frontend.stats()['dispatches'] for r in reps]
   reset_tiered_counts(ops)
+  fed, fed_stop = {}, threading.Event()
+  watcher = threading.Thread(target=federation_watch,
+                             args=(scraper, srv, fed_stop, fed), daemon=True)
+  watcher.start()
   try:
     with ColdRecorder() as cold, SmiSampler() as smi:
       t_run = time.perf_counter()
@@ -10364,10 +10621,19 @@ def fleet_phase(torch, ops, timer, indptr, indices, feats_h, state) -> dict:
       run_s = time.perf_counter() - t_run
   finally:
     chaos.uninstall()
+    fed_stop.set()
+    watcher.join(10.0)
   launches, plain = read_tiered_counts(ops)
   d = sum(r.frontend.stats()['dispatches'] - a for r, a in zip(reps, d0))
   st = router.stats()
   failover = recorder.events('serving.failover')
+  traced = fleet_trace_gates(tracer, srv, reps, fed)
+  TELEMETRY['fleet'] = {k: traced[k] for k in (
+      'fleet_scrapes', 'fleet_replicas_federated', 'traced_tail_count',
+      'traced_tail_max_spans', 'fleet_headroom_qps')}
+  scraper.close()
+  srv.close()
+  tracer.configure()
   router.close()
   if res['error'] or len(res['outcomes']) != len(plan):
     raise AssertionError(f'fleet: {res["error"]} failed of {len(plan)}, '
@@ -10430,8 +10696,53 @@ def fleet_phase(torch, ops, timer, indptr, indices, feats_h, state) -> dict:
        resolved=st['resolved'], dispatches=d,
        dispatches_with_misses=with_misses, launches=launches,
        plain_calls=plain, offline_checked=FLEET_CHECKED,
-       logits_max_abs_diff=worst, device_idle=smi.result)
+       logits_max_abs_diff=worst, device_idle=smi.result, **traced)
+  TELEMETRY['serving'] = dict(TELEMETRY.get('serving', {}),
+                              fleet_qps=res['ok'] / run_s,
+                              failover_failed_requests=res['error'],
+                              fleet_headroom_qps=traced[
+                                  'fleet_headroom_qps'])
   return {'launches': launches, 'dispatches': d, 'kernels': kernels}
+
+
+def fleet_trace_gates(tracer, srv, reps, fed) -> dict:
+  """The fleet drive's tracing and federation figures, as
+  `bench_serving.py` counts them, and its gates 2-4."""
+  index = tracer.traces()
+  tail = [t for t in index if (t.get('latency_ms') or 0.0) >= tracer.slow_ms]
+  out = {'fleet_scrapes': fed.get('scrapes', 0),
+         'fleet_parse_failures': fed.get('parse_failures', 0),
+         'fleet_replicas_federated': fed.get('max_replicas_federated', 0),
+         'fleet_scrape_errors': fed.get('errors', [])[:5],
+         'fleet_route_ms': ms_summary(fed.get('fleet_ms', [])),
+         'fleet_sweep_ms': ms_summary(fed.get('sweep_ms', [])),
+         'traced_tail_count': len(tail),
+         'traced_tail_max_spans': max((t['spans'] for t in tail), default=0),
+         'trace_stats': tracer.stats()}
+  headrooms = []
+  for rep in reps:
+    h = rep.frontend.stats().get('headroom_qps')
+    if isinstance(h, (int, float)):
+      headrooms.append(float(h))
+  out['fleet_headroom_qps'] = sum(headrooms) if headrooms else None
+  if (out['fleet_parse_failures'] or out['fleet_scrapes'] == 0
+      or out['fleet_replicas_federated'] < 2):
+    raise AssertionError(f'/fleet federation failed mid-traffic: {out}')
+  if out['traced_tail_count'] < 1 or out['traced_tail_max_spans'] < 5:
+    raise AssertionError(f'no slow-tail trace with >= 5 spans: {out}')
+  if out['fleet_headroom_qps'] is None:
+    raise AssertionError('no replica exported fleet.headroom_qps')
+  deepest = max(tail, key=lambda t: t['spans'])
+  _, body, ms = http_get(f'{srv.url}/trace?trace_id={deepest["trace_id"]}'
+                         '&format=chrome')
+  chrome = json.loads(body)
+  slices = [e['name'] for e in chrome['traceEvents'] if e.get('ph') == 'X']
+  if len(slices) < 5 or 'serving.route' not in slices:
+    raise AssertionError(f'the chrome trace of {deepest}: {slices}')
+  TELEMETRY.setdefault('scrape_ms', []).extend(fed.get('fleet_ms', []))
+  out['chrome_trace'] = {'trace_id': deepest['trace_id'], 'ms': ms,
+                         'slices': sorted(slices)}
+  return out
 
 
 def shrink_slo(rep, target_ms=None):
@@ -12007,6 +12318,9 @@ def locality_group(torch, ops, indptr, indices, feats, full=True) -> dict:
   rows_t = coo_rows(torch, indptr)
   env = {p: envelope_phase(torch, ops, indptr, indices, rows_t, p, b)
          for p, b in ENV_ROWS}
+  TELEMETRY['scale_envelope'] = [
+      {'num_parts': p, 'padding_waste_pct': e['padding_waste_pct'],
+       'seeds_per_sec': e['seeds_per_sec']} for p, e in env.items()]
   loc = {LOC_PARTS: locality_comparison(torch, ops, indptr, indices, feats,
                                         rows_t, LOC_PARTS, 64)}
   if full:
@@ -12094,6 +12408,210 @@ def locality_kernels(lg: dict) -> list:
   ]
 
 
+#: the telemetry group's mesh batches (each run: recorder off, then on)
+TELEMETRY_BATCHES = 4
+#: the stages the report's table must hold once a batch
+TELEMETRY_STAGES = ('batch', 'sample.exchange', 'feature.lookup', 'stitch')
+
+
+def telemetry_mesh_runs(torch, ops, ds, flight: str) -> dict:
+  """`mesh_loader`'s configuration on the tiered store (P = 8, 512 a
+  partition, fanouts [15, 10, 5], shuffled, adaptive slack) for
+  `TELEMETRY_BATCHES` batches twice from the same seed: the recorder
+  off, then writing ``flight`` (JSON lines).  Every batch's digest and
+  the launch counts must be equal, with no plain call."""
+  from graphlearn_tpu_torch.parallel import DistNeighborLoader
+  from graphlearn_tpu_torch.telemetry import recorder
+  seeds = np.random.default_rng(0).permutation(NUM_NODES)[
+      :MESH_BATCH * MESH_PARTS * TELEMETRY_BATCHES]
+  runs = {}
+  for on in (False, True):
+    loader = DistNeighborLoader(ds, FANOUTS, seeds, batch_size=MESH_BATCH,
+                                shuffle=True, seed=0,
+                                exchange_slack='adaptive', device=DEVICE)
+    if on:
+      recorder.enable(flight)
+      recorder.clear()
+    reset_counts(ops)
+    digests, batch_ms = [], []
+    try:
+      it = iter(loader)
+      while True:
+        sync(torch)
+        t = time.perf_counter()
+        try:
+          b = next(it)
+        except StopIteration:
+          break
+        digests.append(digest(torch, [b.node, b.x, b.y, b.edge_index,
+                                      b.edge_mask]).cpu())
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+      if on:
+        recorder.disable()
+    launches, plain = read_counts(ops)
+    runs['on' if on else 'off'] = {'digests': torch.stack(digests),
+                                   'batch_ms': batch_ms,
+                                   'launches': launches, 'plain': plain}
+  off, on = runs['off'], runs['on']
+  n = len(off['batch_ms'])
+  if not (n == TELEMETRY_BATCHES == len(on['batch_ms'])
+          and torch.equal(off['digests'], on['digests'])):
+    raise AssertionError('mesh batches differ with the recorder on')
+  if not (off['launches'] == on['launches'] and off['plain'] == 0
+          and on['plain'] == 0 and on['launches']['sample_one_hop']
+          == len(FANOUTS) * MESH_PARTS * n):
+    raise AssertionError(f'launches off {off["launches"]} on '
+                         f'{on["launches"]}, plain {off["plain"]} / '
+                         f'{on["plain"]}')
+  return runs
+
+
+def telemetry_group(torch, ops, indptr, indices, feats) -> dict:
+  """The telemetry tools on a mesh run of this card (`--telemetry`, and
+  last in the whole run): the recorder's JSON lines from
+  `telemetry_mesh_runs` through `report`'s stage table (one ``batch`` /
+  ``sample.exchange`` / ``feature.lookup`` / ``stitch`` row a batch) and
+  the Chrome export; a post-mortem bundle with the time-series rings
+  under a temporary ``GLT_POSTMORTEM_DIR``, loaded and rendered; and
+  the regression gate over an artifact `sink` writes under the JAX
+  package's dotted keys from this run's figures (``dist.serving.*``,
+  ``dist.seeds_per_sec``, ``dist.scale_envelope.*`` when the `locality`
+  group ran): its first check creates the baseline (rc 0), the second
+  passes (rc 0), a copy with ``dist.seeds_per_sec`` 30% lower fails (rc
+  1) naming it.  Every file is in a temporary directory."""
+  import shutil
+  import tempfile
+  from graphlearn_tpu_torch.parallel import DistDataset
+  from graphlearn_tpu_torch.telemetry import (export, postmortem, regress,
+                                              report, sink, timeseries)
+  t_group = time.perf_counter()
+  tmp = tempfile.mkdtemp(prefix='glt_telemetry_')
+  try:
+    labels = make_labels(torch, feats)
+    rows = torch.repeat_interleave(torch.arange(NUM_NODES, device=DEVICE),
+                                   indptr[1:] - indptr[:-1])
+    t0 = time.perf_counter()
+    ds = DistDataset.from_full_graph(
+        MESH_PARTS, rows, indices, node_feat=feats, node_label=labels,
+        num_nodes=NUM_NODES, split_ratio=MESH_SPLIT, device=DEVICE)
+    del rows, labels
+    store_secs = time.perf_counter() - t0
+    flight = os.path.join(tmp, 'flight.jsonl')
+    runs = telemetry_mesh_runs(torch, ops, ds, flight)
+    del ds
+    torch.cuda.empty_cache()
+
+    # the stage table and the Chrome export of the flight file
+    events = export.load_events(flight)
+    hists = report.histograms_from_events(events)
+    n = TELEMETRY_BATCHES
+    counts = {k: int(hists[k].count) if k in hists else 0
+              for k in TELEMETRY_STAGES + ('exchange.layout',)}
+    if any(counts[k] != n for k in TELEMETRY_STAGES):
+      raise AssertionError(f'stage rows {counts}, {n} batches')
+    table = report.format_table(hists)
+    chrome_path = os.path.join(tmp, 'trace.json')
+    written = export.write_chrome_trace(flight, chrome_path)
+    with open(chrome_path) as f:
+      chrome = json.load(f)
+    slices = sum(1 for e in chrome['traceEvents'] if e.get('ph') == 'X')
+    if slices < len(TELEMETRY_STAGES) * n:
+      raise AssertionError(f'the chrome trace holds {slices} slices')
+
+    # a post-mortem bundle with the time-series rings
+    old_dir = os.environ.get('GLT_POSTMORTEM_DIR')
+    os.environ['GLT_POSTMORTEM_DIR'] = os.path.join(tmp, 'postmortem')
+    postmortem.reset()
+    store = timeseries.ensure_global()
+    try:
+      for _ in range(3):
+        store.sample_once()
+      bundle_path = postmortem.dump('telemetry.smoke',
+                                    extra={'batches': n})
+      bundle = postmortem.load_bundle(bundle_path)
+      rendered = report.render_postmortem(bundle)
+    finally:
+      timeseries.stop_global()
+      postmortem.reset()
+      if old_dir is None:
+        del os.environ['GLT_POSTMORTEM_DIR']
+      else:
+        os.environ['GLT_POSTMORTEM_DIR'] = old_dir
+    series = bundle.get('timeseries', {}).get('series', {})
+    if not series or 'telemetry.smoke' not in rendered:
+      raise AssertionError('the post-mortem bundle lacks its rings')
+
+    # the regression gate over this run's figures
+    off_ms = runs['off']['batch_ms']
+    seeds_per_sec = TELEMETRY.get(
+        'seeds_per_sec', n * MESH_BATCH * MESH_PARTS / (sum(off_ms) / 1e3))
+    dist = {'seeds_per_sec': seeds_per_sec}
+    if TELEMETRY.get('serving'):
+      dist['serving'] = dict(TELEMETRY['serving'])
+    if TELEMETRY.get('scale_envelope'):
+      dist['scale_envelope'] = TELEMETRY['scale_envelope']
+    art = {'metric': 'dist.seeds_per_sec', 'dist': dist}
+    art_path = sink.write_artifact(art, os.path.join(tmp, 'artifact.json'))
+    base = os.path.join(tmp, 'baseline.json')
+    checks = []
+    worse = json.loads(json.dumps(art))
+    worse['dist']['seeds_per_sec'] = seeds_per_sec / 1.3
+    for a in (art_path, art_path, worse):
+      verdict, rc = regress.check(a, base)
+      checks.append({'rc': rc, 'summary': regress.summary(verdict),
+                     'regressed': verdict['regressed'],
+                     'report': regress.format_report(verdict)})
+    # the second check passes unless the serve phase reported the
+    # tracing gate missed: then its pinned line, and only it, fails
+    missed = 'tracing_overhead_ratio' in TELEMETRY.get('gates_missed', [])
+    second = (['dist.serving.tracing_overhead_ratio'] if missed else [])
+    if ([c['rc'] for c in checks] != [0, int(missed), 1]
+        or checks[1]['regressed'] != second or not (
+            checks[0]['summary'] == 'BASELINE_CREATED'
+            and checks[2]['summary'].startswith('FAIL dist.seeds_per_sec'))):
+      raise AssertionError(f'regression gate {checks}')
+    guarded = [ln for ln in checks[1]['report'].splitlines()
+               if ln.startswith('  [ ok ]')]
+    stage_ms = {k: hists[k].secs / hists[k].count * 1e3
+                for k in TELEMETRY_STAGES + ('exchange.layout',)
+                if k in hists}
+    out = {'store_secs': store_secs,
+           'batch_ms': {'recorder_off': off_ms,
+                        'recorder_on': runs['on']['batch_ms']},
+           'launches': runs['on']['launches'],
+           'launches_per_batch': {k: v / n for k, v in
+                                  runs['on']['launches'].items()},
+           'plain_calls': runs['on']['plain'],
+           'digests_equal': True, 'flight_events': len(events),
+           'stage_rows': counts, 'stage_ms': stage_ms,
+           'stage_table': table.splitlines(),
+           'chrome_events': written, 'chrome_slices': slices,
+           'postmortem': {'bytes': os.path.getsize(bundle_path),
+                          'events': len(bundle['events']),
+                          'series': len(series),
+                          'rendered_lines': len(rendered.splitlines())},
+           'artifact_keys': [m[0] for m in regress.METRICS
+                             if regress._get(art, m[0]) is not None],
+           'summary_line': sink.summary_line(art, artifact='artifact.json'),
+           'regress_rc': [c['rc'] for c in checks],
+           'bench_gates_missed': TELEMETRY.get('gates_missed', []),
+           'regress_summary': [c['summary'] for c in checks],
+           'regress_guarded_ok': len(guarded),
+           'figures': {
+               'tracing_overhead_ratio': TELEMETRY.get('serving', {}).get(
+                   'tracing_overhead_ratio'),
+               'routed_tracing_ratio': TELEMETRY.get('routed_tracing_ratio'),
+               'ms_per_ops_scrape': ms_summary(TELEMETRY.get('scrape_ms',
+                                                             [])),
+               'fleet': TELEMETRY.get('fleet')},
+           'wall_secs': time.perf_counter() - t_group}
+    emit('telemetry', **out)
+    return out
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv) -> int:
   t_start = time.perf_counter()
   import torch
@@ -12102,6 +12620,10 @@ def main(argv) -> int:
     return 2
   root = os.path.dirname(os.path.abspath(__file__))
   sys.path.insert(0, root)
+  # the phases that count recorder events (publishes, swaps, redrives,
+  # adoptions) run beside serving traffic, whose requests and dispatches
+  # emit their own events: a ring of `RECORDER_EVENTS` keeps them all
+  os.environ.setdefault('GLT_TELEMETRY_EVENTS', str(RECORDER_EVENTS))
   try:
     import graphlearn_tpu_torch  # noqa: F401
   except ImportError as e:
@@ -12229,6 +12751,10 @@ def run(torch, argv) -> list:
     del ds
     return locality_kernels(locality_group(torch, ops, indptr, indices,
                                            feats, full=True))
+  if '--telemetry' in argv:
+    del ds
+    telemetry_group(torch, ops, indptr, indices, feats)
+    return None
   if '--k6' in argv:
     labels = make_labels(torch, feats)
     tiered_phases(torch, ops, timer, indptr, indices, feats, ds, labels,
@@ -12395,6 +12921,10 @@ def run(torch, argv) -> list:
   torch.cuda.empty_cache()
   lok = locality_kernels(locality_group(torch, ops, indptr, indices, feats,
                                         full=False))
+
+  # -- telemetry: the recorder, report, post-mortem and regression gate -
+  torch.cuda.empty_cache()
+  telemetry_group(torch, ops, indptr, indices, feats)
 
   # -- summary ----------------------------------------------------------
   f32 = gathers[0]

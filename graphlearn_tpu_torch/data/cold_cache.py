@@ -207,16 +207,21 @@ def emit_cache_events(scope: str, hits: int, misses: int, admits: int,
   ``cache.{hits,misses,admits,evicts}_total{scope=}``, and as
   ``cache.hit`` / ``cache.miss`` / ``cache.admit`` / ``cache.evict``
   events when the recorder is on (zero counts are skipped)."""
-  counts = (('hit', 'hits', hits), ('miss', 'misses', misses),
-            ('admit', 'admits', admits), ('evict', 'evicts', evicts))
-  for _, plural, n in counts:
+  for plural, n in (('hits', hits), ('misses', misses),
+                    ('admits', admits), ('evicts', evicts)):
     if n:
       live.counter(f'cache.{plural}_total',
                    labels={'scope': scope}).inc(float(n))
-  if recorder.enabled:
-    for kind, _, n in counts:
-      if n:
-        recorder.emit(f'cache.{kind}', scope=scope, count=int(n))
+  if not recorder.enabled:
+    return
+  if hits:
+    recorder.emit('cache.hit', scope=scope, count=int(hits))
+  if misses:
+    recorder.emit('cache.miss', scope=scope, count=int(misses))
+  if admits:
+    recorder.emit('cache.admit', scope=scope, count=int(admits))
+  if evicts:
+    recorder.emit('cache.evict', scope=scope, count=int(evicts))
 
 
 def _weak_bytes(owner, attr: str):

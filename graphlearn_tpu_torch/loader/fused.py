@@ -49,6 +49,8 @@ every step trains.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,6 +63,9 @@ from ..models.train import (_correct, link_loss_from_metadata,
 from ..ops.draws import CounterDraws
 from ..ops.launches import LAUNCH_COUNTED
 from ..sampler.base import NegativeSampling
+from ..telemetry.live import metrics
+from ..telemetry.recorder import recorder
+from ..telemetry.spans import span
 from ..sampler.hetero_neighbor_sampler import (HeteroNeighborSampler,
                                                _hetero_multihop)
 from ..sampler.neighbor_sampler import (NeighborSampler, _multihop_sample,
@@ -528,6 +533,7 @@ class _SupervisedEpoch(_SnapshotHooks):
     """Warm up with the step itself (step ``n`` of the epoch, its
     outputs written to ``outs``) on a side stream, then capture it."""
     fn = self._train_step if kind == 'train' else self._eval_step
+    t0 = time.perf_counter()
     static_seeds, static_coords = seeds.clone(), coords.clone()
     args = (static_seeds, tuple(static_coords.unbind(0)))
     main = torch.cuda.current_stream(self.device)
@@ -551,6 +557,12 @@ class _SupervisedEpoch(_SnapshotHooks):
         launches.append((fn_, fn_.launches - b))
         fn_.launches = b
     self._captures += 1
+    # the port's counterpart of a program compile: one capture a kind
+    dt = time.perf_counter() - t0
+    metrics.inc('fused.compile.misses')
+    metrics.inc('fused.compile.secs', dt)
+    recorder.emit('fused.compile', fn=f'{type(self).__name__}.{kind}',
+                  secs=round(dt, 3), persistent_cache=False)
     step = CapturedStep(graph, static_seeds, static_coords, static_out,
                         launches)
     self._replays[kind] = step
@@ -579,15 +591,18 @@ class _SupervisedEpoch(_SnapshotHooks):
         continue
       if train:
         chaos.fused_dispatch_check(chunk=c0, epoch=epoch)
-      if self._tiered:
-        self._run_tiered(kind, piece, outs, j)
-      elif not self._capture:
-        fn = self._train_step if train else self._eval_step
-        for i, (row, coords) in enumerate(piece):
-          for buf, val in zip(outs, fn(self._upload(row), coords)):
-            buf[j + i].copy_(val)
-      else:
-        self._run_captured(kind, piece, outs, j)
+      # a training chunk is one dispatch span (JAX: one program)
+      with (span('fused.dispatch', chunk=c0) if train
+            else contextlib.nullcontext()):
+        if self._tiered:
+          self._run_tiered(kind, piece, outs, j)
+        elif not self._capture:
+          fn = self._train_step if train else self._eval_step
+          for i, (row, coords) in enumerate(piece):
+            for buf, val in zip(outs, fn(self._upload(row), coords)):
+              buf[j + i].copy_(val)
+        else:
+          self._run_captured(kind, piece, outs, j)
       j += len(piece)
       if train:
         self._save_chunk_snapshot(c0 + chunk_steps, chunk_steps,
@@ -605,6 +620,8 @@ class _SupervisedEpoch(_SnapshotHooks):
     if graph is None:
       graph = self._captured(kind, seeds_d[0], coords_d[0], outs, j)
       first = 1
+    else:
+      metrics.inc('fused.compile.hits')
     for i in range(first, len(piece)):
       for buf, val in zip(outs, graph.replay(seeds_d[i], coords_d[i])):
         buf[j + i].copy_(val)
@@ -616,7 +633,10 @@ class _SupervisedEpoch(_SnapshotHooks):
     rows = [self._upload(row) for row, _ in piece]
     samples = [self._sample(s, self._step_draws(coords))
                for s, (_, coords) in zip(rows, piece)]
-    gathered = [self._gather(smp, s) for smp, s in zip(samples, rows)]
+    # the between-dispatch cold service: every step's rows, in order
+    with span('feature.cold_overlay', scope=type(self).__name__,
+              steps=len(piece)):
+      gathered = [self._gather(smp, s) for smp, s in zip(samples, rows)]
     for i, (s, (inputs, y)) in enumerate(zip(rows, gathered)):
       for buf, val in zip(outs, on(s, inputs, y)):
         buf[j + i].copy_(val)
@@ -627,7 +647,10 @@ class _SupervisedEpoch(_SnapshotHooks):
     """One training epoch; returns its lazy `EpochStats`."""
     seeds = self._epoch_seeds()
     self._epoch_idx += 1
-    losses, counts = self._run_steps('train', seeds, self._epoch_idx)
+    with span('fused.epoch', scope=type(self).__name__,
+              epoch=self._epoch_idx, steps=seeds.shape[0],
+              tiered=self._tiered):
+      losses, counts = self._run_steps('train', seeds, self._epoch_idx)
     return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
 
   def evaluate(self, input_nodes) -> float:

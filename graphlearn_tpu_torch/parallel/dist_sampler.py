@@ -139,9 +139,10 @@ from ..ops.neighbor import default_window
 from ..sampler.base import NegativeSampling
 from ..ops.unique import expand_hops
 from ..ops.window_gather import csr_window_gather
-from ..telemetry.aggregate import exchange_summary
+from ..telemetry.aggregate import exchange_summary, per_hop_padding
 from ..telemetry.live import live
 from ..telemetry.recorder import recorder
+from ..telemetry.spans import span
 from ..testing import chaos
 from ..utils.padding import INVALID_ID, max_sampled_nodes, round_up
 from ..utils.tensor import PinnedStaging
@@ -702,6 +703,7 @@ class AdaptiveSlack:
     frm = SLACK_LADDER[self._idx]
     self._idx = idx
     self.sampler.exchange_slack = SLACK_LADDER[idx]
+    self.sampler._configs.clear()     # a new capacity: a new configuration
     self._transitions.inc()
     recorder.emit('slack.transition', from_slack=frm,
                   to_slack=SLACK_LADDER[idx], reason=reason,
@@ -779,6 +781,9 @@ class ExchangeTelemetry:
   prefetch worker), and the host's `COLD_STAT_NAMES` counters."""
 
   def _init_stats(self, device) -> None:
+    #: the (mode, batch) configurations dispatched since the capacity or
+    #: the placement last changed (`DistNeighborSampler._config_once`)
+    self._configs: set = set()
     self._stats_lock = threading.Lock()
     self._stats_acc = torch.zeros(len(EXCHANGE_STAT_NAMES),
                                   dtype=torch.int64, device=device)
@@ -1058,6 +1063,7 @@ class ExchangeTelemetry:
     changed = m.observe('feature', d_ft, d_steps) or changed
     if changed:
       caps = {c: m.caps(c) for c in m.CHANNELS}
+      self._configs.clear()
       recorder.emit('exchange.retune', steps=d_steps,
                     frontier_dest_cap=caps['frontier'][0],
                     frontier_traffic_cap=caps['frontier'][1],
@@ -1196,17 +1202,45 @@ class DistNeighborSampler(ExchangeTelemetry):
     -> the stacked batch pieces."""
     return self._finish_nodes(self._dispatch_nodes(seeds_stacked))
 
+  def _config_once(self, cfg: tuple, **fields) -> None:
+    """The first dispatch of a configuration ``cfg`` since the capacity
+    or the placement last changed: one ``exchange.layout`` span with
+    the resolved layout, partition count and slack (JAX records it
+    around the configuration's step build; the port builds no program,
+    so it marks the configuration's first dispatch) and, for a GNS
+    sampler of nodes or links, the ``gns.bias`` event and the
+    ``gns.bias_steps_total`` tick."""
+    if cfg in self._configs:
+      return
+    self._configs.add(cfg)
+    with span('exchange.layout',
+              layout=resolve_layout(self.exchange_layout, self.num_parts),
+              num_parts=self.num_parts, slack=self.exchange_slack,
+              **fields):
+      pass
+    if self.gns and cfg[0] in ('node', 'link'):
+      live.counter('gns.bias_steps_total').inc()
+      extra = {} if cfg[0] == 'node' else {'mode': 'link'}
+      recorder.emit('gns.bias', batch=int(cfg[1]), **extra,
+                    boost=float(self.gns_boost), num_parts=self.num_parts)
+
   def _dispatch_nodes(self, seeds_stacked: np.ndarray) -> dict:
     """Sample and collect one stacked batch on the card, every
-    partition hop by hop in lockstep, without the cold overlay.  Owner
-    supervision and the book fence run before the draw cursor advances
-    (a recovered dispatch draws as the fault-free one did)."""
+    partition hop by hop in lockstep, without the cold overlay, under
+    a ``sample.exchange`` span.  Owner supervision and the book fence
+    run before the draw cursor advances (a recovered dispatch draws as
+    the fault-free one did).  ``overlay_step`` ties the batch's cold
+    overlay to the step that dispatched it."""
+    b = int(np.shape(seeds_stacked)[1])
     self._fence()
+    self._config_once(('node', b), batch=b)
     self._step_cnt += 1
-    seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
-        self.device)
-    out = self._sample_collect(seeds, self.draws, self._step_cnt)
+    with span('sample.exchange', step=self._step_cnt, batch=b):
+      seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
+          self.device)
+      out = self._sample_collect(seeds, self.draws, self._step_cnt)
     self._complete_recovery()
+    out['overlay_step'] = self._step_cnt
     return out
 
   # -- partition failover ---------------------------------------------------
@@ -1334,6 +1368,7 @@ class DistNeighborSampler(ExchangeTelemetry):
     self._degraded_seen = ndeg
     self._book_lanes = self.book_lanes(view)
     self._gns_ver = -1
+    self._configs.clear()
     return ver
 
   @property
@@ -1515,10 +1550,13 @@ class DistNeighborSampler(ExchangeTelemetry):
           self.device) for a in state['gns_inflight'])
 
   def _finish_nodes(self, out: dict) -> dict:
-    """The host half of a dispatched batch: the cold overlay (nothing
-    for a store wholly on the card)."""
+    """The host half of a dispatched batch: the cold overlay under a
+    ``feature.lookup`` span (nothing for a store wholly on the card)."""
+    step = out.pop('overlay_step', None)
     if self.tiered and out['x'] is not None:
-      out['x'] = self._overlay_cold(out['x'], out['node'])
+      with span('feature.lookup',
+                step=self._step_cnt if step is None else step):
+        out['x'] = self._overlay_cold(out['x'], out['node'])
     return out
 
   def _ensure_cold_cache(self) -> Optional[MeshColdCache]:
@@ -1566,6 +1604,12 @@ class DistNeighborSampler(ExchangeTelemetry):
       self._gns_bits = (torch.from_numpy(table).to(self.device),
                         torch.from_numpy(row_index).to(self.device))
       self._gns_ver = ver
+      live.counter('gns.sketch_updates_total').inc()
+      if recorder.enabled:
+        recorder.emit('gns.sketch_update', scope='dist',
+                      residents=sum(len(r) for r in residents.values()),
+                      version=int(ver),
+                      mask_bytes=int(table.nbytes) + int(row_index.nbytes))
     return self._gns_bits
 
   def _overlay_cold(self, x: torch.Tensor, nodes: torch.Tensor
@@ -1753,17 +1797,42 @@ class DistNeighborLoader(_ResumableEpochMixin, PrefetchingLoader):
         flat.reshape(self.num_parts, self.batch_size))
 
   def _produce(self, seed_iter) -> Batch:
+    # acquire BEFORE the span: the epoch's end (StopIteration) must not
+    # record an empty `batch` root
     if self._cold_pipeline:
-      out = self._pipelined(self._pipeline_acquire(seed_iter), seed_iter,
-                            self._dispatch_flat, self.sampler._finish_nodes)
+      acquired = self._pipeline_acquire(seed_iter)
     else:
-      out = self.sampler.sample_from_nodes(
-          next(seed_iter).reshape(self.num_parts, self.batch_size))
-    md = {'seed_local': out['seed_local']}
-    if 'edge_weight' in out:
-      md['edge_weight'] = out['edge_weight']
-    self._consumed += 1
-    return _stacked_batch(out, md, self.batch_size)
+      flat = next(seed_iter)
+    # 'batch' is the per-batch root: the sampler's sample.exchange and
+    # feature.lookup spans nest under it, 'stitch' covers the assembly
+    with span('batch', scope='DistNeighborLoader',
+              batch=getattr(self, '_batch_idx', 0) + 1):
+      if self._cold_pipeline:
+        out = self._pipelined(acquired, seed_iter, self._dispatch_flat,
+                              self.sampler._finish_nodes)
+      else:
+        out = self.sampler.sample_from_nodes(
+            flat.reshape(self.num_parts, self.batch_size))
+      self._maybe_emit_hop_events(out['num_sampled_nodes'])
+      with span('stitch'):
+        md = {'seed_local': out['seed_local']}
+        if 'edge_weight' in out:
+          md['edge_weight'] = out['edge_weight']
+        self._consumed += 1
+        return _stacked_batch(out, md, self.batch_size)
+
+  def _maybe_emit_hop_events(self, nsn) -> None:
+    """One ``hop.padding`` event a hop for this batch (node count,
+    capacity, fill), only while the recorder is on: reading the counts
+    waits for the card."""
+    if not recorder.enabled:
+      return
+    self._batch_idx = getattr(self, '_batch_idx', 0) + 1
+    rows = per_hop_padding(nsn.cpu().numpy(), self.batch_size,
+                           self.sampler.fanouts)
+    for row in rows:
+      recorder.emit('hop.padding', scope='dist_loader',
+                    batch=self._batch_idx, **row)
 
 
 def _stacked_batch(out: dict, metadata: dict, batch_size: int) -> Batch:
@@ -1888,12 +1957,18 @@ class DistLinkNeighborSampler(DistNeighborSampler):
   def _dispatch_edges(self, pairs_stacked: np.ndarray) -> dict:
     """`_dispatch_nodes`' link twin: negatives, expansion and collection
     on the card, without the cold overlay."""
+    shape = np.shape(pairs_stacked)
+    b = int(shape[1])
     self._fence()
+    self._config_once(('link', b, int(shape[2])), batch=b, mode='link')
     self._step_cnt += 1
-    pairs = torch.from_numpy(np.asarray(pairs_stacked, np.int32)).to(
-        self.device)
-    out = self._sample_link(pairs, self.draws, self._step_cnt)
+    with span('sample.exchange', step=self._step_cnt, batch=b,
+              mode='link'):
+      pairs = torch.from_numpy(np.asarray(pairs_stacked, np.int32)).to(
+          self.device)
+      out = self._sample_link(pairs, self.draws, self._step_cnt)
     self._complete_recovery()
+    out['overlay_step'] = self._step_cnt
     return out
 
   def _sample_link(self, pairs: torch.Tensor, draws: Draws,
@@ -2013,12 +2088,18 @@ class DistLinkNeighborLoader(DistNeighborLoader):
 
   def _produce(self, seed_iter) -> Batch:
     if self._cold_pipeline:
-      out = self._pipelined(self._pipeline_acquire(seed_iter), seed_iter,
-                            self._dispatch_flat, self.sampler._finish_nodes)
+      acquired = self._pipeline_acquire(seed_iter)
     else:
-      out = self.sampler.sample_from_edges(self._pairs_of(next(seed_iter)))
-    self._consumed += 1
-    return _stacked_batch(out, out['metadata'], self.batch_size)
+      flat = next(seed_iter)
+    with span('batch', scope='DistLinkNeighborLoader'):
+      if self._cold_pipeline:
+        out = self._pipelined(acquired, seed_iter, self._dispatch_flat,
+                              self.sampler._finish_nodes)
+      else:
+        out = self.sampler.sample_from_edges(self._pairs_of(flat))
+      with span('stitch'):
+        self._consumed += 1
+        return _stacked_batch(out, out['metadata'], self.batch_size)
 
 
 #: `hop_chunk='auto'` chunks the full-window hop once one reply buffer
@@ -2091,11 +2172,14 @@ class DistSubGraphSampler(DistNeighborSampler):
     stacked induced-subgraph pieces: edges in (source, destination)
     order as local ids, ``seed_local`` (the ``mapping``), ``x``/``y``
     of the closure and ``edge`` (global ids, with ``with_edge``)."""
+    b = int(np.shape(seeds_stacked)[1])
     self._fence()
+    self._config_once(('subgraph', b), batch=b, mode='subgraph')
     self._step_cnt += 1
-    seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
-        self.device)
-    out = self._sample_subgraph(seeds, self.draws, self._step_cnt)
+    with span('sample.exchange', step=self._step_cnt, mode='subgraph'):
+      seeds = torch.from_numpy(np.asarray(seeds_stacked, np.int32)).to(
+          self.device)
+      out = self._sample_subgraph(seeds, self.draws, self._step_cnt)
     self._complete_recovery()
     return self._finish_nodes(out)
 
@@ -2213,16 +2297,20 @@ class DistSubGraphLoader(PrefetchingLoader):
     return len(self._batcher)
 
   def _produce(self, seed_iter) -> Batch:
-    out = self.sampler.sample_subgraph(
-        next(seed_iter).reshape(self.num_parts, self.batch_size))
-    return Batch(x=out['x'], y=out['y'],
-                 edge_index=torch.stack([out['row'], out['col']], dim=1),
-                 node=out['node'], node_mask=out['node'] >= 0,
-                 edge_mask=out['row'] >= 0, edge=out['edge'],
-                 batch=out['batch'], batch_size=self.batch_size,
-                 num_sampled_nodes=out['num_sampled_nodes'],
-                 metadata={'seed_local': out['seed_local'],
-                           'mapping': out['seed_local']})
+    flat = next(seed_iter)
+    with span('batch', scope='DistSubGraphLoader'):
+      out = self.sampler.sample_subgraph(
+          flat.reshape(self.num_parts, self.batch_size))
+      with span('stitch'):
+        return Batch(
+            x=out['x'], y=out['y'],
+            edge_index=torch.stack([out['row'], out['col']], dim=1),
+            node=out['node'], node_mask=out['node'] >= 0,
+            edge_mask=out['row'] >= 0, edge=out['edge'],
+            batch=out['batch'], batch_size=self.batch_size,
+            num_sampled_nodes=out['num_sampled_nodes'],
+            metadata={'seed_local': out['seed_local'],
+                      'mapping': out['seed_local']})
 
 
 class DistRandomWalker(DistNeighborSampler):
@@ -2258,7 +2346,9 @@ class DistRandomWalker(DistNeighborSampler):
     """``[P, B]`` per-partition start nodes (relabelled ids, -1 padded)
     -> ``[P, B, walk_length + 1]`` int32 walks, the start in column
     0."""
+    b = int(np.shape(starts_stacked)[1])
     self._fence()
+    self._config_once(('walk', b), batch=b, mode='walk')
     self._step_cnt += 1
     cur = torch.from_numpy(np.asarray(starts_stacked, np.int32)).to(
         self.device)

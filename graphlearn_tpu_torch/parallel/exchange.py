@@ -176,9 +176,15 @@ def capacity_spec(n: int, num_parts: int, slack: Optional[float],
         MIN_STAGE_CAP, int(math.ceil(lam1 / 4)))
     c2 = int(math.ceil(lam2 * float(slack) * 1.5)) + max(
         MIN_STAGE_CAP, int(math.ceil(lam2 / 4)))
+    c1, c2 = int(round_up(min(c1, n), 4)), int(round_up(min(c2, n), 4))
+    # a marker span a planned stage pair (JAX records one a compiled
+    # program; the port plans each exchange at its dispatch)
+    from ..telemetry.spans import span
+    with span('exchange.stage', layout='hier', rows=rows, cols=cols,
+              stage1_cap=c1, stage2_cap=c2, n=n):
+      pass
     return ExchangeSpec('hier', num_parts, rows=rows, cols=cols,
-                        stage_caps=(int(round_up(min(c1, n), 4)),
-                                    int(round_up(min(c2, n), 4))))
+                        stage_caps=(c1, c2))
   dense = ExchangeSpec('dense', num_parts, capacity=int(round_up(
       min(n, max(int(math.ceil(lam)), int(floor))), 8)))
   if name == 'dense':

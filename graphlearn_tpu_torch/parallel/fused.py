@@ -66,6 +66,7 @@ from ..models.train import _correct, supervised_loss
 from ..ops.draws import TorchDraws
 from ..telemetry.aggregate import per_hop_padding
 from ..telemetry.recorder import recorder
+from ..telemetry.spans import span
 from ..testing import chaos
 from ..sampler.base import NegativeSampling
 from .dist_data import DistDataset
@@ -214,18 +215,22 @@ class _MeshEpochDriver(_SnapshotHooks):
       return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
     seeds = self._steps(flat)
     draws = _EpochDraws(self.draws, self._epoch_idx)
-    chaos.fused_dispatch_check(chunk=0, epoch=self._epoch_idx)
-    self._chunk_fence()
-    losses, counts, hops = [], [], None
-    for i in range(s):
-      loss, correct, valid, hop = self._train_step(
-          seeds[i], draws, i, bool((flat[i] >= 0).any()))
-      losses.append(loss)
-      counts.append(torch.stack([correct, valid]))
-      hops = hop if hops is None else hops + hop
-    losses, counts = torch.stack(losses), torch.stack(counts)
-    self._emit_hop_events(hops, s)
-    self._save_chunk_snapshot(s, s, losses, counts, force=True, hops=hops)
+    with span('fused.epoch', scope=type(self).__name__,
+              epoch=self._epoch_idx, steps=s, tiered=False):
+      # the epoch is one chunk: one dispatch span over its steps
+      with span('fused.dispatch'):
+        chaos.fused_dispatch_check(chunk=0, epoch=self._epoch_idx)
+        self._chunk_fence()
+        losses, counts, hops = [], [], None
+        for i in range(s):
+          loss, correct, valid, hop = self._train_step(
+              seeds[i], draws, i, bool((flat[i] >= 0).any()))
+          losses.append(loss)
+          counts.append(torch.stack([correct, valid]))
+          hops = hop if hops is None else hops + hop
+        losses, counts = torch.stack(losses), torch.stack(counts)
+      self._emit_hop_events(hops, s)
+      self._save_chunk_snapshot(s, s, losses, counts, force=True, hops=hops)
     return EpochStats(losses, counts[:, 0].sum(), counts[:, 1].sum())
 
   def evaluate(self, input_nodes, input_space: str = 'old') -> float:

@@ -13,8 +13,13 @@ the controller keeps it bounded:
     (``queue_full`` / ``deadline`` / ``too_large`` / ``draining`` /
     ``shutdown``) so callers can tell a shed from a crash.
 
-Counts of admitted and shed requests are kept for `stats`.
-Import-light: threading, time and collections only.
+Counts of admitted and shed requests are kept for `stats` and tick the
+live counters ``serving.admitted_total`` and
+``serving.shed_total{reason=}``; each admit and shed emits
+``serving.admit`` / ``serving.shed`` while the recorder is on, and a
+shed request's trace context (``trace=``) resolves ``shed``, so its
+trace is tail-retained.  Import-light: threading, time and collections
+only (the telemetry modules load at the first tick).
 """
 from __future__ import annotations
 
@@ -42,6 +47,29 @@ def _env_pos(name: str, default, cast):
     return v if v > 0 else default
   except ValueError:
     return default
+
+
+#: cached live-counter handles, resolved once: the admission lock is
+#: held at every tick site, so a tick stays a dict increment
+_shed_counters: dict = {}
+_admitted_counter = None
+
+
+def _tick_shed(reason: str) -> None:
+  c = _shed_counters.get(reason)
+  if c is None:
+    from ..telemetry.live import live
+    c = _shed_counters[reason] = live.counter(
+        'serving.shed_total', labels={'reason': reason})
+  c.inc()
+
+
+def _tick_admitted() -> None:
+  global _admitted_counter
+  if _admitted_counter is None:
+    from ..telemetry.live import live
+    _admitted_counter = live.counter('serving.admitted_total')
+  _admitted_counter.inc()
 
 
 def queue_depth_from_env() -> int:
@@ -111,15 +139,18 @@ class ServingFuture:
 
 class Request:
   """One admitted request: ``seeds``, absolute ``deadline`` (monotonic
-  seconds), arrival time and the future its caller waits on."""
+  seconds), arrival time, the future its caller waits on and its
+  request-trace context (None when untraced)."""
 
-  __slots__ = ('seeds', 'arrived', 'deadline', 'future')
+  __slots__ = ('seeds', 'arrived', 'deadline', 'future', 'trace')
 
-  def __init__(self, seeds, deadline_s: float):
+  def __init__(self, seeds, deadline_s: float,
+               trace: Optional[dict] = None):
     self.seeds = seeds
     self.arrived = time.monotonic()
     self.deadline = self.arrived + deadline_s
     self.future = ServingFuture()
+    self.trace = trace
 
   def expired(self, now: Optional[float] = None) -> bool:
     return (now if now is not None else time.monotonic()) > self.deadline
@@ -162,19 +193,32 @@ class AdmissionController:
                  'shutdown': 0, 'draining': 0}
 
   # -- producer side --------------------------------------------------------
-  def submit(self, seeds, deadline_ms: Optional[float] = None) -> Request:
+  def submit(self, seeds, deadline_ms: Optional[float] = None,
+             trace: Optional[dict] = None) -> Request:
     """Admit one request or raise typed.  ``deadline_ms`` overrides the
-    default budget."""
+    default budget; ``trace`` is the request-trace context riding the
+    serve path (a door shed resolves it ``shed``)."""
+    from ..telemetry.recorder import recorder
+    from ..telemetry.tracing import tracer
     n = len(seeds)
     dl = float(deadline_ms if deadline_ms is not None
                else self.default_deadline_ms)
     with self._lock:
       if self._closed:
         self.shed['shutdown'] += 1
+        _tick_shed('shutdown')
+        recorder.emit('serving.shed', reason='shutdown', seeds=n,
+                      queue_depth=len(self._q))
+        tracer.resolve(trace, outcome='shed')
         raise AdmissionRejected('serving tier is shutting down',
                                 reason='shutdown')
       if self._draining:
         self.shed['draining'] += 1
+        _tick_shed('draining')
+        recorder.emit('serving.shed', reason='draining', seeds=n,
+                      queue_depth=len(self._q),
+                      retry_after_ms=self.drain_retry_after_ms)
+        tracer.resolve(trace, outcome='shed')
         raise AdmissionRejected(
             'serving tier is draining — retry after '
             f'~{self.drain_retry_after_ms:.0f}ms',
@@ -183,6 +227,11 @@ class AdmissionController:
       if (self.max_request_seeds is not None
           and n > self.max_request_seeds):
         self.shed['too_large'] += 1
+        _tick_shed('too_large')
+        recorder.emit('serving.shed', reason='too_large', seeds=n,
+                      limit=self.max_request_seeds,
+                      queue_depth=len(self._q))
+        tracer.resolve(trace, outcome='shed')
         raise AdmissionRejected(
             f'request carries {n} seeds; the largest serving bucket '
             f'holds {self.max_request_seeds} — split the request or '
@@ -191,34 +240,48 @@ class AdmissionController:
             queue_depth=len(self._q))
       if len(self._q) >= self.max_queue:
         self.shed['queue_full'] += 1
+        _tick_shed('queue_full')
         if self.slo_feed is not None:
           self.slo_feed('queue_full', 0.0)
+        recorder.emit('serving.shed', reason='queue_full', seeds=n,
+                      queue_depth=len(self._q), limit=self.max_queue)
+        tracer.resolve(trace, outcome='shed')
         raise AdmissionRejected(
             f'serving queue at capacity ({len(self._q)}/'
             f'{self.max_queue} requests waiting) — overload; retry '
             'with backoff or raise GLT_SERVING_QUEUE_DEPTH',
             reason='queue_full', queue_depth=len(self._q),
             limit=self.max_queue)
-      req = Request(seeds, dl / 1e3)
+      req = Request(seeds, dl / 1e3, trace=trace)
       self._q.append(req)
       self.admitted += 1
+      _tick_admitted()
+      recorder.emit('serving.admit', seeds=n, queue_depth=len(self._q),
+                    deadline_ms=dl)
       self._arrived.notify_all()
     return req
 
   # -- executor side --------------------------------------------------------
   def _shed_expired_locked(self, now: float) -> None:
+    from ..telemetry.recorder import recorder
+    from ..telemetry.tracing import tracer
     kept: 'collections.deque[Request]' = collections.deque()
     for req in self._q:
       if req.expired(now):
         self.shed['deadline'] += 1
+        _tick_shed('deadline')
         waited = req.waited_ms(now)
         if self.slo_feed is not None:
           self.slo_feed('deadline', waited)
+        recorder.emit('serving.shed', reason='deadline',
+                      seeds=len(req.seeds), queue_depth=len(self._q),
+                      waited_ms=round(waited, 3))
         req.future.set_error(AdmissionRejected(
             f'deadline passed after {waited:.1f}ms in queue '
             '(executor saturated — shed, not silently dropped)',
             reason='deadline', waited_ms=waited,
             queue_depth=len(self._q)))
+        tracer.resolve(req.trace, outcome='shed', latency_ms=waited)
       else:
         kept.append(req)
     self._q = kept
@@ -270,8 +333,13 @@ class AdmissionController:
       if not run and self._q:
         # the head alone exceeds max_seeds: admission should have
         # refused it, but never deadlock on it
+        from ..telemetry.recorder import recorder
         req = self._q.popleft()
         self.shed['too_large'] += 1
+        _tick_shed('too_large')
+        recorder.emit('serving.shed', reason='too_large',
+                      seeds=len(req.seeds), limit=max_seeds,
+                      queue_depth=len(self._q))
         req.future.set_error(AdmissionRejected(
             f'request with {len(req.seeds)} seeds exceeds the '
             f'largest bucket ({max_seeds})', reason='too_large',
@@ -304,12 +372,20 @@ class AdmissionController:
 
   def close(self) -> None:
     """Resolve every queued request with a typed shutdown rejection."""
+    from ..telemetry.recorder import recorder
+    from ..telemetry.tracing import tracer
     with self._lock:
       self._closed = True
       while self._q:
         req = self._q.popleft()
         self.shed['shutdown'] += 1
+        _tick_shed('shutdown')
+        recorder.emit('serving.shed', reason='shutdown',
+                      seeds=len(req.seeds), queue_depth=len(self._q),
+                      waited_ms=round(req.waited_ms(), 3))
         req.future.set_error(AdmissionRejected(
             'serving tier shut down before dispatch',
             reason='shutdown'))
+        tracer.resolve(req.trace, outcome='shed',
+                       latency_ms=req.waited_ms())
       self._arrived.notify_all()

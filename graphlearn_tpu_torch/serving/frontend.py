@@ -15,7 +15,14 @@ model swap (`swap_model`, `serving.swap.hot_swap`) acquires it to sit
 between runs, so no run straddles a version change.  Each resolved
 request feeds the frontend's `telemetry.slo.SloTracker` and each
 dispatch its `telemetry.memaccount.CapacityModel`; `stats` is the
-heartbeat block a fleet router reads.  A frozen frontend
+heartbeat block a fleet router reads.  The live plane gets the request,
+seed, dispatch and failure counters, the queue-depth, in-flight and
+fill-ratio gauges, the ``serving.queue_wait`` and per-bucket
+``serving.request_latency`` histograms (an observation carries its
+request's trace id as the bucket's exemplar), and a traced request
+records its ``serving.queue_wait``, ``serving.dispatch_slice``,
+``serving.sample_collect`` and ``serving.cold_fill`` spans
+(`telemetry.tracing`) before its future resolves.  A frozen frontend
 (`serving.router.LocalReplica.kill`) stops cold: a taken run is lost
 unresolved, as a killed process's would be.
 """
@@ -32,7 +39,10 @@ import numpy as np
 from ..telemetry import postmortem
 from ..telemetry.live import live
 from ..telemetry.memaccount import CapacityModel
+from ..telemetry.recorder import recorder
 from ..telemetry.slo import SloTracker
+from ..telemetry.spans import span
+from ..telemetry.tracing import tracer
 from .admission import AdmissionController, AdmissionRejected, Request
 from .engine import ServingEngine, ServingResult
 
@@ -94,6 +104,27 @@ class ServingFrontend:
     self.served_seeds = 0       # guarded-by: self._lock
     self.dispatches = 0         # guarded-by: self._lock
     self.failed = 0             # guarded-by: self._lock
+    # live plane: handles resolved once (a tick is a dict increment);
+    # gauges are evaluated at scrape time, and the latest frontend's
+    # gauges win
+    self._m_requests = live.counter('serving.requests_total')
+    self._m_seeds = live.counter('serving.seeds_total')
+    self._m_dispatches = live.counter('serving.dispatches_total')
+    self._m_failed = live.counter('serving.failed_total')
+    #: the fill ratio is read through a callback, so a dead tier stops
+    #: exporting its last dispatch's fill
+    self._last_fill: Optional[float] = None
+    _depth_fn = self.admission.depth
+    _in_flight_fn = self._in_flight_snapshot
+    _fill_fn = self._fill_snapshot
+    live.gauge('serving.queue_depth', fn=_depth_fn)
+    live.gauge('serving.in_flight', fn=_in_flight_fn)
+    live.gauge('serving.coalesce_fill_ratio', fn=_fill_fn)
+    self._gauge_regs = [('serving.queue_depth', _depth_fn),
+                        ('serving.in_flight', _in_flight_fn),
+                        ('serving.coalesce_fill_ratio', _fill_fn)]
+    self._lat_hists: dict = {}
+    self._m_queue_wait = live.histogram('serving.queue_wait')
     #: the SLO window (targets from GLT_SERVING_SLO_P99_MS / _QPS) and
     #: the per-bucket serve-cost model behind ``fleet.headroom_qps``
     self.slo = SloTracker(registry=live)
@@ -110,6 +141,8 @@ class ServingFrontend:
   def start(self, warmup: bool = True) -> None:
     if self._thread is not None:
       return
+    from ..telemetry import opsserver
+    opsserver.maybe_start_from_env()
     if warmup and not all(self.engine.warm.values()):
       self.engine.warmup()
     self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -128,20 +161,25 @@ class ServingFrontend:
     self._unregister_observability()
 
   def _unregister_observability(self) -> None:
-    """Drop this frontend's live-registry callbacks (health, SLO and
-    headroom gauges): on shutdown and on a simulated kill."""
+    """Drop this frontend's live-registry callbacks (health, serving,
+    SLO and headroom gauges): on shutdown and on a simulated kill."""
     live.unregister_health('serving', fn=self._health_fn)
+    for gname, gfn in self._gauge_regs:
+      live.unregister_gauge(gname, fn=gfn)
     self.capacity.close()
     self.slo.close()
 
   # -- producer side --------------------------------------------------------
-  def submit(self, seeds, deadline_ms: Optional[float] = None):
+  def submit(self, seeds, deadline_ms: Optional[float] = None,
+             trace: Optional[dict] = None):
     """Admit one request; returns its `ServingFuture`.  Raises
     `AdmissionRejected` at the door when the queue is at bound, and
     `ValueError` for a malformed request — empty, or seed ids outside
     ``[0, num_nodes)``: the gathers clamp out-of-range ids, so without
     this check a bogus id would come back as a plausible answer for the
-    wrong node."""
+    wrong node.  ``trace`` is the request-trace context a router minted:
+    it rides the queued request so the executor records this request's
+    spans."""
     seeds = np.asarray(seeds, np.int64).reshape(-1)
     if seeds.size == 0:
       raise ValueError('a serving request needs at least one seed')
@@ -151,7 +189,7 @@ class ServingFrontend:
           f'seed id(s) {bad[:8].tolist()} outside [0, '
           f'{self.engine.num_nodes}) — refused (a clamped gather '
           'would silently answer for a different node)')
-    return self.admission.submit(seeds, deadline_ms).future
+    return self.admission.submit(seeds, deadline_ms, trace=trace).future
 
   def infer(self, seeds, deadline_ms: Optional[float] = None,
             timeout: Optional[float] = None) -> ServingResult:
@@ -202,32 +240,90 @@ class ServingFrontend:
     total = sum(sizes)
     cap = self.engine.bucket_for(total)
     now = time.monotonic()
+    recorder.emit('serving.coalesce', requests=len(run), seeds=total,
+                  bucket=cap,
+                  waited_ms=round(1e3 * (now - run[0].arrived), 3))
+    for req in run:
+      # admission enqueue -> coalesce pickup: the histogram always, a
+      # span only for a traced request
+      wait_s = max(now - req.arrived, 0.0)
+      self._m_queue_wait.observe(wait_s)
+      if req.trace is not None:
+        tracer.span('serving.queue_wait', req.trace, t0=req.arrived,
+                    dur=wait_s)
     try:
       chaos.serving_request_check('dispatch', replica=self.name)
-      batch = self.engine.infer(
-          np.concatenate([r.seeds for r in run]), cap=cap)
+      with span('serving.infer', bucket=cap, requests=len(run),
+                seeds=total):
+        batch = self.engine.infer(
+            np.concatenate([r.seeds for r in run]), cap=cap)
     except Exception as e:          # noqa: BLE001 — every rider of the
       # failed dispatch gets the error, typed as raised
       with self._lock:
         self.failed += len(run)
+      self._m_failed.inc(len(run))
       for req in run:
+        lat = req.waited_ms()
+        if req.trace is not None:
+          tracer.span('serving.dispatch_slice', req.trace, t0=now,
+                      dur=time.monotonic() - now, bucket=cap,
+                      requests=len(run),
+                      error=f'{type(e).__name__}: {e}'[:160])
+          tracer.resolve(req.trace, outcome='error', latency_ms=lat)
         req.future.set_error(e)
-        self.slo.observe(req.waited_ms(), ok=False)
+        self.slo.observe(lat, ok=False)
+        recorder.emit('serving.request', seeds=len(req.seeds),
+                      bucket=cap, coalesced=len(run), ok=False,
+                      latency_ms=round(lat, 3),
+                      error=f'{type(e).__name__}: {e}'[:160])
       if not isinstance(e, AdmissionRejected):
         postmortem.dump('serving.executor_fault', error=e,
                         extra={'bucket': cap, 'requests': len(run)})
       return 0
     off = 0
+    self._last_fill = round(total / cap, 4) if cap else 0.0
+    cold = self.engine.last_cold_fill
+    coll = self.engine.last_collect
+    hist = self._lat_hists.get(cap)
+    if hist is None:
+      hist = self._lat_hists[cap] = live.histogram(
+          'serving.request_latency', labels={'bucket': cap})
     for req, k in zip(run, sizes):
       lat = req.waited_ms()
+      if req.trace is not None:
+        # recorded and resolved BEFORE the future fires: a caller that
+        # wakes finds this request's spans already retained
+        end = time.monotonic()
+        sid = tracer.span('serving.dispatch_slice', req.trace,
+                          t0=now, dur=end - now, bucket=cap,
+                          requests=len(run))
+        if coll is not None and coll[0] >= now:
+          # the engine's sampling collect inside THIS dispatch
+          tracer.span('serving.sample_collect', req.trace,
+                      parent_id=sid, t0=coll[0], dur=coll[1])
+        if cold is not None and cold[0] >= now:
+          # the engine's tiered cold fill inside THIS dispatch
+          tracer.span('serving.cold_fill', req.trace, parent_id=sid,
+                      t0=cold[0], dur=cold[1])
+        tracer.resolve(req.trace, outcome='ok', latency_ms=lat)
       req.future.set_result(batch.slice(off, off + k))
       off += k
+      # the trace id lands as this bucket's OpenMetrics exemplar
+      hist.observe(lat / 1e3,
+                   exemplar=(req.trace['t'] if req.trace is not None
+                             else None))
       self.slo.observe(lat, ok=True)
+      recorder.emit('serving.request', seeds=k, bucket=cap,
+                    coalesced=len(run), ok=True,
+                    latency_ms=round(lat, 3))
     self.capacity.observe(cap, len(run), time.monotonic() - now)
     with self._lock:
       self.served_requests += len(run)
       self.served_seeds += total
       self.dispatches += 1
+    self._m_requests.inc(len(run))
+    self._m_seeds.inc(total)
+    self._m_dispatches.inc()
     return len(run)
 
   # -- model lifecycle ------------------------------------------------------
@@ -252,6 +348,9 @@ class ServingFrontend:
   def _in_flight_snapshot(self) -> int:
     with self._lock:
       return self.in_flight
+
+  def _fill_snapshot(self) -> Optional[float]:
+    return self._last_fill
 
   def stats(self) -> dict:
     """The heartbeat serving block: queue depth, in-flight run size,

@@ -25,13 +25,19 @@ overload and the hot-swap cutover invisible to callers:
     the next replica; only when every replica refuses does the
     rejection reach the caller.
 
+  * **request tracing** — each request gets a trace context from
+    `telemetry.tracing.tracer` at submit (None while tracing is off);
+    it rides the replica's submit, and the router records the root
+    ``serving.route`` span and resolves the trace when the request
+    finishes.  `make_scraper` wires a `telemetry.federation.
+    FleetScraper` over the replicas for the ops endpoint's ``/fleet``.
+
 Chaos site ``serving.replica`` (kill / delay / flap) drives the
 kill-one-replica runs.  Knobs: ``GLT_FLEET_HEARTBEAT_MS``,
 ``GLT_FLEET_OVERLOAD_RATIO`` and ``GLT_FLEET_FLAP_WINDOW_S``.
 
 Not ported: `RemoteReplica` (a replica behind the host runtime's RPC,
-ROADMAP item 11), the federation scraper and the router's request-trace
-spans (telemetry, ROADMAP item 13).
+ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import numpy as np
 from ..distributed.resilience import FailoverExhausted, ReplicaLostError
 from ..telemetry.live import live
 from ..telemetry.recorder import recorder
+from ..telemetry.tracing import tracer
 from .admission import (AdmissionRejected, ServingFuture, _env_pos,
                         drain_retry_ms_from_env)
 
@@ -108,13 +115,13 @@ class LocalReplica:
   def reachable(self) -> bool:
     return not self._dead and time.monotonic() >= self._flap_until
 
-  def submit(self, seeds,
-             deadline_ms: Optional[float] = None) -> ServingFuture:
+  def submit(self, seeds, deadline_ms: Optional[float] = None,
+             trace: Optional[dict] = None) -> ServingFuture:
     self._chaos('submit')
     if not self.reachable():
       raise ReplicaLostError(f'replica {self.name!r} is unreachable',
                              replica=self.name)
-    return self.frontend.submit(seeds, deadline_ms)
+    return self.frontend.submit(seeds, deadline_ms, trace=trace)
 
   def heartbeat(self) -> Optional[dict]:
     self._chaos('heartbeat')
@@ -148,10 +155,11 @@ class _LedgerEntry:
   """One routed, unresolved request."""
 
   __slots__ = ('rid', 'seeds', 'deadline_ms', 'replica', 'inner',
-               'redriven', 'generation', 'error', 'error_at')
+               'redriven', 'generation', 'error', 'error_at',
+               'trace', 't0')
 
   def __init__(self, rid: int, seeds, deadline_ms, replica: str,
-               inner: ServingFuture):
+               inner: ServingFuture, trace: Optional[dict] = None):
     self.rid = rid
     self.seeds = seeds
     self.deadline_ms = deadline_ms
@@ -161,6 +169,8 @@ class _LedgerEntry:
     self.generation = 0
     self.error: Optional[BaseException] = None
     self.error_at: Optional[float] = None
+    self.trace = trace
+    self.t0 = time.monotonic()
 
   def set_error(self, err: BaseException) -> None:
     self.error = err
@@ -399,6 +409,7 @@ class FleetRouter:
     last typed rejection (or `FailoverExhausted`) only when every
     replica refused."""
     last_err: Optional[BaseException] = None
+    trace = tracer.mint()            # None when tracing is off
     for name in self._pick_order():
       with self._lock:
         ent = self._replicas.get(name)
@@ -406,7 +417,7 @@ class FleetRouter:
       if handle is None:
         continue
       try:
-        inner = handle.submit(seeds, deadline_ms)
+        inner = handle.submit(seeds, deadline_ms, trace=trace)
       except AdmissionRejected as e:
         if e.reason in ('queue_full', 'draining', 'shutdown'):
           last_err = e
@@ -423,7 +434,7 @@ class FleetRouter:
         rid = self._next_rid
         self._next_rid += 1
         entry = _LedgerEntry(rid, np.asarray(seeds), deadline_ms, name,
-                             inner)
+                             inner, trace=trace)
         self._ledger[rid] = entry
         self.submitted += 1
         # the submit/evict race: an eviction between handle.submit and
@@ -462,8 +473,18 @@ class FleetRouter:
 
   def _finish(self, rid: int, outcome: str) -> None:
     with self._lock:
-      if self._ledger.pop(rid, None) is not None:
+      entry = self._ledger.pop(rid, None)
+      if entry is not None:
         self.resolved[outcome] += 1
+    if entry is not None and entry.trace is not None:
+      # the request-trace root: span_id == trace_id, so every child
+      # recorded under the minted context parents here
+      dur = time.monotonic() - entry.t0
+      tracer.span('serving.route', entry.trace,
+                  span_id=entry.trace['t'], t0=entry.t0, dur=dur,
+                  replica=entry.replica, outcome=outcome)
+      tracer.resolve(entry.trace, outcome=outcome,
+                     latency_ms=dur * 1e3)
 
   # -- health classification ------------------------------------------------
   def _note_miss(self, name: str) -> None:
@@ -610,7 +631,8 @@ class FleetRouter:
       if handle is None:
         continue
       try:
-        inner = handle.submit(entry.seeds, entry.deadline_ms)
+        inner = handle.submit(entry.seeds, entry.deadline_ms,
+                              trace=entry.trace)
       except Exception:             # noqa: BLE001 — try the next one
         continue
       with self._lock:
@@ -664,10 +686,29 @@ class FleetRouter:
           'quarantined': self.quarantines,
       }
 
-  def make_scraper(self, *args, **kwargs):
-    """The federation scraper: not ported (telemetry, ROADMAP item 13)."""
-    raise NotImplementedError('FleetRouter.make_scraper needs the '
-                              'telemetry federation, ROADMAP item 13')
+  def make_scraper(self, registry=None, include_self: bool = True,
+                   scrape_ms: Optional[float] = None):
+    """A `telemetry.federation.FleetScraper` over this router's
+    replicas (a `LocalReplica` federates through its heartbeat, a
+    handle with an ``ops_url`` through its ops endpoint): attach it to
+    an `OpsServer` for ``/fleet``.  With ``include_self`` the hosting
+    process's registry joins as replica ``self``, so the fleet
+    aggregates cover the router's SLO and admission gauges too."""
+    from ..telemetry.federation import FleetScraper
+    scraper = FleetScraper(scrape_ms=scrape_ms)
+    with self._lock:
+      handles = [(n, e['handle']) for n, e in self._replicas.items()]
+    for name, handle in handles:
+      url = getattr(handle, 'ops_url', None)
+      if url:
+        scraper.add_url(name, url)
+      else:
+        scraper.add_local_replica(name, handle)
+    if include_self:
+      if registry is None:
+        from ..telemetry.live import live as registry
+      scraper.add_registry('self', registry)
+    return scraper
 
   def _health(self) -> dict:
     """The ``healthz`` fleet component: healthy while any replica can

@@ -76,6 +76,12 @@ reads the same in the other.  Sites and actions:
       ``fail`` raises :class:`InjectedFault`, ``kill`` raises
       :class:`ChaosKilledError`.  A raise before ``cutover`` unwinds to the
       source; at ``drain`` it is absorbed (the move stands).
+  ``ops.scrape``
+      Inside the ops endpoint's request handler (`telemetry.opsserver`),
+      once per HTTP request with ``op`` = the route path.  ``delay``
+      stalls that handler thread (the serving executor must not
+      notice), ``drop`` raises :class:`InjectedFault` (the route
+      answers 503).
 
 Plans install programmatically (:func:`install`) or from the
 ``GLT_FAULT_PLAN`` env var.  JSON::
@@ -99,7 +105,7 @@ FAULT_PLAN_ENV = 'GLT_FAULT_PLAN'
 _SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
           'feature.cold_service', 'fused.dispatch', 'serving.request',
           'serving.replica', 'scale.spawn', 'aot.cache', 'partition.owner',
-          'handoff.transfer')
+          'handoff.transfer', 'ops.scrape')
 _ACTIONS = ('drop', 'delay', 'corrupt', 'kill', 'fail', 'truncate',
             'flap')
 
@@ -358,6 +364,19 @@ def scale_spawn_check(replica: str = '') -> None:
     if f.action == 'kill':
       raise ChaosKilledError(f'injected scale.spawn kill (replica '
                              f'{replica!r})')
+
+
+def ops_scrape_check(path: str = '') -> None:
+  """Ops-endpoint seam (`telemetry.opsserver`), once per HTTP request
+  with ``op=<route path>``: ``delay`` stalls the scrape handler thread
+  in place (a wedged scraper must never block the serving executor or a
+  fused dispatch), ``drop`` raises `InjectedFault` (the handler answers
+  503)."""
+  for f in on('ops.scrape', op=path or None):
+    if f.action == 'delay':
+      time.sleep(f.secs)
+    elif f.action == 'drop':
+      raise InjectedFault(f'injected ops scrape drop (path {path!r})')
 
 
 def partition_owner_check(step: int = 0) -> None:

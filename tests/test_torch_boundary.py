@@ -119,7 +119,13 @@ def test_every_knob_the_port_reads_is_documented():
           'GLT_LOCALITY_PASSES', 'GLT_LOCALITY_REPLICA_FRAC',
           'GLT_REBALANCE_OVERLOAD', 'GLT_EXCHANGE_LAYOUT',
           'GLT_EXCHANGE_POOL_FRAC', 'GLT_EXCHANGE_EWMA',
-          'GLT_EXCHANGE_EWMA_ALPHA', 'GLT_EXCHANGE_EWMA_HEADROOM'} <= knobs
+          'GLT_EXCHANGE_EWMA_ALPHA', 'GLT_EXCHANGE_EWMA_HEADROOM',
+          'GLT_TRACE_SAMPLE', 'GLT_TRACE_SLOW_MS', 'GLT_TRACE_BUFFER',
+          'GLT_TS_CADENCE_MS', 'GLT_TS_RETENTION_S', 'GLT_FLEET_SCRAPE_MS',
+          'GLT_OPS_PORT', 'GLT_OPS_HOST', 'GLT_TELEMETRY_JSONL',
+          'GLT_TELEMETRY_EVENTS', 'GLT_POSTMORTEM_DIR', 'GLT_BENCH_ARTIFACT',
+          'GLT_BENCH_RECORDS', 'GLT_BENCH_BASELINE',
+          'GLT_REGRESS_THRESHOLD'} <= knobs
   assert sorted(k for k in knobs if k not in doc) == []
 
 

@@ -372,8 +372,8 @@ def test_submit_evict_race_still_redrives(request):
   request.addfinalizer(lambda: router.close(close_replicas=True))
   orig = reps[0].submit
 
-  def racing_submit(seeds, deadline_ms=None):
-    fut = orig(seeds, deadline_ms)
+  def racing_submit(seeds, deadline_ms=None, trace=None):
+    fut = orig(seeds, deadline_ms, trace=trace)
     router._evict('r0')              # the monitor wins the race
     return fut
 
@@ -555,5 +555,9 @@ def test_remote_replica_and_scraper_not_ported(request):
     RemoteReplica('x', None, 0)
   router, _ = _fleet(1, auto=(0,))
   request.addfinalizer(lambda: router.close(close_replicas=True))
-  with pytest.raises(NotImplementedError, match='item 13'):
-    router.make_scraper()
+  # the scraper is ported since the telemetry slice: it federates the
+  # replica (and the process registry as 'self')
+  from graphlearn_tpu_torch.telemetry import FleetScraper
+  scraper = router.make_scraper()
+  assert isinstance(scraper, FleetScraper)
+  assert sorted(scraper.scrape()) == ['r0', 'self']
