@@ -28,6 +28,9 @@ Run from the repository root, with one CUDA card visible::
                                      # comparison the whole run leaves out)
     python3 chip_smoke.py --telemetry   # build, graph and the telemetry
                                         # group alone
+    python3 chip_smoke.py --host     # build, graph and the host runtime
+                                     # (mp producers, chaos and resume
+                                     # rows, the serve RPC)
 
 Phases, one JSON line each; any failure exits nonzero:
 
@@ -129,7 +132,7 @@ Phases, one JSON line each; any failure exits nonzero:
           ([15, 10, 5], batch 1,024, shuffled, seed 0) over the first
           n // 12 of a seeded permutation (200 steps) ->
           `make_supervised_step` with ``GraphSAGE(100, 256, 47, 3)``
-          and Adam(3e-3): 3 warm steps, 2 timed epochs, 5 synchronised
+          and Adam(3e-3): 3 warm steps, 1 timed epoch, 5 synchronised
           steps split into sample / collate / model, eval accuracy on
           20 test batches; then the sampling burst (30 batches of 1,024
           uniform seeds, one synchronise, sampled edges/s) and the
@@ -212,7 +215,7 @@ Phases, one JSON line each; any failure exits nonzero:
   tiered_train  BASELINE config 1's step over the same sort at split 0.2
           (489,806 hot rows, 1,959,223 cold rows pinned, a 293,884-row
           cache): `NeighborLoader` at ``prefetch=0`` and then 2 over the
-          same seeds, 3 warm + 12 timed steps each (with ``--profile``
+          same seeds, 3 warm + 6 timed steps each (with ``--profile``
           the device idle share of 3 more), the ``prefetch=0`` step
           split into sample / collate / model.  Checks: both runs' batches byte-equal (the warm ones
           whole, the timed ones by digest), x rows and labels equal their
@@ -299,9 +302,9 @@ Phases, one JSON line each; any failure exits nonzero:
           ``prefetch=0``): reference epochs 1 and 2 give per-batch
           digests; a loader consumes 8 batches, saves and is dropped; a
           fresh one restores and `resume_epoch` finishes the epoch.  The
-          resumed loader then times 4 epochs in ABBA order, with a
-          snapshot every ``GLT_SNAPSHOT_EVERY`` (8) batches / without /
-          without / with (the first held to the reference's epoch 2).
+          resumed loader then times 2 epochs, with a snapshot every
+          ``GLT_SNAPSHOT_EVERY`` (8) batches / without (the first held
+          to the reference's epoch 2; ABBA's 4 epochs cut to AB).
           Checks: every digest the reference's, x rows and labels their
           source, 24 K1-GNS and 16 K2 launches a resumed dispatch (the
           first one's calls in `kernel` lines against the plain versions).
@@ -343,8 +346,8 @@ Phases, one JSON line each; any failure exits nonzero:
           line): the per-batch DP loop (`DistNeighborLoader([10, 5],
           batch_size=512)` -> `make_dp_supervised_step`, ``GraphSAGE(100,
           64, 47, 2)``, Adam(3e-3), 512 x 8 x 4 seeds, 3 epochs), then
-          `FusedDistEpoch` (5 runs: warm, recording its ``hop.padding``
-          events, 3 timed, then `evaluate`) and `FusedDistTreeEpoch`
+          `FusedDistEpoch` (3 runs: warm, recording its ``hop.padding``
+          events, 1 timed, then `evaluate`) and `FusedDistTreeEpoch`
           with ``TreeSAGE(100, 64, 47, 2)`` (the same), all eager, the
           epochs drawing from their default `TorchDraws`: seeds/s each,
           ``fused_vs_per_batch``, exchange counters.  Checks: 16 K1 and
@@ -382,7 +385,7 @@ Phases, one JSON line each; any failure exits nonzero:
           products scale: `DistLinkNeighborLoader([5, 5], binary, 1,024
           seed edges a partition, shuffled)` -> `make_dp_unsupervised_step`
           with ``GraphSAGE(100, 64, 32, 2)``, Adam(1e-3): on the untiered
-          store 2 warm + 100 timed steps and the loader alone over 20
+          store 2 warm + 50 timed steps and the loader alone over 10
           batches; on the tiered store with ``gns=True, with_edge=True``
           2 + 20 steps.  Step ms, batches/s, losses, the exhausted-negative
           share, exchange counters.  Checks: 16 sampler launches a batch
@@ -685,6 +688,40 @@ card, `bench.py` phase 3c rebuilt in-process on the products graph):
           (compiled vs numpy) and both relabels; both greedies' host
           microseconds a node.
 
+Then the ``host`` group (the host runtime: sampling processes, shm
+channels and the socket RPC feeding the card):
+
+  host_mp_train  the products graph as a `distributed.HostDataset`
+          staged into POSIX shared memory; `DistNeighborLoader` with 4
+          ``forkserver`` sampling workers (batch 1,024, [15, 10, 5], a
+          shm channel of 8 slots of 384 MB) collating onto the card and
+          the ``train`` phase's ``GraphSAGE(100, 256, 47, 3)`` step; a
+          warm and a timed epoch of 32 batches over a fixed subset of the
+          train split.  Exactly 32 unique ``#SEQ`` an epoch, the loss
+          falling, 3 batches digest-equal to their ``(epoch, seq)``
+          sampled again here, every collate span linked to a worker's
+          ``producer.sample`` span; seeds/s, ms a batch for recv,
+          collate, copy and step, the card's idle share, message bytes,
+          the channel's occupancy, the shm bytes.
+  chaos_row  `bench_dist_loader.py --chaos`: a spawned server, a remote
+          loader, 3 fault-free epochs, then worker 0 killed and two
+          fetches dropped / delayed: exact accounting, a retry, the
+          server's ``producer.restart`` and ``fault.injected``.
+  resume_row  `bench_dist_loader.py --resume` on the mp path: snapshot
+          overhead, then kill -> restore -> finish (consumed + resumed =
+          the epoch, replayed >= consumed).
+  serve_rpc  a spawned server's `ServingFrontend` on the card behind
+          `DistServer.serve_infer`; a `FleetRouter` over a
+          `RemoteReplica` and a `LocalReplica`: answers =
+          `offline_reference`, the ``serving.rpc`` span across the
+          process edge, exactly-once under dropped connections, a swap
+          of numpy params over the wire, the server's K1 / K2 launches.
+  host_group  the regression gate over ``dist.chaos.*`` /
+          ``dist.resume.*``, the machine's shm limits, the wall time.
+
+``--host`` runs build, graph and the group alone and prints no
+``kernels`` or result line.
+
 Last, the ``telemetry`` group: `mesh_loader`'s configuration on the
 tiered P = 8 store, 4 batches with the recorder off and 4 writing JSON
 lines (digest-equal, the same launches, no plain call), `report`'s stage
@@ -783,7 +820,7 @@ WINDOW_ITERS = 30
 TRAIN_BATCH = 1024
 TRAIN_LR = 3e-3
 TRAIN_WARM = 3
-TRAIN_EPOCHS = 2
+TRAIN_EPOCHS = 1                    # timed epochs (depth cut, 2 -> 1)
 TRAIN_SPLIT_STEPS = 5
 TREE_EPOCHS = 3
 EVAL_BATCHES = 20
@@ -2712,7 +2749,7 @@ FUSED_MESH_BATCHES = 4
 #: epochs a fused mesh path runs: a warm one (its last step's kernel
 #: inputs recorded), one with the flight recorder on, then the timed ones
 #: (their median counts)
-FUSED_MESH_RUNS = 5
+FUSED_MESH_RUNS = 3                 # (depth cut, 5 -> 3: one timed epoch)
 #: epochs of the per-batch DP loop (its first batch warm and recorded)
 FUSED_MESH_LOOP_EPOCHS = 3
 
@@ -2722,9 +2759,9 @@ def fused_mesh(torch, ops, timer, ds):
   loop (`DistNeighborLoader` -> `make_dp_supervised_step` with
   ``GraphSAGE(100, 64, 47, 2)`` and Adam(3e-3), batch 512 a partition,
   fanouts [10, 5], 512 x 8 x 4 seeds, 3 epochs; the first batch
-  warm), then `FusedDistEpoch` (5 runs: a warm one, one with the flight
-  recorder on for its ``hop.padding`` events, 3 timed (their median
-  counts), then `evaluate`) and `FusedDistTreeEpoch` with
+  warm), then `FusedDistEpoch` (3 runs: a warm one, one with the flight
+  recorder on for its ``hop.padding`` events, 1 timed (its seconds
+  count), then `evaluate`) and `FusedDistTreeEpoch` with
   ``TreeSAGE(100, 64, 47, 2)`` (the same), all drawing from their
   default generator draws.  The loop's first batch and each fused
   epoch's last warm step are recorded, and every one of their 16 K1
@@ -3000,7 +3037,7 @@ def train_cross_check(torch):
 TIERED_SERVE_SPLIT = 0.5
 TIERED_TRAIN_SPLIT = 0.2
 TIERED_WARM = 3
-TIERED_TIMED = 12
+TIERED_TIMED = 6                    # (depth cut, 12 -> 6)
 TIERED_SPLIT_STEPS = 3
 TIERED_PROFILE_STEPS = 3
 ZIPF_A = 1.1
@@ -7235,9 +7272,9 @@ MESH_LINK_HIDDEN = 64
 MESH_LINK_OUT = 32
 MESH_LINK_LR = 1e-3
 MESH_LINK_WARM = 2
-MESH_LINK_STEPS = 100
+MESH_LINK_STEPS = 50                # (depth cut, 100 -> 50)
 MESH_LINK_GNS_STEPS = 20
-MESH_LINK_LOADER_BATCHES = 20
+MESH_LINK_LOADER_BATCHES = 10      # (depth cut, 20 -> 10)
 MESH_LINK_CHECK_BATCHES = 3
 #: `dist_unsup_sage.py`'s `synthetic()` and its loop
 UNSUP_NODES, UNSUP_CLUSTERS, UNSUP_DEG, UNSUP_DIM = 2000, 8, 6, 32
@@ -8872,7 +8909,7 @@ IGBH_HEADS = 2
 IGBH_LR = 1e-3
 IGBH_SPLIT = 0.5                    # the tiered store's hot share
 IGBH_WARM = 2
-IGBH_STEPS = 10                     # timed DP steps a model and store (depth cut)
+IGBH_STEPS = 5                      # timed DP steps a model and store (depth cut)
 IGBH_IDLE_STEPS = 3
 IGBH_EPOCHS = 3                     # the accuracy gate's epochs
 IGBH_ACC_SEEDS = 8                  # the accuracy gate's seeds, 0 to 7
@@ -9639,14 +9676,14 @@ def profile(torch, eng):
 RESUME_CHUNK = 25
 RESUME_KILL = 'fused.dispatch:kill:4'
 #: epochs a timed arm (no snapshot / a snapshot every chunk), min counts
-RESUME_TIMED = 3
+RESUME_TIMED = 2                    # (depth cut, 3 -> 2)
 #: `resume_mesh`: batches an epoch, batches consumed before the kill, and
 #: the resumed loader's epochs with a snapshot at the bench row's cadence
 #: (``GLT_SNAPSHOT_EVERY``, default 8 batches) after the resumed one; the
 #: no-snapshot arm is the reference's epochs 1 and 2
 RESUME_MESH_BATCHES = 16
 RESUME_MESH_KILL_AFTER = 8
-RESUME_MESH_PAIRS = 2
+RESUME_MESH_PAIRS = 1               # snap/none pairs (depth cut, 2 -> 1)
 #: timed calls of each resumed kernel call's check: the checks are for
 #: byte-equality; the same shapes are timed at 30 calls by earlier phases
 RESUME_CHECK_REPS = 5
@@ -9853,8 +9890,8 @@ def resume_mesh(torch, ops, timer, ds, feats, labels, train_idx) -> dict:
   saves and is dropped; a fresh loader loads the snapshot and
   `resume_epoch` hands out the rest.  The resumed loader (its victim
   cache warm from a whole epoch) then runs `RESUME_MESH_PAIRS` pairs of
-  epochs in ABBA order, snap / none / none / snap, so that drift across
-  epochs cancels: the snap arm saves every ``GLT_SNAPSHOT_EVERY``
+  epochs in ABBA order, snap / none / none / snap (one pair: snap /
+  none), so that drift across epochs cancels: the snap arm saves every ``GLT_SNAPSHOT_EVERY``
   (default 8) batches, the none arm not at all; the first epoch is held
   to the reference's epoch 2.  The ratio is over the pairs' sums, on one
   loader, so cache warmth and epoch order weigh on both arms alike.
@@ -9957,7 +9994,8 @@ def resume_mesh(torch, ops, timer, ds, feats, labels, train_idx) -> dict:
                            'uninterrupted one')
     snap = SnapshotManager(f'{root}/overhead', every=every)
     mgrs.append(snap)
-    order = ['snap', 'none', 'none', 'snap'] * (RESUME_MESH_PAIRS // 2)
+    order = (['snap', 'none', 'none', 'snap']
+             * RESUME_MESH_PAIRS)[:2 * RESUME_MESH_PAIRS]
     for e, arm in enumerate(order):
       d, secs = timed_epoch(resumed, snap if arm == 'snap' else None)
       arms[arm].append(secs)
@@ -12551,6 +12589,9 @@ def telemetry_group(torch, ops, indptr, indices, feats) -> dict:
       dist['serving'] = dict(TELEMETRY['serving'])
     if TELEMETRY.get('scale_envelope'):
       dist['scale_envelope'] = TELEMETRY['scale_envelope']
+    for row in ('chaos', 'resume'):         # the host group's rows
+      if TELEMETRY.get(row):
+        dist[row] = dict(TELEMETRY[row])
     art = {'metric': 'dist.seeds_per_sec', 'dist': dist}
     art_path = sink.write_artifact(art, os.path.join(tmp, 'artifact.json'))
     base = os.path.join(tmp, 'baseline.json')
@@ -12610,6 +12651,727 @@ def telemetry_group(torch, ops, indptr, indices, feats) -> dict:
     return out
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- the host runtime: mp producers, server-client RPC, the serve RPC ------
+HOST_WORKERS = 4                    # the main path's sampling workers
+HOST_BATCHES = 32                   # an epoch over a fixed train subset (depth cut)
+HOST_SLOT_BYTES = 384 << 20         # one channel slot (a message is ~0.25 GB)
+HOST_CAPACITY = 8                   # channel slots: two a worker
+HOST_DIGEST_SEQS = (0, 13, 31)      # batches recomputed in the parent
+CHAOS_NODES = 5000                  # bench_dist_loader.chaos_smoke's row
+CHAOS_DIM = 32
+CHAOS_BATCH = 64
+CHAOS_FANOUTS = (10, 5)
+CHAOS_EPOCHS = 3
+RESUME_NODES = 2048                 # bench_dist_loader.resume_smoke's row
+RESUME_BATCH = 64
+RESUME_FANOUTS = (5, 5)
+SERVE_RPC_REQUESTS = 48
+SERVE_RPC_DROPPED = 4               # serve RPCs sent under a drop fault
+SWAP_ATOL = 1e-4                    # hot_swap's parity tolerance (default)
+
+
+def bench_graph(n, avg_deg=AVG_DEG, seed=0):
+  """`benchmarks/common.py`'s ``build_graph`` recipe in numpy (uniform
+  sources; targets uniform or, 30%, squared-uniform hubs)."""
+  rng = np.random.default_rng(seed)
+  e = n * avg_deg
+  rows = rng.integers(0, n, e, dtype=np.int64)
+  hubs = rng.random(e) < 0.3
+  cols = np.where(hubs, (rng.random(e) ** 2 * n).astype(np.int64),
+                  rng.integers(0, n, e, dtype=np.int64))
+  return rows, cols.astype(np.int64)
+
+
+def host_mp_train(torch, ops, indptr, indices, feats, tmp) -> dict:
+  """The main path of the host runtime: the products graph as a
+  `HostDataset` staged into POSIX shared memory, `DistNeighborLoader`
+  with 4 ``forkserver`` sampling workers feeding a shm channel (batch
+  1,024, fanouts [15, 10, 5]), collated onto the card, and the
+  ``GraphSAGE(100, 256, 47, 3)`` step of the ``train`` phase.  One warm
+  epoch, then one timed epoch, each of `HOST_BATCHES` batches over a
+  fixed subset of the train split.  Gates: exactly the expected batches
+  and no duplicate ``#SEQ`` each epoch, the loss falls, the batches of
+  `HOST_DIGEST_SEQS` digest-equal to the same ``(epoch, seq)`` sampled
+  again in this process (batch seed ``(epoch * 1000003 + seq) *
+  131071``), every collate span linked to a worker's ``producer.sample``
+  span, no message past its slot."""
+  from graphlearn_tpu_torch.distributed import (DistNeighborLoader,
+                                                HostDataset,
+                                                HostNeighborSampler,
+                                                MpDistSamplingWorkerOptions)
+  from graphlearn_tpu_torch.models import GraphSAGE, make_supervised_step
+  from graphlearn_tpu_torch.telemetry import recorder
+  t0 = time.perf_counter()
+  labels = make_labels(torch, feats)
+  ds = HostDataset(indptr.cpu().numpy(), indices.cpu().numpy(),
+                   node_features=feats.cpu().numpy(),
+                   node_labels=labels.cpu().numpy())
+  del labels
+  host_secs = time.perf_counter() - t0
+  seeds = train_splits()[0][:HOST_BATCHES * TRAIN_BATCH]
+  opts = MpDistSamplingWorkerOptions(
+      num_workers=HOST_WORKERS, channel_capacity=HOST_CAPACITY,
+      channel_size=HOST_CAPACITY * HOST_SLOT_BYTES,
+      mp_start_method='forkserver')
+  flight = os.path.join(tmp, 'workers.jsonl')
+  t0 = time.perf_counter()
+  old = os.environ.get('GLT_TELEMETRY_JSONL')
+  os.environ['GLT_TELEMETRY_JSONL'] = flight   # the workers' recorder
+  try:
+    loader = DistNeighborLoader(ds, FANOUTS, seeds, batch_size=TRAIN_BATCH,
+                                shuffle=True, worker_options=opts,
+                                device=DEVICE, seed=0)
+  finally:
+    if old is None:
+      del os.environ['GLT_TELEMETRY_JSONL']
+    else:
+      os.environ['GLT_TELEMETRY_JSONL'] = old
+  init_secs = time.perf_counter() - t0
+  producer = loader._producer
+  shm_dataset = sum(s.size for s in producer._shm_segs)
+  try:
+    model = GraphSAGE(FEAT_DIM, 256, GNS_CLASSES, num_layers=3).to(DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, eps=1e-8)
+    step = make_supervised_step(model, opt, TRAIN_BATCH)
+    sizes, occupancy = [], []
+    collate_fn = loader._collate_fn
+
+    def measured_collate(msg):
+      sizes.append(sum(np.asarray(v).nbytes for v in msg.values()))
+      occupancy.append(loader.channel.occupancy())
+      return collate_fn(msg)
+    loader._collate_fn = measured_collate
+
+    def key(batch):
+      s = batch.batch.cpu().numpy()
+      return tuple(sorted(s[s >= 0].tolist()))
+
+    def epoch(keep=()):
+      phase0 = dict(loader.phase_secs)
+      losses, events, digests = [], [], {}
+      t0 = time.perf_counter()
+      for batch in loader:
+        k = key(batch) if keep else None
+        if k in keep:
+          digests[k] = digest(torch, [batch.node, batch.edge_index,
+                                      batch.x, batch.y])
+        if DEVICE == 'cuda':
+          start = torch.cuda.Event(enable_timing=True)
+          end = torch.cuda.Event(enable_timing=True)
+          start.record()
+          losses.append(step(batch)[0])
+          end.record()
+          events.append((start, end))
+        else:                         # a CPU rehearsal: host time
+          s = time.perf_counter()
+          losses.append(step(batch)[0])
+          events.append((s, time.perf_counter()))
+      sync(torch)
+      wall = time.perf_counter() - t0
+      if len(losses) != HOST_BATCHES or \
+          len(loader._seen_seqs) != HOST_BATCHES:
+        raise AssertionError(f'{len(losses)} batches, '
+                             f'{len(loader._seen_seqs)} unique #SEQ of '
+                             f'{HOST_BATCHES}')
+      step_ms = [s.elapsed_time(e) if DEVICE == 'cuda' else (e - s) * 1e3
+                 for s, e in events]
+      phase = {k: (loader.phase_secs[k] - phase0[k]) * 1e3 / HOST_BATCHES
+               for k in phase0}
+      return {'wall_secs': wall, 'losses': [float(v) for v in losses],
+              'step_ms': step_ms, 'phase_ms': phase, 'digests': digests}
+
+    recorder.enable()
+    warm = epoch()
+    rng = np.random.default_rng(0)          # the producer's shuffle
+    rng.permutation(seeds)
+    perm = rng.permutation(seeds)           # the timed epoch's
+    want = {tuple(sorted(perm[s * TRAIN_BATCH:(s + 1) * TRAIN_BATCH]
+                         .tolist())): s for s in HOST_DIGEST_SEQS}
+    recorder.clear()
+    timed = epoch(keep=want)
+    collates = [e for e in recorder.events('span.begin')
+                if e['name'] == 'collate']
+    recorder.disable()
+    recorder.clear()
+    with open(flight) as f:
+      produced = {json.loads(ln)['span_id'] for ln in f
+                  if '"producer.sample"' in ln and '"span.begin"' in ln}
+    linked = sum(1 for e in collates if e.get('producer_span') in produced
+                 and e.get('producer_trace'))
+    if len(collates) != HOST_BATCHES or linked != HOST_BATCHES:
+      raise AssertionError(f'{linked} of {len(collates)} collate spans '
+                           'link a producer span')
+    # the digest gate: the timed epoch's batches sampled again here
+    sampler = HostNeighborSampler(ds, FANOUTS)
+    t0 = time.perf_counter()
+    for k, s in want.items():
+      msg = sampler.sample_from_nodes(
+          perm[s * TRAIN_BATCH:(s + 1) * TRAIN_BATCH],
+          batch_seed=(1 * 1000003 + s) * 131071)
+      b = loader._to_device(collate_fn(msg))
+      ref = digest(torch, [b.node, b.edge_index, b.x, b.y])
+      if k not in timed['digests'] or not torch.equal(timed['digests'][k],
+                                                      ref):
+        raise AssertionError(f'batch seq {s} differs from its recompute')
+    recompute_secs = time.perf_counter() - t0
+    first = np.mean(warm['losses'][:8])
+    last = np.mean(timed['losses'][-8:])
+    if not last < first:
+      raise AssertionError(f'loss did not fall: {first} -> {last}')
+    if max(sizes) > loader.channel.slot_bytes:
+      raise AssertionError('a message outgrew its slot')
+    wall = timed['wall_secs']
+    busy_ms = sum(timed['step_ms']) + timed['phase_ms']['copy'] * \
+        HOST_BATCHES
+    out = {
+        'workers': HOST_WORKERS, 'start_method': 'forkserver',
+        'batch': TRAIN_BATCH, 'fanouts': list(FANOUTS),
+        'batches_an_epoch': HOST_BATCHES,
+        'model': 'GraphSAGE(100, 256, 47, 3)',
+        'host_copy_secs': host_secs, 'loader_init_secs': init_secs,
+        'warm_epoch_secs': warm['wall_secs'],
+        'timed_epoch_secs': wall,
+        'seeds_per_sec': HOST_BATCHES * TRAIN_BATCH / wall,
+        'ms_per_batch': {'recv': timed['phase_ms']['recv'],
+                         'collate': timed['phase_ms']['collate'],
+                         'copy': timed['phase_ms']['copy'],
+                         'step': float(np.mean(timed['step_ms'])),
+                         'wall': wall * 1e3 / HOST_BATCHES},
+        'warm_ms_per_batch': {k: v for k, v in warm['phase_ms'].items()},
+        'device_idle_share': 1.0 - busy_ms / (wall * 1e3),
+        'message_bytes': {'mean': float(np.mean(sizes)),
+                          'max': int(max(sizes)), 'min': int(min(sizes))},
+        'slot_bytes': int(loader.channel.slot_bytes),
+        'channel_capacity': int(loader.channel.capacity),
+        'channel_occupancy': {'mean': float(np.mean(occupancy)),
+                              'max': int(max(occupancy))},
+        'shm_bytes': {'dataset': int(shm_dataset),
+                      'channel': int(loader.channel.capacity
+                                     * loader.channel.slot_bytes)},
+        'loss_first8': float(first), 'loss_last8': float(last),
+        'unique_seqs': HOST_BATCHES, 'digest_equal_seqs':
+            list(HOST_DIGEST_SEQS), 'recompute_secs': recompute_secs,
+        'collate_spans_linked': linked}
+  finally:
+    loader.shutdown()
+  emit('host_mp_train', **out)
+  return out
+
+
+def chaos_server(port_q, n, dim, jsonl, worker_plan):
+  """The chaos row's sampling server (a spawned process): the producer
+  workers inherit ``worker_plan`` and the telemetry sink."""
+  os.environ['GLT_FAULT_PLAN'] = worker_plan
+  os.environ['GLT_TELEMETRY_JSONL'] = jsonl
+  from graphlearn_tpu_torch.distributed import (HostDataset, init_server,
+                                                wait_and_shutdown_server)
+  from graphlearn_tpu_torch.telemetry import recorder
+  recorder.enable(jsonl)
+  rows, cols = bench_graph(n)
+  feats = np.random.default_rng(0).standard_normal((n, dim)).astype(
+      np.float32)
+  ds = HostDataset.from_coo(rows, cols, n, node_features=feats)
+  srv = init_server(num_servers=1, num_clients=1, rank=0, dataset=ds,
+                    host='127.0.0.1', port=0)
+  port_q.put(srv.port)
+  wait_and_shutdown_server(timeout=600)
+
+
+def spawn_server(target, *args) -> dict:
+  """Start ``target(port_q, *args)`` in a spawned process (it puts its
+  address on ``port_q`` once it serves)."""
+  import multiprocessing as mp
+  ctx = mp.get_context('spawn')
+  port_q = ctx.Queue()
+  proc = ctx.Process(target=target, args=(port_q, *args), daemon=False)
+  proc.start()
+  return {'proc': proc, 'port_q': port_q, 't0': time.perf_counter()}
+
+
+def stop_server(srv, timeout=120) -> None:
+  srv['proc'].join(timeout=timeout)
+  if srv['proc'].is_alive():
+    srv['proc'].terminate()
+    srv['proc'].join(timeout=10)
+
+
+def start_chaos_server(tmp) -> dict:
+  jsonl = os.path.join(tmp, 'chaos_server.jsonl')
+  worker_plan = (f'producer.worker:kill:2:worker=0:epoch={CHAOS_EPOCHS}:'
+                 'generation=0')
+  srv = spawn_server(chaos_server, CHAOS_NODES, CHAOS_DIM, jsonl,
+                     worker_plan)
+  srv['jsonl'] = jsonl
+  return srv
+
+
+def chaos_row(torch, srv) -> dict:
+  """`bench_dist_loader.py --chaos` rebuilt: a spawned server (5,000
+  nodes, dim 32), a remote loader (batch 64, [10, 5], 2 workers,
+  prefetch 2) collating onto the card; epoch 0 warms, epochs 1-2 are
+  timed with the retry layer on and no fault; then one chaos epoch:
+  worker 0 killed server-side before its 2nd batch, the 2nd fetch's
+  connection dropped after the send, the 4th delayed 0.5 s.  The row's
+  ``ok``: received = expected = unique seqs, at least one retry,
+  ``producer.restart`` and ``fault.injected`` in the server's log.
+  ``srv`` is the server `start_chaos_server` started."""
+  from graphlearn_tpu_torch.distributed import (
+      DistNeighborLoader, RemoteDistSamplingWorkerOptions, init_client,
+      shutdown_client)
+  from graphlearn_tpu_torch.distributed.dist_loader import DistLoader
+  from graphlearn_tpu_torch.telemetry import recorder
+  from graphlearn_tpu_torch.testing import chaos
+  n_seeds = CHAOS_BATCH * 32
+  n_batches = n_seeds // CHAOS_BATCH
+  jsonl, proc = srv['jsonl'], srv['proc']
+  poll = DistLoader.RECV_POLL_SECS
+  try:
+    port = srv['port_q'].get(timeout=300)
+    start_secs = time.perf_counter() - srv['t0']
+    init_client([('127.0.0.1', port)], rank=0, num_clients=1)
+    recorder.enable()
+    DistLoader.RECV_POLL_SECS = 2.0
+    loader = DistNeighborLoader(
+        None, list(CHAOS_FANOUTS), np.arange(n_seeds) % CHAOS_NODES,
+        batch_size=CHAOS_BATCH, shuffle=True,
+        worker_options=RemoteDistSamplingWorkerOptions(
+            server_rank=0, num_workers=2, prefetch_size=2),
+        device=DEVICE, seed=0)
+    for _ in loader:                 # epoch 0 warms the pipeline
+      pass
+    t0 = time.perf_counter()
+    timed = 0
+    for _ in range(CHAOS_EPOCHS - 1):
+      for _ in loader:
+        timed += 1
+    dt = time.perf_counter() - t0
+    base_retries = len(recorder.events('rpc.retry'))
+    chaos.install('rpc.request:drop:2:op=fetch_one_sampled_message;'
+                  'rpc.request:delay:4:op=fetch_one_sampled_message:'
+                  'secs=0.5')
+    got = sum(1 for _ in loader)
+    seen = set(loader.channel._seen_seqs)
+    dup = loader.channel.duplicates_discarded
+    retries = len(recorder.events('rpc.retry')) - base_retries
+    fired = chaos.active().exhausted()
+    chaos.uninstall()
+    loader.shutdown()
+    shutdown_client()
+  finally:
+    chaos.uninstall()
+    recorder.disable()
+    recorder.clear()
+    DistLoader.RECV_POLL_SECS = poll
+    stop_server(srv)
+  with open(jsonl) as f:
+    events = f.read()
+  row = {'metric': 'dist_chaos_smoke', 'batch': CHAOS_BATCH,
+         'num_nodes': CHAOS_NODES, 'epochs_fault_free': CHAOS_EPOCHS,
+         'server_ready_secs': start_secs,
+         'fault_free_seeds_per_sec': timed * CHAOS_BATCH / dt,
+         'chaos_epoch': {
+             'expected_batches': n_batches, 'received_batches': got,
+             'unique_seqs': len(seen), 'duplicates_discarded': int(dup),
+             'rpc_retries': retries, 'client_faults_fired': fired,
+             'producer_restart_logged':
+                 '"kind": "producer.restart"' in events,
+             'fault_injected_logged': '"kind": "fault.injected"' in events},
+         'server_exitcode': proc.exitcode}
+  row['ok'] = bool(got == n_batches and len(seen) == n_batches
+                   and retries >= 1 and fired
+                   and row['chaos_epoch']['producer_restart_logged']
+                   and row['chaos_epoch']['fault_injected_logged'])
+  emit('chaos_row', **row)
+  if not row['ok'] or proc.exitcode != 0:
+    raise AssertionError(f'chaos row failed: {row}')
+  return row
+
+
+def resume_ring(n):
+  """`bench_dist_loader.resume_smoke`'s ring: v -> v+1, v+2; feature row
+  = the id (16 wide); label = id % 4."""
+  from graphlearn_tpu_torch.distributed import HostDataset
+  rows = np.repeat(np.arange(n), 2)
+  cols = np.stack([(np.arange(n) + 1) % n,
+                   (np.arange(n) + 2) % n], 1).reshape(-1)
+  feats = np.tile(np.arange(n, dtype=np.float32)[:, None], (1, 16))
+  return HostDataset.from_coo(rows, cols, n, node_features=feats,
+                              node_labels=np.arange(n) % 4)
+
+
+def resume_row(torch, tmp) -> dict:
+  """`bench_dist_loader.py --resume` rebuilt on the mp producer path
+  (2,048 nodes, batch 64, [5, 5], 2 spawn workers, collated onto the
+  card): three rounds of a no-snapshot epoch against an epoch saving a
+  snapshot every `snapshot_every_from_env(8)` batches (the minimum of
+  each), then the kill -> restore -> finish loop in a fresh loader.
+  The row's ``ok``: consumed + resumed = the epoch's batches and
+  replayed >= consumed."""
+  from graphlearn_tpu_torch.distributed import (DistNeighborLoader,
+                                                MpDistSamplingWorkerOptions)
+  from graphlearn_tpu_torch.utils.checkpoint import (
+      SnapshotManager, snapshot_every_from_env)
+  n = RESUME_NODES
+  ds = resume_ring(n)
+
+  def make_loader():
+    return DistNeighborLoader(
+        ds, list(RESUME_FANOUTS), np.arange(n), batch_size=RESUME_BATCH,
+        shuffle=True, worker_options=MpDistSamplingWorkerOptions(
+            num_workers=2, mp_start_method='spawn'),
+        device=DEVICE, seed=7)
+
+  n_batches = (n + RESUME_BATCH - 1) // RESUME_BATCH
+  root = os.path.join(tmp, 'resume')
+  loader = make_loader()
+  try:
+    for _ in loader:                  # warm the producer pool
+      pass
+    every = snapshot_every_from_env(default=8)
+    snap = SnapshotManager(root + '/overhead', every=every)
+    nosnap_secs = snap_secs = float('inf')
+    for _ in range(3):
+      t0 = time.perf_counter()
+      for _ in loader:
+        pass
+      nosnap_secs = min(nosnap_secs, time.perf_counter() - t0)
+      t0 = time.perf_counter()
+      seen = 0
+      for _ in loader:
+        seen += 1
+        if snap.due():
+          snap.save(loader.state_dict(), {'epoch': 2, 'next_chunk': seen})
+      snap_secs = min(snap_secs, time.perf_counter() - t0)
+    consumed = n_batches // 2
+    it = iter(loader)
+    for _ in range(consumed):
+      next(it)
+    SnapshotManager(root + '/resume', every=1).save(
+        loader.state_dict(), {'epoch': 3, 'next_chunk': consumed})
+  finally:
+    loader.shutdown()                 # the preemption
+  resumed = make_loader()
+  try:
+    t0 = time.perf_counter()
+    payload = SnapshotManager(root + '/resume').restore_latest()
+    resumed.load_state_dict(payload['plane'])
+    restore_secs = time.perf_counter() - t0
+    rest = sum(1 for _ in resumed.resume_epoch())
+    replayed = int(getattr(resumed, 'replayed_discarded', 0))
+  finally:
+    resumed.shutdown()
+  rate_nosnap = n / nosnap_secs
+  rate_snap = n / snap_secs
+  row = {'metric': 'dist_resume_smoke', 'batch': RESUME_BATCH,
+         'num_nodes': n, 'snapshot_every': every,
+         'restore_secs': restore_secs, 'replayed_batches': replayed,
+         'resumed_batches': rest, 'consumed_before_kill': consumed,
+         'seeds_per_sec_nosnap': rate_nosnap,
+         'seeds_per_sec_snap': rate_snap,
+         'snapshot_overhead_pct': 100.0 * (snap_secs - nosnap_secs)
+         / nosnap_secs,
+         'snap_over_nosnap_ratio': rate_snap / rate_nosnap,
+         'ok': bool(consumed + rest == n_batches and replayed >= consumed)}
+  emit('resume_row', **row)
+  if not row['ok']:
+    raise AssertionError(f'resume row failed: {row}')
+  return row
+
+
+class _ServeStubDataset:
+  """The serving server builds no producer: a shape-only dataset."""
+  num_nodes = NUM_NODES
+  num_edges = NUM_NODES * AVG_DEG
+  node_features = None
+  node_labels = None
+
+
+def serve_engine(torch, indptr, indices, feats):
+  """The `serve` phase's engine over the products graph on the card:
+  ``TreeSAGE(100, 256, 47, 3)`` with params from ``Generator()
+  .manual_seed(0)``, buckets `BUCKETS`, seed 0, warmed."""
+  from graphlearn_tpu_torch.data import Dataset
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.serving import ServingEngine
+  ds = (Dataset().init_graph((indptr, indices), layout='CSR',
+                             num_nodes=NUM_NODES, device=DEVICE)
+        .init_node_features(feats, device=DEVICE))
+  eng = ServingEngine(ds, FANOUTS, model=TreeSAGE(FEAT_DIM, 256, 47, 3),
+                      seed=0, buckets=BUCKETS, device=DEVICE)
+  eng.init_params(torch.Generator().manual_seed(0))
+  eng.warmup()
+  return eng
+
+
+def serve_rpc_server(port_q, out_q, device, num_nodes):
+  """The serve RPC's server (a spawned process): the products graph and
+  its features made on this process's card from the main run's seeds, a
+  `ServingFrontend` attached to a `DistServer`, an ops endpoint for the
+  trace; on exit it returns its kernel launch counts since the warmup.
+  ``device`` and ``num_nodes`` are the parent's settings."""
+  global DEVICE, NUM_NODES
+  DEVICE, NUM_NODES = device, num_nodes
+  import torch
+  from graphlearn_tpu_torch import _build, ops
+  from graphlearn_tpu_torch.distributed import (init_server,
+                                                wait_and_shutdown_server)
+  from graphlearn_tpu_torch.serving import ServingFrontend
+  from graphlearn_tpu_torch.telemetry import OpsServer
+  if DEVICE == 'cuda':
+    _build.build_all()
+  indptr, indices = products_graph(torch, DEVICE)
+  feats = torch.randn(NUM_NODES, FEAT_DIM, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(1))
+  eng = serve_engine(torch, indptr, indices, feats)
+  fe = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+  srv = init_server(num_servers=1, num_clients=1, rank=0,
+                    dataset=_ServeStubDataset(), host='127.0.0.1', port=0)
+  srv.dataset.num_nodes = NUM_NODES
+  srv.attach_serving(fe)
+  ops_srv = OpsServer(port=0, host='127.0.0.1')
+  reset_counts(ops)
+  port_q.put((srv.port, ops_srv.url, os.getpid()))
+  wait_and_shutdown_server(timeout=600)
+  launches, plain = read_counts(ops)
+  stats = fe.stats()
+  ops_srv.close()
+  out_q.put({'launches': launches, 'plain': plain,
+             'dispatches': stats['dispatches'],
+             'served_requests': stats['served_requests']})
+
+
+def start_serve_server() -> dict:
+  import multiprocessing as mp
+  out_q = mp.get_context('spawn').Queue()
+  srv = spawn_server(serve_rpc_server, out_q, DEVICE, NUM_NODES)
+  srv['out_q'] = out_q
+  return srv
+
+
+def serve_rpc(torch, ops, indptr, indices, feats, srv) -> dict:
+  """`tests/test_serving_rpc.py`'s contract at products scale: a spawned
+  server runs a `ServingFrontend` on the card; this process routes
+  `SERVE_RPC_REQUESTS` requests (1-16 seeds) through a `FleetRouter`
+  over one `RemoteReplica` and one `LocalReplica` (an identical engine
+  here).  Gates: every answer equals this process's `offline_reference`
+  (nodes byte-equal, logits within 1e-5); a traced request's
+  ``serving.rpc`` span, fetched from the server's ops endpoint, sits
+  under the router's root in another process; serve RPCs sent under
+  ``rpc.request`` drops are admitted once each; a `swap_model` of
+  numpy params over the wire passes its parity probe (``atol`` 1e-4,
+  `hot_swap`'s default: the card's logits differ across bucket shapes,
+  so 0 fails) and the answers follow; the server's K1 and K2 launch
+  counts are non-zero with 0 plain calls.  ``srv`` is the server
+  `start_serve_server` started."""
+  from graphlearn_tpu_torch.distributed import init_client, shutdown_client
+  from graphlearn_tpu_torch.models import TreeSAGE
+  from graphlearn_tpu_torch.serving import (FleetRouter, LocalReplica,
+                                            RemoteReplica, ServingFrontend)
+  from graphlearn_tpu_torch.telemetry import recorder, tracer
+  from graphlearn_tpu_torch.telemetry.federation import FleetScraper
+  from graphlearn_tpu_torch.testing import chaos
+  proc = srv['proc']
+  eng = serve_engine(torch, indptr, indices, feats)
+  local = ServingFrontend(eng, max_wait_ms=2.0, default_deadline_ms=10_000.0)
+  routers = []
+  try:
+    port, ops_url, server_pid = srv['port_q'].get(timeout=300)
+    start_secs = time.perf_counter() - srv['t0']
+    client = init_client([('127.0.0.1', port)], rank=0, num_clients=1)
+    remote = RemoteReplica('remote', client, 0, ops_url=ops_url)
+    router = FleetRouter([remote, LocalReplica('local', local)],
+                         auto_start=False)
+    routers.append(router)
+    rng = np.random.default_rng(5)
+    reqs = [rng.integers(0, NUM_NODES, int(rng.integers(1, 17)))
+            for _ in range(SERVE_RPC_REQUESTS)]
+
+    def check(answers, seeds_list, what):
+      worst = 0.0
+      for i, (res, seeds) in enumerate(zip(answers, seeds_list)):
+        ref = eng.offline_reference(seeds)
+        nodes = np.asarray(res['nodes'] if isinstance(res, dict)
+                           else res.nodes)
+        logits = np.asarray(res['logits'] if isinstance(res, dict)
+                            else res.logits)
+        if nodes.tobytes() != ref.nodes.tobytes():
+          raise AssertionError(f'{what} {i}: nodes differ from offline')
+        np.testing.assert_allclose(logits, ref.logits, rtol=1e-5,
+                                   atol=1e-5)
+        worst = max(worst, float(np.abs(logits - ref.logits).max()))
+      return worst
+
+    t0 = time.perf_counter()
+    futs = [router.submit(r) for r in reqs]
+    answers = [f.result(60.0) for f in futs]
+    routed_secs = time.perf_counter() - t0
+    worst = check(answers, reqs, 'routed request')
+    hb = client.heartbeat(0)
+    remote_served = hb['serving']['served_requests']
+    if remote_served == 0:
+      raise AssertionError('the remote replica served no request')
+    # a traced request through the remote replica alone
+    tracer.configure(sample=1, slow_ms=0.0, buffer=64)
+    tracer.clear()
+    traced = FleetRouter([remote], auto_start=False)
+    routers.append(traced)
+    check([traced.infer(reqs[0], timeout=60)], [reqs[0]], 'traced request')
+    tid = tracer.traces()[0]['trace_id']
+    fs = FleetScraper()
+    fs.add_url('remote', ops_url)
+    spans = {s['name']: s for s in fs.fetch_trace(tid)}
+    tracer.configure(sample=0)
+    root, rpc_span = spans.get('serving.route'), spans.get('serving.rpc')
+    wait = spans.get('serving.queue_wait')
+    if (root is None or rpc_span is None or wait is None
+        or root['span_id'] != tid or rpc_span['parent_id'] != tid
+        or rpc_span['pid'] != server_pid or root['pid'] == server_pid
+        or wait['parent_id'] != rpc_span['span_id']):
+      raise AssertionError(f'the serving.rpc span: {spans}')
+    # exactly once under dropped connections
+    admitted0 = client.heartbeat(0)['serving']['admitted']
+    recorder.enable()
+    chaos.install(';'.join(f'rpc.request:drop:{i}:op=serve_infer'
+                           for i in range(1, 2 * SERVE_RPC_DROPPED, 2)))
+    dropped = [client.serve(r) for r in reqs[:SERVE_RPC_DROPPED]]
+    fired = chaos.active().exhausted()
+    chaos.uninstall()
+    retries = len(recorder.events('rpc.retry'))
+    recorder.disable()
+    recorder.clear()
+    admitted = client.heartbeat(0)['serving']['admitted'] - admitted0
+    check(dropped, reqs[:SERVE_RPC_DROPPED], 'dropped request')
+    if not fired or retries < SERVE_RPC_DROPPED or \
+        admitted != SERVE_RPC_DROPPED:
+      raise AssertionError(f'exactly-once: fired {fired}, {retries} '
+                           f'retries, {admitted} admitted')
+    # a hot swap over the wire: numpy params, loaded on the server's card
+    m = TreeSAGE(FEAT_DIM, 256, 47, 3)
+    m.reset_parameters(torch.Generator().manual_seed(1))
+    cand = {k: v.numpy() for k, v in m.state_dict().items()}
+    swap = client.swap_model(cand, version=2)
+    if swap['version'] != 2 or not swap['parity_max_err'] <= SWAP_ATOL:
+      raise AssertionError(f'swap over the wire: {swap}')
+    eng.set_params(cand, version=2)
+    after = [client.serve(r) for r in reqs[-8:]]
+    check(after, reqs[-8:], 'swapped request')
+  finally:
+    chaos.uninstall()
+    tracer.configure(sample=0)
+    for r in routers:
+      r.close()
+    local.shutdown()
+    shutdown_client()
+  server = srv['out_q'].get(timeout=120)
+  stop_server(srv)
+  lk = server['launches']
+  if lk['sample_one_hop'] == 0 or lk['gather_rows'] == 0 or server['plain']:
+    raise AssertionError(f'the server\'s kernels: {server}')
+  disp = max(int(server['dispatches'] or 0), 1)
+  out = {'requests': SERVE_RPC_REQUESTS, 'server_ready_secs': start_secs,
+         'routed_secs': routed_secs,
+         'remote_served_requests': int(remote_served),
+         'offline_logits_max_abs_diff': worst,
+         'trace': {'spans': len(spans), 'rpc_pid': rpc_span['pid'],
+                   'route_pid': root['pid']},
+         'dropped_requests': SERVE_RPC_DROPPED, 'rpc_retries': retries,
+         'admitted_under_drops': int(admitted),
+         'swap': {'version': swap['version'],
+                  'parity_max_err': swap['parity_max_err'],
+                  'parity_atol': SWAP_ATOL},
+         'server_launches': lk, 'server_plain_calls': server['plain'],
+         'server_dispatches': server['dispatches'],
+         'server_launches_per_dispatch': {
+             'sample_one_hop': lk['sample_one_hop'] / disp,
+             'gather_rows': lk['gather_rows'] / disp},
+         'server_exitcode': proc.exitcode}
+  emit('serve_rpc', **out)
+  return out
+
+
+def host_regress(dist: dict, tmp) -> dict:
+  """The regression gate over the host rows' four keys (the JAX
+  package's ``dist.chaos.*`` / ``dist.resume.*``): a first check
+  creates the baseline (rc 0), a second passes with every key guarded
+  (rc 0), a copy with ``dist.chaos.fault_free_seeds_per_sec`` 30% lower
+  fails naming it (rc 1)."""
+  from graphlearn_tpu_torch.telemetry import regress, sink
+  art = {'metric': 'dist.chaos.fault_free_seeds_per_sec', 'dist': dist}
+  path = sink.write_artifact(art, os.path.join(tmp, 'host_artifact.json'))
+  base = os.path.join(tmp, 'host_baseline.json')
+  worse = json.loads(json.dumps(art))
+  worse['dist']['chaos']['fault_free_seeds_per_sec'] /= 1.3
+  checks = []
+  for a in (path, path, worse):
+    verdict, rc = regress.check(a, base)
+    checks.append({'rc': rc, 'summary': regress.summary(verdict),
+                   'regressed': verdict['regressed'],
+                   'report': regress.format_report(verdict)})
+  keys = HOST_REGRESS_KEYS
+  guarded = [k for k in keys if any(
+      ln.startswith('  [ ok ]') and k in ln
+      for ln in checks[1]['report'].splitlines())]
+  if ([c['rc'] for c in checks] != [0, 0, 1] or guarded != list(keys)
+      or checks[2]['regressed'] != [keys[0]]
+      or checks[0]['summary'] != 'BASELINE_CREATED'):
+    raise AssertionError(f'host regression gate {checks}')
+  return {'regress_rc': [c['rc'] for c in checks],
+          'regress_summary': [c['summary'] for c in checks],
+          'guarded_keys': guarded}
+
+
+HOST_REGRESS_KEYS = ('dist.chaos.fault_free_seeds_per_sec',
+                     'dist.resume.restore_secs',
+                     'dist.resume.replayed_batches',
+                     'dist.resume.snap_over_nosnap_ratio')
+
+
+def host_group(torch, ops, indptr, indices, feats) -> dict:
+  """The host runtime on the card (`--host`, and in the whole run before
+  `telemetry`): `host_mp_train`, `chaos_row`, `resume_row`, `serve_rpc`
+  and the regression gate over the rows' keys; one ``host_group`` line
+  with the shm limits this machine gives and the group's wall time."""
+  import shutil
+  import tempfile
+  t0 = time.perf_counter()
+  st = os.statvfs('/dev/shm')
+  limits = {'dev_shm_bytes': st.f_bsize * st.f_blocks}
+  for k in ('shmmax', 'shmall', 'shmmni'):
+    try:
+      with open(f'/proc/sys/kernel/{k}') as f:
+        limits[k] = int(f.read().split()[0])
+    except (OSError, ValueError):
+      limits[k] = None
+  tmp = tempfile.mkdtemp(prefix='glt_host_')
+  # both servers start now: their imports, graph and warmup overlap the
+  # main path's staging and warm epoch, not its timed epoch
+  servers = [start_serve_server(), start_chaos_server(tmp)]
+  try:
+    out = {'mp_train': host_mp_train(torch, ops, indptr, indices, feats,
+                                     tmp)}
+    out['chaos'] = chaos_row(torch, servers[1])
+    out['resume'] = resume_row(torch, tmp)
+    out['serve_rpc'] = serve_rpc(torch, ops, indptr, indices, feats,
+                                 servers[0])
+    TELEMETRY['chaos'] = {'fault_free_seeds_per_sec':
+                          out['chaos']['fault_free_seeds_per_sec']}
+    TELEMETRY['resume'] = {k: out['resume'][k] for k in (
+        'restore_secs', 'replayed_batches', 'snap_over_nosnap_ratio')}
+    gate = host_regress({'chaos': dict(TELEMETRY['chaos']),
+                         'resume': dict(TELEMETRY['resume'])}, tmp)
+  finally:
+    for srv in servers:             # a phase that failed left it serving
+      if srv['proc'].is_alive():
+        srv['proc'].terminate()
+        srv['proc'].join(timeout=10)
+    shutil.rmtree(tmp, ignore_errors=True)
+  emit('host_group', shm_limits=limits, regress=gate,
+       wall_secs=time.perf_counter() - t0)
+  out['regress'] = gate
+  return out
 
 
 def main(argv) -> int:
@@ -12754,6 +13516,10 @@ def run(torch, argv) -> list:
   if '--telemetry' in argv:
     del ds
     telemetry_group(torch, ops, indptr, indices, feats)
+    return None
+  if '--host' in argv:
+    del ds
+    host_group(torch, ops, indptr, indices, feats)
     return None
   if '--k6' in argv:
     labels = make_labels(torch, feats)
@@ -12921,6 +13687,10 @@ def run(torch, argv) -> list:
   torch.cuda.empty_cache()
   lok = locality_kernels(locality_group(torch, ops, indptr, indices, feats,
                                         full=False))
+
+  # -- the host runtime: mp producers, chaos and resume rows, serve RPC --
+  torch.cuda.empty_cache()
+  hg = host_group(torch, ops, indptr, indices, feats)
 
   # -- telemetry: the recorder, report, post-mortem and regression gate -
   torch.cuda.empty_cache()
@@ -13390,6 +14160,10 @@ def run(torch, argv) -> list:
           'shape', 'ms', 'plain_ms', 'bound_ms', 'library_ms')}
       if 'locality_shapes' in f:
         entry['locality_shapes'] = f['locality_shapes']
+  sr = hg['serve_rpc']              # launched by the serve RPC's server
+  for name in ('sample_one_hop', 'gather_rows'):
+    by_name[name]['launches_by_path']['serve_rpc'] = \
+        sr['server_launches'][name]
   return kernels
 
 

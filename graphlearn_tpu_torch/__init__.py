@@ -31,9 +31,15 @@ window gather kernel `ops.csr_window_gather` — and heterogeneous graphs
 on one card: `data.Dataset` over edge-type dicts,
 `sampler.HeteroNeighborSampler`, `loader.NeighborLoader` yielding
 `loader.HeteroBatch`es, `models.RGCN` / `models.HGT` and
-`loader.FusedHeteroEpoch`.
+`loader.FusedHeteroEpoch` — and the host runtime's single-server
+planes: the native host library (`native`, built with ``c++``), the
+shm / mp / remote `channel`s, and `distributed` (the sampling producers,
+`DistNeighborLoader` and its link and subgraph twins collating onto the
+card, the socket RPC with its retry and replay cache, `DistServer` /
+`DistClient` with the serve RPC behind `serving.RemoteReplica`).
 """
-from . import (data, loader, models, ops, parallel, sampler, serving,
-               streaming, telemetry, testing, utils)
+from . import (channel, data, distributed, loader, models, native, ops,
+               parallel, sampler, serving, streaming, telemetry, testing,
+               utils)
 
 __version__ = '0.1.0'

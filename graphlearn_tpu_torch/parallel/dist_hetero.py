@@ -108,7 +108,7 @@ class DistHeteroDataset:
                edge_features=None):
     if host_parts is not None:
       raise _not_ported('host_parts (a process holding some partitions)',
-                        'slice catalogue item 11')
+                        'slice catalogue item 14')
     self.graphs = dict(graphs)
     self.bounds = {nt: np.asarray(b, np.int64) for nt, b in bounds.items()}
     self.node_features: Dict[NodeType, DistFeature] = dict(
@@ -243,7 +243,7 @@ class DistHeteroDataset:
   @classmethod
   def from_partition_dir(cls, *args, **kwargs):
     raise _not_ported('from_partition_dir (the host runtime\'s partition '
-                      'layouts)', 'slice catalogue item 11')
+                      'layouts)', 'slice catalogue item 14')
 
 
 class DistHeteroNeighborSampler(ExchangeTelemetry):

@@ -49,7 +49,7 @@ its saved stats without running a step, and the next `run` continues
 with the next epoch.  Not ported: tiered stores and captured mesh steps
 (the ROADMAP's slice catalogue, item 5), and the rollback of a stalled
 mesh epoch to its last snapshot with the stall watchdog (JAX's
-`distributed/resilience.py`, item 11).
+`distributed/resilience.py`, item 14).
 """
 from __future__ import annotations
 

@@ -287,4 +287,5 @@ class NeighborSampler(BaseSampler):
   def sample_prob(self, seed_ids, num_nodes=None):
     raise NotImplementedError('sample_prob (the frequency partitioner\'s '
                               'visit probability) is not ported yet: it '
-                              'is slice 11 of the ROADMAP')
+                              'is item 14 of the ROADMAP\'s slice '
+                              'catalogue')

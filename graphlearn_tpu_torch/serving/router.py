@@ -32,12 +32,12 @@ overload and the hot-swap cutover invisible to callers:
     finishes.  `make_scraper` wires a `telemetry.federation.
     FleetScraper` over the replicas for the ops endpoint's ``/fleet``.
 
-Chaos site ``serving.replica`` (kill / delay / flap) drives the
-kill-one-replica runs.  Knobs: ``GLT_FLEET_HEARTBEAT_MS``,
-``GLT_FLEET_OVERLOAD_RATIO`` and ``GLT_FLEET_FLAP_WINDOW_S``.
-
-Not ported: `RemoteReplica` (a replica behind the host runtime's RPC,
-ROADMAP item 11).
+Replica handles: `LocalReplica` (a `ServingFrontend` in this process)
+and `RemoteReplica` (a serving server behind the host runtime's RPC,
+`distributed.DistClient.serve`).  Chaos site ``serving.replica`` (kill /
+delay / flap) drives the kill-one-replica runs.  Knobs:
+``GLT_FLEET_HEARTBEAT_MS``, ``GLT_FLEET_OVERLOAD_RATIO`` and
+``GLT_FLEET_FLAP_WINDOW_S``.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ from ..telemetry.recorder import recorder
 from ..telemetry.tracing import tracer
 from .admission import (AdmissionRejected, ServingFuture, _env_pos,
                         drain_retry_ms_from_env)
+from .engine import ServingResult
 
 HEARTBEAT_ENV = 'GLT_FLEET_HEARTBEAT_MS'
 OVERLOAD_ENV = 'GLT_FLEET_OVERLOAD_RATIO'
@@ -88,21 +89,14 @@ def overload_ratio_from_env() -> float:
   return v if v <= 1 else DEFAULT_OVERLOAD_RATIO
 
 
-class LocalReplica:
-  """In-process replica handle over a `ServingFrontend` (N engines in
-  one process).  `kill` freezes the frontend's executor cold: its
-  queued requests never resolve, the lost-process failure the router's
-  redrive exists for (unlike `ServingFrontend.shutdown`, which resolves
-  everything typed).  The ``serving.replica`` chaos seam fires on each
-  ``submit`` and ``heartbeat``."""
+class _ChaosReplicaMixin:
+  """The shared ``serving.replica`` chaos seam of the replica handles,
+  fired on each ``submit`` and ``heartbeat``: ``kill`` makes the handle
+  dead for good, ``flap`` unreachable for ``secs``, ``delay`` sleeps in
+  place (inside `testing.chaos.replica_faults`)."""
 
-  def __init__(self, name: str, frontend):
-    self.name = name
-    self.frontend = frontend
-    self._dead = False
-    self._flap_until = 0.0
-    if not getattr(frontend, 'name', ''):
-      frontend.name = name          # the executor's chaos seam targets it
+  _dead = False
+  _flap_until = 0.0
 
   def _chaos(self, op: str) -> None:
     from ..testing import chaos
@@ -114,6 +108,23 @@ class LocalReplica:
 
   def reachable(self) -> bool:
     return not self._dead and time.monotonic() >= self._flap_until
+
+  def kill(self) -> None:
+    self._dead = True
+
+
+class LocalReplica(_ChaosReplicaMixin):
+  """In-process replica handle over a `ServingFrontend` (N engines in
+  one process).  `kill` freezes the frontend's executor cold: its
+  queued requests never resolve, the lost-process failure the router's
+  redrive exists for (unlike `ServingFrontend.shutdown`, which resolves
+  everything typed)."""
+
+  def __init__(self, name: str, frontend):
+    self.name = name
+    self.frontend = frontend
+    if not getattr(frontend, 'name', ''):
+      frontend.name = name          # the executor's chaos seam targets it
 
   def submit(self, seeds, deadline_ms: Optional[float] = None,
              trace: Optional[dict] = None) -> ServingFuture:
@@ -142,13 +153,52 @@ class LocalReplica:
       self.frontend.shutdown()
 
 
-class RemoteReplica:
-  """A replica behind the host runtime's serving RPC: not ported."""
+class RemoteReplica(_ChaosReplicaMixin):
+  """Replica handle over a `distributed.DistClient` serving connection:
+  a submit runs `DistClient.serve` (idempotent request ids and the
+  server's replay cache, so a transport retry never executes twice on
+  the server) on a per-request daemon thread, keeping the router's
+  submit non-blocking.  ``ops_url`` (the server process's ops endpoint,
+  when it runs one) is where `FleetRouter.make_scraper` federates it
+  from; without one it federates through its heartbeat."""
 
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError(
-        'RemoteReplica needs the host runtime (DistClient.serve), ROADMAP '
-        'item 11; use LocalReplica')
+  def __init__(self, name: str, client, server_idx: int,
+               ops_url: Optional[str] = None):
+    self.name = name
+    self._client = client
+    self._idx = int(server_idx)
+    self.ops_url = ops_url
+
+  def submit(self, seeds, deadline_ms: Optional[float] = None,
+             trace: Optional[dict] = None) -> ServingFuture:
+    self._chaos('submit')
+    if not self.reachable():
+      raise ReplicaLostError(f'replica {self.name!r} is unreachable',
+                             replica=self.name)
+    fut = ServingFuture()
+    seeds = np.asarray(seeds)
+
+    def run():
+      try:
+        out = self._client.serve(seeds, server_idx=self._idx,
+                                 deadline_ms=deadline_ms, trace=trace)
+        fut.set_result(ServingResult(nodes=out['nodes'], x=out.get('x'),
+                                     logits=out.get('logits')))
+      except Exception as e:        # noqa: BLE001 — typed resolve
+        fut.set_error(e)
+
+    threading.Thread(target=run, daemon=True,
+                     name=f'glt-fleet-{self.name}').start()
+    return fut
+
+  def heartbeat(self) -> Optional[dict]:
+    self._chaos('heartbeat')
+    if not self.reachable():
+      return None
+    return self._client.heartbeat(self._idx)
+
+  def close(self) -> None:
+    pass                            # the client owns the connection
 
 
 class _LedgerEntry:

@@ -11,9 +11,10 @@ report CLI (`export`, `report`), and the bench artifact sink and
 regression gate (`sink`, `regress`).
 
 It exports what the JAX package's `telemetry` does except
-`gather_metrics` (the allgather across host processes waits for the
-host runtime) and the profiler hooks `step_annotation`, `start_trace`,
-`stop_trace`, `capture` and `trace`.
+`gather_metrics` (the allgather across host processes: the partitioned
+host plane, slice 25) and the profiler hooks `step_annotation`,
+`start_trace`, `stop_trace` and `capture`; `trace` lives in
+`utils.profiling` (a `torch.profiler` range and a registry timer).
 """
 from .aggregate import exchange_summary, per_hop_padding
 from .federation import FleetScraper

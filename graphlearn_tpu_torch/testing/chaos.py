@@ -8,6 +8,19 @@ it fires (counted per fault — deterministic under a fixed plan).  The
 plan syntax is the JAX package's, so a plan written for one package
 reads the same in the other.  Sites and actions:
 
+  ``rpc.request``
+      Inside `distributed.rpc.RpcClient.request`, once per attempt.
+      ``drop`` (sever the connection after the request is sent — the
+      server may have executed it, exercising the replay cache),
+      ``delay`` (sleep ``secs`` before sending), ``corrupt`` (scramble
+      the reply payload so the client misparses).  ``op`` filters by
+      handler name.
+  ``producer.worker``
+      At the top of a sampling worker's per-batch loop
+      (`distributed.dist_sampling_producer`).  ``kill`` hard-exits the
+      process with ``WORKER_KILL_EXIT`` (no cleanup, like the OOM
+      killer).  ``worker`` / ``epoch`` / ``generation`` filter by worker
+      rank, epoch and restart generation (0 = the original process).
   ``checkpoint.io``
       Inside `utils.checkpoint.Checkpointer.save`.  ``fail`` (the write
       dies before any byte lands), ``truncate`` (a partial tmp write,
@@ -39,7 +52,9 @@ reads the same in the other.  Sites and actions:
       epoch.
   ``serving.request``
       Inside the serving executor just before a coalesced dispatch
-      (``op='dispatch'``; ``replica`` is the frontend's fleet name).
+      (``op='dispatch'``; ``replica`` is the frontend's fleet name), and
+      inside the `DistServer.serve_infer` RPC handler before admission
+      (``op='serve_infer'``).
       ``delay`` sleeps ``secs`` (a slow executor: queued requests behind
       it expire and shed typed), ``drop`` raises :class:`InjectedFault`
       on every rider of the dispatch.
@@ -84,7 +99,8 @@ reads the same in the other.  Sites and actions:
       answers 503).
 
 Plans install programmatically (:func:`install`) or from the
-``GLT_FAULT_PLAN`` env var.  JSON::
+``GLT_FAULT_PLAN`` env var (inherited by producer subprocesses and
+sampling servers: how cross-process chaos reaches them).  JSON::
 
     {"faults": [{"site": "ingest.apply", "action": "kill", "nth": 3}]}
 
@@ -102,7 +118,11 @@ from typing import Any, Dict, List, Optional
 
 FAULT_PLAN_ENV = 'GLT_FAULT_PLAN'
 
-_SITES = ('checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
+#: exit code of a chaos-killed sampling worker (distinctive in
+#: ``dead_worker_exitcodes``: an injected kill, not a real crash)
+WORKER_KILL_EXIT = 173
+
+_SITES = ('rpc.request', 'producer.worker', 'checkpoint.io', 'ingest.wal', 'ingest.apply', 'ingest.compact',
           'feature.cold_service', 'fused.dispatch', 'serving.request',
           'serving.replica', 'scale.spawn', 'aot.cache', 'partition.owner',
           'handoff.transfer', 'ops.scrape')
@@ -129,7 +149,11 @@ class Fault:
   nth: int = 1
   count: int = 1
   op: Optional[str] = None
-  epoch: Optional[int] = None     # fused.dispatch: epoch filter
+  worker: Optional[int] = None    # producer.worker: rank filter
+  epoch: Optional[int] = None     # fused.dispatch, producer.worker
+  #: producer.worker: restart-generation filter (0 = the original
+  #: process, so a deterministic kill cannot re-fire in its replacement)
+  generation: Optional[int] = None
   replica: Optional[str] = None   # serving.*, scale.spawn: name filter
   #: partition.owner: the victim partition (a kill classifies it dead);
   #: also a filter where the seam names one (handoff.transfer)
@@ -149,6 +173,11 @@ class Fault:
     if self.op is not None and ctx.get('op') != self.op:
       return False
     if self.replica is not None and ctx.get('replica') != self.replica:
+      return False
+    if self.worker is not None and ctx.get('worker') != self.worker:
+      return False
+    if (self.generation is not None
+        and ctx.get('generation') != self.generation):
       return False
     if (self.partition is not None and 'partition' in ctx
         and ctx.get('partition') != self.partition):
@@ -177,7 +206,8 @@ class ChaosPlan:
       from ..telemetry.recorder import recorder
       for f in fired:
         recorder.emit('fault.injected', site=site, action=f.action,
-                      nth=f.nth, arrival=f._seen, op=ctx.get('op'))
+                      nth=f.nth, arrival=f._seen, op=ctx.get('op'),
+                      worker=ctx.get('worker'), epoch=ctx.get('epoch'))
     return fired
 
   def exhausted(self) -> bool:
@@ -214,7 +244,8 @@ def _parse_compact(part: str) -> Fault:
     if '=' not in tok:
       raise ValueError(f'bad compact fault field {tok!r} in {part!r}')
     k, v = tok.split('=', 1)
-    kw[k] = int(v) if k in ('nth', 'count', 'epoch', 'partition') else (
+    kw[k] = int(v) if k in ('nth', 'count', 'epoch', 'partition',
+                            'worker', 'generation') else (
         float(v) if k == 'secs' else v)
   return Fault(**kw)
 
@@ -260,6 +291,44 @@ def on(site: str, **ctx) -> List[Fault]:
   """The generic seam: no-op (one global read) without a plan."""
   p = active()
   return p.on(site, **ctx) if p is not None else []
+
+
+def rpc_faults(op: str) -> List[Fault]:
+  """`RpcClient.request` seam, once per attempt.  The caller applies the
+  returned actions (sleep for ``delay``, sever for ``drop``, scramble
+  the reply for ``corrupt``)."""
+  return on('rpc.request', op=op)
+
+
+def corrupt_payload(payload: bytes) -> bytes:
+  """Deterministically scramble a reply payload (bit-flip every 7th
+  byte): enough to break both pickle and tensor-map parsing."""
+  buf = bytearray(payload)
+  if not buf:
+    return b'\xff\xff\xff\xff'
+  buf[::7] = bytes((b ^ 0xFF) for b in buf[::7])
+  return bytes(buf)
+
+
+def worker_kill_check(rank: int, epoch: int, generation: int = 0,
+                      flush=()) -> None:
+  """Sampling-worker seam, before each batch: a fired ``kill`` hard-exits
+  the process (``os._exit``, no cleanup).  ``flush`` holds mp queues
+  (the producer's progress-ack queue) whose feeder threads are joined
+  first: the seam models a crash BETWEEN batches, after every earlier
+  batch's ack left the process, so the supervisor replays exactly the
+  unsent batches (a lost ack would replay a sent one, and a
+  deterministic kill would then re-fire in every replacement)."""
+  for f in on('producer.worker', worker=rank, epoch=epoch,
+              generation=generation):
+    if f.action == 'kill':
+      for q in flush:
+        try:
+          q.close()
+          q.join_thread()
+        except Exception:           # noqa: BLE001 — best-effort flush
+          pass
+      os._exit(WORKER_KILL_EXIT)
 
 
 def ingest_wal_faults(op: str = 'append') -> List[str]:

@@ -27,3 +27,14 @@ def max_sampled_nodes(batch_size: int, num_neighbors) -> int:
     frontier *= int(k)
     total += frontier
   return total
+
+
+def max_sampled_edges(batch_size: int, num_neighbors) -> int:
+  """Worst-case sampled-edge capacity of a multi-hop sample
+  (``B*k1 + B*k1*k2 + ...``)."""
+  total = 0
+  frontier = int(batch_size)
+  for k in num_neighbors:
+    frontier *= int(k)
+    total += frontier
+  return total

@@ -61,6 +61,10 @@ def test_import_pulls_in_no_jax():
       'import graphlearn_tpu_torch.ops.cold_gather\n'
       'import graphlearn_tpu_torch.loader.prefetch\n'
       'import graphlearn_tpu_torch.sampler\n'
+      'import graphlearn_tpu_torch.native\n'
+      'import graphlearn_tpu_torch.channel\n'
+      'import graphlearn_tpu_torch.distributed\n'
+      'import graphlearn_tpu_torch.utils.profiling\n'
       'new = sorted(set(sys.modules) - before)\n'
       'bad = [m for m in new if m.split(".")[0] in '
       f'{FORBIDDEN!r}]\n'
@@ -82,7 +86,13 @@ def test_import_pulls_in_no_jax():
       'assert "graphlearn_tpu_torch.ops.window_gather" in sys.modules\n'
       'assert "graphlearn_tpu_torch.ops.cold_gather" in sys.modules\n'
       'assert "graphlearn_tpu_torch.loader.prefetch" in sys.modules\n'
-      'assert "graphlearn_tpu_torch.data.reorder" in sys.modules\n')
+      'assert "graphlearn_tpu_torch.data.reorder" in sys.modules\n'
+      'for m in ("rpc", "dist_loader", "dist_server", "dist_client",\n'
+      '          "dist_sampling_producer", "host_sampler", "shm_arrays"):\n'
+      '  assert "graphlearn_tpu_torch.distributed." + m in sys.modules\n'
+      'assert "graphlearn_tpu_torch.channel.shm_channel" in sys.modules\n'
+      'import torch\n'
+      'assert not torch.cuda.is_initialized()\n')
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                        text=True, cwd=str(PKG.parent), timeout=240)
   assert out.returncode == 0, out.stderr
@@ -125,8 +135,30 @@ def test_every_knob_the_port_reads_is_documented():
           'GLT_OPS_PORT', 'GLT_OPS_HOST', 'GLT_TELEMETRY_JSONL',
           'GLT_TELEMETRY_EVENTS', 'GLT_POSTMORTEM_DIR', 'GLT_BENCH_ARTIFACT',
           'GLT_BENCH_RECORDS', 'GLT_BENCH_BASELINE',
-          'GLT_REGRESS_THRESHOLD'} <= knobs
+          'GLT_REGRESS_THRESHOLD', 'GLT_RPC_TIMEOUT', 'GLT_RPC_DEADLINE',
+          'GLT_RPC_BACKOFF_BASE', 'GLT_RPC_BACKOFF_CAP',
+          'GLT_RPC_RETRY_SEED', 'GLT_MAX_WORKER_RESTARTS',
+          'GLT_FETCH_DEADLINE', 'GLT_FAULT_PLAN'} <= knobs
   assert sorted(k for k in knobs if k not in doc) == []
+
+
+def test_host_runtime_builds_from_its_own_sources():
+  """The native host library is the port's: its sources sit under the
+  port's ``csrc/host/``, it builds into ``build/glt_torch/``, and no
+  module of the port names the root ``csrc/`` or the JAX package's
+  library."""
+  from graphlearn_tpu_torch import _build, native
+  assert native.CSRC == PKG / 'csrc' / 'host'
+  assert _build.CSRC == PKG / 'csrc'
+  assert sorted(p.name for p in native.CSRC.iterdir()) == sorted(
+      native.SOURCES + native.HEADERS)
+  assert native.BUILD_DIR == PKG.parent / 'build' / 'glt_torch'
+  assert native.lib_path().parent == native.BUILD_DIR
+  for path in PKG.rglob('*.py'):
+    text = path.read_text()
+    for bad in ('libglt_native', 'Makefile', "'..', 'csrc'", '../csrc',
+                "parent.parent.parent / 'csrc'"):
+      assert bad not in text, (path, bad)
 
 
 @pytest.mark.parametrize('script', ['chip_smoke.py'])
@@ -273,3 +305,18 @@ def test_mesh_entry_points_default_to_cuda():
   assert int(total) == 16 and 0 <= int(correct) <= 16
   assert MeshColdCache(4, 2, torch.float32, device='cpu').rows.shape == (
       1, 4, 2)
+
+
+def test_host_runtime_entry_points_default_to_cuda():
+  if torch.cuda.is_available():
+    pytest.skip('the default device exists here')
+  from graphlearn_tpu_torch.distributed import (DistNeighborLoader,
+                                                HostDataset)
+  ds = HostDataset.from_coo(np.array([0, 1, 2]), np.array([1, 2, 0]), 3,
+                            node_features=np.zeros((3, 2), np.float32))
+  with pytest.raises(RuntimeError, match='CUDA'):
+    DistNeighborLoader(ds, [2], np.arange(3), batch_size=2)
+  # asked for: the collate lands on the CPU
+  b = next(iter(DistNeighborLoader(ds, [2], np.arange(3), batch_size=2,
+                                   device='cpu')))
+  assert b.x.device.type == 'cpu' and b.node.dtype == torch.int32

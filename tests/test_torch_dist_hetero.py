@@ -254,9 +254,9 @@ def test_unported_options_raise(data):
   assert sum(int(b[-1]) for b in loc.bounds.values()) == sum(
       int(b[-1]) for b in DistHeteroDataset.from_full_graph(
           NP, edges, device='cpu').bounds.values())
-  with pytest.raises(NotImplementedError, match='item 11'):
+  with pytest.raises(NotImplementedError, match='item 14'):
     DistHeteroDataset.from_partition_dir('/nonexistent')
-  with pytest.raises(NotImplementedError, match='item 11'):
+  with pytest.raises(NotImplementedError, match='item 14'):
     DistHeteroDataset({}, {PAPER: [0, 1]}, device='cpu', host_parts=[0])
   _, ds = _datasets(data, 1.0)
   assert DistHeteroNeighborLoader(ds, [2], (PAPER, np.arange(8)),

@@ -551,8 +551,13 @@ def test_remove_replica_redrives_its_stranded_requests(request):
 
 
 def test_remote_replica_and_scraper_not_ported(request):
-  with pytest.raises(NotImplementedError, match='item 11'):
-    RemoteReplica('x', None, 0)
+  # RemoteReplica is ported with the host runtime (its RPC round trip:
+  # test_torch_serving_rpc.py); a handle with an ops endpoint federates
+  # over HTTP, the in-process replica through its heartbeat
+  from graphlearn_tpu_torch.telemetry.federation import (HttpTarget,
+                                                          RegistryTarget)
+  remote = RemoteReplica('r9', None, 0, ops_url='http://127.0.0.1:9')
+  assert remote.reachable() and remote.ops_url == 'http://127.0.0.1:9'
   router, _ = _fleet(1, auto=(0,))
   request.addfinalizer(lambda: router.close(close_replicas=True))
   # the scraper is ported since the telemetry slice: it federates the
@@ -561,3 +566,8 @@ def test_remote_replica_and_scraper_not_ported(request):
   scraper = router.make_scraper()
   assert isinstance(scraper, FleetScraper)
   assert sorted(scraper.scrape()) == ['r0', 'self']
+  wired = FleetRouter([remote], auto_start=False)
+  request.addfinalizer(wired.close)
+  targets = {t.name: t for t in wired.make_scraper()._targets}
+  assert isinstance(targets['r9'], HttpTarget)
+  assert isinstance(targets['self'], RegistryTarget)

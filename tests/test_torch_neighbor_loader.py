@@ -210,7 +210,7 @@ def test_sampler_and_loader_contract():
   assert bool((out.edge[out.edge_mask] >= 0).all())
   assert bool((out.edge[~out.edge_mask] == -1).all())
   s = NeighborSampler(g, FANOUTS, device='cpu')
-  with pytest.raises(NotImplementedError, match='slice 11'):
+  with pytest.raises(NotImplementedError, match='item 14'):
     s.sample_prob(np.arange(3))
   # link and subgraph sampling run (their parity tests:
   # test_torch_link.py, test_torch_subgraph.py)
